@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the CompAir serving stack for one NVIDIA H100.
+
+A package of its own beside the JAX reference package ``repro``: it imports
+``torch`` and never ``jax`` or anything of ``repro``.  Its structure mirrors
+the JAX package (``configs``, ``kernels``, ``models``, ``serve``,
+``launch``), and every Pallas TPU kernel on the dense paged serving path has
+a hand-written CUDA kernel for Hopper here (``kernels/csrc``).
+"""

@@ -1,0 +1,108 @@
+"""Host side of the paged-attention CUDA kernel (``csrc/paged_attention.cu``)
+shared by ``decode_attention.py`` and ``prefill_attention.py``.
+
+The kernel reads queries in their natural ``[B, C, H, D]`` layout (decode:
+C = 1) and writes outputs in the same layout, so the host does no padding
+and no transposes: a tile of ``ROWS`` query rows of one (sequence, kv head)
+is cut out by index arithmetic inside the kernel.  :func:`geometry` is the
+host-side part that the CPU tests reach: argument checks, tile count and the
+per-tile key bound the kernel computes for itself.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+ROWS = 16                      # query rows per block (csrc: kRows)
+HEAD_DIMS = (16, 64, 128)      # head dims the kernel is instantiated for
+#                                (the reduced configs, and every full-width
+#                                dense config of the registry)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    b: int
+    c: int
+    h: int
+    kvh: int
+    nb: int
+    bs: int
+    d: int
+    mb: int
+    n_tiles: int     # row tiles per (sequence, kv head): ceil(C*G / ROWS)
+
+    @property
+    def group(self) -> int:
+        return self.h // self.kvh
+
+
+def geometry(q_shape, pages_shape, table_shape) -> Geometry:
+    """Validate shapes; q [B, C, H, D], pages [KvH, NB, BS, D], table [B, MB]."""
+    b, c, h, d = q_shape
+    kvh, nb, bs, pd = pages_shape
+    tb, mb = table_shape
+    if pd != d or tb != b:
+        raise ValueError(f"paged attention: q {tuple(q_shape)}, pages "
+                         f"{tuple(pages_shape)} and table {tuple(table_shape)} "
+                         f"disagree")
+    if kvh <= 0 or h % kvh:
+        raise ValueError(f"paged attention: {h} query heads not a multiple "
+                         f"of {kvh} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged attention: head dim {d} not in {HEAD_DIMS}")
+    return Geometry(b, c, h, kvh, nb, bs, d, mb,
+                    n_tiles=-(-(c * (h // kvh)) // ROWS))
+
+
+def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
+    """Keys ``[0, end)`` each row tile walks — the kernel's tile_end:
+    ``min(total, q_offset + last position of the tile + 1)``.  ``total`` is
+    the live KV rows, already clamped to ``MB * BS``; the tile reads
+    ``ceil(end / BS)`` pages (the TPU kernel's per-q-tile live-page clamp)."""
+    n_rows = g.c * g.group
+    return [min(total, q_offset + (min((t + 1) * ROWS, n_rows) - 1) // g.group + 1)
+            for t in range(g.n_tiles)]
+
+
+def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+           tables: torch.Tensor, lens: Optional[torch.Tensor], q_offset: int,
+           total: int, *, partials: bool):
+    """One kernel launch.  q [B, C, H, D]; tables [B, MB] int32; decode
+    passes ``lens`` [B] int32, prefill ``q_offset`` and ``total``.
+    Returns the normalized output, or the f32 partials (acc, m, l)."""
+    g = geometry(q.shape, k_pages.shape, tables.shape)
+    if k_pages.shape != v_pages.shape:
+        raise ValueError("paged attention: k_pages and v_pages differ in shape")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise ValueError(f"paged attention: q {q.dtype} and pages "
+                         f"{k_pages.dtype}/{v_pages.dtype} must share a dtype")
+    if tables.dtype != torch.int32:
+        raise ValueError(f"paged attention: tables must be int32, got {tables.dtype}")
+    tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables)
+    if lens is not None:
+        if lens.shape != (g.b,) or lens.dtype != torch.int32:
+            raise ValueError(f"paged attention: lengths must be [{g.b}] int32")
+        tensors["lens"] = lens
+    _build.require_cuda("paged_attention", **tensors)
+    if partials:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        l = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = None
+        ptrs = (None, acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    else:
+        out = torch.empty_like(q)
+        ptrs = (out.data_ptr(), None, None, None)
+    lib = _build.load()
+    code = lib.repro_paged_attention(
+        _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), tables.data_ptr(),
+        None if lens is None else lens.data_ptr(), int(q_offset), int(total),
+        *ptrs, g.b, g.c, g.h, g.kvh, g.nb, g.bs, g.d, g.mb, g.n_tiles,
+        _build.stream_ptr(q))
+    _build.check("paged_attention", code)
+    return (acc, m, l) if partials else out

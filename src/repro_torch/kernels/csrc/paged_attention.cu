@@ -1,0 +1,215 @@
+// Paged attention over a block-table-addressed KV pool: decode and prefill.
+//
+// Replaces two TPU kernels:
+//   src/repro/kernels/decode_attention.py  _paged_decode   (pallas_call at :300)
+//   src/repro/kernels/prefill_attention.py _paged_prefill  (pallas_call at :273)
+//
+// One kernel serves both.  A decode step is a one-row chunk per sequence at
+// q_offset = len - 1, where the causal test kpos <= qpos becomes kpos < len.
+// Queries are [B, C, H, D] (decode: C = 1); KV pages are [KvH, NB, BS, D];
+// the block table is [B, MB] int32 (prefill: B = 1).  Query rows of one kv
+// head are numbered row-major (position, group): row r is chunk position
+// r / G and query head kvh * G + r % G, G = H / KvH.
+//
+// Grid (row tiles, KvH, B).  A block owns kRows = 16 query rows of one
+// (sequence, kv head), reads its own block-table entries, and walks the keys
+// [0, tile_end) in steps of 32: tile_end = min(total, q_offset + last
+// position of the tile + 1), so a q-tile never touches a page past its causal
+// end (the TPU kernel's per-q-tile live-page clamp).  Each step stages 32
+// keys of K and V in shared memory as f32 (K rows padded to D + 1 floats so
+// that lane j reading key j is free of bank conflicts); every warp then
+// handles 4 query rows: lane j scores key j, a warp max/sum gives the
+// online-softmax update, and each lane accumulates D / 32 output dims.
+// m, l and acc stay in registers in f32 for the whole walk, and nothing is
+// carried between blocks.  Masking uses NEG_INF = -1e30 (not -inf), the
+// normaliser is floored at 1e-30, and a row that sees no key returns the
+// combine identity (acc, m, l) = (0, -1e30, 0), all as the TPU kernels do.
+//
+// Bound on the H100: bytes.  Every live K/V byte is read once per (row tile,
+// kv head); the products run on the CUDA cores in f32.  This first version
+// keeps a simple load -> sync -> compute loop with scalar loads; vectorised
+// loads, a cp.async/TMA double buffer and tensor-core products are later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
+constexpr int kKeys = 32;                     // keys staged per step: one per lane
+constexpr float kNegInf = -1e30f;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages, const int* __restrict__ tables,
+                       const int* __restrict__ lens, int q_offset, int total,
+                       T* __restrict__ out, float* __restrict__ acc_out,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int C, int H,
+                       int KvH, int NB, int BS, int MB, float scale) {
+  constexpr int kDimsPerLane = (D + 31) / 32;
+  const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KvH;
+  const int n_rows = C * G;
+  const int row0 = tile * kRows;
+
+  // decode: per-sequence length; prefill: host scalars (total pre-clamped)
+  int qoff = q_offset, tot = total;
+  if (lens != nullptr) {
+    const int len = lens[b];
+    qoff = len - 1;
+    tot = min(len, MB * BS);
+  }
+  const int last_row = min(row0 + kRows, n_rows) - 1;
+  const int tile_end = min(tot, qoff + last_row / G + 1);
+
+  __shared__ float q_s[kRows][D];
+  __shared__ float k_s[kKeys][D + 1];
+  __shared__ float v_s[kKeys][D];
+  const int* table = tables + static_cast<int64_t>(b) * MB;
+
+  for (int i = threadIdx.x; i < kRows * D; i += kWarps * 32) {
+    const int r = i / D, d = i % D, row = row0 + r;
+    float val = 0.f;
+    if (row < n_rows) {
+      const int pos = row / G, head = kvh * G + row % G;
+      val = repro::to_f32(q[((static_cast<int64_t>(b) * C + pos) * H + head) * D + d]);
+    }
+    q_s[r][d] = val;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wrow0 = warp * kRowsPerWarp;  // this warp's first row in the tile
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
+  int qpos[kRowsPerWarp];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+    qpos[rr] = qoff + (row0 + wrow0 + rr) / G;
+#pragma unroll
+    for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] = 0.f;
+  }
+
+  const int64_t head_base = static_cast<int64_t>(kvh) * NB * BS * D;
+  for (int base = 0; base < tile_end; base += kKeys) {
+    __syncthreads();  // the previous step's reads (and the q staging) are done
+    for (int i = threadIdx.x; i < kKeys * D; i += kWarps * 32) {
+      const int j = i / D, d = i % D, kpos = base + j;
+      float kv = 0.f, vv = 0.f;
+      if (kpos < tile_end) {
+        const int page = table[kpos / BS];
+        const int64_t off = head_base + (static_cast<int64_t>(page) * BS + kpos % BS) * D + d;
+        kv = repro::to_f32(k_pages[off]);
+        vv = repro::to_f32(v_pages[off]);
+      }
+      k_s[j][d] = kv;
+      v_s[j][d] = vv;
+    }
+    __syncthreads();
+
+    // lane owns key base + lane: its score against each of the warp's rows
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float kd = k_s[lane][d];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] += q_s[wrow0 + rr][d] * kd;
+    }
+    const int kpos = base + lane;
+    float p[kRowsPerWarp];
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const bool valid = kpos <= qpos[rr] && kpos < tot;
+      const float sv = valid ? s[rr] * scale : kNegInf;
+      const float m_new = fmaxf(m[rr], repro::warp_max(sv));
+      p[rr] = expf(sv - m_new);
+      const float corr = expf(m[rr] - m_new);
+      l[rr] = l[rr] * corr + repro::warp_sum(p[rr]);
+#pragma unroll
+      for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] *= corr;
+      m[rr] = m_new;
+    }
+    for (int j = 0; j < kKeys; ++j) {
+      float pj[kRowsPerWarp];
+#pragma unroll
+      for (int rr = 0; rr < kRowsPerWarp; ++rr) pj[rr] = __shfl_sync(0xffffffffu, p[rr], j);
+#pragma unroll
+      for (int dd = 0; dd < kDimsPerLane; ++dd) {
+        const int d = lane + 32 * dd;
+        const float v = d < D ? v_s[j][d] : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) acc[rr][dd] += pj[rr] * v;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    const int row = row0 + wrow0 + rr;
+    if (row >= n_rows) continue;
+    const int pos = row / G, head = kvh * G + row % G;
+    const int64_t idx = (static_cast<int64_t>(b) * C + pos) * H + head;
+    if (out != nullptr) {
+      const float lf = fmaxf(l[rr], 1e-30f);
+#pragma unroll
+      for (int dd = 0; dd < kDimsPerLane; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < D) out[idx * D + d] = repro::from_f32<T>(acc[rr][dd] / lf);
+      }
+    } else {
+#pragma unroll
+      for (int dd = 0; dd < kDimsPerLane; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < D) acc_out[idx * D + d] = acc[rr][dd];
+      }
+      if (lane == 0) {
+        m_out[idx] = m[rr];
+        l_out[idx] = l[rr];
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+void launch(dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
+            const int* bt, const int* lens, int q_offset, int total, void* out, float* acc,
+            float* m, float* l, int C, int H, int KvH, int NB, int BS, int MB, float scale) {
+  paged_attention_kernel<T, D><<<grid, kWarps * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, lens,
+      q_offset, total, static_cast<T*>(out), acc, m, l, C, H, KvH, NB, BS, MB, scale);
+}
+
+}  // namespace
+
+// q [B, C, H, D]; k_pages, v_pages [KvH, NB, BS, D]; tables [B, MB] int32.
+// Decode passes lens [B] (q_offset and total unused); prefill passes
+// lens = NULL with q_offset and total = min(q_offset + length, MB * BS).
+// Either out [B, C, H, D] (normalised, element type) or the f32 partials
+// acc [B, C, H, D], m and l [B, C, H] are written; the other is NULL.
+extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pages,
+                                     const void* v_pages, const int* tables, const int* lens,
+                                     int q_offset, int total, void* out, float* acc, float* m,
+                                     float* l, int B, int C, int H, int KvH, int NB, int BS,
+                                     int D, int MB, int n_tiles, void* stream) {
+  if (B <= 0 || n_tiles <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_tiles, KvH, B);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+#define REPRO_PAGED_CASE(DIM)                                                              \
+  case DIM:                                                                                \
+    launch<T, DIM>(grid, s, q, k_pages, v_pages, tables, lens, q_offset, total, out, acc, m, \
+                   l, C, H, KvH, NB, BS, MB, scale);                                      \
+    break;
+  REPRO_DISPATCH_DTYPE(dtype, T,
+    switch (D) {
+      REPRO_PAGED_CASE(16)
+      REPRO_PAGED_CASE(64)
+      REPRO_PAGED_CASE(128)
+      default: return cudaErrorInvalidValue;
+    });
+#undef REPRO_PAGED_CASE
+  return cudaGetLastError();
+}

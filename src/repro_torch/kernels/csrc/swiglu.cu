@@ -1,0 +1,42 @@
+// Fused SwiGLU gating: out = round(silu(gate)) * up.
+//
+// Replaces the TPU kernel src/repro/kernels/swiglu.py (silu_mul, pallas_call
+// at :59).  On the H100 it is bound by bytes: two reads and one write per
+// element, so the fusion's whole point is that silu(gate) never makes a trip
+// to device memory.  Grid-stride loop, one element per thread per step,
+// neighbouring threads on neighbouring elements.  Rounding follows the plain
+// version (kernels/ref.py): silu(gate) is computed in f32 and rounded to the
+// element type before the multiply.  The TPU kernel keeps it in f32, so the
+// two differ by one rounding of the product in bf16.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+silu_mul_kernel(const T* __restrict__ gate, const T* __restrict__ up, T* __restrict__ out,
+                int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const float g = repro::to_f32(gate[i]);
+    const T act = repro::from_f32<T>(g * (1.0f / (1.0f + expf(-g))));
+    out[i] = repro::from_f32<T>(repro::to_f32(act) * repro::to_f32(up[i]));
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_silu_mul(int dtype, const void* gate, const void* up, void* out,
+                              int64_t n, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = repro::elementwise_blocks(n, kThreads);
+  REPRO_DISPATCH_DTYPE(dtype, T,
+    silu_mul_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(gate),
+                                                   static_cast<const T*>(up),
+                                                   static_cast<T*>(out), n));
+  return cudaGetLastError();
+}

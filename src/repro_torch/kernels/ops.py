@@ -1,0 +1,62 @@
+"""Public kernel API of the port, dispatched on the tensor's device only.
+
+A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``), which is
+what the CPU tests compare with the JAX package.  A CUDA tensor launches the
+hand-written kernel, or the call raises: there is no mode switch and no
+fallback from a failed build or launch to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import prefill_attention as _pf
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rope as _rope
+from repro_torch.kernels import swiglu as _sw
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5):
+    if _on_cpu(x):
+        return ref.rmsnorm(x, w, eps)
+    return _rn.rmsnorm(x, w, eps)
+
+
+def apply_rope(x, positions, *, theta: float = 10_000.0):
+    if _on_cpu(x):
+        return ref.apply_rope(x, positions, theta)
+    return _rope.apply_rope(x, positions, theta)
+
+
+def silu_mul(gate, up):
+    if _on_cpu(up):
+        return ref.silu_mul(gate, up)
+    return _sw.silu_mul(gate, up)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths):
+    if _on_cpu(q):
+        return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                          lengths=lengths)
+    return _da.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table, *, q_offset: int,
+                            length: int):
+    """Prefill-chunk attention over paged KV (chunk K/V already scattered).
+    On the CPU the pages in ``block_table`` (a prefix-bucketed slice) are
+    gathered and run through the plain flash attention, as the JAX package's
+    non-kernel path does."""
+    if _on_cpu(q):
+        k_lin = ref.gather_pages(k_pages, block_table)[None]
+        v_lin = ref.gather_pages(v_pages, block_table)[None]
+        lens = torch.tensor([q_offset + length], dtype=torch.int64)
+        return ref.flash_attention(q, k_lin, v_lin, causal=True,
+                                   q_offset=q_offset, lengths=lens)
+    return _pf.paged_prefill_attention(q, k_pages, v_pages, block_table,
+                                       q_offset=q_offset, length=length)

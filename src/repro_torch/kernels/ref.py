@@ -1,0 +1,231 @@
+"""Plain PyTorch versions of the kernels on the dense serving path.
+
+A line-for-line port of the oracles in the JAX package's ``kernels/ref.py``
+(rounding points included): they are the CPU execution path (see
+``kernels/ops.py``) and the yardstick each hand-written CUDA kernel is held
+against on the card.  Layouts follow the JAX package:
+
+attention:  q [B, Sq, H, D];  k, v [B, Sk, KvH, D];  GQA via H % KvH == 0.
+paged KV:   pages [KvH, NB, BS, D];  block tables [B, MB] (or [MB]) int32.
+RoPE uses the *interleaved* (neighbour-pair) convention.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# normalization / elementwise
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up, with silu computed in f32 and rounded to ``up``'s
+    dtype before the multiply (the JAX oracle's rounding point)."""
+    return silu(gate.float()).to(up.dtype) * up
+
+
+# ---------------------------------------------------------------------------
+# RoPE (interleaved / neighbour-pair convention)
+# ---------------------------------------------------------------------------
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] -> cos/sin [..., head_dim//2] in fp32."""
+    half = head_dim // 2
+    j = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (j / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x [B, S, H, D], positions [B, S] (or [S]) -> rotated x; the pairs
+    (x0, x1), (x2, x3), ... each turn by the same angle."""
+    b, s, h, d = x.shape
+    if positions.dim() == 1:
+        positions = positions[None, :].expand(b, s)
+    cos, sin = rope_cos_sin(positions, d, theta)           # [B, S, D/2]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    xf = x.float().reshape(b, s, h, d // 2, 2)
+    x_even, x_odd = xf[..., 0], xf[..., 1]
+    r_even = x_even * cos - x_odd * sin
+    r_odd = x_even * sin + x_odd * cos
+    out = torch.stack([r_even, r_odd], dim=-1).reshape(b, s, h, d)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, KvH, D] -> [B, S, H, D] by repeating each KV head."""
+    group = n_heads // k.shape[2]
+    return torch.repeat_interleave(k, group, dim=2) if group > 1 else k
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    lengths: Optional[torch.Tensor] = None,
+                    block_k: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block_k`` rows, keeping
+    the running (m, l, acc) statistics of the JAX oracle."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    block_k = min(block_k, sk)
+    nblk = -(-sk // block_k)
+    pad = nblk * block_k - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    qf = q.float().reshape(b, sq, kvh, group, d)
+    scale = 1.0 / math.sqrt(d)
+    qpos = (torch.arange(sq, device=dev) + q_offset)[:, None]
+
+    m = torch.full((b, sq, kvh, group), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, kvh, group), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, kvh, group, d), dtype=torch.float32, device=dev)
+    for iblk in range(nblk):
+        kf = k[:, iblk * block_k:(iblk + 1) * block_k].float()
+        vf = v[:, iblk * block_k:(iblk + 1) * block_k].float()
+        s = torch.einsum("bqgnd,bkgd->bqgnk", qf, kf) * scale
+        kpos = iblk * block_k + torch.arange(block_k, device=dev)
+        mask = torch.ones((sq, block_k), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos
+        if pad:
+            mask &= (kpos < sk)[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        if lengths is not None:
+            lm = kpos[None, :] < lengths[:, None]          # [B, block_k]
+            s = torch.where(lm[:, None, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqgnk,bkgd->bqgnd", p, vf)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attention_partial(q, k, v, *, lengths: Optional[torch.Tensor] = None,
+                             kv_offset: int = 0) -> Partials:
+    """Single-token attention partials: q [B, H, D]; k, v [B, Sk, KvH, D]
+    -> (acc [B, H, D] f32, m [B, H], l [B, H]).  q is cast to the cache's
+    dtype and p is rounded to it before the PV product, with f32 sums — the
+    JAX oracle's ``preferred_element_type=f32`` path."""
+    b, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qc = q.to(k.dtype).reshape(b, kvh, group, d)
+    s = torch.einsum("bgnd,bkgd->bgnk", qc.float(), k.float()) / math.sqrt(d)
+    kpos = kv_offset + torch.arange(sk, device=q.device)
+    if lengths is not None:
+        valid = kpos[None, :] < lengths[:, None]
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgnk,bkgd->bgnd", p.to(k.dtype).float(), v.float())
+    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+
+
+def combine_partials(parts: Partials, other: Partials) -> Partials:
+    """Merge two (acc, m, l) attention partials."""
+    acc_a, m_a, l_a = parts
+    acc_b, m_b, l_b = other
+    m = torch.maximum(m_a, m_b)
+    ca = torch.exp(m_a - m)
+    cb = torch.exp(m_b - m)
+    return (acc_a * ca[..., None] + acc_b * cb[..., None], m, l_a * ca + l_b * cb)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (block/paged KV cache)
+# ---------------------------------------------------------------------------
+
+def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """pages [KvH, NB, BS, D]; block_table [B, MB] (or [MB]) physical page
+    ids -> linear KV [B, MB*BS, KvH, D] (or [MB*BS, KvH, D])."""
+    squeeze = block_table.dim() == 1
+    if squeeze:
+        block_table = block_table[None]
+    kvh, _, bs, d = pages.shape
+    mb = block_table.shape[-1]
+    lin = pages[:, block_table.long()]                 # [KvH, B, MB, BS, D]
+    lin = torch.movedim(lin, 0, 3)                     # [B, MB, BS, KvH, D]
+    lin = lin.reshape(block_table.shape[0], mb * bs, kvh, d)
+    return lin[0] if squeeze else lin
+
+
+def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, *,
+                                   lengths: Optional[torch.Tensor] = None,
+                                   kv_offset: int = 0) -> Partials:
+    """Flash-decoding partials over a paged KV cache: q [B, H, D];
+    block_tables [B, MB] -> (acc f32 [B, H, D], m [B, H], l [B, H])."""
+    k_lin = gather_pages(k_pages, block_tables)
+    v_lin = gather_pages(v_pages, block_tables)
+    return decode_attention_partial(q, k_lin, v_lin, lengths=lengths,
+                                    kv_offset=kv_offset)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, *,
+                           lengths: Optional[torch.Tensor] = None):
+    acc, m, l = paged_decode_attention_partial(q, k_pages, v_pages,
+                                               block_tables, lengths=lengths)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
+                                    q_offset: int, length: int) -> Partials:
+    """Prefill-chunk attention partials over a paged KV cache.
+
+    q [1, C, H, D] is the chunk at global positions [q_offset, q_offset+C);
+    block_table [MB] (the chunk's own K/V already scattered into the pages).
+    Causal mask on global positions, KV validity on ``kpos < q_offset +
+    length``.  Returns (acc f32 [1,C,H,D], m [1,C,H], l [1,C,H])."""
+    _, c, h, d = q.shape
+    k_lin = gather_pages(k_pages, block_table)         # [MB*BS, KvH, D]
+    v_lin = gather_pages(v_pages, block_table)
+    sk = k_lin.shape[0]
+    kh = _expand_kv(k_lin[None], h)[0]                 # [Sk, H, D]
+    vh = _expand_kv(v_lin[None], h)[0]
+    s = torch.einsum("chd,khd->chk", q[0].float(), kh.float()) / math.sqrt(d)
+    qpos = q_offset + torch.arange(c, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    valid = (kpos <= qpos) & (kpos < q_offset + length)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("chk,khd->chd", p, vh.float())
+    return acc[None], m[None], l[None]
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_table, *,
+                            q_offset: int, length: int) -> torch.Tensor:
+    acc, m, l = paged_prefill_attention_partial(
+        q, k_pages, v_pages, block_table, q_offset=q_offset, length=length)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -1,0 +1,107 @@
+"""Where the device time goes when the port serves at full width.
+
+  PYTHONPATH=src python -m repro_torch.launch.trace_serve
+
+Serves stablelm-1.6b (random bf16 weights from ``--seed``) on the card
+through the engine, on the mix that ``chip_smoke.py`` drives
+(``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
+untraced for the wall clock, once under ``torch.profiler``.  Prints the
+device kernel time by kernel and by group (the port's five CUDA kernels,
+GEMMs, other PyTorch ops) and the device busy share: summed kernel time
+over the untraced wall time (one stream, so kernels do not overlap).  The
+summary also lands in ``chiprun_out/trace_serve.json``.  Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
+                                      shared_prefix_mix)
+from repro_torch.models import model
+from repro_torch.serve import ServeEngine
+
+# kernel-name fragments of the port's CUDA kernels (csrc/*.cu)
+PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
+                "paged_attention_kernel")
+GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+TOP = 15                       # kernels listed by device time
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in PORT_KERNELS):
+        return "port CUDA kernels"
+    if any(m in low for m in GEMM_MARKS):
+        return "GEMM (torch.matmul)"
+    return "other PyTorch ops"
+
+
+def _serve(cfg, params, prompts) -> float:
+    eng = ServeEngine(cfg, params, **MIX_ENGINE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MIX_NEW_TOKENS)
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    return wall
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out/trace_serve.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_serve needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("stablelm-1.6b")
+    params = model.init_params(cfg, seed=args.seed, device="cuda")
+    prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
+    _serve(cfg, params, prompts[:2])                # warm-up
+    wall = _serve(cfg, params, prompts)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_wall = _serve(cfg, params, prompts)
+
+    per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name][0] += ev.time_range.elapsed_us()
+            per_kernel[ev.name][1] += 1
+    groups = defaultdict(float)
+    for name, (us, _) in per_kernel.items():
+        groups[_group(name)] += us
+    device_s = sum(groups.values()) / 1e6
+    card = torch.cuda.get_device_name(0)
+    print(f"[trace] {card}; wall {wall:.3f} s untraced, {traced_wall:.3f} s "
+          f"traced; device kernel time {device_s:.3f} s; busy share "
+          f"{device_s / wall:.3f} of the untraced wall")
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[trace] group {g}: {us / 1e3:.1f} ms "
+              f"({us / 1e6 / device_s:.3f} of device time)")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
+    for name, (us, n) in top:
+        print(f"[trace] {us / 1e3:9.2f} ms {n:7d} x  {name[:110]}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(
+        card=card, wall_s=wall, traced_wall_s=traced_wall, device_s=device_s,
+        busy_share=device_s / wall, groups_ms={g: us / 1e3 for g, us in groups.items()},
+        top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top]), indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,44 @@
+"""Carry the JAX package's parameters over to the port.
+
+The JAX model initialises its layer stack with ``jax.vmap``, so every leaf
+under ``"layers"`` is stacked ``[L, ...]``; the port keeps a list of
+per-layer dicts.  The input is the JAX parameter tree with numpy leaves
+(``jax.tree.map(np.asarray, params)``, done by the caller: the port never
+imports JAX).  Layouts are unchanged (``linear`` weights stay ``[d_in,
+d_out]``), so the two models compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes' bf16: via f32, exact
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))    # a writable copy
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX dense-family parameter tree (numpy leaves) -> port parameters in
+    the same dtype, with the stacked ``[L, ...]`` layer leaves split per
+    layer."""
+    out = {k: _map(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "layers"}
+    stacked = tree["layers"]
+    n_layers = len(np.asarray(stacked["ln1"]["scale"]))
+    out["layers"] = [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i],
+                                                          device))
+                     for i in range(n_layers)]
+    return out

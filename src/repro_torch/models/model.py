@@ -1,0 +1,174 @@
+"""Decoder LM of the dense family over a paged KV cache.
+
+Port of the JAX package's ``models/model.py`` for ``family="dense"``: the
+stacked-layer ``lax.scan`` becomes a Python loop over a list of per-layer
+parameter dicts, and the pages are updated in place.  Other families raise
+``NotImplementedError`` naming the slice of the port that brings them.
+
+Public API:
+    init_params(cfg, seed, device, dtype)          -> params
+    init_serve_state(cfg, slots, num_blocks, block_size, dtype, device)
+    prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
+    decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
+    serve_prefill_chunk / serve_decode_step        (the runner's entry points)
+    copy_kv_page(state, src, dst)                  (prefix-cache copy-on-write)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+PAGED_FAMILIES = ("dense",)
+
+# which slice of the port brings each family that this one does not serve
+_LATER = {"moe": "the MoE slice", "ssm": "the recurrent-families slice",
+          "hybrid": "the recurrent-families slice"}
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
+            f"with {_LATER.get(cfg.family, 'a later slice')} of repro_torch; "
+            f"this slice serves family='dense'")
+
+
+# ---------------------------------------------------------------------------
+# init (same distributions as the JAX package; the draws differ — the CPU
+# tests carry JAX's parameters over through models/convert.py)
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                dtype=torch.bfloat16):
+    """Random parameters from ``seed``, made on ``device``: embeddings and
+    linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales."""
+    require_dense(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def lin(d_in, d_out, bias=False):
+        p = {"w": normal((d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+        return p
+
+    def norm():
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    params = {"embed": {"table": normal((cfg.vocab_size, d), d ** -0.5)},
+              "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(d, cfg.vocab_size)
+    params["layers"] = [{
+        "ln1": norm(),
+        "attn": {"wq": lin(d, h * hd, cfg.qkv_bias),
+                 "wk": lin(d, kvh * hd, cfg.qkv_bias),
+                 "wv": lin(d, kvh * hd, cfg.qkv_bias),
+                 "wo": lin(h * hd, d)},
+        "ln2": norm(),
+        "ffn": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
+                "down": lin(cfg.d_ff, d)},
+    } for _ in range(cfg.n_layers)]
+    return params
+
+
+def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
+                     block_size: int, dtype=torch.bfloat16, device="cuda"):
+    """Paged KV pages ``[L, KvH, NB, BS, hd]`` shared by all slots (``slots``
+    sizes the slot state of families that carry one; dense has none)."""
+    require_dense(cfg)
+    return {"attn": layers.paged_kv_cache_init(cfg, num_blocks, block_size,
+                                               dtype, n_slots=cfg.n_layers,
+                                               device=device)}
+
+
+def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["table"].to(x.dtype).t()
+    return layers.linear(params["lm_head"], x)
+
+
+def _block(cfg, lp, x, attn):
+    """Pre-norm residual block; ``attn`` maps the normed input to the
+    attention output."""
+    x = x + attn(layers.rmsnorm(lp["ln1"], x, cfg.norm_eps))
+    return x + layers.ffn(lp["ffn"], layers.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
+                  length: int, q_offset: int, block_table: torch.Tensor):
+    """One chunk of a single-sequence prefill into the paged KV cache.
+
+    tokens [1, C] (right-padded chunk); ``length`` valid rows; ``q_offset``
+    tokens already cached; block_table [MB] int32, possibly a prefix slice
+    of the slot's table as long as it covers ``q_offset + length``.  Chunks
+    attend to the already-paged prefix plus themselves, so repeated calls
+    with growing ``q_offset`` reproduce a monolithic prefill.  Returns
+    (logits at the chunk's last valid row [1, V], state); the pages in
+    ``state`` are updated in place."""
+    require_dense(cfg)
+    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
+    x = layers.embed(params["embed"], tokens)
+    c = x.shape[1]
+    positions = (q_offset + torch.arange(c, dtype=torch.int32,
+                                         device=x.device))[None]
+    idx = layers.prefill_scatter_index(block_table, q_offset, length, c,
+                                       kp_all.shape[3])
+    for li, lp in enumerate(params["layers"]):
+        x = _block(cfg, lp, x, lambda h: layers.attention_prefill_paged(
+            lp["attn"], h, positions, cfg, kp_all[li], vp_all[li], block_table,
+            q_offset, length, idx))
+    logits = _logits(cfg, params, x[:, length - 1:length])
+    return logits[:, 0], state
+
+
+def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
+                      lengths: torch.Tensor, block_tables: torch.Tensor):
+    """Batched one-token decode over the paged KV cache.
+
+    tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
+    int32.  The K/V row for position ``lengths`` is scattered into its page
+    and the paged decode kernel reads through the block table.  Returns
+    (logits [B, V], state); pages are updated in place."""
+    require_dense(cfg)
+    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
+    x = layers.embed(params["embed"], tokens[:, None])
+    idx = layers.decode_scatter_index(lengths, block_tables, kp_all.shape[3])
+    for li, lp in enumerate(params["layers"]):
+        x = _block(cfg, lp, x, lambda h: layers.attention_decode_paged(
+            lp["attn"], h, cfg, kp_all[li], vp_all[li], lengths, block_tables,
+            idx))
+    return _logits(cfg, params, x)[:, 0], state
+
+
+def copy_kv_page(state, src: int, dst: int):
+    """Physical-page copy across all layers and heads, in place
+    (copy-on-write for a prefix-cache match that ends mid-page)."""
+    for key in ("k_pages", "v_pages"):
+        pages = state["attn"][key]
+        pages[:, :, dst] = pages[:, :, src]
+    return state
+
+
+# ---------------------------------------------------------------------------
+# serving entry points (what models/runner.py's ModelRunner calls)
+# ---------------------------------------------------------------------------
+
+def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
+                        q_offset, block_table):
+    """One chunk of a single-sequence prefill against the serve state."""
+    return prefill_paged(cfg, params, state, tokens=tokens, length=length,
+                         q_offset=q_offset, block_table=block_table)
+
+
+def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
+                      block_tables):
+    """Batched one-token decode against the serve state."""
+    return decode_step_paged(cfg, params, state, tokens, lengths, block_tables)

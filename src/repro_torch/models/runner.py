@@ -1,0 +1,87 @@
+"""CacheSpec and ModelRunner: the model-side contract the serving engine
+drives.
+
+Port of the JAX package's ``models/runner.py`` (``cache_spec`` :89 and
+``ModelRunner`` :118) for the paged-only dense family: the serving cache is
+one paged component (attention KV for all L layers, addressed through one
+block table per sequence) and no fixed-size slot state.  Families with slot
+state (hybrid, ssm) come with a later slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+
+
+@dataclass(frozen=True)
+class PagedComponentSpec:
+    """One paged KV component: pages ``[n_apps, kv_heads, NB, BS,
+    head_dim]``, ``n_apps`` attention applications sharing a block table."""
+    name: str
+    n_apps: int
+    kv_heads: int
+    head_dim: int
+
+    def page_shape(self, block_size: int) -> Tuple[int, ...]:
+        return (self.n_apps, self.kv_heads, block_size, self.head_dim)
+
+    def page_kv_bytes(self, block_size: int, itemsize: int) -> int:
+        """Bytes of ONE physical page, K and V."""
+        n = 1
+        for d in self.page_shape(block_size):
+            n *= d
+        return 2 * n * itemsize
+
+
+@dataclass(frozen=True)
+class CacheSpec:
+    paged: Tuple[PagedComponentSpec, ...]
+
+
+def cache_spec(cfg: ModelConfig) -> CacheSpec:
+    M.require_dense(cfg)
+    return CacheSpec(paged=(PagedComponentSpec("attn", cfg.n_layers,
+                                               cfg.n_kv_heads, cfg.hd),))
+
+
+class ModelRunner:
+    """The engine's compute façade over ``models.model`` (paged dense)."""
+
+    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int):
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.spec = cache_spec(cfg)
+
+    def init_state(self, num_blocks: int, block_size: int, dtype, device):
+        return M.init_serve_state(self.cfg, self.slots, num_blocks, block_size,
+                                  dtype=dtype, device=device)
+
+    def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
+               block_tables: torch.Tensor):
+        """Batched one-token decode over every slot.  Retired and
+        mid-prefill rows scatter into the null page or into a position the
+        next prefill chunk overwrites; their logits are ignored."""
+        return M.serve_decode_step(self.cfg, params, state, tokens, lengths,
+                                   block_tables)
+
+    def prefill_chunk(self, params, state, tokens: torch.Tensor, length: int,
+                      q_offset: int, block_table: torch.Tensor):
+        """One right-padded chunk of a single-sequence prefill."""
+        return M.serve_prefill_chunk(self.cfg, params, state, tokens=tokens,
+                                     length=length, q_offset=q_offset,
+                                     block_table=block_table)
+
+    def copy_page(self, state, src: int, dst: int):
+        """Physical-page copy across every paged component (copy-on-write
+        for mid-page prefix-cache matches)."""
+        return M.copy_kv_page(state, src, dst)
+
+    def page_kv_bytes(self, block_size: int, itemsize: int) -> int:
+        """Bytes of ONE physical page across paged components, K and V."""
+        return sum(c.page_kv_bytes(block_size, itemsize) for c in self.spec.paged)

@@ -1,0 +1,666 @@
+"""Paged-KV continuous-batching serving engine (single device).
+
+Port of the JAX package's ``serve/engine.py`` core for the dense family:
+
+* **Paged KV cache** — physical pages ``[L, KvH, NB, BS, hd]`` shared by all
+  slots through per-slot block tables; page 0 is the null sink.
+* **Continuous batching** — requests are admitted into free slots every
+  tick; one batched decode serves all slots.
+* **Chunked prefill** — prompts run in bucket-sized chunks under a per-tick
+  token budget (decode tokens are reserved first); each chunk gets a
+  power-of-two prefix slice of its block table, so its attention work is
+  bounded by the live prefix, not the pool.
+* **Prefix caching** — full prompt pages are published under a chained
+  blake2b digest (the same chain and seed as the JAX engine, so hit
+  statistics match); a new prompt's longest cached page prefix is attached
+  by reference (refcounted, copy-on-write when the match ends mid-page) and
+  cold cached pages are evicted LRU under pool pressure.
+* **Greedy sampling** — one argmax over the whole batch per tick (a single
+  device-to-host copy), first index on ties, as ``jnp.argmax``.
+
+Not ported in this slice (construction raises if asked for): preemption and
+swap, SLO classes and deadlines, prefill/decode roles, sequence sharding,
+expert parallelism and the expert cache, the int8 pool, temperature
+sampling, and a page pool below full capacity (which would need
+preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
+the CUDA prefill kernel's query tile is fixed at 16 rows, so no chunk size
+can overflow its shared memory.
+"""
+from __future__ import annotations
+
+import hashlib
+import itertools
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.runner import ModelRunner
+
+
+@dataclass
+class Request:
+    """One in-flight generation request (engine-internal mutable record)."""
+    rid: int
+    prompt: np.ndarray                  # [len] int32
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    out_tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    prefill_pos: int = 0                # tokens already prefilled (chunked)
+    cached_len: int = 0                 # prefix tokens served from cache
+    ttft: Optional[float] = None        # submit -> first token (seconds)
+    tpot: Optional[float] = None        # seconds per decode token (mean)
+    submit_tick: int = 0
+    first_tick: Optional[int] = None
+    finish_tick: Optional[int] = None
+    _t_submit: float = 0.0
+    _t_first: float = 0.0
+    _digests: List[bytes] = field(default_factory=list)  # per-full-page chain
+    _published: int = 0                 # this slot's pages already registered
+
+
+class RequestFuture(int):
+    """Handle returned by ``submit()``: an ``int`` (the request id) that can
+    also poll (``done``/``tokens``) or drive the engine (``result``/
+    ``stream``) until its request finishes."""
+
+    def __new__(cls, rid: int, driver):
+        self = super().__new__(cls, rid)
+        self._driver = driver
+        return self
+
+    @property
+    def rid(self) -> int:
+        return int(self)
+
+    def done(self) -> bool:
+        return self._driver._future_done(int(self))
+
+    def tokens(self) -> List[int]:
+        return list(self._driver._future_tokens(int(self)))
+
+    def result(self, max_ticks: int = 10_000) -> List[int]:
+        for _ in range(max_ticks):
+            if self.done():
+                return self.tokens()
+            self._driver._future_step()
+        raise RuntimeError(
+            f"request {int(self)} unfinished after {max_ticks} ticks")
+
+    def stream(self, max_ticks: int = 10_000):
+        sent = 0
+        for _ in range(max_ticks):
+            toks = self._driver._future_tokens(int(self))
+            while sent < len(toks):
+                yield toks[sent]
+                sent += 1
+            if self.done():
+                return
+            self._driver._future_step()
+        raise RuntimeError(
+            f"request {int(self)} unfinished after {max_ticks} ticks")
+
+
+def _next_pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _page_digests(prompt: np.ndarray, block_size: int, n_pages: int,
+                  seed: bytes = b"\x00" * 16) -> List[bytes]:
+    """Chained content hash per full prompt page: page i's digest commits to
+    every token in [0, (i+1)*BS), so equal digests <=> equal page prefix."""
+    digests, parent = [], seed
+    for i in range(n_pages):
+        h = hashlib.blake2b(parent, digest_size=16)
+        h.update(np.ascontiguousarray(
+            prompt[i * block_size:(i + 1) * block_size], np.int32).tobytes())
+        parent = h.digest()
+        digests.append(parent)
+    return digests
+
+
+class BlockAllocator:
+    """Host-side refcounted physical-page pool, per-slot block tables and the
+    prefix-cache registry.  Page 0 is the null sink (never handed out).  A
+    registered page whose refcount drops to zero parks in an LRU, still
+    matchable, and is reclaimed (oldest first) only when the free list runs
+    dry."""
+
+    def __init__(self, num_blocks: int, block_size: int, slots: int,
+                 max_blocks_per_slot: int):
+        if num_blocks < 2:
+            raise ValueError(f"the pool needs >= 1 usable page beyond the null "
+                             f"page (num_blocks={num_blocks})")
+        self.block_size = block_size
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, 0, -1))   # popped lowest first
+        self.refcount = np.zeros((num_blocks,), np.int32)
+        self.table = np.zeros((slots, max_blocks_per_slot), np.int32)
+        self.used = np.zeros((slots,), np.int32)
+        self._hash_to_page: Dict[bytes, int] = {}
+        self._page_hash: Dict[int, bytes] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.pages_allocated = 0
+        self.pages_freed = 0
+        self.pages_shared = 0
+        self.pages_evicted = 0
+
+    @property
+    def free_blocks(self) -> int:
+        """Pages grantable right now: truly free + reclaimable cached."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1
+
+    @property
+    def cached_blocks(self) -> int:
+        return len(self._lru)
+
+    def reset_counters(self) -> None:
+        self.pages_allocated = self.pages_freed = 0
+        self.pages_shared = self.pages_evicted = 0
+
+    def _reclaim(self) -> Optional[int]:
+        if self._free:
+            return self._free.pop()
+        if self._lru:                      # evict the coldest cached page
+            page, _ = self._lru.popitem(last=False)
+            del self._hash_to_page[self._page_hash.pop(page)]
+            self.pages_evicted += 1
+            return page
+        return None
+
+    def alloc_page(self, slot: int) -> Optional[int]:
+        """Grant one exclusive page to ``slot``; None if none is grantable."""
+        if self.used[slot] >= self.table.shape[1]:
+            return None
+        page = self._reclaim()
+        if page is None:
+            return None
+        self.refcount[page] = 1
+        self.table[slot, self.used[slot]] = page
+        self.used[slot] += 1
+        self.pages_allocated += 1
+        return page
+
+    def ensure(self, slot: int, n_tokens: int) -> bool:
+        """Grow ``slot``'s table to cover ``n_tokens``; False if it cannot."""
+        need = -(-n_tokens // self.block_size)
+        if need > self.table.shape[1]:
+            return False
+        while self.used[slot] < need:
+            if self.alloc_page(slot) is None:
+                return False
+        return True
+
+    def share(self, slot: int, page: int) -> bool:
+        """Append a cache-hit page to ``slot``'s table (refcount bump; a
+        parked page is resurrected out of the LRU)."""
+        if self.used[slot] >= self.table.shape[1]:
+            return False
+        if self.refcount[page] == 0:
+            self._lru.pop(page, None)
+        self.refcount[page] += 1
+        self.table[slot, self.used[slot]] = page
+        self.used[slot] += 1
+        self.pages_shared += 1
+        return True
+
+    def release(self, slot: int) -> None:
+        """Drop every page reference the slot holds, tail block first, so a
+        cached chain parks suffix-first and LRU eviction eats suffixes
+        before heads."""
+        for i in reversed(range(int(self.used[slot]))):
+            self._unref(int(self.table[slot, i]))
+        self.table[slot] = 0
+        self.used[slot] = 0
+
+    def _unref(self, page: int) -> None:
+        if self.refcount[page] <= 0:
+            raise RuntimeError(f"double free of physical page {page}")
+        self.refcount[page] -= 1
+        if self.refcount[page] == 0:
+            self.pages_freed += 1
+            if page in self._page_hash:
+                self._lru[page] = None     # park: matchable until evicted
+            else:
+                self._free.append(page)
+
+    # -- prefix-cache registry -----------------------------------------
+    def register(self, page: int, digest: bytes) -> bool:
+        """Publish a completed full prompt page; first writer wins."""
+        if digest in self._hash_to_page or page in self._page_hash:
+            return False
+        self._hash_to_page[digest] = page
+        self._page_hash[page] = digest
+        return True
+
+    def lookup(self, digest: bytes) -> Optional[int]:
+        return self._hash_to_page.get(digest)
+
+    def page_digest(self, page: int) -> Optional[bytes]:
+        return self._page_hash.get(page)
+
+    # -- out-of-table references ---------------------------------------
+    def pin(self, page: int) -> None:
+        """Hold a reference to ``page`` without a table slot."""
+        if self.refcount[page] <= 0:
+            raise RuntimeError(f"pin of unreferenced physical page {page}")
+        self.refcount[page] += 1
+
+    def unpin(self, page: int) -> None:
+        self._unref(page)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
+                 slots: int = 8, prefill_buckets=(32, 128, 512, 2048),
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 max_tokens_per_tick: Optional[int] = None,
+                 prefix_caching: bool = True, **later):
+        """Stand up a serving engine over ``params``.
+
+        The engine runs where the parameters live (``init_params`` puts them
+        on the card unless asked for the CPU); their dtype is the pool's.
+        ``prefill_buckets``: chunk sizes for chunked prefill (``max_seq`` is
+        always added).  ``num_blocks``: page-pool size, at least full
+        capacity ``slots * ceil(max_seq / block_size) + 1``.
+        ``max_tokens_per_tick``: padded-token budget per tick shared by
+        decode (reserved first) and prefill; default ``slots`` + the largest
+        bucket.  ``prefix_caching``: share full prompt pages across requests.
+        Any other JAX-engine option raises: it belongs to a later slice."""
+        if later:
+            raise NotImplementedError(
+                f"engine options {sorted(later)} are not ported yet: "
+                f"preemption/swap, SLO classes, roles, sharding, expert "
+                f"options and the int8 pool come with later slices of "
+                f"repro_torch")
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.slots = slots
+        table = params["embed"]["table"]
+        self.device, self.dtype = table.device, table.dtype
+        self.runner = ModelRunner(cfg, slots, max_seq)
+        self.prefix_caching = bool(prefix_caching)
+        # the JAX engine folds kv_dtype into the digest chain; the port's
+        # pool stores the engine dtype ("fp16" there), so seeds match
+        self._digest_seed = hashlib.blake2b(b"kv_dtype:fp16",
+                                            digest_size=16).digest()
+
+        bks = sorted({min(b, max_seq) for b in prefill_buckets} | {max_seq})
+        self.prefill_buckets = tuple(bks)
+        self.max_tokens_per_tick = (max_tokens_per_tick if max_tokens_per_tick
+                                    else slots + self.prefill_buckets[-1])
+        if self.max_tokens_per_tick < self.prefill_buckets[0]:
+            raise ValueError(
+                f"max_tokens_per_tick={self.max_tokens_per_tick} can never "
+                f"afford the smallest prefill bucket "
+                f"({self.prefill_buckets[0]}); no request could ever start")
+
+        self.block_size = block_size
+        self.blocks_per_slot = -(-max_seq // block_size)
+        full = 1 + slots * self.blocks_per_slot
+        if num_blocks is None:
+            num_blocks = full
+        elif num_blocks < full:
+            raise NotImplementedError(
+                f"num_blocks={num_blocks} is below full capacity ({full}); an "
+                f"oversubscribed pool needs preemption, which comes with a "
+                f"later slice of repro_torch")
+        self.alloc = BlockAllocator(num_blocks, block_size, slots,
+                                    self.blocks_per_slot)
+        self.state = self.runner.init_state(num_blocks, block_size, self.dtype,
+                                            self.device)
+
+        self.lengths = np.zeros((slots,), np.int32)
+        self.active: List[Optional[Request]] = [None] * slots
+        self._queue: Deque[Request] = deque()
+        self._rid = itertools.count()
+        self._reqs: Dict[int, Request] = {}
+        self._tick = 0
+        self.stats: Dict[str, float] = {}
+        self.reset_stats()
+
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
+    # -- submission ----------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int = 32,
+               eos_id: Optional[int] = None) -> RequestFuture:
+        """Queue one greedy generation request; returns a
+        :class:`RequestFuture`.  Empty or out-of-vocab prompts raise (an
+        out-of-vocab id would poison recycled pages), as does a request that
+        could never fit the pool.  With prefix caching the chained page
+        digests are computed here so admission can attach the longest
+        cached prefix."""
+        prompt = np.array(prompt, np.int32, copy=True)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError(
+                f"token ids must be in [0, {self.cfg.vocab_size}); got "
+                f"range [{prompt.min()}, {prompt.max()}]")
+        req = Request(next(self._rid), prompt, max_new_tokens=max_new_tokens,
+                      eos_id=eos_id)
+        req._t_submit = time.perf_counter()
+        req.submit_tick = self._tick
+        pages = -(-min(self._plen(req) + req.max_new_tokens, self.max_seq)
+                  // self.block_size)
+        if pages > self.alloc.usable_blocks:
+            raise ValueError(
+                f"request needs up to {pages} KV pages but the pool has only "
+                f"{self.alloc.usable_blocks}; raise num_blocks or shrink the "
+                f"request")
+        if self.prefix_caching:
+            req._digests = _page_digests(prompt, self.block_size,
+                                         self._plen(req) // self.block_size,
+                                         seed=self._digest_seed)
+        self._reqs[req.rid] = req
+        self._queue.append(req)
+        return RequestFuture(req.rid, self)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.active):
+            if r is None:
+                return i
+        return None
+
+    def _bucket(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return self.prefill_buckets[-1]
+
+    def _plen(self, req: Request) -> int:
+        return max(1, min(len(req.prompt),
+                          self.max_seq - req.max_new_tokens - 1))
+
+    # -- scheduling ----------------------------------------------------
+    def _admit(self) -> None:
+        """Move queued requests (FIFO) into free slots, attaching each
+        prompt's longest cached page prefix."""
+        while self._queue:
+            slot = self._free_slot()
+            if slot is None:
+                return
+            req = self._queue.popleft()
+            req.prefill_pos = 0
+            req.cached_len = 0
+            req._published = 0
+            self.active[slot] = req
+            self.lengths[slot] = 0
+            if self.prefix_caching:
+                self._attach_prefix(slot, req)
+
+    def _attach_prefix(self, slot: int, req: Request) -> None:
+        """Share the longest registered page chain matching the prompt.  The
+        match is capped at ``plen - 1`` (the final logits must come from a
+        prefill chunk); when that cap lands mid-page the trailing shared page
+        is duplicated copy-on-write."""
+        plen = self._plen(req)
+        pages: List[int] = []
+        for dg in req._digests:
+            page = self.alloc.lookup(dg)
+            if page is None:
+                break
+            pages.append(page)
+        match = min(len(pages) * self.block_size, plen - 1)
+        if match <= 0:
+            return
+        n_full = match // self.block_size
+        for page in pages[:n_full]:
+            self.alloc.share(slot, page)
+        if match > n_full * self.block_size:
+            dst = self.alloc.alloc_page(slot)
+            if dst is None:
+                match = n_full * self.block_size     # no room: aligned match
+            else:
+                self.state = self.runner.copy_page(self.state, pages[n_full], dst)
+                self.stats["cow_copies"] += 1
+        if match <= 0:
+            return
+        req.prefill_pos = match
+        req.cached_len = match
+        req._published = match // self.block_size
+        self.lengths[slot] = match
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_hit_tokens"] += match
+
+    def _publish_pages(self, slot: int, req: Request) -> None:
+        """Register the slot's freshly completed full prompt pages."""
+        n_done = min(req.prefill_pos // self.block_size, len(req._digests))
+        while req._published < n_done:
+            i = req._published
+            self.alloc.register(int(self.alloc.table[slot, i]), req._digests[i])
+            req._published += 1
+
+    def _ensure(self, slot: int, n_tokens: int) -> None:
+        # at full capacity every active slot's pages fit at once (cached
+        # pages are reclaimable), so a failed grant is a bookkeeping bug
+        if not self.alloc.ensure(slot, n_tokens):
+            raise RuntimeError(f"page pool exhausted for slot {slot} at "
+                               f"{n_tokens} tokens despite full capacity")
+
+    def _page_bucket(self, n_pages: int) -> int:
+        """Live page count rounded up to a power of two (capped at the
+        per-slot maximum)."""
+        return min(_next_pow2(n_pages), self.blocks_per_slot)
+
+    def _prefill_tick(self, budget: int, finished: List[Request]) -> int:
+        """Advance pending prefills chunk by chunk under ``budget`` padded
+        tokens; returns the unspent budget."""
+        pending = [(slot, req) for slot, req in enumerate(self.active)
+                   if req is not None and req.prefill_pos < self._plen(req)]
+        for slot, req in pending:
+            plen = self._plen(req)
+            while req.prefill_pos < plen:
+                remaining = plen - req.prefill_pos
+                bucket = self._bucket(min(remaining, max(budget, 1)))
+                if bucket > budget:
+                    if bucket <= self.max_tokens_per_tick:
+                        break                  # affordable on a richer tick
+                    # the round-up bucket can never fit the budget: chunk at
+                    # the largest affordable bucket instead of stalling
+                    afford = [b for b in self.prefill_buckets if b <= budget]
+                    if not afford:
+                        break
+                    bucket = afford[-1]
+                n = min(remaining, bucket)
+                self._ensure(slot, req.prefill_pos + n)
+                logits = self._run_prefill_chunk(slot, req, bucket, n)
+                budget -= bucket
+                self.stats["padded_tokens"] += bucket
+                self.stats["prefill_tokens"] += n
+                req.prefill_pos += n
+                self.lengths[slot] = req.prefill_pos
+                if self.prefix_caching:
+                    self._publish_pages(slot, req)
+                if req.prefill_pos >= plen:
+                    self._finish_prefill(slot, req, logits, finished)
+        return budget
+
+    def _run_prefill_chunk(self, slot: int, req: Request, bucket: int, n: int):
+        self.stats["prefill_dispatches"] += 1
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :n] = req.prompt[req.prefill_pos:req.prefill_pos + n]
+        # only the live prefix of the block table, rounded up to a power of
+        # two: per-chunk attention work follows the cached length
+        n_live = -(-(req.prefill_pos + n) // self.block_size)
+        mb = self._page_bucket(n_live)
+        bt = np.zeros((mb,), np.int32)
+        u = min(int(self.alloc.used[slot]), mb)
+        bt[:u] = self.alloc.table[slot, :u]
+        if self.device.type == "cpu":
+            # the CPU path gathers k and v per layer per chunk (the kernel
+            # reads pages through the table and gathers nothing)
+            self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers
+            self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb
+        logits, self.state = self.runner.prefill_chunk(
+            self.params, self.state, self._to_device(padded), n,
+            req.prefill_pos, self._to_device(bt))
+        return logits
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _finish_prefill(self, slot: int, req: Request, logits,
+                        finished: List[Request]) -> None:
+        """Prompt fully cached: take the first token (greedy)."""
+        first = int(torch.argmax(logits[0]))
+        req.out_tokens.append(first)
+        req._t_first = time.perf_counter()
+        req.ttft = req._t_first - req._t_submit
+        req.first_tick = self._tick
+        hit_eos = req.eos_id is not None and first == req.eos_id
+        if hit_eos or req.max_new_tokens <= 1:
+            self._finish(slot, req, finished)
+
+    def _finish(self, slot: int, req: Request, finished: List[Request]) -> None:
+        req.done = True
+        req.finish_tick = self._tick
+        if len(req.out_tokens) > 1 and req._t_first:
+            req.tpot = ((time.perf_counter() - req._t_first)
+                        / (len(req.out_tokens) - 1))
+        finished.append(req)
+        self._retire(slot)
+
+    def _retire(self, slot: int) -> None:
+        self.active[slot] = None
+        self.lengths[slot] = 0
+        self.alloc.release(slot)
+
+    # -- engine tick ---------------------------------------------------
+    def _decode_ready(self, slot: int) -> bool:
+        req = self.active[slot]
+        return bool(req is not None and req.out_tokens
+                    and req.prefill_pos >= self._plen(req))
+
+    def step(self) -> List[Request]:
+        """One engine tick; returns the requests completed this tick.
+
+        (1) decode-ready slots reserve their next page; (2) admit queued
+        requests into free slots; (3) advance chunked prefills under the
+        budget left after reserving one token per decode-ready slot; (4) one
+        batched decode over the runnable slots, sampled by one argmax over
+        the batch; (5) retire finished requests."""
+        self._tick += 1
+        self.stats["ticks"] += 1
+        for i in range(self.slots):
+            if self._decode_ready(i):
+                self._ensure(i, self.lengths[i] + 1)
+        self._admit()
+        finished: List[Request] = []
+        decode_slots = [i for i in range(self.slots) if self._decode_ready(i)]
+        spare = self._prefill_tick(self.max_tokens_per_tick - len(decode_slots),
+                                   finished)
+        # a prefill that completed inside this tick rides along only if the
+        # prefill loop left budget for its decode token
+        reserved = set(decode_slots)
+        live = []
+        for i in range(self.slots):
+            if not self._decode_ready(i):
+                continue
+            if i in reserved:
+                live.append(i)
+            elif spare >= 1:
+                spare -= 1
+                live.append(i)
+        n_active = sum(r is not None for r in self.active)
+        self.stats["occupancy_sum"] += n_active / self.slots
+        self.stats["peak_active"] = max(self.stats["peak_active"], n_active)
+        if live:
+            self.stats["decode_dispatches"] += 1
+            for i in live:
+                self._ensure(i, self.lengths[i] + 1)
+            toks = np.zeros((self.slots,), np.int32)
+            for i in live:
+                toks[i] = self.active[i].out_tokens[-1]
+            logits, self.state = self.runner.decode(
+                self.params, self.state, self._to_device(toks),
+                self._to_device(self.lengths.copy()),
+                self._to_device(self.alloc.table.copy()))
+            nxt_all = torch.argmax(logits, dim=-1).tolist()
+            for i in live:
+                req = self.active[i]
+                self.lengths[i] += 1
+                self.stats["decode_tokens"] += 1
+                self.stats["padded_tokens"] += 1
+                nxt = int(nxt_all[i])
+                req.out_tokens.append(nxt)
+                hit_eos = req.eos_id is not None and nxt == req.eos_id
+                if (len(req.out_tokens) >= req.max_new_tokens or hit_eos
+                        or self.lengths[i] >= self.max_seq - 1):
+                    self._finish(i, req, finished)
+        for k in ("pages_allocated", "pages_freed", "pages_shared",
+                  "pages_evicted"):
+            self.stats[k] = getattr(self.alloc, k)
+        return finished
+
+    # -- async future driver protocol ----------------------------------
+    def _future_done(self, rid: int) -> bool:
+        return self._reqs[rid].done
+
+    def _future_tokens(self, rid: int) -> List[int]:
+        return self._reqs[rid].out_tokens
+
+    def _future_step(self) -> None:
+        self.step()
+
+    def run_until_drained(self, max_ticks: int = 10_000,
+                          strict: bool = True) -> List[Request]:
+        """Step until the queue and the slots are empty; returns every
+        finished request.  With ``strict`` an engine that cannot drain
+        within ``max_ticks`` raises instead of returning a partial set."""
+        done: List[Request] = []
+        for _ in range(max_ticks):
+            done.extend(self.step())
+            if not self._queue and all(r is None for r in self.active):
+                return done
+        if strict:
+            live = [r.rid for r in self.active if r is not None]
+            raise RuntimeError(
+                f"engine not drained after {max_ticks} ticks "
+                f"(queued={self.queued}, active rids={live})")
+        return done
+
+    # -- introspection -------------------------------------------------
+    def reset_stats(self) -> None:
+        """Zero the counters (the prefix-cache registry is kept)."""
+        self.stats = {
+            "ticks": 0, "prefill_tokens": 0, "decode_tokens": 0,
+            "occupancy_sum": 0.0, "padded_tokens": 0, "prefill_dispatches": 0,
+            "decode_dispatches": 0,
+            "prefix_hits": 0, "prefix_hit_tokens": 0, "cow_copies": 0,
+            "pages_allocated": 0, "pages_freed": 0, "pages_shared": 0,
+            "pages_evicted": 0, "gather_pages_calls": 0,
+            "gather_page_volume": 0, "peak_active": 0,
+            "kv_bytes_per_page": self.runner.page_kv_bytes(
+                self.block_size, self.dtype.itemsize),
+        }
+        self.alloc.reset_counters()
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        tot = self.stats["prefix_hit_tokens"] + self.stats["prefill_tokens"]
+        return self.stats["prefix_hit_tokens"] / tot if tot else 0.0
+
+    @property
+    def mean_occupancy(self) -> float:
+        t = self.stats["ticks"]
+        return self.stats["occupancy_sum"] / t if t else 0.0
+
+    def kv_cache_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for a in self.state["attn"].values())

@@ -44,6 +44,10 @@ def pytest_configure(config):
         "markers",
         "multidevice: needs several jax devices (CI runs these with "
         "XLA_FLAGS=--xla_force_host_platform_device_count=8)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "without one")
 
 
 @pytest.fixture

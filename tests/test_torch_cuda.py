@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
+run them on the card with
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+No JAX here: the machine with the card has none.  Inputs are made with
+numpy from a seed.  fp32 cases hold the kernel to 1e-5 (the same sums in
+another order); bf16 cases to 2 bf16 ulps relative plus 1e-2 absolute, the
+rounding of the output and, for attention, of p before the PV product in
+the plain version.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import decode_attention as kda  # noqa: E402
+from repro_torch.kernels import prefill_attention as kpf  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as krn  # noqa: E402
+from repro_torch.kernels import rope as krope  # noqa: E402
+from repro_torch.kernels import swiglu as ksw  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+        torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dtype, dev, scale=1.0):
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
+            .to(dev).to(dtype))
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elementwise_kernels(dev, dtype):
+    rng = np.random.default_rng(0)
+    x = _rand(rng, (3, 7, 2048), dtype, dev)
+    w = _rand(rng, (2048,), dtype, dev)
+    _close(krn.rmsnorm(x, w, 1e-5), ref.rmsnorm(x, w, 1e-5), dtype)
+    g = _rand(rng, (5, 5632), dtype, dev, 3.0)
+    u = _rand(rng, (5, 5632), dtype, dev)
+    _close(ksw.silu_mul(g, u), ref.silu_mul(g, u), dtype)
+    q = _rand(rng, (2, 9, 6, 64), dtype, dev)
+    pos = torch.from_numpy(rng.integers(0, 1024, size=(2, 9)).astype(np.int32)).to(dev)
+    _close(krope.apply_rope(q, pos), ref.apply_rope(q, pos), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs", [(8, 4, 64, 16), (4, 2, 16, 8),
+                                        (8, 2, 128, 128)])
+def test_paged_decode_kernel(dev, dtype, h, kvh, d, bs):
+    rng = np.random.default_rng(1)
+    b, mb, nb = 5, 4, 24
+    q = _rand(rng, (b, h, d), dtype, dev)
+    kp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+    vp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+    bt = torch.from_numpy(rng.permutation(nb)[:b * mb].reshape(b, mb)
+                          .astype(np.int32)).to(dev)
+    bt[4] = 0                                   # a retired slot: null page
+    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, 1], dtype=torch.int32,
+                        device=dev)
+    _close(kda.paged_decode_attention(q, kp, vp, bt, lens),
+           ref.paged_decode_attention(q, kp, vp, bt, lengths=lens), dtype)
+    if dtype == torch.float32:
+        got = kda.paged_decode_attention_partial(q, kp, vp, bt, lens)
+        want = ref.paged_decode_attention_partial(q, kp, vp, bt, lengths=lens)
+        for a, b_ in zip(got, want):
+            _close(a, b_, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
+                                          (8, 2, 128, 128, 33)])
+def test_paged_prefill_kernel(dev, dtype, h, kvh, d, bs, c):
+    rng = np.random.default_rng(2)
+    nb = 12
+    q = _rand(rng, (1, c, h, d), dtype, dev)
+    kp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+    vp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+    bt = torch.from_numpy((rng.permutation(nb - 1)[:8] + 1).astype(np.int32)).to(dev)
+    for qoff, ln in [(0, c), (bs + 3, c), (3 * bs - 2, 1), (0, 1)]:
+        n_live = -(-(qoff + ln) // bs)
+        tbl = bt[:min(1 << max(n_live - 1, 0).bit_length(), 8)].contiguous()
+        kw = dict(q_offset=qoff, length=ln)
+        got = kpf.paged_prefill_attention(q, kp, vp, tbl, **kw)
+        want = ref.paged_prefill_attention(q, kp, vp, tbl, **kw)
+        _close(got[0, :ln], want[0, :ln], dtype)
+        if dtype == torch.float32:
+            parts = kpf.paged_prefill_attention_partial(q, kp, vp, tbl, **kw)
+            wparts = ref.paged_prefill_attention_partial(q, kp, vp, tbl, **kw)
+            for a, b_ in zip(parts, wparts):
+                _close(a[0, :ln], b_[0, :ln], dtype)
+
+
+def test_model_on_card_matches_cpu(dev):
+    """Reduced stablelm at fp32: a prefill chunk and two decode steps on the
+    card (CUDA kernels) against the CPU (plain versions), same parameters."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gparams = _to(params, dev)
+    logits = {}
+    for d, p in (("cpu", params), ("cuda", gparams)):
+        state = M.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device=d)
+        tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0]], dtype=torch.int32)
+        bt = torch.tensor([[2, 4, 6, 8], [1, 3, 0, 0]], dtype=torch.int32)
+        out = []
+        lg, state = M.prefill_paged(cfg, p, state, tokens=tok.to(d), length=7,
+                                    q_offset=0, block_table=bt[0].to(d))
+        out.append(lg)
+        lens = torch.tensor([7, 0], dtype=torch.int32)
+        for t in (11, 64):
+            toks = torch.tensor([t, 0], dtype=torch.int32)
+            lg, state = M.decode_step_paged(cfg, p, state, toks.to(d),
+                                            lens.to(d), bt.to(d))
+            out.append(lg[:1])
+            lens = lens + torch.tensor([1, 0], dtype=torch.int32)
+        logits[d] = torch.cat([o.cpu() for o in out])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

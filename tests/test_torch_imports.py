@@ -1,0 +1,34 @@
+"""The port stands alone: importing every repro_torch module pulls in
+neither JAX nor any module of the JAX package."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CODE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_repro_torch_imports_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-c", _CODE], capture_output=True,
+                       text=True, env=env, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    n, bad = r.stdout.strip().split(" ", 1)
+    assert bad == "[]", bad
+    assert int(n) >= 20            # every package and module was walked
