@@ -6,20 +6,37 @@
 Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: every kernel of the serving path from ``src/repro_torch/kernels/
-   csrc`` with nvcc for sm_90a, with the ptxas register/shared-memory report;
-3. kernels: each of the five kernels at the full-width stablelm-1.6b shapes
-   of the serving path, in bf16, held against its plain PyTorch version on
-   the card (stated tolerance) and timed with CUDA events beside the plain
-   version, the least time the card could take, and a library call where one
-   computes the same function;
+2. build: every kernel from ``src/repro_torch/kernels/csrc`` with nvcc for
+   sm_90a (one process per source, all at once), with the ptxas
+   register/shared-memory report;
+3. kernels: each of the five serving kernels at the full-width
+   stablelm-1.6b shapes of the serving path, in bf16, held against its plain
+   PyTorch version on the card (stated tolerance) and timed with CUDA
+   events beside the plain version, the least time the card could take, and
+   a library call where one computes the same function;
 4. parity: the reduced stablelm-1.6b model on the card (CUDA kernels)
    against the CPU (plain versions) at fp32;
 5. serve: stablelm-1.6b at full width and depth (random bf16 weights from a
    seed) serving 16 requests through ``repro_torch.serve.ServeEngine``; the
    kernels' launch counters are zeroed just before and read just after,
    and every kernel must have run; a rerun with prefix caching off must give
-   token-identical greedy outputs.
+   token-identical greedy outputs;
+6. train kernels: the flash-attention forward and backward, the rmsnorm
+   and silu_mul backward passes and rope's backward (the forward kernel at
+   -pos) at full-width granite-3-2b shapes in bf16, held against their plain
+   versions and timed as in 3 (library: SDPA forward/backward, autograd of
+   ``F.rms_norm``); the flash backward twice must give the same bits, and
+   a control shows the flash tolerances catch a forward that skips one
+   key tile;
+7. train parity: reduced granite-3-2b at fp32, every gradient leaf of the
+   train loss and one train step on the card against the CPU, then a
+   driver run on the card that crashes, resumes from its checkpoint and
+   must end bit-identical to an uninterrupted run;
+8. train: granite-3-2b at full width and depth (random bf16 weights from a
+   seed) for ``TRAIN_STEPS`` steps of 2 x 4096 tokens through
+   ``make_train_step`` with remat (the step ``launch/train.py`` drives, called
+   directly so that no 30 GB checkpoint is written); counters zeroed just
+   before, read just after, and every training-path kernel must have run.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -29,6 +46,7 @@ report, the results) goes to ``chiprun_out/chip_smoke/``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,6 +62,20 @@ PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 BF16_TOL = dict(rtol=2 ** -6, atol=1e-2)      # two bf16 ulps, plus 1e-2
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
+# flash attention at S = 4096: a late row's output averages ~i keys, so |o|,
+# dq, dk and dv there are ~0.02-0.04 and ATTN_TOL's 2e-2 would pass a kernel
+# that loses part of the softmax mass.  o is held to one bf16 ulp relative
+# plus 4e-3 (2x the 0.00195 the kernel reads), lse (~8.3, f32, read to
+# ~1e-6) to 1e-4 absolute, the gradients to two ulps plus 4e-3; every output
+# also to a relative norm error of 1e-2 (one bf16 rounding is ~2^-9)
+FLASH_O_TOL = dict(rtol=2 ** -7, atol=4e-3)
+FLASH_LSE_TOL = dict(rtol=0.0, atol=1e-4)
+FLASH_GRAD_TOL = dict(rtol=2 ** -6, atol=4e-3)
+FLASH_REL = 1e-2
+FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu
+# the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
+# global batch 2, all 40 layers; only the step count is cut
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
 
 
 def log(msg: str) -> None:
@@ -105,6 +137,71 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+
+class Counter:
+    """One kernel's launch count: an integer attribute of its wrapper
+    module (``launches`` for forward kernels, ``bwd_launches`` for the
+    backward kernels)."""
+
+    def __init__(self, module, attr: str = "launches"):
+        self.module, self.attr = module, attr
+
+    def reset(self) -> None:
+        setattr(self.module, self.attr, 0)
+
+    def read(self) -> int:
+        return getattr(self.module, self.attr)
+
+
+def rel_err(torch, got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    diff = torch.linalg.vector_norm(got.float() - want.float())
+    return float(diff / torch.linalg.vector_norm(want.float()).clamp_min(1e-30))
+
+
+def hold(torch, name, got, want, tol, rel=None) -> float:
+    """Fail unless ``got`` is finite and within ``tol`` elementwise (and,
+    given ``rel``, within that relative norm error) of ``want``; returns
+    the max |err|."""
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"{name}: non-finite kernel output")
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **tol):
+        fail(f"{name}: kernel and plain version disagree, max |err| {err} "
+             f"(tolerance {tol})")
+    if rel is not None and rel_err(torch, got, want) > rel:
+        fail(f"{name}: kernel and plain version disagree, relative norm error "
+             f"{rel_err(torch, got, want)} (tolerance {rel})")
+    return err
+
+
+def measure(torch, timer, name, source, replaces, kernel, plain, tol, nbytes,
+            flops, library=None, note="", iters=20, plain_iters=20, rel=None):
+    """Hold ``kernel()`` against ``plain()`` on the same inputs (each may
+    return a tensor or a tuple of tensors; ``tol`` is one tolerance or a
+    tuple of one per output), time both and ``library`` (one PyTorch call
+    computing the same function, or None), and return the kernel's row of
+    the ``{"kernels": ...}`` line (launches filled in by the path that runs
+    it)."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(got)
+    err = max(hold(torch, name, g, w, t, rel) for g, w, t in zip(got, want, tols))
+    del got, want
+    ms = timer(kernel, iters=iters)
+    plain_ms = timer(plain, iters=plain_iters)
+    lib_ms = timer(library, iters=iters) if library is not None else None
+    bms, by = bound(nbytes, flops)
+    log(f"kernel {name}: max|err| {err:.3g} (tol {tol}{note}), "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by})" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -130,26 +227,8 @@ def kernel_phase(torch, timer, cfg):
     nb = 1 + slots * mb
     rows = []
 
-    def record(name, source, replaces, kernel, plain, tol, nbytes, flops,
-               library=None, note=""):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(got.float()).all()):
-            fail(f"{name}: non-finite kernel output")
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.allclose(got.float(), want.float(), **tol):
-            fail(f"{name}: kernel and plain version disagree, max |err| {err} "
-                 f"(tolerance {tol})")
-        ms, plain_ms = timer(kernel), timer(plain)
-        lib_ms = timer(library) if library is not None else None
-        bms, by = bound(nbytes, flops)
-        log(f"kernel {name}: max|err| {err:.3g} (tol {tol}{note}), "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by})" + (f", library {lib_ms:.4f} ms" if lib_ms else ""))
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms))
+    def record(*args, **kw):
+        rows.append(measure(torch, timer, *args, **kw))
 
     csrc = "src/repro_torch/kernels/csrc/"
     # rmsnorm on a prefill chunk's activations [1, 512, 2048]
@@ -275,15 +354,15 @@ def serve_phase(torch, cfg, counters):
         eng = ServeEngine(cfg, params, prefix_caching=prefix_caching, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod in counters.values():
-            mod.launches = 0
+        for c in counters.values():
+            c.reset()
         t = time.perf_counter()
         for p in prompts:
             eng.submit(p, max_new_tokens=new_tokens)
         done = eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {name: mod.launches for name, mod in counters.items()}
+        launches = {name: c.read() for name, c in counters.items()}
         out = {r.rid: list(r.out_tokens) for r in done}
         stats = dict(eng.stats)
         ttfts = sorted(r.ttft for r in done)
@@ -332,6 +411,372 @@ def serve_phase(torch, cfg, counters):
                           peak_mem_bytes=peak, wall_s_cache_off=wall_off)
 
 
+def dropped_tile_control(torch, q, k, v):
+    """What the flash-forward check reads for a wrong kernel: one that skips
+    the first key tile of every row of the last query tile (the rows that
+    average the most keys, so the smallest outputs).  Exact f32 attention of
+    those rows with and without that tile; fails unless the forward's
+    tolerances tell the two apart."""
+    b, s, h, d = q.shape
+    t, group = FLASH_TILE, h // k.shape[2]
+    kk = k.float().repeat_interleave(group, dim=2)
+    vv = v.float().repeat_interleave(group, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q[:, s - t:].float(), kk) / math.sqrt(d)
+    qpos = torch.arange(s - t, s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    sc = sc.masked_fill(kpos > qpos, float("-inf"))
+
+    def attend(scores):
+        lse = torch.logsumexp(scores, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), vv)
+        return o.to(q.dtype), lse
+
+    o_ok, lse_ok = attend(sc)
+    o_bad, lse_bad = attend(sc.masked_fill(kpos < t, float("-inf")))
+    d_o = float((o_bad.float() - o_ok.float()).abs().max())
+    d_lse = float((lse_bad - lse_ok).abs().max())
+    caught = lambda a, b_, tol: not torch.allclose(a.float(), b_.float(), **tol)
+    caught_o = caught(o_bad, o_ok, FLASH_O_TOL)
+    caught_lse = caught(lse_bad, lse_ok, FLASH_LSE_TOL)
+    log(f"flash attention control: a forward that skips key tile 0 for the "
+        f"last query tile (rows {s - t}-{s - 1}) reads max|err| o {d_o:.3g} "
+        f"(rel {rel_err(torch, o_bad, o_ok):.2g}; caught: {caught_o}), lse "
+        f"{d_lse:.3g} (caught: {caught_lse}); under ATTN_TOL: o caught "
+        f"{caught(o_bad, o_ok, ATTN_TOL)}, lse caught {caught(lse_bad, lse_ok, ATTN_TOL)}")
+    if not (caught_o or caught_lse):
+        fail("flash attention control: the forward's tolerances pass a kernel "
+             "that skips a key tile")
+    del kk, vv, sc
+
+
+def train_kernel_phase(torch, timer, cfg):
+    """The training path's kernels at full-width granite-3-2b shapes, bf16:
+    attention q [2, 4096, 32, 64], k/v [2, 4096, 8, 64] causal; the
+    backward passes of rmsnorm [8192, 2048] and silu_mul [8192, 8192]."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import rope as krope
+    from repro_torch.kernels import swiglu as ksw
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    d, h, kvh, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    csrc = "src/repro_torch/kernels/csrc/"
+    fa_src, fa_rep = csrc + "flash_attention.cu", "src/repro/kernels/flash_attention.py:109"
+    rows = []
+
+    # -- flash attention: extra shapes held to the plain version only
+    names = ("o", "lse", "dq", "dk", "dv")
+    tols = (FLASH_O_TOL, FLASH_LSE_TOL) + (FLASH_GRAD_TOL,) * 3
+    for (sl, window) in ((s, 512), (4000, None)):
+        q, k, v = randn(b, sl, h, hd), randn(b, sl, kvh, hd), randn(b, sl, kvh, hd)
+        do = randn(b, sl, h, hd)
+        o, lse = kfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+        wo, wl = ref.flash_attention_lse(q, k, v, causal=True, window=window)
+        grads = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window)
+        wgrads = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window)
+        torch.cuda.synchronize()
+        errs = [f"{n} {hold(torch, f'flash attention S={sl} window={window}: {n}', g, w, t, FLASH_REL):.3g}"
+                f" (rel {rel_err(torch, g, w):.2g})"
+                for n, g, w, t in zip(names, (o, lse, *grads), (wo, wl, *wgrads), tols)]
+        log(f"flash attention S={sl} window={window}: max|err| {', '.join(errs)}")
+        del q, k, v, do, o, lse, wo, wl, grads, wgrads
+
+    # -- flash attention forward and backward at the main shape
+    q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
+    do = randn(b, s, h, hd)
+    dropped_tile_control(torch, q, k, v)
+    pairs = s * (s + 1) // 2                        # causal (q, k) pairs per head
+    io = (2 * q.numel() + 2 * k.numel()) * 2 + b * h * s * 4   # q, k, v, o + lse
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rows.append(measure(
+        torch, timer, "flash_attention", fa_src, fa_rep,
+        lambda: kfa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: ref.flash_attention_lse(q, k, v, causal=True),
+        (FLASH_O_TOL, FLASH_LSE_TOL), rel=FLASH_REL,
+        nbytes=io, flops=4 * b * h * hd * pairs,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True),
+        note=f"; o, lse; rel {FLASH_REL}", iters=10, plain_iters=3))
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
+    first = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        fail("flash attention backward: two runs on the same inputs differ")
+    log("flash attention backward: two runs on the same inputs are bitwise equal")
+    del first, again
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    dog = do.transpose(1, 2).contiguous()
+    rows.append(measure(
+        torch, timer, "flash_attention_bwd", fa_src, fa_rep,
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        FLASH_GRAD_TOL, rel=FLASH_REL,
+        nbytes=(3 * q.numel() + 4 * k.numel()) * 2 + 2 * b * h * s * 4
+        + q.numel() * 2, flops=10 * b * h * hd * pairs,
+        library=lambda: torch.autograd.grad(og, (qg, kg, vg), dog,
+                                            retain_graph=True),
+        note=f"; dq, dk, dv; rel {FLASH_REL}", iters=10, plain_iters=3))
+    del q, k, v, do, o, lse, qt, kt, vt, qg, kg, vg, og, dog
+
+    # -- rope backward: the forward kernel at -pos (no row of its own)
+    x = randn(b, s, h, hd)
+    dy = randn(b, s, h, hd)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s).contiguous()
+    xg = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(ref.apply_rope(xg, pos, cfg.rope_theta), xg, dy)
+    got = krope.apply_rope(dy, -pos, cfg.rope_theta)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), **BF16_TOL):
+        fail(f"rope backward (forward kernel at -pos) disagrees with autograd of "
+             f"the plain version: max |err| {err}")
+    log(f"rope backward [{b},{s},{h},{hd}] (forward kernel at -pos) vs autograd "
+        f"of the plain version: max|err| {err:.3g} (tol {BF16_TOL}), "
+        f"{timer(lambda: krope.apply_rope(dy, -pos, cfg.rope_theta)):.4f} ms")
+    del x, dy, xg, want, got
+
+    # -- rmsnorm backward on the training activations [8192, 2048]
+    x, w, dy = randn(b * s, d), randn(d), randn(b * s, d)
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    yg = F.rms_norm(xg, (d,), wg, cfg.norm_eps)
+    rows.append(measure(
+        torch, timer, "rmsnorm_bwd", csrc + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:51",
+        lambda: krn.rmsnorm_bwd(x, w, dy, cfg.norm_eps),
+        lambda: ref.rmsnorm_bwd(x, w, dy, cfg.norm_eps), BF16_TOL,
+        nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(),
+        library=lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True),
+        note="; dx and dw"))
+    del x, w, dy, xg, wg, yg
+
+    # -- silu_mul backward on the FFN hidden [8192, 8192]
+    g, u, dy = randn(b * s, ff, scale=3.0), randn(b * s, ff), randn(b * s, ff)
+    rows.append(measure(
+        torch, timer, "silu_mul_bwd", csrc + "swiglu.cu", "src/repro/kernels/swiglu.py:59",
+        lambda: ksw.silu_mul_bwd(g, u, dy), lambda: ref.silu_mul_bwd(g, u, dy),
+        BF16_TOL, nbytes=5 * g.numel() * 2, flops=12 * g.numel(),
+        note="; dgate and dup"))
+    del g, u, dy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _batch_to(batch, dev):
+    import torch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def determinism_probe(torch, cfg_small):
+    """Run each operation of the train step twice on the same inputs on the
+    card and name every one whose outputs differ."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autograd as ag
+    from repro_torch.train.step import cross_entropy
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    tok = torch.randint(0, cfg_small.vocab_size, (4, 64), generator=gen, device="cuda")
+    table = r(cfg_small.vocab_size, cfg_small.d_model)
+    x, w, dy = r(4, 64, cfg_small.d_model), r(cfg_small.d_model), r(4, 64, cfg_small.d_model)
+    q, k = r(4, 64, cfg_small.n_heads, cfg_small.hd), r(4, 64, cfg_small.n_kv_heads, cfg_small.hd)
+    pos = torch.arange(64, dtype=torch.int32, device="cuda")
+    ops = {
+        "embedding backward (F.embedding)": (lambda t: F.embedding(tok, t), (table,)),
+        "matmul backward (torch.matmul)": (lambda a, b_: a @ b_, (x, r(cfg_small.d_model, 96))),
+        "cross-entropy backward": (lambda a: cross_entropy(a, tok), (r(4, 64, cfg_small.vocab_size),)),
+        "rmsnorm kernels": (lambda a, b_: ag.RMSNorm.apply(a, b_, 1e-5), (x, w)),
+        "silu_mul kernels": (ag.SiluMul.apply, (x, dy)),
+        "rope kernel": (lambda a: ag.Rope.apply(a, pos, 1e4), (q,)),
+        "flash attention kernels": (lambda a, b_, c: ag.FlashAttention.apply(a, b_, c, True, None),
+                                    (q, k, k)),
+    }
+    bad = []
+    for name, (fn, xs) in ops.items():
+        outs = []
+        for _ in range(2):
+            live = [t.detach().requires_grad_() for t in xs]
+            y = fn(*live)
+            outs.append([y] + list(torch.autograd.grad(y, live, torch.ones_like(y))))
+        if not all(torch.equal(a, b_) for a, b_ in zip(*outs)):
+            bad.append(name)
+    return bad
+
+
+def train_parity_phase(torch, cfg_small):
+    """Reduced granite-3-2b at fp32: one train step on the card (kernels)
+    against the CPU (plain versions) from the same parameters, then a crash
+    and resume on the card that must end bit-identical to an uninterrupted
+    run (the JAX driver's contract)."""
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import SimulatedFailure, TrainDriver
+    from repro_torch.train import step as TS
+
+    lr, wd = 1e-3, 0.1
+    batch = SyntheticLM(cfg_small.vocab_size, 64, 4, seed=1).batch(0)
+    grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg_small))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = TS.init_state(cfg_small, seed=0, dtype=torch.float32, device="cpu")
+        state = T.map(lambda t: t.to(dev) if t.dim() else t, state)
+        (_, _), grads = grad_fn(state.params, _batch_to(batch, dev))
+        grads = [g.cpu() for g in T.leaves(grads)]
+        step = TS.make_train_step(cfg_small, base_lr=lr, warmup=1, weight_decay=wd)
+        state, met = step(state, _batch_to(batch, dev))
+        out[dev] = (grads, T.leaves(state.params), float(met["loss"]),
+                    float(met["grad_norm"]))
+    (grc, pc, lc, gc), (grg, pg, lg, gg) = out["cpu"], out["cuda"]
+    # every gradient leaf, card (kernels forward and backward) against the
+    # CPU (autograd of the plain versions), relative to the leaf's largest
+    # entry: a wrong sign or a lost term in one leaf shows here even where
+    # the global grad norm and Adam's first update (~lr sign(g)) hide it
+    paths = [p for p, _ in T.leaves_with_paths(state.params)]
+    rel = [float((a - b_).abs().max() / b_.abs().max().clamp_min(1e-30))
+           for a, b_ in zip(grg, grc)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    dp = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(pg, pc))
+    n_over = sum(int(((a.cpu() - b_).abs() > 1e-5).sum()) for a, b_ in zip(pg, pc))
+    bound_p = 2 * lr * (1 + wd)
+    log(f"train parity: reduced granite fp32 card vs cpu: {len(rel)} gradient "
+        f"leaves, largest max|diff| / max|g| {rel[worst]:.3g} at "
+        f"{paths[worst]} (tolerance 1e-4); one step: loss {lg:.6f} vs "
+        f"{lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}, params max |diff| "
+        f"{dp:.3g} (bound 2 lr (1 + wd) = {bound_p:.3g}), {n_over} elements "
+        f"over 1e-5")
+    if rel[worst] > 1e-4:
+        fail(f"train parity: the card's gradient of {paths[worst]} disagrees "
+             f"with the CPU's")
+    if abs(lg - lc) > 1e-4 or abs(gg - gc) > 1e-4 * max(1.0, gc) or dp > bound_p:
+        fail("train parity: the card's train step disagrees with the CPU's")
+
+    ckpt = OUT / "ckpt"
+    ds = SyntheticLM(cfg_small.vocab_size, 64, 4, seed=3)
+    step = TS.make_train_step(cfg_small, base_lr=lr)
+
+    def driver(inject=None):
+        return TrainDriver(
+            train_step=step, dataset=ds, ckpt_dir=str(ckpt), ckpt_every=3,
+            init_state=lambda: TS.init_state(cfg_small, seed=0,
+                                             dtype=torch.float32, device="cuda"),
+            put_batch=lambda bt: _batch_to(bt, "cuda"), inject_failure_at=inject)
+
+    quiet = lambda *a: None
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        driver(inject=5).run(total_steps=10, log_fn=quiet)
+        fail("train parity: the injected failure did not fire")
+    except SimulatedFailure:
+        pass
+    resumed = driver().run(total_steps=10, log_fn=quiet)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight = driver().run(total_steps=10, log_fn=quiet)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    diff = [p for (p, a), (_, b_) in zip(T.leaves_with_paths(resumed["state"]),
+                                         T.leaves_with_paths(straight["state"]))
+            if not torch.equal(a, b_)]
+    if diff:
+        for name in determinism_probe(torch, cfg_small):
+            print(f"[chip_smoke] not bitwise repeatable: {name}", flush=True)
+        fail(f"train parity: crash-and-resume differs from an uninterrupted "
+             f"run in {len(diff)} leaves (first {diff[:3]})")
+    log(f"train parity: crash at step 5, resume, 10 steps: bit-identical to an "
+        f"uninterrupted run ({len(T.leaves(straight['state']))} leaves, loss "
+        f"{float(straight['metrics']['loss']):.6f})")
+
+
+def train_phase(torch, cfg, counters):
+    """Full-width granite-3-2b, bf16, TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens through make_train_step with remat."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import for_cell
+    from repro_torch.train import step as TS
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    state_mem = torch.cuda.memory_allocated()
+    n_params = sum(p.numel() for p in T.leaves(state.params))
+    log(f"train: {cfg.name} state on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{n_params / 1e9:.3f} B params bf16 + f32 m/v = {state_mem / 2**30:.2f} GiB "
+        f"({cfg.n_layers} L, d {cfg.d_model}, {cfg.n_heads} H / {cfg.n_kv_heads} KV, "
+        f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings)")
+    ds = for_cell(cfg, ShapeSpec("train_chip", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    batches = [_batch_to(ds.batch(i), "cuda") for i in range(TRAIN_STEPS)]
+    step = TS.make_train_step(cfg, base_lr=3e-4, warmup=1, total_steps=TRAIN_STEPS)
+    # weight matrices, not norm scales: a scale of 1.0 has a bf16 ulp of
+    # 2^-7, larger than an early step's update (~lr), so it stays at 1.0 in
+    # bf16 training in either framework
+    watched = lambda st: {"embed": st.params["embed"]["table"][:4],
+                          "wq0": st.params["layers"][0]["attn"]["wq"]["w"][:4],
+                          "down_last": st.params["layers"][-1]["ffn"]["down"]["w"][:4]}
+    before = {k: v.clone() for k, v in watched(state).items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    times, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, met = step(state, batches[i])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    launches = {name: c.read() for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    # per step with remat: the forward, the recompute of each layer's
+    # forward in the backward, and the backward (rope's is its forward
+    # kernel at -pos); the final norm is outside the remat
+    L, n = cfg.n_layers, TRAIN_STEPS
+    expect = {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+              "rmsnorm": (4 * L + 1) * n, "rmsnorm_bwd": (2 * L + 1) * n,
+              "apply_rope": 6 * L * n, "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = times[1:] or times
+    step_s = sum(steady) / len(steady)
+    log(f"train: {n} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step seconds "
+        f"{[round(x, 4) for x in times]}, steady {step_s:.4f} s/step "
+        f"({tokens / step_s:.1f} tokens/s), losses {losses}, grad norms {gnorms}, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"train: kernel launches {launches} (per-step formula with remat x "
+        f"{n}: {expect})")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
+    for name, c in launches.items():
+        if c <= 0:
+            fail(f"train: kernel {name} was never launched on the training path")
+        if c != expect[name]:
+            fail(f"train: kernel {name} launched {c} times, expected {expect[name]}")
+    moved = {k: not torch.equal(v, before[k]) for k, v in watched(state).items()}
+    if not all(moved.values()):
+        fail(f"train: parameters did not move: {moved}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return launches, dict(steps=n, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          step_s=times, steady_step_s=step_s,
+                          tokens_s=tokens / step_s, losses=losses,
+                          grad_norms=gnorms, peak_mem_bytes=peak,
+                          state_mem_bytes=state_mem, n_params=n_params,
+                          launches_expected=expect)
+
+
 def main() -> None:
     import torch
 
@@ -344,8 +789,8 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention, prefill_attention
-    from repro_torch.kernels import rmsnorm, rope, swiglu
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import prefill_attention, rmsnorm, rope, swiglu
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -369,16 +814,33 @@ def main() -> None:
     timer = Timer(torch)
     rows = kernel_phase(torch, timer, cfg)
     parity_phase(torch, reduced(cfg))
-    counters = {"rmsnorm": rmsnorm, "apply_rope": rope, "silu_mul": swiglu,
-                "paged_decode_attention": decode_attention,
-                "paged_prefill_attention": prefill_attention}
+    counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
+                "silu_mul": Counter(swiglu),
+                "paged_decode_attention": Counter(decode_attention),
+                "paged_prefill_attention": Counter(prefill_attention)}
     launches, serve = serve_phase(torch, cfg, counters)
     for row in rows:
         row["launches"] = launches[row["name"]]
+
+    gcfg = get_config("granite-3-2b")
+    train_rows = train_kernel_phase(torch, timer, gcfg)
+    train_parity_phase(torch, reduced(gcfg))
+    train_counters = {
+        "flash_attention": Counter(flash_attention),
+        "flash_attention_bwd": Counter(flash_attention, "bwd_launches"),
+        "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches"),
+        "apply_rope": Counter(rope), "silu_mul": Counter(swiglu),
+        "silu_mul_bwd": Counter(swiglu, "bwd_launches")}
+    train_launches, train = train_phase(torch, gcfg, train_counters)
+    for row in train_rows:
+        row["launches"] = train_launches[row["name"]]
+    rows += train_rows
+
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-             build_s=info["seconds"], serve=serve, **kernels), indent=1))
+             build_s=info["seconds"], serve=serve, train=train,
+             train_launches=train_launches, **kernels), indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

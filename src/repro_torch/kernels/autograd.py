@@ -1,0 +1,79 @@
+"""Gradients through the port's CUDA kernels.
+
+One :class:`torch.autograd.Function` per kernel on the training path:
+``forward`` launches the forward kernel and ``backward`` the backward
+kernel, with ``ctx`` keeping what the backward reads.  RoPE needs no kernel
+of its own: the interleaved rotation by ``pos * inv_freq`` is orthogonal, so
+its vector-Jacobian product is the same rotation at ``-pos``, which the
+forward kernel computes.  Gradients arriving non-contiguous (from a reshape
+or a transposed product) are made contiguous before a launch.
+
+These take CUDA tensors only; ``kernels/ops.py`` routes to them.  On the CPU
+autograd differentiates the plain versions directly.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rope as _rope
+from repro_torch.kernels import swiglu as _sw
+
+
+class RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rn.rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _rn.rmsnorm_bwd(x, w, dy.contiguous(), ctx.eps)
+        return dx, dw, None
+
+
+class Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, positions, theta: float):
+        ctx.save_for_backward(positions)
+        ctx.theta = theta
+        return _rope.apply_rope(x, positions, theta)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (positions,) = ctx.saved_tensors
+        return _rope.apply_rope(dy.contiguous(), -positions, ctx.theta), None, None
+
+
+class SiluMul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return _sw.silu_mul(gate, up)
+
+    @staticmethod
+    def backward(ctx, dy):
+        gate, up = ctx.saved_tensors
+        return _sw.silu_mul_bwd(gate, up, dy.contiguous())
+
+
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o, lse = _fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                             causal=ctx.causal,
+                                             window=ctx.window)
+        return dq, dk, dv, None, None

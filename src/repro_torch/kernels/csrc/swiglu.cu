@@ -1,4 +1,4 @@
-// Fused SwiGLU gating: out = round(silu(gate)) * up.
+// Fused SwiGLU gating: out = round(silu(gate)) * up, and its backward.
 //
 // Replaces the TPU kernel src/repro/kernels/swiglu.py (silu_mul, pallas_call
 // at :59).  On the H100 it is bound by bytes: two reads and one write per
@@ -38,5 +38,43 @@ extern "C" int repro_silu_mul(int dtype, const void* gate, const void* up, void*
     silu_mul_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(gate),
                                                    static_cast<const T*>(up),
                                                    static_cast<T*>(out), n));
+  return cudaGetLastError();
+}
+
+// Backward, one elementwise pass: dup = dy * round(silu(g)) and dgate =
+// round(dy * up) * sigma(g) (1 + g (1 - sigma(g))), each in f32 and rounded
+// to the element type, at the forward's rounding point (kernels/ref.py
+// silu_mul_bwd).  Bound by bytes: three reads and two writes per element.
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+silu_mul_bwd_kernel(const T* __restrict__ gate, const T* __restrict__ up,
+                    const T* __restrict__ dy, T* __restrict__ dgate, T* __restrict__ dup,
+                    int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    const float g = repro::to_f32(gate[i]);
+    const float dyv = repro::to_f32(dy[i]);
+    const float sig = 1.0f / (1.0f + expf(-g));
+    const float act = repro::to_f32(repro::from_f32<T>(g * sig));
+    dup[i] = repro::from_f32<T>(dyv * act);
+    const float dact = repro::to_f32(repro::from_f32<T>(dyv * repro::to_f32(up[i])));
+    dgate[i] = repro::from_f32<T>(dact * (sig * (1.0f + g * (1.0f - sig))));
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_silu_mul_bwd(int dtype, const void* gate, const void* up, const void* dy,
+                                  void* dgate, void* dup, int64_t n, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = repro::elementwise_blocks(n, kThreads);
+  REPRO_DISPATCH_DTYPE(dtype, T,
+    silu_mul_bwd_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(gate), static_cast<const T*>(up), static_cast<const T*>(dy),
+        static_cast<T*>(dgate), static_cast<T*>(dup), n));
   return cudaGetLastError();
 }

@@ -1,20 +1,20 @@
 """Public kernel API of the port, dispatched on the tensor's device only.
 
 A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``), which is
-what the CPU tests compare with the JAX package.  A CUDA tensor launches the
-hand-written kernel, or the call raises: there is no mode switch and no
-fallback from a failed build or launch to the plain version.
+what the CPU tests compare with the JAX package, and which autograd
+differentiates directly.  A CUDA tensor launches the hand-written kernel
+through its ``torch.autograd.Function`` (``kernels/autograd.py``), whose
+backward is a kernel too, or the call raises: there is no mode switch and
+no fallback from a failed build or launch to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import prefill_attention as _pf
 from repro_torch.kernels import ref
-from repro_torch.kernels import rmsnorm as _rn
-from repro_torch.kernels import rope as _rope
-from repro_torch.kernels import swiglu as _sw
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -24,19 +24,36 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def rmsnorm(x, w, *, eps: float = 1e-5):
     if _on_cpu(x):
         return ref.rmsnorm(x, w, eps)
-    return _rn.rmsnorm(x, w, eps)
+    return _ag.RMSNorm.apply(x, w, eps)
 
 
 def apply_rope(x, positions, *, theta: float = 10_000.0):
     if _on_cpu(x):
         return ref.apply_rope(x, positions, theta)
-    return _rope.apply_rope(x, positions, theta)
+    return _ag.Rope.apply(x, positions, theta)
 
 
 def silu_mul(gate, up):
     if _on_cpu(up):
         return ref.silu_mul(gate, up)
-    return _sw.silu_mul(gate, up)
+    return _ag.SiluMul.apply(gate, up)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    lengths=None, q_offset: int = 0):
+    """Full-sequence attention: q [B, Sq, H, D]; k, v [B, Sk, KvH, D].  The
+    kernel covers what the JAX package's Pallas path covers (``lengths is
+    None and q_offset == 0``: training); the ragged-``lengths`` and offset
+    cases are the dense-slab serving path, ported with its slice."""
+    if _on_cpu(q):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   lengths=lengths, q_offset=q_offset)
+    if lengths is not None or q_offset:
+        raise NotImplementedError(
+            "flash_attention with lengths or q_offset is the dense-slab "
+            "serving path (the Pallas decode/prefill-slab kernels); it comes "
+            "with the dense-slab slice of repro_torch")
+    return _ag.FlashAttention.apply(q, k, v, causal, window)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths):

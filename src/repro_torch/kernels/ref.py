@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels on the dense serving path.
+"""Plain PyTorch versions of the kernels on the dense serving and training
+paths, forward and backward.
 
 A line-for-line port of the oracles in the JAX package's ``kernels/ref.py``
 (rounding points included): they are the CPU execution path (see
@@ -40,6 +41,35 @@ def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """silu(gate) * up, with silu computed in f32 and rounded to ``up``'s
     dtype before the multiply (the JAX oracle's rounding point)."""
     return silu(gate.float()).to(up.dtype) * up
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients (dx, dw) of :func:`rmsnorm`, in f32 from the forward's
+    f32 statistics: with x^ = x rstd and g = w dy,
+    dx = rstd (g - x^ mean(g x^)) and dw = sum over rows of dy x^."""
+    xf = x.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    g = dy.float() * w.float()
+    c = torch.mean(g * xhat, dim=-1, keepdim=True)
+    dx = rstd * (g - xhat * c)
+    dw = (dy.float() * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def silu_mul_bwd(gate: torch.Tensor, up: torch.Tensor,
+                 dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients (dgate, dup) of :func:`silu_mul`, at its rounding point:
+    dup = dy * round(silu(gate)) and dgate = round(dy * up) *
+    sigma(g) (1 + g (1 - sigma(g))) in f32, rounded to ``gate``'s dtype."""
+    gf = gate.float()
+    sig = torch.sigmoid(gf)
+    act = (gf * sig).to(up.dtype)
+    dup = dy * act
+    dact = (dy * up).float()
+    dgate = dact * (sig * (1.0 + gf * (1.0 - sig)))
+    return dgate.to(gate.dtype), dup
 
 
 # ---------------------------------------------------------------------------
@@ -84,11 +114,12 @@ def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, group, dim=2) if group > 1 else k
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                    lengths: Optional[torch.Tensor] = None,
-                    block_k: int = 512) -> torch.Tensor:
+def _flash_stats(q, k, v, *, causal: bool, q_offset: int,
+                 lengths: Optional[torch.Tensor], window: Optional[int],
+                 block_k: int):
     """Online-softmax attention over KV blocks of ``block_k`` rows, keeping
-    the running (m, l, acc) statistics of the JAX oracle."""
+    the running (m, l, acc) statistics of the JAX oracle.  Returns the f32
+    (acc, m, l) as [B, Sq, KvH, G, D] / [B, Sq, KvH, G]."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -111,11 +142,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         vf = v[:, iblk * block_k:(iblk + 1) * block_k].float()
         s = torch.einsum("bqgnd,bkgd->bqgnk", qf, kf) * scale
         kpos = iblk * block_k + torch.arange(block_k, device=dev)
-        mask = torch.ones((sq, block_k), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= kpos[None, :] <= qpos
-        if pad:
-            mask &= (kpos < sk)[None, :]
+        mask = _attn_mask(qpos, kpos, causal, window, sk if pad else None)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         if lengths is not None:
             lm = kpos[None, :] < lengths[:, None]          # [B, block_k]
@@ -126,8 +153,93 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqgnk,bkgd->bqgnd", p, vf)
         m = m_new
+    return acc, m, l
+
+
+def _attn_mask(qpos, kpos, causal: bool, window: Optional[int],
+               sk: Optional[int]) -> torch.Tensor:
+    """[Sq, Sk_blk] bool: causal ``kpos <= qpos``, sliding window ``kpos >
+    qpos - window`` (the JAX oracle's mask), and ``kpos < sk`` for padding."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=kpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos
+    if window is not None:
+        mask &= kpos[None, :] > qpos - window
+    if sk is not None:
+        mask &= (kpos < sk)[None, :]
+    return mask
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    lengths: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None,
+                    block_k: int = 512) -> torch.Tensor:
+    """q [B, Sq, H, D]; k, v [B, Sk, KvH, D] -> [B, Sq, H, D]; optional
+    causal mask, sliding ``window``, per-sequence KV ``lengths``."""
+    b, sq, h, d = q.shape
+    acc, _, l = _flash_stats(q, k, v, causal=causal, q_offset=q_offset,
+                             lengths=lengths, window=window, block_k=block_k)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, block_k: int = 512):
+    """:func:`flash_attention` plus the per-row log-sum-exp ``lse = m +
+    log(l)`` [B, H, Sq] in f32 (``l`` floored at 1e-30), which the backward
+    reads to recompute the probabilities."""
+    b, sq, h, d = q.shape
+    acc, m, l = _flash_stats(q, k, v, causal=causal, q_offset=0, lengths=None,
+                             window=window, block_k=block_k)
+    lf = torch.clamp(l, min=1e-30)
+    out = (acc / lf[..., None]).reshape(b, sq, h, d).to(q.dtype)
+    lse = (m + torch.log(lf)).reshape(b, sq, h).permute(0, 2, 1).contiguous()
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None, block_k: int = 512):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` by the explicit
+    flash-attention backward, block by block over the keys:
+
+        D  = rowsum(do * o)               p  = exp(s - lse)  (0 where masked)
+        dv = sum_q p do                   dp = do . v
+        ds = p (dp - D)                   dq = scale sum_k ds k
+                                          dk = scale sum_q ds q
+
+    with s = scale (q . k), everything in f32, and the outputs rounded to
+    the inputs' dtype.  GQA sums dk and dv over the query heads of a KV
+    head.  ``lse`` [B, H, Sq] is what :func:`flash_attention_lse` returns."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    block_k = min(block_k, sk)
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, sq, kvh, group, d)
+    dof = do.float().reshape(b, sq, kvh, group, d)
+    delta = (dof * o.float().reshape(b, sq, kvh, group, d)).sum(-1)
+    lse_r = lse.permute(0, 2, 1).reshape(b, sq, kvh, group)
+    qpos = torch.arange(sq, device=dev)[:, None]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, sk, kvh, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, sk, kvh, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, sk, block_k):
+        kf = k[:, k0:k0 + block_k].float()
+        vf = v[:, k0:k0 + block_k].float()
+        kpos = k0 + torch.arange(kf.shape[1], device=dev)
+        s = torch.einsum("bqgnd,bkgd->bqgnk", qf, kf) * scale
+        mask = _attn_mask(qpos, kpos, causal, window, None)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        p = torch.exp(s - lse_r[..., None])
+        dv[:, k0:k0 + block_k] = torch.einsum("bqgnk,bqgnd->bkgd", p, dof)
+        dp = torch.einsum("bqgnd,bkgd->bqgnk", dof, vf)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bqgnk,bkgd->bqgnd", ds, kf)
+        dk[:, k0:k0 + block_k] = torch.einsum("bqgnk,bqgnd->bkgd", ds, qf)
+    return ((dq * scale).reshape(b, sq, h, d).to(q.dtype),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
 def decode_attention_partial(q, k, v, *, lengths: Optional[torch.Tensor] = None,

@@ -1,5 +1,5 @@
-"""Fused SwiGLU gating — hand-written CUDA kernel for Hopper
-(``csrc/swiglu.cu``).
+"""Fused SwiGLU gating and its backward — hand-written CUDA kernels for
+Hopper (``csrc/swiglu.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/swiglu.py`` (``silu_mul``,
 ``pallas_call`` at :59).  On the H100 it is bound by bytes: two reads and one
@@ -9,8 +9,13 @@ plain version does; the TPU kernel keeps it in f32, one bf16 rounding away.
 The TPU kernel's optional ``curry_rounds`` Taylor exp has no caller on the
 serving path and is left for a later slice.
 
-The plain version is ``kernels/ref.py:silu_mul``; ``kernels/ops.py`` sends CPU
-tensors there.  This wrapper takes CUDA tensors only.
+The backward (no TPU kernel: the JAX package differentiates its oracle) is
+one elementwise pass, bound by bytes (three reads, two writes); it rounds
+where the forward rounds.
+
+The plain versions are ``kernels/ref.py:silu_mul`` and ``silu_mul_bwd``;
+``kernels/ops.py`` sends CPU tensors there.  These wrappers take CUDA
+tensors only.
 """
 from __future__ import annotations
 
@@ -18,7 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches through this wrapper
+launches = 0       # forward kernel launches through this module
+bwd_launches = 0   # backward kernel launches
 
 
 def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -36,3 +42,24 @@ def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     launches += 1
     _build.check("silu_mul", code)
     return out
+
+
+def silu_mul_bwd(gate: torch.Tensor, up: torch.Tensor, dy: torch.Tensor):
+    """Gradients (dgate, dup) of :func:`silu_mul` for the output gradient."""
+    global bwd_launches
+    if not (gate.shape == up.shape == dy.shape) or \
+            not (gate.dtype == up.dtype == dy.dtype):
+        raise ValueError(f"silu_mul_bwd: gate {tuple(gate.shape)} {gate.dtype}, "
+                         f"up {tuple(up.shape)} {up.dtype}, dy "
+                         f"{tuple(dy.shape)} {dy.dtype} must match")
+    _build.require_cuda("silu_mul_bwd", gate=gate, up=up, dy=dy)
+    dgate = torch.empty_like(gate)
+    dup = torch.empty_like(up)
+    lib = _build.load()
+    code = lib.repro_silu_mul_bwd(_build.dtype_code(up), gate.data_ptr(),
+                                  up.data_ptr(), dy.data_ptr(),
+                                  dgate.data_ptr(), dup.data_ptr(), up.numel(),
+                                  _build.stream_ptr(up))
+    bwd_launches += 1
+    _build.check("silu_mul_bwd", code)
+    return dgate, dup

@@ -1,0 +1,90 @@
+"""Training entry point of the port: the fault-tolerant driver over the
+train step, on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+      --reduced --device cpu --steps 50 --ckpt-dir /tmp/ckpt
+
+The step runs on the card (``--device cuda``, the default) through the
+hand-written CUDA kernels, forward and backward; ``--device cpu`` runs the
+plain PyTorch versions.  Parameters are random, made from ``--seed``; the
+data is the deterministic synthetic pipeline.  Only ``--mesh none`` (one
+device) is ported: ``--mesh single|multi`` and ``--distributed`` come with
+the sharding slice.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+
+import torch
+
+from repro_torch.configs import ARCHS, TRAIN_4K, get_config, reduced as reduce_cfg
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.data import for_cell
+from repro_torch.runtime import TrainDriver
+from repro_torch.train import step as train_step_mod
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b", choices=list(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--global-batch", type=int, default=None)
+    ap.add_argument("--microbatch", type=int, default=None)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", default="none",
+                    choices=("none", "single", "multi"),
+                    help="'none' = one device; the meshes come with the "
+                         "sharding slice")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-process training (the sharding slice)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the step runs: cuda (the CUDA kernels) or "
+                         "cpu (their plain PyTorch versions)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random parameters")
+    args = ap.parse_args(argv)
+
+    if args.distributed or args.mesh != "none":
+        raise NotImplementedError(
+            "--mesh single|multi and --distributed are sharded training, "
+            "which comes with the sharding slice of repro_torch; this slice "
+            "trains on one device (--mesh none)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device visible; pass --device cpu to run "
+                         "the plain PyTorch path")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    shape = ShapeSpec("train_cli",
+                      args.seq_len or (32 if args.reduced else TRAIN_4K.seq_len),
+                      args.global_batch or (8 if args.reduced else TRAIN_4K.global_batch),
+                      "train")
+    tstep = train_step_mod.make_train_step(
+        cfg, base_lr=args.lr, total_steps=args.steps,
+        microbatch=args.microbatch)
+    driver = TrainDriver(
+        train_step=tstep,
+        init_state=lambda: train_step_mod.init_state(cfg, args.seed,
+                                                     device=device),
+        dataset=for_cell(cfg, shape), ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        put_batch=lambda b: {k: torch.from_numpy(v).to(device)
+                             for k, v in b.items()})
+    out = driver.run(total_steps=args.steps)
+    print(f"[train] done at step {out['last_step']} "
+          f"loss={float(out['metrics']['loss']):.4f} "
+          f"mean_step={out['mean_step_s']} on {device}")
+
+
+if __name__ == "__main__":
+    main()

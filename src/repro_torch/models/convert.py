@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry the JAX package's parameters (and optimizer state) over to the port.
 
 The JAX model initialises its layer stack with ``jax.vmap``, so every leaf
 under ``"layers"`` is stacked ``[L, ...]``; the port keeps a list of
@@ -13,6 +13,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from repro_torch.train.optim import OptState
+from repro_torch.train.step import TrainState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -42,3 +45,18 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
                                                           device))
                      for i in range(n_layers)]
     return out
+
+
+def state_from_jax(state, device="cpu"):
+    """A JAX ``TrainState`` (numpy leaves) -> the port's
+    ``repro_torch.train.step.TrainState``: parameters as in
+    :func:`params_from_jax`, and the AdamW moments ``m`` / ``v``, which have
+    the parameters' structure, carried the same way; the step count stays a
+    CPU int32 scalar."""
+    opt = state.opt
+    return TrainState(
+        params=params_from_jax(state.params, device),
+        opt=OptState(m=params_from_jax(opt.m, device),
+                     v=params_from_jax(opt.v, device),
+                     step=torch.tensor(int(np.asarray(opt.step)),
+                                       dtype=torch.int32)))

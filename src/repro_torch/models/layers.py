@@ -1,5 +1,5 @@
-"""Building blocks of the dense family: linear, RMSNorm, RoPE attention over
-a paged KV cache, SwiGLU FFN.
+"""Building blocks of the dense family: linear, RMSNorm, RoPE attention
+(full-sequence for training, over a paged KV cache for serving), SwiGLU FFN.
 
 Port of the JAX package's ``models/layers.py`` (dense subset).  Parameters
 are plain nested dicts of tensors with the JAX layouts (``linear`` weights
@@ -30,7 +30,9 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+    """Row lookup; its gradient (a sorted segment sum on the card) is
+    deterministic, unlike an atomic scatter-add."""
+    return torch.nn.functional.embedding(tokens.long(), p["table"])
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +87,17 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     q = ops.apply_rope(q, positions, theta=cfg.rope_theta)
     k = ops.apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
+
+
+def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+              *, lengths=None, window=None) -> torch.Tensor:
+    """Full-sequence causal attention (training).  x [B,S,d] -> [B,S,d];
+    positions [B,S] int32."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = ops.flash_attention(q, k, v, causal=True, lengths=lengths,
+                            window=window)
+    return linear(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
 
 
 def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,

@@ -1,12 +1,15 @@
-"""Decoder LM of the dense family over a paged KV cache.
+"""Decoder LM of the dense family: full-sequence forward (training) and
+serving over a paged KV cache.
 
 Port of the JAX package's ``models/model.py`` for ``family="dense"``: the
 stacked-layer ``lax.scan`` becomes a Python loop over a list of per-layer
-parameter dicts, and the pages are updated in place.  Other families raise
+parameter dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and
+the pages are updated in place.  Other families raise
 ``NotImplementedError`` naming the slice of the port that brings them.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
+    forward(cfg, params, tokens, ...)              -> (logits [B, S, V], aux [2])
     init_serve_state(cfg, slots, num_blocks, block_size, dtype, device)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
@@ -15,7 +18,10 @@ Public API:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
@@ -100,6 +106,40 @@ def _block(cfg, lp, x, attn):
     attention output."""
     x = x + attn(layers.rmsnorm(lp["ln1"], x, cfg.norm_eps))
     return x + layers.ffn(lp["ffn"], layers.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+
+
+def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None, train: bool = False,
+            attn_window: Optional[int] = None, remat: bool = True):
+    """Full-sequence forward -> (logits [B, S, V], aux [2]).
+
+    tokens [B, S] (or ``embeds`` [B, S, d]); positions [B, S] int32
+    (default 0..S-1).  With ``train`` and ``remat`` each layer runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    recomputes its forward (kernels included).  ``aux`` holds the MoE
+    (load-balance, z) losses, zeros for the dense family."""
+    require_dense(cfg)
+    x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+
+    def body(xc, lp):
+        return _block(cfg, lp, xc, lambda h: layers.attention(
+            lp["attn"], h, positions, cfg, lengths=lengths,
+            window=attn_window))
+
+    for lp in params["layers"]:
+        if train and remat:
+            x = checkpoint(body, x, lp, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, lp)
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x), aux
 
 
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,

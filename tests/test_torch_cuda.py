@@ -9,7 +9,9 @@ No JAX here: the machine with the card has none.  Inputs are made with
 numpy from a seed.  fp32 cases hold the kernel to 1e-5 (the same sums in
 another order); bf16 cases to 2 bf16 ulps relative plus 1e-2 absolute, the
 rounding of the output and, for attention, of p before the PV product in
-the plain version.
+the plain version.  The flash-attention backward at fp32 is held to 1e-4:
+its sums run over every visible query or key, in another order than the
+plain version's block einsums, and ``dp - D`` cancels.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpf  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
@@ -108,6 +112,106 @@ def test_paged_prefill_kernel(dev, dtype, h, kvh, d, bs, c):
             wparts = ref.paged_prefill_attention_partial(q, kp, vp, tbl, **kw)
             for a, b_ in zip(parts, wparts):
                 _close(a[0, :ln], b_[0, :ln], dtype)
+
+
+FLASH_CASES = [  # (B, Sq, Sk, H, KvH, D, causal, window)
+    (2, 100, 100, 8, 2, 64, True, None),
+    (2, 100, 100, 8, 2, 64, True, 17),
+    (1, 130, 130, 4, 4, 16, True, None),
+    (1, 70, 70, 4, 1, 128, True, 40),
+    (2, 64, 64, 6, 3, 16, False, None),
+    (1, 33, 90, 4, 2, 64, False, 20),
+]
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernels(dev, dtype, case):
+    """Forward (output and lse) and backward against the plain versions;
+    the backward twice on the same inputs gives the same bits."""
+    b, sq, sk, h, kvh, d, causal, window = case
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (b, sq, h, d), dtype, dev)
+    k = _rand(rng, (b, sk, kvh, d), dtype, dev)
+    v = _rand(rng, (b, sk, kvh, d), dtype, dev)
+    do = _rand(rng, (b, sq, h, d), dtype, dev)
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want_o, want_lse = ref.flash_attention_lse(q, k, v, causal=causal,
+                                               window=window)
+    _close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    got = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    tol = BWD_TOL if dtype == torch.float32 else TOLS[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    window=window)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels(dev, dtype):
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (600, 2048), dtype, dev)
+    w = _rand(rng, (2048,), dtype, dev)
+    dy = _rand(rng, (600, 2048), dtype, dev)
+    got = krn.rmsnorm_bwd(x, w, dy, 1e-5)
+    want = ref.rmsnorm_bwd(x, w, dy, 1e-5)
+    _close(got[0], want[0], dtype)
+    # dw sums 600 rows: per-block partials vs one reduction
+    torch.testing.assert_close(got[1].float(), want[1].float(),
+                               **(BWD_TOL if dtype == torch.float32 else TOLS[dtype]))
+    g = _rand(rng, (7, 5632), dtype, dev, 3.0)
+    u = _rand(rng, (7, 5632), dtype, dev)
+    dy = _rand(rng, (7, 5632), dtype, dev)
+    for a, b_ in zip(ksw.silu_mul_bwd(g, u, dy), ref.silu_mul_bwd(g, u, dy)):
+        _close(a, b_, dtype)
+    # rope's vjp is the forward kernel at -pos
+    q = _rand(rng, (2, 9, 6, 64), dtype, dev).requires_grad_()
+    pos = torch.from_numpy(rng.integers(0, 4096, size=(2, 9)).astype(np.int32)).to(dev)
+    dq = _rand(rng, (2, 9, 6, 64), dtype, dev)
+    (want,) = torch.autograd.grad(ref.apply_rope(q, pos), q, dq)
+    _close(krope.apply_rope(dq, -pos), want, dtype)
+
+
+def test_autograd_functions_match_plain_autograd(dev):
+    """Each Function (kernel forward + kernel backward) against autograd of
+    the plain version on the same fp32 inputs on the card."""
+    rng = np.random.default_rng(5)
+    f32 = torch.float32
+
+    def grads(fn, *xs):
+        xs = [x.detach().requires_grad_() for x in xs]
+        y = fn(*xs)
+        dy = torch.from_numpy(np.random.default_rng(6).normal(size=y.shape)
+                              .astype(np.float32)).to(dev)
+        return [y] + list(torch.autograd.grad(y, xs, dy))
+
+    x, w = _rand(rng, (3, 50, 96), f32, dev), _rand(rng, (96,), f32, dev)
+    g, u = _rand(rng, (4, 300), f32, dev, 3.0), _rand(rng, (4, 300), f32, dev)
+    q = _rand(rng, (2, 77, 4, 16), f32, dev)
+    k = _rand(rng, (2, 77, 2, 16), f32, dev)
+    v = _rand(rng, (2, 77, 2, 16), f32, dev)
+    pos = torch.arange(77, dtype=torch.int32, device=dev)[None].expand(2, 77)
+    pairs = [
+        (lambda a, b_: ops.rmsnorm(a, b_, eps=1e-5),
+         lambda a, b_: ref.rmsnorm(a, b_, 1e-5), (x, w)),
+        (ops.silu_mul, ref.silu_mul, (g, u)),
+        (lambda a: ops.apply_rope(a, pos), lambda a: ref.apply_rope(a, pos), (q,)),
+        (lambda a, b_, c: ops.flash_attention(a, b_, c, window=30),
+         lambda a, b_, c: ref.flash_attention(a, b_, c, window=30), (q, k, v)),
+    ]
+    for kern, plain, xs in pairs:
+        for a, b_ in zip(grads(kern, *xs), grads(plain, *xs)):
+            torch.testing.assert_close(a, b_, **BWD_TOL)
+    with pytest.raises(NotImplementedError, match="dense-slab"):
+        ops.flash_attention(q, k, v, q_offset=3)
 
 
 def test_model_on_card_matches_cpu(dev):

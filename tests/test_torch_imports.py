@@ -20,8 +20,15 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print(len(names), bad)
+print(",".join(names), bad)
 """
+
+# modules that must be among those walked (the training slice included)
+REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
+            "repro_torch.models.model", "repro_torch.train.optim",
+            "repro_torch.train.step", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.ckpt", "repro_torch.runtime.driver",
+            "repro_torch.runtime.straggler", "repro_torch.launch.train")
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
@@ -29,6 +36,8 @@ def test_repro_torch_imports_no_jax_and_no_repro():
     r = subprocess.run([sys.executable, "-c", _CODE], capture_output=True,
                        text=True, env=env, timeout=300, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
-    n, bad = r.stdout.strip().split(" ", 1)
+    names, bad = r.stdout.strip().split(" ", 1)
+    names = names.split(",")
     assert bad == "[]", bad
-    assert int(n) >= 20            # every package and module was walked
+    assert len(names) >= 30        # every package and module was walked
+    assert not set(REQUIRED) - set(names), set(REQUIRED) - set(names)
