@@ -36,7 +36,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    seed) for ``TRAIN_STEPS`` steps of 2 x 4096 tokens through
    ``make_train_step`` with remat (the step ``launch/train.py`` drives, called
    directly so that no 30 GB checkpoint is written); counters zeroed just
-   before, read just after, and every training-path kernel must have run.
+   before, read just after, and every training-path kernel must have run;
+9. rwkv kernels: the wkv6 forward and backward at full-width rwkv6-3b
+   shapes (r, k, v [2, 4096, 40, 64] bf16, a data-dependent decay drawn
+   through the model's ``_decay`` with a random nonzero ``w_b``), held
+   against their plain versions and timed as in 3 (no PyTorch call
+   computes wkv6: no library time); a control shows the forward's
+   tolerance catches a kernel that drops one chunk's state contribution,
+   and the backward twice gives the same bits;
+10. rwkv train parity: phase 7 for reduced rwkv6-3b with a random nonzero
+   ``w_b``;
+11. rwkv train: rwkv6-3b at full width and depth as in 8, with the wkv6
+   and rmsnorm launch counts held to the remat formulas.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -73,6 +84,18 @@ FLASH_LSE_TOL = dict(rtol=0.0, atol=1e-4)
 FLASH_GRAD_TOL = dict(rtol=2 ** -6, atol=4e-3)
 FLASH_REL = 1e-2
 FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu
+# wkv6 at rwkv6-3b's full width (bf16 r, k, v, o and their gradients; f32
+# S_final, dl = dw w and du).  Tolerances set from the readings of the first
+# full-width runs (PERF.md, Findings): the bf16 outputs differ by at most one
+# bf16 ulp (0.5 at |o| ~ 181; relative norm errors <= 4.8e-5), so they are
+# held to one ulp relative (2^-7) plus 1e-3 of the tensor's largest entry;
+# the f32 outputs read <= 4.7e-6 of their largest entry and are held to
+# 1e-4 relative plus 1e-4 of it; every output to a relative norm error of
+# 1e-3 (20x the largest reading)
+WKV_RTOL, WKV_ATOL = 2 ** -7, 1e-3
+WKV_F32_RTOL, WKV_F32_ATOL = 1e-4, 1e-4
+WKV_REL = 1e-3
+WKV_WB_STD = 1.0                               # std of the random w_b
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
@@ -176,19 +199,27 @@ def hold(torch, name, got, want, tol, rel=None) -> float:
 
 
 def measure(torch, timer, name, source, replaces, kernel, plain, tol, nbytes,
-            flops, library=None, note="", iters=20, plain_iters=20, rel=None):
+            flops, library=None, note="", iters=20, plain_iters=20, rel=None,
+            view=None):
     """Hold ``kernel()`` against ``plain()`` on the same inputs (each may
-    return a tensor or a tuple of tensors; ``tol`` is one tolerance or a
-    tuple of one per output), time both and ``library`` (one PyTorch call
-    computing the same function, or None), and return the kernel's row of
-    the ``{"kernels": ...}`` line (launches filled in by the path that runs
-    it)."""
+    return a tensor or a tuple of tensors, mapped through ``view`` first
+    when given; ``tol`` is one tolerance or a tuple of one per output),
+    time both and ``library`` (one PyTorch call computing the same
+    function, or None), and return the kernel's row of the ``{"kernels":
+    ...}`` line (launches filled in by the path that runs it)."""
     got, want = kernel(), plain()
+    if view is not None:
+        got, want = view(got), view(want)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     tols = tol if isinstance(tol, tuple) else (tol,) * len(got)
-    err = max(hold(torch, name, g, w, t, rel) for g, w, t in zip(got, want, tols))
+    errs = [hold(torch, name, g, w, t, rel) for g, w, t in zip(got, want, tols)]
+    err = max(errs)
+    if len(errs) > 1:
+        note += "; per output max|err| " + ", ".join(
+            f"{e:.3g} (rel {rel_err(torch, g, w):.2g})"
+            for e, g, w in zip(errs, got, want))
     del got, want
     ms = timer(kernel, iters=iters)
     plain_ms = timer(plain, iters=plain_iters)
@@ -589,7 +620,6 @@ def determinism_probe(torch, cfg_small):
     tok = torch.randint(0, cfg_small.vocab_size, (4, 64), generator=gen, device="cuda")
     table = r(cfg_small.vocab_size, cfg_small.d_model)
     x, w, dy = r(4, 64, cfg_small.d_model), r(cfg_small.d_model), r(4, 64, cfg_small.d_model)
-    q, k = r(4, 64, cfg_small.n_heads, cfg_small.hd), r(4, 64, cfg_small.n_kv_heads, cfg_small.hd)
     pos = torch.arange(64, dtype=torch.int32, device="cuda")
     ops = {
         "embedding backward (F.embedding)": (lambda t: F.embedding(tok, t), (table,)),
@@ -597,10 +627,19 @@ def determinism_probe(torch, cfg_small):
         "cross-entropy backward": (lambda a: cross_entropy(a, tok), (r(4, 64, cfg_small.vocab_size),)),
         "rmsnorm kernels": (lambda a, b_: ag.RMSNorm.apply(a, b_, 1e-5), (x, w)),
         "silu_mul kernels": (ag.SiluMul.apply, (x, dy)),
-        "rope kernel": (lambda a: ag.Rope.apply(a, pos, 1e4), (q,)),
-        "flash attention kernels": (lambda a, b_, c: ag.FlashAttention.apply(a, b_, c, True, None),
-                                    (q, k, k)),
     }
+    if cfg_small.n_heads:
+        q = r(4, 64, cfg_small.n_heads, cfg_small.hd)
+        k = r(4, 64, cfg_small.n_kv_heads, cfg_small.hd)
+        ops["rope kernel"] = (lambda a: ag.Rope.apply(a, pos, 1e4), (q,))
+        ops["flash attention kernels"] = (
+            lambda a, b_, c: ag.FlashAttention.apply(a, b_, c, True, None), (q, k, k))
+    if cfg_small.rwkv:
+        hh, hd = cfg_small.rwkv_heads, cfg_small.rwkv_head_dim
+        wd = torch.rand((4, 64, hh, hd), generator=gen, device="cuda") * 0.9 + 0.05
+        ops["rwkv6 kernels"] = (lambda a, b_, c, d_, e_: ag.RWKV6.apply(a, b_, c, d_, e_)[0],
+                                (r(4, 64, hh, hd), r(4, 64, hh, hd), r(4, 64, hh, hd), wd,
+                                 r(hh, hd)))
     bad = []
     for name, (fn, xs) in ops.items():
         outs = []
@@ -613,11 +652,12 @@ def determinism_probe(torch, cfg_small):
     return bad
 
 
-def train_parity_phase(torch, cfg_small):
-    """Reduced granite-3-2b at fp32: one train step on the card (kernels)
-    against the CPU (plain versions) from the same parameters, then a crash
-    and resume on the card that must end bit-identical to an uninterrupted
-    run (the JAX driver's contract)."""
+def train_parity_phase(torch, cfg_small, perturb=None):
+    """A reduced config at fp32: every gradient leaf and one train step on
+    the card (kernels) against the CPU (plain versions) from the same
+    parameters (``perturb`` edits the initial parameters in place), then a
+    crash and resume on the card that must end bit-identical to an
+    uninterrupted run (the JAX driver's contract)."""
     import shutil
 
     from repro_torch import tree as T
@@ -625,13 +665,18 @@ def train_parity_phase(torch, cfg_small):
     from repro_torch.runtime import SimulatedFailure, TrainDriver
     from repro_torch.train import step as TS
 
+    def init(dev):
+        state = TS.init_state(cfg_small, seed=0, dtype=torch.float32, device="cpu")
+        if perturb is not None:
+            perturb(state.params)
+        return T.map(lambda t: t.to(dev) if t.dim() else t, state)
+
     lr, wd = 1e-3, 0.1
     batch = SyntheticLM(cfg_small.vocab_size, 64, 4, seed=1).batch(0)
     grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg_small))
     out = {}
     for dev in ("cpu", "cuda"):
-        state = TS.init_state(cfg_small, seed=0, dtype=torch.float32, device="cpu")
-        state = T.map(lambda t: t.to(dev) if t.dim() else t, state)
+        state = init(dev)
         (_, _), grads = grad_fn(state.params, _batch_to(batch, dev))
         grads = [g.cpu() for g in T.leaves(grads)]
         step = TS.make_train_step(cfg_small, base_lr=lr, warmup=1, weight_decay=wd)
@@ -650,7 +695,7 @@ def train_parity_phase(torch, cfg_small):
     dp = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(pg, pc))
     n_over = sum(int(((a.cpu() - b_).abs() > 1e-5).sum()) for a, b_ in zip(pg, pc))
     bound_p = 2 * lr * (1 + wd)
-    log(f"train parity: reduced granite fp32 card vs cpu: {len(rel)} gradient "
+    log(f"train parity: {cfg_small.name} fp32 card vs cpu: {len(rel)} gradient "
         f"leaves, largest max|diff| / max|g| {rel[worst]:.3g} at "
         f"{paths[worst]} (tolerance 1e-4); one step: loss {lg:.6f} vs "
         f"{lc:.6f}, grad norm {gg:.6f} vs {gc:.6f}, params max |diff| "
@@ -669,8 +714,7 @@ def train_parity_phase(torch, cfg_small):
     def driver(inject=None):
         return TrainDriver(
             train_step=step, dataset=ds, ckpt_dir=str(ckpt), ckpt_every=3,
-            init_state=lambda: TS.init_state(cfg_small, seed=0,
-                                             dtype=torch.float32, device="cuda"),
+            init_state=lambda: init("cuda"),
             put_batch=lambda bt: _batch_to(bt, "cuda"), inject_failure_at=inject)
 
     quiet = lambda *a: None
@@ -692,14 +736,201 @@ def train_parity_phase(torch, cfg_small):
             print(f"[chip_smoke] not bitwise repeatable: {name}", flush=True)
         fail(f"train parity: crash-and-resume differs from an uninterrupted "
              f"run in {len(diff)} leaves (first {diff[:3]})")
-    log(f"train parity: crash at step 5, resume, 10 steps: bit-identical to an "
+    log(f"train parity: {cfg_small.name}: crash at step 5, resume, 10 steps: "
+        f"bit-identical to an "
         f"uninterrupted run ({len(T.leaves(straight['state']))} leaves, loss "
         f"{float(straight['metrics']['loss']):.6f})")
 
 
-def train_phase(torch, cfg, counters):
-    """Full-width granite-3-2b, bf16, TRAIN_STEPS steps of TRAIN_BATCH x
-    TRAIN_SEQ tokens through make_train_step with remat."""
+def rwkv_inputs(torch, cfg, seed):
+    """Full-width wkv6 inputs: r, k, v, do [TRAIN_BATCH, TRAIN_SEQ, H, D]
+    bf16 ~ N(0, 1) (what the projections of a normed input give), u [H, D]
+    f32, and w drawn through the port's ``models/rwkv.py:_decay`` on random
+    inputs with a random nonzero ``w_b`` (N(0, WKV_WB_STD^2)), so the decay
+    is data-dependent: its logit -5 + tanh(x W_a) W_b spreads over the
+    whole clip range [-12, 4], and the rows at 4 (w = 1.8e-24) lie below
+    the 1e-20 clamp."""
+    from repro_torch.models import rwkv as R
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    b, s, h, d, dm = TRAIN_BATCH, TRAIN_SEQ, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    r, k, v, do = (randn(b, s, h, d) for _ in range(4))
+    tm = {"w0": torch.full((dm,), -5.0, device=dev),
+          "w_a": randn(dm, cfg.rwkv_lora, scale=dm ** -0.5),
+          "w_b": randn(cfg.rwkv_lora, dm, scale=WKV_WB_STD)}
+    w = R._decay(tm, randn(b, s, dm)).reshape(b, s, h, d).contiguous()
+    u = randn(h, d, scale=0.5, dtype=torch.float32)
+    return r, k, v, w, u, do
+
+
+def wkv_tol(torch, want):
+    """The elementwise tolerance of one wkv6 output, by its dtype, with the
+    absolute part scaled to the plain version's largest entry."""
+    scale = float(want.float().abs().max())
+    if want.dtype == torch.bfloat16:
+        return dict(rtol=WKV_RTOL, atol=WKV_ATOL * scale)
+    return dict(rtol=WKV_F32_RTOL, atol=WKV_F32_ATOL * scale)
+
+
+def dropped_chunk_control(torch, r, k, v, w, o_ok, tol):
+    """What the wkv6 forward check reads for a wrong kernel: one that drops
+    the state's contribution (r_t e^{cin_t}) S0 to one chunk of one
+    (sequence, head), the chunk whose contribution is the smallest of all
+    (the hardest to see).  Fails unless the forward's tolerance tells the
+    two apart."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_chunk as kwkv
+
+    b, s, h, d = r.shape
+    t = kwkv.CHUNK
+    nc = s // t
+    states = ref.rwkv6_chunk_states(k, v, w, chunk=t)              # [B,H,NC,D,D]
+    lw = torch.log(torch.clamp(w, min=ref.W_FLOOR)).reshape(b, nc, t, h, d)
+    cum = torch.cumsum(lw, dim=2)
+    rin = r.float().reshape(b, nc, t, h, d) * torch.exp(cum - lw)
+    contrib = torch.einsum("bcthd,bhcde->bcthe", rin, states)     # [B,NC,T,H,D]
+    size = contrib.abs().amax(dim=(2, 4))                          # [B, NC, H]
+    size[:, 0] = float("inf")                                      # S0 = 0 there
+    bi, ci, hi = (int(x) for x in torch.unravel_index(torch.argmin(size), size.shape))
+    bad = o_ok.float().reshape(b, nc, t, h, d).clone()
+    bad[bi, ci, :, hi] -= contrib[bi, ci, :, hi]
+    bad = bad.reshape(b, s, h, d).to(o_ok.dtype)
+    caught = not torch.allclose(bad.float(), o_ok.float(), **tol)
+    d_o = float((bad.float() - o_ok.float()).abs().max())
+    rel = rel_err(torch, bad, o_ok)
+    log(f"wkv6 control: a forward that drops the state contribution to chunk "
+        f"{ci} of sequence {bi}, head {hi} (the smallest of all: max|contribution| "
+        f"{float(size[bi, ci, hi]):.3g}; the largest {float(size[:, 1:].max()):.3g}) "
+        f"reads max|err| o {d_o:.3g} (caught elementwise: {caught}; tolerance "
+        f"{tol}) and relative norm error {rel:.2g} (caught: {rel > WKV_REL})")
+    if not caught:
+        fail("wkv6 control: the forward's tolerance passes a kernel that drops "
+             "one chunk's state contribution")
+    del states, lw, cum, rin, contrib, bad
+
+
+def rwkv_kernel_phase(torch, timer, cfg):
+    """The wkv6 forward and backward at full-width rwkv6-3b shapes, bf16: r,
+    k, v [2, 4096, 40, 64], w f32 data-dependent, u [40, 64] f32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_chunk as kwkv
+
+    r, k, v, w, u, do = rwkv_inputs(torch, cfg, seed=4)
+    b, s, h, d = r.shape
+    clamped = w <= ref.W_FLOOR
+    log(f"wkv6 inputs [{b},{s},{h},{d}]: w in [{float(w.min()):.3g}, "
+        f"{float(w.max()):.6g}], {float(clamped.float().mean()):.4f} of it below "
+        f"the 1e-20 clamp, {float((w < 1e-3).float().mean()):.4f} below 1e-3")
+    src, rep = "src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/rwkv_chunk.py:87"
+    t, nc = kwkv.CHUNK, kwkv.n_chunks(s)
+    # FLOPs of the chunked algorithm per (batch, head, chunk): the state
+    # products 2 T D^2 each (o from S and the S update forward; dr, dk, dv
+    # and the dS update backward), the pair terms ~5 T^2 D / 2 each (att
+    # forward; att, do . v, dr' and dk' backward)
+    fwd_flops = b * h * nc * (4 * t * d * d + 5 * t * t * d)
+    bwd_flops = b * h * nc * (8 * t * d * d + 10 * t * t * d)
+    io = r.numel() * 2                                   # one [B,S,H,D] bf16 tensor
+
+    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t)
+    o_tol = wkv_tol(torch, want_o)
+    s_tol = wkv_tol(torch, want_sf)
+    dropped_chunk_control(torch, r, k, v, w, want_o, o_tol)
+    del want_o, want_sf
+    rows = [measure(
+        torch, timer, "rwkv6", src, rep,
+        lambda: kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)[:2],
+        lambda: ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t), (o_tol, s_tol),
+        nbytes=4 * io + w.numel() * 4 + u.numel() * 4 + b * h * d * d * 4,
+        flops=fwd_flops, rel=WKV_REL, iters=10, plain_iters=3,
+        note=f"; o, S_final; rel {WKV_REL}; the training forward, which also "
+             f"writes the {nc} chunk-entry states")]
+
+    _, _, states = kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)
+    first = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
+    again = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
+    want = ref.rwkv6_bwd(r, k, v, w, u, do, chunk=t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        fail("wkv6 backward: two runs on the same inputs differ")
+    if bool(first[3][clamped].any()) or bool(want[3][clamped].any()):
+        fail("wkv6 backward: dw is not 0 where the 1e-20 clamp holds")
+    log("wkv6 backward: two runs on the same inputs are bitwise equal; dw is 0 "
+        "wherever the clamp holds, in the kernel and the plain version")
+    # dw = dl / w; where w is tiny but above the clamp it is the rounding of
+    # a difference of running sums times 1 / w in both versions, so the
+    # check holds dl = dw w (what d logit = -dl e^logit uses)
+    view = lambda g: (g[0], g[1], g[2], g[3] * w, g[4])
+    tols = tuple(wkv_tol(torch, y) for y in view(want))
+    del first, again, want
+    rows.append(measure(
+        torch, timer, "rwkv6_bwd", src, rep,
+        lambda: kwkv.rwkv6_bwd(r, k, v, w, u, do, states),
+        lambda: ref.rwkv6_bwd(r, k, v, w, u, do, chunk=t), tols,
+        nbytes=7 * io + 2 * w.numel() * 4 + 2 * u.numel() * 4,
+        flops=bwd_flops, rel=WKV_REL, iters=10, plain_iters=3, view=view,
+        note=f"; dr, dk, dv, dl = dw w, du; rel {WKV_REL}"))
+    del r, k, v, w, u, do, states, clamped
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rwkv_perturb(params):
+    """A random nonzero w_b in every layer (zero at init), so the reduced
+    model's decay depends on the data and W_a gets a gradient."""
+    import torch
+
+    gen = torch.Generator().manual_seed(11)
+    for lp in params["layers"]:
+        wb = lp["tm"]["w_b"]
+        wb.copy_(torch.randn(wb.shape, generator=gen) * WKV_WB_STD)
+
+
+def granite_expect(cfg, n):
+    """Counted launches of n granite steps with remat: the forward, the
+    recompute of each layer's forward in the backward, and the backward
+    (rope's is its forward kernel at -pos); the final norm is outside the
+    remat."""
+    L = cfg.n_layers
+    return {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+            "rmsnorm": (4 * L + 1) * n, "rmsnorm_bwd": (2 * L + 1) * n,
+            "apply_rope": 6 * L * n, "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
+
+
+def granite_watched(st):
+    return {"embed": st.params["embed"]["table"][:4],
+            "wq0": st.params["layers"][0]["attn"]["wq"]["w"][:4],
+            "down_last": st.params["layers"][-1]["ffn"]["down"]["w"][:4]}
+
+
+def rwkv_expect(cfg, n):
+    """Counted launches of n rwkv steps with remat: wkv6 in the forward and
+    the recompute, its backward once; three norms a layer (ln1, ln2 and the
+    time mix's) plus the final norm outside the remat."""
+    L = cfg.n_layers
+    return {"rwkv6": 2 * L * n, "rwkv6_bwd": L * n,
+            "rmsnorm": (6 * L + 1) * n, "rmsnorm_bwd": (3 * L + 1) * n}
+
+
+def rwkv_watched(st):
+    return {"embed": st.params["embed"]["table"][:4],
+            "wr0": st.params["layers"][0]["tm"]["wr"]["w"][:4],
+            "cm_wv_last": st.params["layers"][-1]["cm"]["wv"]["w"][:4],
+            "lm_head": st.params["lm_head"]["w"][:4]}
+
+
+def train_phase(torch, cfg, counters, expect_fn, watched):
+    """Full width and depth, bf16, TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens through make_train_step with remat; ``expect_fn(cfg,
+    steps)`` gives the exact launch count of every counted kernel and
+    ``watched(state)`` the weight matrices that must move.  Weight
+    matrices, not norm scales: a scale of 1.0 has a bf16 ulp of 2^-7,
+    larger than an early step's update (~lr), so it stays at 1.0 in bf16
+    training in either framework."""
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import for_cell
@@ -711,19 +942,15 @@ def train_phase(torch, cfg, counters):
     torch.cuda.synchronize()
     state_mem = torch.cuda.memory_allocated()
     n_params = sum(p.numel() for p in T.leaves(state.params))
+    shape = (f"{cfg.rwkv_heads} heads of {cfg.rwkv_head_dim}, LoRA {cfg.rwkv_lora}"
+             if cfg.rwkv else f"{cfg.n_heads} H / {cfg.n_kv_heads} KV, hd {cfg.hd}")
     log(f"train: {cfg.name} state on the card in {time.perf_counter() - t0:.1f} s: "
         f"{n_params / 1e9:.3f} B params bf16 + f32 m/v = {state_mem / 2**30:.2f} GiB "
-        f"({cfg.n_layers} L, d {cfg.d_model}, {cfg.n_heads} H / {cfg.n_kv_heads} KV, "
-        f"hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied embeddings)")
+        f"({cfg.n_layers} L, d {cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} embeddings)")
     ds = for_cell(cfg, ShapeSpec("train_chip", TRAIN_SEQ, TRAIN_BATCH, "train"))
     batches = [_batch_to(ds.batch(i), "cuda") for i in range(TRAIN_STEPS)]
     step = TS.make_train_step(cfg, base_lr=3e-4, warmup=1, total_steps=TRAIN_STEPS)
-    # weight matrices, not norm scales: a scale of 1.0 has a bf16 ulp of
-    # 2^-7, larger than an early step's update (~lr), so it stays at 1.0 in
-    # bf16 training in either framework
-    watched = lambda st: {"embed": st.params["embed"]["table"][:4],
-                          "wq0": st.params["layers"][0]["attn"]["wq"]["w"][:4],
-                          "down_last": st.params["layers"][-1]["ffn"]["down"]["w"][:4]}
     before = {k: v.clone() for k, v in watched(state).items()}
 
     torch.cuda.synchronize()
@@ -741,22 +968,17 @@ def train_phase(torch, cfg, counters):
     launches = {name: c.read() for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    # per step with remat: the forward, the recompute of each layer's
-    # forward in the backward, and the backward (rope's is its forward
-    # kernel at -pos); the final norm is outside the remat
-    L, n = cfg.n_layers, TRAIN_STEPS
-    expect = {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
-              "rmsnorm": (4 * L + 1) * n, "rmsnorm_bwd": (2 * L + 1) * n,
-              "apply_rope": 6 * L * n, "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
+    n = TRAIN_STEPS
+    expect = expect_fn(cfg, n)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     steady = times[1:] or times
     step_s = sum(steady) / len(steady)
-    log(f"train: {n} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step seconds "
-        f"{[round(x, 4) for x in times]}, steady {step_s:.4f} s/step "
+    log(f"train: {cfg.name}: {n} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step "
+        f"seconds {[round(x, 4) for x in times]}, steady {step_s:.4f} s/step "
         f"({tokens / step_s:.1f} tokens/s), losses {losses}, grad norms {gnorms}, "
         f"peak memory {peak / 2**30:.2f} GiB")
-    log(f"train: kernel launches {launches} (per-step formula with remat x "
-        f"{n}: {expect})")
+    log(f"train: {cfg.name}: kernel launches {launches} (per-step formula with "
+        f"remat x {n}: {expect})")
     if not all(math.isfinite(x) for x in losses + gnorms):
         fail(f"train: non-finite loss or grad norm: {losses} {gnorms}")
     for name, c in launches.items():
@@ -767,7 +989,7 @@ def train_phase(torch, cfg, counters):
     moved = {k: not torch.equal(v, before[k]) for k, v in watched(state).items()}
     if not all(moved.values()):
         fail(f"train: parameters did not move: {moved}")
-    del state, batches
+    del state, batches, before, step
     torch.cuda.empty_cache()
     return launches, dict(steps=n, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                           step_s=times, steady_step_s=step_s,
@@ -790,7 +1012,7 @@ def main() -> None:
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import prefill_attention, rmsnorm, rope, swiglu
+    from repro_torch.kernels import prefill_attention, rmsnorm, rope, rwkv_chunk, swiglu
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -831,16 +1053,30 @@ def main() -> None:
         "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches"),
         "apply_rope": Counter(rope), "silu_mul": Counter(swiglu),
         "silu_mul_bwd": Counter(swiglu, "bwd_launches")}
-    train_launches, train = train_phase(torch, gcfg, train_counters)
+    train_launches, train = train_phase(torch, gcfg, train_counters,
+                                        granite_expect, granite_watched)
     for row in train_rows:
         row["launches"] = train_launches[row["name"]]
     rows += train_rows
+
+    rcfg = get_config("rwkv6-3b")
+    rwkv_rows = rwkv_kernel_phase(torch, timer, rcfg)
+    train_parity_phase(torch, reduced(rcfg), perturb=rwkv_perturb)
+    rwkv_counters = {
+        "rwkv6": Counter(rwkv_chunk), "rwkv6_bwd": Counter(rwkv_chunk, "bwd_launches"),
+        "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches")}
+    rwkv_launches, rwkv_train = train_phase(torch, rcfg, rwkv_counters,
+                                            rwkv_expect, rwkv_watched)
+    for row in rwkv_rows:
+        row["launches"] = rwkv_launches[row["name"]]
+    rows += rwkv_rows
 
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
              build_s=info["seconds"], serve=serve, train=train,
-             train_launches=train_launches, **kernels), indent=1))
+             train_launches=train_launches, rwkv_train=rwkv_train,
+             rwkv_launches=rwkv_launches, **kernels), indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,9 @@ _SIGNATURES = {
                         _I, _P),
     "repro_flash_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
+    "repro_rwkv6_fwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_rwkv6_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

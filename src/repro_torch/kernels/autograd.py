@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import rope as _rope
+from repro_torch.kernels import rwkv_chunk as _rwkv
 from repro_torch.kernels import swiglu as _sw
 
 
@@ -77,3 +78,24 @@ class FlashAttention(torch.autograd.Function):
                                              causal=ctx.causal,
                                              window=ctx.window)
         return dq, dk, dv, None, None
+
+
+class RWKV6(torch.autograd.Function):
+    """(o, S_final) of the wkv recurrence from a zero state; S_final is not
+    differentiable (training never carries it).  The forward writes the
+    chunk-entry states when a gradient is wanted, and the backward reads
+    them."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        want = any(ctx.needs_input_grad)        # grad mode is off in here
+        o, sf, states = _rwkv.rwkv6_fwd(r, k, v, w, u, save_states=want)
+        ctx.mark_non_differentiable(sf)
+        if want:
+            ctx.save_for_backward(r, k, v, w, u, states)
+        return o, sf
+
+    @staticmethod
+    def backward(ctx, do, _dsf):
+        r, k, v, w, u, states = ctx.saved_tensors
+        return _rwkv.rwkv6_bwd(r, k, v, w, u, do.contiguous(), states)

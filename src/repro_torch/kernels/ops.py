@@ -77,3 +77,33 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, *, q_offset: int,
                                    q_offset=q_offset, lengths=lens)
     return _pf.paged_prefill_attention(q, k_pages, v_pages, block_table,
                                        q_offset=q_offset, length=length)
+
+
+RWKV_REF_CHUNK = 16     # the JAX package's ``ops.rwkv6_scan(ref_chunk=16)``
+
+
+def rwkv6_scan(r, k, v, w, u, *, s0=None):
+    """wkv recurrence: r, k, v [B, S, H, D]; w [B, S, H, D] f32; u [H, D]
+    f32 -> (o [B, S, H, D], S_final [B, H, D, D] f32).  On the CPU the plain
+    versions, chosen as the JAX package chooses off the TPU: the chunked
+    form (chunks of 16) once S >= 32, else the exact recurrence.  On the
+    card the kernel covers what the JAX package's Pallas path covers, a
+    zero initial state (training); a carried state is the recurrent serving
+    path."""
+    if _on_cpu(r):
+        if r.shape[1] >= 2 * RWKV_REF_CHUNK:
+            return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
+                                          chunk=RWKV_REF_CHUNK)
+        return ref.rwkv6_scan(r, k, v, w, u, s0=s0)
+    if s0 is not None:
+        raise NotImplementedError(
+            "rwkv6_scan with an initial state s0 is the recurrent serving "
+            "path; it comes with the recurrent-serving slice of repro_torch")
+    return _ag.RWKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
+                           w.contiguous(), u.contiguous())
+
+
+def silu(x):
+    """x * sigmoid(x): plain PyTorch on every device (the JAX package has no
+    kernel for it either)."""
+    return ref.silu(x)

@@ -341,3 +341,179 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, *,
     acc, m, l = paged_prefill_attention_partial(
         q, k_pages, v_pages, block_table, q_offset=q_offset, length=length)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv recurrence (linear attention with data-dependent decay)
+# ---------------------------------------------------------------------------
+
+W_FLOOR = 1e-20          # the decay is clamped here before its log
+
+
+def rwkv6_scan(r, k, v, w, u, *, s0: Optional[torch.Tensor] = None):
+    """RWKV-6 wkv recurrence, the exact recurrent form (the oracle).
+
+    r, k, v [B, S, H, D]; w [B, S, H, D] per-step decay in (0, 1); u [H, D]
+    bonus for the current token:
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+        o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
+    -> (o [B, S, H, D] in r's dtype, S_final [B, H, D, D] f32; first D the
+    key dim, second the value dim)."""
+    b, s, h, d = r.shape
+    uf = u.float()
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    S = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    outs = []
+    for t in range(s):
+        kv = torch.einsum("bhd,bhe->bhde", kf[:, t], vf[:, t])
+        outs.append(torch.einsum("bhd,bhde->bhe", rf[:, t],
+                                 S + uf[None, :, :, None] * kv))
+        S = S * wf[:, t][..., None] + kv
+    return torch.stack(outs, 1).to(r.dtype), S
+
+
+def _rwkv6_chunks(r, k, v, w, chunk: int, extra=()):
+    """Pad S to a multiple of ``chunk`` (r, k, v and ``extra`` with 0, w
+    with 1: a padded row leaves the recurrence untouched) and split it ->
+    f32 tensors [B, NC, T, H, D], plus the per-chunk log-decay sums
+    ``cum`` (inclusive) and ``cin = cum - log w`` (exclusive)."""
+    b, s, h, d = r.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    z = (0, 0, 0, 0, 0, pad)
+    parts = [torch.nn.functional.pad(t.float(), z) for t in (r, k, v, *extra)]
+    wf = torch.nn.functional.pad(w.float(), z, value=1.0)
+    split = lambda t: t.reshape(b, nc, chunk, h, d)
+    logw = torch.log(torch.clamp(split(wf), min=W_FLOOR))
+    cum = torch.cumsum(logw, dim=2)
+    return [split(t) for t in parts], cum, cum - logw
+
+
+def _pair_decay(cin_c, cum_c, tri):
+    """exp(cin[t] - cum[u]) for u < t, 0 elsewhere: [B, T, U, H, D].  The
+    exponent is masked with a finite -1e30 *before* exp (u >= t would give
+    up to ~46 T, inf in f32; -inf would breed NaN in autograd)."""
+    logdiff = cin_c[:, :, None] - cum_c[:, None]
+    return torch.exp(torch.where(tri[None, :, :, None, None], logdiff, NEG_INF))
+
+
+def rwkv6_scan_chunked(r, k, v, w, u, *, s0: Optional[torch.Tensor] = None,
+                       chunk: int = 32):
+    """Chunked (parallel within a chunk) wkv, the algorithm of the kernels.
+    All pairwise decay exponents are cum_in[t] - cum[u] with u < t, hence
+    <= 0.  Memory is O(chunk^2 D) per (batch, head)."""
+    b, s, h, d = r.shape
+    chunk = min(chunk, s)
+    (rs, ks, vs), cum, cin = _rwkv6_chunks(r, k, v, w, chunk)
+    uf = u.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    S = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    outs = []
+    for c in range(rs.shape[1]):
+        rc, kc, vc, cc, ci = rs[:, c], ks[:, c], vs[:, c], cum[:, c], cin[:, c]
+        o_state = torch.einsum("bthd,bhde->bthe", rc * torch.exp(ci), S)
+        att = torch.einsum("bthd,btuhd,buhd->bhtu", rc,
+                           _pair_decay(ci, cc, tri), kc)
+        o_intra = torch.einsum("bhtu,buhe->bthe", att, vc)
+        bonus = torch.einsum("bthd,hd,bthd->bth", rc, uf, kc)
+        outs.append(o_state + o_intra + bonus[..., None] * vc)
+        dec_out = torch.exp(cc[:, -1:] - cc)             # prod_{j>u} w_j <= 1
+        S = S * torch.exp(cc[:, -1])[..., None] \
+            + torch.einsum("buhd,buhe->bhde", kc * dec_out, vc)
+    o = torch.stack(outs, 1).reshape(b, -1, h, d)[:, :s]
+    return o.to(r.dtype), S
+
+
+def _entry_states(ks, vs, cum):
+    """The state at each chunk's entry from a zero state: [B, H, NC, D, D]."""
+    b, nc, _, h, d = ks.shape
+    S = torch.zeros((b, h, d, d), dtype=torch.float32, device=ks.device)
+    states = []
+    for c in range(nc):
+        states.append(S)
+        cc = cum[:, c]
+        S = S * torch.exp(cc[:, -1])[..., None] + torch.einsum(
+            "buhd,buhe->bhde", ks[:, c] * torch.exp(cc[:, -1:] - cc), vs[:, c])
+    return torch.stack(states, 2)
+
+
+def rwkv6_chunk_states(k, v, w, *, chunk: int = 32):
+    """The wkv state at the entry of each ``chunk``-row chunk, from a zero
+    state: [B, H, ceil(S / chunk), D, D] f32 (what the training forward
+    kernel writes for its backward)."""
+    (_, ks, vs), cum, _ = _rwkv6_chunks(k, k, v, w, chunk)
+    return _entry_states(ks, vs, cum)
+
+
+def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
+    """Gradients (dr, dk, dv, dw, du) of :func:`rwkv6_scan_chunked` with
+    ``s0 = 0`` and a zero cotangent on S_final (the training case), by
+    explicit formulas in the order of the backward kernel: a forward sweep
+    for the chunk-entry states S0, then one reverse sweep over the chunks
+    carrying dS (the gradient of the chunk's exit state) and the running
+    decay sum ``acc``.  Within a chunk, with E[t, u] = exp(cin_t - cum_u)
+    (u < t), dov[t, u] = do_t . v_u, att and bonus as in the forward:
+
+        dv_u  = sum_{t>u} att[t,u] do_t + bonus_u do_u + (k_u e^{cT-cum_u}) dS
+        dr'_t = e^{cin_t} (S0 do_t) + sum_{u<t} dov[t,u] E[t,u] k_u
+        dk'_u = e^{cT-cum_u} (dS v_u) + sum_{t>u} dov[t,u] E[t,u] r_t
+        dr_t  = dr'_t + u k_t dov[t,t];   dk_u = dk'_u + u r_u dov[u,u]
+        du    = sum_t r_t k_t dov[t,t]
+        dS   <- e^{cT} dS + sum_t (r_t e^{cin_t}) do_t^T
+
+    The decay: pair (t, j) is weighted exp(L_{t-1} - L_j) with L the
+    running sum of l = log max(w, 1e-20) over the whole sequence, so
+    dL_t = r_{t+1} dr'_{t+1} - k_t dk'_t and dl_j = sum_{t>=j} dL_t (a
+    reverse cumulative sum across chunk boundaries), dw = dl / w where
+    w > 1e-20 and 0 where the clamp holds.  dr, dk, dv come back in r's
+    dtype, dw and du in f32."""
+    b, s, h, d = r.shape
+    chunk = min(chunk, s)
+    (rs, ks, vs, dos), cum, cin = _rwkv6_chunks(r, k, v, w, chunk, (do,))
+    nc = rs.shape[1]
+    uf = u.float()
+    dev = r.device
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev),
+                     diagonal=-1)
+    eye = torch.eye(chunk, dtype=torch.bool, device=dev)
+    states = _entry_states(ks, vs, cum)
+    dS = torch.zeros_like(states[:, :, 0])
+    acc = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
+    du = torch.zeros((h, d), dtype=torch.float32, device=dev)
+    dr, dk, dv, dl = (torch.zeros_like(rs) for _ in range(4))
+    for c in reversed(range(nc)):
+        rc, kc, vc, doc = rs[:, c], ks[:, c], vs[:, c], dos[:, c]
+        cc, ci, S0 = cum[:, c], cin[:, c], states[:, :, c]
+        cT = cc[:, -1]                                    # [B, H, D]
+        E = _pair_decay(ci, cc, tri)                      # [B, T, U, H, D]
+        dov = torch.einsum("bthe,buhe->bhtu", doc, vc)
+        diag = dov.diagonal(dim1=2, dim2=3).permute(0, 2, 1)   # [B, T, H]
+        datt = torch.where(tri, dov, 0.0)
+        att = torch.einsum("bthd,btuhd,buhd->bhtu", rc, E, kc)
+        bonus = torch.einsum("bthd,hd,bthd->bth", rc, uf, kc)
+        att = att + torch.where(eye, bonus.permute(0, 2, 1)[..., None], 0.0)
+        kdec = torch.exp(cT[:, None] - cc)                # e^{cT - cum_u}
+        dv[:, c] = (torch.einsum("bhtu,bthe->buhe", att, doc)
+                    + torch.einsum("buhd,bhde->buhe", kc * kdec, dS))
+        drp = (torch.exp(ci) * torch.einsum("bhde,bthe->bthd", S0, doc)
+               + torch.einsum("bhtu,btuhd,buhd->bthd", datt, E, kc))
+        dkp = (kdec * torch.einsum("bhde,buhe->buhd", dS, vc)
+               + torch.einsum("bhtu,btuhd,bthd->buhd", datt, E, rc))
+        dr[:, c] = drp + uf * kc * diag[..., None]
+        dk[:, c] = dkp + uf * rc * diag[..., None]
+        du = du + torch.einsum("bthd,bth->hd", rc * kc, diag)
+        x, y = rc * drp, kc * dkp                         # [B, T, H, D]
+        rev_x = torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1]) - x
+        rev_y = torch.flip(torch.cumsum(torch.flip(y, [1]), 1), [1])
+        dl[:, c] = acc[:, None] + rev_x - rev_y
+        acc = acc + x.sum(1) - y.sum(1)
+        dS = dS * torch.exp(cT)[..., None] + torch.einsum(
+            "bthd,bthe->bhde", rc * torch.exp(ci), doc)
+    unchunk = lambda t: t.reshape(b, nc * chunk, h, d)[:, :s]
+    wf = w.float()
+    dw = torch.where(wf > W_FLOOR, unchunk(dl) / wf, 0.0)
+    return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
+            unchunk(dv).to(v.dtype), dw, du)

@@ -1,17 +1,19 @@
 """Where the device time goes in a full-width training step of the port.
 
-  PYTHONPATH=src python -m repro_torch.launch.trace_train
+  PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch rwkv6-3b]
 
-Trains granite-3-2b at full width and depth (random bf16 weights from
-``--seed``) on ``--batch`` x ``--seq-len`` tokens per step through
-``train/step.py:make_train_step`` with remat, the step ``chip_smoke.py``'s
-train phase drives: one step untimed to warm up, ``--steps`` untraced steps
-for the wall clock, one step under ``torch.profiler``.  Prints the device
-kernel time of the traced step by kernel and by group (the flash-attention
-forward and backward kernels, the port's other CUDA kernels, GEMMs, other
-PyTorch ops) and the device busy share: summed kernel time over the mean
-untraced step (one stream, so kernels do not overlap).  The summary also
-lands in ``chiprun_out/trace_train.json``.  Needs a CUDA device.
+Trains ``--arch`` (granite-3-2b by default, or rwkv6-3b) at full width and
+depth (random bf16 weights from ``--seed``) on ``--batch`` x ``--seq-len``
+tokens per step through ``train/step.py:make_train_step`` with remat, the
+step ``chip_smoke.py``'s train phases drive: one step untimed to warm up,
+``--steps`` untraced steps for the wall clock, one step under
+``torch.profiler``.  Prints the device kernel time of the traced step by
+kernel and by group (the flash-attention and wkv6 forward and backward
+kernels each in a group of their own, the port's other CUDA kernels, GEMMs,
+other PyTorch ops) and the device busy share: summed kernel time over the
+mean untraced step (one stream, so kernels do not overlap).  The summary
+also lands in ``chiprun_out/trace_train[_<arch>].json``.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from repro_torch.train import step as TS
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu), by group
 GROUPS = (("flash attention forward", ("flash_fwd_kernel",)),
           ("flash attention backward", ("flash_bwd_",)),
+          ("wkv6 forward", ("rwkv6_fwd_kernel",)),
+          ("wkv6 backward", ("rwkv6_bwd_kernel",)),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",
                                         "paged_attention_kernel")))
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
@@ -54,7 +58,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=2,
                     help="untraced steps timed for the wall clock")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default="chiprun_out/trace_train.json")
+    ap.add_argument("--out", default=None,
+                    help="default chiprun_out/trace_train.json for granite-3-2b, "
+                         "chiprun_out/trace_train_<arch>.json otherwise")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("trace_train needs a CUDA device")
@@ -108,7 +114,9 @@ def main(argv=None):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, calls) in top:
         print(f"[trace] {us / 1e3:9.2f} ms {calls:7d} x  {name[:110]}")
-    out = Path(args.out)
+    out = Path(args.out or ("chiprun_out/trace_train.json"
+                            if args.arch == "granite-3-2b" else
+                            f"chiprun_out/trace_train_{args.arch}.json"))
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
         card=card, arch=cfg.name, batch=args.batch, seq_len=args.seq_len,

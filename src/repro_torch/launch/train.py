@@ -4,6 +4,9 @@ train step, on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ckpt
 
+``--arch`` takes the dense family and rwkv6-3b (the RWKV6 family); the
+other families raise, naming the slice of the port that brings them.
+
 The step runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels, forward and backward; ``--device cpu`` runs the
 plain PyTorch versions.  Parameters are random, made from ``--seed``; the

@@ -34,9 +34,10 @@ def _map(tree, fn):
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """JAX dense-family parameter tree (numpy leaves) -> port parameters in
-    the same dtype, with the stacked ``[L, ...]`` layer leaves split per
-    layer."""
+    """JAX parameter tree of the dense or RWKV6 family (numpy leaves) ->
+    port parameters, each leaf in its own dtype (the RWKV6 ``u`` and ``w0``
+    stay f32 among bf16 leaves), with the stacked ``[L, ...]`` layer leaves
+    split per layer and nested dicts (``tm`` / ``cm``) kept as they are."""
     out = {k: _map(v, lambda a: _tensor(a, device))
            for k, v in tree.items() if k != "layers"}
     stacked = tree["layers"]

@@ -1,11 +1,11 @@
-"""Decoder LM of the dense family: full-sequence forward (training) and
-serving over a paged KV cache.
+"""Decoder LM: full-sequence forward (training) for the dense and RWKV6
+families, and serving over a paged KV cache for the dense family.
 
-Port of the JAX package's ``models/model.py`` for ``family="dense"``: the
-stacked-layer ``lax.scan`` becomes a Python loop over a list of per-layer
-parameter dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and
-the pages are updated in place.  Other families raise
-``NotImplementedError`` naming the slice of the port that brings them.
+Port of the JAX package's ``models/model.py``: the stacked-layer
+``lax.scan`` becomes a Python loop over a list of per-layer parameter
+dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and the pages
+are updated in place.  What this port does not run yet raises
+``NotImplementedError`` naming the slice of the port that brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
@@ -24,21 +24,39 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv
 
 PAGED_FAMILIES = ("dense",)
 
-# which slice of the port brings each family that this one does not serve
-_LATER = {"moe": "the MoE slice", "ssm": "the recurrent-families slice",
-          "hybrid": "the recurrent-families slice"}
+
+def _later(cfg: ModelConfig, serving: bool) -> str:
+    """The slice of the port that brings ``cfg``'s family (for serving, or
+    for training)."""
+    if cfg.family == "moe":
+        return "the MoE slice"
+    if cfg.rwkv and serving:
+        return "the recurrent-serving slice"
+    if cfg.family in ("ssm", "hybrid"):
+        return "the Mamba2 slice"
+    return "a later slice"
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in PAGED_FAMILIES:
+def require_trainable(cfg: ModelConfig) -> None:
+    """Parameters and the full-sequence forward: dense and RWKV6."""
+    if not (cfg.family == "dense" or cfg.rwkv):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
-            f"with {_LATER.get(cfg.family, 'a later slice')} of repro_torch; "
-            f"this slice serves family='dense'")
+            f"with {_later(cfg, False)} of repro_torch; this port trains "
+            f"family='dense' and RWKV6")
+
+
+def require_servable(cfg: ModelConfig) -> None:
+    """Paged serving: dense only."""
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"serving family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            f"it comes with {_later(cfg, True)} of repro_torch; this port "
+            f"serves family='dense'")
 
 
 # ---------------------------------------------------------------------------
@@ -49,13 +67,14 @@ def require_dense(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random parameters from ``seed``, made on ``device``: embeddings and
-    linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales."""
-    require_dense(cfg)
+    linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales (the
+    RWKV6 layers as ``models/rwkv.py:rwkv_init`` makes them)."""
+    require_trainable(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def normal(shape, scale):
+    def normal(shape, scale, dt=dtype):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (w * scale).to(dtype)
+        return (w * scale).to(dt)
 
     def lin(d_in, d_out, bias=False):
         p = {"w": normal((d_in, d_out), d_in ** -0.5)}
@@ -71,6 +90,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
               "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["lm_head"] = lin(d, cfg.vocab_size)
+    if cfg.rwkv:
+        params["layers"] = [{"ln1": norm(), "ln2": norm(),
+                             **rwkv.rwkv_init(cfg, normal, dtype, device)}
+                            for _ in range(cfg.n_layers)]
+        return params
     params["layers"] = [{
         "ln1": norm(),
         "attn": {"wq": lin(d, h * hd, cfg.qkv_bias),
@@ -88,7 +112,7 @@ def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
                      block_size: int, dtype=torch.bfloat16, device="cuda"):
     """Paged KV pages ``[L, KvH, NB, BS, hd]`` shared by all slots (``slots``
     sizes the slot state of families that carry one; dense has none)."""
-    require_dense(cfg)
+    require_servable(cfg)
     return {"attn": layers.paged_kv_cache_init(cfg, num_blocks, block_size,
                                                dtype, n_slots=cfg.n_layers,
                                                device=device)}
@@ -108,6 +132,14 @@ def _block(cfg, lp, x, attn):
     return x + layers.ffn(lp["ffn"], layers.rmsnorm(lp["ln2"], x, cfg.norm_eps))
 
 
+def _rwkv_block(cfg, lp, x):
+    """Pre-norm residual RWKV6 block: time mix, then channel mix."""
+    x = x + rwkv.time_mix(lp["tm"], layers.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                          cfg)
+    return x + rwkv.channel_mix(lp["cm"], layers.rmsnorm(lp["ln2"], x,
+                                                          cfg.norm_eps))
+
+
 def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
@@ -119,8 +151,8 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
     (default 0..S-1).  With ``train`` and ``remat`` each layer runs under
     ``torch.utils.checkpoint``: only its input is kept, and the backward
     recomputes its forward (kernels included).  ``aux`` holds the MoE
-    (load-balance, z) losses, zeros for the dense family."""
-    require_dense(cfg)
+    (load-balance, z) losses, zeros for the dense and RWKV6 families."""
+    require_trainable(cfg)
     x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
     b, s, _ = x.shape
     if positions is None:
@@ -128,6 +160,8 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
                                  device=x.device)[None].expand(b, s)
 
     def body(xc, lp):
+        if cfg.rwkv:
+            return _rwkv_block(cfg, lp, xc)
         return _block(cfg, lp, xc, lambda h: layers.attention(
             lp["attn"], h, positions, cfg, lengths=lengths,
             window=attn_window))
@@ -153,7 +187,7 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     with growing ``q_offset`` reproduce a monolithic prefill.  Returns
     (logits at the chunk's last valid row [1, V], state); the pages in
     ``state`` are updated in place."""
-    require_dense(cfg)
+    require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens)
     c = x.shape[1]
@@ -177,7 +211,7 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     int32.  The K/V row for position ``lengths`` is scattered into its page
     and the paged decode kernel reads through the block table.  Returns
     (logits [B, V], state); pages are updated in place."""
-    require_dense(cfg)
+    require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens[:, None])
     idx = layers.decode_scatter_index(lengths, block_tables, kp_all.shape[3])

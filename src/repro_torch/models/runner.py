@@ -44,7 +44,7 @@ class CacheSpec:
 
 
 def cache_spec(cfg: ModelConfig) -> CacheSpec:
-    M.require_dense(cfg)
+    M.require_servable(cfg)
     return CacheSpec(paged=(PagedComponentSpec("attn", cfg.n_layers,
                                                cfg.n_kv_heads, cfg.hd),))
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import prefill_attention as kpf  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import rope as krope  # noqa: E402
+from repro_torch.kernels import rwkv_chunk as kwkv  # noqa: E402
 from repro_torch.kernels import swiglu as ksw  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
@@ -238,6 +239,91 @@ def test_model_on_card_matches_cpu(dev):
             lens = lens + torch.tensor([1, 0], dtype=torch.int32)
         logits[d] = torch.cat([o.cpu() for o in out])
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def _wkv_inputs(rng, b, s, h, d, dtype, dev):
+    """r, k, v, do in ``dtype``; w = exp(-exp(logit)) f32 with the logit
+    clipped to [-12, 4] as ``models/rwkv.py:_decay`` clips it, ~4% of the
+    entries at 4, below the 1e-20 clamp; u [H, D] f32."""
+    r, k, v, do = (_rand(rng, (b, s, h, d), dtype, dev) for _ in range(4))
+    logit = np.clip(rng.uniform(-8.0, 4.5, size=(b, s, h, d)), -12.0, 4.0)
+    w = torch.from_numpy(np.exp(-np.exp(logit)).astype(np.float32)).to(dev)
+    u = _rand(rng, (h, d), torch.float32, dev, 0.5)
+    return r, k, v, w, u, do
+
+
+def _wkv_close(got, want):
+    """Held as the module docstring says (finite, and within the rtol of
+    the output's dtype plus 1e-4 of ``want``'s largest entry)."""
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    assert bool(torch.isfinite(got.float()).all())
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4 * scale)
+
+
+def _wkv_close_grads(got, want, w):
+    """(dr, dk, dv, dw, du) against the plain version's.  dw is dl / w, with
+    dl a difference of two running sums: where w is tiny but above the
+    1e-20 clamp, both versions' dw is that difference's f32 rounding times
+    1 / w.  So dw is held as dl = dw w (what the decay's own gradient,
+    d logit = -dl e^logit, uses) and must be exactly 0 where the clamp
+    holds."""
+    clamped = w <= 1e-20
+    assert bool(clamped.any())
+    for i, (g, wt) in enumerate(zip(got, want)):
+        if i == 3:
+            assert not bool(g[clamped].any()) and not bool(wt[clamped].any())
+            g, wt = g * w, wt * w
+        _wkv_close(g, wt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d", [(2, 40, 3, 16), (1, 96, 2, 64),
+                                     (2, 17, 2, 64), (1, 130, 4, 32)])
+def test_rwkv6_kernels(dev, dtype, b, s, h, d):
+    """Forward (o, S_final, the chunk-entry states) and backward (dr, dk,
+    dv, dw, du) against the plain versions, ragged S included; the backward
+    twice on the same inputs gives the same bits."""
+    rng = np.random.default_rng(7)
+    r, k, v, w, u, do = _wkv_inputs(rng, b, s, h, d, dtype, dev)
+    o, sf, states = kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)
+    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=kwkv.CHUNK)
+    _wkv_close(o, want_o)
+    _wkv_close(sf, want_sf)
+    _wkv_close(states, ref.rwkv6_chunk_states(k, v, w, chunk=kwkv.CHUNK))
+    got = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
+    want = ref.rwkv6_bwd(r, k, v, w, u, do, chunk=kwkv.CHUNK)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape
+    _wkv_close_grads(got, want, w)
+    again = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_rwkv6_autograd_matches_plain_autograd(dev):
+    """``ops.rwkv6_scan`` on the card (the Function: kernel forward + kernel
+    backward) against autograd of the plain chunked version, fp32; a
+    carried state raises on the card."""
+    rng = np.random.default_rng(8)
+    xs = _wkv_inputs(rng, 2, 75, 3, 16, torch.float32, dev)[:5]
+    dy = _rand(rng, (2, 75, 3, 16), torch.float32, dev)
+
+    def grads(fn):
+        live = [x.detach().requires_grad_() for x in xs]
+        o, sf = fn(*live)
+        return [o, sf] + list(torch.autograd.grad(o, live, dy))
+
+    got = grads(ops.rwkv6_scan)
+    want = grads(lambda *a: ref.rwkv6_scan_chunked(*a, chunk=kwkv.CHUNK))
+    for g, wt in zip(got[:2], want[:2]):
+        _wkv_close(g, wt)
+    _wkv_close_grads(got[2:], want[2:], xs[3])
+    with pytest.raises(NotImplementedError, match="recurrent-serving"):
+        ops.rwkv6_scan(*xs, s0=torch.zeros((2, 3, 16, 16), device=dev))
 
 
 def _to(tree, dev):

@@ -23,12 +23,13 @@ bad = sorted(m for m in sys.modules
 print(",".join(names), bad)
 """
 
-# modules that must be among those walked (the training slice included)
+# modules that must be among those walked (the training slices included)
 REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
             "repro_torch.models.model", "repro_torch.train.optim",
             "repro_torch.train.step", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.driver",
-            "repro_torch.runtime.straggler", "repro_torch.launch.train")
+            "repro_torch.runtime.straggler", "repro_torch.launch.train",
+            "repro_torch.kernels.rwkv_chunk", "repro_torch.models.rwkv")
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
