@@ -47,7 +47,23 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 10. rwkv train parity: phase 7 for reduced rwkv6-3b with a random nonzero
    ``w_b``;
 11. rwkv train: rwkv6-3b at full width and depth as in 8, with the wkv6
-   and rmsnorm launch counts held to the remat formulas.
+   and rmsnorm launch counts held to the remat formulas;
+12. mamba kernels: the Mamba2 scan forward and backward at full-width
+   zamba2-7b shapes (x [2, 4096, 112, 64] bf16, B, C [2, 4096, 64] bf16,
+   dt = softplus(N(0, 1)) f32, A = -linspace(1, 16, 112) as at init), held
+   against their plain versions and timed as in 3 (no PyTorch call
+   computes the SSD scan: no library time); a control shows the forward's
+   tolerance catches a kernel that drops one chunk's state term, and the
+   backward twice gives the same bits;
+13. flash attention at zamba2-7b's head dim 112 (q, k, v [2, 4096, 32,
+   112] bf16, causal), forward and backward held with the flash tolerances
+   of phase 6 and timed beside SDPA;
+14. hybrid train parity: phase 7 for reduced zamba2-7b (2 groups of 2
+   Mamba2 layers and a 1-layer tail, P 16, N 8, head dim 16);
+15. hybrid train: zamba2-7b at full width and the depth one card holds
+   (``launch/trace_train.py:ONE_CARD_LAYERS``, 33 of 81 layers: 5 groups of
+   6, the 3-layer tail, 5 applications of the shared block) as in 8, with
+   every kernel's launch count held to the nested-remat formulas.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -84,17 +100,20 @@ FLASH_LSE_TOL = dict(rtol=0.0, atol=1e-4)
 FLASH_GRAD_TOL = dict(rtol=2 ** -6, atol=4e-3)
 FLASH_REL = 1e-2
 FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu
-# wkv6 at rwkv6-3b's full width (bf16 r, k, v, o and their gradients; f32
-# S_final, dl = dw w and du).  Tolerances set from the readings of the first
-# full-width runs (PERF.md, Findings): the bf16 outputs differ by at most one
-# bf16 ulp (0.5 at |o| ~ 181; relative norm errors <= 4.8e-5), so they are
-# held to one ulp relative (2^-7) plus 1e-3 of the tensor's largest entry;
-# the f32 outputs read <= 4.7e-6 of their largest entry and are held to
-# 1e-4 relative plus 1e-4 of it; every output to a relative norm error of
-# 1e-3 (20x the largest reading)
-WKV_RTOL, WKV_ATOL = 2 ** -7, 1e-3
-WKV_F32_RTOL, WKV_F32_ATOL = 1e-4, 1e-4
-WKV_REL = 1e-3
+# The chunked scans, wkv6 at rwkv6-3b's full width (bf16 r, k, v, o and
+# their gradients; f32 S_final, dl = dw w and du) and Mamba2 at zamba2-7b's
+# (bf16 y, dx, dB, dC; f32 h_final, ddt, dA).  Tolerances set from the
+# readings of the first full-width runs (PERF.md, Findings): the bf16
+# outputs differ by at most one bf16 ulp (wkv6 0.5 at |o| ~ 181, Mamba2
+# 0.25 at |y| up to 280 and 2 at |dB| up to 1088; relative norm errors <=
+# 5.7e-5), so they are held to one ulp relative (2^-7) plus 1e-3 of the
+# tensor's largest entry; the f32 outputs read <= 4.8e-5 of their largest
+# entry (Mamba2's ddt 0.181 of 3745) and are held to 1e-4 relative plus
+# 1e-4 of it; every output to a relative norm error of 1e-3 (17x the
+# largest reading)
+SCAN_RTOL, SCAN_ATOL = 2 ** -7, 1e-3
+SCAN_F32_RTOL, SCAN_F32_ATOL = 1e-4, 1e-4
+SCAN_REL = 1e-3
 WKV_WB_STD = 1.0                               # std of the random w_b
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
@@ -480,6 +499,58 @@ def dropped_tile_control(torch, q, k, v):
     del kk, vv, sc
 
 
+def flash_rows(torch, timer, q, k, v, do, suffix=""):
+    """The flash-attention forward and backward on q [B, S, H, D], k, v
+    [B, S, KvH, D] (causal), held to the plain versions with the flash
+    tolerances and timed beside SDPA; the backward twice must give the same
+    bits.  Returns the two rows, named ``flash_attention{suffix}`` and
+    ``flash_attention_bwd{suffix}``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+
+    b, s, h, hd = q.shape
+    fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    fa_rep = "src/repro/kernels/flash_attention.py:109"
+    pairs = s * (s + 1) // 2                        # causal (q, k) pairs per head
+    io = (2 * q.numel() + 2 * k.numel()) * 2 + b * h * s * 4   # q, k, v, o + lse
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rows = [measure(
+        torch, timer, "flash_attention" + suffix, fa_src, fa_rep,
+        lambda: kfa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: ref.flash_attention_lse(q, k, v, causal=True),
+        (FLASH_O_TOL, FLASH_LSE_TOL), rel=FLASH_REL,
+        nbytes=io, flops=4 * b * h * hd * pairs,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=True),
+        note=f"; o, lse; rel {FLASH_REL}", iters=10, plain_iters=3)]
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
+    first = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        fail(f"flash attention{suffix} backward: two runs on the same inputs differ")
+    log(f"flash attention{suffix} backward: two runs on the same inputs are "
+        f"bitwise equal")
+    del first, again
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+    dog = do.transpose(1, 2).contiguous()
+    rows.append(measure(
+        torch, timer, "flash_attention_bwd" + suffix, fa_src, fa_rep,
+        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        FLASH_GRAD_TOL, rel=FLASH_REL,
+        nbytes=(3 * q.numel() + 4 * k.numel()) * 2 + 2 * b * h * s * 4
+        + q.numel() * 2, flops=10 * b * h * hd * pairs,
+        library=lambda: torch.autograd.grad(og, (qg, kg, vg), dog,
+                                            retain_graph=True),
+        note=f"; dq, dk, dv; rel {FLASH_REL}", iters=10, plain_iters=3))
+    del o, lse, qt, kt, vt, qg, kg, vg, og, dog
+    return rows
+
+
 def train_kernel_phase(torch, timer, cfg):
     """The training path's kernels at full-width granite-3-2b shapes, bf16:
     attention q [2, 4096, 32, 64], k/v [2, 4096, 8, 64] causal; the
@@ -501,7 +572,6 @@ def train_kernel_phase(torch, timer, cfg):
     b, s = TRAIN_BATCH, TRAIN_SEQ
     d, h, kvh, hd, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
     csrc = "src/repro_torch/kernels/csrc/"
-    fa_src, fa_rep = csrc + "flash_attention.cu", "src/repro/kernels/flash_attention.py:109"
     rows = []
 
     # -- flash attention: extra shapes held to the plain version only
@@ -523,42 +593,9 @@ def train_kernel_phase(torch, timer, cfg):
 
     # -- flash attention forward and backward at the main shape
     q, k, v = randn(b, s, h, hd), randn(b, s, kvh, hd), randn(b, s, kvh, hd)
-    do = randn(b, s, h, hd)
     dropped_tile_control(torch, q, k, v)
-    pairs = s * (s + 1) // 2                        # causal (q, k) pairs per head
-    io = (2 * q.numel() + 2 * k.numel()) * 2 + b * h * s * 4   # q, k, v, o + lse
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    rows.append(measure(
-        torch, timer, "flash_attention", fa_src, fa_rep,
-        lambda: kfa.flash_attention_fwd(q, k, v, causal=True),
-        lambda: ref.flash_attention_lse(q, k, v, causal=True),
-        (FLASH_O_TOL, FLASH_LSE_TOL), rel=FLASH_REL,
-        nbytes=io, flops=4 * b * h * hd * pairs,
-        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                       enable_gqa=True),
-        note=f"; o, lse; rel {FLASH_REL}", iters=10, plain_iters=3))
-    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
-    first = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(first, again)):
-        fail("flash attention backward: two runs on the same inputs differ")
-    log("flash attention backward: two runs on the same inputs are bitwise equal")
-    del first, again
-    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
-    dog = do.transpose(1, 2).contiguous()
-    rows.append(measure(
-        torch, timer, "flash_attention_bwd", fa_src, fa_rep,
-        lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-        lambda: ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-        FLASH_GRAD_TOL, rel=FLASH_REL,
-        nbytes=(3 * q.numel() + 4 * k.numel()) * 2 + 2 * b * h * s * 4
-        + q.numel() * 2, flops=10 * b * h * hd * pairs,
-        library=lambda: torch.autograd.grad(og, (qg, kg, vg), dog,
-                                            retain_graph=True),
-        note=f"; dq, dk, dv; rel {FLASH_REL}", iters=10, plain_iters=3))
-    del q, k, v, do, o, lse, qt, kt, vt, qg, kg, vg, og, dog
+    rows += flash_rows(torch, timer, q, k, v, randn(b, s, h, hd))
+    del q, k, v
 
     # -- rope backward: the forward kernel at -pos (no row of its own)
     x = randn(b, s, h, hd)
@@ -634,6 +671,13 @@ def determinism_probe(torch, cfg_small):
         ops["rope kernel"] = (lambda a: ag.Rope.apply(a, pos, 1e4), (q,))
         ops["flash attention kernels"] = (
             lambda a, b_, c: ag.FlashAttention.apply(a, b_, c, True, None), (q, k, k))
+    if cfg_small.ssm_state and not cfg_small.rwkv:
+        hh, p, n = cfg_small.ssm_heads, cfg_small.ssm_head_dim, cfg_small.ssm_state
+        dt = torch.nn.functional.softplus(r(4, 64, hh))
+        ops["mamba2 kernels"] = (
+            lambda a, b_, c, d_, e_: ag.Mamba2.apply(a, b_, c, d_, e_)[0],
+            (r(4, 64, hh, p), dt, -torch.linspace(1.0, 16.0, hh, device="cuda"),
+             r(4, 64, n), r(4, 64, n)))
     if cfg_small.rwkv:
         hh, hd = cfg_small.rwkv_heads, cfg_small.rwkv_head_dim
         wd = torch.rand((4, 64, hh, hd), generator=gen, device="cuda") * 0.9 + 0.05
@@ -742,6 +786,16 @@ def train_parity_phase(torch, cfg_small, perturb=None):
         f"{float(straight['metrics']['loss']):.6f})")
 
 
+def scan_tol(torch, want):
+    """The elementwise tolerance of one wkv6 or Mamba2 scan output, by its
+    dtype, with the absolute part scaled to the plain version's largest
+    entry."""
+    scale = float(want.float().abs().max())
+    if want.dtype == torch.bfloat16:
+        return dict(rtol=SCAN_RTOL, atol=SCAN_ATOL * scale)
+    return dict(rtol=SCAN_F32_RTOL, atol=SCAN_F32_ATOL * scale)
+
+
 def rwkv_inputs(torch, cfg, seed):
     """Full-width wkv6 inputs: r, k, v, do [TRAIN_BATCH, TRAIN_SEQ, H, D]
     bf16 ~ N(0, 1) (what the projections of a normed input give), u [H, D]
@@ -766,15 +820,6 @@ def rwkv_inputs(torch, cfg, seed):
     w = R._decay(tm, randn(b, s, dm)).reshape(b, s, h, d).contiguous()
     u = randn(h, d, scale=0.5, dtype=torch.float32)
     return r, k, v, w, u, do
-
-
-def wkv_tol(torch, want):
-    """The elementwise tolerance of one wkv6 output, by its dtype, with the
-    absolute part scaled to the plain version's largest entry."""
-    scale = float(want.float().abs().max())
-    if want.dtype == torch.bfloat16:
-        return dict(rtol=WKV_RTOL, atol=WKV_ATOL * scale)
-    return dict(rtol=WKV_F32_RTOL, atol=WKV_F32_ATOL * scale)
 
 
 def dropped_chunk_control(torch, r, k, v, w, o_ok, tol):
@@ -807,7 +852,7 @@ def dropped_chunk_control(torch, r, k, v, w, o_ok, tol):
         f"{ci} of sequence {bi}, head {hi} (the smallest of all: max|contribution| "
         f"{float(size[bi, ci, hi]):.3g}; the largest {float(size[:, 1:].max()):.3g}) "
         f"reads max|err| o {d_o:.3g} (caught elementwise: {caught}; tolerance "
-        f"{tol}) and relative norm error {rel:.2g} (caught: {rel > WKV_REL})")
+        f"{tol}) and relative norm error {rel:.2g} (caught: {rel > SCAN_REL})")
     if not caught:
         fail("wkv6 control: the forward's tolerance passes a kernel that drops "
              "one chunk's state contribution")
@@ -837,8 +882,8 @@ def rwkv_kernel_phase(torch, timer, cfg):
     io = r.numel() * 2                                   # one [B,S,H,D] bf16 tensor
 
     want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t)
-    o_tol = wkv_tol(torch, want_o)
-    s_tol = wkv_tol(torch, want_sf)
+    o_tol = scan_tol(torch, want_o)
+    s_tol = scan_tol(torch, want_sf)
     dropped_chunk_control(torch, r, k, v, w, want_o, o_tol)
     del want_o, want_sf
     rows = [measure(
@@ -846,8 +891,8 @@ def rwkv_kernel_phase(torch, timer, cfg):
         lambda: kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)[:2],
         lambda: ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t), (o_tol, s_tol),
         nbytes=4 * io + w.numel() * 4 + u.numel() * 4 + b * h * d * d * 4,
-        flops=fwd_flops, rel=WKV_REL, iters=10, plain_iters=3,
-        note=f"; o, S_final; rel {WKV_REL}; the training forward, which also "
+        flops=fwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
+        note=f"; o, S_final; rel {SCAN_REL}; the training forward, which also "
              f"writes the {nc} chunk-entry states")]
 
     _, _, states = kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)
@@ -865,15 +910,15 @@ def rwkv_kernel_phase(torch, timer, cfg):
     # a difference of running sums times 1 / w in both versions, so the
     # check holds dl = dw w (what d logit = -dl e^logit uses)
     view = lambda g: (g[0], g[1], g[2], g[3] * w, g[4])
-    tols = tuple(wkv_tol(torch, y) for y in view(want))
+    tols = tuple(scan_tol(torch, y) for y in view(want))
     del first, again, want
     rows.append(measure(
         torch, timer, "rwkv6_bwd", src, rep,
         lambda: kwkv.rwkv6_bwd(r, k, v, w, u, do, states),
         lambda: ref.rwkv6_bwd(r, k, v, w, u, do, chunk=t), tols,
         nbytes=7 * io + 2 * w.numel() * 4 + 2 * u.numel() * 4,
-        flops=bwd_flops, rel=WKV_REL, iters=10, plain_iters=3, view=view,
-        note=f"; dr, dk, dv, dl = dw w, du; rel {WKV_REL}"))
+        flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3, view=view,
+        note=f"; dr, dk, dv, dl = dw w, du; rel {SCAN_REL}"))
     del r, k, v, w, u, do, states, clamped
     torch.cuda.empty_cache()
     return rows
@@ -944,6 +989,9 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
     n_params = sum(p.numel() for p in T.leaves(state.params))
     shape = (f"{cfg.rwkv_heads} heads of {cfg.rwkv_head_dim}, LoRA {cfg.rwkv_lora}"
              if cfg.rwkv else f"{cfg.n_heads} H / {cfg.n_kv_heads} KV, hd {cfg.hd}")
+    if cfg.family == "hybrid":
+        shape += (f"; Mamba2 {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+                  f"{cfg.ssm_state}, a shared block every {cfg.attn_every} layers")
     log(f"train: {cfg.name} state on the card in {time.perf_counter() - t0:.1f} s: "
         f"{n_params / 1e9:.3f} B params bf16 + f32 m/v = {state_mem / 2**30:.2f} GiB "
         f"({cfg.n_layers} L, d {cfg.d_model}, {shape}, d_ff {cfg.d_ff}, vocab "
@@ -999,6 +1047,168 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
                           launches_expected=expect)
 
 
+def mamba_inputs(torch, cfg, seed):
+    """Full-width Mamba2 scan inputs as the model makes them at init: x, dy
+    [TRAIN_BATCH, TRAIN_SEQ, H, P] and B, C [.., N] bf16 ~ N(0, 1); dt =
+    softplus(N(0, 1) + dt_bias) f32 with the init's dt_bias = 0; A =
+    -exp(A_log) f32 with the init's A_log = log(linspace(1, 16, H))."""
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    b, s, h, p, n = (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state)
+    x, dy = randn(b, s, h, p), randn(b, s, h, p)
+    B, C = randn(b, s, n), randn(b, s, n)
+    dt_bias = torch.zeros((h,), device=dev)
+    dt = torch.nn.functional.softplus(randn(b, s, h, dtype=torch.float32) + dt_bias)
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+    return x, dt, A, B, C, dy
+
+
+def dropped_state_control(torch, x, dt, A, B, C, y_ok, tol):
+    """What the Mamba2 forward check reads for a wrong kernel: one that
+    drops the state term e^{cum_t} h0 C_t of one chunk of one sequence (all
+    heads), the chunk whose term is the smallest of all.  Fails unless the
+    forward's tolerance tells the two apart."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    b, s, h, p = x.shape
+    t = kmamba.CHUNK
+    nc = s // t
+    states = ref.mamba2_chunk_states(x, dt, A, B, chunk=t)        # [B,H,NC,P,N]
+    cum = torch.cumsum((dt * A).reshape(b, nc, t, h), dim=2)
+    contrib = torch.einsum("bctn,bhcpn,bcth->bcthp", C.float().reshape(b, nc, t, -1),
+                           states, torch.exp(cum))                 # [B,NC,T,H,P]
+    size = contrib.abs().amax(dim=(2, 3, 4))                        # [B, NC]
+    size[:, 0] = float("inf")                                       # h0 = 0 there
+    bi, ci = (int(i) for i in torch.unravel_index(torch.argmin(size), size.shape))
+    bad = y_ok.float().reshape(b, nc, t, h, p).clone()
+    bad[bi, ci] -= contrib[bi, ci]
+    bad = bad.reshape(b, s, h, p).to(y_ok.dtype)
+    caught = not torch.allclose(bad.float(), y_ok.float(), **tol)
+    d_y = float((bad.float() - y_ok.float()).abs().max())
+    rel = rel_err(torch, bad, y_ok)
+    log(f"mamba2 control: a forward that drops the state term of chunk {ci} of "
+        f"sequence {bi} (the smallest of all: max|term| {float(size[bi, ci]):.3g}; "
+        f"the largest {float(size[:, 1:].max()):.3g}) reads max|err| y {d_y:.3g} "
+        f"(caught elementwise: {caught}; tolerance {tol}) and relative norm "
+        f"error {rel:.2g} (caught: {rel > SCAN_REL})")
+    if not caught:
+        fail("mamba2 control: the forward's tolerance passes a kernel that drops "
+             "one chunk's state term")
+    del states, cum, contrib, bad
+
+
+def mamba_kernel_phase(torch, timer, cfg):
+    """The Mamba2 scan forward and backward at full-width zamba2-7b shapes:
+    x [2, 4096, 112, 64] bf16, dt [2, 4096, 112] f32, A [112] f32, B, C
+    [2, 4096, 64] bf16."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    x, dt, A, B, C, dy = mamba_inputs(torch, cfg, seed=6)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    t, nc = kmamba.CHUNK, kmamba.n_chunks(s)
+    la = (dt * A).abs()
+    log(f"mamba2 inputs x [{b},{s},{h},{p}], B/C [{b},{s},{n}]: dt in "
+        f"[{float(dt.min()):.3g}, {float(dt.max()):.3g}], A in [{float(A.min()):.3g}, "
+        f"{float(A.max()):.3g}], |A dt| up to {float(la.max()):.3g}, a chunk's "
+        f"decay sum up to {float(la.reshape(b, nc, t, h).sum(2).max()):.4g}")
+    del la
+    src, rep = "src/repro_torch/kernels/csrc/mamba2.cu", "src/repro/kernels/mamba_chunk.py:86"
+    # FLOPs per (batch, head, chunk) of the chunked algorithm: C B^T 2 T^2 N,
+    # its causal product with x T^2 P, the state's read 2 T P N and its
+    # update 2 T P N forward; backward C B^T and dy x^T (2 T^2 (N + P)), the
+    # causal products for dx, dB and dC (T^2 (P + 2 N)) and four state
+    # products (8 T P N)
+    fwd_flops = b * h * nc * (2 * t * t * n + t * t * p + 4 * t * p * n)
+    bwd_flops = b * h * nc * (4 * t * t * n + 3 * t * t * p + 8 * t * p * n)
+    io = x.numel() * 2                                   # one [B,S,H,P] bf16 tensor
+    bc = B.numel() * 2                                   # one [B,S,N] bf16 tensor
+    state_bytes = b * h * nc * p * n * 4                 # the chunk-entry states
+
+    want_y, want_hf = ref.mamba2_scan(x, dt, A, B, C, chunk=t)
+    y_tol, h_tol = scan_tol(torch, want_y), scan_tol(torch, want_hf)
+    dropped_state_control(torch, x, dt, A, B, C, want_y, y_tol)
+    del want_y, want_hf
+    rows = [measure(
+        torch, timer, "mamba2", src, rep,
+        lambda: kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)[:2],
+        lambda: ref.mamba2_scan(x, dt, A, B, C, chunk=t), (y_tol, h_tol),
+        nbytes=2 * io + dt.numel() * 4 + 2 * bc + h * 4 + b * h * p * n * 4
+        + state_bytes, flops=fwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
+        note=f"; y, h_final; rel {SCAN_REL}; the training forward, which also "
+             f"writes the {nc} chunk-entry states")]
+
+    _, _, states = kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)
+    first = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+    again = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+    want = ref.mamba2_bwd(x, dt, A, B, C, dy, chunk=t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(first, again)):
+        fail("mamba2 backward: two runs on the same inputs differ")
+    log("mamba2 backward: two runs on the same inputs are bitwise equal")
+    tols = tuple(scan_tol(torch, w) for w in want)
+    del first, again, want
+    rows.append(measure(
+        torch, timer, "mamba2_bwd", src, rep,
+        lambda: kmamba.mamba2_bwd(x, dt, A, B, C, dy, states),
+        lambda: ref.mamba2_bwd(x, dt, A, B, C, dy, chunk=t), tols,
+        nbytes=3 * io + 2 * dt.numel() * 4 + 4 * bc + 2 * h * 4 + state_bytes,
+        flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
+        note=f"; dx, ddt, dA, dB, dC; rel {SCAN_REL}"))
+    del x, dt, A, B, C, dy, states
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash112_phase(torch, timer, cfg):
+    """Flash attention at zamba2-7b's shared-attention shapes: q, k, v
+    [2, 4096, 32, 112] bf16 (MHA), causal."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    rows = flash_rows(torch, timer, q, k, v, do, suffix="_hd112")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows
+
+
+def zamba_expect(cfg, n):
+    """Counted launches of n hybrid steps with the nested remat: a grouped
+    Mamba2 layer runs its forward three times a step (the forward, its
+    group's recompute, its own recompute), a tail layer and the shared
+    block twice; each backward once.  A Mamba2 layer runs two norms (ln1,
+    the gated norm) and one silu_mul; the shared block two norms, rope on q
+    and k, flash attention and the FFN's silu_mul (rope's backward is its
+    forward kernel at -pos); the final norm is outside the remat."""
+    from repro_torch.models.model import hybrid_layout
+
+    g, k, t = hybrid_layout(cfg)
+    mf, mb = 3 * g * k + 2 * t, g * k + t          # Mamba2 layer forwards, backwards
+    sf, sb = 2 * g, g                              # shared-block forwards, backwards
+    return {"mamba2": mf * n, "mamba2_bwd": mb * n,
+            "flash_attention": sf * n, "flash_attention_bwd": sb * n,
+            "rmsnorm": (2 * mf + 2 * sf + 1) * n, "rmsnorm_bwd": (2 * mb + 2 * sb + 1) * n,
+            "apply_rope": (2 * sf + 2 * sb) * n,
+            "silu_mul": (mf + sf) * n, "silu_mul_bwd": (mb + sb) * n}
+
+
+def zamba_watched(st):
+    p = st.params
+    return {"embed": p["embed"]["table"][:4],
+            "g0_in_proj": p["groups"][0][0]["mamba"]["in_proj"]["w"][:4],
+            "tail_out_proj": p["tail"][-1]["mamba"]["out_proj"]["w"][:4],
+            "shared_wq": p["shared"]["attn"]["wq"]["w"][:4],
+            "lm_head": p["lm_head"]["w"][:4]}
+
+
 def main() -> None:
     import torch
 
@@ -1012,7 +1222,9 @@ def main() -> None:
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import prefill_attention, rmsnorm, rope, rwkv_chunk, swiglu
+    from repro_torch.kernels import mamba_chunk, prefill_attention, rmsnorm, rope
+    from repro_torch.kernels import rwkv_chunk, swiglu
+    from repro_torch.launch.trace_train import one_card_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1071,12 +1283,26 @@ def main() -> None:
         row["launches"] = rwkv_launches[row["name"]]
     rows += rwkv_rows
 
+    zcfg = one_card_config("zamba2-7b")
+    hybrid_rows = mamba_kernel_phase(torch, timer, zcfg)
+    hybrid_rows += flash112_phase(torch, timer, zcfg)
+    train_parity_phase(torch, reduced(get_config("zamba2-7b")))
+    zamba_counters = {
+        "mamba2": Counter(mamba_chunk), "mamba2_bwd": Counter(mamba_chunk, "bwd_launches"),
+        **train_counters}
+    zamba_launches, zamba_train = train_phase(torch, zcfg, zamba_counters,
+                                              zamba_expect, zamba_watched)
+    for row in hybrid_rows:
+        row["launches"] = zamba_launches[row["name"].removesuffix("_hd112")]
+    rows += hybrid_rows
+
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
              build_s=info["seconds"], serve=serve, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
-             rwkv_launches=rwkv_launches, **kernels), indent=1))
+             rwkv_launches=rwkv_launches, zamba_train=zamba_train,
+             zamba_launches=zamba_launches, **kernels), indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_chunk as _mamba
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import rwkv_chunk as _rwkv
@@ -99,3 +100,24 @@ class RWKV6(torch.autograd.Function):
     def backward(ctx, do, _dsf):
         r, k, v, w, u, states = ctx.saved_tensors
         return _rwkv.rwkv6_bwd(r, k, v, w, u, do.contiguous(), states)
+
+
+class Mamba2(torch.autograd.Function):
+    """(y, h_final) of the Mamba2 SSD scan from a zero state; h_final is not
+    differentiable (training never carries it).  The forward writes the
+    chunk-entry states when a gradient is wanted, and the backward reads
+    them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        want = any(ctx.needs_input_grad)        # grad mode is off in here
+        y, hf, states = _mamba.mamba2_fwd(x, dt, A, B, C, save_states=want)
+        ctx.mark_non_differentiable(hf)
+        if want:
+            ctx.save_for_backward(x, dt, A, B, C, states)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, _dhf):
+        x, dt, A, B, C, states = ctx.saved_tensors
+        return _mamba.mamba2_bwd(x, dt, A, B, C, dy.contiguous(), states)

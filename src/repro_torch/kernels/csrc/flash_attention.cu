@@ -476,7 +476,7 @@ Geometry make_geometry(int B, int Sq, int Sk, int H, int KvH, int D, int causal,
 
 }  // namespace
 
-#define REPRO_FLASH_DIMS(DIM_CASE) DIM_CASE(16) DIM_CASE(64) DIM_CASE(128)
+#define REPRO_FLASH_DIMS(DIM_CASE) DIM_CASE(16) DIM_CASE(64) DIM_CASE(112) DIM_CASE(128)
 
 // q [B, Sq, H, D]; k, v [B, Sk, KvH, D] -> o [B, Sq, H, D], lse [B, H, Sq]
 // f32.  window <= 0 means no window.

@@ -7,7 +7,11 @@
 // thread rotates one neighbour pair (x[2j], x[2j+1]), so the pair swap and
 // negate never leave registers and no cos/sin table is read from memory.
 // The inverse frequency is computed as 1 / theta^(j/half), the form of the
-// plain version (kernels/ref.py), not the TPU kernel's exp(-ln(theta) j/half).
+// plain version (kernels/ref.py), not the TPU kernel's exp(-ln(theta) j/half),
+// and j/half as j * (1/half): PyTorch divides a CUDA tensor by a scalar as a
+// product with the scalar's reciprocal, and the angle pos * inv magnifies a
+// one-ulp difference in the exponent (a true division read 7.6e-5 off the
+// plain version in f32 at head dim 112 and positions below 1024).
 #include "common.cuh"
 
 namespace {
@@ -24,7 +28,8 @@ rope_kernel(const T* __restrict__ x, const int* __restrict__ pos, T* __restrict_
     // i indexes [B*S, H, half]; the position is shared by every head of a token
     const int j = static_cast<int>(i % half);
     const int64_t token = i / (static_cast<int64_t>(half) * heads);
-    const float inv = 1.0f / powf(theta, static_cast<float>(j) / static_cast<float>(half));
+    const float e = static_cast<float>(j) * (1.0f / static_cast<float>(half));
+    const float inv = 1.0f / powf(theta, e);
     const float ang = static_cast<float>(pos[token]) * inv;
     float sn, cs;
     sincosf(ang, &sn, &cs);

@@ -29,7 +29,7 @@ from repro_torch.kernels import _build
 launches = 0       # forward kernel launches through this module
 bwd_launches = 0   # backward launches (one per flash_attention_bwd call)
 
-HEAD_DIMS = (16, 64, 128)   # the head dims of the configs (reduced: 16)
+HEAD_DIMS = (16, 64, 112, 128)   # the configs' head dims (reduced: 16; zamba2-7b: 112)
 
 
 def _geometry(name: str, q, k, v):

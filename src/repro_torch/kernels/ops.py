@@ -36,7 +36,7 @@ def apply_rope(x, positions, *, theta: float = 10_000.0):
 def silu_mul(gate, up):
     if _on_cpu(up):
         return ref.silu_mul(gate, up)
-    return _ag.SiluMul.apply(gate, up)
+    return _ag.SiluMul.apply(gate.contiguous(), up.contiguous())
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -101,6 +101,26 @@ def rwkv6_scan(r, k, v, w, u, *, s0=None):
             "path; it comes with the recurrent-serving slice of repro_torch")
     return _ag.RWKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
                            w.contiguous(), u.contiguous())
+
+
+MAMBA_CHUNK = 64        # the JAX package's ``ops.mamba2_scan(chunk=64)``
+
+
+def mamba2_scan(x, dt, A, B, C, *, h0=None):
+    """Mamba2 SSD scan: x [B, S, H, P]; dt [B, S, H] f32; A [H] f32; B, C
+    [B, S, N] -> (y [B, S, H, P], h_final [B, H, P, N] f32).  On the CPU the
+    plain chunked version with chunks of 64, as the JAX package runs off the
+    TPU.  On the card the kernel covers what the JAX package's Pallas path
+    covers, a zero initial state (training); a carried state is the
+    recurrent serving path."""
+    if _on_cpu(x):
+        return ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=MAMBA_CHUNK)
+    if h0 is not None:
+        raise NotImplementedError(
+            "mamba2_scan with an initial state h0 is the recurrent serving "
+            "path; it comes with the recurrent-serving slice of repro_torch")
+    return _ag.Mamba2.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
+                            B.contiguous(), C.contiguous())
 
 
 def silu(x):

@@ -517,3 +517,171 @@ def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
     dw = torch.where(wf > W_FLOOR, unchunk(dl) / wf, 0.0)
     return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
             unchunk(dv).to(v.dtype), dw, du)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan (scalar-per-head decay, n_groups = 1)
+# ---------------------------------------------------------------------------
+
+def _mamba2_chunks(x, dt, B, C, chunk: int, extra=()):
+    """Pad S to a multiple of ``chunk`` with zeros (dt = 0 makes a padded row
+    a no-op: its decay is exp(0) = 1 and its input term 0) and split it ->
+    f32 tensors x [B, NC, T, H, P], dt [B, NC, T, H], B and C [B, NC, T, N],
+    and each of ``extra`` (shaped like x) as x."""
+    b, s, h, p = x.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+    xs = [F.pad(t.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p)
+          for t in (x, *extra)]
+    dts = F.pad(dt.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, h)
+    bs, cs = (F.pad(t.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, -1)
+              for t in (B, C))
+    return xs, dts, bs, cs
+
+
+def _seg_decay(cum, tri):
+    """exp(cum[t] - cum[u]) for u <= t, 0 elsewhere: [B, T, U, H].  The
+    exponent is masked with a finite -1e30 *before* exp (u > t gives a
+    positive exponent that overflows f32; -inf would breed NaN in
+    autograd)."""
+    diff = cum[:, :, None, :] - cum[:, None, :, :]
+    return torch.exp(torch.where(tri[None, :, :, None], diff, NEG_INF))
+
+
+def mamba2_scan(x, dt, A, B, C, *, h0: Optional[torch.Tensor] = None,
+                chunk: int = 128):
+    """Chunked selective-state-space scan (Mamba2 SSD), the JAX oracle's
+    algorithm.
+
+    x [Bt, S, H, P]; dt [Bt, S, H] (softplus step sizes, >= 0); A [H]
+    (negative); B, C [Bt, S, N] (shared by the heads); h0 [Bt, H, P, N] an
+    optional initial state.  Recurrence, per head:
+        h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t
+    -> (y [Bt, S, H, P] in x's dtype, h_final [Bt, H, P, N] f32).  Within a
+    chunk every decay exponent is cum[t] - cum[u] with u <= t, hence <= 0."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, s)
+    (xs,), dts, bs, cs = _mamba2_chunks(x, dt, B, C, chunk)
+    af = A.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    hs = (torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device)
+          if h0 is None else h0.float())
+    ys = []
+    for c in range(xs.shape[1]):
+        xc, dtc, bc, cc = xs[:, c], dts[:, c], bs[:, c], cs[:, c]
+        cum = torch.cumsum(dtc * af, dim=1)                        # [Bt,T,H]
+        cb = torch.einsum("btn,bun->btu", cc, bc)
+        wts = _seg_decay(cum, tri) * cb[..., None] * dtc[:, None]  # [Bt,T,U,H]
+        y_intra = torch.einsum("btuh,buhp->bthp", wts, xc)
+        y_inter = torch.einsum("btn,bhpn,bth->bthp", cc, hs, torch.exp(cum))
+        dec_rest = torch.exp(cum[:, -1:] - cum)                    # [Bt,U,H]
+        contrib = torch.einsum("buh,buhp,bun->bhpn", dec_rest * dtc, xc, bc)
+        hs = hs * torch.exp(cum[:, -1])[..., None, None] + contrib
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, 1).reshape(bt, -1, h, p)[:, :s]
+    return y.to(x.dtype), hs
+
+
+def mamba2_chunk_states(x, dt, A, B, *, chunk: int = 64):
+    """The SSM state at the entry of each ``chunk``-row chunk, from a zero
+    state: [Bt, H, ceil(S / chunk), P, N] f32 (what the training forward
+    kernel writes for its backward)."""
+    bt, s, h, p = x.shape
+    (xs,), dts, bs, _ = _mamba2_chunks(x, dt, B, B, chunk)
+    hs = torch.zeros((bt, h, p, B.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+    states = []
+    for c in range(xs.shape[1]):
+        states.append(hs)
+        cum = torch.cumsum(dts[:, c] * A.float(), dim=1)
+        hs = hs * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "buh,buhp,bun->bhpn", torch.exp(cum[:, -1:] - cum) * dts[:, c],
+            xs[:, c], bs[:, c])
+    return torch.stack(states, 2)
+
+
+def mamba2_bwd(x, dt, A, B, C, dy, *, chunk: int = 64):
+    """Gradients (dx, ddt, dA, dB, dC) of :func:`mamba2_scan`'s y with
+    ``h0 = 0`` and a zero cotangent on h_final (the training case), by
+    explicit formulas in the order of the backward kernel: the chunk-entry
+    states h0, then one reverse sweep over the chunks carrying dS, the
+    gradient of the chunk's exit state.
+
+    With l_t = A dt_t, a_t = exp(l_t), h_t = a_t h_{t-1} + dt_t x_t B_t^T
+    and y_t = h_t C_t, the state gradient g_t = dy_t C_t^T + a_{t+1} g_{t+1}
+    is, inside a chunk with inclusive log-decay sums cum and exit value cT,
+    g_t = sum_{s>=t} e^{cum_s - cum_t} dy_s C_s^T + e^{cT - cum_t} dS.  With
+    M[s,u] = e^{cum_s - cum_u} C_s.B_u and Q[s,u] = e^{cum_s - cum_u}
+    dy_s.x_u (both for u <= s):
+
+        dx_t  = dt_t g_t B_t = dt_t (sum_s M[s,t] dy_s + e^{cT-cum_t} dS B_t)
+        e_t   = x_t . g_t B_t
+        dB_t  = sum_heads dt_t (sum_s Q[s,t] C_s + e^{cT-cum_t} x_t^T dS)
+        dC_t  = sum_heads (e^{cum_t} h0^T dy_t + sum_u Q[t,u] dt_u B_u)
+        dS   <- e^{cT} dS + sum_t e^{cum_t} dy_t C_t^T
+
+    The log-decay gradient dl_j = <g_j, a_j h_{j-1}> is taken pair by pair
+    over the (s >= j, u < j) terms that decay through step j, inside the
+    chunk (the boundary terms carry h0 and dS):
+
+        dl_j = sum_{s>=j} sum_{u<j} M[s,u] dt_u dy_s.x_u
+             + sum_{s>=j} e^{cum_s} dy_s^T h0 C_s
+             + sum_{u<j} e^{cT-cum_u} dt_u x_u^T dS B_u + e^{cT} <dS, h0>
+
+    (the same value as sum_{t>=j} (<y_t, dy_t> - dt_t e_t), but without its
+    running sum over the whole sequence of nearly cancelling terms, which
+    loses f32 digits where the decays are strong).  Then ddt_t = e_t + A dl_t
+    and dA = sum_{batch, t} dt_t dl_t.  dx, dB and dC come back in the
+    dtypes of x, B and C; ddt and dA in f32."""
+    bt, s, h, p = x.shape
+    chunk = min(chunk, s)
+    (xs, dys), dts, bs, cs = _mamba2_chunks(x, dt, B, C, chunk, (dy,))
+    nc = xs.shape[1]
+    af = A.float()
+    dev = x.device
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    states = mamba2_chunk_states(x, dt, A, B, chunk=chunk)
+    dS = torch.zeros_like(states[:, :, 0])
+    dA = torch.zeros((h,), dtype=torch.float32, device=dev)
+    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (xs, dts, bs, cs))
+    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, [1]), 1), [1])
+    for c in reversed(range(nc)):
+        xc, dyc, dtc, bc, cc = xs[:, c], dys[:, c], dts[:, c], bs[:, c], cs[:, c]
+        h0 = states[:, :, c]
+        cum = torch.cumsum(dtc * af, dim=1)                        # [Bt,T,H]
+        cT = cum[:, -1]                                            # [Bt,H]
+        L = _seg_decay(cum, tri)                                   # [Bt,T,U,H]
+        M = L * torch.einsum("btn,bun->btu", cc, bc)[..., None]
+        dyx = torch.einsum("bthp,buhp->btuh", dyc, xc)             # dy_t . x_u
+        Q = L * dyx
+        tail = torch.exp(cT[:, None] - cum)                        # e^{cT - cum_t}
+        head = torch.exp(cum)                                      # e^{cum_t}
+        gB = (torch.einsum("bsth,bshp->bthp", M, dyc)
+              + tail[..., None] * torch.einsum("bhpn,btn->bthp", dS, bc))
+        dx[:, c] = dtc[..., None] * gB
+        e = (xc * gB).sum(-1)                                      # [Bt,T,H]
+        xdsb = torch.einsum("bthp,bhpn,btn->bth", xc, dS, bc)      # x_t^T dS B_t
+        dB[:, c] = torch.einsum(
+            "bth,bsth,bsn->btn", dtc, Q, cc) + torch.einsum(
+            "bth,bthp,bhpn->btn", dtc * tail, xc, dS)
+        hdy = torch.einsum("bhpn,bthp->bthn", h0, dyc)             # h0^T dy_t
+        dC[:, c] = (torch.einsum("bth,bthn->btn", head, hdy)
+                    + torch.einsum("btuh,buh,bun->btn", Q, dtc, bc))
+        K = M * dtc[:, None] * dyx                                 # [Bt,S,U,H]
+        before = torch.cumsum(K, dim=2) - K                        # sum_{u<j} K[s,u]
+        intra = torch.einsum("bsjh,sj->bjh", before, tri.float())  # sum_{s>=j}
+        h_side = rev(head * torch.einsum("btn,bthn->bth", cc, hdy))
+        s_side = tail * dtc * xdsb
+        s_side = torch.cumsum(s_side, 1) - s_side                  # sum_{u<j}
+        const = torch.exp(cT) * torch.einsum("bhpn,bhpn->bh", dS, h0)
+        dl = intra + h_side + s_side + const[:, None]
+        ddt[:, c] = e + af * dl
+        dA = dA + (dtc * dl).sum((0, 1))
+        dS = dS * torch.exp(cT)[..., None, None] + torch.einsum(
+            "bth,bthp,btn->bhpn", head, dyc, cc)
+    unchunk = lambda t: t.reshape(bt, nc * chunk, *t.shape[3:])[:, :s]
+    return (unchunk(dx).to(x.dtype), unchunk(ddt), dA,
+            unchunk(dB).to(B.dtype), unchunk(dC).to(C.dtype))

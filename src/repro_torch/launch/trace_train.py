@@ -2,15 +2,16 @@
 
   PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch rwkv6-3b]
 
-Trains ``--arch`` (granite-3-2b by default, or rwkv6-3b) at full width and
-depth (random bf16 weights from ``--seed``) on ``--batch`` x ``--seq-len``
+Trains ``--arch`` (granite-3-2b by default, rwkv6-3b, or zamba2-7b) at full
+width and depth (zamba2-7b at ``ONE_CARD_LAYERS``'s depth; random bf16
+weights from ``--seed``) on ``--batch`` x ``--seq-len``
 tokens per step through ``train/step.py:make_train_step`` with remat, the
 step ``chip_smoke.py``'s train phases drive: one step untimed to warm up,
 ``--steps`` untraced steps for the wall clock, one step under
 ``torch.profiler``.  Prints the device kernel time of the traced step by
-kernel and by group (the flash-attention and wkv6 forward and backward
-kernels each in a group of their own, the port's other CUDA kernels, GEMMs,
-other PyTorch ops) and the device busy share: summed kernel time over the
+kernel and by group (the flash-attention, wkv6 and Mamba2-scan forward and
+backward kernels each in a group of their own, the port's other CUDA
+kernels, GEMMs, other PyTorch ops) and the device busy share: summed kernel time over the
 mean untraced step (one stream, so kernels do not overlap).  The summary
 also lands in ``chiprun_out/trace_train[_<arch>].json``.  Needs a CUDA
 device.
@@ -30,11 +31,29 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import for_cell
 from repro_torch.train import step as TS
 
+# Training depth on one 80 GB card where the full depth does not fit: at 81
+# layers zamba2-7b has 6.75 B parameters, ~81 GB of bf16 weights and
+# gradients with f32 AdamW moments.  33 layers are 5 groups of 6 Mamba2
+# layers, the full config's 3-layer tail and 5 applications of the shared
+# block (3.01 B parameters), at full width.
+ONE_CARD_LAYERS = {"zamba2-7b": 33}
+
+
+def one_card_config(arch: str):
+    """``arch``'s config at the depth one card trains (only the layer count
+    is cut, and only where ``ONE_CARD_LAYERS`` names the arch)."""
+    cfg = get_config(arch)
+    layers = ONE_CARD_LAYERS.get(cfg.name)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu), by group
 GROUPS = (("flash attention forward", ("flash_fwd_kernel",)),
           ("flash attention backward", ("flash_bwd_",)),
           ("wkv6 forward", ("rwkv6_fwd_kernel",)),
           ("wkv6 backward", ("rwkv6_bwd_kernel",)),
+          ("Mamba2 scan forward", ("mamba2_fwd_kernel",)),
+          ("Mamba2 scan backward", ("mamba2_bwd_kernel", "mamba2_head_sum_")),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",
                                         "paged_attention_kernel")))
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
@@ -65,7 +84,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("trace_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
+    cfg = one_card_config(args.arch)
     state = TS.init_state(cfg, seed=args.seed, dtype=torch.bfloat16, device="cuda")
     ds = for_cell(cfg, ShapeSpec("trace", args.seq_len, args.batch, "train"))
     n = args.steps + 2
@@ -102,7 +121,8 @@ def main(argv=None):
     device_s = sum(us for us, _ in groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
     tokens = args.batch * args.seq_len
-    print(f"[trace] {card}; {cfg.name} {args.batch} x {args.seq_len} tokens "
+    print(f"[trace] {card}; {cfg.name} ({cfg.n_layers} layers) {args.batch} x "
+          f"{args.seq_len} tokens "
           f"per step, remat; untraced steps {[round(w, 4) for w in walls]} s "
           f"(mean {wall:.4f} s, {tokens / wall:.1f} tokens/s), traced step "
           f"{traced_wall:.4f} s; device kernel time {device_s:.4f} s; busy "
@@ -119,7 +139,7 @@ def main(argv=None):
                             f"chiprun_out/trace_train_{args.arch}.json"))
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
-        card=card, arch=cfg.name, batch=args.batch, seq_len=args.seq_len,
+        card=card, arch=cfg.name, n_layers=cfg.n_layers, batch=args.batch, seq_len=args.seq_len,
         step_s=walls, mean_step_s=wall, traced_step_s=traced_wall,
         device_s=device_s, busy_share=device_s / wall,
         groups={g: dict(ms=us / 1e3, launches=c) for g, (us, c) in groups.items()},

@@ -4,8 +4,12 @@ train step, on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ckpt
 
-``--arch`` takes the dense family and rwkv6-3b (the RWKV6 family); the
-other families raise, naming the slice of the port that brings them.
+``--arch`` takes the dense family, rwkv6-3b (RWKV6) and zamba2-7b (the
+Mamba2 hybrid); the MoE family raises, naming the slice of the port that
+brings it.  zamba2-7b at its 81 layers does not fit one 80 GB card for
+training (bf16 weights and gradients with f32 moments, ~81 GB), as in the
+JAX package on one chip; ``launch/trace_train.py`` and ``chip_smoke.py``
+train it at full width and the depth one card holds.
 
 The step runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels, forward and backward; ``--device cpu`` runs the

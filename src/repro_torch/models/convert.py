@@ -33,18 +33,37 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _split(stacked, n: int, device):
+    """Leaves stacked ``[n, ...]`` -> a list of n trees of their slices."""
+    return [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i], device))
+            for i in range(n)]
+
+
+def _count(stacked) -> int:
+    return len(np.asarray(stacked["ln1"]["scale"]))
+
+
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """JAX parameter tree of the dense or RWKV6 family (numpy leaves) ->
-    port parameters, each leaf in its own dtype (the RWKV6 ``u`` and ``w0``
-    stay f32 among bf16 leaves), with the stacked ``[L, ...]`` layer leaves
-    split per layer and nested dicts (``tm`` / ``cm``) kept as they are."""
+    """JAX parameter tree (numpy leaves) -> port parameters, each leaf in its
+    own dtype (the RWKV6 ``u`` / ``w0`` and the Mamba2 ``A_log`` / ``D`` /
+    ``dt_bias`` stay f32 among bf16 leaves), nested dicts (``tm`` / ``cm`` /
+    ``mamba``) kept as they are.  The stacked ``[L, ...]`` leaves of
+    ``layers`` are split per layer; for the hybrid family the ``[G, K, ...]``
+    leaves of ``groups`` become G lists of K layers, the ``[T, ...]`` leaves
+    of ``tail`` (None when the layer count divides into groups) a list of T
+    layers, and ``shared`` stays one block."""
+    stacks = ("layers", "groups", "tail")
     out = {k: _map(v, lambda a: _tensor(a, device))
-           for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
-    n_layers = len(np.asarray(stacked["ln1"]["scale"]))
-    out["layers"] = [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i],
-                                                          device))
-                     for i in range(n_layers)]
+           for k, v in tree.items() if k not in stacks}
+    if "layers" in tree:
+        out["layers"] = _split(tree["layers"], _count(tree["layers"]), device)
+    if "groups" in tree:
+        groups = tree["groups"]
+        g, k = np.asarray(groups["ln1"]["scale"]).shape[:2]
+        out["groups"] = [_split(_map(groups, lambda a, i=i: np.asarray(a)[i]),
+                                k, device) for i in range(g)]
+        tail = tree.get("tail")
+        out["tail"] = [] if tail is None else _split(tail, _count(tail), device)
     return out
 
 

@@ -1,11 +1,16 @@
-"""Decoder LM: full-sequence forward (training) for the dense and RWKV6
-families, and serving over a paged KV cache for the dense family.
+"""Decoder LM: full-sequence forward (training) for the dense, RWKV6,
+Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving over a paged KV
+cache for the dense family.
 
 Port of the JAX package's ``models/model.py``: the stacked-layer
 ``lax.scan`` becomes a Python loop over a list of per-layer parameter
 dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and the pages
-are updated in place.  What this port does not run yet raises
-``NotImplementedError`` naming the slice of the port that brings it.
+are updated in place.  The hybrid family runs groups of ``attn_every``
+Mamba2 layers, each group followed by one attention + FFN block whose
+weights all groups share, then an ungrouped tail; its parameters are
+``groups`` (a list of groups, each a list of layer dicts), ``tail`` (a
+list of layer dicts) and ``shared``.  What this port does not run yet
+raises ``NotImplementedError`` naming the slice of the port that brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
@@ -24,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, rwkv
+from repro_torch.models import layers, rwkv, ssm
 
 PAGED_FAMILIES = ("dense",)
 
@@ -34,20 +39,19 @@ def _later(cfg: ModelConfig, serving: bool) -> str:
     for training)."""
     if cfg.family == "moe":
         return "the MoE slice"
-    if cfg.rwkv and serving:
+    if serving and cfg.family in ("ssm", "hybrid"):
         return "the recurrent-serving slice"
-    if cfg.family in ("ssm", "hybrid"):
-        return "the Mamba2 slice"
     return "a later slice"
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Parameters and the full-sequence forward: dense and RWKV6."""
-    if not (cfg.family == "dense" or cfg.rwkv):
+    """Parameters and the full-sequence forward: dense, RWKV6, Mamba2 and
+    hybrid."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
             f"with {_later(cfg, False)} of repro_torch; this port trains "
-            f"family='dense' and RWKV6")
+            f"family='dense', 'ssm' (RWKV6, Mamba2) and 'hybrid'")
 
 
 def require_servable(cfg: ModelConfig) -> None:
@@ -68,7 +72,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random parameters from ``seed``, made on ``device``: embeddings and
     linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales (the
-    RWKV6 layers as ``models/rwkv.py:rwkv_init`` makes them)."""
+    RWKV6 and Mamba2 layers as ``models/rwkv.py:rwkv_init`` and
+    ``models/ssm.py:mamba_init`` make them)."""
     require_trainable(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -90,22 +95,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
               "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["lm_head"] = lin(d, cfg.vocab_size)
-    if cfg.rwkv:
-        params["layers"] = [{"ln1": norm(), "ln2": norm(),
-                             **rwkv.rwkv_init(cfg, normal, dtype, device)}
-                            for _ in range(cfg.n_layers)]
-        return params
-    params["layers"] = [{
-        "ln1": norm(),
-        "attn": {"wq": lin(d, h * hd, cfg.qkv_bias),
-                 "wk": lin(d, kvh * hd, cfg.qkv_bias),
-                 "wv": lin(d, kvh * hd, cfg.qkv_bias),
-                 "wo": lin(h * hd, d)},
-        "ln2": norm(),
-        "ffn": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
-                "down": lin(cfg.d_ff, d)},
-    } for _ in range(cfg.n_layers)]
+
+    def attn_block():
+        return {
+            "ln1": norm(),
+            "attn": {"wq": lin(d, h * hd, cfg.qkv_bias),
+                     "wk": lin(d, kvh * hd, cfg.qkv_bias),
+                     "wv": lin(d, kvh * hd, cfg.qkv_bias),
+                     "wo": lin(h * hd, d)},
+            "ln2": norm(),
+            "ffn": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
+                    "down": lin(cfg.d_ff, d)},
+        }
+
+    def layer():
+        if cfg.family == "dense":
+            return attn_block()
+        if cfg.rwkv:
+            return {"ln1": norm(), "ln2": norm(),
+                    **rwkv.rwkv_init(cfg, normal, dtype, device)}
+        return {"ln1": norm(),
+                "mamba": ssm.mamba_init(cfg, normal, dtype, device)}
+
+    if cfg.family == "hybrid":
+        g, k, tail = hybrid_layout(cfg)
+        params["groups"] = [[layer() for _ in range(k)] for _ in range(g)]
+        params["tail"] = [layer() for _ in range(tail)]
+        params["shared"] = attn_block()
+    else:
+        params["layers"] = [layer() for _ in range(cfg.n_layers)]
     return params
+
+
+def hybrid_layout(cfg: ModelConfig):
+    """(n_groups, group_size, n_tail) for the hybrid family."""
+    k = cfg.attn_every
+    g = cfg.n_layers // k
+    return g, k, cfg.n_layers - g * k
 
 
 def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
@@ -140,6 +166,12 @@ def _rwkv_block(cfg, lp, x):
                                                           cfg.norm_eps))
 
 
+def _mamba_block(cfg, lp, x):
+    """Pre-norm residual Mamba2 block."""
+    return x + ssm.mamba_apply(lp["mamba"],
+                               layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg)
+
+
 def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
@@ -150,28 +182,53 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
     tokens [B, S] (or ``embeds`` [B, S, d]); positions [B, S] int32
     (default 0..S-1).  With ``train`` and ``remat`` each layer runs under
     ``torch.utils.checkpoint``: only its input is kept, and the backward
-    recomputes its forward (kernels included).  ``aux`` holds the MoE
-    (load-balance, z) losses, zeros for the dense and RWKV6 families."""
+    recomputes its forward (kernels included).  The hybrid family nests the
+    remat as the JAX package does: a checkpoint per layer inside a
+    checkpoint per group (the group's backward recomputes its layers'
+    forwards, and each layer's backward recomputes its own forward once
+    more), and one per layer in the tail.  ``aux`` holds the MoE
+    (load-balance, z) losses, zeros for the families ported here."""
     require_trainable(cfg)
     x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    remat = train and remat
+
+    def attend(p):
+        return lambda h: layers.attention(p["attn"], h, positions, cfg,
+                                          lengths=lengths, window=attn_window)
 
     def body(xc, lp):
+        if cfg.family == "dense":
+            return _block(cfg, lp, xc, attend(lp))
         if cfg.rwkv:
             return _rwkv_block(cfg, lp, xc)
-        return _block(cfg, lp, xc, lambda h: layers.attention(
-            lp["attn"], h, positions, cfg, lengths=lengths,
-            window=attn_window))
+        return _mamba_block(cfg, lp, xc)
 
-    for lp in params["layers"]:
-        if train and remat:
-            x = checkpoint(body, x, lp, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = body(x, lp)
+    def run(fn, xc, p):
+        if remat:
+            return checkpoint(fn, xc, p, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(xc, p)
+
+    def scan(xc, layer_params):
+        for lp in layer_params:
+            xc = run(body, xc, lp)
+        return xc
+
+    if cfg.family == "hybrid":
+        sp = params["shared"]
+
+        def group_body(xc, gp):
+            return _block(cfg, sp, scan(xc, gp), attend(sp))
+
+        for gp in params["groups"]:
+            x = run(group_body, x, gp)
+        x = scan(x, params["tail"])
+    else:
+        x = scan(x, params["layers"])
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux
 

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import mamba_chunk as kmamba  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpf  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -66,6 +67,12 @@ def test_elementwise_kernels(dev, dtype):
     q = _rand(rng, (2, 9, 6, 64), dtype, dev)
     pos = torch.from_numpy(rng.integers(0, 1024, size=(2, 9)).astype(np.int32)).to(dev)
     _close(krope.apply_rope(q, pos), ref.apply_rope(q, pos), dtype)
+    # zamba2-7b's widths: rope at head dim 112, the gated norm over 7168
+    q = _rand(rng, (2, 9, 4, 112), dtype, dev)
+    _close(krope.apply_rope(q, pos), ref.apply_rope(q, pos), dtype)
+    x = _rand(rng, (3, 7168), dtype, dev)
+    w = _rand(rng, (7168,), dtype, dev)
+    _close(krn.rmsnorm(x, w, 1e-5), ref.rmsnorm(x, w, 1e-5), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -122,6 +129,8 @@ FLASH_CASES = [  # (B, Sq, Sk, H, KvH, D, causal, window)
     (1, 70, 70, 4, 1, 128, True, 40),
     (2, 64, 64, 6, 3, 16, False, None),
     (1, 33, 90, 4, 2, 64, False, 20),
+    (2, 150, 150, 4, 4, 112, True, None),      # zamba2-7b's head dim
+    (1, 70, 70, 4, 2, 112, True, 40),
 ]
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -332,3 +341,78 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _mamba_inputs(rng, b, s, h, p, n, dtype, dev):
+    """x, B, C, dy in ``dtype``; dt = softplus(N(0, 1)) f32 as the model
+    draws it at init (dt_bias = 0); A = -linspace(1, 16, H) f32, the
+    init's -exp(A_log)."""
+    x, dy = (_rand(rng, (b, s, h, p), dtype, dev) for _ in range(2))
+    B, C = (_rand(rng, (b, s, n), dtype, dev) for _ in range(2))
+    dt = torch.nn.functional.softplus(_rand(rng, (b, s, h), torch.float32, dev))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return x, dt, A, B, C, dy
+
+
+def _mamba_close(got, want):
+    """Finite, and within the rtol of the output's dtype (one bf16 ulp, or
+    1e-4 in f32) plus 1e-4 of ``want``'s largest entry."""
+    torch.cuda.synchronize()
+    got, want = got.detach(), want.detach()
+    assert bool(torch.isfinite(got.float()).all())
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-4
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n", [(2, 70, 3, 16, 8), (1, 33, 2, 16, 8),
+                                       (1, 128, 2, 64, 64), (2, 100, 3, 64, 64)])
+def test_mamba2_kernels(dev, dtype, b, s, h, p, n):
+    """Forward (y, h_final, the chunk-entry states) and backward (dx, ddt,
+    dA, dB, dC) against the plain versions, ragged S included; the
+    backward twice on the same inputs gives the same bits."""
+    rng = np.random.default_rng(9)
+    x, dt, A, B, C, dy = _mamba_inputs(rng, b, s, h, p, n, dtype, dev)
+    y, hf, states = kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)
+    want_y, want_hf = ref.mamba2_scan(x, dt, A, B, C, chunk=kmamba.CHUNK)
+    _mamba_close(y, want_y)
+    _mamba_close(hf, want_hf)
+    _mamba_close(states, ref.mamba2_chunk_states(x, dt, A, B, chunk=kmamba.CHUNK))
+    got = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+    want = ref.mamba2_bwd(x, dt, A, B, C, dy, chunk=kmamba.CHUNK)
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype and g.shape == wt.shape
+        _mamba_close(g, wt)
+    again = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_mamba2_autograd_matches_plain_autograd(dev):
+    """``ops.mamba2_scan`` on the card (the Function: kernel forward +
+    kernel backward) against autograd of the plain chunked version, fp32;
+    a carried state raises on the card.  dA is held to 1e-3 of its largest
+    entry: autograd reaches it through running sums of nearly cancelling
+    terms (on the CPU it reads 7.1e-5 of the largest entry off the
+    explicit backward for these inputs)."""
+    rng = np.random.default_rng(10)
+    xs = _mamba_inputs(rng, 2, 90, 3, 16, 8, torch.float32, dev)
+    dy = xs[5]
+
+    def grads(fn):
+        live = [t.detach().requires_grad_() for t in xs[:5]]
+        y, hf = fn(*live)
+        return [y, hf] + list(torch.autograd.grad(y, live, dy))
+
+    got = grads(ops.mamba2_scan)
+    want = grads(lambda *a: ref.mamba2_scan(*a, chunk=kmamba.CHUNK))
+    for i, (g, wt) in enumerate(zip(got, want)):
+        if i == 4:
+            torch.cuda.synchronize()
+            assert float((g - wt).abs().max()) <= 1e-3 * float(wt.abs().max())
+        else:
+            _mamba_close(g, wt)
+    with pytest.raises(NotImplementedError, match="recurrent-serving"):
+        ops.mamba2_scan(*xs[:5], h0=torch.zeros((2, 3, 16, 8), device=dev))

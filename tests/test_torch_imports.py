@@ -29,7 +29,8 @@ REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd
             "repro_torch.train.step", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.driver",
             "repro_torch.runtime.straggler", "repro_torch.launch.train",
-            "repro_torch.kernels.rwkv_chunk", "repro_torch.models.rwkv")
+            "repro_torch.kernels.rwkv_chunk", "repro_torch.models.rwkv",
+            "repro_torch.kernels.mamba_chunk", "repro_torch.models.ssm")
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
