@@ -21,6 +21,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    kernels' launch counters are zeroed just before and read just after,
    and every kernel must have run; a rerun with prefix caching off must give
    token-identical greedy outputs;
+5b. dense kernels: flash-decoding over a dense KV slab (q [8, 32, 64],
+   k/v [8, 1024, 32, 64], the live lengths of phase 3's paged decode) and
+   the flash forward with a per-sequence key bound (q/k/v [1, 1024, 32, 64]
+   at length 700), held against their plain versions in bf16 (timed as in
+   3, beside SDPA with a key mask) and in f32; the decode kernel also at
+   granite-3-2b's 8 kv heads, and as partials over two shards at
+   ``kv_offset`` 512 (combined) and over a shard no length reaches; a
+   control shows each tolerance catches a kernel that drops one 32-key
+   step;
+5c. dense parity: reduced stablelm-1.6b at fp32, a batched ``prefill`` and
+   two ``decode_step``s over the slabs on the card against the CPU;
+5d. dense serve: the mix of 5 through ``ServeEngine(paged=False)`` with
+   the parameters of 5; every launch count equal to its formula (no paged
+   kernel launched), tok/s, TTFT and peak memory beside the paged run's,
+   the share of requests token-identical to it (reported, not gated: bf16
+   near-ties may flip), a ~640-token prompt's last-token logits from the
+   slab ``prefill`` against the paged chunked prefill (relative norm), and
+   the mix again at fp32 (the same seed), where the two engines must give
+   token-identical greedy outputs;
 6. train kernels: the flash-attention forward and backward, the rmsnorm
    and silu_mul backward passes and rope's backward (the forward kernel at
    -pos) at full-width granite-3-2b shapes in bf16, held against their plain
@@ -100,6 +119,28 @@ FLASH_LSE_TOL = dict(rtol=0.0, atol=1e-4)
 FLASH_GRAD_TOL = dict(rtol=2 ** -6, atol=4e-3)
 FLASH_REL = 1e-2
 FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu
+# The dense-slab kernels (5b).  Decode attention at full width: a row of
+# ~500 live keys has |o| ~ 0.1, so ATTN_TOL's 2e-2 would pass a kernel that
+# drops a 32-key step.  The decode and flash-lengths outputs are held like
+# the flash forward (one bf16 ulp relative plus 4e-3, relative norm 1e-2),
+# each decode sequence to a relative norm of 1e-2, and in f32 to 1e-5
+# relative plus 1e-5.  Readings on the first full-width runs (PERF.md,
+# Findings): decode bf16 0.0078 (one ulp where |o| ~ 1-2, rows of few
+# keys), a sequence's relative norm <= 0.0026, f32 <= 4.4e-7;
+# flash-lengths bf16 0.00098, f32 4.8e-7.  The controls read 0.071 / 0.179 per sequence
+# (decode: the longest sequence loses its first step) and 0.257 (flash:
+# the last step below the bound): all caught.
+DECODE_TOL = dict(rtol=2 ** -7, atol=4e-3)
+DECODE_REL = 1e-2
+DECODE_SEQ_REL = 1e-2
+DENSE_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+DENSE_F32_REL = 1e-5
+DENSE_STEP = 32                                # keys a warp stages per step
+FLASH_LEN = 700                                # the flash-lengths row's bound
+# the slab prefill against the paged chunked prefill, full width in bf16:
+# the last-token logits' relative norm error read 0.0143 (PERF.md,
+# Findings); the tolerance is 3.5x that
+PREFILL_GATE_REL = 5e-2
 # The chunked scans, wkv6 at rwkv6-3b's full width (bf16 r, k, v, o and
 # their gradients; f32 S_final, dl = dw w and du) and Mamba2 at zamba2-7b's
 # (bf16 y, dx, dB, dC; f32 h_final, ddt, dA).  Tolerances set from the
@@ -252,6 +293,15 @@ def measure(torch, timer, name, source, replaces, kernel, plain, tol, nbytes,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
+def to_device(tree, dev):
+    """A nested dict / list of tensors (parameters) moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -333,7 +383,7 @@ def kernel_phase(torch, timer, cfg):
                                                length=c),
            ATTN_TOL, nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
            flops=4 * h * hd * attended)
-    return rows
+    return rows, lens.clamp(max=mb * bs)
 
 
 def parity_phase(torch, cfg_small):
@@ -342,16 +392,8 @@ def parity_phase(torch, cfg_small):
     from repro_torch.models import model as M
 
     params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
     out = {}
-    for dev, p in (("cpu", params), ("cuda", to(params, "cuda"))):
+    for dev, p in (("cpu", params), ("cuda", to_device(params, "cuda"))):
         state = M.init_serve_state(cfg_small, 2, 9, 8, dtype=torch.float32,
                                    device=dev)
         tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0]], dtype=torch.int32)
@@ -375,11 +417,8 @@ def parity_phase(torch, cfg_small):
         f"(tol 1e-4)")
 
 
-def serve_phase(torch, cfg, counters):
-    from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
-                                          shared_prefix_mix)
+def serve_params(torch, cfg):
     from repro_torch.models import model as M
-    from repro_torch.serve import ServeEngine
 
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -387,78 +426,381 @@ def serve_phase(torch, cfg, counters):
     log(f"serve: {cfg.name} params on the card in "
         f"{time.perf_counter() - t0:.1f} s ({cfg.n_layers} L, d {cfg.d_model}, "
         f"{cfg.n_heads} H, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})")
-    kw = MIX_ENGINE
+    return params
+
+
+def serve_mix(torch, cfg, params, counters, **engine_kw):
+    """Serve the full-width mix once through an engine built with
+    ``engine_kw``; the counters are zeroed just before and read just
+    after."""
+    from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
+                                          shared_prefix_mix)
+    from repro_torch.serve import ServeEngine
+
     prompts = shared_prefix_mix(cfg.vocab_size)
-    new_tokens = MIX_NEW_TOKENS
+    eng = ServeEngine(cfg, params, **{**MIX_ENGINE, **engine_kw})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=MIX_NEW_TOKENS)
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: c.read() for name, c in counters.items()}
+    out = {r.rid: list(r.out_tokens) for r in done}
+    stats = dict(eng.stats)
+    ttfts = sorted(r.ttft for r in done)
+    peak = torch.cuda.max_memory_allocated()
+    del eng
+    torch.cuda.empty_cache()
+    n_tok = sum(len(t) for t in out.values())
+    if len(out) != len(prompts) or any(len(t) != MIX_NEW_TOKENS
+                                       for t in out.values()):
+        fail(f"serve: {len(out)} of {len(prompts)} requests finished, token "
+             f"counts {sorted({len(t) for t in out.values()})}")
+    if any(not 0 <= x < cfg.vocab_size for t in out.values() for x in t):
+        fail("serve: a token id outside the vocabulary")
+    summary = dict(requests=len(out), tokens=n_tok, wall_s=wall,
+                   tok_s=n_tok / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+                   prefill_dispatches=stats["prefill_dispatches"],
+                   decode_dispatches=stats["decode_dispatches"],
+                   peak_mem_bytes=peak)
+    return out, stats, launches, summary
+
+
+def check_launches(tag, launches, expect):
+    log(f"{tag}: kernel launches {launches} (expected {expect})")
+    for name, n in launches.items():
+        if expect[name] > 0 and n <= 0:
+            fail(f"{tag}: kernel {name} was never launched on the main path")
+        if n != expect[name]:
+            fail(f"{tag}: kernel {name} launched {n} times, expected {expect[name]}")
+
+
+def serve_phase(torch, cfg, params, counters):
+    from repro_torch.serve import ServeEngine
 
     # warm-up on a small engine: cuBLAS handles and the GEMM shapes
     warm = ServeEngine(cfg, params, slots=8, max_seq=160, block_size=16,
                        prefill_buckets=(32, 128))
-    warm.submit(prompts[0][:40], max_new_tokens=3)
+    warm.submit(list(range(40)), max_new_tokens=3)
     warm.run_until_drained()
     del warm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    def run(prefix_caching: bool):
-        eng = ServeEngine(cfg, params, prefix_caching=prefix_caching, **kw)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.reset()
-        t = time.perf_counter()
-        for p in prompts:
-            eng.submit(p, max_new_tokens=new_tokens)
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = {name: c.read() for name, c in counters.items()}
-        out = {r.rid: list(r.out_tokens) for r in done}
-        stats = dict(eng.stats)
-        ttfts = sorted(r.ttft for r in done)
-        peak = torch.cuda.max_memory_allocated()
-        del eng
-        torch.cuda.empty_cache()
-        return out, stats, wall, launches, ttfts, peak
-
-    out, stats, wall, launches, ttfts, peak = run(True)
-    n_tok = sum(len(t) for t in out.values())
-    if len(out) != len(prompts) or any(len(t) != new_tokens for t in out.values()):
-        fail(f"serve: {len(out)} of {len(prompts)} requests finished, token "
-             f"counts {sorted({len(t) for t in out.values()})}")
-    if any(not 0 <= x < cfg.vocab_size for t in out.values() for x in t):
-        fail("serve: a token id outside the vocabulary")
+    out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                              prefix_caching=True)
     L = cfg.n_layers
     P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
-    expect = {"rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
-              "silu_mul": L * (P + Dd), "paged_decode_attention": L * Dd,
-              "paged_prefill_attention": L * P}
-    log(f"serve: {len(out)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"({n_tok / wall:.1f} tok/s), ttft p50 {ttfts[len(ttfts) // 2] * 1e3:.1f} ms, "
-        f"prefix_hit_tokens {stats['prefix_hit_tokens']}, prefill chunks {P}, "
-        f"decode steps {Dd}, peak memory {peak / 2**30:.2f} GiB")
-    log(f"serve: kernel launches {launches} (expected {expect})")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"serve: kernel {name} was never launched on the main path")
-        if n != expect[name]:
-            fail(f"serve: kernel {name} launched {n} times, expected {expect[name]}")
+    log(f"serve: {summary['requests']} requests, {summary['tokens']} tokens in "
+        f"{summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s), ttft p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, prefix_hit_tokens "
+        f"{stats['prefix_hit_tokens']}, prefill chunks {P}, decode steps {Dd}, "
+        f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB")
+    check_launches("serve", launches, {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "silu_mul": L * (P + Dd), "paged_decode_attention": L * Dd,
+        "paged_prefill_attention": L * P})
     if stats["prefix_hit_tokens"] <= 0:
         fail("serve: the shared-prefix requests never hit the prefix cache")
 
-    out_off, stats_off, wall_off, _, _, _ = run(False)
+    out_off, stats_off, _, summary_off = serve_mix(torch, cfg, params, counters,
+                                                   prefix_caching=False)
     if out_off != out:
         diff = [rid for rid in out if out[rid] != out_off.get(rid)]
         fail(f"serve: greedy outputs differ with prefix caching off (rids {diff})")
-    log(f"serve: prefix caching off: token-identical, {wall_off:.3f} s, "
+    log(f"serve: prefix caching off: token-identical, {summary_off['wall_s']:.3f} s, "
         f"prefill tokens {stats_off['prefill_tokens']} vs "
         f"{stats['prefill_tokens']} with caching")
-    return launches, dict(requests=len(out), tokens=n_tok, wall_s=wall,
-                          tok_s=n_tok / wall,
-                          ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
-                          prefix_hit_tokens=stats["prefix_hit_tokens"],
-                          prefill_dispatches=P, decode_dispatches=Dd,
-                          peak_mem_bytes=peak, wall_s_cache_off=wall_off)
+    summary.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
+                   wall_s_cache_off=summary_off["wall_s"])
+    return launches, summary, out
+
+
+def seq_rel_err(torch, got, want) -> float:
+    """The largest relative norm error of one sequence (dim 0)."""
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    return float(((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)).max())
+
+
+def dropped_step_control(torch, name, what, ok, bad, tol, rel, seq_rel=None):
+    """Fail unless the check of a kernel's output (``tol`` elementwise,
+    ``rel`` relative norm, ``seq_rel`` per-sequence relative norm) tells
+    the right output ``ok`` from ``bad``, that of a kernel that drops one
+    32-key step (``what`` says which)."""
+    d = float((bad.float() - ok.float()).abs().max())
+    r = rel_err(torch, bad, ok)
+    caught = [not torch.allclose(bad.float(), ok.float(), **tol), r > rel]
+    msg = (f"{name} control: a kernel that drops {what} reads max|err| {d:.3g} "
+           f"(caught: {caught[0]}), relative norm {r:.3g} (caught: {caught[1]})")
+    if seq_rel is not None:
+        rs = seq_rel_err(torch, bad, ok)
+        caught.append(rs > seq_rel)
+        msg += f", per-sequence relative norm {rs:.3g} (caught: {caught[2]})"
+    log(msg)
+    if not any(caught):
+        fail(f"{name} control: the tolerances pass a kernel that drops "
+             f"{what}")
+
+
+def masked_decode(torch, q, k, v, valid):
+    """Plain f32 one-row attention (MHA) with a [B, Sk] bool key mask."""
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    return torch.einsum("bhk,bkhd->bhd", torch.softmax(s, dim=-1), v.float())
+
+
+def dense_kernel_phase(torch, timer, cfg, lens):
+    """Row 7 (dense-slab flash-decoding) at the serving path's full-width
+    stablelm-1.6b shapes with ``lens``, the live lengths of the paged decode
+    row, and the flash forward with a key bound at the slab prefill's
+    shape; bf16 timed, f32 held."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots, max_seq = lens.shape[0], 1024
+    src = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    rep = "src/repro/kernels/decode_attention.py:114"
+    kpos = torch.arange(max_seq, device=dev)
+
+    def dense_holds(tag, q, k, v, tol, rel, seq_rel):
+        """Output (also per sequence, to ``seq_rel``), the partials of two
+        shards at kv_offset 0 and 512 combined, and a shard past every
+        length (the identity)."""
+        n = q.shape[1] // k.shape[2]
+        got = kda.decode_attention(q, k, v, lens)
+        want = ref.decode_attention(q, k, v, lengths=lens)
+        hold(torch, f"decode_attention {tag}", got, want, tol, rel)
+        rs = seq_rel_err(torch, got, want)
+        if rs > seq_rel:
+            fail(f"decode_attention {tag}: a sequence's relative norm error "
+                 f"{rs} (tolerance {seq_rel})")
+        cut = max_seq // 2
+        k1, v1, k2, v2 = (t.contiguous() for t in (k[:, :cut], v[:, :cut],
+                                                   k[:, cut:], v[:, cut:]))
+        got = ref.combine_partials(kda.decode_attention_partial(q, k1, v1, lens),
+                                   kda.decode_attention_partial(q, k2, v2, lens, cut))
+        want = ref.decode_attention_partial(q, k, v, lengths=lens)
+        # acc normalised: in bf16 the plain version rounds p before the PV
+        # product, an error that grows with l in acc itself
+        errs = [hold(torch, f"decode_attention_partial {tag} {part}", g, w, tol,
+                     rel if part == "acc / l" else None)
+                for part, g, w in (("acc / l", got[0] / got[2][..., None],
+                                    want[0] / want[2][..., None]),
+                                   ("m", got[1], want[1]), ("l", got[2], want[2]))]
+        acc, m, l = kda.decode_attention_partial(q, k2, v2, lens, max_seq)
+        torch.cuda.synchronize()
+        if not (bool((acc == 0).all()) and bool((m == -1e30).all())
+                and bool((l == 0).all())):
+            fail(f"decode_attention_partial {tag}: a shard past every length "
+                 f"is not the combine identity (0, -1e30, 0)")
+        log(f"decode_attention {tag} (G = {n}): per-sequence relative norm "
+            f"error up to {rs:.3g}; shards at kv_offset 0 / {cut} "
+            f"combined max|err| acc / l {errs[0]:.3g}, m {errs[1]:.3g}, l "
+            f"{errs[2]:.3g}; a shard at kv_offset {max_seq} is the identity")
+
+    q = randn(slots, h, hd)
+    k, v = randn(slots, max_seq, kvh, hd), randn(slots, max_seq, kvh, hd)
+    live = int(lens.sum())
+    kv_row = kvh * hd * 2 * 2                     # K and V bytes of one token
+    qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+    rows = [measure(
+        torch, timer, "decode_attention", src, rep,
+        lambda: kda.decode_attention(q, k, v, lens),
+        lambda: ref.decode_attention(q, k, v, lengths=lens), DECODE_TOL,
+        rel=DECODE_REL, nbytes=2 * q.numel() * 2 + live * kv_row + slots * 4,
+        flops=4 * h * hd * live,
+        library=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+        note=f"; rel {DECODE_REL}; {live} live keys of {slots * max_seq}; the "
+             f"plain version rounds p to bf16 before the PV product")]
+    dense_holds("bf16", q, k, v, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dense_holds("f32", qf, kf, vf, DENSE_F32_TOL, DENSE_F32_REL, DENSE_F32_REL)
+    # the hardest case to see: the longest sequence, whose rows average the
+    # most keys, loses its first step
+    longest = int(torch.argmax(lens))
+    valid = kpos[None, :] < lens[:, None]
+    bad = valid.clone()
+    bad[longest, :DENSE_STEP] = False
+    dropped_step_control(
+        torch, "decode_attention",
+        f"the first {DENSE_STEP}-key step of the longest sequence ({int(lens[longest])} "
+        f"keys)", masked_decode(torch, q, k, v, valid).to(bf),
+        masked_decode(torch, q, k, v, bad).to(bf), DECODE_TOL, DECODE_REL,
+        DECODE_SEQ_REL)
+    del qs, ks, vs, mask, qf, kf, vf, valid, bad
+    # GQA: granite-3-2b's 32 query heads over 8 kv heads
+    kg, vg = randn(slots, max_seq, 8, hd), randn(slots, max_seq, 8, hd)
+    dense_holds("bf16 GQA", q, kg, vg, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+    dense_holds("f32 GQA", q.float(), kg.float(), vg.float(), DENSE_F32_TOL,
+                DENSE_F32_REL, DENSE_F32_REL)
+    del q, k, v, kg, vg
+
+    # the flash forward with a key bound: one 1024-row prefill at length 700
+    fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    fa_rep = "src/repro/kernels/flash_attention.py:109"
+    q, k, v = (randn(1, max_seq, h, hd) for _ in range(3))
+    ln = torch.tensor([FLASH_LEN], dtype=torch.int32, device=dev)
+    pairs = sum(min(i + 1, FLASH_LEN) for i in range(max_seq))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    vis = (kpos[None, :] <= kpos[:, None]) & (kpos[None, :] < FLASH_LEN)
+    rows.append(measure(
+        torch, timer, "flash_attention_lengths", fa_src, fa_rep,
+        lambda: kfa.flash_attention_fwd(q, k, v, causal=True, lengths=ln)[0],
+        lambda: ref.flash_attention(q, k, v, causal=True, lengths=ln),
+        FLASH_O_TOL, rel=FLASH_REL,
+        nbytes=(2 * q.numel() + 2 * FLASH_LEN * kvh * hd) * 2 + h * max_seq * 4,
+        flops=4 * h * hd * pairs,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis),
+        note=f"; rel {FLASH_REL}; causal, keys below {FLASH_LEN}; the TPU "
+             f"path runs the plain version here", iters=10, plain_iters=3))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    err = hold(torch, "flash_attention_lengths f32",
+               kfa.flash_attention_fwd(qf, kf, vf, causal=True, lengths=ln)[0],
+               ref.flash_attention(qf, kf, vf, causal=True, lengths=ln),
+               DENSE_F32_TOL, DENSE_F32_REL)
+    log(f"flash_attention_lengths f32: max|err| {err:.3g} (tol {DENSE_F32_TOL}, "
+        f"rel {DENSE_F32_REL})")
+    bad = torch.full_like(ln, (FLASH_LEN - 1) // DENSE_STEP * DENSE_STEP)
+    dropped_step_control(
+        torch, "flash_attention_lengths",
+        f"the last {DENSE_STEP}-key step below the bound (keys {int(bad)} to "
+        f"{FLASH_LEN - 1})",
+        ref.flash_attention(qf, kf, vf, causal=True, lengths=ln).to(bf),
+        ref.flash_attention(qf, kf, vf, causal=True, lengths=bad).to(bf),
+        FLASH_O_TOL, FLASH_REL)
+    del q, k, v, qt, kt, vt, vis, qf, kf, vf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dense_parity_phase(torch, cfg_small):
+    """Reduced stablelm at fp32 over the dense slabs: a batched prefill of
+    two ragged prompts and two decode steps on the card against the CPU,
+    same parameters."""
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0], [8, 1, 6, 0, 0, 0, 0, 0]],
+                       dtype=torch.int32)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)
+        state = M.init_decode_state(cfg_small, 2, 16, dtype=torch.float32,
+                                    device=dev)
+        lg, state = M.prefill(cfg_small, p, state, tokens=tok.to(dev),
+                              lengths=lens.to(dev))
+        logits = [lg[:, 0].cpu()]
+        for i, t in enumerate((11, 64)):
+            toks = torch.tensor([t, t + 1], dtype=torch.int32)
+            lg, state = M.decode_step(cfg_small, p, state, toks.to(dev),
+                                      (lens + i).to(dev))
+            logits.append(lg.cpu())
+        out[dev] = torch.cat(logits)
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    if not torch.allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4):
+        fail(f"dense parity: reduced model over the slabs on the card disagrees "
+             f"with the CPU: max |err| {err}")
+    log(f"dense parity: reduced stablelm fp32 slab prefill + 2 decode steps, "
+        f"logits card vs cpu max|err| {err:.3g} (tol 1e-4)")
+
+
+def prefill_gate(torch, cfg, params):
+    """One ~640-token prompt's last-token logits: the slab ``prefill``
+    (bucket 1024, flash with a key bound) against the paged path's chunked
+    prefill (chunks of 512 and 128), full width, bf16."""
+    from repro_torch.models import model as M
+
+    n, bs = 640, 16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    slab = M.init_decode_state(cfg, 1, 1024, dtype=torch.bfloat16)
+    padded = torch.zeros((1, 1024), dtype=torch.int32, device="cuda")
+    padded[0, :n] = prompt
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+    want, _ = M.prefill(cfg, params, slab, tokens=padded, lengths=lens)
+    del slab
+    pages = M.init_serve_state(cfg, 1, 1 + n // bs, bs, dtype=torch.bfloat16)
+    table = torch.arange(1, 1 + n // bs, dtype=torch.int32, device="cuda")
+    for off, c in ((0, 512), (512, 128)):
+        got, _ = M.prefill_paged(cfg, params, pages, tokens=prompt[None, off:off + c],
+                                 length=c, q_offset=off,
+                                 block_table=table[:-(-(off + c) // bs)])
+    del pages
+    torch.cuda.empty_cache()
+    r = rel_err(torch, got, want[:, 0])
+    agree = bool(torch.argmax(got) == torch.argmax(want[:, 0]))
+    log(f"dense serve gate: {n}-token prompt, last-token logits slab prefill vs "
+        f"paged chunked prefill relative norm error {r:.3g} (tolerance "
+        f"{PREFILL_GATE_REL}), argmax agrees: {agree}")
+    if not math.isfinite(r) or r > PREFILL_GATE_REL:
+        fail(f"dense serve gate: slab and paged prefill logits differ, relative "
+             f"norm error {r} (tolerance {PREFILL_GATE_REL})")
+    return r
+
+
+def dense_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
+    out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                              paged=False)
+    L = cfg.n_layers
+    P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+    check_launches("dense serve", launches, {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "silu_mul": L * (P + Dd), "flash_attention_lengths": L * P,
+        "decode_attention": L * Dd, "flash_attention": 0,
+        "paged_decode_attention": 0, "paged_prefill_attention": 0})
+    same = sum(out[rid] == paged_out.get(rid) for rid in out)
+    first = sorted(next((i for i, (a, b) in enumerate(zip(out[rid], paged_out[rid]))
+                         if a != b), len(out[rid])) for rid in out)
+    log(f"dense serve: {summary['requests']} requests, {summary['tokens']} "
+        f"tokens in {summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s; "
+        f"paged {paged_summary['tok_s']:.1f}), ttft p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms (paged "
+        f"{paged_summary['ttft_p50_ms']:.1f}), prefills {P}, decode steps {Dd}, "
+        f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB (paged "
+        f"{paged_summary['peak_mem_bytes'] / 2**30:.2f}); {same} of "
+        f"{len(out)} requests token-identical to the paged run (not gated; "
+        f"first differing token of each request, sorted: {first})")
+    summary.update(same_as_paged=same, first_difference=first,
+                   prefill_gate_rel=prefill_gate(torch, cfg, params))
+    fp32_identity(torch, cfg)
+    return launches, summary
+
+
+def fp32_identity(torch, cfg):
+    """The mix at full width in fp32 (parameters from the same seed): the
+    dense-slab engine must be token-identical to the paged one."""
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    paged, _, _, s_paged = serve_mix(torch, cfg, params, {})
+    dense, _, _, s_dense = serve_mix(torch, cfg, params, {}, paged=False)
+    del params
+    torch.cuda.empty_cache()
+    diff = [rid for rid in paged if paged[rid] != dense.get(rid)]
+    log(f"dense serve fp32: {len(paged) - len(diff)} of {len(paged)} requests "
+        f"token-identical to the paged engine ({s_dense['tok_s']:.1f} vs "
+        f"{s_paged['tok_s']:.1f} tok/s)")
+    if diff:
+        fail(f"dense serve fp32: greedy outputs differ from the paged engine "
+             f"(rids {diff})")
 
 
 def dropped_tile_control(torch, q, k, v):
@@ -1246,15 +1588,30 @@ def main() -> None:
 
     cfg = get_config("stablelm-1.6b")
     timer = Timer(torch)
-    rows = kernel_phase(torch, timer, cfg)
+    rows, decode_lens = kernel_phase(torch, timer, cfg)
     parity_phase(torch, reduced(cfg))
     counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
                 "silu_mul": Counter(swiglu),
                 "paged_decode_attention": Counter(decode_attention),
                 "paged_prefill_attention": Counter(prefill_attention)}
-    launches, serve = serve_phase(torch, cfg, counters)
+    params = serve_params(torch, cfg)
+    launches, serve, paged_out = serve_phase(torch, cfg, params, counters)
     for row in rows:
         row["launches"] = launches[row["name"]]
+
+    dense_rows = dense_kernel_phase(torch, timer, cfg, decode_lens)
+    dense_parity_phase(torch, reduced(cfg))
+    dense_counters = {
+        **counters, "decode_attention": Counter(decode_attention, "dense_launches"),
+        "flash_attention_lengths": Counter(flash_attention, "lengths_launches"),
+        "flash_attention": Counter(flash_attention)}
+    dense_launches, dense_serve = dense_serve_phase(
+        torch, cfg, params, dense_counters, paged_out, serve)
+    for row in dense_rows:
+        row["launches"] = dense_launches[row["name"]]
+    rows += dense_rows
+    del params
+    torch.cuda.empty_cache()
 
     gcfg = get_config("granite-3-2b")
     train_rows = train_kernel_phase(torch, timer, gcfg)
@@ -1299,7 +1656,8 @@ def main() -> None:
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-             build_s=info["seconds"], serve=serve, train=train,
+             build_s=info["seconds"], serve=serve, dense_serve=dense_serve,
+             dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
              rwkv_launches=rwkv_launches, zamba_train=zamba_train,
              zamba_launches=zamba_launches, **kernels), indent=1))

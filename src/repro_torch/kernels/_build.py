@@ -48,8 +48,10 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _P),
-    "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P),
+    "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+    "repro_decode_attention": (_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _P),
     "repro_flash_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
     "repro_rwkv6_fwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

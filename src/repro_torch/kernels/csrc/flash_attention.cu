@@ -15,6 +15,13 @@
 // window kpos > qpos - window, l floored at 1e-30, and tiles wholly above
 // the diagonal or wholly outside the window are skipped.
 //
+// The forward also takes an optional per-sequence key bound lens [B] int32
+// (NULL: none), the ragged prefill of the dense-slab serving path: keys at
+// kpos >= lens[b] are masked and key tiles wholly past the bound are not
+// read.  The JAX package runs its plain version there, even on the TPU
+// (src/repro/kernels/ops.py:96-106).  Serving never differentiates this
+// path, so the bound has no backward.
+//
 // Tiling.  Every kernel works on 64 x 64 tiles with 256 threads; thread
 // (ty, tx), ty = warp * 2 + lane / 16 and tx = lane % 16, owns the tile rows
 // ty + 16 i (i < 4) and, of a score tile, the columns tx + 16 j (j < 4); of
@@ -162,7 +169,8 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Geometry g) {
+                 const int* __restrict__ lens, T* __restrict__ o, float* __restrict__ lse,
+                 Geometry g) {
   constexpr int LD = D + 4;
   constexpr int DPT = D / 16;
   extern __shared__ float4 smem4[];
@@ -177,8 +185,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   load_tile<T, D>(q_s, q, b, q0, g.Sq, g.H, h);
 
-  // the keys any row of this tile can see
-  const int k_end = g.causal ? min(g.Sk, q0 + kTile) : g.Sk;
+  // the keys any row of this tile can see; keys past the sequence's bound
+  // are invisible to every row
+  const int sk = lens != nullptr ? max(0, min(g.Sk, lens[b])) : g.Sk;
+  const int k_end = g.causal ? min(sk, q0 + kTile) : sk;
   const int k_begin = g.window > 0 ? max(0, q0 - g.window + 1) : 0;
 
   float m[4], l[4], acc[4][DPT];
@@ -204,7 +214,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = visible(qpos, k0 + tx + 16 * j, g.Sk, g) ? s[i][j] * g.scale : kNegInf;
+        s[i][j] = visible(qpos, k0 + tx + 16 * j, sk, g) ? s[i][j] * g.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -434,13 +444,14 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+cudaError_t fwd(const void* q, const void* k, const void* v, const int* lens, void* o, float* lse,
                 const Geometry& g, cudaStream_t s) {
   auto kern = flash_fwd_kernel<T, D>;
   if (cudaError_t e = allow_smem(kern, fwd_smem<D>())) return e;
   const dim3 grid((g.Sq + kTile - 1) / kTile, g.H, g.B);
   kern<<<grid, kThreads, fwd_smem<D>(), s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                             static_cast<const T*>(v), static_cast<T*>(o), lse, g);
+                                             static_cast<const T*>(v), lens, static_cast<T*>(o),
+                                             lse, g);
   return cudaGetLastError();
 }
 
@@ -479,16 +490,17 @@ Geometry make_geometry(int B, int Sq, int Sk, int H, int KvH, int D, int causal,
 #define REPRO_FLASH_DIMS(DIM_CASE) DIM_CASE(16) DIM_CASE(64) DIM_CASE(112) DIM_CASE(128)
 
 // q [B, Sq, H, D]; k, v [B, Sk, KvH, D] -> o [B, Sq, H, D], lse [B, H, Sq]
-// f32.  window <= 0 means no window.
-extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                               float* lse, int B, int Sq, int Sk, int H, int KvH, int D,
-                               int causal, int window, void* stream) {
+// f32.  window <= 0 means no window; lens [B] int32 bounds each sequence's
+// keys (NULL: all Sk).
+extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k, const void* v,
+                               const int* lens, void* o, float* lse, int B, int Sq, int Sk,
+                               int H, int KvH, int D, int causal, int window, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return cudaSuccess;
   if (KvH <= 0 || H % KvH) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry g = make_geometry(B, Sq, Sk, H, KvH, D, causal, window);
 #define REPRO_FWD_CASE(DIM) \
-  case DIM: return fwd<T, DIM>(q, k, v, o, lse, g, s);
+  case DIM: return fwd<T, DIM>(q, k, v, lens, o, lse, g, s);
   REPRO_DISPATCH_DTYPE(dtype, T,
     switch (D) {
       REPRO_FLASH_DIMS(REPRO_FWD_CASE)

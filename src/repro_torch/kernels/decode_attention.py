@@ -1,5 +1,6 @@
-"""Paged flash-decoding — hand-written CUDA kernel for Hopper
-(``csrc/paged_attention.cu``, host side in ``_paged.py``).
+"""Flash-decoding — hand-written CUDA kernels for Hopper: over the paged KV
+pool (``csrc/paged_attention.cu``, host side in ``_paged.py``) and over a
+dense KV slab (``csrc/decode_attention.cu``).
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py``
 (``_paged_decode``, ``pallas_call`` at :300, behind
@@ -18,14 +19,31 @@ Ported here: the fp pool, normalized output and ``(acc, m, l)`` partials
 (an empty row is ``(0, -1e30, 0)``).  The int8 pool's per-(head, page)
 scales, ``skip_null`` and ``kv_offset`` (sequence-sharded pools) come with
 later slices.
+
+The dense slab replaces the TPU kernel's ``_decode`` (``pallas_call`` at
+:114, behind ``decode_attention`` :143 and ``decode_attention_partial``
+:151): q [B, H, D] against one layer's slab k, v [B, Sk, KvH, D], read in
+place through strides (no permute, pad or copy on the host).  Block (row
+tile, kv head, sequence) walks only the live keys, ``[kv_offset,
+min(lengths[b], kv_offset + Sk))`` in global positions, split over its four
+warps in steps of 32 keys, and merges the warps' ``(acc, m, l)`` at the
+end.  Bound on the H100: bytes.  A row with no live key returns ``(0,
+-1e30, 0)``; the JAX oracle and the TPU kernel count masked keys at p = 1
+there, which combines to the same zero weight beside any non-empty
+partial.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import _paged
+from repro_torch.kernels import _build, _paged
 
-launches = 0   # kernel launches through this module's wrappers
+launches = 0         # paged kernel launches through this module's wrappers
+dense_launches = 0   # dense-slab kernel launches
+
+DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
 
 
 def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool):
@@ -52,3 +70,65 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, lengths):
     """(acc f32 [B,H,D], m [B,H], l [B,H]) for the softmax combine."""
     return _decode(q, k_pages, v_pages, block_tables, lengths, partials=True)
+
+
+def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,
+           partials: bool):
+    global dense_launches
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[2]:
+        raise ValueError(f"decode attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         f"[B,H,D], [B,Sk,KvH,D] x2")
+    b, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if h % kvh:
+        raise ValueError(f"decode attention: {h} query heads over {kvh} kv heads")
+    if d not in DENSE_HEAD_DIMS:
+        raise ValueError(f"decode attention: head dim {d} not in {DENSE_HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"decode attention: q, k, v dtypes {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if kv_offset < 0:
+        raise ValueError(f"decode attention: kv_offset {kv_offset} < 0")
+    tensors = dict(q=q, k=k, v=v)
+    if lengths is not None:
+        if lengths.shape != (b,) or lengths.dtype != torch.int32:
+            raise ValueError(f"decode attention: lengths must be [{b}] int32, "
+                             f"got {tuple(lengths.shape)} {lengths.dtype}")
+        tensors["lengths"] = lengths
+    _build.require_cuda("decode_attention", **tensors)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode attention: k and v must be 16-byte aligned "
+                         "(the kernel reads 16-byte chunks)")
+    if partials:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        l = torch.empty((b, h), dtype=torch.float32, device=q.device)
+        ptrs = (None, acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    else:
+        out = torch.empty_like(q)
+        ptrs = (out.data_ptr(), None, None, None)
+    lib = _build.load()
+    code = lib.repro_decode_attention(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if lengths is None else lengths.data_ptr(), int(kv_offset), *ptrs,
+        b, sk, h, kvh, d, _build.stream_ptr(q))
+    dense_launches += 1
+    _build.check("decode_attention", code)
+    return (acc, m, l) if partials else out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B,H,D]; k, v [B,Sk,KvH,D] (one layer's slab); lengths [B] int32
+    (keys ``[0, len)`` attended; None: all Sk) -> [B,H,D]."""
+    return _dense(q, k, v, lengths, 0, partials=False)
+
+
+def decode_attention_partial(q, k, v, lengths: Optional[torch.Tensor] = None,
+                             kv_offset: int = 0):
+    """(acc f32 [B,H,D], m [B,H], l [B,H]) over a slab whose row 0 sits at
+    global position ``kv_offset`` (a sequence shard), for the softmax
+    combine."""
+    return _dense(q, k, v, lengths, kv_offset, partials=True)

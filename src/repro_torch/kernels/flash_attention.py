@@ -14,9 +14,16 @@ register tile per thread), and the backward takes no atomics (dK/dV and dQ
 in separate kernels, each summing in a fixed order), so it is bitwise
 repeatable.
 
+The forward also takes a per-sequence key bound ``lengths`` [B] int32, the
+ragged prefill of the dense-slab serving path (keys at ``kpos >= lengths[b]``
+are masked, and key tiles wholly past the bound are not read).  The JAX
+package runs its plain version there even on the TPU; the bound has no
+backward, since serving never differentiates it.
+
 The plain versions are ``kernels/ref.py:flash_attention_lse`` and
-``flash_attention_bwd``; ``kernels/ops.py`` sends CPU tensors there.  These
-wrappers take CUDA tensors only.
+``flash_attention_bwd`` (``flash_attention`` with ``lengths``);
+``kernels/ops.py`` sends CPU tensors there.  These wrappers take CUDA
+tensors only.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0       # forward kernel launches through this module
+launches = 0       # forward kernel launches through this module (no lengths)
+lengths_launches = 0   # forward launches with a per-sequence key bound
 bwd_launches = 0   # backward launches (one per flash_attention_bwd call)
 
 HEAD_DIMS = (16, 64, 112, 128)   # the configs' head dims (reduced: 16; zamba2-7b: 112)
@@ -54,20 +62,32 @@ def _window(window: Optional[int]) -> int:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None):
-    """q [B, Sq, H, D]; k, v [B, Sk, KvH, D] -> (o [B, Sq, H, D], lse
-    [B, H, Sq] f32)."""
-    global launches
+                        causal: bool = True, window: Optional[int] = None,
+                        lengths: Optional[torch.Tensor] = None):
+    """q [B, Sq, H, D]; k, v [B, Sk, KvH, D]; lengths [B] int32 or None (keys
+    ``[0, lengths[b])`` visible) -> (o [B, Sq, H, D], lse [B, H, Sq] f32)."""
+    global launches, lengths_launches
     b, sq, sk, h, kvh, d = _geometry("flash_attention", q, k, v)
-    _build.require_cuda("flash_attention", q=q, k=k, v=v)
+    tensors = dict(q=q, k=k, v=v)
+    if lengths is not None:
+        if lengths.shape != (b,) or lengths.dtype != torch.int32:
+            raise ValueError(f"flash_attention: lengths must be [{b}] int32, "
+                             f"got {tuple(lengths.shape)} {lengths.dtype}")
+        tensors["lengths"] = lengths
+    _build.require_cuda("flash_attention", **tensors)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _build.load()
     code = lib.repro_flash_fwd(_build.dtype_code(q), q.data_ptr(), k.data_ptr(),
-                               v.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
-                               sq, sk, h, kvh, d, int(causal), _window(window),
+                               v.data_ptr(),
+                               None if lengths is None else lengths.data_ptr(),
+                               o.data_ptr(), lse.data_ptr(), b, sq, sk, h, kvh,
+                               d, int(causal), _window(window),
                                _build.stream_ptr(q))
-    launches += 1
+    if lengths is None:
+        launches += 1
+    else:
+        lengths_launches += 1
     _build.check("flash_attention", code)
     return o, lse
 

@@ -4,8 +4,9 @@ A CPU tensor goes to the plain PyTorch version (``kernels/ref.py``), which is
 what the CPU tests compare with the JAX package, and which autograd
 differentiates directly.  A CUDA tensor launches the hand-written kernel
 through its ``torch.autograd.Function`` (``kernels/autograd.py``), whose
-backward is a kernel too, or the call raises: there is no mode switch and
-no fallback from a failed build or launch to the plain version.
+backward is a kernel too (serving-only kernels are called directly), or
+the call raises: there is no mode switch and no fallback from a failed
+build or launch to the plain version.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import prefill_attention as _pf
 from repro_torch.kernels import ref
 
@@ -41,19 +43,44 @@ def silu_mul(gate, up):
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     lengths=None, q_offset: int = 0):
-    """Full-sequence attention: q [B, Sq, H, D]; k, v [B, Sk, KvH, D].  The
-    kernel covers what the JAX package's Pallas path covers (``lengths is
-    None and q_offset == 0``: training); the ragged-``lengths`` and offset
-    cases are the dense-slab serving path, ported with its slice."""
+    """Full-sequence attention: q [B, Sq, H, D]; k, v [B, Sk, KvH, D];
+    lengths [B] int32 bounds each sequence's keys.  On the card: without
+    ``lengths`` the differentiable kernel pair (training); with it the
+    forward kernel alone (the dense-slab prefill, never differentiated: an
+    input that requires grad raises).  ``q_offset`` has no caller on the
+    card and raises there."""
     if _on_cpu(q):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    lengths=lengths, q_offset=q_offset)
-    if lengths is not None or q_offset:
+    if q_offset:
         raise NotImplementedError(
-            "flash_attention with lengths or q_offset is the dense-slab "
-            "serving path (the Pallas decode/prefill-slab kernels); it comes "
-            "with the dense-slab slice of repro_torch")
+            "flash_attention with q_offset has no kernel: no path on the card "
+            "passes one (the dense-slab prefill attends from position 0)")
+    if lengths is not None:
+        if q.requires_grad or k.requires_grad or v.requires_grad:
+            raise NotImplementedError(
+                "flash_attention with lengths is the dense-slab serving "
+                "prefill, forward only: its kernel has no backward")
+        return _fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       lengths=lengths)[0]
     return _ag.FlashAttention.apply(q, k, v, causal, window)
+
+
+def decode_attention(q, k, v, *, lengths=None):
+    """One query row per sequence against a dense KV slab: q [B, H, D];
+    k, v [B, Sk, KvH, D]; lengths [B] int32 (None: all Sk) -> [B, H, D]."""
+    if _on_cpu(q):
+        return ref.decode_attention(q, k, v, lengths=lengths)
+    return _da.decode_attention(q, k, v, lengths)
+
+
+def decode_attention_partial(q, k, v, *, lengths=None, kv_offset: int = 0):
+    """(acc f32 [B, H, D], m [B, H], l [B, H]) over a slab whose row 0 is at
+    global position ``kv_offset``."""
+    if _on_cpu(q):
+        return ref.decode_attention_partial(q, k, v, lengths=lengths,
+                                            kv_offset=kv_offset)
+    return _da.decode_attention_partial(q, k, v, lengths, kv_offset)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths):

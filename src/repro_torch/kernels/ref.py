@@ -264,6 +264,15 @@ def decode_attention_partial(q, k, v, *, lengths: Optional[torch.Tensor] = None,
     return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
 
 
+def decode_attention(q, k, v, *, lengths: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Single-token attention over a dense KV slab, normalized: q [B, H, D];
+    k, v [B, Sk, KvH, D] -> [B, H, D] in q's dtype (``l`` floored at
+    1e-30)."""
+    acc, m, l = decode_attention_partial(q, k, v, lengths=lengths)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
 def combine_partials(parts: Partials, other: Partials) -> Partials:
     """Merge two (acc, m, l) attention partials."""
     acc_a, m_a, l_a = parts

@@ -1,8 +1,9 @@
-"""Serving entry point of the port: stand up the paged-KV engine for an
-arch and run a synthetic request stream.
+"""Serving entry point of the port: stand up the engine for an arch (paged
+KV by default, ``--dense`` for the dense-slab baseline) and run a synthetic
+request stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
-      --reduced --device cpu --requests 8
+      --reduced --device cpu --requests 8 [--dense]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
@@ -59,6 +60,9 @@ def main(argv=None):
                          "--max-seq, which is always included)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prompt-page prefix caching")
+    ap.add_argument("--dense", action="store_true",
+                    help="serve from the dense [slots, max_seq] KV slabs "
+                         "(the A/B baseline; turns prefix caching off)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (the CUDA kernels) or "
                          "cpu (their plain PyTorch versions)")
@@ -81,7 +85,9 @@ def main(argv=None):
     eng = ServeEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
                       block_size=args.block_size,
                       max_tokens_per_tick=args.token_budget,
-                      prefix_caching=not args.no_prefix_cache, **ekw)
+                      paged=False if args.dense else None,
+                      prefix_caching=not (args.dense or args.no_prefix_cache),
+                      **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
@@ -99,7 +105,8 @@ def main(argv=None):
     ttfts = sorted(r.ttft for r in done if r.ttft is not None)
     p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else 0.0
     print(f"[serve] {len(done)} requests, {total} tokens, {dt:.2f}s "
-          f"({total / dt:.1f} tok/s) on {device}  kv=paged "
+          f"({total / dt:.1f} tok/s) on {device}  "
+          f"kv={'dense' if args.dense else 'paged'} "
           f"({eng.kv_cache_bytes() / 1e6:.1f} MB), "
           f"occupancy={eng.mean_occupancy:.2f}, "
           f"prefill_dispatches={eng.stats['prefill_dispatches']:.0f}, "

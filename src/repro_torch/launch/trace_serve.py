@@ -1,16 +1,18 @@
 """Where the device time goes when the port serves at full width.
 
-  PYTHONPATH=src python -m repro_torch.launch.trace_serve
+  PYTHONPATH=src python -m repro_torch.launch.trace_serve [--dense]
 
 Serves stablelm-1.6b (random bf16 weights from ``--seed``) on the card
-through the engine, on the mix that ``chip_smoke.py`` drives
+through the engine, paged (default) or from the dense slabs (``--dense``,
+``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
 (``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
 untraced for the wall clock, once under ``torch.profiler``.  Prints the
-device kernel time by kernel and by group (the port's five CUDA kernels,
+device kernel time by kernel and by group (the port's CUDA kernels,
 GEMMs, other PyTorch ops) and the device busy share: summed kernel time
 over the untraced wall time (one stream, so kernels do not overlap).  The
 summary also lands in ``chiprun_out/trace_serve.json``.  Needs a CUDA
-device.
+device.  With ``--dense`` the default summary file is
+``trace_serve_dense.json`` beside it.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.serve import ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu)
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
-                "paged_attention_kernel")
+                "paged_attention_kernel", "dense_decode_kernel",
+                "flash_fwd_kernel")
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 TOP = 15                       # kernels listed by device time
 
@@ -44,8 +47,9 @@ def _group(name: str) -> str:
     return "other PyTorch ops"
 
 
-def _serve(cfg, params, prompts) -> float:
-    eng = ServeEngine(cfg, params, **MIX_ENGINE)
+def _serve(cfg, params, prompts, dense: bool) -> float:
+    eng = ServeEngine(cfg, params, **MIX_ENGINE,
+                      paged=False if dense else None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in prompts:
@@ -61,20 +65,25 @@ def _serve(cfg, params, prompts) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dense", action="store_true",
+                    help="serve from the dense KV slabs (paged=False)")
     ap.add_argument("--out", default="chiprun_out/trace_serve.json")
     args = ap.parse_args(argv)
+    out = Path(args.out)
+    if args.dense and args.out == ap.get_default("out"):
+        out = out.with_name("trace_serve_dense.json")
     if not torch.cuda.is_available():
         raise SystemExit("trace_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("stablelm-1.6b")
     params = model.init_params(cfg, seed=args.seed, device="cuda")
     prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
-    _serve(cfg, params, prompts[:2])                # warm-up
-    wall = _serve(cfg, params, prompts)
+    _serve(cfg, params, prompts[:2], args.dense)    # warm-up
+    wall = _serve(cfg, params, prompts, args.dense)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        traced_wall = _serve(cfg, params, prompts)
+        traced_wall = _serve(cfg, params, prompts, args.dense)
 
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
     for ev in prof.events():
@@ -86,7 +95,8 @@ def main(argv=None):
         groups[_group(name)] += us
     device_s = sum(groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
-    print(f"[trace] {card}; wall {wall:.3f} s untraced, {traced_wall:.3f} s "
+    print(f"[trace] {card}; {'dense slabs' if args.dense else 'paged'}; "
+          f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
           f"traced; device kernel time {device_s:.3f} s; busy share "
           f"{device_s / wall:.3f} of the untraced wall")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -95,10 +105,10 @@ def main(argv=None):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, n) in top:
         print(f"[trace] {us / 1e3:9.2f} ms {n:7d} x  {name[:110]}")
-    out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
-        card=card, wall_s=wall, traced_wall_s=traced_wall, device_s=device_s,
+        card=card, dense=args.dense, wall_s=wall, traced_wall_s=traced_wall,
+        device_s=device_s,
         busy_share=device_s / wall, groups_ms={g: us / 1e3 for g, us in groups.items()},
         top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top]), indent=1))
 

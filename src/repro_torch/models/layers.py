@@ -1,16 +1,17 @@
 """Building blocks of the dense family: linear, RMSNorm, RoPE attention
-(full-sequence for training, over a paged KV cache for serving), SwiGLU FFN.
+(full-sequence for training; for serving over a paged KV cache or a dense
+KV slab), SwiGLU FFN.
 
 Port of the JAX package's ``models/layers.py`` (dense subset).  Parameters
 are plain nested dicts of tensors with the JAX layouts (``linear`` weights
 ``[d_in, d_out]``, applied as ``x @ w``); kernel dispatch goes through
-``repro_torch.kernels.ops``.  Page writes are in place: a layer's new K/V
-rows are scattered straight into the pool tensor, where the JAX version
-returns an updated copy of it.
+``repro_torch.kernels.ops``.  Cache writes are in place: a layer's new K/V
+rows are written straight into the pool or slab tensor, where the JAX
+version (``.at[].set``, ``dynamic_update_slice``) returns an updated copy.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -98,6 +99,71 @@ def attention(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
     o = ops.flash_attention(q, k, v, causal=True, lengths=lengths,
                             window=window)
     return linear(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd))
+
+
+# ---------------------------------------------------------------------------
+# dense KV slab: [B, Smax, KvH, hd] per attention application, row s of
+# sequence b holding position s (the dense-slab serving baseline)
+# ---------------------------------------------------------------------------
+
+def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                    dtype=torch.bfloat16, n_slots: Optional[int] = None,
+                    device="cuda"):
+    """KV slab ``[B, Smax, KvH, hd]``, with a leading ``[n_slots]`` (one per
+    layer) when ``n_slots`` is given."""
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    if n_slots is not None:
+        shape = (n_slots,) + shape
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_prefill(p, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ModelConfig, cache, *, lengths=None, window=None):
+    """Prefill: full causal attention over the sequence, and its K/V written
+    into slab rows ``[0, S)`` in place (padding rows too, as the JAX
+    version's ``dynamic_update_slice`` writes them).  x [B,S,d]; cache
+    {"k", "v"} [B, Smax, KvH, hd]; lengths [B] int32 bounds the keys.
+    Returns (y [B,S,d], cache)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    o = ops.flash_attention(q, k, v, causal=True, lengths=lengths,
+                            window=window)
+    return linear(p["wo"], o.reshape(b, s, cfg.n_heads * cfg.hd)), cache
+
+
+def attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache,
+                     lengths: torch.Tensor, *, window=None):
+    """One-token decode against a slab.  x [B,1,d]; cache {"k", "v"}
+    [B, Smax, KvH, hd]; lengths [B] int32 = tokens already cached (each
+    below Smax).  The new K/V row is written at position ``lengths`` in
+    place, then attention spans ``[0, lengths]``; ``window`` is accepted and
+    unused, as in the JAX version.  Returns (y [B,1,d], cache)."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, lengths[:, None])
+    rows = torch.arange(b, device=x.device)
+    pos = lengths.long()
+    cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                             lengths=lengths + 1)
+    return linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd)), cache
+
+
+def attention_decode_stacked(p, x: torch.Tensor, cfg: ModelConfig,
+                             ck_all: torch.Tensor, cv_all: torch.Tensor,
+                             layer_idx: int, lengths: torch.Tensor, *,
+                             window=None):
+    """:func:`attention_decode` against layer ``layer_idx`` of the stacked
+    slabs ck_all / cv_all [L, B, Smax, KvH, hd]: only the new K/V row is
+    written (into the layer's view, so into the stack).  Returns
+    (y [B,1,d], ck_all, cv_all)."""
+    y, _ = attention_decode(p, x, cfg, {"k": ck_all[layer_idx],
+                                        "v": cv_all[layer_idx]}, lengths,
+                            window=window)
+    return y, ck_all, cv_all
 
 
 def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,

@@ -1,20 +1,24 @@
 """Decoder LM: full-sequence forward (training) for the dense, RWKV6,
-Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving over a paged KV
-cache for the dense family.
+Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for the dense
+family, over a paged KV cache or a dense KV slab.
 
 Port of the JAX package's ``models/model.py``: the stacked-layer
 ``lax.scan`` becomes a Python loop over a list of per-layer parameter
 dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and the pages
-are updated in place.  The hybrid family runs groups of ``attn_every``
-Mamba2 layers, each group followed by one attention + FFN block whose
-weights all groups share, then an ungrouped tail; its parameters are
-``groups`` (a list of groups, each a list of layer dicts), ``tail`` (a
-list of layer dicts) and ``shared``.  What this port does not run yet
-raises ``NotImplementedError`` naming the slice of the port that brings it.
+and slabs are updated in place.  The hybrid family runs groups of
+``attn_every`` Mamba2 layers, each group followed by one attention + FFN
+block whose weights all groups share, then an ungrouped tail; its
+parameters are ``groups`` (a list of groups, each a list of layer dicts),
+``tail`` (a list of layer dicts) and ``shared``.  What this port does not
+run yet raises ``NotImplementedError`` naming the slice of the port that
+brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
     forward(cfg, params, tokens, ...)              -> (logits [B, S, V], aux [2])
+    init_decode_state(cfg, batch, max_seq, dtype, device)   (dense KV slab)
+    prefill(cfg, params, state, tokens=..., lengths=...) -> (logits [B, 1, V], state)
+    decode_step(cfg, params, state, tokens, lengths) -> (logits [B, V], state)
     init_serve_state(cfg, slots, num_blocks, block_size, dtype, device)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
@@ -31,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, rwkv, ssm
 
-PAGED_FAMILIES = ("dense",)
+SERVED_FAMILIES = ("dense",)
 
 
 def _later(cfg: ModelConfig, serving: bool) -> str:
@@ -55,8 +59,8 @@ def require_trainable(cfg: ModelConfig) -> None:
 
 
 def require_servable(cfg: ModelConfig) -> None:
-    """Paged serving: dense only."""
-    if cfg.family not in PAGED_FAMILIES:
+    """Serving, paged or over a dense slab: dense only."""
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"serving family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"it comes with {_later(cfg, True)} of repro_torch; this port "
@@ -132,6 +136,15 @@ def hybrid_layout(cfg: ModelConfig):
     k = cfg.attn_every
     g = cfg.n_layers // k
     return g, k, cfg.n_layers - g * k
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device="cuda"):
+    """Dense KV slabs ``[L, B, Smax, KvH, hd]`` (the dense-slab serving
+    baseline's state; dense family only)."""
+    require_servable(cfg)
+    return {"attn": layers.attn_cache_init(cfg, batch, max_seq, dtype,
+                                           n_slots=cfg.n_layers, device=device)}
 
 
 def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
@@ -231,6 +244,63 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
         x = scan(x, params["layers"])
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux
+
+
+def prefill(cfg: ModelConfig, params, state, *,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None,
+            attn_window: Optional[int] = None):
+    """Prefill of B right-padded sequences from position 0 into the slabs.
+
+    tokens [B, S] (or ``embeds`` [B, S, d]); lengths [B] int32 valid rows
+    (default S).  Every layer writes its K/V into slab rows ``[0, S)`` of
+    ``state`` in place and attends with the per-sequence key bound.
+    Returns (logits at each sequence's last valid row [B, 1, V], state)."""
+    require_servable(cfg)
+    x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
+    for li, lp in enumerate(params["layers"]):
+        cache = {"k": ck_all[li], "v": cv_all[li]}
+        x = _block(cfg, lp, x, lambda h: layers.attention_prefill(
+            lp["attn"], h, positions, cfg, cache, lengths=lengths,
+            window=attn_window)[0])
+    return _logits(cfg, params, _last_token(x, lengths)), state
+
+
+def _last_token(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Row ``lengths - 1`` of each sequence (clamped into range): [B, 1, d]."""
+    b, s = x.shape[:2]
+    idx = torch.clamp(lengths.long() - 1, 0, s - 1)
+    return x[torch.arange(b, device=x.device), idx][:, None, :]
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
+                lengths: torch.Tensor, *, embeds: Optional[torch.Tensor] = None,
+                attn_window: Optional[int] = None):
+    """Batched one-token decode over the slabs.
+
+    tokens [B] (or ``embeds`` [B, d]); lengths [B] int32 = cache fill level.
+    Each layer writes the new K/V row at position ``lengths`` into its slab
+    in place (the stacked cache carried through the layer loop, so no slab
+    is copied) and attends over ``[0, lengths]``.  Returns (logits [B, V],
+    state)."""
+    require_servable(cfg)
+    if embeds is not None:
+        x = embeds[:, None, :]
+    else:
+        x = layers.embed(params["embed"], tokens[:, None])
+    ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
+    for li, lp in enumerate(params["layers"]):
+        x = _block(cfg, lp, x, lambda h: layers.attention_decode_stacked(
+            lp["attn"], h, cfg, ck_all, cv_all, li, lengths,
+            window=attn_window)[0])
+    return _logits(cfg, params, x)[:, 0], state
 
 
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,

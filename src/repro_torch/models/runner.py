@@ -5,7 +5,9 @@ Port of the JAX package's ``models/runner.py`` (``cache_spec`` :89 and
 ``ModelRunner`` :118) for the paged-only dense family: the serving cache is
 one paged component (attention KV for all L layers, addressed through one
 block table per sequence) and no fixed-size slot state.  Families with slot
-state (hybrid, ssm) come with a later slice.
+state (hybrid, ssm) come with a later slice.  The runner also holds the
+dense-slab baseline's state (``[L, slots, max_seq]`` slabs) and its
+monolithic prefill into one slot.
 """
 from __future__ import annotations
 
@@ -61,6 +63,24 @@ class ModelRunner:
     def init_state(self, num_blocks: int, block_size: int, dtype, device):
         return M.init_serve_state(self.cfg, self.slots, num_blocks, block_size,
                                   dtype=dtype, device=device)
+
+    def init_dense_state(self, dtype, device):
+        """The dense ``[slots, max_seq]``-slab baseline state."""
+        return M.init_decode_state(self.cfg, self.slots, self.max_seq,
+                                   dtype=dtype, device=device)
+
+    def prefill_slot(self, params, state, slot: int, tokens: torch.Tensor,
+                     length: int):
+        """Monolithic prefill of one right-padded prompt (tokens [1, S])
+        straight into slot ``slot``'s rows of the slabs -> logits [1, V].
+        Rows past S keep what an earlier occupant left: decode never
+        reads a row before writing it."""
+        view = {"attn": {key: t[:, slot:slot + 1]
+                         for key, t in state["attn"].items()}}
+        lens = torch.full((1,), length, dtype=torch.int32, device=tokens.device)
+        logits, _ = M.prefill(self.cfg, params, view, tokens=tokens,
+                              lengths=lens)
+        return logits[:, 0]
 
     def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
                block_tables: torch.Tensor):

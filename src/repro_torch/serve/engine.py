@@ -17,6 +17,12 @@ Port of the JAX package's ``serve/engine.py`` core for the dense family:
   cold cached pages are evicted LRU under pool pressure.
 * **Greedy sampling** — one argmax over the whole batch per tick (a single
   device-to-host copy), first index on ties, as ``jnp.argmax``.
+* **Dense-slab baseline** (``paged=False``) — the JAX engine's A/B
+  baseline: ``[L, slots, max_seq]`` K/V slabs, one monolithic bucketed
+  prefill per tick written straight into the slot's rows (the JAX engine
+  prefills a batch-of-one state and scatters it into the slot; outputs and
+  stats are the same), and one batched decode over all slots through
+  ``model.decode_step``.  No pages, no prefix caching.
 
 Not ported in this slice (construction raises if asked for): preemption and
 swap, SLO classes and deadlines, prefill/decode roles, sequence sharding,
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
 from repro_torch.models.runner import ModelRunner
 
 
@@ -267,7 +274,8 @@ class ServeEngine:
                  slots: int = 8, prefill_buckets=(32, 128, 512, 2048),
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_tokens_per_tick: Optional[int] = None,
-                 prefix_caching: bool = True, **later):
+                 paged: Optional[bool] = None,
+                 prefix_caching: Optional[bool] = None, **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
@@ -277,7 +285,10 @@ class ServeEngine:
         capacity ``slots * ceil(max_seq / block_size) + 1``.
         ``max_tokens_per_tick``: padded-token budget per tick shared by
         decode (reserved first) and prefill; default ``slots`` + the largest
-        bucket.  ``prefix_caching``: share full prompt pages across requests.
+        bucket.  ``paged``: None or True serve from the page pool, False from
+        the dense ``[slots, max_seq]`` slabs (``block_size`` and
+        ``num_blocks`` then unused).  ``prefix_caching``: share full prompt
+        pages across requests (default: on when paged; it needs the pool).
         Any other JAX-engine option raises: it belongs to a later slice."""
         if later:
             raise NotImplementedError(
@@ -292,7 +303,11 @@ class ServeEngine:
         table = params["embed"]["table"]
         self.device, self.dtype = table.device, table.dtype
         self.runner = ModelRunner(cfg, slots, max_seq)
-        self.prefix_caching = bool(prefix_caching)
+        self.paged = paged is not False      # False: the dense-slab baseline
+        if prefix_caching and not self.paged:
+            raise ValueError("prefix_caching requires a paged KV component")
+        self.prefix_caching = (self.paged if prefix_caching is None
+                               else bool(prefix_caching))
         # the JAX engine folds kv_dtype into the digest chain; the port's
         # pool stores the engine dtype ("fp16" there), so seeds match
         self._digest_seed = hashlib.blake2b(b"kv_dtype:fp16",
@@ -310,18 +325,22 @@ class ServeEngine:
 
         self.block_size = block_size
         self.blocks_per_slot = -(-max_seq // block_size)
-        full = 1 + slots * self.blocks_per_slot
-        if num_blocks is None:
-            num_blocks = full
-        elif num_blocks < full:
-            raise NotImplementedError(
-                f"num_blocks={num_blocks} is below full capacity ({full}); an "
-                f"oversubscribed pool needs preemption, which comes with a "
-                f"later slice of repro_torch")
-        self.alloc = BlockAllocator(num_blocks, block_size, slots,
-                                    self.blocks_per_slot)
-        self.state = self.runner.init_state(num_blocks, block_size, self.dtype,
-                                            self.device)
+        self.alloc: Optional[BlockAllocator] = None
+        if self.paged:
+            full = 1 + slots * self.blocks_per_slot
+            if num_blocks is None:
+                num_blocks = full
+            elif num_blocks < full:
+                raise NotImplementedError(
+                    f"num_blocks={num_blocks} is below full capacity ({full}); "
+                    f"an oversubscribed pool needs preemption, which comes "
+                    f"with a later slice of repro_torch")
+            self.alloc = BlockAllocator(num_blocks, block_size, slots,
+                                        self.blocks_per_slot)
+            self.state = self.runner.init_state(num_blocks, block_size,
+                                                self.dtype, self.device)
+        else:
+            self.state = self.runner.init_dense_state(self.dtype, self.device)
 
         self.lengths = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
@@ -358,7 +377,7 @@ class ServeEngine:
         req.submit_tick = self._tick
         pages = -(-min(self._plen(req) + req.max_new_tokens, self.max_seq)
                   // self.block_size)
-        if pages > self.alloc.usable_blocks:
+        if self.paged and pages > self.alloc.usable_blocks:
             raise ValueError(
                 f"request needs up to {pages} KV pages but the pool has only "
                 f"{self.alloc.usable_blocks}; raise num_blocks or shrink the "
@@ -460,9 +479,22 @@ class ServeEngine:
 
     def _prefill_tick(self, budget: int, finished: List[Request]) -> int:
         """Advance pending prefills chunk by chunk under ``budget`` padded
-        tokens; returns the unspent budget."""
+        tokens; returns the unspent budget.  Dense slabs cannot chunk: that
+        mode runs one monolithic prefill per tick, outside the budget (the
+        JAX engine's A/B baseline)."""
         pending = [(slot, req) for slot, req in enumerate(self.active)
                    if req is not None and req.prefill_pos < self._plen(req)]
+        if not self.paged:
+            for slot, req in pending[:1]:
+                plen = self._plen(req)
+                bucket = self._bucket(plen)
+                logits = self._run_prefill_chunk(slot, req, bucket, plen)
+                self.stats["prefill_tokens"] += plen
+                self.stats["padded_tokens"] += bucket
+                req.prefill_pos = plen
+                self.lengths[slot] = plen
+                self._finish_prefill(slot, req, logits, finished)
+            return budget
         for slot, req in pending:
             plen = self._plen(req)
             while req.prefill_pos < plen:
@@ -495,6 +527,9 @@ class ServeEngine:
         self.stats["prefill_dispatches"] += 1
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = req.prompt[req.prefill_pos:req.prefill_pos + n]
+        if not self.paged:
+            return self.runner.prefill_slot(self.params, self.state, slot,
+                                            self._to_device(padded), n)
         # only the live prefix of the block table, rounded up to a power of
         # two: per-chunk attention work follows the cached length
         n_live = -(-(req.prefill_pos + n) // self.block_size)
@@ -539,7 +574,8 @@ class ServeEngine:
     def _retire(self, slot: int) -> None:
         self.active[slot] = None
         self.lengths[slot] = 0
-        self.alloc.release(slot)
+        if self.paged:
+            self.alloc.release(slot)
 
     # -- engine tick ---------------------------------------------------
     def _decode_ready(self, slot: int) -> bool:
@@ -558,7 +594,7 @@ class ServeEngine:
         self._tick += 1
         self.stats["ticks"] += 1
         for i in range(self.slots):
-            if self._decode_ready(i):
+            if self.paged and self._decode_ready(i):
                 self._ensure(i, self.lengths[i] + 1)
         self._admit()
         finished: List[Request] = []
@@ -582,15 +618,20 @@ class ServeEngine:
         self.stats["peak_active"] = max(self.stats["peak_active"], n_active)
         if live:
             self.stats["decode_dispatches"] += 1
-            for i in live:
-                self._ensure(i, self.lengths[i] + 1)
             toks = np.zeros((self.slots,), np.int32)
             for i in live:
                 toks[i] = self.active[i].out_tokens[-1]
-            logits, self.state = self.runner.decode(
-                self.params, self.state, self._to_device(toks),
-                self._to_device(self.lengths.copy()),
-                self._to_device(self.alloc.table.copy()))
+            lens = self._to_device(self.lengths.copy())
+            if self.paged:
+                for i in live:
+                    self._ensure(i, self.lengths[i] + 1)
+                logits, self.state = self.runner.decode(
+                    self.params, self.state, self._to_device(toks), lens,
+                    self._to_device(self.alloc.table.copy()))
+            else:
+                logits, self.state = M.decode_step(
+                    self.cfg, self.params, self.state, self._to_device(toks),
+                    lens)
             nxt_all = torch.argmax(logits, dim=-1).tolist()
             for i in live:
                 req = self.active[i]
@@ -603,9 +644,10 @@ class ServeEngine:
                 if (len(req.out_tokens) >= req.max_new_tokens or hit_eos
                         or self.lengths[i] >= self.max_seq - 1):
                     self._finish(i, req, finished)
-        for k in ("pages_allocated", "pages_freed", "pages_shared",
-                  "pages_evicted"):
-            self.stats[k] = getattr(self.alloc, k)
+        if self.paged:
+            for k in ("pages_allocated", "pages_freed", "pages_shared",
+                      "pages_evicted"):
+                self.stats[k] = getattr(self.alloc, k)
         return finished
 
     # -- async future driver protocol ----------------------------------
@@ -646,10 +688,11 @@ class ServeEngine:
             "pages_allocated": 0, "pages_freed": 0, "pages_shared": 0,
             "pages_evicted": 0, "gather_pages_calls": 0,
             "gather_page_volume": 0, "peak_active": 0,
-            "kv_bytes_per_page": self.runner.page_kv_bytes(
-                self.block_size, self.dtype.itemsize),
+            "kv_bytes_per_page": (self.runner.page_kv_bytes(
+                self.block_size, self.dtype.itemsize) if self.paged else 0),
         }
-        self.alloc.reset_counters()
+        if self.paged:
+            self.alloc.reset_counters()
 
     @property
     def prefix_hit_rate(self) -> float:

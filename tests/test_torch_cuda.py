@@ -250,6 +250,115 @@ def test_model_on_card_matches_cpu(dev):
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
 
 
+DENSE_CASES = [  # (H, KvH, D, Sk, lengths): MHA and GQA at head dims 16, 64
+    (8, 8, 64, 300, [1, 32, 33, 300, 129]),
+    (8, 2, 64, 200, [7, 200, 64, 1, 150]),
+    (4, 4, 16, 70, [70, 3, 31, 64, 65]),
+    (6, 2, 16, 50, [50, 1, 17, 32, 49]),
+]
+
+
+def _partials_close(got, want, dtype):
+    """(acc, m, l) partials: m and l, and acc / l (in bf16 the plain version
+    rounds p before the PV product, an error that grows with l in acc
+    itself)."""
+    acc, m, l = got
+    wacc, wm, wl = want
+    _close(m, wm, dtype)
+    _close(l, wl, dtype)
+    _close(acc / l[..., None], wacc / wl[..., None], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,sk,lens", DENSE_CASES)
+def test_dense_decode_kernel(dev, dtype, h, kvh, d, sk, lens):
+    """Normalized output and partials over the whole slab; then the slab cut
+    at 40 into two shards, the second at ``kv_offset=40`` (rows of length
+    <= 40 reach none of its keys: the kernel's identity and the plain
+    version's p = 1 rows are compared after ``combine_partials``)."""
+    rng = np.random.default_rng(11)
+    b = len(lens)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    k = _rand(rng, (b, sk, kvh, d), dtype, dev)
+    v = _rand(rng, (b, sk, kvh, d), dtype, dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _close(kda.decode_attention(q, k, v, ln),
+           ref.decode_attention(q, k, v, lengths=ln), dtype)
+    _close(kda.decode_attention(q, k, v), ref.decode_attention(q, k, v), dtype)
+    _partials_close(kda.decode_attention_partial(q, k, v, ln),
+                    ref.decode_attention_partial(q, k, v, lengths=ln), dtype)
+    cut = 40
+    k1, v1 = k[:, :cut].contiguous(), v[:, :cut].contiguous()
+    k2, v2 = k[:, cut:].contiguous(), v[:, cut:].contiguous()
+    got = ref.combine_partials(kda.decode_attention_partial(q, k1, v1, ln),
+                               kda.decode_attention_partial(q, k2, v2, ln, cut))
+    want = ref.combine_partials(
+        ref.decode_attention_partial(q, k1, v1, lengths=ln),
+        ref.decode_attention_partial(q, k2, v2, lengths=ln, kv_offset=cut))
+    _partials_close(got, want, dtype)
+    empty = kda.decode_attention_partial(q, k2, v2, ln, cut)
+    short = ln <= cut
+    assert bool(short.any())
+    torch.cuda.synchronize()
+    assert bool((empty[0][short] == 0).all() and (empty[1][short] == -1e30).all()
+                and (empty[2][short] == 0).all())
+
+
+FLASH_LEN_CASES = [  # (B, S, H, KvH, D, lengths)
+    (3, 150, 8, 8, 64, [1, 100, 150]),
+    (2, 129, 8, 2, 64, [64, 65]),
+    (3, 70, 4, 4, 16, [70, 9, 33]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_LEN_CASES)
+def test_flash_lengths_kernel(dev, dtype, case):
+    """The flash forward with a per-sequence key bound, causal, against the
+    plain version (every row: a row past its length attends the keys below
+    it), through ``ops`` as the dense-slab prefill calls it."""
+    b, s, h, kvh, d, lens = case
+    rng = np.random.default_rng(12)
+    q = _rand(rng, (b, s, h, d), dtype, dev)
+    k = _rand(rng, (b, s, kvh, d), dtype, dev)
+    v = _rand(rng, (b, s, kvh, d), dtype, dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = kfa.lengths_launches
+    _close(ops.flash_attention(q, k, v, lengths=ln),
+           ref.flash_attention(q, k, v, lengths=ln), dtype)
+    assert kfa.lengths_launches == n0 + 1
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.flash_attention(q.requires_grad_(), k, v, lengths=ln)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q.detach(), k, v, lengths=ln.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        kda.decode_attention(q[:, 0].detach().contiguous(), k, v, ln.cpu())
+
+
+def test_dense_model_on_card_matches_cpu(dev):
+    """Reduced stablelm at fp32 over the dense slabs: a batched prefill of
+    two ragged prompts and two decode steps on the card (CUDA kernels)
+    against the CPU (plain versions), same parameters."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gparams = _to(params, dev)
+    tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0], [8, 1, 6, 0, 0, 0, 0, 0]],
+                       dtype=torch.int32)
+    lens = torch.tensor([7, 3], dtype=torch.int32)
+    logits = {}
+    for d, p in (("cpu", params), ("cuda", gparams)):
+        state = M.init_decode_state(cfg, 2, 16, dtype=torch.float32, device=d)
+        lg, state = M.prefill(cfg, p, state, tokens=tok.to(d), lengths=lens.to(d))
+        out = [lg[:, 0]]
+        for t in (11, 64):
+            toks = torch.tensor([t, t + 1], dtype=torch.int32)
+            cur = lens + (t == 64)
+            lg, state = M.decode_step(cfg, p, state, toks.to(d), cur.to(d))
+            out.append(lg)
+        logits[d] = torch.cat([o.cpu() for o in out])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
 def _wkv_inputs(rng, b, s, h, d, dtype, dev):
     """r, k, v, do in ``dtype``; w = exp(-exp(logit)) f32 with the logit
     clipped to [-12, 4] as ``models/rwkv.py:_decay`` clips it, ~4% of the

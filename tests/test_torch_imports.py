@@ -23,8 +23,12 @@ bad = sorted(m for m in sys.modules
 print(",".join(names), bad)
 """
 
-# modules that must be among those walked (the training slices included)
+# modules that must be among those walked (the training and dense-slab
+# serving slices included)
 REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
+            "repro_torch.kernels.decode_attention", "repro_torch.models.runner",
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.launch.trace_serve",
             "repro_torch.models.model", "repro_torch.train.optim",
             "repro_torch.train.step", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.driver",
