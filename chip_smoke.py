@@ -82,7 +82,23 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 15. hybrid train: zamba2-7b at full width and the depth one card holds
    (``launch/trace_train.py:ONE_CARD_LAYERS``, 33 of 81 layers: 5 groups of
    6, the 3-layer tail, 5 applications of the shared block) as in 8, with
-   every kernel's launch count held to the nested-remat formulas.
+   every kernel's launch count held to the nested-remat formulas;
+16. fidelity kernels (the kernel API's entries that no model path calls):
+   the weight-stationary GEMM at full-width stablelm-1.6b projections in
+   bf16 (M 8 at decode: [2048, 2048], [2048, 5632], [5632, 2048], the
+   lm_head [2048, 100352]; M 512, a prefill chunk: [2048, 5632], [5632,
+   2048], the lm_head), driven through ``ops.matmul`` with its counter
+   zeroed before and read after (every one launches the kernel; an f32
+   [512, 5632] @ [5632, 2048], a 5.5 MiB panel, and a 3-D input do not),
+   each held against its plain version, twice bitwise equal, its tolerance
+   shown to catch a product that loses its last 32 K rows (a K stage), and
+   timed as in 3 beside ``torch.matmul`` (at M 8 the wide 64 x 64 tile is
+   held and timed beside the narrow decode tile); the JAX sweep's odd
+   shapes in f32 and bf16 and f32 at [512, 2048] @ [2048, 2048]; and the
+   Curry-ALU forms through ``ops`` (rmsnorm [512, 2048] with 1 and 3
+   Newton rounds, silu_mul [512, 5632] with 6 and 8 Taylor rounds, bf16
+   and f32), held, with f32 controls that the native kernels fail, and
+   timed beside the native kernels at the same shapes.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -156,6 +172,28 @@ SCAN_RTOL, SCAN_ATOL = 2 ** -7, 1e-3
 SCAN_F32_RTOL, SCAN_F32_ATOL = 1e-4, 1e-4
 SCAN_REL = 1e-3
 WKV_WB_STD = 1.0                               # std of the random w_b
+# The fidelity kernels (16).  Kernel and plain version round one f32
+# result once.  Readings on the first full-width run (PERF.md, Findings): the
+# GEMM's bf16 outputs differ by at most one bf16 ulp (0.0156 at |out| in
+# [2, 4), 0.0312 in [4, 8); relative norm <= 1.7e-4), the curry rmsnorm's
+# by one ulp, the curry silu_mul's not at all; a bf16 output is held to one
+# ulp relative (2^-7) plus 1e-5 for results that cancel towards zero.  f32:
+# the GEMM read 9.5e-6 at K 2048 (the same products summed in another
+# order, outputs ~ N(0, 1)) and is held to 1e-5 relative plus 4e-5.  The
+# curry forms in f32 take the plain version's steps one by one and read
+# <= 9.5e-7 at outputs up to ~5 (rmsnorm's mean of squares in another
+# order; silu_mul 0, every step pinned); they are held relative only, to
+# 2e-6, which the native forms fail: one Newton step from the bf16 seed is
+# up to ~6e-6 relative off the exact rsqrt, six Taylor terms ~5e-3 off exp
+# in the tail (|g| ~ 15), where the values are too small for an absolute
+# term to see (the curry controls).
+FID_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+GEMM_F32_TOL = dict(rtol=1e-5, atol=4e-5)
+CURRY_F32_TOL = dict(rtol=2e-6, atol=0.0)
+# the GEMM's control drops the last 32 rows of K: one K stage of the
+# 64-row bf16 tile in csrc/matmul.cu, half a stage of the 16-row one (a
+# smaller fault than a lost stage, so a stricter test of the tolerance)
+GEMM_DROPPED_K = 32
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
@@ -1551,6 +1589,225 @@ def zamba_watched(st):
             "lm_head": p["lm_head"]["w"][:4]}
 
 
+def gemm_inputs(torch, gen, m, k, n, dtype):
+    """x [m, k] ~ N(0, 1) and w [k, n] ~ N(0, 1 / k) (the outputs ~ N(0,
+    1)), in ``dtype``."""
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5).to(dtype)
+    return x, w
+
+
+def fid_tol(torch, dtype, f32_tol):
+    return FID_BF16_TOL if dtype == torch.bfloat16 else f32_tol
+
+
+def gemm_odd_shapes(torch, gen):
+    """The JAX sweep's shapes in f32 and bf16 (bf16 also to an f32 output)
+    and f32 at a full-width [512, 2048] @ [2048, 2048]: held against the
+    plain version, and twice bitwise equal."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+
+    cases = [(s, dt) for s in ((16, 8, 16), (100, 40, 50), (128, 128, 128),
+                               (33, 17, 9))
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(((512, 2048, 2048), torch.float32))
+    errs = []
+    for (m, k, n), dtype in cases:
+        x, w = gemm_inputs(torch, gen, m, k, n, dtype)
+        tag = f"matmul {str(dtype)[6:]} [{m},{k}] @ [{k},{n}]"
+        got = kmm.weight_stationary_matmul(x, w)
+        errs.append(hold(torch, tag, got, ref.matmul(x, w),
+                         fid_tol(torch, dtype, GEMM_F32_TOL)))
+        if not torch.equal(got, kmm.weight_stationary_matmul(x, w)):
+            fail(f"{tag}: two launches on the same inputs differ")
+        if dtype == torch.bfloat16:
+            hold(torch, tag + " -> f32",
+                 kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32),
+                 ref.matmul(x, w, out_dtype=torch.float32), GEMM_F32_TOL)
+    log("fidelity: matmul at the JAX sweep's shapes (f32, bf16, bf16 -> f32) "
+        "and f32 [512,2048]@[2048,2048] hold, twice bitwise equal; max|err| "
+        + ", ".join(f"{e:.3g}" for e in errs))
+
+
+def gemm_rows(torch, timer, cfg, gen, tiles):
+    """The GEMM at full-width stablelm-1.6b projections in bf16: routed
+    through ``ops.matmul`` with the counter zeroed before and read after,
+    held, twice bitwise equal, a dropped-K-stage control, and timed; at M 8
+    the wide tile is held and timed beside the narrow one (into
+    ``tiles``)."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops, ref
+
+    bf = torch.bfloat16
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    counter = Counter(kmm)
+    # the reference's rule routes neither of these to the kernel
+    x, w = gemm_inputs(torch, gen, 512, ff, d, torch.float32)
+    x3, w3 = gemm_inputs(torch, gen, 512, d, d, bf)
+    counter.reset()
+    ops.matmul(x, w)
+    ops.matmul(x3[None], w3)
+    torch.cuda.synchronize()
+    if counter.read():
+        fail(f"fidelity: an f32 [512,{ff}]@[{ff},{d}] (panel "
+             f"{ff * 256 * 4 / 2**20:.2f} MiB) or a 3-D input launched the "
+             f"kernel {counter.read()} times; the reference's rule routes "
+             f"neither there")
+    del x, w, x3, w3
+    src, rep = "src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:50"
+    # (rows, weight, K, N, its calls in one layer's projections and the head)
+    shapes = [(8, "wq/wk/wv/wo", d, d, 4), (8, "gate/up", d, ff, 2),
+              (8, "down", ff, d, 1), (8, "lm_head", d, vocab, 1),
+              (512, "gate/up", d, ff, 2), (512, "down", ff, d, 1),
+              (512, "lm_head", d, vocab, 1)]
+    rows = []
+    for m, what, k, n, calls in shapes:
+        x, w = gemm_inputs(torch, gen, m, k, n, bf)
+        tag = f"matmul bf16 [{m},{k}] @ [{k},{n}] ({what})"
+        panel = k * min(256, n) * 2
+        if not ops.weight_panel_fits(2, k, n, 2):
+            fail(f"{tag}: the reference's rule does not route a "
+                 f"{panel / 2**20:.2f} MiB panel to the kernel")
+        counter.reset()
+        outs = [ops.matmul(x, w) for _ in range(calls)]
+        torch.cuda.synchronize()
+        launches = counter.read()
+        if launches != calls:
+            fail(f"{tag}: {calls} ops.matmul calls launched the kernel "
+                 f"{launches} times")
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            fail(f"{tag}: launches on the same inputs differ")
+        want = ref.matmul(x, w)
+        bk = GEMM_DROPPED_K
+        bad = ref.matmul(x[:, :k - bk], w[:k - bk])
+        caught = not torch.allclose(bad.float(), want.float(), **FID_BF16_TOL)
+        log(f"{tag} control: the product without its last {bk} K rows "
+            f"reads max|err| {float((bad.float() - want.float()).abs().max()):.3g}, "
+            f"relative norm {rel_err(torch, bad, want):.3g} (caught: {caught})")
+        if not caught:
+            fail(f"{tag} control: the tolerance passes a product that loses "
+                 f"its last {bk} K rows")
+        rel = rel_err(torch, outs[0], want)
+        note = ""
+        if m <= kmm.NARROW_M:
+            # the wide tile on the same inputs: held, and timed between two
+            # timings of the narrow one that ops.matmul takes
+            hold(torch, tag + " wide tile",
+                 kmm.weight_stationary_matmul(x, w, narrow=False), want,
+                 FID_BF16_TOL)
+            t = [timer(lambda: kmm.weight_stationary_matmul(x, w, narrow=nw))
+                 for nw in (True, False, True)]
+            tiles.append(dict(m=m, k=k, n=n, narrow_ms=(t[0] + t[2]) / 2,
+                              wide_ms=t[1]))
+            note = (f"; narrow tile {t[0]:.4f} / {t[2]:.4f} ms, wide tile "
+                    f"{t[1]:.4f} ms")
+        del outs, want, bad
+        name = "weight_stationary_matmul" + ("" if not rows else f"_m{m}_{k}x{n}")
+        row = measure(torch, timer, name, src, rep,
+                      lambda: kmm.weight_stationary_matmul(x, w),
+                      lambda: ref.matmul(x, w), FID_BF16_TOL,
+                      nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n,
+                      library=lambda: torch.matmul(x, w),
+                      note=f"; {what}, panel {panel / 2**20:.2f} MiB, "
+                           f"relative norm {rel:.2g}{note}")
+        row["launches"] = launches
+        rows.append(row)
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def curry_rows(torch, timer, cfg, gen):
+    """The Curry-ALU forms through ``ops`` (counters zeroed before, read
+    after): rmsnorm [512, d_model] with 1 and 3 Newton rounds, silu_mul
+    [512, d_ff] with 6 and 8 Taylor rounds, in bf16 and f32, held against
+    their plain versions; in f32 the native kernels must fail the same hold
+    against 1 Newton round and 6 Taylor rounds (the controls); timed in
+    bf16 beside the native kernels."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import swiglu as ksw
+
+    d, ff, eps = cfg.d_model, cfg.d_ff, cfg.norm_eps
+    counters = {"rmsnorm_curry": Counter(krn, "curry_launches"),
+                "silu_mul_curry": Counter(ksw, "curry_launches"),
+                "rmsnorm": Counter(krn), "silu_mul": Counter(ksw)}
+    inputs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((512, d), generator=gen, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(dtype)
+        g = (3 * torch.randn((512, ff), generator=gen, device="cuda")).to(dtype)
+        u = torch.randn((512, ff), generator=gen, device="cuda").to(dtype)
+        inputs[dtype] = x, w, g, u
+    for c in counters.values():
+        c.reset()
+    outs = {}
+    for dtype, (x, w, g, u) in inputs.items():
+        for r in (1, 3):
+            outs[dtype, "rmsnorm", r] = ops.rmsnorm(x, w, eps=eps, curry_rounds=r)
+        for r in (6, 8):
+            outs[dtype, "silu_mul", r] = ops.silu_mul(g, u, curry_rounds=r)
+    torch.cuda.synchronize()
+    launches = {name: c.read() for name, c in counters.items()}
+    check_launches("fidelity curry", launches, {
+        "rmsnorm_curry": 4, "silu_mul_curry": 4, "rmsnorm": 0, "silu_mul": 0})
+    errs = []
+    for (dtype, op, r), got in outs.items():
+        x, w, g, u = inputs[dtype]
+        want = (ref.rmsnorm(x, w, eps, curry_rounds=r) if op == "rmsnorm"
+                else ref.silu_mul(g, u, curry_rounds=r))
+        tol = fid_tol(torch, dtype, CURRY_F32_TOL)
+        errs.append(f"{op} {str(dtype)[6:]} rounds {r}: "
+                    f"{hold(torch, f'{op}_curry', got, want, tol):.3g}")
+    log("fidelity curry holds, max|err| " + "; ".join(errs))
+    x, w, g, u = inputs[torch.float32]
+    for op, native, want in (
+            ("rmsnorm", krn.rmsnorm(x, w, eps), ref.rmsnorm(x, w, eps, curry_rounds=1)),
+            ("silu_mul", ksw.silu_mul(g, u), ref.silu_mul(g, u, curry_rounds=6))):
+        caught = not torch.allclose(native, want, **CURRY_F32_TOL)
+        worst = float(((native - want).abs() / want.abs().clamp_min(1e-30)).max())
+        log(f"{op}_curry control: the native f32 kernel against the curry "
+            f"plain version reads max relative {worst:.3g} (caught: {caught})")
+        if not caught:
+            fail(f"{op}_curry control: the f32 tolerance {CURRY_F32_TOL} passes "
+                 f"the native kernel for the curry form")
+    x, w, g, u = inputs[torch.bfloat16]
+    native_rms = timer(lambda: krn.rmsnorm(x, w, eps))
+    native_silu = timer(lambda: ksw.silu_mul(g, u))
+    csrc = "src/repro_torch/kernels/csrc/"
+    rows = [
+        measure(torch, timer, "rmsnorm_curry", csrc + "rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:51",
+                lambda: krn.rmsnorm(x, w, eps, curry_rounds=3),
+                lambda: ref.rmsnorm(x, w, eps, curry_rounds=3), FID_BF16_TOL,
+                nbytes=2 * x.numel() * 2 + d * 2, flops=4 * x.numel(),
+                library=lambda: torch.nn.functional.rms_norm(x, (d,), w, eps),
+                note=f"; 3 Newton rounds; the native kernel at the same shape "
+                     f"{native_rms:.4f} ms"),
+        measure(torch, timer, "silu_mul_curry", csrc + "swiglu.cu",
+                "src/repro/kernels/swiglu.py:59",
+                lambda: ksw.silu_mul(g, u, curry_rounds=6),
+                lambda: ref.silu_mul(g, u, curry_rounds=6), FID_BF16_TOL,
+                nbytes=3 * g.numel() * 2, flops=(3 * 6 + 12) * g.numel(),
+                note=f"; 6 Taylor rounds; the native kernel at the same shape "
+                     f"{native_silu:.4f} ms")]
+    rows[0]["launches"] = launches["rmsnorm_curry"]
+    rows[1]["launches"] = launches["silu_mul_curry"]
+    return rows
+
+
+def fidelity_phase(torch, timer, cfg):
+    """Phase 16: the weight-stationary GEMM and the Curry-ALU forms."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gemm_odd_shapes(torch, gen)
+    tiles = []
+    rows = gemm_rows(torch, timer, cfg, gen, tiles)
+    rows += curry_rows(torch, timer, cfg, gen)
+    torch.cuda.empty_cache()
+    return rows, tiles
+
+
 def main() -> None:
     import torch
 
@@ -1653,6 +1910,9 @@ def main() -> None:
         row["launches"] = zamba_launches[row["name"].removesuffix("_hd112")]
     rows += hybrid_rows
 
+    fid_rows, gemm_tiles = fidelity_phase(torch, timer, cfg)
+    rows += fid_rows
+
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1660,7 +1920,8 @@ def main() -> None:
              dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
              rwkv_launches=rwkv_launches, zamba_train=zamba_train,
-             zamba_launches=zamba_launches, **kernels), indent=1))
+             zamba_launches=zamba_launches, gemm_tiles=gemm_tiles, **kernels),
+        indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,9 +41,9 @@ _F = ctypes.c_float
 # argtypes of every C entry point: each pointer and the stream is c_void_p
 # (ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 _SIGNATURES = {
-    "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _P),
+    "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_rope": (_I, _P, _P, _P, _I64, _I, _I, _F, _P),
-    "repro_silu_mul": (_I, _P, _P, _P, _I64, _P),
+    "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _P),
     "repro_paged_attention": (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P),
@@ -59,6 +59,7 @@ _SIGNATURES = {
                         _I, _I, _I, _P),
     "repro_mamba2_fwd": (_I, *(_P,) * 8, _I, _I, _I, _I, _I, _P),
     "repro_mamba2_bwd": (_I, *(_P,) * 14, _I, _I, _I, _I, _I, _P),
+    "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,10 @@
 // Fused RMSNorm: out = x * rsqrt(mean(x^2) + eps) * w, computed in f32, and
-// its backward (below).
+// its backward (below).  With rounds > 0 the rsqrt is the Curry ALU's (the
+// TPU kernel's curry_rounds, _newton_rsqrt at rmsnorm.py:18): a seed
+// rsqrt of the bf16-rounded argument, then `rounds` Newton steps
+// y <- y (1.5 - 0.5 v y y), each product and difference rounded on its own
+// (__fmul_rn / __fsub_rn) as the plain version's separate tensor ops round
+// them; rounds == 0 is the native rsqrt.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py (rmsnorm, pallas_call
 // at :51).  On the H100 it is bound by bytes: one read of x, one write of the
@@ -17,7 +22,7 @@ constexpr int kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-               int d, float eps) {
+               int d, float eps, int rounds) {
   const int64_t row = blockIdx.x;
   const T* xr = x + row * d;
   T* orow = out + row * d;
@@ -38,7 +43,15 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
     if (lane == 0) red[0] = ss;
   }
   __syncthreads();
-  const float inv = rsqrtf(red[0] / static_cast<float>(d) + eps);
+  const float v = red[0] / static_cast<float>(d) + eps;
+  float inv;
+  if (rounds == 0) {
+    inv = rsqrtf(v);
+  } else {
+    inv = rsqrtf(__bfloat162float(__float2bfloat16_rn(v)));
+    for (int r = 0; r < rounds; ++r)
+      inv = __fmul_rn(inv, __fsub_rn(1.5f, __fmul_rn(__fmul_rn(__fmul_rn(0.5f, v), inv), inv)));
+  }
   for (int i = threadIdx.x; i < d; i += kThreads) {
     orow[i] = repro::from_f32<T>(repro::to_f32(xr[i]) * inv * repro::to_f32(w[i]));
   }
@@ -47,12 +60,12 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
 }  // namespace
 
 extern "C" int repro_rmsnorm(int dtype, const void* x, const void* w, void* out,
-                             int64_t rows, int d, float eps, void* stream) {
+                             int64_t rows, int d, float eps, int rounds, void* stream) {
   if (rows <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_DTYPE(dtype, T,
     rmsnorm_kernel<T><<<static_cast<unsigned int>(rows), kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d, eps));
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d, eps, rounds));
   return cudaGetLastError();
 }
 

@@ -15,17 +15,33 @@ import torch
 from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import prefill_attention as _pf
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import swiglu as _sw
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def rmsnorm(x, w, *, eps: float = 1e-5):
+def _forward_only(what: str, *tensors) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is a forward-only kernel (the TPU kernel has no VJP "
+            f"either, and nothing trains through it): an input that requires "
+            f"grad raises")
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5, curry_rounds: int = 0):
+    """On the card ``curry_rounds`` nonzero launches the kernel's Curry-ALU
+    form (Newton rsqrt), forward only."""
     if _on_cpu(x):
-        return ref.rmsnorm(x, w, eps)
+        return ref.rmsnorm(x, w, eps, curry_rounds)
+    if curry_rounds:
+        _forward_only("rmsnorm with curry_rounds", x, w)
+        return _rn.rmsnorm(x.contiguous(), w.contiguous(), eps, curry_rounds)
     return _ag.RMSNorm.apply(x, w, eps)
 
 
@@ -35,9 +51,14 @@ def apply_rope(x, positions, *, theta: float = 10_000.0):
     return _ag.Rope.apply(x, positions, theta)
 
 
-def silu_mul(gate, up):
+def silu_mul(gate, up, *, curry_rounds: int = 0):
+    """On the card ``curry_rounds`` nonzero launches the kernel's Curry-ALU
+    form (Taylor exp in the sigmoid), forward only."""
     if _on_cpu(up):
-        return ref.silu_mul(gate, up)
+        return ref.silu_mul(gate, up, curry_rounds)
+    if curry_rounds:
+        _forward_only("silu_mul with curry_rounds", gate, up)
+        return _sw.silu_mul(gate.contiguous(), up.contiguous(), curry_rounds)
     return _ag.SiluMul.apply(gate.contiguous(), up.contiguous())
 
 
@@ -154,3 +175,36 @@ def silu(x):
     """x * sigmoid(x): plain PyTorch on every device (the JAX package has no
     kernel for it either)."""
     return ref.silu(x)
+
+
+# the reference's routing rule (repro ``ops.matmul`` at its defaults): a
+# [K, min(PANEL_BN, N)] weight panel of at most VMEM_BUDGET bytes
+PANEL_BN = 256
+VMEM_BUDGET = 4 * 1024 * 1024
+
+
+def weight_panel_fits(x_ndim: int, k: int, n: int, itemsize: int) -> bool:
+    """The reference's routing rule for ``matmul`` (``src/repro/kernels/
+    ops.py:225-228``): a 2-D input whose weight panel takes at most
+    ``VMEM_BUDGET`` bytes goes to the weight-stationary kernel."""
+    return x_ndim == 2 and k * min(PANEL_BN, n) * itemsize <= VMEM_BUDGET
+
+
+def matmul(x, w, *, out_dtype=None):
+    """x [..., K] @ w [K, N] with f32 accumulation, one rounding to
+    ``out_dtype`` (default x's dtype).  On the card the call routes by the
+    reference's rule, decided from shapes before any launch: a fitting
+    panel (:func:`weight_panel_fits`) launches the weight-stationary kernel
+    (forward only) on x and w cast to their common dtype (bf16 to f32 is
+    exact, so a mixed pair gives what the plain version gives); any other
+    call is ``torch.matmul`` in f32 (``ref.matmul``), the counterpart of
+    the reference's XLA dot."""
+    if _on_cpu(x):
+        return ref.matmul(x, w, out_dtype)
+    k, n = w.shape
+    if weight_panel_fits(x.dim(), k, n, w.element_size()):
+        _forward_only("matmul on the weight-stationary kernel", x, w)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return _mm.weight_stationary_matmul(
+            x.to(dt).contiguous(), w.to(dt).contiguous(), out_dtype or x.dtype)
+    return ref.matmul(x, w, out_dtype)

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels on the dense serving and training
-paths, forward and backward.
+paths, forward and backward, and of the kernel API's fidelity entries (the
+weight-stationary matmul and the Curry-ALU forms of rmsnorm and silu_mul).
 
 A line-for-line port of the oracles in the JAX package's ``kernels/ref.py``
 (rounding points included): they are the CPU execution path (see
@@ -17,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import curry
+
 NEG_INF = -1e30
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -26,20 +29,37 @@ Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 # normalization / elementwise
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            curry_rounds: int = 0) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w in f32, one rounding to x's dtype.
+    With ``curry_rounds > 0`` the rsqrt is the Curry ALU's: Newton steps
+    from a bf16-rounded seed (``core.curry.curry_rsqrt``), as the TPU
+    kernel's ``_kernel`` computes it."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * w.float()).to(x.dtype)
+    inv = (curry.curry_rsqrt(var + eps, curry_rounds) if curry_rounds
+           else torch.rsqrt(var + eps))
+    return (xf * inv * w.float()).to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, with silu computed in f32 and rounded to ``up``'s
-    dtype before the multiply (the JAX oracle's rounding point)."""
+def silu_mul(gate: torch.Tensor, up: torch.Tensor,
+             curry_rounds: int = 0) -> torch.Tensor:
+    """silu(gate) * up.  With ``curry_rounds = 0``, silu is computed in f32
+    and rounded to ``up``'s dtype before the multiply: the JAX oracle's
+    rounding point, which the training and serving kernels follow.  With
+    ``curry_rounds > 0`` the sigmoid's exp is the Curry ALU's Taylor
+    iteration (``core.curry.curry_exp``) and ``g * sigma(g) * u`` stays in
+    f32 with one rounding to ``up``'s dtype: the TPU kernel's rounding point
+    (``kernels/swiglu.py:31-40``), since no JAX oracle has a curry form."""
+    if curry_rounds:
+        g = gate.float()
+        e = curry.curry_exp(-torch.abs(g), curry_rounds)
+        sig = torch.where(g >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+        return (g * sig * up.float()).to(up.dtype)
     return silu(gate.float()).to(up.dtype) * up
 
 
@@ -526,6 +546,16 @@ def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
     dw = torch.where(wf > W_FLOOR, unchunk(dl) / wf, 0.0)
     return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),
             unchunk(dv).to(v.dtype), dw, du)
+
+
+# ---------------------------------------------------------------------------
+# matmul (the "SRAM-PIM lane": weight-stationary tiled GEMM)
+# ---------------------------------------------------------------------------
+
+def matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with f32 accumulation over all of K and one
+    rounding to ``out_dtype`` (default x's dtype)."""
+    return (x.float() @ w.float()).to(out_dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py`` (``rmsnorm``,
 one write of the output — and the kernel makes exactly that traffic: one
 block per row reduces the sum of squares in registers and shared memory,
 then scales the row (the second read of the row hits L1/L2).  The TPU
-kernel's optional ``curry_rounds`` Newton rsqrt has no caller on the serving
-path and is left for a later slice.
+kernel's ``curry_rounds`` form (the paper's Curry-ALU rsqrt: Newton steps
+from a bf16-rounded seed) is the same kernel with a runtime round count,
+forward only; it has no caller on a model path and its launches are counted
+apart (``curry_launches``).
 
 The backward (no TPU kernel: the JAX package differentiates its oracle) is
 bound by bytes too: x and dy read once, dx written once.  ``dw`` is a column
@@ -26,13 +28,16 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0       # forward kernel launches through this module
+curry_launches = 0  # launches of the curry_rounds form
 bwd_launches = 0   # backward launches (one per rmsnorm_bwd call)
 BWD_BLOCKS = 528   # row blocks of the backward (4 per SM of the H100)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x [..., D]; w [D] (x's dtype) -> normalized x."""
-    global launches
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            curry_rounds: int = 0) -> torch.Tensor:
+    """x [..., D]; w [D] (x's dtype) -> normalized x; ``curry_rounds``
+    Newton steps replace the native rsqrt when nonzero."""
+    global launches, curry_launches
     _build.require_cuda("rmsnorm", x=x, w=w)
     d = x.shape[-1]
     if w.shape != (d,) or w.dtype != x.dtype:
@@ -42,8 +47,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     lib = _build.load()
     code = lib.repro_rmsnorm(_build.dtype_code(x), x.data_ptr(), w.data_ptr(),
                              out.data_ptr(), x.numel() // d, d, float(eps),
-                             _build.stream_ptr(x))
-    launches += 1
+                             int(curry_rounds), _build.stream_ptr(x))
+    if curry_rounds:
+        curry_launches += 1
+    else:
+        launches += 1
     _build.check("rmsnorm", code)
     return out
 

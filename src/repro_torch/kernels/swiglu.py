@@ -6,8 +6,11 @@ Replaces the TPU kernel ``src/repro/kernels/swiglu.py`` (``silu_mul``,
 write per element; fusing keeps ``silu(gate)`` out of device memory.  The
 kernel rounds ``silu(gate)`` to the element type before the multiply, as the
 plain version does; the TPU kernel keeps it in f32, one bf16 rounding away.
-The TPU kernel's optional ``curry_rounds`` Taylor exp has no caller on the
-serving path and is left for a later slice.
+The TPU kernel's ``curry_rounds`` form (the paper's Curry-ALU sigmoid: exp
+by a range-reduced Taylor series and four squarings) is the same kernel with
+a runtime round count, forward only; it keeps ``g * sigma(g) * u`` in f32
+with one rounding, as the TPU kernel does.  It has no caller on a model path
+and its launches are counted apart (``curry_launches``).
 
 The backward (no TPU kernel: the JAX package differentiates its oracle) is
 one elementwise pass, bound by bytes (three reads, two writes); it rounds
@@ -24,12 +27,15 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0       # forward kernel launches through this module
+curry_launches = 0  # launches of the curry_rounds form
 bwd_launches = 0   # backward kernel launches
 
 
-def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """silu(gate) * up, elementwise; gate and up of one shape and dtype."""
-    global launches
+def silu_mul(gate: torch.Tensor, up: torch.Tensor,
+             curry_rounds: int = 0) -> torch.Tensor:
+    """silu(gate) * up, elementwise; gate and up of one shape and dtype;
+    ``curry_rounds`` Taylor terms replace the native exp when nonzero."""
+    global launches, curry_launches
     if gate.shape != up.shape or gate.dtype != up.dtype:
         raise ValueError(f"silu_mul: gate {tuple(gate.shape)} {gate.dtype} and "
                          f"up {tuple(up.shape)} {up.dtype} must match")
@@ -38,8 +44,11 @@ def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     lib = _build.load()
     code = lib.repro_silu_mul(_build.dtype_code(up), gate.data_ptr(),
                               up.data_ptr(), out.data_ptr(), up.numel(),
-                              _build.stream_ptr(up))
-    launches += 1
+                              int(curry_rounds), _build.stream_ptr(up))
+    if curry_rounds:
+        curry_launches += 1
+    else:
+        launches += 1
     _build.check("silu_mul", code)
     return out
 

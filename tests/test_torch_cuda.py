@@ -22,6 +22,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import mamba_chunk as kmamba  # noqa: E402
+from repro_torch.kernels import matmul as kmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import prefill_attention as kpf  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -525,3 +526,122 @@ def test_mamba2_autograd_matches_plain_autograd(dev):
             _mamba_close(g, wt)
     with pytest.raises(NotImplementedError, match="recurrent-serving"):
         ops.mamba2_scan(*xs[:5], h0=torch.zeros((2, 3, 16, 8), device=dev))
+
+
+def _mm_close(got, want):
+    """An f32 output to 1e-5 (the same products summed in another order);
+    a bf16 output to one bf16 ulp relative (2^-7: both round one f32 sum
+    once) plus 1e-5 for sums that cancel towards zero."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    rtol = 2 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16, 8, 16), (100, 40, 50), (128, 128, 128),
+                                   (33, 17, 9), (8, 24, 40), (5, 130, 70),
+                                   (8, 2048, 2048), (512, 2048, 2048)])
+def test_matmul_kernel(dev, dtype, m, k, n):
+    """The weight-stationary GEMM against the plain version: the JAX sweep's
+    odd shapes (ragged M, N and K, rows that are not 16-byte aligned), both
+    bf16 tiles (M <= 16 and above) and full-width stablelm-1.6b [2048,
+    2048] projections at decode and prefill, each bf16 shape on both
+    tiles; two launches give the same bits, and bf16 inputs give an f32
+    output."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, (m, k), dtype, dev)
+    w = _rand(rng, (k, n), dtype, dev, scale=k ** -0.5)
+    got = kmm.weight_stationary_matmul(x, w)
+    _mm_close(got, ref.matmul(x, w))
+    assert torch.equal(got, kmm.weight_stationary_matmul(x, w))
+    if dtype == torch.bfloat16:
+        _mm_close(kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32),
+                  ref.matmul(x, w, out_dtype=torch.float32))
+        # the other bf16 tile at the same shape
+        _mm_close(kmm.weight_stationary_matmul(x, w, narrow=m > kmm.NARROW_M),
+                  ref.matmul(x, w))
+
+
+def test_matmul_kernel_unaligned_base(dev):
+    """Rows that would take 16-byte loads but start 2 bytes off alignment
+    take the guarded scalar path."""
+    rng = np.random.default_rng(12)
+    base = _rand(rng, (40 * 64 + 1,), torch.bfloat16, dev)
+    x = base[1:].view(40, 64)
+    assert x.data_ptr() % 16 != 0
+    w = _rand(rng, (64, 24), torch.bfloat16, dev, scale=0.125)
+    _mm_close(kmm.weight_stationary_matmul(x, w), ref.matmul(x, w))
+
+
+def test_matmul_routes_by_the_reference_rule(dev):
+    """ops.matmul launches the kernel exactly when the reference's rule
+    holds, and otherwise computes the library dot in f32; x and w of
+    different dtypes take the kernel in f32."""
+    rng = np.random.default_rng(13)
+    x = _rand(rng, (8, 2048), torch.bfloat16, dev)
+    w = _rand(rng, (2048, 512), torch.bfloat16, dev, scale=2048 ** -0.5)
+    kmm.launches = 0
+    _mm_close(ops.matmul(x, w), ref.matmul(x, w))
+    assert kmm.launches == 1
+    _mm_close(ops.matmul(x[None], w), ref.matmul(x[None], w))   # 3-D
+    xf = _rand(rng, (8, 5632), torch.float32, dev)
+    wf = _rand(rng, (5632, 300), torch.float32, dev, scale=0.01)  # 5.5 MiB
+    _mm_close(ops.matmul(xf, wf), ref.matmul(xf, wf))
+    assert kmm.launches == 1
+    # a mixed pair runs the kernel in f32, as the plain version computes it
+    _mm_close(ops.matmul(x, w.float()), ref.matmul(x, w.float()))
+    _mm_close(ops.matmul(x.float(), w), ref.matmul(x.float(), w))
+    assert kmm.launches == 3
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.matmul(x, w.detach().requires_grad_())
+
+
+# the curry forms in f32, relative only: the kernels take the plain
+# version's f32 steps one by one (silu_mul read bitwise equal, rmsnorm a
+# few ulps: its mean of squares is summed in another order), while the
+# native forms sit up to ~6e-6 (rmsnorm against one Newton step) and ~5e-3
+# (silu_mul against six Taylor terms, in the tail of exp) relative away
+CURRY_F32_TOL = dict(rtol=2e-6, atol=0.0)
+
+
+def _curry_close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        _close(got, want, dtype)
+    else:
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **CURRY_F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 5632])
+def test_curry_kernels(dev, dtype, d):
+    """The Curry-ALU forms of rmsnorm (Newton rsqrt) and silu_mul (Taylor
+    exp) against their plain versions at stablelm-1.6b's widths, f32 the
+    point (ROADMAP C asks an f32 card test of each new form); in f32 the
+    native kernels fail the same hold against the fewest rounds (the
+    control); through ops they launch the curry form, forward only."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (3, 7, d), dtype, dev)
+    w = _rand(rng, (d,), dtype, dev)
+    for rounds in (1, 3):
+        _curry_close(krn.rmsnorm(x, w, 1e-5, curry_rounds=rounds),
+                     ref.rmsnorm(x, w, 1e-5, curry_rounds=rounds), dtype)
+    g = _rand(rng, (5, d), dtype, dev, 3.0)
+    u = _rand(rng, (5, d), dtype, dev)
+    for rounds in (4, 6, 8):
+        _curry_close(ksw.silu_mul(g, u, curry_rounds=rounds),
+                     ref.silu_mul(g, u, curry_rounds=rounds), dtype)
+    if dtype == torch.float32:
+        with pytest.raises(AssertionError):
+            _curry_close(krn.rmsnorm(x, w, 1e-5),
+                         ref.rmsnorm(x, w, 1e-5, curry_rounds=1), dtype)
+        with pytest.raises(AssertionError):
+            _curry_close(ksw.silu_mul(g, u), ref.silu_mul(g, u, 6), dtype)
+    krn.curry_launches = ksw.curry_launches = 0
+    _curry_close(ops.rmsnorm(x, w, curry_rounds=3), ref.rmsnorm(x, w, 1e-5, 3),
+                 dtype)
+    _curry_close(ops.silu_mul(g, u, curry_rounds=6), ref.silu_mul(g, u, 6), dtype)
+    assert krn.curry_launches == 1 and ksw.curry_launches == 1
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.silu_mul(g.requires_grad_(), u, curry_rounds=6)

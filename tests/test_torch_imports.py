@@ -23,8 +23,8 @@ bad = sorted(m for m in sys.modules
 print(",".join(names), bad)
 """
 
-# modules that must be among those walked (the training and dense-slab
-# serving slices included)
+# modules that must be among those walked (the training, dense-slab
+# serving and fidelity-kernel slices included)
 REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
             "repro_torch.kernels.decode_attention", "repro_torch.models.runner",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
@@ -34,7 +34,9 @@ REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd
             "repro_torch.checkpoint.ckpt", "repro_torch.runtime.driver",
             "repro_torch.runtime.straggler", "repro_torch.launch.train",
             "repro_torch.kernels.rwkv_chunk", "repro_torch.models.rwkv",
-            "repro_torch.kernels.mamba_chunk", "repro_torch.models.ssm")
+            "repro_torch.kernels.mamba_chunk", "repro_torch.models.ssm",
+            "repro_torch.core", "repro_torch.core.curry",
+            "repro_torch.kernels.matmul")
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
