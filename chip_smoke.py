@@ -13,7 +13,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    stablelm-1.6b shapes of the serving path, in bf16, held against its plain
    PyTorch version on the card (stated tolerance) and timed with CUDA
    events beside the plain version, the least time the card could take, and
-   a library call where one computes the same function;
+   a library call where one computes the same function; rmsnorm, the first
+   kernel timed, is timed again after the others and its row keeps the
+   repeat (the first timed launch of a run reads slow);
 4. parity: the reduced stablelm-1.6b model on the card (CUDA kernels)
    against the CPU (plain versions) at fp32;
 5. serve: stablelm-1.6b at full width and depth (random bf16 weights from a
@@ -98,7 +100,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    Curry-ALU forms through ``ops`` (rmsnorm [512, 2048] with 1 and 3
    Newton rounds, silu_mul [512, 5632] with 6 and 8 Taylor rounds, bf16
    and f32), held, with f32 controls that the native kernels fail, and
-   timed beside the native kernels at the same shapes.
+   timed beside the native kernels at the same shapes;
+17. int8 pool (run after 5d, while the serving parameters are on the card):
+   phase 3's decode and prefill pools quantized per (kv head, page), both
+   int8-page variants of the paged kernel in bf16 and f32 held against
+   their plain versions, a control that doubles one live page's K scale in
+   the kernel's input, a second call bitwise equal, and timed as in 3
+   beside the float kernel on the pool before quantization; reduced
+   stablelm-1.6b at fp32 over an int8 pool (two prefill chunks, four decode
+   steps) on the card against the CPU; and the mix of 5 through
+   ``ServeEngine(kv_dtype="int8")``, the int8 variants launched L times a
+   decode step and a prefill chunk and the float paged kernels not at all,
+   token-identical with prefix caching off, beside phase 5's run.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -194,6 +207,26 @@ CURRY_F32_TOL = dict(rtol=2e-6, atol=0.0)
 # 64-row bf16 tile in csrc/matmul.cu, half a stage of the 16-row one (a
 # smaller fault than a lost stage, so a stricter test of the tolerance)
 GEMM_DROPPED_K = 32
+# The int8 pool (17).  The int8 variants and their plain versions form the
+# same f32 products int8 * scale and sum them in another order.  Readings on
+# the first full-width run (PERF.md, Findings): bf16 one ulp at most
+# (decode 0.000488, prefill 0.000977; relative norm <= 4.1e-5), f32 <=
+# 3.6e-7.  A bf16 output is held to one bf16 ulp relative (2^-7) plus 1e-5
+# and a relative norm error of 1e-2, an f32 one to 1e-5 relative plus 1e-5.
+# The control doubles one (kv head, page) K scale in the kernel's input
+# only: the longest sequence's first page at decode (read max|err| 0.0118,
+# relative norm 0.0018: caught elementwise), the chunk's first page at
+# prefill (2.09, 0.24).
+Q8_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+Q8_REL = 1e-2
+Q8_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+# reduced stablelm at fp32 with an int8 pool, card against CPU: K/V rows
+# that differ by float rounding can land one int8 step apart where a value
+# sits at a rounding tie, and one such step moved the logits by up to
+# 7.4e-3 on the CPU (each of the two layers' K and V pages perturbed at one
+# element; logits of scale ~1); the logits are held to 2e-2 absolute.  The
+# first run read 2.15e-6 with no int8 value a step apart
+Q8_LOGITS_TOL = dict(rtol=0.0, atol=2e-2)
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
@@ -421,7 +454,25 @@ def kernel_phase(torch, timer, cfg):
                                                length=c),
            ATTN_TOL, nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
            flops=4 * h * hd * attended)
-    return rows, lens.clamp(max=mb * bs)
+    # rmsnorm again, now that the card has run the phase's other kernels: the
+    # first timed launch of a run has read up to 8x slower (PERF.md, section
+    # 7), so the row keeps the repeat and the log both readings
+    again = measure(torch, timer, "rmsnorm", csrc + "rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:51",
+                    lambda: krn.rmsnorm(x, w, cfg.norm_eps),
+                    lambda: ref.rmsnorm(x, w, cfg.norm_eps), BF16_TOL,
+                    nbytes=2 * x.numel() * 2 + d * 2, flops=4 * x.numel(),
+                    library=lambda: torch.nn.functional.rms_norm(
+                        x, (d,), w, cfg.norm_eps))
+    first = rows[0]
+    log(f"kernel rmsnorm re-timed after the phase: {again['ms']:.4f} ms (first "
+        f"reading {first['ms']:.4f}), plain {again['plain_ms']:.4f} (first "
+        f"{first['plain_ms']:.4f}), F.rms_norm {again['library_ms']:.4f} (first "
+        f"{first['library_ms']:.4f})")
+    rows[0] = again
+    pool = dict(qd=qd, kp=kp, vp=vp, tables=tables, lens=lens, qp=qp,
+                table=table, qoff=qoff)
+    return rows, lens.clamp(max=mb * bs), pool, first
 
 
 def parity_phase(torch, cfg_small):
@@ -492,6 +543,7 @@ def serve_mix(torch, cfg, params, counters, **engine_kw):
     stats = dict(eng.stats)
     ttfts = sorted(r.ttft for r in done)
     peak = torch.cuda.max_memory_allocated()
+    pool_bytes = eng.kv_cache_bytes()
     del eng
     torch.cuda.empty_cache()
     n_tok = sum(len(t) for t in out.values())
@@ -505,7 +557,7 @@ def serve_mix(torch, cfg, params, counters, **engine_kw):
                    tok_s=n_tok / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
                    prefill_dispatches=stats["prefill_dispatches"],
                    decode_dispatches=stats["decode_dispatches"],
-                   peak_mem_bytes=peak)
+                   peak_mem_bytes=peak, pool_bytes=pool_bytes)
     return out, stats, launches, summary
 
 
@@ -839,6 +891,209 @@ def fp32_identity(torch, cfg):
     if diff:
         fail(f"dense serve fp32: greedy outputs differ from the paged engine "
              f"(rids {diff})")
+
+
+def quantize_pages(torch, pages):
+    """Per-(kv head, page) int8 quantization of float pages [KvH, NB, BS,
+    D], the scale formed as the port's quantizers form it."""
+    from repro_torch.models.layers import _INV127, KV_SCALE_EPS
+
+    p = pages.float()
+    scales = (p.abs().amax(dim=(2, 3)) * _INV127).clamp_min(KV_SCALE_EPS)
+    q8 = torch.clamp(torch.round(p / scales[..., None, None]), -127, 127)
+    return q8.to(torch.int8).contiguous(), scales.contiguous()
+
+
+def int8_kernel_phase(torch, timer, cfg, pool):
+    """Phase 17, kernels: phase 3's full-width pools quantized per (kv head,
+    page); both int8 variants in bf16 (timed beside the float kernel on the
+    pool before quantization) and in f32, held against their plain versions,
+    a control that doubles one live page's K scale, and a second call bitwise
+    equal to the first."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import prefill_attention as kpf
+    from repro_torch.kernels import ref
+
+    qd, kp, vp, tables, lens = (pool[k] for k in ("qd", "kp", "vp", "tables", "lens"))
+    qp, table, qoff = pool["qp"], pool["table"], pool["qoff"]
+    k8, ks = quantize_pages(torch, kp)
+    v8, vs = quantize_pages(torch, vp)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots, mb = tables.shape
+    bs = kp.shape[2]
+    c = qp.shape[1]
+    live = lens.clamp(max=mb * bs)
+    live_pages = int(((live + bs - 1) // bs).sum())
+    csrc = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    longest = int(torch.argmax(live))
+    cases = {
+        "paged_decode_attention_int8": dict(
+            replaces="src/repro/kernels/decode_attention.py:300",
+            kernel=lambda q, s: kda.paged_decode_attention(q, k8, v8, tables, lens, s, vs),
+            plain=lambda q: ref.paged_decode_attention(q, k8, v8, tables, lengths=lens,
+                                                       k_scales=ks, v_scales=vs),
+            float_kernel=lambda: kda.paged_decode_attention(qd, kp, vp, tables, lens),
+            q=qd, n_live=int(live.sum()), pages=live_pages,
+            table_bytes=tables.numel() * 4, flops=4 * h * hd * int(live.sum()),
+            ctrl_page=int(tables[longest, 0]),
+            what=f"sequence {longest}'s first page ({int(live[longest])} keys)"),
+        "paged_prefill_attention_int8": dict(
+            replaces="src/repro/kernels/prefill_attention.py:273",
+            kernel=lambda q, s: kpf.paged_prefill_attention(
+                q, k8, v8, table, q_offset=qoff, length=c, k_scales=s, v_scales=vs),
+            plain=lambda q: ref.paged_prefill_attention(
+                q, k8, v8, table, q_offset=qoff, length=c, k_scales=ks, v_scales=vs),
+            float_kernel=lambda: kpf.paged_prefill_attention(
+                qp, kp, vp, table, q_offset=qoff, length=c),
+            q=qp, n_live=qoff + c, pages=-(-(qoff + c) // bs), table_bytes=mb * 4,
+            flops=4 * h * hd * sum(qoff + i + 1 for i in range(c)),
+            ctrl_page=int(table[0]),
+            what="the chunk's first page (every row attends to it)"),
+    }
+    rows, float_ms = [], {}
+    for name, cs in cases.items():
+        q = cs["q"]
+        ks_ctrl = ks.clone()
+        ks_ctrl[0, cs["ctrl_page"]] *= 2
+        for dtype, tol, rel in ((torch.float32, Q8_F32_TOL, None),
+                                (torch.bfloat16, Q8_BF16_TOL, Q8_REL)):
+            qq = q.to(dtype)
+            got = cs["kernel"](qq, ks)
+            again = cs["kernel"](qq, ks)
+            want = cs["plain"](qq)
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]}"
+            err = hold(torch, tag, got, want, tol, rel)
+            if not torch.equal(got, again):
+                fail(f"{tag}: two calls on the same inputs differ")
+            bad = cs["kernel"](qq, ks_ctrl)
+            d = float((bad.float() - want.float()).abs().max())
+            r = rel_err(torch, bad, want)
+            caught = not torch.allclose(bad.float(), want.float(), **tol)
+            log(f"{tag}: max|err| {err:.3g} (tol {tol}), relative norm "
+                f"{rel_err(torch, got, want):.3g}, second call bitwise equal; "
+                f"control (K scale of {cs['what']} doubled, kv head 0) reads "
+                f"max|err| {d:.3g}, relative norm {r:.3g} (caught: {caught})")
+            if not caught:
+                fail(f"{tag} control: the tolerance {tol} passes a kernel whose "
+                     f"input has one K scale doubled")
+            del got, again, want, bad
+        float_ms[name] = timer(cs["float_kernel"])
+        qb = q.to(torch.bfloat16)
+        io = 2 * qb.numel() * 2                     # q read, out written, bf16
+        nbytes = (io + cs["n_live"] * kvh * hd * 2 + cs["pages"] * kvh * 2 * 4
+                  + cs["table_bytes"])
+        row = measure(torch, timer, name, csrc, cs["replaces"],
+                      lambda: cs["kernel"](qb, ks), lambda: cs["plain"](qb),
+                      Q8_BF16_TOL, rel=Q8_REL, nbytes=nbytes, flops=cs["flops"],
+                      note=f"; rel {Q8_REL}; the float kernel on the pool before "
+                           f"quantization {float_ms[name]:.4f} ms")
+        rows.append(row)
+    del k8, v8, ks, vs, ks_ctrl
+    torch.cuda.empty_cache()
+    return rows, float_ms
+
+
+def int8_parity_phase(torch, cfg_small):
+    """Phase 17, parity: reduced stablelm at fp32 over an int8 pool, two
+    prefill chunks (5 rows, then 6 from mid-page) and four decode steps on
+    the card against the CPU; the logits held to Q8_LOGITS_TOL, the int8
+    pages and scales (the null page 0 left out) reported."""
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0, 8, 1, 6, 2]], dtype=torch.int32)
+    bt = torch.tensor([[2, 4, 6, 8], [1, 3, 0, 0]], dtype=torch.int32)
+    out, pools = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)
+        state = M.init_serve_state(cfg_small, 2, 9, 8, dtype=torch.float32,
+                                   device=dev, kv_dtype="int8")
+        logits = []
+        for off, n, mbk in ((0, 5, 1), (5, 6, 2)):
+            lg, state = M.prefill_paged(cfg_small, p, state,
+                                        tokens=tok[:, off:off + 8].to(dev), length=n,
+                                        q_offset=off, block_table=bt[0, :mbk].to(dev))
+            logits.append(lg.cpu())
+        lens = torch.tensor([11, 0], dtype=torch.int32)
+        for t in (11, 64, 7, 99):
+            lg, state = M.decode_step_paged(
+                cfg_small, p, state, torch.tensor([t, 0], dtype=torch.int32).to(dev),
+                lens.to(dev), bt.to(dev))
+            logits.append(lg[:1].cpu())
+            lens = lens + torch.tensor([1, 0], dtype=torch.int32)
+        out[dev] = torch.cat(logits)
+        pools[dev] = {k: v[:, :, 1:].cpu() for k, v in state["attn"].items()}
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    n_diff = sum(int((pools["cuda"][k] != pools["cpu"][k]).sum())
+                 for k in ("k_pages", "v_pages"))
+    n_vals = sum(pools["cpu"][k].numel() for k in ("k_pages", "v_pages"))
+    step = max(int((pools["cuda"][k].int() - pools["cpu"][k].int()).abs().max())
+               for k in ("k_pages", "v_pages"))
+    s_rel = max(float(((pools["cuda"][k] - pools["cpu"][k]).abs()
+                       / pools["cpu"][k]).max()) for k in ("k_scales", "v_scales"))
+    log(f"int8 parity: reduced stablelm fp32, 2 prefill chunks + 4 decode steps, "
+        f"logits card vs cpu max|err| {err:.3g} (tol {Q8_LOGITS_TOL}); int8 "
+        f"values differing {n_diff} of {n_vals} (largest step {step}), scales "
+        f"max relative difference {s_rel:.3g}")
+    if not torch.allclose(out["cuda"], out["cpu"], **Q8_LOGITS_TOL):
+        fail(f"int8 parity: reduced model over an int8 pool on the card disagrees "
+             f"with the CPU: max |err| {err}")
+    return dict(logits_err=err, int8_diff=n_diff, int8_values=n_vals,
+                largest_step=step, scale_rel=s_rel)
+
+
+def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
+    """Phase 17, serve: the mix of 5 through ``ServeEngine(kv_dtype="int8")``
+    with the parameters of 5; the int8 variants launched at their formulas
+    and the float paged kernels not at all, token-identical with prefix
+    caching off; tok/s, TTFT, peak memory and pool bytes beside phase 5's
+    run, and the share of requests token-identical to it (not gated: int8
+    and the bf16 pool differ in the reference too)."""
+    from repro_torch.serve import ServeEngine
+
+    warm = ServeEngine(cfg, params, slots=8, max_seq=160, block_size=16,
+                       prefill_buckets=(32, 128), kv_dtype="int8")
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                              kv_dtype="int8")
+    L = cfg.n_layers
+    P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+    check_launches("int8 serve", launches, {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
+        "paged_prefill_attention": 0, "paged_decode_attention_int8": L * Dd,
+        "paged_prefill_attention_int8": L * P})
+    if stats["prefix_hit_tokens"] <= 0:
+        fail("int8 serve: the shared-prefix requests never hit the prefix cache")
+    out_off, _, _, summary_off = serve_mix(torch, cfg, params, {},
+                                           kv_dtype="int8", prefix_caching=False)
+    if out_off != out:
+        diff = [rid for rid in out if out[rid] != out_off.get(rid)]
+        fail(f"int8 serve: greedy outputs differ with prefix caching off (rids {diff})")
+    same = sum(out[rid] == paged_out.get(rid) for rid in out)
+    first = sorted(next((i for i, (a, b) in enumerate(zip(out[rid], paged_out[rid]))
+                         if a != b), len(out[rid])) for rid in out)
+    log(f"int8 serve: {summary['requests']} requests, {summary['tokens']} tokens "
+        f"in {summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s; bf16 pool "
+        f"{paged_summary['tok_s']:.1f}), ttft p50 {summary['ttft_p50_ms']:.1f} ms "
+        f"(bf16 {paged_summary['ttft_p50_ms']:.1f}), prefill chunks {P}, decode "
+        f"steps {Dd}, peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB "
+        f"(bf16 {paged_summary['peak_mem_bytes'] / 2**30:.2f}), pool "
+        f"{summary['pool_bytes'] / 1e9:.4f} GB (bf16 "
+        f"{paged_summary['pool_bytes'] / 1e9:.4f}); prefix caching off: "
+        f"token-identical, {summary_off['wall_s']:.3f} s; {same} of {len(out)} "
+        f"requests token-identical to the bf16 pool's run (not gated; first "
+        f"differing token of each request, sorted: {first})")
+    summary.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
+                   wall_s_cache_off=summary_off["wall_s"], same_as_bf16=same,
+                   first_difference=first)
+    return launches, summary
 
 
 def dropped_tile_control(torch, q, k, v):
@@ -1845,7 +2100,7 @@ def main() -> None:
 
     cfg = get_config("stablelm-1.6b")
     timer = Timer(torch)
-    rows, decode_lens = kernel_phase(torch, timer, cfg)
+    rows, decode_lens, pool, rmsnorm_first = kernel_phase(torch, timer, cfg)
     parity_phase(torch, reduced(cfg))
     counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
                 "silu_mul": Counter(swiglu),
@@ -1867,6 +2122,19 @@ def main() -> None:
     for row in dense_rows:
         row["launches"] = dense_launches[row["name"]]
     rows += dense_rows
+
+    q8_rows, q8_float_ms = int8_kernel_phase(torch, timer, cfg, pool)
+    del pool
+    q8_parity = int8_parity_phase(torch, reduced(cfg))
+    q8_counters = {
+        **counters,
+        "paged_decode_attention_int8": Counter(decode_attention, "q8_launches"),
+        "paged_prefill_attention_int8": Counter(prefill_attention, "q8_launches")}
+    q8_launches, q8_serve = int8_serve_phase(torch, cfg, params, q8_counters,
+                                             paged_out, serve)
+    for row in q8_rows:
+        row["launches"] = q8_launches[row["name"]]
+    rows += q8_rows
     del params
     torch.cuda.empty_cache()
 
@@ -1916,7 +2184,10 @@ def main() -> None:
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-             build_s=info["seconds"], serve=serve, dense_serve=dense_serve,
+             build_s=info["seconds"], rmsnorm_first_reading=rmsnorm_first,
+             serve=serve, dense_serve=dense_serve, int8_serve=q8_serve,
+             int8_launches=q8_launches, int8_parity=q8_parity,
+             int8_float_kernel_ms=q8_float_ms,
              dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
              rwkv_launches=rwkv_launches, zamba_train=zamba_train,

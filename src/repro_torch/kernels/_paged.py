@@ -4,9 +4,14 @@ shared by ``decode_attention.py`` and ``prefill_attention.py``.
 The kernel reads queries in their natural ``[B, C, H, D]`` layout (decode:
 C = 1) and writes outputs in the same layout, so the host does no padding
 and no transposes: a tile of ``ROWS`` query rows of one (sequence, kv head)
-is cut out by index arithmetic inside the kernel.  :func:`geometry` is the
-host-side part that the CPU tests reach: argument checks, tile count and the
-per-tile key bound the kernel computes for itself.
+is cut out by index arithmetic inside the kernel.  :func:`geometry` and
+:func:`check_scales` are the host-side parts that the CPU tests reach:
+argument checks, tile count and the per-tile key bound the kernel computes
+for itself.
+
+An int8 pool passes ``k_scales`` / ``v_scales`` [KvH, NB] f32, one scale
+per (kv head, page); the kernel's int8-page variant dequantizes each value
+as it stages it (q and the output keep their f32 or bf16 type).
 """
 from __future__ import annotations
 
@@ -58,6 +63,34 @@ def geometry(q_shape, pages_shape, table_shape) -> Geometry:
                     n_tiles=-(-(c * (h // kvh)) // ROWS))
 
 
+def check_scales(q_dtype, k_pages, v_pages, k_scales, v_scales) -> bool:
+    """Validate the page types against the scales; True for an int8 pool.
+    A float pool takes no scales and shares q's dtype; an int8 pool takes
+    both scales, [KvH, NB] f32 on the pages' device."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged attention: pass both k_scales and v_scales "
+                         "or neither")
+    if k_scales is None:
+        if not (q_dtype == k_pages.dtype == v_pages.dtype):
+            raise ValueError(f"paged attention: q {q_dtype} and pages "
+                             f"{k_pages.dtype}/{v_pages.dtype} must share a "
+                             f"dtype (an int8 pool needs its scales)")
+        return False
+    if not (k_pages.dtype == v_pages.dtype == torch.int8):
+        raise ValueError(f"paged attention: scales mark an int8 pool, got "
+                         f"pages {k_pages.dtype}/{v_pages.dtype}")
+    want = (k_pages.shape[0], k_pages.shape[1])
+    for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(s.shape) != want or s.dtype != torch.float32:
+            raise ValueError(f"paged attention: {name} must be {list(want)} "
+                             f"float32 ([KvH, NB]), got {tuple(s.shape)} "
+                             f"{s.dtype}")
+        if s.device != k_pages.device:
+            raise ValueError(f"paged attention: {name} on {s.device}, the "
+                             f"pages on {k_pages.device}")
+    return True
+
+
 def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
     """Keys ``[0, end)`` each row tile walks — the kernel's tile_end:
     ``min(total, q_offset + last position of the tile + 1)``.  ``total`` is
@@ -70,19 +103,22 @@ def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
 
 def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
            tables: torch.Tensor, lens: Optional[torch.Tensor], q_offset: int,
-           total: int, *, partials: bool):
+           total: int, *, partials: bool,
+           k_scales: Optional[torch.Tensor] = None,
+           v_scales: Optional[torch.Tensor] = None):
     """One kernel launch.  q [B, C, H, D]; tables [B, MB] int32; decode
-    passes ``lens`` [B] int32, prefill ``q_offset`` and ``total``.
-    Returns the normalized output, or the f32 partials (acc, m, l)."""
+    passes ``lens`` [B] int32, prefill ``q_offset`` and ``total``; an int8
+    pool passes its scales.  Returns the normalized output, or the f32
+    partials (acc, m, l)."""
     g = geometry(q.shape, k_pages.shape, tables.shape)
     if k_pages.shape != v_pages.shape:
         raise ValueError("paged attention: k_pages and v_pages differ in shape")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise ValueError(f"paged attention: q {q.dtype} and pages "
-                         f"{k_pages.dtype}/{v_pages.dtype} must share a dtype")
+    int8 = check_scales(q.dtype, k_pages, v_pages, k_scales, v_scales)
     if tables.dtype != torch.int32:
         raise ValueError(f"paged attention: tables must be int32, got {tables.dtype}")
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables)
+    if int8:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
     if lens is not None:
         if lens.shape != (g.b,) or lens.dtype != torch.int32:
             raise ValueError(f"paged attention: lengths must be [{g.b}] int32")
@@ -100,7 +136,8 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     lib = _build.load()
     code = lib.repro_paged_attention(
         _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), tables.data_ptr(),
+        v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
+        v_scales.data_ptr() if int8 else None, tables.data_ptr(),
         None if lens is None else lens.data_ptr(), int(q_offset), int(total),
         *ptrs, g.b, g.c, g.h, g.kvh, g.nb, g.bs, g.d, g.mb, g.n_tiles,
         _build.stream_ptr(q))

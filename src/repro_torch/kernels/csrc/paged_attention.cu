@@ -25,11 +25,23 @@
 // normaliser is floored at 1e-30, and a row that sees no key returns the
 // combine identity (acc, m, l) = (0, -1e30, 0), all as the TPU kernels do.
 //
+// int8 pool (the TPU kernels' quantized branch, decode_attention.py:166-230,
+// prefill_attention.py:165-170): pages are int8_t and k_scales / v_scales
+// [KvH, NB] f32 hold one scale per (kv head, page).  The page element type P
+// is a template parameter apart from the query type T (q and out stay f32 or
+// bf16), and the staging loop multiplies each int8 value by its scale in f32
+// before it goes to shared memory -- the product the plain version's gather
+// forms, rounded once -- so everything after it (online softmax, masking,
+// partials, the causal tile end) is the float pool's code unchanged.
+//
 // Bound on the H100: bytes.  Every live K/V byte is read once per (row tile,
 // kv head); the products run on the CUDA cores in f32.  This first version
-// keeps a simple load -> sync -> compute loop with scalar loads; vectorised
-// loads, a cp.async/TMA double buffer and tensor-core products are later work.
+// keeps a simple load -> sync -> compute loop with scalar loads (one int8
+// value a thread a step on the int8 pool); vectorised loads, a cp.async/TMA
+// double buffer and tensor-core products are later work.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -39,15 +51,18 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys staged per step: one per lane
 constexpr float kNegInf = -1e30f;
 
-template <typename T, int D>
+// T: query and output type; P: page type (T, or int8_t with scales)
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages, const int* __restrict__ tables,
+paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                       const P* __restrict__ v_pages, const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales, const int* __restrict__ tables,
                        const int* __restrict__ lens, int q_offset, int total,
                        T* __restrict__ out, float* __restrict__ acc_out,
                        float* __restrict__ m_out, float* __restrict__ l_out, int C, int H,
                        int KvH, int NB, int BS, int MB, float scale) {
   constexpr int kDimsPerLane = (D + 31) / 32;
+  constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KvH;
   const int n_rows = C * G;
@@ -102,6 +117,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         const int64_t off = head_base + (static_cast<int64_t>(page) * BS + kpos % BS) * D + d;
         kv = repro::to_f32(k_pages[off]);
         vv = repro::to_f32(v_pages[off]);
+        if constexpr (kInt8) {  // dequantize: int8 * (kv head, page) scale
+          const int64_t si = static_cast<int64_t>(kvh) * NB + page;
+          kv *= k_scales[si];
+          vv *= v_scales[si];
+        }
       }
       k_s[j][d] = kv;
       v_s[j][d] = vv;
@@ -173,43 +193,55 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T, int D>
-void launch(dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
-            const int* bt, const int* lens, int q_offset, int total, void* out, float* acc,
-            float* m, float* l, int C, int H, int KvH, int NB, int BS, int MB, float scale) {
-  paged_attention_kernel<T, D><<<grid, kWarps * 32, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt, lens,
-      q_offset, total, static_cast<T*>(out), acc, m, l, C, H, KvH, NB, BS, MB, scale);
+// the head dims of _paged.HEAD_DIMS; another is an invalid-value error
+template <typename T, typename P>
+int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
+           const float* ks, const float* vs, const int* bt, const int* lens, int q_offset,
+           int total, void* out, float* acc, float* m, float* l, int C, int H, int KvH, int NB,
+           int BS, int MB) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+#define REPRO_PAGED_CASE(DIM)                                                                 \
+  case DIM:                                                                                   \
+    paged_attention_kernel<T, P, DIM><<<grid, kWarps * 32, 0, s>>>(                           \
+        static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks,   \
+        vs, bt, lens, q_offset, total, static_cast<T*>(out), acc, m, l, C, H, KvH, NB, BS, MB, \
+        scale);                                                                               \
+    return cudaSuccess;
+  switch (D) {
+    REPRO_PAGED_CASE(16)
+    REPRO_PAGED_CASE(64)
+    REPRO_PAGED_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_PAGED_CASE
 }
 
 }  // namespace
 
-// q [B, C, H, D]; k_pages, v_pages [KvH, NB, BS, D]; tables [B, MB] int32.
-// Decode passes lens [B] (q_offset and total unused); prefill passes
-// lens = NULL with q_offset and total = min(q_offset + length, MB * BS).
-// Either out [B, C, H, D] (normalised, element type) or the f32 partials
-// acc [B, C, H, D], m and l [B, C, H] are written; the other is NULL.
+// q [B, C, H, D] of type `dtype`; k_pages, v_pages [KvH, NB, BS, D] of the
+// same type, or int8 when k_scales / v_scales [KvH, NB] f32 are given (both
+// NULL for a float pool); tables [B, MB] int32.  Decode passes lens [B]
+// (q_offset and total unused); prefill passes lens = NULL with q_offset and
+// total = min(q_offset + length, MB * BS).  Either out [B, C, H, D]
+// (normalised, element type) or the f32 partials acc [B, C, H, D], m and l
+// [B, C, H] are written; the other is NULL.
 extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pages,
-                                     const void* v_pages, const int* tables, const int* lens,
+                                     const void* v_pages, const float* k_scales,
+                                     const float* v_scales, const int* tables, const int* lens,
                                      int q_offset, int total, void* out, float* acc, float* m,
                                      float* l, int B, int C, int H, int KvH, int NB, int BS,
                                      int D, int MB, int n_tiles, void* stream) {
   if (B <= 0 || n_tiles <= 0) return cudaSuccess;
+  if ((k_scales == nullptr) != (v_scales == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_tiles, KvH, B);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-#define REPRO_PAGED_CASE(DIM)                                                              \
-  case DIM:                                                                                \
-    launch<T, DIM>(grid, s, q, k_pages, v_pages, tables, lens, q_offset, total, out, acc, m, \
-                   l, C, H, KvH, NB, BS, MB, scale);                                      \
-    break;
-  REPRO_DISPATCH_DTYPE(dtype, T,
-    switch (D) {
-      REPRO_PAGED_CASE(16)
-      REPRO_PAGED_CASE(64)
-      REPRO_PAGED_CASE(128)
-      default: return cudaErrorInvalidValue;
-    });
-#undef REPRO_PAGED_CASE
+  REPRO_DISPATCH_DTYPE(dtype, T, {
+    const int rc = k_scales != nullptr
+        ? launch<T, int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables, lens,
+                            q_offset, total, out, acc, m, l, C, H, KvH, NB, BS, MB)
+        : launch<T, T>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables, lens,
+                       q_offset, total, out, acc, m, l, C, H, KvH, NB, BS, MB);
+    if (rc != cudaSuccess) return rc;
+  });
   return cudaGetLastError();
 }

@@ -15,10 +15,12 @@ is 32 keys whatever the page size.  Retired slots (all-zero table row,
 length 0 -> attention over the null page's first row) launch validly and
 their rows are discarded by the engine.
 
-Ported here: the fp pool, normalized output and ``(acc, m, l)`` partials
-(an empty row is ``(0, -1e30, 0)``).  The int8 pool's per-(head, page)
-scales, ``skip_null`` and ``kv_offset`` (sequence-sharded pools) come with
-later slices.
+Ported here: the fp pool and the int8 pool (pages int8 with ``k_scales`` /
+``v_scales`` [KvH, NB] f32, one per (kv head, page), dequantized as the
+kernel stages each value: the TPU kernel's quantized branch, :166-230),
+normalized output and ``(acc, m, l)`` partials (an empty row is ``(0,
+-1e30, 0)``).  ``skip_null`` and ``kv_offset`` (sequence-sharded pools)
+come with a later slice.
 
 The dense slab replaces the TPU kernel's ``_decode`` (``pallas_call`` at
 :114, behind ``decode_attention`` :143 and ``decode_attention_partial``
@@ -40,19 +42,25 @@ import torch
 
 from repro_torch.kernels import _build, _paged
 
-launches = 0         # paged kernel launches through this module's wrappers
+launches = 0         # paged kernel launches over a float pool
+q8_launches = 0      # paged kernel launches over an int8 pool (its variant)
 dense_launches = 0   # dense-slab kernel launches
 
 DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
 
 
-def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool):
-    global launches
+def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
+            k_scales, v_scales):
+    global launches, q8_launches
     if q.dim() != 3:
         raise ValueError(f"paged decode: q must be [B, H, D], got {tuple(q.shape)}")
     res = _paged.launch(q[:, None], k_pages, v_pages, block_tables, lengths,
-                        0, 0, partials=partials)
-    launches += 1
+                        0, 0, partials=partials, k_scales=k_scales,
+                        v_scales=v_scales)
+    if k_scales is None:
+        launches += 1
+    else:
+        q8_launches += 1
     if partials:
         acc, m, l = res
         return acc[:, 0], m[:, 0], l[:, 0]
@@ -61,15 +69,22 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool):
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
-    """q [B,H,D]; k_pages, v_pages [KvH,NB,BS,D]; block_tables [B,MB] int32;
+                           lengths: torch.Tensor,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q [B,H,D]; k_pages, v_pages [KvH,NB,BS,D] in q's dtype, or int8 with
+    ``k_scales`` / ``v_scales`` [KvH,NB] f32; block_tables [B,MB] int32;
     lengths [B] int32 (keys ``[0, len)`` attended) -> [B,H,D]."""
-    return _decode(q, k_pages, v_pages, block_tables, lengths, partials=False)
+    return _decode(q, k_pages, v_pages, block_tables, lengths, False,
+                   k_scales, v_scales)
 
 
-def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, lengths):
+def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, lengths,
+                                   k_scales=None, v_scales=None):
     """(acc f32 [B,H,D], m [B,H], l [B,H]) for the softmax combine."""
-    return _decode(q, k_pages, v_pages, block_tables, lengths, partials=True)
+    return _decode(q, k_pages, v_pages, block_tables, lengths, True,
+                   k_scales, v_scales)
 
 
 def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,

@@ -104,27 +104,34 @@ def decode_attention_partial(q, k, v, *, lengths=None, kv_offset: int = 0):
     return _da.decode_attention_partial(q, k, v, lengths, kv_offset)
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths):
+def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths,
+                           k_scales=None, v_scales=None):
+    """``k_scales`` / ``v_scales`` [KvH, NB] f32 mark an int8 pool: on the
+    card the kernel's int8-page variant dequantizes inside the kernel."""
     if _on_cpu(q):
         return ref.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                          lengths=lengths)
-    return _da.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths)
+                                          lengths=lengths, k_scales=k_scales,
+                                          v_scales=v_scales)
+    return _da.paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
+                                      k_scales, v_scales)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, *, q_offset: int,
-                            length: int):
+                            length: int, k_scales=None, v_scales=None):
     """Prefill-chunk attention over paged KV (chunk K/V already scattered).
     On the CPU the pages in ``block_table`` (a prefix-bucketed slice) are
-    gathered and run through the plain flash attention, as the JAX package's
+    gathered, dequantized with ``k_scales`` / ``v_scales`` for an int8 pool,
+    and run through the plain flash attention, as the JAX package's
     non-kernel path does."""
     if _on_cpu(q):
-        k_lin = ref.gather_pages(k_pages, block_table)[None]
-        v_lin = ref.gather_pages(v_pages, block_table)[None]
+        k_lin = ref.gather_pages(k_pages, block_table, k_scales)[None]
+        v_lin = ref.gather_pages(v_pages, block_table, v_scales)[None]
         lens = torch.tensor([q_offset + length], dtype=torch.int64)
         return ref.flash_attention(q, k_lin, v_lin, causal=True,
                                    q_offset=q_offset, lengths=lens)
     return _pf.paged_prefill_attention(q, k_pages, v_pages, block_table,
-                                       q_offset=q_offset, length=length)
+                                       q_offset=q_offset, length=length,
+                                       k_scales=k_scales, v_scales=v_scales)
 
 
 RWKV_REF_CHUNK = 16     # the JAX package's ``ops.rwkv6_scan(ref_chunk=16)``

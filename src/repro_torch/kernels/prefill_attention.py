@@ -16,20 +16,26 @@ shapes; the products run on the CUDA cores in f32 in this first version.
 
 Because the query tile is fixed, no chunk size can overflow shared memory
 (41 KB at head dim 128), so the TPU kernel's VMEM sizing (``resolve_q_tile``,
-``q_tile_vmem_bytes``) has no counterpart.  ``skip_null`` and the int8
-pool's scales come with later slices.
+``q_tile_vmem_bytes``) has no counterpart.  An int8 pool (pages int8 with
+``k_scales`` / ``v_scales`` [KvH, NB] f32) runs the kernel's int8-page
+variant, which dequantizes each value as it stages it (the TPU kernel's
+quantized branch, :165-170).  ``skip_null`` comes with a later slice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _paged
 
-launches = 0   # kernel launches through this module's wrappers
+launches = 0      # kernel launches over a float pool
+q8_launches = 0   # kernel launches over an int8 pool (its variant)
 
 
-def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials):
-    global launches
+def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
+             k_scales, v_scales):
+    global launches, q8_launches
     if q.dim() != 4 or q.shape[0] != 1 or block_table.dim() != 1:
         raise ValueError(f"paged prefill: q must be [1, C, H, D] and the "
                          f"table [MB]; got {tuple(q.shape)}, "
@@ -37,20 +43,31 @@ def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials):
     mb, bs = block_table.shape[0], k_pages.shape[2]
     total = min(int(q_offset) + int(length), mb * bs)
     res = _paged.launch(q, k_pages, v_pages, block_table[None], None,
-                        int(q_offset), total, partials=partials)
-    launches += 1
+                        int(q_offset), total, partials=partials,
+                        k_scales=k_scales, v_scales=v_scales)
+    if k_scales is None:
+        launches += 1
+    else:
+        q8_launches += 1
     return res
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_table: torch.Tensor,
-                            *, q_offset: int, length: int) -> torch.Tensor:
-    """q [1,C,H,D]; k_pages, v_pages [KvH,NB,BS,D]; block_table [MB] int32
+                            *, q_offset: int, length: int,
+                            k_scales: Optional[torch.Tensor] = None,
+                            v_scales: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """q [1,C,H,D]; k_pages, v_pages [KvH,NB,BS,D] in q's dtype, or int8
+    with ``k_scales`` / ``v_scales`` [KvH,NB] f32; block_table [MB] int32
     -> [1,C,H,D]."""
-    return _prefill(q, k_pages, v_pages, block_table, q_offset, length, False)
+    return _prefill(q, k_pages, v_pages, block_table, q_offset, length, False,
+                    k_scales, v_scales)
 
 
 def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
-                                    q_offset: int, length: int):
+                                    q_offset: int, length: int,
+                                    k_scales=None, v_scales=None):
     """(acc f32 [1,C,H,D], m [1,C,H], l [1,C,H]) for the softmax combine."""
-    return _prefill(q, k_pages, v_pages, block_table, q_offset, length, True)
+    return _prefill(q, k_pages, v_pages, block_table, q_offset, length, True,
+                    k_scales, v_scales)

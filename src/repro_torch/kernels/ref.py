@@ -307,15 +307,21 @@ def combine_partials(parts: Partials, other: Partials) -> Partials:
 # paged attention (block/paged KV cache)
 # ---------------------------------------------------------------------------
 
-def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+def gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """pages [KvH, NB, BS, D]; block_table [B, MB] (or [MB]) physical page
-    ids -> linear KV [B, MB*BS, KvH, D] (or [MB*BS, KvH, D])."""
+    ids -> linear KV [B, MB*BS, KvH, D] (or [MB*BS, KvH, D]).  ``scales``
+    [KvH, NB] f32 marks an int8 pool: the gathered pages come out
+    dequantized, ``int8 * scale`` in f32."""
     squeeze = block_table.dim() == 1
     if squeeze:
         block_table = block_table[None]
     kvh, _, bs, d = pages.shape
     mb = block_table.shape[-1]
-    lin = pages[:, block_table.long()]                 # [KvH, B, MB, BS, D]
+    idx = block_table.long()
+    lin = pages[:, idx]                                # [KvH, B, MB, BS, D]
+    if scales is not None:
+        lin = lin.float() * scales[:, idx][..., None, None]
     lin = torch.movedim(lin, 0, 3)                     # [B, MB, BS, KvH, D]
     lin = lin.reshape(block_table.shape[0], mb * bs, kvh, d)
     return lin[0] if squeeze else lin
@@ -323,33 +329,45 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
 
 def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, *,
                                    lengths: Optional[torch.Tensor] = None,
-                                   kv_offset: int = 0) -> Partials:
+                                   kv_offset: int = 0,
+                                   k_scales: Optional[torch.Tensor] = None,
+                                   v_scales: Optional[torch.Tensor] = None
+                                   ) -> Partials:
     """Flash-decoding partials over a paged KV cache: q [B, H, D];
-    block_tables [B, MB] -> (acc f32 [B, H, D], m [B, H], l [B, H])."""
-    k_lin = gather_pages(k_pages, block_tables)
-    v_lin = gather_pages(v_pages, block_tables)
+    block_tables [B, MB] -> (acc f32 [B, H, D], m [B, H], l [B, H]).
+    ``k_scales`` / ``v_scales`` [KvH, NB] f32 dequantize an int8 pool page
+    by page (the gathered K/V, and so q and p, are then f32)."""
+    k_lin = gather_pages(k_pages, block_tables, k_scales)
+    v_lin = gather_pages(v_pages, block_tables, v_scales)
     return decode_attention_partial(q, k_lin, v_lin, lengths=lengths,
                                     kv_offset=kv_offset)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *,
-                           lengths: Optional[torch.Tensor] = None):
-    acc, m, l = paged_decode_attention_partial(q, k_pages, v_pages,
-                                               block_tables, lengths=lengths)
+                           lengths: Optional[torch.Tensor] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None):
+    acc, m, l = paged_decode_attention_partial(
+        q, k_pages, v_pages, block_tables, lengths=lengths,
+        k_scales=k_scales, v_scales=v_scales)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
-                                    q_offset: int, length: int) -> Partials:
+                                    q_offset: int, length: int,
+                                    k_scales: Optional[torch.Tensor] = None,
+                                    v_scales: Optional[torch.Tensor] = None
+                                    ) -> Partials:
     """Prefill-chunk attention partials over a paged KV cache.
 
     q [1, C, H, D] is the chunk at global positions [q_offset, q_offset+C);
     block_table [MB] (the chunk's own K/V already scattered into the pages).
     Causal mask on global positions, KV validity on ``kpos < q_offset +
-    length``.  Returns (acc f32 [1,C,H,D], m [1,C,H], l [1,C,H])."""
+    length``.  ``k_scales`` / ``v_scales`` [KvH, NB] f32 dequantize an int8
+    pool.  Returns (acc f32 [1,C,H,D], m [1,C,H], l [1,C,H])."""
     _, c, h, d = q.shape
-    k_lin = gather_pages(k_pages, block_table)         # [MB*BS, KvH, D]
-    v_lin = gather_pages(v_pages, block_table)
+    k_lin = gather_pages(k_pages, block_table, k_scales)   # [MB*BS, KvH, D]
+    v_lin = gather_pages(v_pages, block_table, v_scales)
     sk = k_lin.shape[0]
     kh = _expand_kv(k_lin[None], h)[0]                 # [Sk, H, D]
     vh = _expand_kv(v_lin[None], h)[0]
@@ -366,9 +384,13 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, *,
-                            q_offset: int, length: int) -> torch.Tensor:
+                            q_offset: int, length: int,
+                            k_scales: Optional[torch.Tensor] = None,
+                            v_scales: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     acc, m, l = paged_prefill_attention_partial(
-        q, k_pages, v_pages, block_table, q_offset=q_offset, length=length)
+        q, k_pages, v_pages, block_table, q_offset=q_offset, length=length,
+        k_scales=k_scales, v_scales=v_scales)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -3,12 +3,13 @@ KV by default, ``--dense`` for the dense-slab baseline) and run a synthetic
 request stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
-      --reduced --device cpu --requests 8 [--dense]
+      --reduced --device cpu --requests 8 [--dense | --kv-dtype int8]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
 Parameters are random, made from ``--seed``.  This slice serves the dense
-family with greedy sampling.
+family with greedy sampling, from a page pool in the engine dtype or in int8
+(``--kv-dtype int8``).
 """
 from __future__ import annotations
 
@@ -52,6 +53,10 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged-KV page size (tokens)")
+    ap.add_argument("--kv-dtype", default="fp16", choices=["fp16", "int8"],
+                    help="paged-pool storage: fp16 keeps the engine dtype, "
+                         "int8 stores quantized pages with per-page-per-head "
+                         "scales (paged only)")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="max padded tokens (prefill+decode) per tick")
     ap.add_argument("--prefill-buckets", default=None,
@@ -87,7 +92,7 @@ def main(argv=None):
                       max_tokens_per_tick=args.token_budget,
                       paged=False if args.dense else None,
                       prefix_caching=not (args.dense or args.no_prefix_cache),
-                      **ekw)
+                      kv_dtype=args.kv_dtype, **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
@@ -104,9 +109,11 @@ def main(argv=None):
               f"{r.out_tokens[:8]}{'...' if len(r.out_tokens) > 8 else ''}")
     ttfts = sorted(r.ttft for r in done if r.ttft is not None)
     p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else 0.0
+    mode = "dense" if args.dense else "paged"
+    if eng.kv_dtype != "fp16":
+        mode += f"/{eng.kv_dtype}"
     print(f"[serve] {len(done)} requests, {total} tokens, {dt:.2f}s "
-          f"({total / dt:.1f} tok/s) on {device}  "
-          f"kv={'dense' if args.dense else 'paged'} "
+          f"({total / dt:.1f} tok/s) on {device}  kv={mode} "
           f"({eng.kv_cache_bytes() / 1e6:.1f} MB), "
           f"occupancy={eng.mean_occupancy:.2f}, "
           f"prefill_dispatches={eng.stats['prefill_dispatches']:.0f}, "

@@ -1,10 +1,11 @@
 """Where the device time goes when the port serves at full width.
 
-  PYTHONPATH=src python -m repro_torch.launch.trace_serve [--dense]
+  PYTHONPATH=src python -m repro_torch.launch.trace_serve [--dense | --kv-dtype int8]
 
 Serves stablelm-1.6b (random bf16 weights from ``--seed``) on the card
-through the engine, paged (default) or from the dense slabs (``--dense``,
-``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
+through the engine, paged (default; ``--kv-dtype int8`` for the int8 page
+pool) or from the dense slabs (``--dense``, ``ServeEngine(paged=False)``),
+on the mix that ``chip_smoke.py`` drives
 (``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
 untraced for the wall clock, once under ``torch.profiler``.  Prints the
 device kernel time by kernel and by group (the port's CUDA kernels,
@@ -12,7 +13,8 @@ GEMMs, other PyTorch ops) and the device busy share: summed kernel time
 over the untraced wall time (one stream, so kernels do not overlap).  The
 summary also lands in ``chiprun_out/trace_serve.json``.  Needs a CUDA
 device.  With ``--dense`` the default summary file is
-``trace_serve_dense.json`` beside it.
+``trace_serve_dense.json`` beside it, with ``--kv-dtype int8``
+``trace_serve_int8.json``.
 """
 from __future__ import annotations
 
@@ -47,9 +49,9 @@ def _group(name: str) -> str:
     return "other PyTorch ops"
 
 
-def _serve(cfg, params, prompts, dense: bool) -> float:
+def _serve(cfg, params, prompts, dense: bool, kv_dtype: str) -> float:
     eng = ServeEngine(cfg, params, **MIX_ENGINE,
-                      paged=False if dense else None)
+                      paged=False if dense else None, kv_dtype=kv_dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in prompts:
@@ -67,23 +69,29 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dense", action="store_true",
                     help="serve from the dense KV slabs (paged=False)")
+    ap.add_argument("--kv-dtype", default="fp16", choices=["fp16", "int8"],
+                    help="paged-pool storage (int8: quantized pages)")
     ap.add_argument("--out", default="chiprun_out/trace_serve.json")
     args = ap.parse_args(argv)
     out = Path(args.out)
-    if args.dense and args.out == ap.get_default("out"):
-        out = out.with_name("trace_serve_dense.json")
+    if args.out == ap.get_default("out"):
+        if args.dense:
+            out = out.with_name("trace_serve_dense.json")
+        elif args.kv_dtype != "fp16":
+            out = out.with_name(f"trace_serve_{args.kv_dtype}.json")
     if not torch.cuda.is_available():
         raise SystemExit("trace_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config("stablelm-1.6b")
     params = model.init_params(cfg, seed=args.seed, device="cuda")
     prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
-    _serve(cfg, params, prompts[:2], args.dense)    # warm-up
-    wall = _serve(cfg, params, prompts, args.dense)
+    run = (args.dense, args.kv_dtype)
+    _serve(cfg, params, prompts[:2], *run)          # warm-up
+    wall = _serve(cfg, params, prompts, *run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        traced_wall = _serve(cfg, params, prompts, args.dense)
+        traced_wall = _serve(cfg, params, prompts, *run)
 
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
     for ev in prof.events():
@@ -91,23 +99,29 @@ def main(argv=None):
             per_kernel[ev.name][0] += ev.time_range.elapsed_us()
             per_kernel[ev.name][1] += 1
     groups = defaultdict(float)
-    for name, (us, _) in per_kernel.items():
+    group_n = defaultdict(int)
+    for name, (us, n) in per_kernel.items():
         groups[_group(name)] += us
+        group_n[_group(name)] += n
     device_s = sum(groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
-    print(f"[trace] {card}; {'dense slabs' if args.dense else 'paged'}; "
+    mode = "dense slabs" if args.dense else f"paged, {args.kv_dtype} pool"
+    n_launch = sum(n for _, n in per_kernel.values())
+    print(f"[trace] {card}; {mode}; {n_launch} kernel launches; "
           f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
           f"traced; device kernel time {device_s:.3f} s; busy share "
           f"{device_s / wall:.3f} of the untraced wall")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[trace] group {g}: {us / 1e3:.1f} ms "
+        print(f"[trace] group {g}: {us / 1e3:.1f} ms in {group_n[g]} launches "
               f"({us / 1e6 / device_s:.3f} of device time)")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, n) in top:
         print(f"[trace] {us / 1e3:9.2f} ms {n:7d} x  {name[:110]}")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
-        card=card, dense=args.dense, wall_s=wall, traced_wall_s=traced_wall,
+        card=card, dense=args.dense, kv_dtype=args.kv_dtype, wall_s=wall,
+        traced_wall_s=traced_wall, launches=n_launch,
+        group_launches=dict(group_n),
         device_s=device_s,
         busy_share=device_s / wall, groups_ms={g: us / 1e3 for g, us in groups.items()},
         top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top]), indent=1))

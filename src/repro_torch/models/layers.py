@@ -6,13 +6,15 @@ Port of the JAX package's ``models/layers.py`` (dense subset).  Parameters
 are plain nested dicts of tensors with the JAX layouts (``linear`` weights
 ``[d_in, d_out]``, applied as ``x @ w``); kernel dispatch goes through
 ``repro_torch.kernels.ops``.  Cache writes are in place: a layer's new K/V
-rows are written straight into the pool or slab tensor, where the JAX
-version (``.at[].set``, ``dynamic_update_slice``) returns an updated copy.
+rows (and, on an int8 pool, its page scales) are written straight into the
+pool or slab tensor, where the JAX version (``.at[].set``,
+``dynamic_update_slice``) returns an updated copy.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -40,12 +42,38 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
 # paged KV cache: pages [L, KvH, NB, BS, hd] shared by all slots through
 # per-slot block tables.  Physical page 0 is the null sink: padding rows and
 # retired slots write there, so a block-table entry of 0 is always safe.
+#
+# int8 pool (``kv_dtype="int8"``): pages hold int8 values and one f32 scale
+# per (layer, kv head, page), ``k_scales`` / ``v_scales`` [L, KvH, NB]; a
+# row's float value is ``int8 * scale``.  The scatters below keep a page's
+# scale consistent with all its live rows, and the paged kernels dequantize
+# page by page.
 # ---------------------------------------------------------------------------
+
+# Floor for per-page scales: an all-zero page quantizes against this
+# instead of dividing by zero.
+KV_SCALE_EPS = 1e-8
+# amax / 127 as the reference computes it: XLA turns the division by the
+# constant into a product with its f32 reciprocal, and a one-ulp difference
+# in a scale can flip an int8 rounding at a tie
+_INV127 = float(np.float32(1.0 / 127.0))
+
 
 def paged_kv_cache_init(cfg: ModelConfig, num_blocks: int, block_size: int,
                         dtype=torch.bfloat16, n_slots: int = 1,
-                        device="cuda"):
+                        device="cuda", kv_dtype: str = "fp16"):
+    """Zero pages ``[n_slots, KvH, NB, BS, hd]`` in ``dtype`` (``kv_dtype``
+    "fp16": the engine dtype), or int8 pages and unit scales ``[n_slots,
+    KvH, NB]`` f32 (``kv_dtype`` "int8")."""
     shape = (n_slots, cfg.n_kv_heads, num_blocks, block_size, cfg.hd)
+    if kv_dtype == "int8":
+        sshape = shape[:3]
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scales": torch.ones(sshape, dtype=torch.float32, device=device),
+                "v_scales": torch.ones(sshape, dtype=torch.float32, device=device)}
+    if kv_dtype != "fp16":
+        raise ValueError(f"kv_dtype must be 'fp16' or 'int8', got {kv_dtype!r}")
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -77,6 +105,77 @@ def _scatter(pages: torch.Tensor, idx: ScatterIndex, rows: torch.Tensor) -> None
     place); rows [N, KvH, hd].  Duplicate targets only ever hit page 0."""
     phys, off = idx
     pages[:, phys, off] = rows.transpose(0, 1).to(pages.dtype)
+
+
+def _decode_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
+                          idx: ScatterIndex, row: torch.Tensor) -> None:
+    """Scatter one decode row per sequence into one layer's int8 pages, in
+    place: pages [KvH, NB, BS, hd] int8, scales [KvH, NB] f32; ``idx`` the
+    target (page [B], row offset [B]); row [B, KvH, hd] float.
+
+    The page scale is monotone within a page's life: a page starting a new
+    occupancy (offset 0) drops the previous occupant's scale, then each
+    appended row can only grow it (``max(old, amax(row) / 127)``, floored at
+    ``KV_SCALE_EPS``).  On growth the page's earlier rows are requantized at
+    the new scale (ratio <= 1, so no clipping); rows past the offset are
+    stale and zeroed.  Duplicate targets (retired slots -> null page 0)
+    write garbage into the null sink, which is never read as valid KV.
+    The JAX package's ``layers._decode_scatter_quant``, rounding points
+    included."""
+    phys, off = idx
+    bs = pages.shape[2]
+    rowT = row.float().transpose(0, 1)                       # [KvH, B, hd]
+    # the divisions by arrays below stay true divisions, as in the reference
+    old_q = pages[:, phys].float()                           # [KvH, B, BS, hd]
+    old_s = scales[:, phys]                                  # [KvH, B]
+    base_s = torch.where(off[None, :] == 0, 0.0, old_s)
+    new_s = torch.maximum(base_s, rowT.abs().amax(dim=-1) * _INV127)
+    new_s = new_s.clamp_min(KV_SCALE_EPS)
+    ridx = torch.arange(bs, device=pages.device)
+    keep = ridx[None, None, :] < off[None, :, None]          # [1, B, BS]
+    req = torch.round(old_q * (base_s / new_s)[..., None, None])
+    req = torch.where(keep[..., None], req, 0.0)
+    newq = torch.round(rowT / new_s[..., None])
+    sel = ridx[None, None, :] == off[None, :, None]
+    page = torch.where(sel[..., None], newq[:, :, None, :], req)
+    pages[:, phys] = torch.clamp(page, -127.0, 127.0).to(torch.int8)
+    scales[:, phys] = new_s
+
+
+def _prefill_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
+                           block_table: torch.Tensor, q_offset: int,
+                           length: int, chunk_rows: torch.Tensor) -> None:
+    """Scatter a prefill chunk's rows into one layer's int8 pages, in place.
+
+    chunk_rows [C, KvH, hd] float at global positions [q_offset, q_offset +
+    C), the first ``length`` valid.  Works on the window of ``ceil(C / BS) +
+    1`` logical blocks the chunk can touch, read from the table zero-padded
+    past its end (so a window at the end reads null entries instead of
+    shifting): gather and dequantize the window, write the chunk's valid
+    rows into it, zero the stale rows past the live end so that they cannot
+    inflate a page's amax, and requantize each window page at its own fresh
+    scale.  The JAX package's ``layers._prefill_scatter_quant``, rounding
+    points included."""
+    kvh, _, bs, hd = pages.shape
+    c = chunk_rows.shape[0]
+    npg = -(-c // bs) + 1
+    first_lb = q_offset // bs
+    mb = block_table.shape[0]
+    btp = torch.cat([block_table.long(),
+                     torch.zeros((npg,), dtype=torch.long,
+                                 device=block_table.device)])
+    start = min(first_lb, mb)              # lax.dynamic_slice clamps its start
+    tbl = btp[start:start + npg]
+    win = pages[:, tbl].float() * scales[:, tbl][..., None, None]
+    win = win.reshape(kvh, npg * bs, hd)                     # [KvH, npg*BS, hd]
+    lo = q_offset - first_lb * bs
+    win[:, lo:lo + length] = chunk_rows[:length].float().transpose(0, 1)
+    win[:, lo + length:] = 0.0                               # past the live end
+    win = win.reshape(kvh, npg, bs, hd)
+    new_s = (win.abs().amax(dim=(2, 3)) * _INV127).clamp_min(KV_SCALE_EPS)
+    q8 = torch.round(win / new_s[..., None, None])     # a true division
+    pages[:, tbl] = torch.clamp(q8, -127.0, 127.0).to(torch.int8)
+    scales[:, tbl] = new_s
 
 
 def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -169,39 +268,58 @@ def attention_decode_stacked(p, x: torch.Tensor, cfg: ModelConfig,
 def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
                            kp: torch.Tensor, vp: torch.Tensor,
                            lengths: torch.Tensor, block_tables: torch.Tensor,
-                           scatter_idx: ScatterIndex) -> torch.Tensor:
+                           scatter_idx: ScatterIndex,
+                           ks: Optional[torch.Tensor] = None,
+                           vs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode against one layer's pages.
 
     x [B,1,d]; kp/vp [KvH, NB, BS, hd] (this layer's pool view); lengths [B]
     int32 = tokens already cached; block_tables [B, MB] int32;
     ``scatter_idx`` from :func:`decode_scatter_index`.  The new K/V row is
-    written into its page first, then attention spans ``[0, lengths]``."""
+    written into its page first, then attention spans ``[0, lengths]``.
+    ``ks`` / ``vs`` [KvH, NB] f32 (the layer's scale views) mark an int8
+    pool: the row goes in through :func:`_decode_scatter_quant` and the
+    kernel dequantizes page by page."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, lengths[:, None])
-    _scatter(kp, scatter_idx, k[:, 0])
-    _scatter(vp, scatter_idx, v[:, 0])
+    if ks is None:
+        _scatter(kp, scatter_idx, k[:, 0])
+        _scatter(vp, scatter_idx, v[:, 0])
+    else:
+        _decode_scatter_quant(kp, ks, scatter_idx, k[:, 0])
+        _decode_scatter_quant(vp, vs, scatter_idx, v[:, 0])
     o = ops.paged_decode_attention(q[:, 0], kp, vp, block_tables,
-                                   lengths=lengths + 1)
+                                   lengths=lengths + 1, k_scales=ks,
+                                   v_scales=vs)
     return linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
 def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
                             cfg: ModelConfig, kp: torch.Tensor, vp: torch.Tensor,
                             block_table: torch.Tensor, q_offset: int, length: int,
-                            scatter_idx: ScatterIndex) -> torch.Tensor:
+                            scatter_idx: Optional[ScatterIndex],
+                            ks: Optional[torch.Tensor] = None,
+                            vs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked prefill of one sequence against one layer's pages.
 
     x [1,C,d] is the chunk at global positions [q_offset, q_offset+C);
     ``length`` counts its valid rows.  The chunk's K/V are scattered into
     their pages *before* attention (padding rows to the null page 0), then
     attention runs over the pages of ``block_table`` (a prefix slice of the
-    slot's table that covers ``q_offset + length``)."""
+    slot's table that covers ``q_offset + length``).  ``ks`` / ``vs`` [KvH,
+    NB] f32 mark an int8 pool: the chunk goes in through
+    :func:`_prefill_scatter_quant` (``scatter_idx`` None) and the kernel
+    dequantizes page by page."""
     _, c, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    _scatter(kp, scatter_idx, k[0])
-    _scatter(vp, scatter_idx, v[0])
+    if ks is None:
+        _scatter(kp, scatter_idx, k[0])
+        _scatter(vp, scatter_idx, v[0])
+    else:
+        _prefill_scatter_quant(kp, ks, block_table, q_offset, length, k[0])
+        _prefill_scatter_quant(vp, vs, block_table, q_offset, length, v[0])
     o = ops.paged_prefill_attention(q, kp, vp, block_table, q_offset=q_offset,
-                                    length=length)
+                                    length=length, k_scales=ks, v_scales=vs)
     return linear(p["wo"], o.reshape(1, c, cfg.n_heads * cfg.hd))
 
 

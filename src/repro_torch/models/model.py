@@ -19,7 +19,7 @@ Public API:
     init_decode_state(cfg, batch, max_seq, dtype, device)   (dense KV slab)
     prefill(cfg, params, state, tokens=..., lengths=...) -> (logits [B, 1, V], state)
     decode_step(cfg, params, state, tokens, lengths) -> (logits [B, V], state)
-    init_serve_state(cfg, slots, num_blocks, block_size, dtype, device)
+    init_serve_state(cfg, slots, num_blocks, block_size, dtype, device, kv_dtype)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
     serve_prefill_chunk / serve_decode_step        (the runner's entry points)
@@ -148,13 +148,26 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
-                     block_size: int, dtype=torch.bfloat16, device="cuda"):
+                     block_size: int, dtype=torch.bfloat16, device="cuda",
+                     kv_dtype: str = "fp16"):
     """Paged KV pages ``[L, KvH, NB, BS, hd]`` shared by all slots (``slots``
-    sizes the slot state of families that carry one; dense has none)."""
+    sizes the slot state of families that carry one; dense has none).
+    ``kv_dtype="int8"`` stores int8 pages plus per-(layer, kv head, page)
+    ``k_scales`` / ``v_scales`` [L, KvH, NB] f32."""
     require_servable(cfg)
     return {"attn": layers.paged_kv_cache_init(cfg, num_blocks, block_size,
                                                dtype, n_slots=cfg.n_layers,
-                                               device=device)}
+                                               device=device,
+                                               kv_dtype=kv_dtype)}
+
+
+def _layer_scales(state, li: int):
+    """Layer ``li``'s (k_scales, v_scales) views of an int8 pool, or (None,
+    None) for a float pool."""
+    att = state["attn"]
+    if "k_scales" not in att:
+        return None, None
+    return att["k_scales"][li], att["v_scales"][li]
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -313,19 +326,21 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     attend to the already-paged prefix plus themselves, so repeated calls
     with growing ``q_offset`` reproduce a monolithic prefill.  Returns
     (logits at the chunk's last valid row [1, V], state); the pages in
-    ``state`` are updated in place."""
+    ``state`` (and an int8 pool's scales) are updated in place."""
     require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens)
     c = x.shape[1]
     positions = (q_offset + torch.arange(c, dtype=torch.int32,
                                          device=x.device))[None]
-    idx = layers.prefill_scatter_index(block_table, q_offset, length, c,
-                                       kp_all.shape[3])
+    idx = (None if "k_scales" in state["attn"] else      # int8: a window
+           layers.prefill_scatter_index(block_table, q_offset, length, c,
+                                        kp_all.shape[3]))
     for li, lp in enumerate(params["layers"]):
+        ks, vs = _layer_scales(state, li)
         x = _block(cfg, lp, x, lambda h: layers.attention_prefill_paged(
             lp["attn"], h, positions, cfg, kp_all[li], vp_all[li], block_table,
-            q_offset, length, idx))
+            q_offset, length, idx, ks, vs))
     logits = _logits(cfg, params, x[:, length - 1:length])
     return logits[:, 0], state
 
@@ -337,24 +352,26 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
     int32.  The K/V row for position ``lengths`` is scattered into its page
     and the paged decode kernel reads through the block table.  Returns
-    (logits [B, V], state); pages are updated in place."""
+    (logits [B, V], state); pages (and an int8 pool's scales) are updated
+    in place."""
     require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens[:, None])
     idx = layers.decode_scatter_index(lengths, block_tables, kp_all.shape[3])
     for li, lp in enumerate(params["layers"]):
+        ks, vs = _layer_scales(state, li)
         x = _block(cfg, lp, x, lambda h: layers.attention_decode_paged(
             lp["attn"], h, cfg, kp_all[li], vp_all[li], lengths, block_tables,
-            idx))
+            idx, ks, vs))
     return _logits(cfg, params, x)[:, 0], state
 
 
 def copy_kv_page(state, src: int, dst: int):
     """Physical-page copy across all layers and heads, in place
-    (copy-on-write for a prefix-cache match that ends mid-page)."""
-    for key in ("k_pages", "v_pages"):
-        pages = state["attn"][key]
-        pages[:, :, dst] = pages[:, :, src]
+    (copy-on-write for a prefix-cache match that ends mid-page); an int8
+    pool's per-page scales copy along with the pages."""
+    for t in state["attn"].values():      # pages [L, KvH, NB, ...], scales
+        t[:, :, dst] = t[:, :, src]
     return state
 
 

@@ -52,17 +52,25 @@ def cache_spec(cfg: ModelConfig) -> CacheSpec:
 
 
 class ModelRunner:
-    """The engine's compute façade over ``models.model`` (paged dense)."""
+    """The engine's compute façade over ``models.model`` (paged dense).
+    ``kv_dtype`` is the pages' storage: "fp16" (the engine dtype) or "int8"
+    (plus per-(layer, kv head, page) scales)."""
 
-    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int):
+    def __init__(self, cfg: ModelConfig, slots: int, max_seq: int,
+                 kv_dtype: str = "fp16"):
+        if kv_dtype not in ("fp16", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'fp16' or 'int8', got {kv_dtype!r}")
         self.cfg = cfg
         self.slots = slots
         self.max_seq = max_seq
+        self.kv_dtype = kv_dtype
         self.spec = cache_spec(cfg)
 
     def init_state(self, num_blocks: int, block_size: int, dtype, device):
         return M.init_serve_state(self.cfg, self.slots, num_blocks, block_size,
-                                  dtype=dtype, device=device)
+                                  dtype=dtype, device=device,
+                                  kv_dtype=self.kv_dtype)
 
     def init_dense_state(self, dtype, device):
         """The dense ``[slots, max_seq]``-slab baseline state."""
@@ -103,5 +111,11 @@ class ModelRunner:
         return M.copy_kv_page(state, src, dst)
 
     def page_kv_bytes(self, block_size: int, itemsize: int) -> int:
-        """Bytes of ONE physical page across paged components, K and V."""
+        """Bytes of ONE physical page across paged components, K and V.
+        ``itemsize`` is the engine dtype's width; an int8 pool stores 1-byte
+        values plus one f32 scale per (application, kv head) for each of K
+        and V."""
+        if self.kv_dtype == "int8":
+            return sum(c.page_kv_bytes(block_size, 1)
+                       + 2 * c.n_apps * c.kv_heads * 4 for c in self.spec.paged)
         return sum(c.page_kv_bytes(block_size, itemsize) for c in self.spec.paged)

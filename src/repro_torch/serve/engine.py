@@ -24,11 +24,18 @@ Port of the JAX package's ``serve/engine.py`` core for the dense family:
   stats are the same), and one batched decode over all slots through
   ``model.decode_step``.  No pages, no prefix caching.
 
+* **int8 page pool** (``kv_dtype="int8"``) — pages stored as int8 with one
+  f32 scale per (layer, kv head, page); a decode row or a prefill chunk is
+  quantized into its pages as it is written (the scale of a page grows
+  monotonically within its life), and the paged kernels dequantize inside
+  the kernel.  The digest chain's seed folds in ``kv_dtype``, as in the
+  JAX engine, so the two pools' pages never alias in the registry.
+
 Not ported in this slice (construction raises if asked for): preemption and
-swap, SLO classes and deadlines, prefill/decode roles, sequence sharding,
-expert parallelism and the expert cache, the int8 pool, temperature
-sampling, and a page pool below full capacity (which would need
-preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
+swap (and with them swapping int8 pages), SLO classes and deadlines,
+prefill/decode roles, sequence sharding, expert parallelism and the expert
+cache, temperature sampling, and a page pool below full capacity (which
+would need preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
 the CUDA prefill kernel's query tile is fixed at 16 rows, so no chunk size
 can overflow its shared memory.
 """
@@ -275,7 +282,8 @@ class ServeEngine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_tokens_per_tick: Optional[int] = None,
                  paged: Optional[bool] = None,
-                 prefix_caching: Optional[bool] = None, **later):
+                 prefix_caching: Optional[bool] = None,
+                 kv_dtype: str = "fp16", **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
@@ -289,29 +297,35 @@ class ServeEngine:
         the dense ``[slots, max_seq]`` slabs (``block_size`` and
         ``num_blocks`` then unused).  ``prefix_caching``: share full prompt
         pages across requests (default: on when paged; it needs the pool).
-        Any other JAX-engine option raises: it belongs to a later slice."""
+        ``kv_dtype``: page storage, "fp16" (the engine dtype) or "int8"
+        (int8 pages with per-page scales; paged only).  Any other JAX-engine
+        option raises: it belongs to a later slice."""
         if later:
             raise NotImplementedError(
                 f"engine options {sorted(later)} are not ported yet: "
-                f"preemption/swap, SLO classes, roles, sharding, expert "
-                f"options and the int8 pool come with later slices of "
-                f"repro_torch")
+                f"preemption/swap, SLO classes, roles, sharding and expert "
+                f"options come with later slices of repro_torch")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
         self.slots = slots
         table = params["embed"]["table"]
         self.device, self.dtype = table.device, table.dtype
-        self.runner = ModelRunner(cfg, slots, max_seq)
+        self.runner = ModelRunner(cfg, slots, max_seq, kv_dtype=kv_dtype)
+        self.kv_dtype = kv_dtype
         self.paged = paged is not False      # False: the dense-slab baseline
+        if kv_dtype == "int8" and not self.paged:
+            raise ValueError(
+                "kv_dtype='int8' quantizes the paged page pool: serve with "
+                "a paged KV component (or keep kv_dtype='fp16')")
         if prefix_caching and not self.paged:
             raise ValueError("prefix_caching requires a paged KV component")
         self.prefix_caching = (self.paged if prefix_caching is None
                                else bool(prefix_caching))
-        # the JAX engine folds kv_dtype into the digest chain; the port's
-        # pool stores the engine dtype ("fp16" there), so seeds match
-        self._digest_seed = hashlib.blake2b(b"kv_dtype:fp16",
-                                            digest_size=16).digest()
+        # kv_dtype-salted seed of the digest chain, as in the JAX engine:
+        # int8 and fp16 pages never alias in the prefix registry
+        self._digest_seed = hashlib.blake2b(
+            b"kv_dtype:" + kv_dtype.encode(), digest_size=16).digest()
 
         bks = sorted({min(b, max_seq) for b in prefill_buckets} | {max_seq})
         self.prefill_buckets = tuple(bks)

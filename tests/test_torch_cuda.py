@@ -123,6 +123,77 @@ def test_paged_prefill_kernel(dev, dtype, h, kvh, d, bs, c):
                 _close(a[0, :ln], b_[0, :ln], dtype)
 
 
+def _int8_pool(rng, kvh, nb, bs, d, dev):
+    """int8 K and V pages [KvH, NB, BS, D] with their per-(kv head, page)
+    f32 scales, quantized from N(0, 1) pages with numpy."""
+    out = []
+    for _ in range(2):
+        p = rng.normal(size=(kvh, nb, bs, d)).astype(np.float32)
+        s = np.maximum(np.abs(p).max(axis=(2, 3)) / 127.0, 1e-8).astype(np.float32)
+        q8 = np.clip(np.round(p / s[..., None, None]), -127, 127).astype(np.int8)
+        out += [torch.from_numpy(q8).to(dev), torch.from_numpy(s).to(dev)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs", [(8, 4, 64, 16), (4, 2, 16, 8),
+                                        (8, 2, 128, 128)])
+def test_paged_decode_kernel_int8(dev, dtype, h, kvh, d, bs):
+    """The int8-page variant at each instantiated head dim: output (and
+    the f32 partials) against the plain version on the same int8 pages and
+    scales, counted as an int8 launch only."""
+    rng = np.random.default_rng(3)
+    b, mb, nb = 5, 4, 24
+    q = _rand(rng, (b, h, d), dtype, dev)
+    k8, ks, v8, vs = _int8_pool(rng, kvh, nb, bs, d, dev)
+    bt = torch.from_numpy(rng.permutation(nb)[:b * mb].reshape(b, mb)
+                          .astype(np.int32)).to(dev)
+    bt[4] = 0                                   # a retired slot: null page
+    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, 1], dtype=torch.int32,
+                        device=dev)
+    n_float, n_q8 = kda.launches, kda.q8_launches
+    _close(kda.paged_decode_attention(q, k8, v8, bt, lens, ks, vs),
+           ref.paged_decode_attention(q, k8, v8, bt, lengths=lens, k_scales=ks,
+                                      v_scales=vs), dtype)
+    assert (kda.launches, kda.q8_launches) == (n_float, n_q8 + 1)
+    if dtype == torch.float32:
+        got = kda.paged_decode_attention_partial(q, k8, v8, bt, lens, ks, vs)
+        want = ref.paged_decode_attention_partial(q, k8, v8, bt, lengths=lens,
+                                                  k_scales=ks, v_scales=vs)
+        for a, b_ in zip(got, want):
+            _close(a, b_, dtype)
+    with pytest.raises(ValueError, match="k_scales"):
+        kda.paged_decode_attention(q, k8, v8, bt, lens, ks[:, :-1].contiguous(), vs)
+    with pytest.raises(ValueError, match="on cpu"):
+        kda.paged_decode_attention(q, k8, v8, bt, lens, ks.cpu(), vs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
+                                          (8, 2, 128, 128, 33)])
+def test_paged_prefill_kernel_int8(dev, dtype, h, kvh, d, bs, c):
+    rng = np.random.default_rng(4)
+    nb = 12
+    q = _rand(rng, (1, c, h, d), dtype, dev)
+    k8, ks, v8, vs = _int8_pool(rng, kvh, nb, bs, d, dev)
+    bt = torch.from_numpy((rng.permutation(nb - 1)[:8] + 1).astype(np.int32)).to(dev)
+    n_float, n_q8 = kpf.launches, kpf.q8_launches
+    for qoff, ln in [(0, c), (bs + 3, c), (3 * bs - 2, 1), (0, 1)]:
+        n_live = -(-(qoff + ln) // bs)
+        tbl = bt[:min(1 << max(n_live - 1, 0).bit_length(), 8)].contiguous()
+        kw = dict(q_offset=qoff, length=ln, k_scales=ks, v_scales=vs)
+        got = kpf.paged_prefill_attention(q, k8, v8, tbl, **kw)
+        want = ref.paged_prefill_attention(q, k8, v8, tbl, **kw)
+        _close(got[0, :ln], want[0, :ln], dtype)
+        if dtype == torch.float32:
+            parts = kpf.paged_prefill_attention_partial(q, k8, v8, tbl, **kw)
+            wparts = ref.paged_prefill_attention_partial(q, k8, v8, tbl, **kw)
+            for a, b_ in zip(parts, wparts):
+                _close(a[0, :ln], b_[0, :ln], dtype)
+    n_calls = 4 * (2 if dtype == torch.float32 else 1)
+    assert (kpf.launches, kpf.q8_launches) == (n_float, n_q8 + n_calls)
+
+
 FLASH_CASES = [  # (B, Sq, Sk, H, KvH, D, causal, window)
     (2, 100, 100, 8, 2, 64, True, None),
     (2, 100, 100, 8, 2, 64, True, 17),
@@ -249,6 +320,38 @@ def test_model_on_card_matches_cpu(dev):
             lens = lens + torch.tensor([1, 0], dtype=torch.int32)
         logits[d] = torch.cat([o.cpu() for o in out])
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_int8_model_on_card_matches_cpu(dev):
+    """Reduced stablelm at fp32 over an int8 pool: two prefill chunks (the
+    second from mid-page) and four decode steps on the card against the
+    CPU.  K/V rows that differ by float rounding can land one int8 step
+    apart at a rounding tie; one such step moves these logits by up to
+    7.4e-3, so they are held to 2e-2 absolute."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gparams = _to(params, dev)
+    tok = torch.tensor([[5, 9, 2, 77, 3, 3, 41, 0, 8, 1, 6, 2]], dtype=torch.int32)
+    bt = torch.tensor([[2, 4, 6, 8], [1, 3, 0, 0]], dtype=torch.int32)
+    logits = {}
+    for d, p in (("cpu", params), ("cuda", gparams)):
+        state = M.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device=d,
+                                   kv_dtype="int8")
+        out = []
+        for off, n, mbk in ((0, 5, 1), (5, 6, 2)):
+            lg, state = M.prefill_paged(cfg, p, state, tokens=tok[:, off:off + 8].to(d),
+                                        length=n, q_offset=off,
+                                        block_table=bt[0, :mbk].to(d))
+            out.append(lg)
+        lens = torch.tensor([11, 0], dtype=torch.int32)
+        for t in (11, 64, 7, 99):
+            toks = torch.tensor([t, 0], dtype=torch.int32)
+            lg, state = M.decode_step_paged(cfg, p, state, toks.to(d),
+                                            lens.to(d), bt.to(d))
+            out.append(lg[:1])
+            lens = lens + torch.tensor([1, 0], dtype=torch.int32)
+        logits[d] = torch.cat([o.cpu() for o in out])
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0.0, atol=2e-2)
 
 
 DENSE_CASES = [  # (H, KvH, D, Sk, lengths): MHA and GQA at head dims 16, 64
