@@ -111,7 +111,24 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    steps) on the card against the CPU; and the mix of 5 through
    ``ServeEngine(kv_dtype="int8")``, the int8 variants launched L times a
    decode step and a prefill chunk and the float paged kernels not at all,
-   token-identical with prefix caching off, beside phase 5's run.
+   token-identical with prefix caching off, beside phase 5's run;
+18. sequence-sharded pool (after 17, with the same parameters): phase 3's
+   pool grown to 516 pages and cut into 4 shards, the decode slots (the
+   last cut to 40 keys, so shard 3 owns none of them) and the prefill
+   sequence placed round-robin by the port's ``BlockAllocator``; rows 1s /
+   2s, the skip_null partials over each shard's view with its local table,
+   held per shard against the plain version (m on every row, l and acc / l
+   where a row sees an owned key, exactly (0, -1e30, 0) where it sees
+   none) in bf16 and f32 over the float and the int8 pool, their NoC tree
+   combine against the unsharded kernel, a control (the local tables with
+   skip_null off) caught, timed per shard launch beside the shard's bound;
+   the decode partial at ``kv_offset`` 512 combined with the lower half;
+   reduced stablelm-1.6b at fp32 through ``ServeEngine(seq_shards=S)`` on
+   the card, token-identical at S = 1, 2, 4 (and 1, 2 over an int8 pool)
+   with a prefix hit and a copy-on-write; and the mix of 5 through
+   ``ServeEngine(seq_shards=4)``, the skip_null kernels launched 4 L times a
+   decode step and a prefill chunk and the unsharded paged kernels not at
+   all, one NoC combine per layer and dispatch, beside phase 5's run.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -227,6 +244,11 @@ Q8_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # element; logits of scale ~1); the logits are held to 2e-2 absolute.  The
 # first run read 2.15e-6 with no int8 value a step apart
 Q8_LOGITS_TOL = dict(rtol=0.0, atol=2e-2)
+# The sequence-sharded pool (18): shards of phase 3's pool; the skip_null
+# partials are held with the tolerances of their pools' rows (float:
+# DECODE_TOL / DECODE_REL in bf16, DENSE_F32_TOL in f32; int8: Q8_*), m on
+# every row, l and acc / l on rows that see an owned key
+SEQ_SHARDS = 4
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
@@ -1093,6 +1115,355 @@ def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
     summary.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
                    wall_s_cache_off=summary_off["wall_s"], same_as_bf16=same,
                    first_difference=first)
+    return launches, summary
+
+
+def shard_pool(torch, pool, n_shards):
+    """Phase 3's pool grown to a whole number of shards (its 513 pages plus
+    copies of its last pages up to 516 = 4 + 8 x 64), the decode slots and
+    one prefill sequence placed round-robin by the port's allocator, and
+    each shard's local tables and view of the pool."""
+    from repro_torch.models.layers import pool_shards
+    from repro_torch.serve.engine import BlockAllocator
+
+    kp, vp, lens = pool["kp"], pool["vp"], pool["lens"].clone()
+    slots, mb = pool["tables"].shape
+    bs = kp.shape[2]
+    nb = n_shards + slots * mb
+    pad = nb - kp.shape[1]
+    kp = torch.cat([kp, kp[:, -pad:]], dim=1).contiguous()
+    vp = torch.cat([vp, vp[:, -pad:]], dim=1).contiguous()
+    # the last sequence cut to 3 pages: shard 3 owns none of its keys
+    lens[-1] = 3 * bs - 8
+    alloc = BlockAllocator(nb, bs, slots, mb, num_shards=n_shards)
+    for s in range(slots):
+        if not alloc.ensure(s, int(lens[s])):
+            fail(f"seq shards: page pool too small for slot {s}")
+    total = pool["qoff"] + pool["qp"].shape[1]
+    palloc = BlockAllocator(nb, bs, 1, mb, num_shards=n_shards)
+    if not palloc.ensure(0, total):
+        fail("seq shards: page pool too small for the prefill sequence")
+    dev = kp.device
+    # the float pool in each q dtype (the kernel takes q and pages of one
+    # dtype), and each shard's view of it
+    pools = {kp.dtype: (kp, vp), torch.float32: (kp.float(), vp.float())}
+    return dict(
+        pools=pools, lens=lens, n=n_shards, bs=bs, mb=mb,
+        table=torch.from_numpy(alloc.table).to(dev),
+        local=torch.from_numpy(alloc.shard_local(alloc.table)).to(dev),
+        ptable=torch.from_numpy(palloc.table[0]).to(dev),
+        plocal=torch.from_numpy(palloc.shard_local(palloc.table[0])).to(dev),
+        views={dt: list(zip(pool_shards(k, n_shards), pool_shards(v, n_shards)))
+               for dt, (k, v) in pools.items()})
+
+
+def owned_keys(torch, local, bs, n):
+    """[..., n] bool: key j < n lies on a page this shard's local table owns."""
+    return torch.repeat_interleave(local != 0, bs, dim=-1)[..., :n]
+
+
+def parts_view(torch, parts, live):
+    """Shard partials as the kernel contract compares them: m on every row,
+    l and acc / l on the rows that see a key (``live``, from the plain
+    version)."""
+    return (torch.cat([p[1].flatten() for p in parts]),
+            torch.cat([p[2][lv] for p, lv in zip(parts, live)]),
+            torch.cat([(p[0] / p[2][..., None])[lv] for p, lv in zip(parts, live)]))
+
+
+def hold_identity(torch, tag, parts, live):
+    """Rows that see no key must be exactly (0, -1e30, 0); returns their
+    count."""
+    n = 0
+    for (acc, m, l), lv in zip(parts, live):
+        dead = ~lv
+        n += int(dead.sum())
+        if not bool((acc[dead] == 0).all() and (m[dead] == -1e30).all()
+                    and (l[dead] == 0).all()):
+            fail(f"{tag}: a row that sees no owned key is not (0, -1e30, 0)")
+    return n
+
+
+def shard_kernel_phase(torch, timer, cfg, pool):
+    """Phase 18, kernels: rows 1s / 2s, the skip_null partials of the paged
+    kernel over each of 4 shards' views of phase 3's pool with the
+    shard-local tables of a round-robin placement; held per shard against
+    the plain version (bf16 and f32, float and int8 pools), their tree
+    combine against the unsharded kernel, the identity on a sequence shard
+    3 does not own, kv_offset once, and the skip-off control; bf16 timed per
+    shard launch beside the shard's bound."""
+    from repro_torch.core import noc
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import prefill_attention as kpf
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import pool_shards
+
+    sp = shard_pool(torch, pool, SEQ_SHARDS)
+    S, bs, mb = sp["n"], sp["bs"], sp["mb"]
+    lens, local, ptable, plocal = (sp[k] for k in (
+        "lens", "local", "ptable", "plocal"))
+    kp, vp = sp["pools"][torch.bfloat16]
+    qd, qp, qoff = pool["qd"], pool["qp"], pool["qoff"]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots, c = qd.shape[0], qp.shape[1]
+    total = qoff + c
+    k8, ks = quantize_pages(torch, kp)
+    v8, vs = quantize_pages(torch, vp)
+    q8_views = list(zip(pool_shards(k8, S), pool_shards(v8, S),
+                        pool_shards(ks, S), pool_shards(vs, S)))
+    csrc = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    kv_row = kvh * hd * 2 * 2                   # K and V bytes of one key, bf16
+
+    def dec(q, s, skip=True, int8=False):
+        if int8:
+            k, v, kss, vss = q8_views[s]
+            return kda.paged_decode_attention_partial(q, k, v, local[s], lens, kss,
+                                                      vss, skip_null=skip)
+        k, v = sp["views"][q.dtype][s]
+        return kda.paged_decode_attention_partial(q, k, v, local[s], lens,
+                                                  skip_null=skip)
+
+    def dec_plain(q, s, int8=False):
+        if int8:
+            k, v, kss, vss = q8_views[s]
+            return ref.paged_decode_attention_partial(
+                q, k, v, local[s], lengths=lens, skip_null=True, k_scales=kss,
+                v_scales=vss)
+        k, v = sp["views"][q.dtype][s]
+        return ref.paged_decode_attention_partial(q, k, v, local[s], lengths=lens,
+                                                  skip_null=True)
+
+    def pre(q, s, skip=True, int8=False):
+        kw = dict(q_offset=qoff, length=c, skip_null=skip)
+        if int8:
+            k, v, kss, vss = q8_views[s]
+            return kpf.paged_prefill_attention_partial(q, k, v, plocal[s], k_scales=kss,
+                                                       v_scales=vss, **kw)
+        k, v = sp["views"][q.dtype][s]
+        return kpf.paged_prefill_attention_partial(q, k, v, plocal[s], **kw)
+
+    def pre_plain(q, s, int8=False):
+        kw = dict(q_offset=qoff, length=c, skip_null=True)
+        if int8:
+            k, v, kss, vss = q8_views[s]
+            return ref.paged_prefill_attention_partial(q, k, v, plocal[s],
+                                                       k_scales=kss, v_scales=vss, **kw)
+        k, v = sp["views"][q.dtype][s]
+        return ref.paged_prefill_attention_partial(q, k, v, plocal[s], **kw)
+
+    rows_of = {
+        "paged_decode_attention_skip_null": dict(
+            replaces="src/repro/kernels/decode_attention.py:300", q=qd,
+            kernel=dec, plain=dec_plain,
+            whole=lambda q, int8: (
+                kda.paged_decode_attention(q, k8, v8, sp["table"], lens, ks, vs)
+                if int8 else kda.paged_decode_attention(
+                    q, *sp["pools"][q.dtype], sp["table"], lens))),
+        "paged_prefill_attention_skip_null": dict(
+            replaces="src/repro/kernels/prefill_attention.py:273", q=qp,
+            kernel=pre, plain=pre_plain,
+            whole=lambda q, int8: (
+                kpf.paged_prefill_attention(q, k8, v8, ptable, q_offset=qoff,
+                                            length=c, k_scales=ks, v_scales=vs)
+                if int8 else kpf.paged_prefill_attention(
+                    q, *sp["pools"][q.dtype], ptable, q_offset=qoff, length=c))),
+    }
+    readings, rows = {}, []
+    for name, cs in rows_of.items():
+        for int8 in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = cs["q"].to(dtype)
+                f32 = dtype == torch.float32
+                tol = (Q8_F32_TOL if f32 else Q8_BF16_TOL) if int8 else \
+                    (DENSE_F32_TOL if f32 else DECODE_TOL)
+                rel = None if f32 else (Q8_REL if int8 else DECODE_REL)
+                tag = f"{name} {'int8' if int8 else 'float'} pool {str(dtype)[6:]}"
+                got = [cs["kernel"](q, s, int8=int8) for s in range(S)]
+                want = [cs["plain"](q, s, int8=int8) for s in range(S)]
+                torch.cuda.synchronize()
+                live = [w[1] > -1e29 for w in want]
+                errs = [hold(torch, tag, g, w, tol, rel) for g, w in zip(
+                    parts_view(torch, got, live), parts_view(torch, want, live))]
+                n_dead = hold_identity(torch, tag, got, live)
+                whole = cs["whole"](q, int8)
+                comb = noc.tree_softmax_combine(got).to(dtype)
+                c_err = hold(torch, tag + " combined vs unsharded kernel", comb,
+                             whole, tol, rel)
+                bad = noc.tree_softmax_combine(
+                    [cs["kernel"](q, s, skip=False, int8=int8) for s in range(S)]
+                ).to(dtype)
+                d = float((bad.float() - whole.float()).abs().max())
+                r = rel_err(torch, bad, whole)
+                caught = not torch.allclose(bad.float(), whole.float(), **tol) or \
+                    (rel is not None and r > rel)
+                log(f"{tag}: per shard max|err| m {errs[0]:.3g}, l {errs[1]:.3g}, "
+                    f"acc/l {errs[2]:.3g} (tol {tol}, rel {rel}); {n_dead} rows "
+                    f"see no owned key and read (0, -1e30, 0); combined vs the "
+                    f"unsharded kernel max|err| {c_err:.3g} (relative norm "
+                    f"{rel_err(torch, comb, whole):.3g}); control (the local "
+                    f"tables with skip_null off) max|err| {d:.3g}, relative "
+                    f"norm {r:.3g} (caught: {caught})")
+                if not caught:
+                    fail(f"{tag} control: the tolerance passes the local tables "
+                         f"read with skip_null off")
+                if name.startswith("paged_decode") and n_dead < h:
+                    fail(f"{tag}: no sequence left a shard without an owned key")
+                readings[tag] = dict(m=errs[0], l=errs[1], acc_over_l=errs[2],
+                                     combined=c_err, identity_rows=n_dead,
+                                     control_rel=r)
+                del got, want, whole, comb, bad
+        # timing: bf16 on the float pool, the S shard launches of one call,
+        # per launch
+        qb = cs["q"].to(torch.bfloat16)
+        plain_live = [w[1] > -1e29 for w in (cs["plain"](qb, s) for s in range(S))]
+        if name.startswith("paged_decode"):
+            keys = [owned_keys(torch, local[s], bs, mb * bs)
+                    & (torch.arange(mb * bs, device=lens.device)[None] < lens[:, None])
+                    for s in range(S)]
+            n_keys = [int(k.sum()) for k in keys]
+            flops = [4 * h * hd * n for n in n_keys]
+            io = qb.numel() * 2 + qb.numel() * 4 + 2 * slots * h * 4 + local[0].numel() * 4
+        else:
+            keys = [owned_keys(torch, plocal[s], bs, total) for s in range(S)]
+            n_keys = [int(k.sum()) for k in keys]
+            pos = qoff + torch.arange(c, device=qb.device)
+            flops = [4 * h * hd * int((torch.cumsum(k.int(), 0)[pos]).sum())
+                     for k in keys]
+            io = qb.numel() * 2 + qb.numel() * 4 + 2 * c * h * 4 + plocal[0].numel() * 4
+        nbytes = io + sum(n_keys) * kv_row / S
+        row = measure(torch, timer, name, csrc, cs["replaces"],
+                      lambda: tuple(cs["kernel"](qb, s) for s in range(S)),
+                      lambda: tuple(cs["plain"](qb, s) for s in range(S)),
+                      (DECODE_TOL,) * 3, rel=DECODE_REL, nbytes=nbytes,
+                      flops=sum(flops) / S,
+                      view=lambda parts: parts_view(torch, parts, plain_live),
+                      note=f"; the {S} shard launches of one call, per launch; "
+                           f"owned keys per shard {n_keys}")
+        for key in ("ms", "plain_ms"):
+            row[key] /= S
+        log(f"kernel {name}: per shard launch {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+        rows.append(row)
+    # kv_offset: the decode tables cut at block 32, the upper half at global
+    # position 512; the two halves' partials combine to the whole
+    half = mb // 2
+    lo, hi = (sp["table"][:, :half].contiguous(), sp["table"][:, half:].contiguous())
+    for dtype in (torch.float32, torch.bfloat16):
+        q = qd.to(dtype)
+        kp, vp = sp["pools"][dtype]
+        tol = DENSE_F32_TOL if dtype == torch.float32 else DECODE_TOL
+        rel = None if dtype == torch.float32 else DECODE_REL
+        tag = f"paged_decode_attention kv_offset {half * bs} {str(dtype)[6:]}"
+        got = kda.paged_decode_attention_partial(q, kp, vp, hi, lens,
+                                                 kv_offset=half * bs)
+        want = ref.paged_decode_attention_partial(q, kp, vp, hi, lengths=lens,
+                                                  kv_offset=half * bs)
+        torch.cuda.synchronize()
+        live = [want[1] > -1e29]
+        errs = [hold(torch, tag, g, w, tol, rel) for g, w in zip(
+            parts_view(torch, [got], live), parts_view(torch, [want], live))]
+        n_dead = hold_identity(torch, tag, [got], live)
+        comb = noc.tree_softmax_combine(
+            [kda.paged_decode_attention_partial(q, kp, vp, lo, lens), got]).to(dtype)
+        whole = kda.paged_decode_attention(q, kp, vp, sp["table"], lens)
+        c_err = hold(torch, tag + " combined", comb, whole, tol, rel)
+        log(f"{tag}: max|err| m {errs[0]:.3g}, l {errs[1]:.3g}, acc/l "
+            f"{errs[2]:.3g}; {n_dead} rows below the offset read (0, -1e30, 0); "
+            f"the two halves combined vs the whole max|err| {c_err:.3g}")
+        if n_dead == 0:
+            fail(f"{tag}: no sequence ends below the offset")
+        readings[tag] = dict(m=errs[0], l=errs[1], acc_over_l=errs[2],
+                             combined=c_err, identity_rows=n_dead)
+    del k8, v8, ks, vs, q8_views, sp
+    torch.cuda.empty_cache()
+    return rows, readings
+
+
+def shard_parity_phase(torch, cfg_small):
+    """Phase 18, parity: reduced stablelm at fp32 on the card through
+    ServeEngine at 1, 2 and 4 sequence shards with prefix caching on (a
+    shared prefix and a mid-page copy-on-write), and over an int8 pool at 1
+    and 2: greedy outputs token-identical across shard counts."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg_small, seed=0, device="cuda", dtype=torch.float32)
+    rng = torch.Generator().manual_seed(5)
+    prefix = torch.randint(2, cfg_small.vocab_size, (20,), generator=rng).tolist()
+    prompts = [list(range(2, 50)), [3, 1, 4], prefix + [9], [42], prefix + [11],
+               list(range(2, 50))]
+    kw = dict(max_seq=64, slots=3, prefill_buckets=(8, 16, 32), block_size=8)
+    out = {}
+    for kv_dtype, shard_counts in (("fp16", (1, 2, 4)), ("int8", (1, 2))):
+        for S in shard_counts:
+            eng = ServeEngine(cfg_small, params, seq_shards=S, kv_dtype=kv_dtype, **kw)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=6)
+            toks = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+            out[(kv_dtype, S)] = toks
+            if eng.stats["cow_copies"] < 1 or eng.stats["prefix_hits"] < 1:
+                fail(f"seq parity: {kv_dtype} pool at {S} shards made no prefix "
+                     f"hit with a copy-on-write")
+            if S > 1 and eng.stats["noc_combines"] <= 0:
+                fail(f"seq parity: {S} shards counted no NoC combine")
+        for S in shard_counts[1:]:
+            if out[(kv_dtype, S)] != out[(kv_dtype, 1)]:
+                fail(f"seq parity: {kv_dtype} pool, {S} shards give other greedy "
+                     f"tokens than one shard")
+    log(f"seq parity: reduced stablelm fp32 on the card, token-identical at "
+        f"1/2/4 shards (float pool) and 1/2 (int8 pool), prefix hits with a "
+        f"copy-on-write in each")
+
+
+def shard_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
+    """Phase 18, serve: the mix of 5 through ServeEngine(seq_shards=4) with
+    the parameters of 5; the skip_null kernels launched 4 L times a decode
+    step and a prefill chunk and the unsharded paged kernels not at all;
+    tok/s, TTFT, peak memory and the NoC stats beside phase 5's run, and the
+    share of requests token-identical to it (not gated)."""
+    from repro_torch.serve import ServeEngine
+
+    warm = ServeEngine(cfg, params, slots=8, max_seq=160, block_size=16,
+                       prefill_buckets=(32, 128), seq_shards=SEQ_SHARDS)
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                              seq_shards=SEQ_SHARDS)
+    L, S = cfg.n_layers, SEQ_SHARDS
+    P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+    check_launches("seq serve", launches, {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
+        "paged_prefill_attention": 0, "paged_decode_attention_int8": 0,
+        "paged_prefill_attention_int8": 0,
+        "paged_decode_attention_skip_null": S * L * Dd,
+        "paged_prefill_attention_skip_null": S * L * P})
+    if stats["prefix_hit_tokens"] <= 0:
+        fail("seq serve: the shared-prefix requests never hit the prefix cache")
+    if stats["noc_combines"] != L * (P + Dd):
+        fail(f"seq serve: {stats['noc_combines']} NoC combines, expected "
+             f"{L * (P + Dd)}")
+    noc_stats = {k: stats[k] for k in ("noc_combines", "noc_hops", "noc_bytes",
+                                       "noc_energy_pj")}
+    same = sum(out[rid] == paged_out.get(rid) for rid in out)
+    first = sorted(next((i for i, (a, b) in enumerate(zip(out[rid], paged_out[rid]))
+                         if a != b), len(out[rid])) for rid in out)
+    log(f"seq serve: {S} shards, {summary['requests']} requests, "
+        f"{summary['tokens']} tokens in {summary['wall_s']:.3f} s "
+        f"({summary['tok_s']:.1f} tok/s; one shard {paged_summary['tok_s']:.1f}), "
+        f"ttft p50 {summary['ttft_p50_ms']:.1f} ms (one shard "
+        f"{paged_summary['ttft_p50_ms']:.1f}), prefill chunks {P}, decode steps "
+        f"{Dd}, peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB (one "
+        f"shard {paged_summary['peak_mem_bytes'] / 2**30:.2f}), pool "
+        f"{summary['pool_bytes'] / 1e9:.4f} GB; noc {noc_stats}; {same} of "
+        f"{len(out)} requests token-identical to phase 5's run (not gated; "
+        f"first differing token of each request, sorted: {first})")
+    summary.update(prefix_hit_tokens=stats["prefix_hit_tokens"], same_as_paged=same,
+                   first_difference=first, **noc_stats)
     return launches, summary
 
 
@@ -2124,7 +2495,6 @@ def main() -> None:
     rows += dense_rows
 
     q8_rows, q8_float_ms = int8_kernel_phase(torch, timer, cfg, pool)
-    del pool
     q8_parity = int8_parity_phase(torch, reduced(cfg))
     q8_counters = {
         **counters,
@@ -2135,6 +2505,19 @@ def main() -> None:
     for row in q8_rows:
         row["launches"] = q8_launches[row["name"]]
     rows += q8_rows
+
+    seq_rows, seq_readings = shard_kernel_phase(torch, timer, cfg, pool)
+    del pool
+    shard_parity_phase(torch, reduced(cfg))
+    seq_counters = {
+        **q8_counters,
+        "paged_decode_attention_skip_null": Counter(decode_attention, "shard_launches"),
+        "paged_prefill_attention_skip_null": Counter(prefill_attention, "shard_launches")}
+    seq_launches, seq_serve = shard_serve_phase(torch, cfg, params, seq_counters,
+                                                paged_out, serve)
+    for row in seq_rows:
+        row["launches"] = seq_launches[row["name"]]
+    rows += seq_rows
     del params
     torch.cuda.empty_cache()
 
@@ -2187,7 +2570,8 @@ def main() -> None:
              build_s=info["seconds"], rmsnorm_first_reading=rmsnorm_first,
              serve=serve, dense_serve=dense_serve, int8_serve=q8_serve,
              int8_launches=q8_launches, int8_parity=q8_parity,
-             int8_float_kernel_ms=q8_float_ms,
+             int8_float_kernel_ms=q8_float_ms, seq_serve=seq_serve,
+             seq_launches=seq_launches, seq_readings=seq_readings,
              dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
              rwkv_launches=rwkv_launches, zamba_train=zamba_train,

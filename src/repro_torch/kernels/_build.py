@@ -44,9 +44,9 @@ _SIGNATURES = {
     "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_rope": (_I, _P, _P, _P, _I64, _I, _I, _F, _P),
     "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _P),
-    "repro_paged_attention": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                              _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P),
+    "repro_paged_attention": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64,
+                              _I, _I, _I, _I, _P),
     "repro_rmsnorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _P),
     "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -163,16 +163,23 @@ def dtype_code(t: torch.Tensor) -> int:
     return code
 
 
-def require_cuda(name: str, **tensors) -> None:
+def require_cuda(name: str, views=(), **tensors) -> None:
     """The checks every wrapper makes before it hands pointers to a kernel:
-    each tensor lies on the same CUDA device and is contiguous."""
+    each tensor lies on the same CUDA device and is contiguous.  A tensor
+    named in ``views`` (a shard's slice of a page pool, which the kernel
+    reads through its leading stride) need only be dense past its leading
+    dim."""
     devices = {t.device for t in tensors.values()}
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}; the kernel "
                              f"takes CUDA tensors (CPU tensors go to the plain "
                              f"version through repro_torch.kernels.ops)")
-        if not t.is_contiguous():
+        if arg in views:
+            if t.shape[0] and not t[0].is_contiguous():
+                raise ValueError(f"{name}: {arg} must be dense past its "
+                                 f"leading dim")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     if len(devices) > 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")

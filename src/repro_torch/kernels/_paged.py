@@ -12,6 +12,12 @@ for itself.
 An int8 pool passes ``k_scales`` / ``v_scales`` [KvH, NB] f32, one scale
 per (kv head, page); the kernel's int8-page variant dequantizes each value
 as it stages it (q and the output keep their f32 or bf16 type).
+
+A sequence-sharded pool passes each shard's view of the pool,
+``pages[:, s*nbl:(s+1)*nbl]`` (and the same slice of the scales), with the
+shard-local table and ``skip_null``: the kernel reads the view through its
+kv-head stride, no copy, and masks the keys of zero table entries.  Decode
+may shift key positions by ``kv_offset``.
 """
 from __future__ import annotations
 
@@ -34,7 +40,6 @@ class Geometry:
     c: int
     h: int
     kvh: int
-    nb: int
     bs: int
     d: int
     mb: int
@@ -48,7 +53,7 @@ class Geometry:
 def geometry(q_shape, pages_shape, table_shape) -> Geometry:
     """Validate shapes; q [B, C, H, D], pages [KvH, NB, BS, D], table [B, MB]."""
     b, c, h, d = q_shape
-    kvh, nb, bs, pd = pages_shape
+    kvh, _, bs, pd = pages_shape
     tb, mb = table_shape
     if pd != d or tb != b:
         raise ValueError(f"paged attention: q {tuple(q_shape)}, pages "
@@ -59,7 +64,7 @@ def geometry(q_shape, pages_shape, table_shape) -> Geometry:
                          f"of {kvh} kv heads")
     if d not in HEAD_DIMS:
         raise ValueError(f"paged attention: head dim {d} not in {HEAD_DIMS}")
-    return Geometry(b, c, h, kvh, nb, bs, d, mb,
+    return Geometry(b, c, h, kvh, bs, d, mb,
                     n_tiles=-(-(c * (h // kvh)) // ROWS))
 
 
@@ -101,21 +106,44 @@ def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
             for t in range(g.n_tiles)]
 
 
+def pool_strides(k_pages, v_pages, k_scales=None, v_scales=None):
+    """The kv-head strides (elements) the kernel reads a pool, or a shard's
+    view of one, through: (pages', scales' or 0).  K and V must share
+    them."""
+    if k_pages.stride() != v_pages.stride():
+        raise ValueError(f"paged attention: k_pages and v_pages strides "
+                         f"{k_pages.stride()} / {v_pages.stride()} differ")
+    if k_scales is None:
+        return k_pages.stride(0), 0
+    if k_scales.stride() != v_scales.stride():
+        raise ValueError(f"paged attention: k_scales and v_scales strides "
+                         f"{k_scales.stride()} / {v_scales.stride()} differ")
+    return k_pages.stride(0), k_scales.stride(0)
+
+
 def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
            tables: torch.Tensor, lens: Optional[torch.Tensor], q_offset: int,
            total: int, *, partials: bool,
            k_scales: Optional[torch.Tensor] = None,
-           v_scales: Optional[torch.Tensor] = None):
+           v_scales: Optional[torch.Tensor] = None,
+           kv_offset: int = 0, skip_null: bool = False):
     """One kernel launch.  q [B, C, H, D]; tables [B, MB] int32; decode
-    passes ``lens`` [B] int32, prefill ``q_offset`` and ``total``; an int8
-    pool passes its scales.  Returns the normalized output, or the f32
-    partials (acc, m, l)."""
+    passes ``lens`` [B] int32 (and may pass ``kv_offset``), prefill
+    ``q_offset`` and ``total``; an int8 pool passes its scales; the pages
+    (and scales) may be a shard's view of a pool, dense past the kv-head
+    dim, with ``skip_null`` for its shard-local table.  Returns the
+    normalized output, or the f32 partials (acc, m, l)."""
     g = geometry(q.shape, k_pages.shape, tables.shape)
     if k_pages.shape != v_pages.shape:
         raise ValueError("paged attention: k_pages and v_pages differ in shape")
     int8 = check_scales(q.dtype, k_pages, v_pages, k_scales, v_scales)
     if tables.dtype != torch.int32:
         raise ValueError(f"paged attention: tables must be int32, got {tables.dtype}")
+    if kv_offset < 0 or (kv_offset and lens is None):
+        raise ValueError(f"paged attention: kv_offset {kv_offset} (decode "
+                         f"only, >= 0)")
+    page_stride, scale_stride = pool_strides(k_pages, v_pages, k_scales,
+                                             v_scales)
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables)
     if int8:
         tensors.update(k_scales=k_scales, v_scales=v_scales)
@@ -123,7 +151,9 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         if lens.shape != (g.b,) or lens.dtype != torch.int32:
             raise ValueError(f"paged attention: lengths must be [{g.b}] int32")
         tensors["lens"] = lens
-    _build.require_cuda("paged_attention", **tensors)
+    _build.require_cuda("paged_attention",
+                        views=("k_pages", "v_pages", "k_scales", "v_scales"),
+                        **tensors)
     if partials:
         acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -139,7 +169,8 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None, tables.data_ptr(),
         None if lens is None else lens.data_ptr(), int(q_offset), int(total),
-        *ptrs, g.b, g.c, g.h, g.kvh, g.nb, g.bs, g.d, g.mb, g.n_tiles,
+        int(kv_offset), int(bool(skip_null)), *ptrs, g.b, g.c, g.h, g.kvh,
+        page_stride, scale_stride, g.bs, g.d, g.mb, g.n_tiles,
         _build.stream_ptr(q))
     _build.check("paged_attention", code)
     return (acc, m, l) if partials else out

@@ -34,6 +34,25 @@
 // forms, rounded once -- so everything after it (online softmax, masking,
 // partials, the causal tile end) is the float pool's code unchanged.
 //
+// Sequence-sharded pools (the TPU kernels' skip_null and kv_offset modes,
+// decode_attention.py:219,235-237, prefill_attention.py:142-146): a shard
+// is the view pages[:, s*nbl:(s+1)*nbl] of the one pool, read in place
+// through the kv-head strides `page_stride` / `scale_stride` (elements),
+// with its shard-local table.  With `skip_null` set, a key whose table
+// entry is 0 (a page another shard owns) is masked and its K/V bytes are
+// never loaded; the test is per key, since a 32-key step straddles two
+// pages at BS 16, and a step none of whose keys is live is skipped whole.
+// `kv_offset` (decode) puts key j of the table at global position
+// kv_offset + j, live below min(len, kv_offset + MB * BS).  Masked keys
+// still add expf(-1e30 - m) to a row's sums while its m is -1e30; the first
+// live key's corr = 0 wipes that, and a row that never sees one (m still
+// -1e30) is written as the identity (0, -1e30, 0).  Both modes are runtime
+// arguments, so the instantiations stay those of the float and int8 pools;
+// with skip_null off and kv_offset 0 every row gets the bits it got before.
+// Each step's page ids are looked up once per key (a step ahead, hiding the
+// load) and published in shared memory for the staging loop, which then
+// needs no table load or division per element.
+//
 // Bound on the H100: bytes.  Every live K/V byte is read once per (row tile,
 // kv head); the products run on the CUDA cores in f32.  This first version
 // keeps a simple load -> sync -> compute loop with scalar loads (one int8
@@ -58,9 +77,11 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                        const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales, const int* __restrict__ tables,
                        const int* __restrict__ lens, int q_offset, int total,
-                       T* __restrict__ out, float* __restrict__ acc_out,
-                       float* __restrict__ m_out, float* __restrict__ l_out, int C, int H,
-                       int KvH, int NB, int BS, int MB, float scale) {
+                       int kv_offset, int skip_null, T* __restrict__ out,
+                       float* __restrict__ acc_out, float* __restrict__ m_out,
+                       float* __restrict__ l_out, int C, int H, int KvH,
+                       int64_t page_stride, int64_t scale_stride, int BS, int MB,
+                       float scale) {
   constexpr int kDimsPerLane = (D + 31) / 32;
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -68,19 +89,22 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int n_rows = C * G;
   const int row0 = tile * kRows;
 
-  // decode: per-sequence length; prefill: host scalars (total pre-clamped)
+  // decode: per-sequence length; prefill: host scalars (total pre-clamped).
+  // qoff and tot are global positions; the walk runs over table keys
+  // [0, tile_end), key j at global position kv_offset + j
   int qoff = q_offset, tot = total;
   if (lens != nullptr) {
     const int len = lens[b];
     qoff = len - 1;
-    tot = min(len, MB * BS);
+    tot = min(len, kv_offset + MB * BS);
   }
   const int last_row = min(row0 + kRows, n_rows) - 1;
-  const int tile_end = min(tot, qoff + last_row / G + 1);
+  const int tile_end = min(tot, qoff + last_row / G + 1) - kv_offset;
 
   __shared__ float q_s[kRows][D];
   __shared__ float k_s[kKeys][D + 1];
   __shared__ float v_s[kKeys][D];
+  __shared__ int page_s[kKeys];  // the step's page per key; -1: not loaded
   const int* table = tables + static_cast<int64_t>(b) * MB;
 
   for (int i = threadIdx.x; i < kRows * D; i += kWarps * 32) {
@@ -106,19 +130,34 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] = 0.f;
   }
 
-  const int64_t head_base = static_cast<int64_t>(kvh) * NB * BS * D;
+  const int64_t head_base = static_cast<int64_t>(kvh) * page_stride;
+  // table entry of lane's key in the next step, loaded a step ahead so that
+  // its latency hides behind the step before
+  int next_tp = lane < tile_end ? table[lane / BS] : 0;
   for (int base = 0; base < tile_end; base += kKeys) {
-    __syncthreads();  // the previous step's reads (and the q staging) are done
+    // lane's key of this step: its page if the key is inside the walk and,
+    // under skip_null, on a page this shard owns (one table lookup per key,
+    // never per step); warp 0 publishes the step's pages for the staging
+    // loop, whose reads of the last step's ended at its second barrier
+    const int key = base + lane;
+    const int tp = next_tp;
+    const int page = key < tile_end && (!skip_null || tp != 0) ? tp : -1;
+    next_tp = key + kKeys < tile_end ? table[(key + kKeys) / BS] : 0;
+    if (warp == 0) page_s[lane] = page;
+    const bool live = page >= 0;
+    // the previous step's reads (and the q staging) are done; a step with
+    // no live key changes no row's (acc, m, l) and is skipped
+    if (!__syncthreads_or(live)) continue;
     for (int i = threadIdx.x; i < kKeys * D; i += kWarps * 32) {
       const int j = i / D, d = i % D, kpos = base + j;
       float kv = 0.f, vv = 0.f;
-      if (kpos < tile_end) {
-        const int page = table[kpos / BS];
-        const int64_t off = head_base + (static_cast<int64_t>(page) * BS + kpos % BS) * D + d;
+      const int pg = page_s[j];
+      if (pg >= 0) {
+        const int64_t off = head_base + (static_cast<int64_t>(pg) * BS + kpos % BS) * D + d;
         kv = repro::to_f32(k_pages[off]);
         vv = repro::to_f32(v_pages[off]);
         if constexpr (kInt8) {  // dequantize: int8 * (kv head, page) scale
-          const int64_t si = static_cast<int64_t>(kvh) * NB + page;
+          const int64_t si = static_cast<int64_t>(kvh) * scale_stride + pg;
           kv *= k_scales[si];
           vv *= v_scales[si];
         }
@@ -138,11 +177,11 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] += q_s[wrow0 + rr][d] * kd;
     }
-    const int kpos = base + lane;
+    const int kpos = kv_offset + key;  // global position
     float p[kRowsPerWarp];
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const bool valid = kpos <= qpos[rr] && kpos < tot;
+      const bool valid = live && kpos <= qpos[rr] && kpos < tot;
       const float sv = valid ? s[rr] * scale : kNegInf;
       const float m_new = fmaxf(m[rr], repro::warp_max(sv));
       p[rr] = expf(sv - m_new);
@@ -170,6 +209,11 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = row0 + wrow0 + rr;
     if (row >= n_rows) continue;
+    if (m[rr] == kNegInf) {  // the row saw no key: the combine identity
+      l[rr] = 0.f;
+#pragma unroll
+      for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] = 0.f;
+    }
     const int pos = row / G, head = kvh * G + row % G;
     const int64_t idx = (static_cast<int64_t>(b) * C + pos) * H + head;
     if (out != nullptr) {
@@ -197,15 +241,15 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 template <typename T, typename P>
 int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* bt, const int* lens, int q_offset,
-           int total, void* out, float* acc, float* m, float* l, int C, int H, int KvH, int NB,
-           int BS, int MB) {
+           int total, int kv_offset, int skip_null, void* out, float* acc, float* m, float* l,
+           int C, int H, int KvH, int64_t page_stride, int64_t scale_stride, int BS, int MB) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 #define REPRO_PAGED_CASE(DIM)                                                                 \
   case DIM:                                                                                   \
     paged_attention_kernel<T, P, DIM><<<grid, kWarps * 32, 0, s>>>(                           \
         static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks,   \
-        vs, bt, lens, q_offset, total, static_cast<T*>(out), acc, m, l, C, H, KvH, NB, BS, MB, \
-        scale);                                                                               \
+        vs, bt, lens, q_offset, total, kv_offset, skip_null, static_cast<T*>(out), acc, m, l, \
+        C, H, KvH, page_stride, scale_stride, BS, MB, scale);                                \
     return cudaSuccess;
   switch (D) {
     REPRO_PAGED_CASE(16)
@@ -220,17 +264,21 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, cons
 
 // q [B, C, H, D] of type `dtype`; k_pages, v_pages [KvH, NB, BS, D] of the
 // same type, or int8 when k_scales / v_scales [KvH, NB] f32 are given (both
-// NULL for a float pool); tables [B, MB] int32.  Decode passes lens [B]
-// (q_offset and total unused); prefill passes lens = NULL with q_offset and
-// total = min(q_offset + length, MB * BS).  Either out [B, C, H, D]
-// (normalised, element type) or the f32 partials acc [B, C, H, D], m and l
-// [B, C, H] are written; the other is NULL.
+// NULL for a float pool), each dense but for its kv-head stride
+// (page_stride, scale_stride elements: a shard's view of the pool); tables
+// [B, MB] int32.  Decode passes lens [B] (q_offset and total unused) and
+// kv_offset; prefill passes lens = NULL with q_offset, total = min(q_offset
+// + length, MB * BS) and kv_offset 0.  skip_null nonzero masks the keys of
+// zero table entries.  Either out [B, C, H, D] (normalised, element type)
+// or the f32 partials acc [B, C, H, D], m and l [B, C, H] are written; the
+// other is NULL.
 extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pages,
                                      const void* v_pages, const float* k_scales,
                                      const float* v_scales, const int* tables, const int* lens,
-                                     int q_offset, int total, void* out, float* acc, float* m,
-                                     float* l, int B, int C, int H, int KvH, int NB, int BS,
-                                     int D, int MB, int n_tiles, void* stream) {
+                                     int q_offset, int total, int kv_offset, int skip_null,
+                                     void* out, float* acc, float* m, float* l, int B, int C,
+                                     int H, int KvH, int64_t page_stride, int64_t scale_stride,
+                                     int BS, int D, int MB, int n_tiles, void* stream) {
   if (B <= 0 || n_tiles <= 0) return cudaSuccess;
   if ((k_scales == nullptr) != (v_scales == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -238,9 +286,11 @@ extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pag
   REPRO_DISPATCH_DTYPE(dtype, T, {
     const int rc = k_scales != nullptr
         ? launch<T, int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables, lens,
-                            q_offset, total, out, acc, m, l, C, H, KvH, NB, BS, MB)
+                            q_offset, total, kv_offset, skip_null, out, acc, m, l, C, H, KvH,
+                            page_stride, scale_stride, BS, MB)
         : launch<T, T>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables, lens,
-                       q_offset, total, out, acc, m, l, C, H, KvH, NB, BS, MB);
+                       q_offset, total, kv_offset, skip_null, out, acc, m, l, C, H, KvH,
+                       page_stride, scale_stride, BS, MB);
     if (rc != cudaSuccess) return rc;
   });
   return cudaGetLastError();

@@ -19,8 +19,13 @@ Ported here: the fp pool and the int8 pool (pages int8 with ``k_scales`` /
 ``v_scales`` [KvH, NB] f32, one per (kv head, page), dequantized as the
 kernel stages each value: the TPU kernel's quantized branch, :166-230),
 normalized output and ``(acc, m, l)`` partials (an empty row is ``(0,
--1e30, 0)``).  ``skip_null`` and ``kv_offset`` (sequence-sharded pools)
-come with a later slice.
+-1e30, 0)``), and the sequence-sharded pool's modes of
+``paged_decode_attention_partial`` (:327; ``skip_null`` and ``kv_offset``,
+:219, :235-237): a shard's view of the pool is read through its kv-head
+stride, a zero entry of its shard-local table is masked and its bytes
+never loaded, and key ``j`` of the table sits at global position
+``kv_offset + j``.  A row all of whose live pages another shard owns
+returns the combine identity.
 
 The dense slab replaces the TPU kernel's ``_decode`` (``pallas_call`` at
 :114, behind ``decode_attention`` :143 and ``decode_attention_partial``
@@ -44,20 +49,27 @@ from repro_torch.kernels import _build, _paged
 
 launches = 0         # paged kernel launches over a float pool
 q8_launches = 0      # paged kernel launches over an int8 pool (its variant)
+shard_launches = 0     # skip_null launches over a shard of a float pool
+shard_q8_launches = 0  # skip_null launches over a shard of an int8 pool
 dense_launches = 0   # dense-slab kernel launches
 
 DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
 
 
 def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
-            k_scales, v_scales):
-    global launches, q8_launches
+            k_scales, v_scales, kv_offset: int = 0, skip_null: bool = False):
+    global launches, q8_launches, shard_launches, shard_q8_launches
     if q.dim() != 3:
         raise ValueError(f"paged decode: q must be [B, H, D], got {tuple(q.shape)}")
     res = _paged.launch(q[:, None], k_pages, v_pages, block_tables, lengths,
                         0, 0, partials=partials, k_scales=k_scales,
-                        v_scales=v_scales)
-    if k_scales is None:
+                        v_scales=v_scales, kv_offset=kv_offset,
+                        skip_null=skip_null)
+    if skip_null and k_scales is None:
+        shard_launches += 1
+    elif skip_null:
+        shard_q8_launches += 1
+    elif k_scales is None:
         launches += 1
     else:
         q8_launches += 1
@@ -81,10 +93,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, lengths,
-                                   k_scales=None, v_scales=None):
-    """(acc f32 [B,H,D], m [B,H], l [B,H]) for the softmax combine."""
+                                   k_scales=None, v_scales=None,
+                                   kv_offset: int = 0, skip_null: bool = False):
+    """(acc f32 [B,H,D], m [B,H], l [B,H]) for the softmax combine.  The
+    pages (and scales) may be a shard's view of a pool, dense past the
+    kv-head dim; ``skip_null`` masks the keys of zero table entries, and
+    ``kv_offset`` puts key ``j`` of the table at global position
+    ``kv_offset + j`` (live below ``min(len, kv_offset + MB*BS)``)."""
     return _decode(q, k_pages, v_pages, block_tables, lengths, True,
-                   k_scales, v_scales)
+                   k_scales, v_scales, kv_offset, skip_null)
 
 
 def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,

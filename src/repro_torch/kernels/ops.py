@@ -116,6 +116,44 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, *, lengths,
                                       k_scales, v_scales)
 
 
+def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, *,
+                                   lengths, kv_offset: int = 0,
+                                   skip_null: bool = False, k_scales=None,
+                                   v_scales=None):
+    """(acc f32 [B, H, D], m [B, H], l [B, H]) for the softmax combine.  The
+    pages may be a shard's view of a pool; ``skip_null`` masks the keys of
+    zero table entries (a shard-local table's foreign pages), ``kv_offset``
+    shifts key positions.  On the CPU a row with no valid key comes out as
+    the plain version's ``(sum of v, -1e30, count)``, on the card as the
+    kernel's ``(0, -1e30, 0)``: both weigh nothing in a combine beside a
+    row that sees a key."""
+    if _on_cpu(q):
+        return ref.paged_decode_attention_partial(
+            q, k_pages, v_pages, block_tables, lengths=lengths,
+            kv_offset=kv_offset, skip_null=skip_null, k_scales=k_scales,
+            v_scales=v_scales)
+    return _da.paged_decode_attention_partial(
+        q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales,
+        kv_offset, skip_null)
+
+
+def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
+                                    q_offset: int, length: int,
+                                    skip_null: bool = False, k_scales=None,
+                                    v_scales=None):
+    """(acc f32 [1, C, H, D], m [1, C, H], l [1, C, H]) of one prefill
+    chunk for the softmax combine, as :func:`paged_decode_attention_partial`
+    (``skip_null`` over a shard's view and its local table)."""
+    if _on_cpu(q):
+        return ref.paged_prefill_attention_partial(
+            q, k_pages, v_pages, block_table, q_offset=q_offset,
+            length=length, skip_null=skip_null, k_scales=k_scales,
+            v_scales=v_scales)
+    return _pf.paged_prefill_attention_partial(
+        q, k_pages, v_pages, block_table, q_offset=q_offset, length=length,
+        skip_null=skip_null, k_scales=k_scales, v_scales=v_scales)
+
+
 def paged_prefill_attention(q, k_pages, v_pages, block_table, *, q_offset: int,
                             length: int, k_scales=None, v_scales=None):
     """Prefill-chunk attention over paged KV (chunk K/V already scattered).

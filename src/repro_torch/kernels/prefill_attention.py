@@ -19,7 +19,11 @@ Because the query tile is fixed, no chunk size can overflow shared memory
 ``q_tile_vmem_bytes``) has no counterpart.  An int8 pool (pages int8 with
 ``k_scales`` / ``v_scales`` [KvH, NB] f32) runs the kernel's int8-page
 variant, which dequantizes each value as it stages it (the TPU kernel's
-quantized branch, :165-170).  ``skip_null`` comes with a later slice.
+quantized branch, :165-170).  ``skip_null`` (:142-146, a sequence-sharded
+pool): the pages are a shard's view of the pool, read through their
+kv-head stride, and a zero entry of the shard-local table is masked and its
+bytes never loaded; a row that sees no owned key returns ``(0, -1e30,
+0)``.
 """
 from __future__ import annotations
 
@@ -31,11 +35,13 @@ from repro_torch.kernels import _paged
 
 launches = 0      # kernel launches over a float pool
 q8_launches = 0   # kernel launches over an int8 pool (its variant)
+shard_launches = 0      # skip_null launches over a shard of a float pool
+shard_q8_launches = 0   # skip_null launches over a shard of an int8 pool
 
 
 def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
-             k_scales, v_scales):
-    global launches, q8_launches
+             k_scales, v_scales, skip_null=False):
+    global launches, q8_launches, shard_launches, shard_q8_launches
     if q.dim() != 4 or q.shape[0] != 1 or block_table.dim() != 1:
         raise ValueError(f"paged prefill: q must be [1, C, H, D] and the "
                          f"table [MB]; got {tuple(q.shape)}, "
@@ -44,8 +50,13 @@ def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
     total = min(int(q_offset) + int(length), mb * bs)
     res = _paged.launch(q, k_pages, v_pages, block_table[None], None,
                         int(q_offset), total, partials=partials,
-                        k_scales=k_scales, v_scales=v_scales)
-    if k_scales is None:
+                        k_scales=k_scales, v_scales=v_scales,
+                        skip_null=skip_null)
+    if skip_null and k_scales is None:
+        shard_launches += 1
+    elif skip_null:
+        shard_q8_launches += 1
+    elif k_scales is None:
         launches += 1
     else:
         q8_launches += 1
@@ -67,7 +78,10 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
                                     q_offset: int, length: int,
+                                    skip_null: bool = False,
                                     k_scales=None, v_scales=None):
-    """(acc f32 [1,C,H,D], m [1,C,H], l [1,C,H]) for the softmax combine."""
+    """(acc f32 [1,C,H,D], m [1,C,H], l [1,C,H]) for the softmax combine;
+    with ``skip_null`` over a shard's view of the pool and its local
+    table."""
     return _prefill(q, k_pages, v_pages, block_table, q_offset, length, True,
-                    k_scales, v_scales)
+                    k_scales, v_scales, skip_null)

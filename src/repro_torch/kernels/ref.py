@@ -263,11 +263,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def decode_attention_partial(q, k, v, *, lengths: Optional[torch.Tensor] = None,
-                             kv_offset: int = 0) -> Partials:
+                             kv_offset: int = 0,
+                             kv_valid: Optional[torch.Tensor] = None) -> Partials:
     """Single-token attention partials: q [B, H, D]; k, v [B, Sk, KvH, D]
     -> (acc [B, H, D] f32, m [B, H], l [B, H]).  q is cast to the cache's
     dtype and p is rounded to it before the PV product, with f32 sums — the
-    JAX oracle's ``preferred_element_type=f32`` path."""
+    JAX oracle's ``preferred_element_type=f32`` path.  ``kv_valid`` [B, Sk]
+    bool masks keys besides ``lengths``.  A row with no valid key comes out
+    ``(sum of v, -1e30, Sk)``, as the JAX oracle's does (masked keys count
+    at p = 1 there); beside any row that sees a key it weighs nothing."""
     b, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -277,6 +281,8 @@ def decode_attention_partial(q, k, v, *, lengths: Optional[torch.Tensor] = None,
     if lengths is not None:
         valid = kpos[None, :] < lengths[:, None]
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if kv_valid is not None:
+        s = torch.where(kv_valid[:, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
@@ -329,18 +335,26 @@ def gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
 
 def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, *,
                                    lengths: Optional[torch.Tensor] = None,
-                                   kv_offset: int = 0,
+                                   kv_offset: int = 0, skip_null: bool = False,
                                    k_scales: Optional[torch.Tensor] = None,
                                    v_scales: Optional[torch.Tensor] = None
                                    ) -> Partials:
     """Flash-decoding partials over a paged KV cache: q [B, H, D];
-    block_tables [B, MB] -> (acc f32 [B, H, D], m [B, H], l [B, H]).
-    ``k_scales`` / ``v_scales`` [KvH, NB] f32 dequantize an int8 pool page
-    by page (the gathered K/V, and so q and p, are then f32)."""
+    block_tables [B, MB] -> (acc f32 [B, H, D], m [B, H], l [B, H]).  Key
+    ``j`` of the gathered pages sits at global position ``kv_offset + j``.
+    With ``skip_null`` a table entry of 0 contributes nothing even inside
+    the live range: the contract of shard-local tables, where a page that
+    another shard of a sequence-sharded pool owns maps to the local null
+    page.  ``k_scales`` / ``v_scales`` [KvH, NB] f32 dequantize an int8 pool
+    page by page (the gathered K/V, and so q and p, are then f32)."""
     k_lin = gather_pages(k_pages, block_tables, k_scales)
     v_lin = gather_pages(v_pages, block_tables, v_scales)
+    kv_valid = None
+    if skip_null:
+        bt = block_tables if block_tables.dim() == 2 else block_tables[None]
+        kv_valid = torch.repeat_interleave(bt != 0, k_pages.shape[2], dim=-1)
     return decode_attention_partial(q, k_lin, v_lin, lengths=lengths,
-                                    kv_offset=kv_offset)
+                                    kv_offset=kv_offset, kv_valid=kv_valid)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, *,
@@ -355,6 +369,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, *,
 
 def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
                                     q_offset: int, length: int,
+                                    skip_null: bool = False,
                                     k_scales: Optional[torch.Tensor] = None,
                                     v_scales: Optional[torch.Tensor] = None
                                     ) -> Partials:
@@ -363,9 +378,12 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
     q [1, C, H, D] is the chunk at global positions [q_offset, q_offset+C);
     block_table [MB] (the chunk's own K/V already scattered into the pages).
     Causal mask on global positions, KV validity on ``kpos < q_offset +
-    length``.  ``k_scales`` / ``v_scales`` [KvH, NB] f32 dequantize an int8
-    pool.  Returns (acc f32 [1,C,H,D], m [1,C,H], l [1,C,H])."""
+    length``; ``skip_null`` also masks the keys of zero table entries (a
+    shard-local table's foreign pages).  ``k_scales`` / ``v_scales`` [KvH,
+    NB] f32 dequantize an int8 pool.  Returns (acc f32 [1,C,H,D], m
+    [1,C,H], l [1,C,H])."""
     _, c, h, d = q.shape
+    bs = k_pages.shape[2]
     k_lin = gather_pages(k_pages, block_table, k_scales)   # [MB*BS, KvH, D]
     v_lin = gather_pages(v_pages, block_table, v_scales)
     sk = k_lin.shape[0]
@@ -375,6 +393,8 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
     qpos = q_offset + torch.arange(c, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     valid = (kpos <= qpos) & (kpos < q_offset + length)
+    if skip_null:
+        valid = valid & torch.repeat_interleave(block_table != 0, bs)[None, :]
     s = torch.where(valid[:, None, :], s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])

@@ -3,13 +3,16 @@ KV by default, ``--dense`` for the dense-slab baseline) and run a synthetic
 request stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
-      --reduced --device cpu --requests 8 [--dense | --kv-dtype int8]
+      --reduced --device cpu --requests 8 [--dense | --kv-dtype int8] \
+      [--seq-shards 4]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
 Parameters are random, made from ``--seed``.  This slice serves the dense
 family with greedy sampling, from a page pool in the engine dtype or in int8
-(``--kv-dtype int8``).
+(``--kv-dtype int8``), whole or sequence-sharded (``--seq-shards S``: S
+shards of the one pool on the one device, their attention partials merged
+by the NoC tree combine, whose hop and energy totals are printed).
 """
 from __future__ import annotations
 
@@ -57,6 +60,10 @@ def main(argv=None):
                     help="paged-pool storage: fp16 keeps the engine dtype, "
                          "int8 stores quantized pages with per-page-per-head "
                          "scales (paged only)")
+    ap.add_argument("--seq-shards", type=int, default=1,
+                    help="sequence-shard the page pool S ways (a power of "
+                         "two; paged only): S shards of the one pool on the "
+                         "one device, merged by the NoC tree combine")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="max padded tokens (prefill+decode) per tick")
     ap.add_argument("--prefill-buckets", default=None,
@@ -92,7 +99,8 @@ def main(argv=None):
                       max_tokens_per_tick=args.token_budget,
                       paged=False if args.dense else None,
                       prefix_caching=not (args.dense or args.no_prefix_cache),
-                      kv_dtype=args.kv_dtype, **ekw)
+                      kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
+                      **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
@@ -112,6 +120,8 @@ def main(argv=None):
     mode = "dense" if args.dense else "paged"
     if eng.kv_dtype != "fp16":
         mode += f"/{eng.kv_dtype}"
+    if eng.seq_shards > 1:
+        mode += f"/seq{eng.seq_shards}"
     print(f"[serve] {len(done)} requests, {total} tokens, {dt:.2f}s "
           f"({total / dt:.1f} tok/s) on {device}  kv={mode} "
           f"({eng.kv_cache_bytes() / 1e6:.1f} MB), "
@@ -121,6 +131,11 @@ def main(argv=None):
           f"cow_copies={eng.stats['cow_copies']:.0f}, "
           f"gather_volume={eng.stats['gather_page_volume']:.0f}, "
           f"ttft_p50={p50:.1f}ms")
+    if eng.seq_shards > 1:
+        print(f"[serve] noc: combines={eng.stats['noc_combines']:.0f}, "
+              f"hops={eng.stats['noc_hops']:.0f}, "
+              f"bytes={eng.stats['noc_bytes'] / 1e6:.2f}MB, "
+              f"energy={eng.stats['noc_energy_pj'] / 1e6:.2f}uJ")
 
 
 if __name__ == "__main__":

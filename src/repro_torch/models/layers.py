@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import noc
 from repro_torch.kernels import ops
 
 
@@ -79,6 +80,42 @@ def paged_kv_cache_init(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 ScatterIndex = Tuple[torch.Tensor, torch.Tensor]   # (page [N], offset [N])
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded pool: shard s owns global pages [s*nbl, (s+1)*nbl) of the
+# one pool on the card, nbl = NB / S, and its local page 0 (global s*nbl) is
+# its null page.  Its view of a layer's pages is the slice of the NB axis that
+# the JAX package's device s holds (P(None, None, "seq") on [L, KvH, NB, ..]).
+# Attention runs per shard over its view with its shard-local table (foreign
+# pages -> local 0, skipped), and the (acc, m, l) partials merge through
+# core.noc.tree_softmax_combine.  The K/V scatters stay one per layer by
+# global page id: the owned pages (and an int8 pool's scales) come out as
+# the owning shard writes them in JAX; only the null pages of shards 1..S-1
+# differ (JAX writes foreign rows there), and no read ever sees them.
+# ---------------------------------------------------------------------------
+
+def pool_shards(t: Optional[torch.Tensor], n_shards: int) -> list:
+    """The ``n_shards`` views ``t[:, s*nbl:(s+1)*nbl]`` of one layer's pages
+    [KvH, NB, BS, hd] or scales [KvH, NB] (no copy); None (a float pool's
+    scales) gives None for every shard."""
+    if t is None:
+        return [None] * n_shards
+    nbl = t.shape[1] // n_shards
+    return [t[:, s * nbl:(s + 1) * nbl] for s in range(n_shards)]
+
+
+def _sharded_attention(partial, q, kp, vp, ks, vs, local_tables, **kw):
+    """``partial``'s skip_null partials over each shard's view of one
+    layer's pool with its local table (``local_tables`` [S, ...]), merged by
+    the NoC tree combine -> the normalized output, f32."""
+    n = local_tables.shape[0]
+    return noc.tree_softmax_combine([
+        partial(q, kps, vps, lt, skip_null=True, k_scales=kss, v_scales=vss,
+                **kw)
+        for kps, vps, kss, vss, lt in zip(
+            pool_shards(kp, n), pool_shards(vp, n), pool_shards(ks, n),
+            pool_shards(vs, n), local_tables)])
 
 
 def decode_scatter_index(lengths: torch.Tensor, block_tables: torch.Tensor,
@@ -270,7 +307,9 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
                            lengths: torch.Tensor, block_tables: torch.Tensor,
                            scatter_idx: ScatterIndex,
                            ks: Optional[torch.Tensor] = None,
-                           vs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           vs: Optional[torch.Tensor] = None,
+                           local_tables: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """One-token decode against one layer's pages.
 
     x [B,1,d]; kp/vp [KvH, NB, BS, hd] (this layer's pool view); lengths [B]
@@ -279,7 +318,10 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
     written into its page first, then attention spans ``[0, lengths]``.
     ``ks`` / ``vs`` [KvH, NB] f32 (the layer's scale views) mark an int8
     pool: the row goes in through :func:`_decode_scatter_quant` and the
-    kernel dequantizes page by page."""
+    kernel dequantizes page by page.  ``local_tables`` [S, B, MB] int32
+    marks a sequence-sharded pool: each shard's skip_null partials over its
+    view of the pool (:func:`pool_shards`) and its local table, merged by
+    the NoC tree combine, as the JAX package's ``seq_axis`` path does."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, lengths[:, None])
     if ks is None:
@@ -288,9 +330,14 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
     else:
         _decode_scatter_quant(kp, ks, scatter_idx, k[:, 0])
         _decode_scatter_quant(vp, vs, scatter_idx, v[:, 0])
-    o = ops.paged_decode_attention(q[:, 0], kp, vp, block_tables,
-                                   lengths=lengths + 1, k_scales=ks,
-                                   v_scales=vs)
+    if local_tables is None:
+        o = ops.paged_decode_attention(q[:, 0], kp, vp, block_tables,
+                                       lengths=lengths + 1, k_scales=ks,
+                                       v_scales=vs)
+    else:
+        o = _sharded_attention(ops.paged_decode_attention_partial, q[:, 0], kp,
+                               vp, ks, vs, local_tables,
+                               lengths=lengths + 1).to(x.dtype)
     return linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd))
 
 
@@ -299,7 +346,9 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
                             block_table: torch.Tensor, q_offset: int, length: int,
                             scatter_idx: Optional[ScatterIndex],
                             ks: Optional[torch.Tensor] = None,
-                            vs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            vs: Optional[torch.Tensor] = None,
+                            local_tables: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Chunked prefill of one sequence against one layer's pages.
 
     x [1,C,d] is the chunk at global positions [q_offset, q_offset+C);
@@ -309,7 +358,10 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
     slot's table that covers ``q_offset + length``).  ``ks`` / ``vs`` [KvH,
     NB] f32 mark an int8 pool: the chunk goes in through
     :func:`_prefill_scatter_quant` (``scatter_idx`` None) and the kernel
-    dequantizes page by page."""
+    dequantizes page by page.  ``local_tables`` [S, MB] int32 (the
+    shard-local slices of ``block_table``) marks a sequence-sharded pool:
+    skip_null partials per shard, causal on global positions, merged by the
+    NoC tree combine."""
     _, c, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if ks is None:
@@ -318,8 +370,14 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
     else:
         _prefill_scatter_quant(kp, ks, block_table, q_offset, length, k[0])
         _prefill_scatter_quant(vp, vs, block_table, q_offset, length, v[0])
-    o = ops.paged_prefill_attention(q, kp, vp, block_table, q_offset=q_offset,
-                                    length=length, k_scales=ks, v_scales=vs)
+    if local_tables is None:
+        o = ops.paged_prefill_attention(q, kp, vp, block_table,
+                                        q_offset=q_offset, length=length,
+                                        k_scales=ks, v_scales=vs)
+    else:
+        o = _sharded_attention(ops.paged_prefill_attention_partial, q, kp, vp,
+                               ks, vs, local_tables, q_offset=q_offset,
+                               length=length).to(x.dtype)
     return linear(p["wo"], o.reshape(1, c, cfg.n_heads * cfg.hd))
 
 

@@ -317,7 +317,8 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
 
 
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
-                  length: int, q_offset: int, block_table: torch.Tensor):
+                  length: int, q_offset: int, block_table: torch.Tensor,
+                  local_tables: Optional[torch.Tensor] = None):
     """One chunk of a single-sequence prefill into the paged KV cache.
 
     tokens [1, C] (right-padded chunk); ``length`` valid rows; ``q_offset``
@@ -326,7 +327,10 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     attend to the already-paged prefix plus themselves, so repeated calls
     with growing ``q_offset`` reproduce a monolithic prefill.  Returns
     (logits at the chunk's last valid row [1, V], state); the pages in
-    ``state`` (and an int8 pool's scales) are updated in place."""
+    ``state`` (and an int8 pool's scales) are updated in place.
+    ``local_tables`` [S, MB] int32, the shard-local forms of
+    ``block_table``, marks a sequence-sharded pool (the scatter stays on
+    global page ids; attention runs per shard, ``layers.pool_shards``)."""
     require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens)
@@ -340,20 +344,22 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
         ks, vs = _layer_scales(state, li)
         x = _block(cfg, lp, x, lambda h: layers.attention_prefill_paged(
             lp["attn"], h, positions, cfg, kp_all[li], vp_all[li], block_table,
-            q_offset, length, idx, ks, vs))
+            q_offset, length, idx, ks, vs, local_tables))
     logits = _logits(cfg, params, x[:, length - 1:length])
     return logits[:, 0], state
 
 
 def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
-                      lengths: torch.Tensor, block_tables: torch.Tensor):
+                      lengths: torch.Tensor, block_tables: torch.Tensor,
+                      local_tables: Optional[torch.Tensor] = None):
     """Batched one-token decode over the paged KV cache.
 
     tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
     int32.  The K/V row for position ``lengths`` is scattered into its page
     and the paged decode kernel reads through the block table.  Returns
     (logits [B, V], state); pages (and an int8 pool's scales) are updated
-    in place."""
+    in place.  ``local_tables`` [S, B, MB] int32 marks a sequence-sharded
+    pool, as in :func:`prefill_paged`."""
     require_servable(cfg)
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens[:, None])
@@ -362,14 +368,16 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
         ks, vs = _layer_scales(state, li)
         x = _block(cfg, lp, x, lambda h: layers.attention_decode_paged(
             lp["attn"], h, cfg, kp_all[li], vp_all[li], lengths, block_tables,
-            idx, ks, vs))
+            idx, ks, vs, local_tables))
     return _logits(cfg, params, x)[:, 0], state
 
 
 def copy_kv_page(state, src: int, dst: int):
     """Physical-page copy across all layers and heads, in place
     (copy-on-write for a prefix-cache match that ends mid-page); an int8
-    pool's per-page scales copy along with the pages."""
+    pool's per-page scales copy along with the pages.  The ids are global,
+    so on a sequence-sharded pool a copy across shards is one copy in the
+    one pool."""
     for t in state["attn"].values():      # pages [L, KvH, NB, ...], scales
         t[:, :, dst] = t[:, :, src]
     return state
@@ -380,13 +388,17 @@ def copy_kv_page(state, src: int, dst: int):
 # ---------------------------------------------------------------------------
 
 def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
-                        q_offset, block_table):
-    """One chunk of a single-sequence prefill against the serve state."""
+                        q_offset, block_table, local_tables=None):
+    """One chunk of a single-sequence prefill against the serve state
+    (``local_tables``: a sequence-sharded pool's)."""
     return prefill_paged(cfg, params, state, tokens=tokens, length=length,
-                         q_offset=q_offset, block_table=block_table)
+                         q_offset=q_offset, block_table=block_table,
+                         local_tables=local_tables)
 
 
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
-                      block_tables):
-    """Batched one-token decode against the serve state."""
-    return decode_step_paged(cfg, params, state, tokens, lengths, block_tables)
+                      block_tables, local_tables=None):
+    """Batched one-token decode against the serve state (``local_tables``:
+    a sequence-sharded pool's)."""
+    return decode_step_paged(cfg, params, state, tokens, lengths, block_tables,
+                             local_tables)

@@ -8,11 +8,20 @@ block table per sequence) and no fixed-size slot state.  Families with slot
 state (hybrid, ssm) come with a later slice.  The runner also holds the
 dense-slab baseline's state (``[L, slots, max_seq]`` slabs) and its
 monolithic prefill into one slot.
+
+A sequence-sharded pool (``ServeEngine(seq_shards=S)``) stays one state on
+the card: shard ``s`` is the slice ``[s*nbl, (s+1)*nbl)`` of every paged
+tensor's page axis (axis 2 of pages ``[L, KvH, NB, BS, hd]`` and scales
+``[L, KvH, NB]``), the slice the JAX package's ``state_partition_specs``
+puts on device ``s``.  The attention layers cut those views per layer
+(``layers.pool_shards``, no copy), the port's counterpart of the partition
+specs, beside the shard-local tables that ``decode`` / ``prefill_chunk``
+pass on.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -91,19 +100,26 @@ class ModelRunner:
         return logits[:, 0]
 
     def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
-               block_tables: torch.Tensor):
+               block_tables: torch.Tensor,
+               local_tables: Optional[torch.Tensor] = None):
         """Batched one-token decode over every slot.  Retired and
         mid-prefill rows scatter into the null page or into a position the
-        next prefill chunk overwrites; their logits are ignored."""
+        next prefill chunk overwrites; their logits are ignored.
+        ``local_tables`` [S, slots, MB]: a sequence-sharded pool's
+        shard-local tables (``block_tables`` stays global, for the
+        scatter)."""
         return M.serve_decode_step(self.cfg, params, state, tokens, lengths,
-                                   block_tables)
+                                   block_tables, local_tables)
 
     def prefill_chunk(self, params, state, tokens: torch.Tensor, length: int,
-                      q_offset: int, block_table: torch.Tensor):
-        """One right-padded chunk of a single-sequence prefill."""
+                      q_offset: int, block_table: torch.Tensor,
+                      local_tables: Optional[torch.Tensor] = None):
+        """One right-padded chunk of a single-sequence prefill
+        (``local_tables`` [S, MB]: a sequence-sharded pool's)."""
         return M.serve_prefill_chunk(self.cfg, params, state, tokens=tokens,
                                      length=length, q_offset=q_offset,
-                                     block_table=block_table)
+                                     block_table=block_table,
+                                     local_tables=local_tables)
 
     def copy_page(self, state, src: int, dst: int):
         """Physical-page copy across every paged component (copy-on-write

@@ -30,12 +30,29 @@ Port of the JAX package's ``serve/engine.py`` core for the dense family:
   monotonically within its life), and the paged kernels dequantize inside
   the kernel.  The digest chain's seed folds in ``kv_dtype``, as in the
   JAX engine, so the two pools' pages never alias in the registry.
+* **Sequence-sharded page pool** (``seq_shards=S``, a power of two) — the
+  ``BlockAllocator`` splits the pool into S shards of ``nbl = NB / S``
+  pages, each with its own null page at local 0, and places a slot's
+  logical block ``j`` on shard ``j % S`` (round-robin, fill-local when that
+  shard is full), with the JAX engine's free-list order, so block tables
+  match JAX's.  Each decode step and prefill chunk gets the shard-local
+  tables (``BlockAllocator.shard_local``; foreign pages -> local 0), every
+  attention layer runs the skip_null partial kernel once per shard over its
+  view of the pool, and ``core.noc.tree_softmax_combine`` merges the
+  ``(acc, m, l)`` partials — the paper's in-transit NoC softmax, its hop and
+  energy totals in ``stats["noc_*"]``.  Greedy outputs are token-identical
+  to one shard.  Where the JAX engine puts shard s on device s of a ``seq``
+  mesh (and checks the device count), the port keeps the one pool on the
+  one card and shard s is the view of its page axis that device s would
+  hold: NCCL refuses two ranks on one device, so a mesh on one card has
+  nothing to shard, and no device count is checked.  Shards on several
+  cards over ``torch.distributed`` come with the distributed slice.
 
 Not ported in this slice (construction raises if asked for): preemption and
 swap (and with them swapping int8 pages), SLO classes and deadlines,
-prefill/decode roles, sequence sharding, expert parallelism and the expert
-cache, temperature sampling, and a page pool below full capacity (which
-would need preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
+prefill/decode roles, expert parallelism and the expert cache, temperature
+sampling, and a page pool below full capacity (which would need
+preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
 the CUDA prefill kernel's query tile is fixed at 16 rows, so no chunk size
 can overflow its shared memory.
 """
@@ -52,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import noc
 from repro_torch.models import model as M
 from repro_torch.models.runner import ModelRunner
 
@@ -145,17 +163,34 @@ class BlockAllocator:
     """Host-side refcounted physical-page pool, per-slot block tables and the
     prefix-cache registry.  Page 0 is the null sink (never handed out).  A
     registered page whose refcount drops to zero parks in an LRU, still
-    matchable, and is reclaimed (oldest first) only when the free list runs
-    dry."""
+    matchable, and is reclaimed (oldest first) only when the free lists run
+    dry.
+
+    With ``num_shards > 1`` the pool is sequence-sharded: shard ``s`` owns
+    global pages ``[s*nb_local, (s+1)*nb_local)`` and keeps its local page 0
+    (global ``s*nb_local``) as its null sink.  A slot's logical block ``j``
+    prefers shard ``j % num_shards`` and falls back to the next shard with a
+    free page.  The prefix-cache registry keys on content digests, so a
+    cached chain attaches by reference whichever shards hold its pages.
+    The JAX engine's allocator, order for order."""
 
     def __init__(self, num_blocks: int, block_size: int, slots: int,
-                 max_blocks_per_slot: int):
-        if num_blocks < 2:
-            raise ValueError(f"the pool needs >= 1 usable page beyond the null "
-                             f"page (num_blocks={num_blocks})")
+                 max_blocks_per_slot: int, num_shards: int = 1):
+        if num_blocks % num_shards:
+            raise ValueError(f"num_blocks={num_blocks} not divisible by "
+                             f"num_shards={num_shards}")
         self.block_size = block_size
         self.num_blocks = num_blocks
-        self._free = list(range(num_blocks - 1, 0, -1))   # popped lowest first
+        self.num_shards = num_shards
+        self.nb_local = num_blocks // num_shards
+        if self.nb_local < 2:
+            raise ValueError("each shard needs >= 1 usable page beyond its "
+                             f"null page (nb_local={self.nb_local})")
+        # per-shard free lists, popped lowest id first (one shard: 1, 2, ...)
+        self._free_by_shard = [
+            list(range(s * self.nb_local + self.nb_local - 1,
+                       s * self.nb_local, -1))
+            for s in range(num_shards)]
         self.refcount = np.zeros((num_blocks,), np.int32)
         self.table = np.zeros((slots, max_blocks_per_slot), np.int32)
         self.used = np.zeros((slots,), np.int32)
@@ -170,23 +205,43 @@ class BlockAllocator:
     @property
     def free_blocks(self) -> int:
         """Pages grantable right now: truly free + reclaimable cached."""
-        return len(self._free) + len(self._lru)
+        return sum(len(fl) for fl in self._free_by_shard) + len(self._lru)
 
     @property
     def usable_blocks(self) -> int:
-        return self.num_blocks - 1
+        """Pool capacity minus the per-shard null pages."""
+        return self.num_blocks - self.num_shards
 
     @property
     def cached_blocks(self) -> int:
         return len(self._lru)
 
+    def owner(self, page: int) -> int:
+        return page // self.nb_local
+
+    def shard_local(self, table: np.ndarray) -> np.ndarray:
+        """Global-id block table [..., MB] -> per-shard local tables
+        [S, ..., MB]: an entry shard ``s`` owns keeps its local index in
+        row ``s``, every other entry maps to that shard's null page 0 (the
+        kernels' skip_null contract).  One shard returns the table under a
+        leading unit axis."""
+        t = np.asarray(table, np.int64)
+        owner = t // self.nb_local
+        local = (t % self.nb_local).astype(np.int32)
+        out = np.zeros((self.num_shards,) + t.shape, np.int32)
+        for s in range(self.num_shards):
+            np.copyto(out[s], local, where=owner == s)
+        return out
+
     def reset_counters(self) -> None:
         self.pages_allocated = self.pages_freed = 0
         self.pages_shared = self.pages_evicted = 0
 
-    def _reclaim(self) -> Optional[int]:
-        if self._free:
-            return self._free.pop()
+    def _reclaim(self, preferred: int = 0) -> Optional[int]:
+        for i in range(self.num_shards):
+            fl = self._free_by_shard[(preferred + i) % self.num_shards]
+            if fl:
+                return fl.pop()
         if self._lru:                      # evict the coldest cached page
             page, _ = self._lru.popitem(last=False)
             del self._hash_to_page[self._page_hash.pop(page)]
@@ -195,10 +250,12 @@ class BlockAllocator:
         return None
 
     def alloc_page(self, slot: int) -> Optional[int]:
-        """Grant one exclusive page to ``slot``; None if none is grantable."""
+        """Grant one exclusive page to ``slot``, on the round-robin shard of
+        its next logical block when that shard has one; None if none is
+        grantable."""
         if self.used[slot] >= self.table.shape[1]:
             return None
-        page = self._reclaim()
+        page = self._reclaim(int(self.used[slot]) % self.num_shards)
         if page is None:
             return None
         self.refcount[page] = 1
@@ -248,7 +305,7 @@ class BlockAllocator:
             if page in self._page_hash:
                 self._lru[page] = None     # park: matchable until evicted
             else:
-                self._free.append(page)
+                self._free_by_shard[self.owner(page)].append(page)
 
     # -- prefix-cache registry -----------------------------------------
     def register(self, page: int, digest: bytes) -> bool:
@@ -283,7 +340,7 @@ class ServeEngine:
                  max_tokens_per_tick: Optional[int] = None,
                  paged: Optional[bool] = None,
                  prefix_caching: Optional[bool] = None,
-                 kv_dtype: str = "fp16", **later):
+                 kv_dtype: str = "fp16", seq_shards: int = 1, **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
@@ -298,13 +355,15 @@ class ServeEngine:
         ``num_blocks`` then unused).  ``prefix_caching``: share full prompt
         pages across requests (default: on when paged; it needs the pool).
         ``kv_dtype``: page storage, "fp16" (the engine dtype) or "int8"
-        (int8 pages with per-page scales; paged only).  Any other JAX-engine
-        option raises: it belongs to a later slice."""
+        (int8 pages with per-page scales; paged only).  ``seq_shards``:
+        sequence-shard the page pool S ways (a power of two; paged only),
+        each shard's partials merged by the NoC tree combine.  Any other
+        JAX-engine option raises: it belongs to a later slice."""
         if later:
             raise NotImplementedError(
                 f"engine options {sorted(later)} are not ported yet: "
-                f"preemption/swap, SLO classes, roles, sharding and expert "
-                f"options come with later slices of repro_torch")
+                f"preemption/swap, SLO classes, roles and expert options come "
+                f"with later slices of repro_torch")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -326,6 +385,13 @@ class ServeEngine:
         # int8 and fp16 pages never alias in the prefix registry
         self._digest_seed = hashlib.blake2b(
             b"kv_dtype:" + kv_dtype.encode(), digest_size=16).digest()
+        self.seq_shards = int(seq_shards)
+        if self.seq_shards < 1 or (self.seq_shards & (self.seq_shards - 1)):
+            raise ValueError(
+                f"seq_shards must be a power of two, got {seq_shards} "
+                "(the NoC butterfly combine is a recursive-doubling tree)")
+        if self.seq_shards > 1 and not self.paged:
+            raise ValueError("seq_shards > 1 requires the paged KV cache")
 
         bks = sorted({min(b, max_seq) for b in prefill_buckets} | {max_seq})
         self.prefill_buckets = tuple(bks)
@@ -341,16 +407,18 @@ class ServeEngine:
         self.blocks_per_slot = -(-max_seq // block_size)
         self.alloc: Optional[BlockAllocator] = None
         if self.paged:
-            full = 1 + slots * self.blocks_per_slot
+            S = self.seq_shards
+            full = S + slots * self.blocks_per_slot    # a null page per shard
             if num_blocks is None:
                 num_blocks = full
-            elif num_blocks < full:
+            num_blocks = S * -(-num_blocks // S)   # whole shards, as in JAX
+            if num_blocks < full:
                 raise NotImplementedError(
                     f"num_blocks={num_blocks} is below full capacity ({full}); "
                     f"an oversubscribed pool needs preemption, which comes "
                     f"with a later slice of repro_torch")
             self.alloc = BlockAllocator(num_blocks, block_size, slots,
-                                        self.blocks_per_slot)
+                                        self.blocks_per_slot, num_shards=S)
             self.state = self.runner.init_state(num_blocks, block_size,
                                                 self.dtype, self.device)
         else:
@@ -551,15 +619,30 @@ class ServeEngine:
         bt = np.zeros((mb,), np.int32)
         u = min(int(self.alloc.used[slot]), mb)
         bt[:u] = self.alloc.table[slot, :u]
+        S, local = self.seq_shards, None
+        if S > 1:
+            local = self._to_device(self.alloc.shard_local(bt))   # [S, mb]
+            self._account_noc_combine(rows=bucket)
         if self.device.type == "cpu":
-            # the CPU path gathers k and v per layer per chunk (the kernel
-            # reads pages through the table and gathers nothing)
-            self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers
-            self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb
+            # the CPU path gathers k and v per layer per chunk and shard (the
+            # kernel reads pages through the table and gathers nothing)
+            self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers * S
+            self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb * S
         logits, self.state = self.runner.prefill_chunk(
             self.params, self.state, self._to_device(padded), n,
-            req.prefill_pos, self._to_device(bt))
+            req.prefill_pos, self._to_device(bt), local)
         return logits
+
+    def _account_noc_combine(self, rows: int) -> None:
+        """Charge the in-transit combine traffic of one sharded dispatch:
+        one tree_softmax_combine per layer over ``rows`` query rows (the
+        slots for a decode step, the bucket for a prefill chunk)."""
+        cfg, n = self.cfg, self.cfg.n_layers
+        c = noc.softmax_combine_cost(rows, cfg.n_heads, cfg.hd, self.seq_shards)
+        self.stats["noc_combines"] += n
+        self.stats["noc_hops"] += n * c["hops"]
+        self.stats["noc_bytes"] += n * c["bytes"]
+        self.stats["noc_energy_pj"] += n * c["energy_pj"]
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -639,9 +722,14 @@ class ServeEngine:
             if self.paged:
                 for i in live:
                     self._ensure(i, self.lengths[i] + 1)
+                local = None
+                if self.seq_shards > 1:
+                    local = self._to_device(
+                        self.alloc.shard_local(self.alloc.table))
+                    self._account_noc_combine(rows=self.slots)
                 logits, self.state = self.runner.decode(
                     self.params, self.state, self._to_device(toks), lens,
-                    self._to_device(self.alloc.table.copy()))
+                    self._to_device(self.alloc.table.copy()), local)
             else:
                 logits, self.state = M.decode_step(
                     self.cfg, self.params, self.state, self._to_device(toks),
@@ -702,6 +790,11 @@ class ServeEngine:
             "pages_allocated": 0, "pages_freed": 0, "pages_shared": 0,
             "pages_evicted": 0, "gather_pages_calls": 0,
             "gather_page_volume": 0, "peak_active": 0,
+            # the in-transit combine of a sequence-sharded pool: one per
+            # layer per decode step and prefill chunk, costed by
+            # core.noc.softmax_combine_cost
+            "noc_combines": 0, "noc_hops": 0, "noc_bytes": 0,
+            "noc_energy_pj": 0.0,
             "kv_bytes_per_page": (self.runner.page_kv_bytes(
                 self.block_size, self.dtype.itemsize) if self.paged else 0),
         }

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core import noc  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import mamba_chunk as kmamba  # noqa: E402
@@ -30,7 +31,10 @@ from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import rope as krope  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as kwkv  # noqa: E402
 from repro_torch.kernels import swiglu as ksw  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import BlockAllocator  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -748,3 +752,201 @@ def test_curry_kernels(dev, dtype, d):
     assert krn.curry_launches == 1 and ksw.curry_launches == 1
     with pytest.raises(NotImplementedError, match="forward-only"):
         ops.silu_mul(g.requires_grad_(), u, curry_rounds=6)
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded pool: skip_null over a shard's view, kv_offset
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_CASES = [(8, 4, 64, 16), (4, 2, 16, 8), (8, 2, 128, 16)]  # H, KvH, D, BS
+
+
+def _pool(rng, kvh, nb, bs, d, dtype, dev, kind):
+    """(k_pages, v_pages, k_scales, v_scales): float pages in ``dtype``, or
+    int8 pages with their scales."""
+    if kind == "int8":
+        k8, ks, v8, vs = _int8_pool(rng, kvh, nb, bs, d, dev)
+        return k8, v8, ks, vs
+    return (_rand(rng, (kvh, nb, bs, d), dtype, dev),
+            _rand(rng, (kvh, nb, bs, d), dtype, dev), None, None)
+
+
+def _shard_parts_close(got, want, dtype):
+    """A skip_null partial against its plain version: m on every row; l and
+    acc / l on rows that see a key; on rows that see none the kernel's
+    identity (0, -1e30, 0) exactly (the plain version's p = 1 rows differ
+    there and weigh nothing in a combine).  Returns the live rows."""
+    acc, m, l = got
+    wacc, wm, wl = want
+    torch.cuda.synchronize()
+    live = wm > -1e29
+    _close(m, wm, dtype)
+    _close(l[live], wl[live], dtype)
+    _close((acc / l[..., None])[live], (wacc / wl[..., None])[live], dtype)
+    dead = ~live
+    assert bool((acc[dead] == 0).all() and (m[dead] == -1e30).all()
+                and (l[dead] == 0).all())
+    return live
+
+
+def _counts(mod):
+    return (mod.launches, mod.q8_launches, mod.shard_launches,
+            mod.shard_q8_launches)
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs", SHARD_CASES)
+def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs):
+    """Four shards placed round-robin by the allocator: each shard's
+    skip_null partial over its view of the pool against the plain version
+    (sequence 0 has one key, so shards 1-3 give the identity), counted as
+    a shard launch; the tree combine against the unsharded kernel; skip_null
+    over a table with no zero entry bit-equal to skip_null off; and the
+    control, the local tables with skip_null off, caught."""
+    rng = np.random.default_rng(21)
+    b, mb = 5, 6
+    alloc = BlockAllocator(SHARDS + b * mb + 2, bs, b, mb, num_shards=SHARDS)
+    for s in range(b):
+        assert alloc.ensure(s, mb * bs)
+    table = torch.from_numpy(alloc.table).to(dev)
+    local = torch.from_numpy(alloc.shard_local(alloc.table)).to(dev)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, alloc.num_blocks, bs, d, dtype, dev, kind)
+    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, bs + 1], dtype=torch.int32,
+                        device=dev)
+    views = [TL.pool_shards(t, SHARDS) for t in (kp, vp, ks, vs)]
+    n = _counts(kda)
+    parts, bad, dead = [], [], 0
+    for s, (kps, vps, kss, vss) in enumerate(zip(*views)):
+        kw = dict(k_scales=kss, v_scales=vss)
+        got = kda.paged_decode_attention_partial(q, kps, vps, local[s], lens,
+                                                 skip_null=True, **kw)
+        want = ref.paged_decode_attention_partial(q, kps, vps, local[s],
+                                                  lengths=lens, skip_null=True, **kw)
+        dead += int((~_shard_parts_close(got, want, dtype)).sum())
+        parts.append(got)
+        bad.append(kda.paged_decode_attention_partial(q, kps, vps, local[s], lens,
+                                                      **kw))
+    assert dead >= 3 * h
+    i8 = kind == "int8"
+    assert _counts(kda) == (n[0] + SHARDS * (not i8), n[1] + SHARDS * i8,
+                            n[2] + SHARDS * (not i8), n[3] + SHARDS * i8)
+    whole = kda.paged_decode_attention(q, kp, vp, table, lens, ks, vs)
+    _close(noc.tree_softmax_combine(parts).to(dtype), whole, dtype)
+    control = noc.tree_softmax_combine(bad).to(dtype)
+    torch.cuda.synchronize()
+    assert not torch.allclose(control.float(), whole.float(), **TOLS[dtype])
+    on = kda.paged_decode_attention_partial(q, kp, vp, table, lens, skip_null=True,
+                                            k_scales=ks, v_scales=vs)
+    off = kda.paged_decode_attention_partial(q, kp, vp, table, lens,
+                                             k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(on, off))
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d):
+    """Key j of the table at global position 40 + j: lengths below, inside
+    and past the table's 48 keys, skip_null off and on (one table entry 0
+    mid-table); a row below the offset gives the identity."""
+    rng = np.random.default_rng(22)
+    h, kvh, b, mb, nb, bs, off = 8, 2, 4, 3, 12, 16, 40
+    q = _rand(rng, (b, h, d), dtype, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, nb, bs, d, dtype, dev, kind)
+    bt = torch.from_numpy(np.stack([rng.permutation(nb - 1)[:mb] + 1
+                                    for _ in range(b)]).astype(np.int32)).to(dev)
+    bt[2, 1] = 0
+    lens = torch.tensor([30, 41, 70, 100], dtype=torch.int32, device=dev)
+    for skip in (False, True):
+        got = kda.paged_decode_attention_partial(q, kp, vp, bt, lens, ks, vs,
+                                                 off, skip)
+        want = ref.paged_decode_attention_partial(
+            q, kp, vp, bt, lengths=lens, kv_offset=off, skip_null=skip,
+            k_scales=ks, v_scales=vs)
+        live = _shard_parts_close(got, want, dtype)
+        assert not bool(live[0].any()) and bool(live[1:].all())
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
+                                          (8, 2, 128, 16, 33)])
+def test_sharded_paged_prefill_kernel(dev, dtype, kind, h, kvh, d, bs, c):
+    """A chunk's skip_null partials per shard over bucketed prefix slices of
+    a round-robin table, causal on global positions (the first chunk's
+    early rows see no key of shards 1-3), against the plain version; the
+    tree combine against the unsharded kernel; the skip-off control
+    caught."""
+    rng = np.random.default_rng(23)
+    mb = 8
+    alloc = BlockAllocator(SHARDS + mb, bs, 1, mb, num_shards=SHARDS)
+    assert alloc.ensure(0, mb * bs)
+    q = _rand(rng, (1, c, h, d), dtype, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, alloc.num_blocks, bs, d, dtype, dev, kind)
+    views = [TL.pool_shards(t, SHARDS) for t in (kp, vp, ks, vs)]
+    n = _counts(kpf)
+    for qoff, ln in [(0, c), (bs + 3, c), (3 * bs - 2, 1)]:
+        n_live = -(-(qoff + ln) // bs)
+        bt = alloc.table[0, :min(1 << max(n_live - 1, 0).bit_length(), mb)]
+        local = torch.from_numpy(alloc.shard_local(bt)).to(dev)
+        kw = dict(q_offset=qoff, length=ln)
+        parts, bad = [], []
+        for s, (kps, vps, kss, vss) in enumerate(zip(*views)):
+            qkw = dict(kw, k_scales=kss, v_scales=vss)
+            got = kpf.paged_prefill_attention_partial(q, kps, vps, local[s],
+                                                      skip_null=True, **qkw)
+            want = ref.paged_prefill_attention_partial(q, kps, vps, local[s],
+                                                       skip_null=True, **qkw)
+            live = _shard_parts_close([a[0, :ln] for a in got],
+                                      [w[0, :ln] for w in want], dtype)
+            if qoff == 0 and s > 0:
+                assert not bool(live[:min(bs * s, ln)].any())
+            parts.append(got)
+            bad.append(kpf.paged_prefill_attention_partial(q, kps, vps, local[s],
+                                                           **qkw))
+        whole = kpf.paged_prefill_attention(
+            q, kp, vp, torch.from_numpy(bt.copy()).to(dev), k_scales=ks,
+            v_scales=vs, **kw)
+        _close(noc.tree_softmax_combine(parts).to(dtype)[0, :ln], whole[0, :ln],
+               dtype)
+        control = noc.tree_softmax_combine(bad).to(dtype)[0, :ln]
+        torch.cuda.synchronize()
+        assert not torch.allclose(control.float(), whole[0, :ln].float(),
+                                  **TOLS[dtype])
+    i8 = kind == "int8"
+    assert _counts(kpf)[2:] == (n[2] + 3 * SHARDS * (not i8), n[3] + 3 * SHARDS * i8)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+def test_sharded_engine_on_card_matches_cpu(dev, kv_dtype):
+    """Reduced stablelm at fp32 through ServeEngine(seq_shards=4): greedy
+    tokens on the card equal the CPU's and the card's at one shard (a
+    shared prefix with a mid-page copy-on-write across shards); on the
+    card every attention call is a skip_null launch."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gparams = _to(params, dev)
+    rng = np.random.default_rng(24)
+    prefix = rng.integers(2, cfg.vocab_size, 20).tolist()
+    prompts = [list(range(2, 50)), [42], prefix + [9], prefix + [11],
+               list(range(2, 50))]
+    kw = dict(max_seq=64, slots=3, prefill_buckets=(8, 16, 32), block_size=8,
+              kv_dtype=kv_dtype)
+
+    def drain(p, shards):
+        eng = ServeEngine(cfg, p, seq_shards=shards, **kw)
+        for x in prompts:
+            eng.submit(x, max_new_tokens=5)
+        out = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        return out, eng.stats
+
+    before = _counts(kda) + _counts(kpf)
+    card, stats = drain(gparams, SHARDS)
+    after = _counts(kda) + _counts(kpf)
+    assert after[:2] == before[:2] and after[4:6] == before[4:6]
+    assert stats["cow_copies"] >= 1
+    assert card == drain(params, SHARDS)[0] == drain(gparams, 1)[0]

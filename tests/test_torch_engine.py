@@ -129,7 +129,7 @@ def test_allocator_share_release_and_lru():
 def test_engine_refuses_unported_options(granite):
     _, _, tparams = granite
     cfg = reduced(get_config("granite-3-2b"))
-    for kw in (dict(seq_shards=2), dict(preempt_policy="swap"),
+    for kw in (dict(expert_parallel=2), dict(preempt_policy="swap"),
                dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="later slices"):
             TEngine(cfg, tparams, max_seq=32, slots=1, **kw)
