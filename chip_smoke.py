@@ -31,7 +31,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    granite-3-2b's 8 kv heads, and as partials over two shards at
    ``kv_offset`` 512 (combined) and over a shard no length reaches; a
    control shows each tolerance catches a kernel that drops one 32-key
-   step;
+   step; the flash row (``PERF.md`` row 6e) runs the bf16 tensor-core
+   forward, and SDPA's own error against the plain version is logged
+   beside the kernel's (a yardstick, not gated);
 5c. dense parity: reduced stablelm-1.6b at fp32, a batched ``prefill`` and
    two ``decode_step``s over the slabs on the card against the CPU;
 5d. dense serve: the mix of 5 through ``ServeEngine(paged=False)`` with
@@ -42,13 +44,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    slab ``prefill`` against the paged chunked prefill (relative norm), and
    the mix again at fp32 (the same seed), where the two engines must give
    token-identical greedy outputs;
-6. train kernels: the flash-attention forward and backward, the rmsnorm
-   and silu_mul backward passes and rope's backward (the forward kernel at
-   -pos) at full-width granite-3-2b shapes in bf16, held against their plain
-   versions and timed as in 3 (library: SDPA forward/backward, autograd of
-   ``F.rms_norm``); the flash backward twice must give the same bits, and
-   a control shows the flash tolerances catch a forward that skips one
-   key tile;
+6. train kernels: the flash-attention forward and backward (``PERF.md``
+   rows 6 and 6b, the bf16 kernels on ``mma.sync`` tensor cores with
+   ``ldmatrix`` and ``cp.async`` rings), the rmsnorm and silu_mul backward
+   passes and rope's backward (the forward kernel at -pos) at full-width
+   granite-3-2b shapes in bf16, held against their plain versions and
+   timed as in 3 (library: SDPA forward/backward, autograd of
+   ``F.rms_norm``); SDPA's own error against the plain version is logged
+   beside the flash kernels' (a yardstick, not gated); the flash backward
+   twice must give the same bits, and a control shows the flash tolerances
+   catch a forward that skips one 64-key tile;
 7. train parity: reduced granite-3-2b at fp32, every gradient leaf of the
    train loss and one train step on the card against the CPU, then a
    driver run on the card that crashes, resumes from its checkpoint and
@@ -77,8 +82,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    tolerance catches a kernel that drops one chunk's state term, and the
    backward twice gives the same bits;
 13. flash attention at zamba2-7b's head dim 112 (q, k, v [2, 4096, 32,
-   112] bf16, causal), forward and backward held with the flash tolerances
-   of phase 6 and timed beside SDPA;
+   112] bf16, causal; rows 6c and 6d), forward and backward held with the
+   flash tolerances of phase 6 and timed beside SDPA, SDPA's own error
+   logged as in 6;
 14. hybrid train parity: phase 7 for reduced zamba2-7b (2 groups of 2
    Mamba2 layers and a 1-layer tail, P 16, N 8, head dim 16);
 15. hybrid train: zamba2-7b at full width and the depth one card holds
@@ -164,7 +170,10 @@ FLASH_O_TOL = dict(rtol=2 ** -7, atol=4e-3)
 FLASH_LSE_TOL = dict(rtol=0.0, atol=1e-4)
 FLASH_GRAD_TOL = dict(rtol=2 ** -6, atol=4e-3)
 FLASH_REL = 1e-2
-FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu
+FLASH_TILE = 64                                # key tile of csrc/flash_attention.cu (both forms)
+# the redesign of the bf16 flash kernels, named on their rows of the
+# ``{"kernels": ...}`` line with their PERF.md row
+FLASH_DESIGN = "bf16 on mma.sync m16n8k16 tensor cores, ldmatrix, cp.async ring"
 # The dense-slab kernels (5b).  Decode attention at full width: a row of
 # ~500 live keys has |o| ~ 0.1, so ATTN_TOL's 2e-2 would pass a kernel that
 # drops a 32-key step.  The decode and flash-lengths outputs are held like
@@ -349,6 +358,19 @@ def hold(torch, name, got, want, tol, rel=None) -> float:
         fail(f"{name}: kernel and plain version disagree, relative norm error "
              f"{rel_err(torch, got, want)} (tolerance {rel})")
     return err
+
+
+def yardstick(torch, row, names, library, plain) -> None:
+    """Log SDPA's own max |err| and relative norm error against the plain
+    version beside the kernel's (a yardstick for the tolerances, not
+    gated), and keep the largest on the kernel's row."""
+    errs = [(n, float((a.float() - b.float()).abs().max()), rel_err(torch, a, b))
+            for n, a, b in zip(names, library, plain)]
+    log(f"kernel {row['name']}: SDPA against the plain version (yardstick, not "
+        f"gated): " + ", ".join(f"{n} {e:.3g} (rel {r:.2g})" for n, e, r in errs)
+        + f"; the kernel: max|err| {row['max_abs_err']:.3g}")
+    row["library_max_abs_err"] = max(e for _, e, _ in errs)
+    row["library_rel_err"] = max(r for _, _, r in errs)
 
 
 def measure(torch, timer, name, source, replaces, kernel, plain, tol, nbytes,
@@ -781,6 +803,10 @@ def dense_kernel_phase(torch, timer, cfg, lens):
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis),
         note=f"; rel {FLASH_REL}; causal, keys below {FLASH_LEN}; the TPU "
              f"path runs the plain version here", iters=10, plain_iters=3))
+    rows[-1].update(row="6e", design=FLASH_DESIGN)
+    yardstick(torch, rows[-1], ("o",),
+              (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis).transpose(1, 2),),
+              (ref.flash_attention(q, k, v, causal=True, lengths=ln),))
     qf, kf, vf = q.float(), k.float(), v.float()
     err = hold(torch, "flash_attention_lengths f32",
                kfa.flash_attention_fwd(qf, kf, vf, causal=True, lengths=ln)[0],
@@ -1531,6 +1557,12 @@ def flash_rows(torch, timer, q, k, v, do, suffix=""):
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                        enable_gqa=True),
         note=f"; o, lse; rel {FLASH_REL}", iters=10, plain_iters=3)]
+    hd112 = suffix == "_hd112"
+    rows[0].update(row="6c" if hd112 else "6", design=FLASH_DESIGN)
+    want_o = ref.flash_attention_lse(q, k, v, causal=True)[0]
+    yardstick(torch, rows[0], ("o",), (F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),), (want_o,))
+    del want_o
     o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
     first = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
     again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
@@ -1553,7 +1585,11 @@ def flash_rows(torch, timer, q, k, v, do, suffix=""):
         library=lambda: torch.autograd.grad(og, (qg, kg, vg), dog,
                                             retain_graph=True),
         note=f"; dq, dk, dv; rel {FLASH_REL}", iters=10, plain_iters=3))
-    del o, lse, qt, kt, vt, qg, kg, vg, og, dog
+    rows[1].update(row="6d" if hd112 else "6b", design=FLASH_DESIGN)
+    lib = torch.autograd.grad(og, (qg, kg, vg), dog)
+    yardstick(torch, rows[1], ("dq", "dk", "dv"), [g.transpose(1, 2) for g in lib],
+              ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True))
+    del o, lse, qt, kt, vt, qg, kg, vg, og, dog, lib
     return rows
 
 

@@ -8,11 +8,16 @@ sliding ``window``, GQA by ``h // (H / KvH)``, and any sequence length (the
 ragged last tile is masked in the kernel; q, k and v are read in their
 ``[B, S, H|KvH, D]`` layout with no host-side transpose or padding).  The
 TPU kernel has no backward; the JAX package differentiates its oracle.  On
-the H100 both directions are bound by operations once S is a few hundred:
-this first version computes in f32 on the CUDA cores (64 x 64 tiles, a 4 x 4
-register tile per thread), and the backward takes no atomics (dK/dV and dQ
-in separate kernels, each summing in a fixed order), so it is bitwise
-repeatable.
+the H100 both directions are bound by operations once S is a few hundred.
+bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16 with f32
+accumulation; K/V or Q/dO tiles streamed through ``cp.async`` rings and read
+with ``ldmatrix``; softmax statistics, p and ds in f32; the forward's p
+rounded to bf16 as an MMA operand, the backward's p and ds carried as bf16
+hi + lo pairs, two MMAs each); f32 inputs, the fp32 parity runs, compute in
+f32 on the CUDA cores (64 x 64 tiles, a 4 x 4 register tile per thread).
+The backward takes no atomics (dK/dV and dQ in separate kernels, each
+summing in a fixed order), so it is bitwise repeatable.  bf16 tensors must
+start on a 16-byte boundary (any tensor PyTorch allocates does).
 
 The forward also takes a per-sequence key bound ``lengths`` [B] int32, the
 ragged prefill of the dense-slab serving path (keys at ``kpos >= lengths[b]``

@@ -47,8 +47,10 @@ def one_card_config(arch: str):
     return cfg.replace(n_layers=layers) if layers else cfg
 
 
-# kernel-name fragments of the port's CUDA kernels (csrc/*.cu), by group
-GROUPS = (("flash attention forward", ("flash_fwd_kernel",)),
+# kernel-name fragments of the port's CUDA kernels (csrc/*.cu), by group;
+# the flash fragments take both forms (flash_fwd_kernel in f32,
+# flash_fwd_bf16_kernel on the tensor cores; flash_bwd_delta / dkdv / dq)
+GROUPS = (("flash attention forward", ("flash_fwd_",)),
           ("flash attention backward", ("flash_bwd_",)),
           ("wkv6 forward", ("rwkv6_fwd_kernel",)),
           ("wkv6 backward", ("rwkv6_bwd_kernel",)),

@@ -207,6 +207,12 @@ FLASH_CASES = [  # (B, Sq, Sk, H, KvH, D, causal, window)
     (1, 33, 90, 4, 2, 64, False, 20),
     (2, 150, 150, 4, 4, 112, True, None),      # zamba2-7b's head dim
     (1, 70, 70, 4, 2, 112, True, 40),
+    # where the bf16 tensor-core tiling (128- or 64-row query tiles, 64-key
+    # tiles, 32-query backward tiles at head dims 112 and 128) can fail:
+    (1, 300, 300, 8, 2, 64, True, None),       # granite's GQA 4:1, ragged tiles
+    (1, 300, 300, 4, 4, 112, True, 100),       # a window across tile edges
+    (2, 33, 200, 4, 2, 64, False, 25),         # non-causal, Sq < Sk, a window
+    (1, 257, 257, 4, 4, 128, True, None),      # one row past the last tile
 ]
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -239,6 +245,21 @@ def test_flash_attention_kernels(dev, dtype, case):
                                     window=window)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def test_flash_unaligned_base_raises(dev):
+    """The bf16 kernels copy 16-byte chunks: a bf16 tensor that does not
+    start on a 16-byte boundary is refused with a CUDA error, not read
+    wrong."""
+    rng = np.random.default_rng(3)
+    base = _rand(rng, (2 * 64 * 2 * 64 + 1,), torch.bfloat16, dev)
+    q = base[1:].view(2, 64, 2, 64)
+    k = _rand(rng, (2, 64, 2, 64), torch.bfloat16, dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kfa.flash_attention_fwd(q, k, k)
+    o, lse = kfa.flash_attention_fwd(k, k, k)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kfa.flash_attention_bwd(k, k, k, o, lse, q)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -416,6 +437,9 @@ FLASH_LEN_CASES = [  # (B, S, H, KvH, D, lengths)
     (3, 150, 8, 8, 64, [1, 100, 150]),
     (2, 129, 8, 2, 64, [64, 65]),
     (3, 70, 4, 4, 16, [70, 9, 33]),
+    (2, 300, 8, 2, 64, [165, 0]),      # a bound inside a 64-key tile; a bound of 0
+    (2, 200, 4, 4, 128, [130, 64]),    # a bound on a tile edge
+    (2, 257, 4, 2, 128, [200, 0]),
 ]
 
 
@@ -424,7 +448,9 @@ FLASH_LEN_CASES = [  # (B, S, H, KvH, D, lengths)
 def test_flash_lengths_kernel(dev, dtype, case):
     """The flash forward with a per-sequence key bound, causal, against the
     plain version (every row: a row past its length attends the keys below
-    it), through ``ops`` as the dense-slab prefill calls it."""
+    it), through ``ops`` as the dense-slab prefill calls it.  A sequence
+    bounded at 0 reads no key tile and comes out zero (the plain version,
+    as the JAX oracle, counts its masked keys at p = 1: the mean of v)."""
     b, s, h, kvh, d, lens = case
     rng = np.random.default_rng(12)
     q = _rand(rng, (b, s, h, d), dtype, dev)
@@ -432,8 +458,10 @@ def test_flash_lengths_kernel(dev, dtype, case):
     v = _rand(rng, (b, s, kvh, d), dtype, dev)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     n0 = kfa.lengths_launches
-    _close(ops.flash_attention(q, k, v, lengths=ln),
-           ref.flash_attention(q, k, v, lengths=ln), dtype)
+    got = ops.flash_attention(q, k, v, lengths=ln)
+    live = ln > 0
+    _close(got[live], ref.flash_attention(q, k, v, lengths=ln)[live], dtype)
+    assert bool((got[~live] == 0).all())
     assert kfa.lengths_launches == n0 + 1
     with pytest.raises(NotImplementedError, match="forward only"):
         ops.flash_attention(q.requires_grad_(), k, v, lengths=ln)
