@@ -95,18 +95,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    the weight-stationary GEMM at full-width stablelm-1.6b projections in
    bf16 (M 8 at decode: [2048, 2048], [2048, 5632], [5632, 2048], the
    lm_head [2048, 100352]; M 512, a prefill chunk: [2048, 5632], [5632,
-   2048], the lm_head), driven through ``ops.matmul`` with its counter
-   zeroed before and read after (every one launches the kernel; an f32
-   [512, 5632] @ [5632, 2048], a 5.5 MiB panel, and a 3-D input do not),
-   each held against its plain version, twice bitwise equal, its tolerance
-   shown to catch a product that loses its last 32 K rows (a K stage), and
-   timed as in 3 beside ``torch.matmul`` (at M 8 the wide 64 x 64 tile is
-   held and timed beside the narrow decode tile); the JAX sweep's odd
-   shapes in f32 and bf16 and f32 at [512, 2048] @ [2048, 2048]; and the
-   Curry-ALU forms through ``ops`` (rmsnorm [512, 2048] with 1 and 3
-   Newton rounds, silu_mul [512, 5632] with 6 and 8 Taylor rounds, bf16
+   2048], the lm_head), driven through ``ops.matmul`` with its counters
+   zeroed before and read after (every one launches the wgmma route, wgmma
+   fed by TMA through an mbarrier ring; an f32 [512, 5632] @ [5632, 2048],
+   a 5.5 MiB panel, and a 3-D input launch nothing), each held against its
+   plain version, twice bitwise equal, its tolerance shown to catch a
+   product that loses its last 32 K rows (half a 64-deep stage), and timed
+   as in 3 beside ``torch.matmul`` with its TFLOP/s or GB/s and share of
+   the bound; the mma.sync route held, repeated and timed beside it at the
+   same shape; the JAX sweep's odd shapes in f32 and bf16 (bf16 on its
+   planned route and on mma.sync, each counted), an x off 16-byte
+   alignment on the mma.sync route, and f32 at [512, 2048] @ [2048, 2048];
+   bf16 [513, 5624] @ [5624, 136] to an f32 output on both bf16 routes,
+   its mean error against the float64 product held to 2x cuBLAS's f32
+   GEMM's;
+   and the Curry-ALU forms through ``ops`` (rmsnorm [512, 2048] with 1 and
+   3 Newton rounds, silu_mul [512, 5632] with 6 and 8 Taylor rounds, bf16
    and f32), held, with f32 controls that the native kernels fail, and
-   timed beside the native kernels at the same shapes;
+   timed beside the native kernels at the same shapes; after it, row 7
+   (5b's dense decode kernel) is timed again beside SDPA, alternating;
 17. int8 pool (run after 5d, while the serving parameters are on the card):
    phase 3's decode and prefill pools quantized per (kv head, page), both
    int8-page variants of the paged kernel in bf16 and f32 held against
@@ -228,10 +235,16 @@ WKV_WB_STD = 1.0                               # std of the random w_b
 # term to see (the curry controls).
 FID_BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
 GEMM_F32_TOL = dict(rtol=1e-5, atol=4e-5)
+# an f32 output from bf16 inputs at K 5624: each bf16 route's mean |error|
+# against the float64 product, as a multiple of cuBLAS's f32 GEMM's (the
+# kernels add the tensor cores' sum of each K piece on the CUDA cores; the
+# first version, which kept the whole sum on the tensor cores, missed
+# test_torch_cuda.py's 1e-5 hold of the f32 output at this K)
+GEMM_F32_ERR_RATIO = 2.0
 CURRY_F32_TOL = dict(rtol=2e-6, atol=0.0)
-# the GEMM's control drops the last 32 rows of K: one K stage of the
-# 64-row bf16 tile in csrc/matmul.cu, half a stage of the 16-row one (a
-# smaller fault than a lost stage, so a stricter test of the tolerance)
+# the GEMM's control drops the last 32 rows of K: half of one 64-deep stage
+# of the wgmma ring in csrc/matmul.cu (a smaller fault than a lost stage, so
+# a stricter test of the tolerance)
 GEMM_DROPPED_K = 32
 # The int8 pool (17).  The int8 variants and their plain versions form the
 # same f32 products int8 * scale and sum them in another order.  Readings on
@@ -762,6 +775,18 @@ def dense_kernel_phase(torch, timer, cfg, lens):
         library=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
         note=f"; rel {DECODE_REL}; {live} live keys of {slots * max_seq}; the "
              f"plain version rounds p to bf16 before the PV product")]
+
+    # row 7 and SDPA on these inputs (bound now: the names are reused below)
+    again = (lambda q=q, k=k, v=v: kda.decode_attention(q, k, v, lens),
+             lambda qs=qs, ks=ks, vs=vs, mask=mask: F.scaled_dot_product_attention(
+                 qs, ks, vs, attn_mask=mask))
+
+    def row7_again():
+        """Row 7 and SDPA timed again, alternating, later in the run: its
+        first reading's gap to SDPA is inside the spread between calls."""
+        t = [timer(f) for f in again * 2]
+        return (t[0] + t[2]) / 2, (t[1] + t[3]) / 2
+
     dense_holds("bf16", q, k, v, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
     qf, kf, vf = q.float(), k.float(), v.float()
     dense_holds("f32", qf, kf, vf, DENSE_F32_TOL, DENSE_F32_REL, DENSE_F32_REL)
@@ -824,7 +849,7 @@ def dense_kernel_phase(torch, timer, cfg, lens):
         FLASH_O_TOL, FLASH_REL)
     del q, k, v, qt, kt, vt, vis, qf, kf, vf
     torch.cuda.empty_cache()
-    return rows
+    return rows, row7_again
 
 
 def dense_parity_phase(torch, cfg_small):
@@ -2263,10 +2288,18 @@ def fid_tol(torch, dtype, f32_tol):
     return FID_BF16_TOL if dtype == torch.bfloat16 else f32_tol
 
 
+def gemm_counters(kmm):
+    """The GEMM's launch counters: all launches, and each route's."""
+    return {"all": Counter(kmm), **{r: Counter(kmm, f"{r}_launches")
+                                    for r in kmm.ROUTES}}
+
+
 def gemm_odd_shapes(torch, gen):
     """The JAX sweep's shapes in f32 and bf16 (bf16 also to an f32 output)
-    and f32 at a full-width [512, 2048] @ [2048, 2048]: held against the
-    plain version, and twice bitwise equal."""
+    and f32 at a full-width [512, 2048] @ [2048, 2048], each on the route
+    its plan picks (counted) and, in bf16, on the mma.sync route too; an
+    x whose base is 2 bytes off 16-byte alignment on the mma.sync route:
+    held against the plain version, and twice bitwise equal."""
     from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ref
 
@@ -2274,36 +2307,88 @@ def gemm_odd_shapes(torch, gen):
                                (33, 17, 9))
              for dt in (torch.float32, torch.bfloat16)]
     cases.append(((512, 2048, 2048), torch.float32))
+    cases.append(((40, 64, 24), "unaligned"))    # rows TMA could load, x's base not
+    counters = gemm_counters(kmm)
     errs = []
     for (m, k, n), dtype in cases:
+        unaligned = dtype == "unaligned"
+        dtype = torch.bfloat16 if unaligned else dtype
         x, w = gemm_inputs(torch, gen, m, k, n, dtype)
-        tag = f"matmul {str(dtype)[6:]} [{m},{k}] @ [{k},{n}]"
-        got = kmm.weight_stationary_matmul(x, w)
-        errs.append(hold(torch, tag, got, ref.matmul(x, w),
-                         fid_tol(torch, dtype, GEMM_F32_TOL)))
-        if not torch.equal(got, kmm.weight_stationary_matmul(x, w)):
-            fail(f"{tag}: two launches on the same inputs differ")
-        if dtype == torch.bfloat16:
-            hold(torch, tag + " -> f32",
-                 kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32),
-                 ref.matmul(x, w, out_dtype=torch.float32), GEMM_F32_TOL)
-    log("fidelity: matmul at the JAX sweep's shapes (f32, bf16, bf16 -> f32) "
-        "and f32 [512,2048]@[2048,2048] hold, twice bitwise equal; max|err| "
-        + ", ".join(f"{e:.3g}" for e in errs))
+        if unaligned:
+            base = torch.empty(m * k + 1, dtype=dtype, device="cuda")
+            x = base[1:].view(m, k).copy_(x)          # 2 bytes off alignment
+        want = ref.matmul(x, w)
+        auto = kmm.plan(m, n, k, dtype, x.data_ptr() % 16 == 0).route
+        if unaligned and auto != "mma_sync":
+            fail(f"matmul [{m},{k}] @ [{k},{n}] from an unaligned base: planned "
+                 f"on the {auto} route")
+        for route in dict.fromkeys((auto, "mma_sync" if dtype == torch.bfloat16 else auto)):
+            tag = f"matmul {str(dtype)[6:]} [{m},{k}] @ [{k},{n}] ({route})"
+            for c in counters.values():
+                c.reset()
+            got = kmm.weight_stationary_matmul(x, w, route=route)
+            errs.append(hold(torch, tag, got, want,
+                             fid_tol(torch, dtype, GEMM_F32_TOL)))
+            if not torch.equal(got, kmm.weight_stationary_matmul(x, w, route=route)):
+                fail(f"{tag}: two launches on the same inputs differ")
+            if dtype == torch.bfloat16:
+                hold(torch, tag + " -> f32",
+                     kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32,
+                                                  route=route),
+                     ref.matmul(x, w, out_dtype=torch.float32), GEMM_F32_TOL)
+            torch.cuda.synchronize()
+            launched = {r: c.read() for r, c in counters.items()}
+            if launched[route] != launched["all"]:
+                fail(f"{tag}: launches by route {launched}")
+    log("fidelity: matmul at the JAX sweep's shapes (f32, bf16, bf16 -> f32; "
+        "bf16 on its planned route and on mma.sync, and [40,64]@[64,24] from "
+        "a base off 16-byte alignment on mma.sync) and f32 [512,2048]@[2048,2048] hold, twice "
+        "bitwise equal; max|err| " + ", ".join(f"{e:.3g}" for e in errs))
 
 
-def gemm_rows(torch, timer, cfg, gen, tiles):
+def gemm_f32_accuracy(torch, gen):
+    """bf16 [513, 5624] @ [5624, 136] to an f32 output on both bf16 routes,
+    and in f32 through ``ref.matmul`` (cuBLAS's f32 GEMM, no TF32), each
+    against the exact float64 product.  The tensor cores' own f32
+    accumulation truncates, so both kernels sum each K piece there and add
+    it on the CUDA cores; each route's mean |error| must stay within
+    GEMM_F32_ERR_RATIO of the library's."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ref
+
+    m, k, n = 513, 5624, 136
+    x, w = gemm_inputs(torch, gen, m, k, n, torch.bfloat16)
+    exact = x.double() @ w.double()
+    outs = {"library": ref.matmul(x, w, out_dtype=torch.float32)}
+    for route in ("wgmma", "mma_sync"):
+        outs[route] = kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32,
+                                                   route=route)
+    errs = {name: (float((o.double() - exact).abs().mean()),
+                   float((o.double() - exact).abs().max())) for name, o in outs.items()}
+    log(f"matmul bf16 [{m},{k}] @ [{k},{n}] -> f32 against the float64 product, "
+        f"mean / max |err|: " + ", ".join(f"{name} {a:.3g} / {b:.3g}"
+                                          for name, (a, b) in errs.items()))
+    for route in ("wgmma", "mma_sync"):
+        if errs[route][0] > GEMM_F32_ERR_RATIO * errs["library"][0]:
+            fail(f"matmul -> f32 on the {route} route: mean |err| {errs[route][0]:.3g} "
+                 f"against the float64 product, over {GEMM_F32_ERR_RATIO}x the "
+                 f"library's {errs['library'][0]:.3g}")
+
+
+def gemm_rows(torch, timer, cfg, gen, routes):
     """The GEMM at full-width stablelm-1.6b projections in bf16: routed
-    through ``ops.matmul`` with the counter zeroed before and read after,
-    held, twice bitwise equal, a dropped-K-stage control, and timed; at M 8
-    the wide tile is held and timed beside the narrow one (into
-    ``tiles``)."""
+    through ``ops.matmul`` with the counters zeroed before and read after
+    (every launch on the wgmma route), held, twice bitwise equal, a
+    dropped-K control, and timed with its rate and share of the bound; the
+    mma.sync route held and timed beside it at the same shape (into
+    ``routes``)."""
     from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops, ref
 
     bf = torch.bfloat16
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    counter = Counter(kmm)
+    counters = gemm_counters(kmm)
+    counter = counters["all"]
     # the reference's rule routes neither of these to the kernel
     x, w = gemm_inputs(torch, gen, 512, ff, d, torch.float32)
     x3, w3 = gemm_inputs(torch, gen, 512, d, d, bf)
@@ -2331,13 +2416,15 @@ def gemm_rows(torch, timer, cfg, gen, tiles):
         if not ops.weight_panel_fits(2, k, n, 2):
             fail(f"{tag}: the reference's rule does not route a "
                  f"{panel / 2**20:.2f} MiB panel to the kernel")
-        counter.reset()
+        plan = kmm.plan(m, n, k, bf, True)
+        for c in counters.values():
+            c.reset()
         outs = [ops.matmul(x, w) for _ in range(calls)]
         torch.cuda.synchronize()
-        launches = counter.read()
-        if launches != calls:
-            fail(f"{tag}: {calls} ops.matmul calls launched the kernel "
-                 f"{launches} times")
+        launched = {r: c.read() for r, c in counters.items()}
+        if launched["all"] != calls or launched["wgmma"] != calls:
+            fail(f"{tag}: {calls} ops.matmul calls launched {launched} (all "
+                 f"must take the wgmma route)")
         if not all(torch.equal(o, outs[0]) for o in outs):
             fail(f"{tag}: launches on the same inputs differ")
         want = ref.matmul(x, w)
@@ -2351,29 +2438,35 @@ def gemm_rows(torch, timer, cfg, gen, tiles):
             fail(f"{tag} control: the tolerance passes a product that loses "
                  f"its last {bk} K rows")
         rel = rel_err(torch, outs[0], want)
-        note = ""
-        if m <= kmm.NARROW_M:
-            # the wide tile on the same inputs: held, and timed between two
-            # timings of the narrow one that ops.matmul takes
-            hold(torch, tag + " wide tile",
-                 kmm.weight_stationary_matmul(x, w, narrow=False), want,
-                 FID_BF16_TOL)
-            t = [timer(lambda: kmm.weight_stationary_matmul(x, w, narrow=nw))
-                 for nw in (True, False, True)]
-            tiles.append(dict(m=m, k=k, n=n, narrow_ms=(t[0] + t[2]) / 2,
-                              wide_ms=t[1]))
-            note = (f"; narrow tile {t[0]:.4f} / {t[2]:.4f} ms, wide tile "
-                    f"{t[1]:.4f} ms")
-        del outs, want, bad
+        # the mma.sync route at the same shape: held, twice bitwise equal
+        mma = kmm.weight_stationary_matmul(x, w, route="mma_sync")
+        mma_err = hold(torch, tag + " mma.sync route", mma, want, FID_BF16_TOL)
+        if not torch.equal(mma, kmm.weight_stationary_matmul(x, w, route="mma_sync")):
+            fail(f"{tag} mma.sync route: two launches on the same inputs differ")
+        del outs, want, bad, mma
+        nbytes, flops = (m * k + k * n + m * n) * 2, 2 * m * k * n
         name = "weight_stationary_matmul" + ("" if not rows else f"_m{m}_{k}x{n}")
         row = measure(torch, timer, name, src, rep,
                       lambda: kmm.weight_stationary_matmul(x, w),
                       lambda: ref.matmul(x, w), FID_BF16_TOL,
-                      nbytes=(m * k + k * n + m * n) * 2, flops=2 * m * k * n,
+                      nbytes=nbytes, flops=flops,
                       library=lambda: torch.matmul(x, w),
                       note=f"; {what}, panel {panel / 2**20:.2f} MiB, "
-                           f"relative norm {rel:.2g}{note}")
-        row["launches"] = launches
+                           f"relative norm {rel:.2g}; wgmma tile {plan.tile}, "
+                           f"grid {plan.grid}")
+        mma_ms = timer(lambda: kmm.weight_stationary_matmul(x, w, route="mma_sync"))
+        ms = row["ms"]
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if row["bound_by"] == "operations"
+                else f"{nbytes / ms / 1e6:.1f} GB/s")
+        log(f"kernel {name}: {rate}, {row['bound_ms'] / ms:.3f} of the bound "
+            f"({row['bound_by']}), {ms / row['library_ms']:.3f}x torch.matmul; "
+            f"the mma.sync route {mma_ms:.4f} ms (max|err| {mma_err:.3g}), "
+            f"{mma_ms / ms:.2f}x the wgmma route")
+        row.update(launches=launched["wgmma"], gemm_route="wgmma",
+                   tile=list(plan.tile), mma_sync_ms=mma_ms)
+        routes.append(dict(m=m, k=k, n=n, tile=list(plan.tile), grid=list(plan.grid),
+                           wgmma_ms=ms, mma_sync_ms=mma_ms,
+                           torch_ms=row["library_ms"]))
         rows.append(row)
         del x, w
         torch.cuda.empty_cache()
@@ -2463,11 +2556,12 @@ def fidelity_phase(torch, timer, cfg):
     """Phase 16: the weight-stationary GEMM and the Curry-ALU forms."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     gemm_odd_shapes(torch, gen)
-    tiles = []
-    rows = gemm_rows(torch, timer, cfg, gen, tiles)
+    gemm_f32_accuracy(torch, gen)
+    routes = []
+    rows = gemm_rows(torch, timer, cfg, gen, routes)
     rows += curry_rows(torch, timer, cfg, gen)
     torch.cuda.empty_cache()
-    return rows, tiles
+    return rows, routes
 
 
 def main() -> None:
@@ -2518,7 +2612,7 @@ def main() -> None:
     for row in rows:
         row["launches"] = launches[row["name"]]
 
-    dense_rows = dense_kernel_phase(torch, timer, cfg, decode_lens)
+    dense_rows, row7_again = dense_kernel_phase(torch, timer, cfg, decode_lens)
     dense_parity_phase(torch, reduced(cfg))
     dense_counters = {
         **counters, "decode_attention": Counter(decode_attention, "dense_launches"),
@@ -2597,8 +2691,16 @@ def main() -> None:
         row["launches"] = zamba_launches[row["name"].removesuffix("_hd112")]
     rows += hybrid_rows
 
-    fid_rows, gemm_tiles = fidelity_phase(torch, timer, cfg)
+    fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
+    row7 = dense_rows[0]
+    row7["second_ms"], row7["second_library_ms"] = row7_again()
+    del row7_again
+    log(f"kernel decode_attention, read again after phase 16: "
+        f"{row7['second_ms']:.4f} ms against SDPA's {row7['second_library_ms']:.4f} "
+        f"({row7['second_ms'] / row7['second_library_ms']:.3f}x; first reading "
+        f"{row7['ms']:.4f} / {row7['library_ms']:.4f}, "
+        f"{row7['ms'] / row7['library_ms']:.3f}x)")
 
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
@@ -2611,7 +2713,7 @@ def main() -> None:
              dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
              rwkv_launches=rwkv_launches, zamba_train=zamba_train,
-             zamba_launches=zamba_launches, gemm_tiles=gemm_tiles, **kernels),
+             zamba_launches=zamba_launches, gemm_routes=gemm_routes, **kernels),
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

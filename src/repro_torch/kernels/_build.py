@@ -60,7 +60,7 @@ _SIGNATURES = {
                         _I, _I, _I, _P),
     "repro_mamba2_fwd": (_I, *(_P,) * 8, _I, _I, _I, _I, _I, _P),
     "repro_mamba2_bwd": (_I, *(_P,) * 14, _I, _I, _I, _I, _I, _P),
-    "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

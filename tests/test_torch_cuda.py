@@ -673,52 +673,124 @@ def _mm_close(got, want):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(16, 8, 16), (100, 40, 50), (128, 128, 128),
-                                   (33, 17, 9), (8, 24, 40), (5, 130, 70),
-                                   (8, 2048, 2048), (512, 2048, 2048)])
+# (m, k, n) in f32 and bf16: the JAX sweep's odd shapes (ragged M, N and K,
+# rows that are not 16-byte aligned) and full-width stablelm-1.6b [2048,
+# 2048] projections at decode and prefill
+MM_SHAPES = [(16, 8, 16), (100, 40, 50), (128, 128, 128), (33, 17, 9),
+             (8, 24, 40), (5, 130, 70), (8, 2048, 2048), (512, 2048, 2048)]
+# in bf16, shapes for the wgmma route: M 1, 8, 65 and 513 (ragged against
+# its 64- and 128-row tiles), N 8, 72 and 100352 (the lm_head), K 40 and
+# 5624 (not a multiple of its 64-deep stage)
+MM_BF16_SHAPES = [(1, 40, 8), (8, 5624, 72), (65, 40, 72), (513, 5624, 136),
+                  (8, 2048, 100352), (65, 2048, 100352)]
+MM_CASES = ([(dt, *s) for dt in (torch.float32, torch.bfloat16) for s in MM_SHAPES]
+            + [(torch.bfloat16, *s) for s in MM_BF16_SHAPES])
+
+
+def _mm_routes(x, w):
+    """Every bf16 route that can take x @ w, each with the tile the plan
+    picks there."""
+    k, n = w.shape
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return [r for r in ("wgmma", "mma_sync")
+            if r == "mma_sync" or kmm.tma_loadable(k, n, aligned)]
+
+
+@pytest.mark.parametrize("dtype,m,k,n", MM_CASES)
 def test_matmul_kernel(dev, dtype, m, k, n):
-    """The weight-stationary GEMM against the plain version: the JAX sweep's
-    odd shapes (ragged M, N and K, rows that are not 16-byte aligned), both
-    bf16 tiles (M <= 16 and above) and full-width stablelm-1.6b [2048,
-    2048] projections at decode and prefill, each bf16 shape on both
-    tiles; two launches give the same bits, and bf16 inputs give an f32
-    output."""
+    """The weight-stationary GEMM against the plain version at the plan's
+    route and tile; two launches give the same bits; bf16 inputs also give
+    an f32 output, and every bf16 route that can take the shape (wgmma
+    where TMA can load the rows, mma.sync always, on both of its tiles) is
+    held and repeated at the same shape."""
     rng = np.random.default_rng(11)
     x = _rand(rng, (m, k), dtype, dev)
     w = _rand(rng, (k, n), dtype, dev, scale=k ** -0.5)
+    want = ref.matmul(x, w)
     got = kmm.weight_stationary_matmul(x, w)
-    _mm_close(got, ref.matmul(x, w))
+    _mm_close(got, want)
     assert torch.equal(got, kmm.weight_stationary_matmul(x, w))
-    if dtype == torch.bfloat16:
-        _mm_close(kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32),
-                  ref.matmul(x, w, out_dtype=torch.float32))
-        # the other bf16 tile at the same shape
-        _mm_close(kmm.weight_stationary_matmul(x, w, narrow=m > kmm.NARROW_M),
-                  ref.matmul(x, w))
+    if dtype == torch.float32:
+        return
+    _mm_close(kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32),
+              ref.matmul(x, w, out_dtype=torch.float32))
+    for route in _mm_routes(x, w):
+        tiles = kmm.TILES[route] if route == "mma_sync" else (None,)
+        for tile in tiles:
+            got = kmm.weight_stationary_matmul(x, w, route=route, tile=tile)
+            _mm_close(got, want)
+            assert torch.equal(got, kmm.weight_stationary_matmul(x, w, route=route,
+                                                                 tile=tile))
+            _mm_close(kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32,
+                                                   route=route, tile=tile),
+                      ref.matmul(x, w, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("tile", kmm.TILES["wgmma"])
+def test_matmul_wgmma_tiles(dev, tile):
+    """Every wgmma tile at a shape ragged in M, N and K against it (M one
+    tile and 3 rows, N two tiles and 8 columns, K 200 = three 64-deep
+    stages and 8), bf16 and f32 out, twice bitwise equal."""
+    bm, bn = tile
+    m, k, n = bm + 3, 200, 2 * bn + 8
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    w = _rand(rng, (k, n), torch.bfloat16, dev, scale=k ** -0.5)
+    kmm.wgmma_launches = 0
+    got = kmm.weight_stationary_matmul(x, w, route="wgmma", tile=tile)
+    _mm_close(got, ref.matmul(x, w))
+    assert torch.equal(got, kmm.weight_stationary_matmul(x, w, route="wgmma", tile=tile))
+    _mm_close(kmm.weight_stationary_matmul(x, w, out_dtype=torch.float32,
+                                           route="wgmma", tile=tile),
+              ref.matmul(x, w, out_dtype=torch.float32))
+    assert kmm.wgmma_launches == 3
+
+
+@pytest.mark.parametrize("tile", kmm.TILES["wgmma"])
+def test_matmul_wgmma_single_tile_probe(dev, tile):
+    """One [64 or 128, 16] @ [16, BN] product on each wgmma tile, with small
+    integers so that every product and sum is exact in f32 and in bf16: the
+    output must equal the plain version bit for bit, which pins the
+    accumulator fragment, the descriptors and the swizzle of both operands
+    (a misplaced element changes some sum)."""
+    bm, bn = tile
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.integers(-4, 5, size=(bm, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-4, 5, size=(16, bn)).astype(np.float32))
+    x, w = x.to(dev).to(torch.bfloat16), w.to(dev).to(torch.bfloat16)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = kmm.weight_stationary_matmul(x, w, out_dtype, route="wgmma", tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.matmul(x, w, out_dtype))
 
 
 def test_matmul_kernel_unaligned_base(dev):
     """Rows that would take 16-byte loads but start 2 bytes off alignment
-    take the guarded scalar path."""
+    take the mma.sync route (TMA needs 16-byte aligned bases) and its
+    guarded scalar path; the wgmma route refuses them."""
     rng = np.random.default_rng(12)
     base = _rand(rng, (40 * 64 + 1,), torch.bfloat16, dev)
     x = base[1:].view(40, 64)
     assert x.data_ptr() % 16 != 0
     w = _rand(rng, (64, 24), torch.bfloat16, dev, scale=0.125)
+    kmm.mma_sync_launches = kmm.wgmma_launches = 0
     _mm_close(kmm.weight_stationary_matmul(x, w), ref.matmul(x, w))
+    assert (kmm.mma_sync_launches, kmm.wgmma_launches) == (1, 0)
+    with pytest.raises(ValueError, match="wgmma route"):
+        kmm.weight_stationary_matmul(x, w, route="wgmma")
 
 
 def test_matmul_routes_by_the_reference_rule(dev):
     """ops.matmul launches the kernel exactly when the reference's rule
-    holds, and otherwise computes the library dot in f32; x and w of
-    different dtypes take the kernel in f32."""
+    holds, and otherwise computes the library dot in f32; a bf16 pair
+    takes the wgmma route, x and w of different dtypes the kernel in f32
+    (the FFMA route); each route's counter counts its own launches."""
     rng = np.random.default_rng(13)
     x = _rand(rng, (8, 2048), torch.bfloat16, dev)
     w = _rand(rng, (2048, 512), torch.bfloat16, dev, scale=2048 ** -0.5)
-    kmm.launches = 0
+    kmm.launches = kmm.wgmma_launches = kmm.mma_sync_launches = kmm.ffma_launches = 0
     _mm_close(ops.matmul(x, w), ref.matmul(x, w))
-    assert kmm.launches == 1
+    assert kmm.launches == 1 and kmm.wgmma_launches == 1
     _mm_close(ops.matmul(x[None], w), ref.matmul(x[None], w))   # 3-D
     xf = _rand(rng, (8, 5632), torch.float32, dev)
     wf = _rand(rng, (5632, 300), torch.float32, dev, scale=0.01)  # 5.5 MiB
@@ -728,6 +800,7 @@ def test_matmul_routes_by_the_reference_rule(dev):
     _mm_close(ops.matmul(x, w.float()), ref.matmul(x, w.float()))
     _mm_close(ops.matmul(x.float(), w), ref.matmul(x.float(), w))
     assert kmm.launches == 3
+    assert (kmm.wgmma_launches, kmm.mma_sync_launches, kmm.ffma_launches) == (1, 0, 2)
     with pytest.raises(NotImplementedError, match="forward-only"):
         ops.matmul(x, w.detach().requires_grad_())
 

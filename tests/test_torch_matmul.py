@@ -184,3 +184,102 @@ def test_matmul_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tmm.weight_stationary_matmul(torch.zeros(4, 8), torch.zeros(8, 3))
     assert tmm.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the host-side plan of the card kernels (route, tile, grid), on the CPU
+# ---------------------------------------------------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (m, k, n, the tile the plan picks): phase 16's seven full-width
+# stablelm-1.6b rows (PERF.md rows 10-10g)
+FULL_WIDTH = [(8, 2048, 2048, (64, 16)), (8, 2048, 5632, (64, 32)),
+              (8, 5632, 2048, (64, 16)), (8, 2048, 100352, (64, 64)),
+              (512, 2048, 5632, (128, 192)), (512, 5632, 2048, (128, 64)),
+              (512, 2048, 100352, (128, 256))]
+
+
+@pytest.mark.parametrize("m,k,n,tile", FULL_WIDTH)
+def test_plan_full_width_rows_take_wgmma(m, k, n, tile):
+    p = tmm.plan(m, n, k, BF16, True)
+    assert p.route == "wgmma" and p.tile == tile
+    assert p.grid == (-(-m // tile[0]), -(-n // tile[1]))
+    assert p.tile in tmm.TILES["wgmma"]
+
+
+@pytest.mark.parametrize("m,k,n,aligned", [
+    (8, 2044, 2048, True), (8, 2048, 2044, True), (512, 17, 2048, True),
+    (8, 2048, 2048, False), (33, 17, 9, True), (100, 40, 50, True),
+    (8, 0, 2048, True)])
+def test_plan_unloadable_rows_take_mma_sync(m, k, n, aligned):
+    """K or N not a multiple of 8, an unaligned base, or K 0 (no TMA map):
+    the mma.sync kernel, its 16 x 32 tile up to NARROW_M rows."""
+    p = tmm.plan(m, n, k, BF16, aligned)
+    assert p.route == "mma_sync"
+    assert p.tile == ((16, 32) if m <= tmm.NARROW_M else (64, 64))
+    with pytest.raises(ValueError, match="wgmma route"):
+        tmm.plan(m, n, k, BF16, aligned, route="wgmma")
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (512, 5632, 2048),
+                                   (33, 17, 9)])
+def test_plan_f32_takes_ffma(m, k, n):
+    assert tmm.plan(m, n, k, F32, True) == ("ffma", (64, 64),
+                                            (-(-m // 64), -(-n // 64)))
+    for route in ("wgmma", "mma_sync"):
+        with pytest.raises(ValueError, match="does not take"):
+            tmm.plan(m, n, k, F32, True, route=route)
+    with pytest.raises(ValueError, match="does not take"):
+        tmm.plan(m, n, k, BF16, True, route="ffma")
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 64])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (5632, 2048), (2048, 5632)])
+def test_plan_decode_puts_a_block_on_every_sm(m, k, n):
+    """At decode the weight streams through the card: N 2048 gives 128
+    blocks (its narrowest tile), wider N at least one block an SM."""
+    p = tmm.plan(m, n, k, BF16, True)
+    assert p.route == "wgmma" and p.tile[0] == 64
+    blocks = p.grid[0] * p.grid[1]
+    assert blocks >= (128 if n == 2048 else tmm.SMS)
+
+
+@pytest.mark.parametrize("m", [1, 8, 512, 4096])
+def test_plan_lm_head_grid_fits_cuda(m):
+    """stablelm-1.6b's lm_head [2048, 100352]: the n tiles ride
+    blockIdx.y, which CUDA caps at 65535; every tile fits."""
+    for tile in tmm.TILES["wgmma"]:
+        p = tmm.plan(m, 100352, 2048, BF16, True, tile=tile)
+        assert p.grid[1] <= tmm.MAX_GRID_Y and p.grid[0] < 2 ** 31
+    with pytest.raises(ValueError, match="n tiles"):
+        tmm.plan(m, 16 * (tmm.MAX_GRID_Y + 1), 2048, BF16, True, tile=(64, 16))
+
+
+def test_plan_prefill_covers_the_card_in_fewest_waves():
+    """M 512 x N 5632: 128 x 192 tiles make 120 blocks, one wave on the 132
+    SMs, where 128 x 256 leaves a third of the card idle and 128 x 128
+    needs two waves."""
+    p = tmm.plan(512, 5632, 2048, BF16, True)
+    assert p.tile == (128, 192) and p.grid[0] * p.grid[1] == 120 <= tmm.SMS
+
+
+@pytest.mark.parametrize("route,tile", [("wgmma", (64, 48)), ("wgmma", (16, 32)),
+                                        ("mma_sync", (64, 16)), ("ffma", (16, 32))])
+def test_plan_refuses_tiles_a_route_lacks(route, tile):
+    dtype = F32 if route == "ffma" else BF16
+    with pytest.raises(ValueError, match="tile"):
+        tmm.plan(64, 2048, 2048, dtype, True, route=route, tile=tile)
+
+
+def test_plan_forced_route_and_tile():
+    """tests and chip_smoke.py force each route and tile at one shape."""
+    assert tmm.plan(8, 2048, 2048, BF16, True, route="mma_sync") == (
+        "mma_sync", (16, 32), (1, 64))
+    assert tmm.plan(8, 2048, 2048, BF16, True, route="mma_sync",
+                    tile=(64, 64)) == ("mma_sync", (64, 64), (1, 32))
+    assert tmm.plan(8, 2048, 2048, BF16, True, tile=(128, 256)) == (
+        "wgmma", (128, 256), (1, 8))
+    with pytest.raises(ValueError, match="route"):
+        tmm.plan(8, 2048, 2048, BF16, True, route="tf32")
+    with pytest.raises(TypeError, match="dtype"):
+        tmm.plan(8, 2048, 2048, torch.float16, True)
