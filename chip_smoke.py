@@ -15,7 +15,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    events beside the plain version, the least time the card could take, and
    a library call where one computes the same function; rmsnorm, the first
    kernel timed, is timed again after the others and its row keeps the
-   repeat (the first timed launch of a run reads slow);
+   repeat (the first timed launch of a run reads slow); the paged decode
+   (flash-decoding split over a thread-block cluster) is held like the
+   dense decode of 5b, also per sequence, twice bitwise equal, with a
+   control that drops the longest sequence's second split, and logged with
+   its GB/s, its share of the bound and the time of a PyTorch sum over as
+   many bytes; then timed with its split forced to 1, 2, 4 and 8 (logged,
+   not gated);
 4. parity: the reduced stablelm-1.6b model on the card (CUDA kernels)
    against the CPU (plain versions) at fp32;
 5. serve: stablelm-1.6b at full width and depth (random bf16 weights from a
@@ -29,9 +35,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    at length 700), held against their plain versions in bf16 (timed as in
    3, beside SDPA with a key mask) and in f32; the decode kernel also at
    granite-3-2b's 8 kv heads, and as partials over two shards at
-   ``kv_offset`` 512 (combined) and over a shard no length reaches; a
-   control shows each tolerance catches a kernel that drops one 32-key
-   step; the flash row (``PERF.md`` row 6e) runs the bf16 tensor-core
+   ``kv_offset`` 512 (combined) and over a shard no length reaches, each
+   call twice bitwise equal; a control shows the decode tolerances catch a
+   kernel that drops the longest sequence's second split, and the flash
+   tolerances one that drops the last 32-key step below its bound; the
+   flash row (``PERF.md`` row 6e) runs the bf16 tensor-core
    forward, and SDPA's own error against the plain version is logged
    beside the kernel's (a yardstick, not gated);
 5c. dense parity: reduced stablelm-1.6b at fp32, a batched ``prefill`` and
@@ -116,9 +124,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    (5b's dense decode kernel) is timed again beside SDPA, alternating;
 17. int8 pool (run after 5d, while the serving parameters are on the card):
    phase 3's decode and prefill pools quantized per (kv head, page), both
-   int8-page variants of the paged kernel in bf16 and f32 held against
+   int8-page variants of the paged kernels in bf16 and f32 held against
    their plain versions, a control that doubles one live page's K scale in
-   the kernel's input, a second call bitwise equal, and timed as in 3
+   the kernel's input (and, at decode, one that drops the longest
+   sequence's second split), a second call bitwise equal, and timed as in 3
    beside the float kernel on the pool before quantization; reduced
    stablelm-1.6b at fp32 over an int8 pool (two prefill chunks, four decode
    steps) on the card against the CPU; and the mix of 5 through
@@ -134,7 +143,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    where a row sees an owned key, exactly (0, -1e30, 0) where it sees
    none) in bf16 and f32 over the float and the int8 pool, their NoC tree
    combine against the unsharded kernel, a control (the local tables with
-   skip_null off) caught, timed per shard launch beside the shard's bound;
+   skip_null off) caught, at decode each shard's call twice bitwise equal
+   and a control that drops the longest sequence's second split, timed per
+   shard launch beside the shard's bound;
    the decode partial at ``kv_offset`` 512 combined with the lower half;
    reduced stablelm-1.6b at fp32 through ``ServeEngine(seq_shards=S)`` on
    the card, token-identical at S = 1, 2, 4 (and 1, 2 over an int8 pool)
@@ -181,23 +192,29 @@ FLASH_TILE = 64                                # key tile of csrc/flash_attentio
 # the redesign of the bf16 flash kernels, named on their rows of the
 # ``{"kernels": ...}`` line with their PERF.md row
 FLASH_DESIGN = "bf16 on mma.sync m16n8k16 tensor cores, ldmatrix, cp.async ring"
-# The dense-slab kernels (5b).  Decode attention at full width: a row of
-# ~500 live keys has |o| ~ 0.1, so ATTN_TOL's 2e-2 would pass a kernel that
-# drops a 32-key step.  The decode and flash-lengths outputs are held like
+# The decode kernel (rows 1, 1q, 1s, 7) and the flash-lengths row (5b).
+# Decode attention at full width: a row of ~500 live keys has |o| ~ 0.1, so
+# ATTN_TOL's 2e-2 would pass a kernel that loses part of its keys.  The
+# paged and dense decode and the flash-lengths outputs are held like
 # the flash forward (one bf16 ulp relative plus 4e-3, relative norm 1e-2),
 # each decode sequence to a relative norm of 1e-2, and in f32 to 1e-5
 # relative plus 1e-5.  Readings on the first full-width runs (PERF.md,
 # Findings): decode bf16 0.0078 (one ulp where |o| ~ 1-2, rows of few
 # keys), a sequence's relative norm <= 0.0026, f32 <= 4.4e-7;
-# flash-lengths bf16 0.00098, f32 4.8e-7.  The controls read 0.071 / 0.179 per sequence
-# (decode: the longest sequence loses its first step) and 0.257 (flash:
-# the last step below the bound): all caught.
+# flash-lengths bf16 0.00098, f32 4.8e-7.  The controls: decode, the
+# longest sequence loses its second split of the kernel's plan (PERF.md,
+# Findings); flash, the last 32-key step below the bound (0.257): all
+# caught.
 DECODE_TOL = dict(rtol=2 ** -7, atol=4e-3)
 DECODE_REL = 1e-2
 DECODE_SEQ_REL = 1e-2
 DENSE_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE_F32_REL = 1e-5
-DENSE_STEP = 32                                # keys a warp stages per step
+DENSE_STEP = 32                                # keys the flash-lengths control drops
+# the flash-decoding kernel (csrc/decode_attention.cu), named on the rows of
+# the ``{"kernels": ...}`` line that run it (PERF.md rows 1, 1q, 1s, 7)
+DECODE_DESIGN = ("decode cluster: a split key walk over a thread-block cluster, "
+                 "cp.async rings, merged over distributed shared memory")
 FLASH_LEN = 700                                # the flash-lengths row's bound
 # the slab prefill against the paged chunked prefill, full width in bf16:
 # the last-token logits' relative norm error read 0.0143 (PERF.md,
@@ -491,13 +508,36 @@ def kernel_phase(torch, timer, cfg):
     qd = randn(slots, h, hd)
     live = int(lens.clamp(max=mb * bs).sum())
     kv_row = kvh * hd * 2 * 2                     # K and V bytes of one token
-    record("paged_decode_attention", csrc + "paged_attention.cu",
+    # held as row 7 is (the same function on the same lengths), per sequence
+    # too, twice bitwise equal, and against a kernel that loses a split
+    got = repeat_equal(torch, "paged_decode_attention",
+                       lambda: kda.paged_decode_attention(qd, kp, vp, tables, lens))
+    want = ref.paged_decode_attention(qd, kp, vp, tables, lengths=lens)
+    hold(torch, "paged_decode_attention", got, want, DECODE_TOL, DECODE_REL)
+    rs = seq_rel_err(torch, got, want)
+    if rs > DECODE_SEQ_REL:
+        fail(f"paged_decode_attention: a sequence's relative norm error {rs} "
+             f"(tolerance {DECODE_SEQ_REL})")
+    n_split, split = decode_split(torch, qd, kvh, mb * bs, bs)
+    kl, vl = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    valid = torch.arange(mb * bs, device=dev)[None, :] < lens[:, None]
+    bad, what = second_split_dropped(torch, valid, lens, split)
+    dropped_step_control(torch, "paged_decode_attention", what,
+                         masked_decode(torch, qd, kl, vl, valid).to(bf),
+                         masked_decode(torch, qd, kl, vl, bad).to(bf),
+                         DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+    del got, want, kl, vl, valid, bad
+    dec_bytes = 2 * qd.numel() * 2 + live * kv_row + tables.numel() * 4
+    record("paged_decode_attention", csrc + "decode_attention.cu",
            "src/repro/kernels/decode_attention.py:300",
            lambda: kda.paged_decode_attention(qd, kp, vp, tables, lens),
            lambda: ref.paged_decode_attention(qd, kp, vp, tables, lengths=lens),
-           ATTN_TOL, nbytes=2 * qd.numel() * 2 + live * kv_row + tables.numel() * 4,
-           flops=4 * h * hd * live,
-           note="; the plain version rounds p to bf16 before the PV product")
+           DECODE_TOL, rel=DECODE_REL, nbytes=dec_bytes, flops=4 * h * hd * live,
+           note=f"; rel {DECODE_REL}, per sequence {rs:.3g}; {n_split} splits of "
+                f"{split} keys; the plain version rounds p to bf16 before the PV "
+                f"product")
+    rows[-1]["design"] = DECODE_DESIGN
+    log_rate(torch, timer, rows[-1], dec_bytes)
     # prefill attention: a 512-row chunk at q_offset 256, table [64]
     qp = randn(1, c, h, hd)
     table = tables[0].contiguous()
@@ -530,6 +570,39 @@ def kernel_phase(torch, timer, cfg):
     pool = dict(qd=qd, kp=kp, vp=vp, tables=tables, lens=lens, qp=qp,
                 table=table, qoff=qoff)
     return rows, lens.clamp(max=mb * bs), pool, first
+
+
+def split_sweep(torch, timer, pool):
+    """Row 1 on phase 3's pool with the split forced to 1, 2, 4 and 8 (and
+    at every length 1, where the grid's fixed cost shows), beside the
+    plan's own choice: what the plan (kernels/_paged.py:decode_plan) is
+    chosen from; logged, not gated."""
+    from repro_torch.kernels import _paged
+    from repro_torch.kernels import decode_attention as kda
+
+    qd, kp, vp, tables, lens = (pool[k] for k in ("qd", "kp", "vp", "tables", "lens"))
+    keys = tables.shape[1] * kp.shape[2]
+    planned = kda._plan
+    ones = torch.ones_like(lens)
+    out = {"plan": decode_split(torch, qd, kp.shape[0], keys, kp.shape[2])}
+    try:
+        for n in (1, 2, 4, 8):
+            def forced(q, kvh, keys, grain, n=n):
+                p = planned(q, kvh, keys, grain)
+                split = -(-keys // n)
+                split = -(-split // grain) * grain
+                return _paged.DecodePlan(keys, -(-keys // split), split,
+                                         p.row_tiles, p.grid, p.cluster)
+            kda._plan = forced
+            out[n] = (timer(lambda: kda.paged_decode_attention(qd, kp, vp, tables, lens)),
+                      timer(lambda: kda.paged_decode_attention(qd, kp, vp, tables, ones)))
+    finally:
+        kda._plan = planned
+    log("paged decode split sweep (ms at phase 3's lengths / at length 1; the "
+        f"plan takes {out['plan'][0]} splits of {out['plan'][1]} keys): " +
+        ", ".join(f"{n} splits {a:.4f} / {b:.4f}" for n, (a, b) in out.items()
+                  if n != "plan"))
+    return out
 
 
 def parity_phase(torch, cfg_small):
@@ -677,8 +750,8 @@ def seq_rel_err(torch, got, want) -> float:
 def dropped_step_control(torch, name, what, ok, bad, tol, rel, seq_rel=None):
     """Fail unless the check of a kernel's output (``tol`` elementwise,
     ``rel`` relative norm, ``seq_rel`` per-sequence relative norm) tells
-    the right output ``ok`` from ``bad``, that of a kernel that drops one
-    32-key step (``what`` says which)."""
+    the right output ``ok`` from ``bad``, that of a kernel that drops some
+    of its keys (``what`` says which)."""
     d = float((bad.float() - ok.float()).abs().max())
     r = rel_err(torch, bad, ok)
     caught = [not torch.allclose(bad.float(), ok.float(), **tol), r > rel]
@@ -699,6 +772,59 @@ def masked_decode(torch, q, k, v, valid):
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) / math.sqrt(q.shape[-1])
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     return torch.einsum("bhk,bkhd->bhd", torch.softmax(s, dim=-1), v.float())
+
+
+def decode_split(torch, q, kvh, keys, grain):
+    """The split the decode kernel's plan gives these shapes on this card:
+    (n_split, split_keys)."""
+    from repro_torch.kernels import _paged
+    from repro_torch.kernels import decode_attention as kda
+
+    b, h, _ = q.shape
+    plan = _paged.decode_plan(b, kvh, h // kvh, keys, grain, kda.n_sms(q.device))
+    return plan.n_split, plan.split_keys
+
+
+def second_split_dropped(torch, valid, lens, split):
+    """``valid`` [B, keys] with the longest sequence's keys [split, 2 split)
+    masked: what a decode kernel that loses its second split of the
+    longest sequence would attend; also returns what it says."""
+    longest = int(torch.argmax(lens))
+    n = int(lens[longest])
+    if n <= split:
+        fail(f"decode control: the longest sequence ({n} keys) does not reach "
+             f"a second split of {split} keys")
+    bad = valid.clone()
+    bad[longest, split:2 * split] = False
+    return bad, (f"the second {split}-key split of the longest sequence "
+                 f"(sequence {longest}, {n} keys)")
+
+
+def log_rate(torch, timer, row, nbytes) -> None:
+    """Log a bytes-bound row's GB/s and its share of the bound (the bound
+    over the card time), and time beside it one PyTorch sum over as many
+    bytes (``read_ms``: a plain read of the same size under the same
+    protocol, whose flush leaves the L2 full of dirty lines); keep all
+    three on the row."""
+    row["gb_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    buf = torch.zeros(int(nbytes) // 4, dtype=torch.float32, device="cuda")
+    row["read_ms"] = timer(lambda: buf.sum())
+    del buf
+    log(f"kernel {row['name']}: {row['gb_s']:.1f} GB/s of the bytes it must "
+        f"move, {row['bound_share']:.3f} of its bound; a PyTorch sum over as "
+        f"many bytes {row['read_ms']:.4f} ms ({row['ms'] / row['read_ms']:.3f}x)")
+
+
+def repeat_equal(torch, name, fn):
+    """Fail unless two calls of ``fn`` give the same bits; returns the
+    first."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+    if not all(torch.equal(x, y) for x, y in pairs):
+        fail(f"{name}: two calls on the same inputs differ")
+    return a
 
 
 def dense_kernel_phase(torch, timer, cfg, lens):
@@ -725,11 +851,12 @@ def dense_kernel_phase(torch, timer, cfg, lens):
     kpos = torch.arange(max_seq, device=dev)
 
     def dense_holds(tag, q, k, v, tol, rel, seq_rel):
-        """Output (also per sequence, to ``seq_rel``), the partials of two
-        shards at kv_offset 0 and 512 combined, and a shard past every
-        length (the identity)."""
+        """Output (also per sequence, to ``seq_rel``; twice bitwise equal),
+        the partials of two shards at kv_offset 0 and 512 combined, and a
+        shard past every length (the identity)."""
         n = q.shape[1] // k.shape[2]
-        got = kda.decode_attention(q, k, v, lens)
+        got = repeat_equal(torch, f"decode_attention {tag}",
+                           lambda: kda.decode_attention(q, k, v, lens))
         want = ref.decode_attention(q, k, v, lengths=lens)
         hold(torch, f"decode_attention {tag}", got, want, tol, rel)
         rs = seq_rel_err(torch, got, want)
@@ -766,15 +893,19 @@ def dense_kernel_phase(torch, timer, cfg, lens):
     kv_row = kvh * hd * 2 * 2                     # K and V bytes of one token
     qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+    n_split, split = decode_split(torch, q, kvh, max_seq, 32)
+    dec_bytes = 2 * q.numel() * 2 + live * kv_row + slots * 4
     rows = [measure(
         torch, timer, "decode_attention", src, rep,
         lambda: kda.decode_attention(q, k, v, lens),
         lambda: ref.decode_attention(q, k, v, lengths=lens), DECODE_TOL,
-        rel=DECODE_REL, nbytes=2 * q.numel() * 2 + live * kv_row + slots * 4,
-        flops=4 * h * hd * live,
+        rel=DECODE_REL, nbytes=dec_bytes, flops=4 * h * hd * live,
         library=lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
-        note=f"; rel {DECODE_REL}; {live} live keys of {slots * max_seq}; the "
-             f"plain version rounds p to bf16 before the PV product")]
+        note=f"; rel {DECODE_REL}; {live} live keys of {slots * max_seq}; "
+             f"{n_split} splits of {split} keys; the plain version rounds p to "
+             f"bf16 before the PV product")]
+    rows[0]["design"] = DECODE_DESIGN
+    log_rate(torch, timer, rows[0], dec_bytes)
 
     # row 7 and SDPA on these inputs (bound now: the names are reused below)
     again = (lambda q=q, k=k, v=v: kda.decode_attention(q, k, v, lens),
@@ -790,16 +921,11 @@ def dense_kernel_phase(torch, timer, cfg, lens):
     dense_holds("bf16", q, k, v, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
     qf, kf, vf = q.float(), k.float(), v.float()
     dense_holds("f32", qf, kf, vf, DENSE_F32_TOL, DENSE_F32_REL, DENSE_F32_REL)
-    # the hardest case to see: the longest sequence, whose rows average the
-    # most keys, loses its first step
-    longest = int(torch.argmax(lens))
+    # the kernel's grain: the longest sequence loses its second split
     valid = kpos[None, :] < lens[:, None]
-    bad = valid.clone()
-    bad[longest, :DENSE_STEP] = False
+    bad, what = second_split_dropped(torch, valid, lens, split)
     dropped_step_control(
-        torch, "decode_attention",
-        f"the first {DENSE_STEP}-key step of the longest sequence ({int(lens[longest])} "
-        f"keys)", masked_decode(torch, q, k, v, valid).to(bf),
+        torch, "decode_attention", what, masked_decode(torch, q, k, v, valid).to(bf),
         masked_decode(torch, q, k, v, bad).to(bf), DECODE_TOL, DECODE_REL,
         DECODE_SEQ_REL)
     del qs, ks, vs, mask, qf, kf, vf, valid, bad
@@ -997,11 +1123,12 @@ def int8_kernel_phase(torch, timer, cfg, pool):
     c = qp.shape[1]
     live = lens.clamp(max=mb * bs)
     live_pages = int(((live + bs - 1) // bs).sum())
-    csrc = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
     longest = int(torch.argmax(live))
     cases = {
         "paged_decode_attention_int8": dict(
             replaces="src/repro/kernels/decode_attention.py:300",
+            source=csrc + "decode_attention.cu",
             kernel=lambda q, s: kda.paged_decode_attention(q, k8, v8, tables, lens, s, vs),
             plain=lambda q: ref.paged_decode_attention(q, k8, v8, tables, lengths=lens,
                                                        k_scales=ks, v_scales=vs),
@@ -1012,6 +1139,7 @@ def int8_kernel_phase(torch, timer, cfg, pool):
             what=f"sequence {longest}'s first page ({int(live[longest])} keys)"),
         "paged_prefill_attention_int8": dict(
             replaces="src/repro/kernels/prefill_attention.py:273",
+            source=csrc + "paged_attention.cu",
             kernel=lambda q, s: kpf.paged_prefill_attention(
                 q, k8, v8, table, q_offset=qoff, length=c, k_scales=s, v_scales=vs),
             plain=lambda q: ref.paged_prefill_attention(
@@ -1056,12 +1184,26 @@ def int8_kernel_phase(torch, timer, cfg, pool):
         io = 2 * qb.numel() * 2                     # q read, out written, bf16
         nbytes = (io + cs["n_live"] * kvh * hd * 2 + cs["pages"] * kvh * 2 * 4
                   + cs["table_bytes"])
-        row = measure(torch, timer, name, csrc, cs["replaces"],
+        row = measure(torch, timer, name, cs["source"], cs["replaces"],
                       lambda: cs["kernel"](qb, ks), lambda: cs["plain"](qb),
                       Q8_BF16_TOL, rel=Q8_REL, nbytes=nbytes, flops=cs["flops"],
                       note=f"; rel {Q8_REL}; the float kernel on the pool before "
                            f"quantization {float_ms[name]:.4f} ms")
         rows.append(row)
+        if name.startswith("paged_decode"):
+            # the decode kernel's grain: the longest sequence loses its
+            # second split (the plain version over the dequantized pages)
+            _, split = decode_split(torch, qb, kvh, mb * bs, bs)
+            kl, vl = ref.gather_pages(k8, tables, ks), ref.gather_pages(v8, tables, vs)
+            valid = torch.arange(mb * bs, device=qb.device)[None, :] < live[:, None]
+            bad, what = second_split_dropped(torch, valid, live, split)
+            dropped_step_control(torch, name, what,
+                                 masked_decode(torch, qb, kl, vl, valid).to(qb.dtype),
+                                 masked_decode(torch, qb, kl, vl, bad).to(qb.dtype),
+                                 Q8_BF16_TOL, Q8_REL)
+            del kl, vl, valid, bad
+            row["design"] = DECODE_DESIGN
+            log_rate(torch, timer, row, nbytes)
     del k8, v8, ks, vs, ks_ctrl
     torch.cuda.empty_cache()
     return rows, float_ms
@@ -1241,8 +1383,10 @@ def shard_kernel_phase(torch, timer, cfg, pool):
     shard-local tables of a round-robin placement; held per shard against
     the plain version (bf16 and f32, float and int8 pools), their tree
     combine against the unsharded kernel, the identity on a sequence shard
-    3 does not own, kv_offset once, and the skip-off control; bf16 timed per
-    shard launch beside the shard's bound."""
+    3 does not own, kv_offset once, and the skip-off control; at decode
+    each shard's call twice bitwise equal and a control that drops the
+    longest sequence's second split; bf16 timed per shard launch beside the
+    shard's bound."""
     from repro_torch.core import noc
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import prefill_attention as kpf
@@ -1262,7 +1406,7 @@ def shard_kernel_phase(torch, timer, cfg, pool):
     v8, vs = quantize_pages(torch, vp)
     q8_views = list(zip(pool_shards(k8, S), pool_shards(v8, S),
                         pool_shards(ks, S), pool_shards(vs, S)))
-    csrc = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    csrc = "src/repro_torch/kernels/csrc/"
     kv_row = kvh * hd * 2 * 2                   # K and V bytes of one key, bf16
 
     def dec(q, s, skip=True, int8=False):
@@ -1305,6 +1449,7 @@ def shard_kernel_phase(torch, timer, cfg, pool):
     rows_of = {
         "paged_decode_attention_skip_null": dict(
             replaces="src/repro/kernels/decode_attention.py:300", q=qd,
+            source=csrc + "decode_attention.cu",
             kernel=dec, plain=dec_plain,
             whole=lambda q, int8: (
                 kda.paged_decode_attention(q, k8, v8, sp["table"], lens, ks, vs)
@@ -1312,6 +1457,7 @@ def shard_kernel_phase(torch, timer, cfg, pool):
                     q, *sp["pools"][q.dtype], sp["table"], lens))),
         "paged_prefill_attention_skip_null": dict(
             replaces="src/repro/kernels/prefill_attention.py:273", q=qp,
+            source=csrc + "paged_attention.cu",
             kernel=pre, plain=pre_plain,
             whole=lambda q, int8: (
                 kpf.paged_prefill_attention(q, k8, v8, ptable, q_offset=qoff,
@@ -1329,7 +1475,11 @@ def shard_kernel_phase(torch, timer, cfg, pool):
                     (DENSE_F32_TOL if f32 else DECODE_TOL)
                 rel = None if f32 else (Q8_REL if int8 else DECODE_REL)
                 tag = f"{name} {'int8' if int8 else 'float'} pool {str(dtype)[6:]}"
-                got = [cs["kernel"](q, s, int8=int8) for s in range(S)]
+                if name.startswith("paged_decode"):
+                    got = [repeat_equal(torch, tag, lambda s=s: cs["kernel"](q, s, int8=int8))
+                           for s in range(S)]
+                else:
+                    got = [cs["kernel"](q, s, int8=int8) for s in range(S)]
                 want = [cs["plain"](q, s, int8=int8) for s in range(S)]
                 torch.cuda.synchronize()
                 live = [w[1] > -1e29 for w in want]
@@ -1382,7 +1532,7 @@ def shard_kernel_phase(torch, timer, cfg, pool):
                      for k in keys]
             io = qb.numel() * 2 + qb.numel() * 4 + 2 * c * h * 4 + plocal[0].numel() * 4
         nbytes = io + sum(n_keys) * kv_row / S
-        row = measure(torch, timer, name, csrc, cs["replaces"],
+        row = measure(torch, timer, name, cs["source"], cs["replaces"],
                       lambda: tuple(cs["kernel"](qb, s) for s in range(S)),
                       lambda: tuple(cs["plain"](qb, s) for s in range(S)),
                       (DECODE_TOL,) * 3, rel=DECODE_REL, nbytes=nbytes,
@@ -1395,6 +1545,30 @@ def shard_kernel_phase(torch, timer, cfg, pool):
         log(f"kernel {name}: per shard launch {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
         rows.append(row)
+        if name.startswith("paged_decode"):
+            row["design"] = DECODE_DESIGN
+            log_rate(torch, timer, row, nbytes)
+            # the decode kernel's grain: shard 0's partial with the longest
+            # sequence's second split of its table keys lost
+            _, split = decode_split(torch, qb, kvh, mb * bs, bs)
+            k, v = sp["views"][torch.bfloat16][0]
+            kl, vl = ref.gather_pages(k, local[0]), ref.gather_pages(v, local[0])
+            owned = keys[0]
+            bad_mask, what = second_split_dropped(torch, owned, lens, split)
+            ok = ref.decode_attention_partial(qb, kl, vl, lengths=lens, kv_valid=owned)
+            bad = ref.decode_attention_partial(qb, kl, vl, lengths=lens,
+                                               kv_valid=bad_mask)
+            lv = [ok[1] > -1e29]
+            pairs = list(zip(parts_view(torch, [bad], lv), parts_view(torch, [ok], lv)))
+            caught = [not torch.allclose(x.float(), y.float(), **DECODE_TOL)
+                      for x, y in pairs] + [rel_err(torch, *pairs[2]) > DECODE_REL]
+            log(f"{name} control: shard 0's partial without {what} reads max|err| "
+                f"m / l / acc/l " + " / ".join(
+                    f"{float((x.float() - y.float()).abs().max()):.3g}" for x, y in pairs)
+                + f" (caught: {caught})")
+            if not any(caught):
+                fail(f"{name} control: the tolerances pass a kernel that drops {what}")
+            del kl, vl, ok, bad
     # kv_offset: the decode tables cut at block 32, the upper half at global
     # position 512; the two halves' partials combine to the whole
     half = mb // 2
@@ -2602,6 +2776,7 @@ def main() -> None:
     cfg = get_config("stablelm-1.6b")
     timer = Timer(torch)
     rows, decode_lens, pool, rmsnorm_first = kernel_phase(torch, timer, cfg)
+    sweep = split_sweep(torch, timer, pool)
     parity_phase(torch, reduced(cfg))
     counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
                 "silu_mul": Counter(swiglu),
@@ -2706,6 +2881,7 @@ def main() -> None:
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
              build_s=info["seconds"], rmsnorm_first_reading=rmsnorm_first,
+             decode_split_sweep={str(k): v for k, v in sweep.items()},
              serve=serve, dense_serve=dense_serve, int8_serve=q8_serve,
              int8_launches=q8_launches, int8_parity=q8_parity,
              int8_float_kernel_ms=q8_float_ms, seq_serve=seq_serve,

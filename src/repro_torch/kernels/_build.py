@@ -44,15 +44,16 @@ _SIGNATURES = {
     "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_rope": (_I, _P, _P, _P, _I64, _I, _I, _F, _P),
     "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _P),
-    "repro_paged_attention": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64,
-                              _I, _I, _I, _I, _P),
+    "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, *(_P,) * 4, _I, _I,
+                              _I, _I, _I64, _I64, _I, _I, _I, _I, _P),
+    "repro_paged_decode": (_I, *(_P,) * 7, _I, _I, *(_P,) * 4, _I, _I, _I,
+                           _I64, _I64, _I, _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P),
     "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _P),
     "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
-    "repro_decode_attention": (_I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _P),
+    "repro_decode_attention": (_I, _P, _P, _P, _P, _I, *(_P,) * 4, *(_I,) * 8,
+                               _P),
     "repro_flash_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
     "repro_rwkv6_fwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,13 +1,16 @@
-"""Host side of the paged-attention CUDA kernel (``csrc/paged_attention.cu``)
-shared by ``decode_attention.py`` and ``prefill_attention.py``.
+"""Host side of the paged-attention CUDA kernels, shared by
+``decode_attention.py`` and ``prefill_attention.py``: the paged prefill
+(``csrc/paged_attention.cu``, :func:`launch`) and the split plan of the
+flash-decoding kernel (``csrc/decode_attention.cu``, :func:`decode_plan`).
 
-The kernel reads queries in their natural ``[B, C, H, D]`` layout (decode:
-C = 1) and writes outputs in the same layout, so the host does no padding
-and no transposes: a tile of ``ROWS`` query rows of one (sequence, kv head)
-is cut out by index arithmetic inside the kernel.  :func:`geometry` and
-:func:`check_scales` are the host-side parts that the CPU tests reach:
-argument checks, tile count and the per-tile key bound the kernel computes
-for itself.
+The prefill kernel reads queries in their natural ``[B, C, H, D]`` layout
+and writes outputs in the same layout, so the host does no padding and no
+transposes: a tile of ``ROWS`` query rows of one (sequence, kv head) is cut
+out by index arithmetic inside the kernel.  :func:`geometry`,
+:func:`check_scales`, :func:`tile_key_ends`, :func:`decode_plan` and
+:func:`split_key_ranges` are the host-side parts that the CPU tests reach:
+argument checks, tile counts, the split plan and the key ranges the kernels
+compute for themselves.
 
 An int8 pool passes ``k_scales`` / ``v_scales`` [KvH, NB] f32, one scale
 per (kv head, page); the kernel's int8-page variant dequantizes each value
@@ -18,20 +21,33 @@ A sequence-sharded pool passes each shard's view of the pool,
 shard-local table and ``skip_null``: the kernel reads the view through its
 kv-head stride, no copy, and masks the keys of zero table entries.  Decode
 may shift key positions by ``kv_offset``.
+
+Decode splits each (sequence, kv head)'s keys over the blocks of a thread
+block cluster: :func:`decode_plan` picks the split from shapes alone (never
+from the lengths, which would cost a host sync every step), and
+:func:`split_key_ranges` mirrors the range each block walks.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-ROWS = 16                      # query rows per block (csrc: kRows)
-HEAD_DIMS = (16, 64, 128)      # head dims the kernel is instantiated for
+ROWS = 16                      # prefill: query rows per block (csrc: kRows)
+HEAD_DIMS = (16, 64, 128)      # head dims the kernels are instantiated for
 #                                (the reduced configs, and every full-width
 #                                dense config of the registry)
+
+# the flash-decoding kernel (csrc/decode_attention.cu)
+DECODE_ROWS = 8        # query rows of one kv head a block holds (kMaxRows)
+DECODE_WARPS = 4       # warps of a block, each walking 32-key stages (kWarps)
+STAGE_KEYS = 32        # keys of a stage, and the slab's split grain (kKeys)
+MAX_SPLIT = 8          # blocks of a cluster: the portable cluster size
+BLOCKS_PER_SM = 4      # the grid a plan aims at: one wave of resident blocks
+MAX_GRID_YZ = 65535    # CUDA's limit on gridDim.y and gridDim.z
 
 
 @dataclass(frozen=True)
@@ -97,13 +113,66 @@ def check_scales(q_dtype, k_pages, v_pages, k_scales, v_scales) -> bool:
 
 
 def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
-    """Keys ``[0, end)`` each row tile walks — the kernel's tile_end:
+    """Keys ``[0, end)`` each prefill row tile walks — the kernel's tile_end:
     ``min(total, q_offset + last position of the tile + 1)``.  ``total`` is
     the live KV rows, already clamped to ``MB * BS``; the tile reads
     ``ceil(end / BS)`` pages (the TPU kernel's per-q-tile live-page clamp)."""
     n_rows = g.c * g.group
     return [min(total, q_offset + (min((t + 1) * ROWS, n_rows) - 1) // g.group + 1)
             for t in range(g.n_tiles)]
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    keys: int                  # table keys (MB * BS) or slab rows (Sk)
+    n_split: int               # blocks of a cluster, one key range each
+    split_keys: int            # keys of a range: a multiple of the grain
+    row_tiles: int             # row tiles of a kv head's G query rows
+    grid: Tuple[int, int, int]       # (n_split, KvH * row_tiles, B)
+    cluster: Tuple[int, int, int]    # (n_split, 1, 1)
+
+
+def decode_plan(b: int, kvh: int, g: int, keys: int, grain: int,
+                n_sm: int) -> DecodePlan:
+    """The flash-decoding kernel's split, from shapes alone: B sequences,
+    KvH kv heads of G query heads, ``keys`` keys a sequence (MB * BS on the
+    pool, Sk on the slab), cut into ``n_split <= MAX_SPLIT`` ranges of
+    ``split_keys``, a multiple of ``grain`` (BS on the pool, so a page lies
+    in one range; STAGE_KEYS on the slab).  It takes as many splits as keep
+    the grid within BLOCKS_PER_SM blocks an SM of ``n_sm`` (one wave: each
+    wave of blocks costs a chain of memory latencies), and none shorter than
+    one stage a warp."""
+    if min(b, kvh, g, keys, grain, n_sm) <= 0:
+        raise ValueError(f"decode plan: b {b}, kvh {kvh}, g {g}, keys {keys}, "
+                         f"grain {grain}, n_sm {n_sm} must be positive")
+    row_tiles = -(-g // DECODE_ROWS)
+    if kvh * row_tiles > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"decode plan: grid ({kvh * row_tiles}, {b}) past "
+                         f"CUDA's {MAX_GRID_YZ}")
+    base = b * kvh * row_tiles
+    want = min(MAX_SPLIT, -(-keys // (DECODE_WARPS * STAGE_KEYS)),
+               BLOCKS_PER_SM * n_sm // base)
+    split = -(-keys // max(want, 1))
+    split = -(-split // grain) * grain
+    n_split = -(-keys // split)
+    return DecodePlan(keys, n_split, split, row_tiles,
+                      (n_split, kvh * row_tiles, b), (n_split, 1, 1))
+
+
+def split_key_ranges(plan: DecodePlan, length: Optional[int],
+                     kv_offset: int = 0) -> List[Tuple[int, int]]:
+    """The table keys (slab rows) ``[start, stop)`` each block of a cluster
+    walks for one sequence of ``length`` (None: every key) whose key 0 sits
+    at global position ``kv_offset`` — the kernel's range arithmetic:
+    ``end = min(length - kv_offset, keys)``, block ``i`` walks ``[i *
+    split_keys, min((i + 1) * split_keys, end))``; an empty range is
+    ``(start, start)``."""
+    end = plan.keys if length is None else min(plan.keys, length - kv_offset)
+    out = []
+    for i in range(plan.n_split):
+        start = i * plan.split_keys
+        out.append((start, max(start, min(start + plan.split_keys, end))))
+    return out
 
 
 def pool_strides(k_pages, v_pages, k_scales=None, v_scales=None):
@@ -122,35 +191,26 @@ def pool_strides(k_pages, v_pages, k_scales=None, v_scales=None):
 
 
 def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-           tables: torch.Tensor, lens: Optional[torch.Tensor], q_offset: int,
-           total: int, *, partials: bool,
+           tables: torch.Tensor, q_offset: int, total: int, *, partials: bool,
            k_scales: Optional[torch.Tensor] = None,
-           v_scales: Optional[torch.Tensor] = None,
-           kv_offset: int = 0, skip_null: bool = False):
-    """One kernel launch.  q [B, C, H, D]; tables [B, MB] int32; decode
-    passes ``lens`` [B] int32 (and may pass ``kv_offset``), prefill
-    ``q_offset`` and ``total``; an int8 pool passes its scales; the pages
-    (and scales) may be a shard's view of a pool, dense past the kv-head
-    dim, with ``skip_null`` for its shard-local table.  Returns the
-    normalized output, or the f32 partials (acc, m, l)."""
+           v_scales: Optional[torch.Tensor] = None, skip_null: bool = False):
+    """One launch of the paged prefill kernel.  q [B, C, H, D]; tables [B,
+    MB] int32; ``q_offset`` and ``total`` (the live KV rows, clamped to MB *
+    BS); an int8 pool passes its scales; the pages (and scales) may be a
+    shard's view of a pool, dense past the kv-head dim, with ``skip_null``
+    for its shard-local table.  Returns the normalized output, or the f32
+    partials (acc, m, l)."""
     g = geometry(q.shape, k_pages.shape, tables.shape)
     if k_pages.shape != v_pages.shape:
         raise ValueError("paged attention: k_pages and v_pages differ in shape")
     int8 = check_scales(q.dtype, k_pages, v_pages, k_scales, v_scales)
     if tables.dtype != torch.int32:
         raise ValueError(f"paged attention: tables must be int32, got {tables.dtype}")
-    if kv_offset < 0 or (kv_offset and lens is None):
-        raise ValueError(f"paged attention: kv_offset {kv_offset} (decode "
-                         f"only, >= 0)")
     page_stride, scale_stride = pool_strides(k_pages, v_pages, k_scales,
                                              v_scales)
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=tables)
     if int8:
         tensors.update(k_scales=k_scales, v_scales=v_scales)
-    if lens is not None:
-        if lens.shape != (g.b,) or lens.dtype != torch.int32:
-            raise ValueError(f"paged attention: lengths must be [{g.b}] int32")
-        tensors["lens"] = lens
     _build.require_cuda("paged_attention",
                         views=("k_pages", "v_pages", "k_scales", "v_scales"),
                         **tensors)
@@ -168,9 +228,8 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None, tables.data_ptr(),
-        None if lens is None else lens.data_ptr(), int(q_offset), int(total),
-        int(kv_offset), int(bool(skip_null)), *ptrs, g.b, g.c, g.h, g.kvh,
-        page_stride, scale_stride, g.bs, g.d, g.mb, g.n_tiles,
+        int(q_offset), int(total), int(bool(skip_null)), *ptrs, g.b, g.c,
+        g.h, g.kvh, page_stride, scale_stride, g.bs, g.d, g.mb, g.n_tiles,
         _build.stream_ptr(q))
     _build.check("paged_attention", code)
     return (acc, m, l) if partials else out

@@ -106,6 +106,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// The thread-block cluster barrier (sm_90), split into arrive and wait so
+// that a block can work between the two.  Every thread of every block of the
+// cluster arrives once per phase; a wait returns when the phase is complete.
+// A release arrive orders this thread's earlier stores (to its own or a
+// peer's shared memory) before an acquire wait that sees the phase complete.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Hopper (sm_90a) helpers: mbarriers, TMA tile loads and wgmma, used by
 // matmul.cu's bf16 GEMM.  The layout rules they encode:

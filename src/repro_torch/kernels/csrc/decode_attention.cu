@@ -1,283 +1,644 @@
-// Flash-decoding over a dense KV slab: one new query row per sequence
-// against its cached keys.
+// Flash-decoding on Hopper: one new query row per sequence (all G query
+// heads of a kv head) against its cached keys, read from the paged KV pool
+// or from a dense KV slab.
 //
-// Replaces the TPU kernel src/repro/kernels/decode_attention.py _decode
-// (pallas_call at :114), behind decode_attention (:143) and
-// decode_attention_partial (:151).
+// Replaces two TPU kernels of src/repro/kernels/decode_attention.py:
+//   _paged_decode (pallas_call at :300; its float, int8, skip_null and
+//                  kv_offset modes)
+//   _decode       (pallas_call at :114; the dense slab)
 //
-// q [B, H, D]; k, v [B, Sk, KvH, D], the model's slab of one layer, read in
-// place: a block computes its own offsets from blockIdx and the strides, so
-// the host never permutes, pads or copies the slab.  GQA: the G = H / KvH
-// query heads of kv head kvh are kvh * G + r, r < G.  The key at slab row j
-// has global position kv_offset + j and is valid below
-// min(lens[b], kv_offset + Sk) (lens NULL: the whole slab), as in the TPU
-// kernel (decode_attention.py:104-106).
+// Both run one kernel template over a key source (PoolKeys, SlabKeys), so
+// the walk, the online softmax and the merge are written once.
 //
-// Grid (row tiles, KvH, B).  A block owns kRows = 4 query rows of one
-// (sequence, kv head) and walks only the sequence's live keys.  Its four
-// warps split them: warp w takes the 32-key steps w, w + 4, w + 8, ...,
-// stages each step's K and V in its own shared-memory area as f32 (K rows
-// padded to D + 1 floats, so lane j reading key j is free of bank
-// conflicts; the loads are 16 bytes a lane, up to 16 in flight before the
-// first store, since a load -> store loop of scalars serialises on memory
-// latency), lane j scores key j against the four rows, and a warp
-// max/sum gives the online-softmax update; each lane accumulates D / 32
-// output dims.  q and p stay in f32, as in the TPU kernel
-// (decode_attention.py:48-87).  At the end the four warps' (acc, m, l)
-// are merged in shared memory by the partials algebra.  Masking uses
-// NEG_INF = -1e30, the normaliser is floored at 1e-30, and a row that sees
-// no key returns the combine identity (acc, m, l) = (0, -1e30, 0), as the
-// port's paged kernel does.  (The TPU kernel and the JAX oracle count
-// masked keys at p = 1 in such a row; both forms combine to zero weight
-// beside any non-empty partial, and decode always sees >= 1 key.)
+// Grid (n_split, KvH * row_tiles, B) in clusters of (n_split, 1, 1).  The
+// keys of one (sequence, kv head) are cut into n_split fixed ranges of
+// split_keys table keys (a multiple of BS on the pool, so each page lies in
+// one split; the host picks n_split <= 8 and split_keys from shapes only,
+// kernels/_paged.py:decode_plan), and block `split` of the cluster walks
+// range [split * split_keys, min((split + 1) * split_keys, end)), where
+// end = min(len, kv_offset + keys) - kv_offset is the live end in table keys
+// (key j at global position kv_offset + j).  A block holds all the rows of
+// its kv head (row tiles of kMaxRows past G = 8), so each K/V byte is read
+// once and no padding row is computed.
 //
-// Bound on the H100: bytes.  Each live K/V byte is read once per row tile
-// (once in all when G <= 4), and the products are a few FLOPs per byte on
-// the CUDA cores.  This first version keeps a plain load -> syncwarp ->
-// compute loop per step: a cp.async double buffer and a split of the keys
-// across blocks are later work.
+// Inside a block the keys are numbered in walk order: the slab's live rows
+// of the split; on the pool the keys of the split's live pages, page after
+// page, where a page is live if its first key is below the end and, under
+// skip_null, its table entry is nonzero (warp 0 lists them once, with their
+// int8 scales, so a skipped page costs no copy and no arithmetic).  The
+// walk is cut into 32-key stages, and warp w takes stages w, w + 4, ...: each
+// lane finds its key's row (one lookup in the list), and the warp moves the
+// stage's K and V rows with 16-byte cp.async into its own ring in shared
+// memory, kept in their storage type (K rows padded by 16 bytes, so lane j
+// reading row j is free of bank conflicts) and converted to f32 in
+// registers.  Lane j scores key j against the block's rows (a sum per
+// 16-byte chunk), a warp max gives the online-softmax update (l is summed
+// per lane, over the warp once at the end), and p goes through shared
+// memory to the PV product, where each lane accumulates D / 32 output
+// dims.  q and p stay in f32.  On the int8 pool each value is dequantized
+// as int8 * scale(kv head, page) in f32, rounded once, the plain version's
+// gather.
+//
+// The merge.  Each block merges its warps' (acc, m, l) in shared memory,
+// in warp order, and stores the result into slot `split` of rank 0's
+// shared memory through distributed shared memory; a release arrive on the
+// cluster barrier publishes it, and a peer is then done.  Rank 0 waits for
+// every block's, merges them in rank order by the partials algebra (m =
+// max m_r, l = sum l_r e^(m_r - m), acc likewise) and writes the normalised
+// output or the partials.  (Pulling every warp's partial into rank 0
+// instead costs 32 serial remote loads a row while the peers wait on a
+// second barrier.)  No
+// atomics and no scratch in device memory: two launches give the same
+// bits.  This is the in-transit combine the paper puts in its NoC, done
+// over the SM-to-SM network.  Masking uses -1e30, the normaliser is floored
+// at 1e-30, and a row with no live key (an empty split, a shard that owns
+// none of its pages, a sequence that ends below kv_offset) is the combine
+// identity (acc, m, l) = (0, -1e30, 0).
+//
+// Bound on the H100: bytes.  Decode does ~2 G FLOPs a K/V element, far
+// below the card's 295 FLOP/byte line, so the products stay on the CUDA
+// cores in f32.  What holds it back is latency: a block's chain (the table
+// and lengths, its copies, the merge) costs a few microseconds, and every
+// wave of blocks pays it again.  So the plan keeps the grid to one wave
+// (~4 blocks an SM) and splits only as far as that allows (2 splits of 512
+// keys at stablelm-1.6b's 8 x 32 x 1024 keys), and a warp keeps one ring
+// slot, more only where the whole grid still fits in one wave with them
+// (a small grid over a long cache).
 #include "common.cuh"
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRows = 4;    // query rows per block; warp w finalises row w
-constexpr int kKeys = 32;   // keys a warp stages per step: one per lane
+constexpr int kThreads = kWarps * 32;
+constexpr int kKeys = 32;                       // keys of a stage: one per lane
+constexpr int kMaxRows = 8;                     // query rows a block holds
+constexpr int kMaxSplit = 8;                    // the portable cluster size
+constexpr int kMaxSlots = 4;                    // ring slots a warp keeps
 constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxSmem = 232448;             // a block's shared memory on sm_90
+constexpr size_t kSmSmem = 233472;              // an SM's, less 1 KB a resident block
 
-// shared memory: q [kRows][D], then per warp K [kKeys][D + 1] and V
-// [kKeys][D]; after the walk the warps' partials [kWarps][kRows][D + 2]
-// reuse the staging areas
-template <int D> __host__ __device__ constexpr int warp_floats() {
-  return kKeys * (2 * D + 1);
-}
-template <int D> constexpr size_t smem_bytes() {
-  return sizeof(float) * (kRows * D + kWarps * warp_floats<D>());
-}
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scales;
+  const float* v_scales;
+  const int* tables;        // pool: [B, MB]
+  const int* lens;          // [B], or NULL: every key
+  void* out;                // normalised [B, H, D], or NULL
+  float* acc;               // partials: acc [B, H, D], m and l [B, H]
+  float* m;
+  float* l;
+  int64_t head_stride;      // elements between kv heads (pool: page_stride; slab: D)
+  int64_t key_stride;       // slab: elements between key rows (KvH * D)
+  int64_t batch_stride;     // slab: elements between sequences (Sk * KvH * D)
+  int64_t scale_stride;     // int8 pool: scales' kv-head stride
+  int kv_offset, skip_null, H, KvH, G, row_tiles, BS, MB, keys, split_keys;
+  int n_slots, pages;       // set by the launch: ring slots a warp, pages a split
+  float scale;
+};
 
-// Stage keys [base, base + 32) of one (sequence, kv head) into a warp's
-// K [kKeys][D + 1] and V [kKeys][D] f32 tiles; rows at or past n_live read
-// as zeros.  Lane l moves the 16-byte chunks l, l + 32, ... of the step.
-template <typename T, int D>
-__device__ __forceinline__ void stage_step(float* __restrict__ k_s, float* __restrict__ v_s,
-                                           const T* __restrict__ k, const T* __restrict__ v,
-                                           int64_t head0, int64_t key_stride, int base,
-                                           int n_live, int lane) {
-  constexpr int kVec = 16 / sizeof(T);           // elements of a 16-byte chunk
-  constexpr int kRowChunks = D / kVec;           // chunks of one key row
-  constexpr int kPerLane = kKeys * kRowChunks / 32;
-  constexpr int kBatch = kPerLane < 8 ? kPerLane : 8;
-  static_assert(kPerLane % kBatch == 0, "whole batches");
+// Dynamic shared memory, in bytes: q [R][D] f32; per warp the stage's p
+// [R][kKeys] and, on the int8 pool, its keys' V scales [kKeys]; the
+// live-page count; the warps' rings, each slot K [kKeys][D + 16 bytes] and
+// V [kKeys][D] in the storage type; then, at offsets the launch fixes, the
+// pool's live-page list (an int4 a page) and the cluster's block partials
+// [n_split][R][D + 2] f32, which the peers push into rank 0.
+template <typename P, int D, int R>
+struct Layout {
+  static constexpr int kRowK = D * static_cast<int>(sizeof(P)) + 16;
+  static constexpr int kRowV = D * static_cast<int>(sizeof(P));
+  static constexpr int kSlot = kKeys * (kRowK + kRowV);
+  static constexpr int kPart = R * (D + 2);     // floats of one partial: acc, m, l
+  static constexpr int kQ = 0;
+  static constexpr int kP = kQ + R * D * 4;
+  static constexpr int kPWarp = (R + 1) * kKeys;  // floats of a warp's p area
+  static constexpr int kCount = kP + kWarps * kPWarp * 4;
+  static constexpr int kRing = kCount + 16;
+  // a warp's partial [R][D + 2] reuses its first K slot
+  static_assert(kPart * 4 <= kKeys * kRowK, "a partial fits a K slot");
+  static_assert(kRing % 16 == 0 && kSlot % 16 == 0, "16-byte aligned copies");
+  static __host__ __device__ constexpr size_t list(int n_slots) {
+    return kRing + static_cast<size_t>(kWarps) * n_slots * kSlot;
+  }
+  static __host__ __device__ constexpr size_t merge(int n_slots, int pages) {
+    return list(n_slots) + static_cast<size_t>(pages) * 16;
+  }
+  static __host__ __device__ constexpr size_t bytes(int n_slots, int pages, int n_split) {
+    return merge(n_slots, pages) + static_cast<size_t>(n_split) * kPart * 4;
+  }
+};
+
+// The split's live slab rows, in order: walk key i is row start + i.
+struct SlabKeys {
+  int64_t base;     // element offset of the split's first row (this b, kv head)
+  int64_t stride;   // elements between rows
+  int n;            // live rows of the split
+  __device__ __forceinline__ bool key(int i, int64_t& off, float& ks, float& vs) const {
+    off = base + static_cast<int64_t>(i) * stride;
+    ks = vs = 1.f;
+    return i < n;
+  }
+};
+
+// The split's live pages, listed in table order: walk key i is row i % BS of
+// list entry i / BS = (page id, its first table key, K scale, V scale).  Only
+// the last page can end past the live end, so the live keys are a prefix.
+struct PoolKeys {
+  const int4* list;
+  int64_t base;     // element offset of the kv head in the pool (view)
+  int bs, d, n;     // n: live keys of the split
+  __device__ __forceinline__ bool key(int i, int64_t& off, float& ks, float& vs) const {
+    off = 0;
+    ks = vs = 1.f;
+    if (i >= n) return false;
+    const int pl = i / bs, r = i - pl * bs;
+    const int4 e = list[pl];
+    off = base + (static_cast<int64_t>(e.x) * bs + r) * d;
+    ks = __int_as_float(e.z);
+    vs = __int_as_float(e.w);
+    return true;
+  }
+};
+
+// a 16-byte chunk of a K row in f32; int8 values times their page's scale
+template <typename P, int N>
+__device__ __forceinline__ void chunk_f32(const uint4& raw, float (&f)[N], float sc) {
+  const P* e = reinterpret_cast<const P*>(&raw);
 #pragma unroll
-  for (int t0 = 0; t0 < kPerLane; t0 += kBatch) {
-    uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = lane + 32 * (t0 + u), row = base + c / kRowChunks;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (row < n_live) {
-        const int64_t off = head0 + row * key_stride + (c % kRowChunks) * kVec;
-        kr[u] = *reinterpret_cast<const uint4*>(k + off);
-        vr[u] = *reinterpret_cast<const uint4*>(v + off);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = lane + 32 * (t0 + u), j = c / kRowChunks, d0 = (c % kRowChunks) * kVec;
-      const T* kt = reinterpret_cast<const T*>(&kr[u]);
-      const T* vt = reinterpret_cast<const T*>(&vr[u]);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        k_s[j * (D + 1) + d0 + e] = repro::to_f32(kt[e]);
-        v_s[j * D + d0 + e] = repro::to_f32(vt[e]);
-      }
-    }
+  for (int i = 0; i < N; ++i) {
+    f[i] = repro::to_f32(e[i]);
+    if constexpr (std::is_same<P, int8_t>::value) f[i] *= sc;
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ lens, int kv_offset, T* __restrict__ out,
-                    float* __restrict__ acc_out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int Sk, int H, int KvH, float scale) {
-  static_assert(kWarps == kRows, "warp w finalises row w");
-  constexpr int kDimsPerLane = (D + 31) / 32;
-  extern __shared__ float smem[];
-  const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KvH;
-  const int row0 = tile * kRows;
+// T: query and output type; P: K/V type (T, or int8_t with scales on the
+// pool); R: rows a block holds (1 at G = 1, else kMaxRows, guarded)
+template <typename T, typename P, int D, int R, bool kPool>
+__global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
+  using L = Layout<P, D, R>;
+  constexpr bool kInt8 = std::is_same<P, int8_t>::value;
+  constexpr int kChunks = L::kRowV / 16;        // 16-byte chunks of a row
+  constexpr int kE = 16 / static_cast<int>(sizeof(P));   // elements of a chunk
+  constexpr int kDpl = D >= 32 ? D / 32 : 1;    // output dims a lane holds
+  extern __shared__ __align__(16) unsigned char smem[];
+  // phase 0 of the cluster barrier: this block has started (a peer waits
+  // for it before its first store into rank 0's shared memory)
+  repro::cluster_arrive_relaxed();
+
+  const int split = blockIdx.x;                 // the rank: clusters of (n_split, 1, 1)
+  const int kvh = blockIdx.y / a.row_tiles, row0 = (blockIdx.y % a.row_tiles) * R;
+  const int b = blockIdx.z;
+  const int rows = min(R, a.G - row0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* q_s = smem;
-  float* k_s = q_s + kRows * D + warp * warp_floats<D>();
-  float* v_s = k_s + kKeys * (D + 1);
+  float* q_s = reinterpret_cast<float*>(smem + L::kQ);
+  float* p_s = reinterpret_cast<float*>(smem + L::kP) + warp * L::kPWarp;
 
-  // live keys, as slab rows [0, n_live)
-  int end = kv_offset + Sk;
-  if (lens != nullptr) end = min(end, lens[b]);
-  const int n_live = max(0, end - kv_offset);
+  // this split's range of table keys (slab rows), cut at the live end
+  const int len = a.lens != nullptr ? a.lens[b] : 0;
+  const int start = split * a.split_keys;
+  const int end = a.lens != nullptr ? min(a.keys, len - a.kv_offset) : a.keys;
+  const int stop = min(start + a.split_keys, end);
 
-  for (int i = threadIdx.x; i < kRows * D; i += kWarps * 32) {
-    const int row = row0 + i / D;
-    q_s[i] = row < G
-        ? repro::to_f32(q[(static_cast<int64_t>(b) * H + kvh * G + row) * D + i % D])
+  const T* q = static_cast<const T*>(a.q);
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int g = i / D;
+    q_s[i] = g < rows
+        ? repro::to_f32(q[(static_cast<int64_t>(b) * a.H + kvh * a.G + row0 + g) * D + i % D])
         : 0.f;
   }
-  __syncthreads();
 
-  float m[kRows], l[kRows], acc[kRows][kDimsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] = 0.f;
+  int n_walk;   // live keys of the split, in walk order
+  typename std::conditional<kPool, PoolKeys, SlabKeys>::type src;
+  if constexpr (kPool) {
+    int4* list = reinterpret_cast<int4*>(smem + L::list(a.n_slots));
+    int* count = reinterpret_cast<int*>(smem + L::kCount);
+    if (warp == 0) {
+      // list the split's live pages in table order, a ballot per 32 pages;
+      // the table loads do not wait for the length
+      const int p0 = start / a.BS;
+      const int np = min(a.split_keys / a.BS, a.MB - p0);
+      const int* table = a.tables + static_cast<int64_t>(b) * a.MB + p0;
+      int n = 0;
+      for (int base = 0; base < np; base += 32) {
+        const int p = base + lane;
+        const int pg = p < np ? table[p] : 0;
+        const bool live = p < np && start + p * a.BS < stop && (!a.skip_null || pg != 0);
+        const unsigned mask = __ballot_sync(0xffffffffu, live);
+        if (live) {
+          float ks = 1.f, vs = 1.f;
+          if constexpr (kInt8) {
+            const int64_t si = static_cast<int64_t>(kvh) * a.scale_stride + pg;
+            ks = a.k_scales[si];
+            vs = a.v_scales[si];
+          }
+          list[n + __popc(mask & ((1u << lane) - 1u))] =
+              make_int4(pg, start + p * a.BS, __float_as_int(ks), __float_as_int(vs));
+        }
+        n += __popc(mask);
+      }
+      if (lane == 0) *count = n;
+    }
+    __syncthreads();   // the list and q
+    const int n_pages = *count;
+    n_walk = n_pages > 0 ? (n_pages - 1) * a.BS + min(a.BS, stop - list[n_pages - 1].y) : 0;
+    src.list = list;
+    src.base = static_cast<int64_t>(kvh) * a.head_stride;
+    src.bs = a.BS;
+    src.d = D;
+    src.n = n_walk;
+  } else {
+    __syncthreads();   // q
+    n_walk = max(0, stop - start);
+    src.base = static_cast<int64_t>(b) * a.batch_stride + kvh * a.head_stride +
+               static_cast<int64_t>(start) * a.key_stride;
+    src.stride = a.key_stride;
+    src.n = n_walk;
   }
 
-  const int64_t key_stride = static_cast<int64_t>(KvH) * D;   // slab row to slab row
-  const int64_t head0 = (static_cast<int64_t>(b) * Sk * KvH + kvh) * D;
-  for (int base = warp * kKeys; base < n_live; base += kWarps * kKeys) {
-    __syncwarp();  // the warp's reads of the previous step are done
-    stage_step<T, D>(k_s, v_s, k, v, head0, key_stride, base, n_live, lane);
-    __syncwarp();
+  // this warp's stages: walk keys (warp + i * kWarps) * kKeys + lane
+  const int n_stages = (n_walk + kKeys - 1) / kKeys;
+  const int mine = n_stages > warp ? (n_stages - warp + kWarps - 1) / kWarps : 0;
+  unsigned char* ring = smem + L::kRing + warp * a.n_slots * L::kSlot;
+  const unsigned char* kg = static_cast<const unsigned char*>(a.k);
+  const unsigned char* vg = static_cast<const unsigned char*>(a.v);
 
-    // lane owns key base + lane: its score against each row of the tile
-    float s[kRows];
+  auto issue = [&](int i) {
+    unsigned char* k_s = ring + (i % a.n_slots) * L::kSlot;
+    unsigned char* v_s = k_s + kKeys * L::kRowK;
+    int64_t off;
+    float ks, vs;
+    const bool ok = src.key((warp + i * kWarps) * kKeys + lane, off, ks, vs);
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) s[rr] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = k_s[lane * (D + 1) + d];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) s[rr] += q_s[rr * D + d] * kd;
+    for (int t = 0; t < kChunks; ++t) {
+      const int c = lane + 32 * t, j = c / kChunks, cc = c % kChunks;
+      const int64_t oj = __shfl_sync(0xffffffffu, off, j);
+      const bool okj = __shfl_sync(0xffffffffu, ok, j);
+      const int64_t byte = okj ? oj * static_cast<int64_t>(sizeof(P)) + cc * 16 : 0;
+      repro::cp_async16(k_s + j * L::kRowK + cc * 16, kg + byte, okj);
+      repro::cp_async16(v_s + j * L::kRowV + cc * 16, vg + byte, okj);
     }
-    const bool valid = base + lane < n_live;
-    float p[kRows];
+    repro::cp_async_commit();
+  };
+
+  // m is warp-uniform; l is summed per lane and over the warp at the end
+  float m[R], l[R], acc[R][kDpl];
 #pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const float sv = valid ? s[rr] * scale : kNegInf;
-      const float m_new = fmaxf(m[rr], repro::warp_max(sv));
-      p[rr] = expf(sv - m_new);
-      const float corr = expf(m[rr] - m_new);
-      l[rr] = l[rr] * corr + repro::warp_sum(p[rr]);
+  for (int g = 0; g < R; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
 #pragma unroll
-      for (int dd = 0; dd < kDimsPerLane; ++dd) acc[rr][dd] *= corr;
-      m[rr] = m_new;
+    for (int dd = 0; dd < kDpl; ++dd) acc[g][dd] = 0.f;
+  }
+
+  for (int i = 0; i < min(mine, a.n_slots); ++i) issue(i);
+  for (int i = 0; i < mine; ++i) {
+    // stages i .. min(i + n_slots, mine) - 1 are in flight: let all but
+    // stage i stay so
+    switch (min(a.n_slots, mine - i) - 1) {
+      case 3: repro::cp_async_wait<3>(); break;
+      case 2: repro::cp_async_wait<2>(); break;
+      case 1: repro::cp_async_wait<1>(); break;
+      default: repro::cp_async_wait<0>();
     }
-    for (int j = 0; j < kKeys; ++j) {
-      float pj[kRows];
+    __syncwarp();   // every lane's copies of stage i have landed
+    const unsigned char* k_s = ring + (i % a.n_slots) * L::kSlot;
+    const unsigned char* v_s = k_s + kKeys * L::kRowK;
+    int64_t off;
+    float ks, vs;
+    const bool valid = src.key((warp + i * kWarps) * kKeys + lane, off, ks, vs);
+
+    // lane j scores key j against the block's rows, a sum per 16-byte chunk
+    float s[R];
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) pj[rr] = __shfl_sync(0xffffffffu, p[rr], j);
+    for (int g = 0; g < R; ++g) s[g] = 0.f;
+    const unsigned char* krow = k_s + lane * L::kRowK;
 #pragma unroll
-      for (int dd = 0; dd < kDimsPerLane; ++dd) {
-        const int d = lane + 32 * dd;
-        const float vd = d < D ? v_s[j * D + d] : 0.f;
+    for (int cc = 0; cc < kChunks; ++cc) {
+      float kf[kE];
+      chunk_f32<P>(*reinterpret_cast<const uint4*>(krow + cc * 16), kf, ks);
 #pragma unroll
-        for (int rr = 0; rr < kRows; ++rr) acc[rr][dd] += pj[rr] * vd;
+      for (int g = 0; g < R; ++g) {
+        if (g < rows) {
+          const float* qr = q_s + g * D + cc * kE;
+          float c = 0.f;
+#pragma unroll
+          for (int e = 0; e < kE; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+            c = fmaf(qv.x, kf[e], c);
+            c = fmaf(qv.y, kf[e + 1], c);
+            c = fmaf(qv.z, kf[e + 2], c);
+            c = fmaf(qv.w, kf[e + 3], c);
+          }
+          s[g] += c;
+        }
       }
     }
+    // the online-softmax update; p goes to shared memory for the PV
+    // product (0 on masked keys and on rows past G: every stage holds a
+    // live key, so m is finite after it)
+#pragma unroll
+    for (int g = 0; g < R; ++g) {
+      float p = 0.f;
+      if (g < rows) {
+        const float sv = valid ? s[g] * a.scale : kNegInf;
+        const float m_new = fmaxf(m[g], repro::warp_max(sv));
+        p = expf(sv - m_new);
+        const float corr = expf(m[g] - m_new);
+        l[g] = l[g] * corr + p;
+#pragma unroll
+        for (int dd = 0; dd < kDpl; ++dd) acc[g][dd] *= corr;
+        m[g] = m_new;
+      }
+      p_s[g * kKeys + lane] = p;
+    }
+    if constexpr (kInt8) p_s[R * kKeys + lane] = vs;
+    __syncwarp();
+    if (lane * kDpl < D) {   // at D = 16 half the lanes hold no dim
+      const unsigned char* vcol = v_s + lane * kDpl * static_cast<int>(sizeof(P));
+#pragma unroll
+      for (int j0 = 0; j0 < kKeys; j0 += 4) {
+        float4 pj[R];
+#pragma unroll
+        for (int g = 0; g < R; ++g) pj[g] = *reinterpret_cast<const float4*>(p_s + g * kKeys + j0);
+        float4 vsc = make_float4(1.f, 1.f, 1.f, 1.f);
+        if constexpr (kInt8) vsc = *reinterpret_cast<const float4*>(p_s + R * kKeys + j0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const P* vr = reinterpret_cast<const P*>(vcol + (j0 + u) * L::kRowV);
+          const float sc = u == 0 ? vsc.x : u == 1 ? vsc.y : u == 2 ? vsc.z : vsc.w;
+#pragma unroll
+          for (int dd = 0; dd < kDpl; ++dd) {
+            float vv = repro::to_f32(vr[dd]);
+            if constexpr (kInt8) vv *= sc;
+#pragma unroll
+            for (int g = 0; g < R; ++g) {
+              const float pv = u == 0 ? pj[g].x : u == 1 ? pj[g].y : u == 2 ? pj[g].z : pj[g].w;
+              acc[g][dd] = fmaf(pv, vv, acc[g][dd]);
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();   // every lane's reads of the slot and of p are done
+    if (i + a.n_slots < mine) issue(i + a.n_slots);
   }
 
-  // merge the four warps' partials: m = max m_w, l = sum l_w e^(m_w - m),
-  // acc likewise (a warp that saw no key holds (0, -1e30, 0))
-  __syncthreads();  // every warp is done with its staging area
-  float* part = q_s + kRows * D;  // [kWarps][kRows][D + 2]: acc, m, l
+  // this warp's partial [R][D + 2] into its first K slot (its copies have
+  // all landed and been read)
+  float* part = reinterpret_cast<float*>(ring);
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    float* dst = part + (warp * kRows + rr) * (D + 2);
+  for (int g = 0; g < R; ++g) {
+    const float lw = repro::warp_sum(l[g]);
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) {
-      const int d = lane + 32 * dd;
-      if (d < D) dst[d] = acc[rr][dd];
+    for (int dd = 0; dd < kDpl; ++dd) {
+      const int d = lane * kDpl + dd;
+      if (d < D) part[g * (D + 2) + d] = acc[g][dd];
     }
     if (lane == 0) {
-      dst[D] = m[rr];
-      dst[D + 1] = l[rr];
+      part[g * (D + 2) + D] = m[g];
+      part[g * (D + 2) + D + 1] = lw;
     }
   }
   __syncthreads();
 
-  const int rr = warp, row = row0 + rr;
-  if (row >= G) return;
-  float mw[kWarps], mx = kNegInf;
+  // the block's partial, its warps' merged in warp order, pushed into slot
+  // `split` of rank 0's shared memory once every block has started
+  repro::cluster_wait();
+  cg::cluster_group cluster = cg::this_cluster();
+  float* merged = reinterpret_cast<float*>(smem + L::merge(a.n_slots, a.pages));
+  float* dst = cluster.map_shared_rank(merged, 0) + split * L::kPart;
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mw[kWarps], mx = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    mw[w] = part[(w * kRows + rr) * (D + 2) + D];
-    mx = fmaxf(mx, mw[w]);
-  }
-  float lsum = 0.f, a[kDimsPerLane];
+    for (int w = 0; w < kWarps; ++w) {
+      mw[w] = reinterpret_cast<const float*>(smem + L::kRing + w * a.n_slots * L::kSlot)[g * (D + 2) + D];
+      mx = fmaxf(mx, mw[w]);
+    }
+    float sum = 0.f, ls = 0.f;
 #pragma unroll
-  for (int dd = 0; dd < kDimsPerLane; ++dd) a[dd] = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const float* src = part + (w * kRows + rr) * (D + 2);
-    const float c = expf(mw[w] - mx);
-    lsum += src[D + 1] * c;
-#pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) {
-      const int d = lane + 32 * dd;
-      if (d < D) a[dd] += src[d] * c;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* pw = reinterpret_cast<const float*>(smem + L::kRing + w * a.n_slots * L::kSlot);
+      const float c = expf(mw[w] - mx);
+      sum = fmaf(pw[g * (D + 2) + d], c, sum);
+      ls = fmaf(pw[g * (D + 2) + D + 1], c, ls);
+    }
+    dst[g * (D + 2) + d] = sum;
+    if (d == 0) {
+      dst[g * (D + 2) + D] = mx;
+      dst[g * (D + 2) + D + 1] = ls;
     }
   }
-  const int64_t idx = static_cast<int64_t>(b) * H + kvh * G + row;
-  if (out != nullptr) {
-    const float lf = fmaxf(lsum, 1e-30f);
+  // phase 1: this block's partial is in rank 0; a peer is done (nothing
+  // reads its shared memory), rank 0 waits for every block's
+  repro::cluster_arrive_release();
+  if (split != 0) return;
+  repro::cluster_wait();
+
+  // rank 0: the blocks' partials merged in rank order
+  const int n_split = static_cast<int>(gridDim.x);
+  const int64_t idx0 = static_cast<int64_t>(b) * a.H + kvh * a.G + row0;
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mr[kMaxSplit], mx = kNegInf;
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) {
-      const int d = lane + 32 * dd;
-      if (d < D) out[idx * D + d] = repro::from_f32<T>(a[dd] / lf);
+    for (int r = 0; r < kMaxSplit; ++r) {
+      mr[r] = r < n_split ? merged[r * L::kPart + g * (D + 2) + D] : kNegInf;
+      mx = fmaxf(mx, mr[r]);
     }
-  } else {
+    float sum = 0.f, ls = 0.f;
 #pragma unroll
-    for (int dd = 0; dd < kDimsPerLane; ++dd) {
-      const int d = lane + 32 * dd;
-      if (d < D) acc_out[idx * D + d] = a[dd];
+    for (int r = 0; r < kMaxSplit; ++r) {
+      if (r < n_split) {
+        const float* pr = merged + r * L::kPart + g * (D + 2);
+        const float c = expf(mr[r] - mx);
+        sum = fmaf(pr[d], c, sum);
+        ls = fmaf(pr[D + 1], c, ls);
+      }
     }
-    if (lane == 0) {
-      m_out[idx] = mx;
-      l_out[idx] = lsum;
+    const int64_t idx = idx0 + g;
+    if (a.out != nullptr) {
+      static_cast<T*>(a.out)[idx * D + d] = repro::from_f32<T>(sum / fmaxf(ls, 1e-30f));
+    } else {
+      a.acc[idx * D + d] = sum;
+      if (d == 0) {
+        a.m[idx] = mx;
+        a.l[idx] = ls;
+      }
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(dim3 grid, cudaStream_t s, const void* q, const void* k, const void* v,
-                   const int* lens, int kv_offset, void* out, float* acc, float* m, float* l,
-                   int Sk, int H, int KvH) {
-  auto kern = dense_decode_kernel<T, D>;
-  if (cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem_bytes<D>())))
-    return e;
-  kern<<<grid, kWarps * 32, smem_bytes<D>(), s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lens,
-      kv_offset, static_cast<T*>(out), acc, m, l, Sk, H, KvH,
-      1.0f / sqrtf(static_cast<float>(D)));
+template <typename T, typename P, int D, int R, bool kPool>
+cudaError_t launch(Args a, int n_split, int B, int n_sm, cudaStream_t s) {
+  using L = Layout<P, D, R>;
+  auto kern = flash_decode_kernel<T, P, D, R, kPool>;
+  a.pages = kPool ? a.split_keys / a.BS : 0;
+  // Ring slots: the grid's blocks resident at once come first (a wave of
+  // blocks costs a chain of memory latencies), so a warp keeps one slot,
+  // and more (up to kMaxSlots, and no more than its stages) only where the
+  // whole grid still fits on the card in one wave with them
+  const int per_warp = ((a.split_keys + kKeys - 1) / kKeys + kWarps - 1) / kWarps;
+  const int64_t blocks = static_cast<int64_t>(n_split) * a.KvH * a.row_tiles * B;
+  const int64_t per_sm = (blocks + n_sm - 1) / n_sm;
+  a.n_slots = 1;
+  for (int k = 2; k <= min(kMaxSlots, per_warp); ++k) {
+    const size_t bk = L::bytes(k, a.pages, n_split);
+    if (bk > kMaxSmem || per_sm * (bk + 1024) > kSmSmem) break;
+    a.n_slots = k;
+  }
+  const size_t smem = L::bytes(a.n_slots, a.pages, n_split);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    if (cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))
+      return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, a.KvH * a.row_tiles, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a)) return e;
   return cudaGetLastError();
+}
+
+// the head dims of _paged.HEAD_DIMS / DENSE_HEAD_DIMS; another is an
+// invalid-value error
+template <typename T, typename P, bool kPool>
+cudaError_t by_dim(const Args& a, int D, int n_split, int B, int n_sm, cudaStream_t s) {
+  const bool one = a.G == 1;
+#define REPRO_DECODE_CASE(DIM)                                                  \
+  case DIM:                                                                     \
+    return one ? launch<T, P, DIM, 1, kPool>(a, n_split, B, n_sm, s)            \
+               : launch<T, P, DIM, kMaxRows, kPool>(a, n_split, B, n_sm, s);
+  switch (D) {
+    REPRO_DECODE_CASE(16)
+    REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(128)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_DECODE_CASE
+}
+
+// shared checks; fills the row tiling of G = H / KvH
+cudaError_t check_plan(Args& a, int B, int n_split, int grain) {
+  if (a.KvH <= 0 || a.H % a.KvH) return cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > kMaxSplit || a.split_keys <= 0 || a.split_keys % grain)
+    return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(n_split) * a.split_keys < a.keys) return cudaErrorInvalidValue;
+  a.G = a.H / a.KvH;
+  const int R = a.G == 1 ? 1 : kMaxRows;
+  a.row_tiles = (a.G + R - 1) / R;
+  if (static_cast<int64_t>(a.KvH) * a.row_tiles > 65535 || B > 65535) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// q [B, H, D]; k, v [B, Sk, KvH, D] (16-byte aligned); lens [B] int32
-// (NULL: the whole slab); kv_offset is the global position of slab row 0.
-// Either out [B, H, D] (normalised, element type) or the f32 partials acc
-// [B, H, D], m and l [B, H] are written; the other is NULL.
+// The paged pool.  q [B, H, D] of type `dtype`; k_pages, v_pages [KvH, NB,
+// BS, D] of the same type, or int8 when k_scales / v_scales [KvH, NB] f32
+// are given (both NULL for a float pool), each dense but for its kv-head
+// stride (page_stride, scale_stride elements: a shard's view of the pool)
+// and 16-byte aligned; tables [B, MB] int32; lens [B] int32.  Key j of a
+// table sits at global position kv_offset + j; skip_null nonzero skips the
+// pages of zero table entries.  The keys [0, MB * BS) are cut into n_split
+// (<= 8) ranges of split_keys (a multiple of BS), one block of a cluster
+// each; n_sm is the card's SM count.  Either out [B, H, D] (normalised,
+// element type) or the f32 partials acc [B, H, D], m and l [B, H] are
+// written; the other is NULL.
+extern "C" int repro_paged_decode(int dtype, const void* q, const void* k_pages,
+                                  const void* v_pages, const float* k_scales,
+                                  const float* v_scales, const int* tables, const int* lens,
+                                  int kv_offset, int skip_null, void* out, float* acc,
+                                  float* m, float* l, int B, int H, int KvH,
+                                  int64_t page_stride, int64_t scale_stride, int BS, int D,
+                                  int MB, int n_split, int split_keys, int n_sm,
+                                  void* stream) {
+  if (B <= 0 || H <= 0) return cudaSuccess;
+  if (n_sm <= 0) return cudaErrorInvalidValue;
+  if ((k_scales == nullptr) != (v_scales == nullptr) || BS <= 0 || MB <= 0 || lens == nullptr)
+    return cudaErrorInvalidValue;
+  Args a = {};
+  a.q = q;
+  a.k = k_pages;
+  a.v = v_pages;
+  a.k_scales = k_scales;
+  a.v_scales = v_scales;
+  a.tables = tables;
+  a.lens = lens;
+  a.out = out;
+  a.acc = acc;
+  a.m = m;
+  a.l = l;
+  a.head_stride = page_stride;
+  a.scale_stride = scale_stride;
+  a.kv_offset = kv_offset;
+  a.skip_null = skip_null;
+  a.H = H;
+  a.KvH = KvH;
+  a.BS = BS;
+  a.MB = MB;
+  a.keys = MB * BS;
+  a.split_keys = split_keys;
+  a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (cudaError_t e = check_plan(a, B, n_split, BS)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_DTYPE(dtype, T, {
+    return k_scales != nullptr ? by_dim<T, int8_t, true>(a, D, n_split, B, n_sm, s)
+                               : by_dim<T, T, true>(a, D, n_split, B, n_sm, s);
+  });
+  return cudaSuccess;
+}
+
+// The dense slab.  q [B, H, D]; k, v [B, Sk, KvH, D] (16-byte aligned), the
+// model's slab of one layer read in place; lens [B] int32 (NULL: the whole
+// slab); kv_offset is the global position of slab row 0.  The rows [0, Sk)
+// are cut into n_split (<= 8) ranges of split_keys (a multiple of 32), one
+// block of a cluster each; n_sm is the card's SM count.  Either out [B, H,
+// D] (normalised, element type) or the f32 partials acc [B, H, D], m and l
+// [B, H] are written; the other is NULL.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
                                       const int* lens, int kv_offset, void* out, float* acc,
                                       float* m, float* l, int B, int Sk, int H, int KvH, int D,
-                                      void* stream) {
+                                      int n_split, int split_keys, int n_sm, void* stream) {
   if (B <= 0 || H <= 0) return cudaSuccess;
-  if (KvH <= 0 || H % KvH) return cudaErrorInvalidValue;
+  if (Sk <= 0 || n_sm <= 0) return cudaErrorInvalidValue;
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lens = lens;
+  a.out = out;
+  a.acc = acc;
+  a.m = m;
+  a.l = l;
+  a.head_stride = D;
+  a.key_stride = static_cast<int64_t>(KvH) * D;
+  a.batch_stride = static_cast<int64_t>(Sk) * KvH * D;
+  a.kv_offset = kv_offset;
+  a.H = H;
+  a.KvH = KvH;
+  a.keys = Sk;
+  a.split_keys = split_keys;
+  a.scale = 1.0f / sqrtf(static_cast<float>(D));
+  if (cudaError_t e = check_plan(a, B, n_split, kKeys)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((H / KvH + kRows - 1) / kRows, KvH, B);
-#define REPRO_DENSE_CASE(DIM) \
-  case DIM: return launch<T, DIM>(grid, s, q, k, v, lens, kv_offset, out, acc, m, l, Sk, H, KvH);
-  REPRO_DISPATCH_DTYPE(dtype, T,
-    switch (D) {
-      REPRO_DENSE_CASE(16)
-      REPRO_DENSE_CASE(64)
-      REPRO_DENSE_CASE(128)
-      default: return cudaErrorInvalidValue;
-    });
-#undef REPRO_DENSE_CASE
+  REPRO_DISPATCH_DTYPE(dtype, T, { return by_dim<T, T, false>(a, D, n_split, B, n_sm, s); });
   return cudaSuccess;
 }

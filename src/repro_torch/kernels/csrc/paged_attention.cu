@@ -1,15 +1,12 @@
-// Paged attention over a block-table-addressed KV pool: decode and prefill.
+// Paged prefill attention over a block-table-addressed KV pool.
 //
-// Replaces two TPU kernels:
-//   src/repro/kernels/decode_attention.py  _paged_decode   (pallas_call at :300)
-//   src/repro/kernels/prefill_attention.py _paged_prefill  (pallas_call at :273)
+// Replaces the TPU kernel src/repro/kernels/prefill_attention.py
+// _paged_prefill (pallas_call at :273).  Decode runs csrc/decode_attention.cu.
 //
-// One kernel serves both.  A decode step is a one-row chunk per sequence at
-// q_offset = len - 1, where the causal test kpos <= qpos becomes kpos < len.
-// Queries are [B, C, H, D] (decode: C = 1); KV pages are [KvH, NB, BS, D];
-// the block table is [B, MB] int32 (prefill: B = 1).  Query rows of one kv
-// head are numbered row-major (position, group): row r is chunk position
-// r / G and query head kvh * G + r % G, G = H / KvH.
+// Queries are [B, C, H, D] (a prefill chunk: B = 1); KV pages are [KvH, NB,
+// BS, D]; the block table is [B, MB] int32.  Query rows of one kv head are
+// numbered row-major (position, group): row r is chunk position r / G and
+// query head kvh * G + r % G, G = H / KvH.
 //
 // Grid (row tiles, KvH, B).  A block owns kRows = 16 query rows of one
 // (sequence, kv head), reads its own block-table entries, and walks the keys
@@ -25,30 +22,27 @@
 // normaliser is floored at 1e-30, and a row that sees no key returns the
 // combine identity (acc, m, l) = (0, -1e30, 0), all as the TPU kernels do.
 //
-// int8 pool (the TPU kernels' quantized branch, decode_attention.py:166-230,
-// prefill_attention.py:165-170): pages are int8_t and k_scales / v_scales
-// [KvH, NB] f32 hold one scale per (kv head, page).  The page element type P
-// is a template parameter apart from the query type T (q and out stay f32 or
-// bf16), and the staging loop multiplies each int8 value by its scale in f32
+// int8 pool (the TPU kernel's quantized branch, prefill_attention.py
+// :165-170): pages are int8_t and k_scales / v_scales [KvH, NB] f32 hold one
+// scale per (kv head, page).  The page element type P is a template
+// parameter apart from the query type T (q and out stay f32 or bf16), and
+// the staging loop multiplies each int8 value by its scale in f32
 // before it goes to shared memory -- the product the plain version's gather
 // forms, rounded once -- so everything after it (online softmax, masking,
 // partials, the causal tile end) is the float pool's code unchanged.
 //
-// Sequence-sharded pools (the TPU kernels' skip_null and kv_offset modes,
-// decode_attention.py:219,235-237, prefill_attention.py:142-146): a shard
-// is the view pages[:, s*nbl:(s+1)*nbl] of the one pool, read in place
-// through the kv-head strides `page_stride` / `scale_stride` (elements),
-// with its shard-local table.  With `skip_null` set, a key whose table
-// entry is 0 (a page another shard owns) is masked and its K/V bytes are
-// never loaded; the test is per key, since a 32-key step straddles two
-// pages at BS 16, and a step none of whose keys is live is skipped whole.
-// `kv_offset` (decode) puts key j of the table at global position
-// kv_offset + j, live below min(len, kv_offset + MB * BS).  Masked keys
-// still add expf(-1e30 - m) to a row's sums while its m is -1e30; the first
-// live key's corr = 0 wipes that, and a row that never sees one (m still
-// -1e30) is written as the identity (0, -1e30, 0).  Both modes are runtime
-// arguments, so the instantiations stay those of the float and int8 pools;
-// with skip_null off and kv_offset 0 every row gets the bits it got before.
+// Sequence-sharded pools (the TPU kernel's skip_null mode,
+// prefill_attention.py:142-146): a shard is the view pages[:,
+// s*nbl:(s+1)*nbl] of the one pool, read in place through the kv-head
+// strides `page_stride` / `scale_stride` (elements), with its shard-local
+// table.  With `skip_null` set, a key whose table entry is 0 (a page another
+// shard owns) is masked and its K/V bytes are never loaded; the test is per
+// key, since a 32-key step straddles two pages at BS 16, and a step none of
+// whose keys is live is skipped whole.  Masked keys still add expf(-1e30 -
+// m) to a row's sums while its m is -1e30; the first live key's corr = 0
+// wipes that, and a row that never sees one (m still -1e30) is written as
+// the identity (0, -1e30, 0).  The mode is a runtime argument, so the
+// instantiations stay those of the float and int8 pools.
 // Each step's page ids are looked up once per key (a step ahead, hiding the
 // load) and published in shared memory for the staging loop, which then
 // needs no table load or division per element.
@@ -70,14 +64,21 @@ constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                     // keys staged per step: one per lane
 constexpr float kNegInf = -1e30f;
 
+// Blocks an SM each instantiation keeps resident (the kernel is
+// latency-bound): 5 at D 128, where shared memory allows no more, else 8
+// with bf16 queries (64 registers a thread) and 7 with f32.  Left to itself
+// the compiler gives this kernel 72-132 registers, fewer blocks an SM, and
+// the bf16 prefill at D 64 reads 15-22% slower on the H100.
+template <typename T, int D>
+constexpr int min_blocks() { return D > 64 ? 5 : sizeof(T) == 2 ? 8 : 7; }
+
 // T: query and output type; P: page type (T, or int8_t with scales)
 template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, min_blocks<T, D>())
 paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                        const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales, const int* __restrict__ tables,
-                       const int* __restrict__ lens, int q_offset, int total,
-                       int kv_offset, int skip_null, T* __restrict__ out,
+                       int qoff, int tot, int skip_null, T* __restrict__ out,
                        float* __restrict__ acc_out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int C, int H, int KvH,
                        int64_t page_stride, int64_t scale_stride, int BS, int MB,
@@ -89,17 +90,10 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int n_rows = C * G;
   const int row0 = tile * kRows;
 
-  // decode: per-sequence length; prefill: host scalars (total pre-clamped).
-  // qoff and tot are global positions; the walk runs over table keys
-  // [0, tile_end), key j at global position kv_offset + j
-  int qoff = q_offset, tot = total;
-  if (lens != nullptr) {
-    const int len = lens[b];
-    qoff = len - 1;
-    tot = min(len, kv_offset + MB * BS);
-  }
+  // qoff and tot (the live keys, pre-clamped to MB * BS) are global
+  // positions; the walk runs over the keys [0, tile_end)
   const int last_row = min(row0 + kRows, n_rows) - 1;
-  const int tile_end = min(tot, qoff + last_row / G + 1) - kv_offset;
+  const int tile_end = min(tot, qoff + last_row / G + 1);
 
   __shared__ float q_s[kRows][D];
   __shared__ float k_s[kKeys][D + 1];
@@ -177,11 +171,10 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] += q_s[wrow0 + rr][d] * kd;
     }
-    const int kpos = kv_offset + key;  // global position
     float p[kRowsPerWarp];
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const bool valid = live && kpos <= qpos[rr] && kpos < tot;
+      const bool valid = live && key <= qpos[rr] && key < tot;
       const float sv = valid ? s[rr] * scale : kNegInf;
       const float m_new = fmaxf(m[rr], repro::warp_max(sv));
       p[rr] = expf(sv - m_new);
@@ -240,15 +233,15 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 // the head dims of _paged.HEAD_DIMS; another is an invalid-value error
 template <typename T, typename P>
 int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
-           const float* ks, const float* vs, const int* bt, const int* lens, int q_offset,
-           int total, int kv_offset, int skip_null, void* out, float* acc, float* m, float* l,
+           const float* ks, const float* vs, const int* bt, int q_offset, int total,
+           int skip_null, void* out, float* acc, float* m, float* l,
            int C, int H, int KvH, int64_t page_stride, int64_t scale_stride, int BS, int MB) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 #define REPRO_PAGED_CASE(DIM)                                                                 \
   case DIM:                                                                                   \
     paged_attention_kernel<T, P, DIM><<<grid, kWarps * 32, 0, s>>>(                           \
         static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks,   \
-        vs, bt, lens, q_offset, total, kv_offset, skip_null, static_cast<T*>(out), acc, m, l, \
+        vs, bt, q_offset, total, skip_null, static_cast<T*>(out), acc, m, l,                  \
         C, H, KvH, page_stride, scale_stride, BS, MB, scale);                                \
     return cudaSuccess;
   switch (D) {
@@ -266,16 +259,14 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, cons
 // same type, or int8 when k_scales / v_scales [KvH, NB] f32 are given (both
 // NULL for a float pool), each dense but for its kv-head stride
 // (page_stride, scale_stride elements: a shard's view of the pool); tables
-// [B, MB] int32.  Decode passes lens [B] (q_offset and total unused) and
-// kv_offset; prefill passes lens = NULL with q_offset, total = min(q_offset
-// + length, MB * BS) and kv_offset 0.  skip_null nonzero masks the keys of
-// zero table entries.  Either out [B, C, H, D] (normalised, element type)
-// or the f32 partials acc [B, C, H, D], m and l [B, C, H] are written; the
-// other is NULL.
+// [B, MB] int32; q_offset and total = min(q_offset + length, MB * BS).
+// skip_null nonzero masks the keys of zero table entries.  Either out [B,
+// C, H, D] (normalised, element type) or the f32 partials acc [B, C, H, D],
+// m and l [B, C, H] are written; the other is NULL.
 extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pages,
                                      const void* v_pages, const float* k_scales,
-                                     const float* v_scales, const int* tables, const int* lens,
-                                     int q_offset, int total, int kv_offset, int skip_null,
+                                     const float* v_scales, const int* tables, int q_offset,
+                                     int total, int skip_null,
                                      void* out, float* acc, float* m, float* l, int B, int C,
                                      int H, int KvH, int64_t page_stride, int64_t scale_stride,
                                      int BS, int D, int MB, int n_tiles, void* stream) {
@@ -285,12 +276,12 @@ extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pag
   const dim3 grid(n_tiles, KvH, B);
   REPRO_DISPATCH_DTYPE(dtype, T, {
     const int rc = k_scales != nullptr
-        ? launch<T, int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables, lens,
-                            q_offset, total, kv_offset, skip_null, out, acc, m, l, C, H, KvH,
+        ? launch<T, int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables,
+                            q_offset, total, skip_null, out, acc, m, l, C, H, KvH,
                             page_stride, scale_stride, BS, MB)
-        : launch<T, T>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables, lens,
-                       q_offset, total, kv_offset, skip_null, out, acc, m, l, C, H, KvH,
-                       page_stride, scale_stride, BS, MB);
+        : launch<T, T>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables, q_offset,
+                       total, skip_null, out, acc, m, l, C, H, KvH, page_stride,
+                       scale_stride, BS, MB);
     if (rc != cudaSuccess) return rc;
   });
   return cudaGetLastError();

@@ -1,43 +1,48 @@
-"""Flash-decoding — hand-written CUDA kernels for Hopper: over the paged KV
-pool (``csrc/paged_attention.cu``, host side in ``_paged.py``) and over a
-dense KV slab (``csrc/decode_attention.cu``).
+"""Flash-decoding — one hand-written CUDA kernel for Hopper
+(``csrc/decode_attention.cu``) over two key sources: the paged KV pool and a
+dense KV slab.
 
-Replaces the TPU kernel ``src/repro/kernels/decode_attention.py``
-(``_paged_decode``, ``pallas_call`` at :300, behind
-``paged_decode_attention`` :313 and ``paged_decode_attention_partial``
-:327).  A decode step is run as a one-row chunk per sequence: block
-(tile, kv head, sequence) reads its own block-table row, walks only the
-sequence's live keys ``[0, min(len, MB*BS))`` 32 at a time through shared
-memory, and keeps the online softmax in f32 registers.  Bound on the H100:
-bytes (each live K/V byte is read once).  The TPU kernel's 64-row
-K-subtiling for ``BS > 64`` has no counterpart to port: this kernel's step
-is 32 keys whatever the page size.  Retired slots (all-zero table row,
-length 0 -> attention over the null page's first row) launch validly and
-their rows are discarded by the engine.
+Replaces two TPU kernels of ``src/repro/kernels/decode_attention.py``:
+``_paged_decode`` (``pallas_call`` at :300, behind ``paged_decode_attention``
+:313 and ``paged_decode_attention_partial`` :327) and ``_decode``
+(``pallas_call`` at :114, behind ``decode_attention`` :143 and
+``decode_attention_partial`` :151).
 
-Ported here: the fp pool and the int8 pool (pages int8 with ``k_scales`` /
-``v_scales`` [KvH, NB] f32, one per (kv head, page), dequantized as the
-kernel stages each value: the TPU kernel's quantized branch, :166-230),
-normalized output and ``(acc, m, l)`` partials (an empty row is ``(0,
--1e30, 0)``), and the sequence-sharded pool's modes of
+Each (sequence, kv head)'s keys are cut into up to eight fixed ranges, one
+block of a thread-block cluster each: ``_paged.decode_plan`` picks the split
+from shapes alone (the lengths never reach the host; as many splits as keep
+the grid to one wave of blocks) and ``_paged.split_key_ranges`` mirrors the
+ranges.  A block holds all G query rows of its kv head, walks only its
+range's live keys in 32-key stages (each of its four warps streams its
+stages' K and V through 16-byte ``cp.async`` into a ring in shared memory)
+and keeps the online softmax in f32; each block pushes its ``(acc, m, l)``
+into the shared memory of the cluster's rank 0, which merges them in a
+fixed order and writes the normalized output or the partials, so a call is
+one launch and two calls give the same bits.
+Bound on the H100: bytes (each live K/V byte is read once).  The TPU
+kernel's 64-row K-subtiling for ``BS > 64`` has no counterpart to port: the
+stages are 32 keys whatever the page size.
+
+The pool: q [B, H, D] against pages [KvH, NB, BS, D] through the block
+table.  Ported here: the fp pool and the int8 pool (pages int8 with
+``k_scales`` / ``v_scales`` [KvH, NB] f32, one per (kv head, page), each value
+dequantized as ``int8 * scale`` in f32: the TPU kernel's quantized branch,
+:166-230), normalized output and ``(acc, m, l)`` partials (an empty row is
+``(0, -1e30, 0)``), and the sequence-sharded pool's modes of
 ``paged_decode_attention_partial`` (:327; ``skip_null`` and ``kv_offset``,
 :219, :235-237): a shard's view of the pool is read through its kv-head
-stride, a zero entry of its shard-local table is masked and its bytes
-never loaded, and key ``j`` of the table sits at global position
-``kv_offset + j``.  A row all of whose live pages another shard owns
-returns the combine identity.
+stride, a page whose shard-local table entry is zero is skipped whole (no
+copy, no arithmetic), and key ``j`` of the table sits at global position
+``kv_offset + j``.  A row all of whose live pages another shard owns returns
+the combine identity.  Retired slots (all-zero table row, length 0) launch
+validly; their rows are discarded by the engine.
 
-The dense slab replaces the TPU kernel's ``_decode`` (``pallas_call`` at
-:114, behind ``decode_attention`` :143 and ``decode_attention_partial``
-:151): q [B, H, D] against one layer's slab k, v [B, Sk, KvH, D], read in
-place through strides (no permute, pad or copy on the host).  Block (row
-tile, kv head, sequence) walks only the live keys, ``[kv_offset,
-min(lengths[b], kv_offset + Sk))`` in global positions, split over its four
-warps in steps of 32 keys, and merges the warps' ``(acc, m, l)`` at the
-end.  Bound on the H100: bytes.  A row with no live key returns ``(0,
--1e30, 0)``; the JAX oracle and the TPU kernel count masked keys at p = 1
-there, which combines to the same zero weight beside any non-empty
-partial.
+The slab: q [B, H, D] against one layer's slab k, v [B, Sk, KvH, D], read
+in place through strides (no permute, pad or copy on the host); the live
+keys are ``[kv_offset, min(lengths[b], kv_offset + Sk))`` in global
+positions.  A row with no live key returns ``(0, -1e30, 0)``; the JAX oracle
+and the TPU kernel count masked keys at p = 1 there, which combines to the
+same zero weight beside any non-empty partial.
 """
 from __future__ import annotations
 
@@ -47,13 +52,45 @@ import torch
 
 from repro_torch.kernels import _build, _paged
 
-launches = 0         # paged kernel launches over a float pool
-q8_launches = 0      # paged kernel launches over an int8 pool (its variant)
+launches = 0           # launches over a float pool
+q8_launches = 0        # launches over an int8 pool
 shard_launches = 0     # skip_null launches over a shard of a float pool
 shard_q8_launches = 0  # skip_null launches over a shard of an int8 pool
-dense_launches = 0   # dense-slab kernel launches
+dense_launches = 0     # launches over a dense slab
 
 DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
+
+_n_sms = {}   # streaming multiprocessors of each card, for the split plan
+
+
+def n_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a card (the split plan's input)."""
+    if device not in _n_sms:
+        _n_sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _n_sms[device]
+
+
+def _plan(q: torch.Tensor, kvh: int, keys: int, grain: int) -> _paged.DecodePlan:
+    b, h, _ = q.shape
+    return _paged.decode_plan(b, kvh, h // kvh, keys, grain, n_sms(q.device))
+
+
+def _outputs(q: torch.Tensor, partials: bool):
+    """The outputs of one launch and their pointers (out, acc, m, l)."""
+    if partials:
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        l = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        return (acc, m, l), (None, acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    out = torch.empty_like(q)
+    return out, (out.data_ptr(), None, None, None)
+
+
+def _aligned(name: str, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned (the "
+                             f"kernel copies 16-byte chunks)")
 
 
 def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
@@ -61,22 +98,47 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
     global launches, q8_launches, shard_launches, shard_q8_launches
     if q.dim() != 3:
         raise ValueError(f"paged decode: q must be [B, H, D], got {tuple(q.shape)}")
-    res = _paged.launch(q[:, None], k_pages, v_pages, block_tables, lengths,
-                        0, 0, partials=partials, k_scales=k_scales,
-                        v_scales=v_scales, kv_offset=kv_offset,
-                        skip_null=skip_null)
-    if skip_null and k_scales is None:
+    g = _paged.geometry(q[:, None].shape, k_pages.shape, block_tables.shape)
+    if k_pages.shape != v_pages.shape:
+        raise ValueError("paged decode: k_pages and v_pages differ in shape")
+    int8 = _paged.check_scales(q.dtype, k_pages, v_pages, k_scales, v_scales)
+    if block_tables.dtype != torch.int32:
+        raise ValueError(f"paged decode: tables must be int32, got "
+                         f"{block_tables.dtype}")
+    if lengths.shape != (g.b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"paged decode: lengths must be [{g.b}] int32")
+    if kv_offset < 0:
+        raise ValueError(f"paged decode: kv_offset {kv_offset} < 0")
+    page_stride, scale_stride = _paged.pool_strides(k_pages, v_pages, k_scales,
+                                                    v_scales)
+    tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages, tables=block_tables,
+                   lens=lengths)
+    if int8:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
+    _build.require_cuda("paged_decode",
+                        views=("k_pages", "v_pages", "k_scales", "v_scales"),
+                        **tensors)
+    _aligned("paged decode", k_pages=k_pages, v_pages=v_pages)
+    plan = _plan(q, g.kvh, g.mb * g.bs, g.bs)
+    res, ptrs = _outputs(q, partials)
+    lib = _build.load()
+    code = lib.repro_paged_decode(
+        _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
+        v_scales.data_ptr() if int8 else None, block_tables.data_ptr(),
+        lengths.data_ptr(), int(kv_offset), int(bool(skip_null)), *ptrs, g.b,
+        g.h, g.kvh, page_stride, scale_stride, g.bs, g.d, g.mb, plan.n_split,
+        plan.split_keys, n_sms(q.device), _build.stream_ptr(q))
+    if skip_null and not int8:
         shard_launches += 1
     elif skip_null:
         shard_q8_launches += 1
-    elif k_scales is None:
+    elif not int8:
         launches += 1
     else:
         q8_launches += 1
-    if partials:
-        acc, m, l = res
-        return acc[:, 0], m[:, 0], l[:, 0]
-    return res[:, 0]
+    _build.check("paged_decode", code)
+    return res
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -130,25 +192,18 @@ def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,
                              f"got {tuple(lengths.shape)} {lengths.dtype}")
         tensors["lengths"] = lengths
     _build.require_cuda("decode_attention", **tensors)
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode attention: k and v must be 16-byte aligned "
-                         "(the kernel reads 16-byte chunks)")
-    if partials:
-        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-        m = torch.empty((b, h), dtype=torch.float32, device=q.device)
-        l = torch.empty((b, h), dtype=torch.float32, device=q.device)
-        ptrs = (None, acc.data_ptr(), m.data_ptr(), l.data_ptr())
-    else:
-        out = torch.empty_like(q)
-        ptrs = (out.data_ptr(), None, None, None)
+    _aligned("decode attention", k=k, v=v)
+    plan = _plan(q, kvh, sk, _paged.STAGE_KEYS)
+    res, ptrs = _outputs(q, partials)
     lib = _build.load()
     code = lib.repro_decode_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lengths is None else lengths.data_ptr(), int(kv_offset), *ptrs,
-        b, sk, h, kvh, d, _build.stream_ptr(q))
+        b, sk, h, kvh, d, plan.n_split, plan.split_keys, n_sms(q.device),
+        _build.stream_ptr(q))
     dense_launches += 1
     _build.check("decode_attention", code)
-    return (acc, m, l) if partials else out
+    return res
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

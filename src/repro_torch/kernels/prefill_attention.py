@@ -48,7 +48,7 @@ def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
                          f"{tuple(block_table.shape)}")
     mb, bs = block_table.shape[0], k_pages.shape[2]
     total = min(int(q_offset) + int(length), mb * bs)
-    res = _paged.launch(q, k_pages, v_pages, block_table[None], None,
+    res = _paged.launch(q, k_pages, v_pages, block_table[None],
                         int(q_offset), total, partials=partials,
                         k_scales=k_scales, v_scales=v_scales,
                         skip_null=skip_null)

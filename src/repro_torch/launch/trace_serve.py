@@ -17,7 +17,8 @@ summary also lands in ``chiprun_out/trace_serve.json``.  Needs a CUDA
 device.  With ``--dense`` the default summary file is
 ``trace_serve_dense.json`` beside it, with ``--kv-dtype int8``
 ``trace_serve_int8.json``, with ``--seq-shards S`` ``trace_serve_seqS.json``.
-The port's kernels are split into paged attention and the rest; a sharded
+The port's kernels are split into decode attention (the flash-decoding
+kernel, over pages or slabs), the paged prefill and the rest; a sharded
 run's traced pass also puts each ``core.noc.tree_softmax_combine`` call
 under a profiler range, so the combine's elementwise kernels (max, exp,
 products, sums, the division) are counted apart from the other PyTorch
@@ -42,7 +43,7 @@ from repro_torch.serve import ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu)
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
-                "paged_attention_kernel", "dense_decode_kernel",
+                "paged_attention_kernel", "flash_decode_kernel",
                 "flash_fwd_kernel")
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 TOP = 15                       # kernels listed by device time
@@ -51,8 +52,10 @@ COMBINE = "noc_tree_softmax_combine"   # the profiler range of one combine
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "flash_decode_kernel" in name:
+        return "port CUDA kernels: decode attention"
     if "paged_attention_kernel" in name:
-        return "port CUDA kernels: paged attention"
+        return "port CUDA kernels: paged prefill"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels: other"
     if any(m in low for m in GEMM_MARKS):

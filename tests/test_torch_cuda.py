@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import noc  # noqa: E402
+from repro_torch.kernels import _paged  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import mamba_chunk as kmamba  # noqa: E402
@@ -80,24 +81,70 @@ def test_elementwise_kernels(dev, dtype):
     _close(krn.rmsnorm(x, w, 1e-5), ref.rmsnorm(x, w, 1e-5), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kvh,d,bs", [(8, 4, 64, 16), (4, 2, 16, 8),
-                                        (8, 2, 128, 128)])
-def test_paged_decode_kernel(dev, dtype, h, kvh, d, bs):
-    rng = np.random.default_rng(1)
-    b, mb, nb = 5, 4, 24
-    q = _rand(rng, (b, h, d), dtype, dev)
-    kp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
-    vp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
-    bt = torch.from_numpy(rng.permutation(nb)[:b * mb].reshape(b, mb)
+# (H, KvH, D, BS, MB): G = 2 at each head dim over a 4-page table; then
+# G = 1, 4 and 8 over caches of 4096 keys, cut into the plan's largest splits
+PAGED_DECODE_CASES = [(8, 4, 64, 16, 4), (4, 2, 16, 8, 4), (8, 2, 128, 128, 4),
+                      (8, 8, 64, 16, 256), (8, 2, 64, 16, 256),
+                      (16, 2, 128, 16, 256), (8, 1, 16, 8, 512)]
+
+
+def _decode_lengths(dev, b_hint, h, kvh, bs, mb, keys_grain):
+    """Lengths at page and split edges of the card's plan for this cache:
+    1 beside the whole cache, BS - 1, BS + 1, a split edge -1 / +0 / +1 and
+    two splits and a page; on a 4-page table the earlier cases' lengths."""
+    if mb <= 4:
+        return [1, bs, mb * bs, 2 * bs + 3, 1]
+    plan = _paged.decode_plan(b_hint, kvh, h // kvh, mb * bs, keys_grain,
+                              kda.n_sms(dev))
+    e = plan.split_keys
+    assert plan.n_split > 1
+    return [1, mb * bs, bs - 1, bs + 1, e - 1, e, e + 1, 2 * e + bs, 1]
+
+
+def _repeat_equal(fn):
+    """Two calls on the same inputs give the same bits (no atomics, a fixed
+    merge order); returns the first."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y)
+    return a
+
+
+def _decode_pool(rng, dev, b, mb, nb, kvh, bs, d, dtype, int8):
+    """A decode test's K/V pool (float, or int8 with its scales) and table:
+    distinct pages per sequence, the last sequence a retired slot (an
+    all-zero table row)."""
+    if int8:
+        kp, ks, vp, vs = _int8_pool(rng, kvh, nb, bs, d, dev)
+    else:
+        kp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+        vp = _rand(rng, (kvh, nb, bs, d), dtype, dev)
+        ks = vs = None
+    bt = torch.from_numpy((rng.permutation(nb - 1)[:b * mb] + 1).reshape(b, mb)
                           .astype(np.int32)).to(dev)
-    bt[4] = 0                                   # a retired slot: null page
-    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, 1], dtype=torch.int32,
-                        device=dev)
-    _close(kda.paged_decode_attention(q, kp, vp, bt, lens),
+    bt[-1] = 0                                  # a retired slot: null page
+    return kp, vp, ks, vs, bt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,mb", PAGED_DECODE_CASES)
+def test_paged_decode_kernel(dev, dtype, h, kvh, d, bs, mb):
+    """Output and f32 partials against the plain version at lengths on page
+    and split edges, each launch bitwise repeatable."""
+    rng = np.random.default_rng(1)
+    lens = _decode_lengths(dev, 9, h, kvh, bs, mb, bs)
+    b = len(lens)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    kp, vp, _, _, bt = _decode_pool(rng, dev, b, mb, b * mb + 4, kvh, bs, d,
+                                    dtype, False)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _close(_repeat_equal(lambda: kda.paged_decode_attention(q, kp, vp, bt, lens)),
            ref.paged_decode_attention(q, kp, vp, bt, lengths=lens), dtype)
     if dtype == torch.float32:
-        got = kda.paged_decode_attention_partial(q, kp, vp, bt, lens)
+        got = _repeat_equal(
+            lambda: kda.paged_decode_attention_partial(q, kp, vp, bt, lens))
         want = ref.paged_decode_attention_partial(q, kp, vp, bt, lengths=lens)
         for a, b_ in zip(got, want):
             _close(a, b_, dtype)
@@ -140,28 +187,28 @@ def _int8_pool(rng, kvh, nb, bs, d, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kvh,d,bs", [(8, 4, 64, 16), (4, 2, 16, 8),
-                                        (8, 2, 128, 128)])
-def test_paged_decode_kernel_int8(dev, dtype, h, kvh, d, bs):
-    """The int8-page variant at each instantiated head dim: output (and
-    the f32 partials) against the plain version on the same int8 pages and
-    scales, counted as an int8 launch only."""
+@pytest.mark.parametrize("h,kvh,d,bs,mb", PAGED_DECODE_CASES)
+def test_paged_decode_kernel_int8(dev, dtype, h, kvh, d, bs, mb):
+    """The int8-page variant at each instantiated head dim and at lengths on
+    page and split edges: output (and the f32 partials) against the plain
+    version on the same int8 pages and scales, bitwise repeatable, counted
+    as int8 launches only."""
     rng = np.random.default_rng(3)
-    b, mb, nb = 5, 4, 24
+    lens = _decode_lengths(dev, 9, h, kvh, bs, mb, bs)
+    b = len(lens)
     q = _rand(rng, (b, h, d), dtype, dev)
-    k8, ks, v8, vs = _int8_pool(rng, kvh, nb, bs, d, dev)
-    bt = torch.from_numpy(rng.permutation(nb)[:b * mb].reshape(b, mb)
-                          .astype(np.int32)).to(dev)
-    bt[4] = 0                                   # a retired slot: null page
-    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, 1], dtype=torch.int32,
-                        device=dev)
+    k8, v8, ks, vs, bt = _decode_pool(rng, dev, b, mb, b * mb + 4, kvh, bs, d,
+                                      dtype, True)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     n_float, n_q8 = kda.launches, kda.q8_launches
-    _close(kda.paged_decode_attention(q, k8, v8, bt, lens, ks, vs),
-           ref.paged_decode_attention(q, k8, v8, bt, lengths=lens, k_scales=ks,
-                                      v_scales=vs), dtype)
-    assert (kda.launches, kda.q8_launches) == (n_float, n_q8 + 1)
+    _close(_repeat_equal(
+        lambda: kda.paged_decode_attention(q, k8, v8, bt, lens, ks, vs)),
+        ref.paged_decode_attention(q, k8, v8, bt, lengths=lens, k_scales=ks,
+                                   v_scales=vs), dtype)
+    assert (kda.launches, kda.q8_launches) == (n_float, n_q8 + 2)
     if dtype == torch.float32:
-        got = kda.paged_decode_attention_partial(q, k8, v8, bt, lens, ks, vs)
+        got = _repeat_equal(lambda: kda.paged_decode_attention_partial(
+            q, k8, v8, bt, lens, ks, vs))
         want = ref.paged_decode_attention_partial(q, k8, v8, bt, lengths=lens,
                                                   k_scales=ks, v_scales=vs)
         for a, b_ in zip(got, want):
@@ -384,6 +431,11 @@ DENSE_CASES = [  # (H, KvH, D, Sk, lengths): MHA and GQA at head dims 16, 64
     (8, 2, 64, 200, [7, 200, 64, 1, 150]),
     (4, 4, 16, 70, [70, 3, 31, 64, 65]),
     (6, 2, 16, 50, [50, 1, 17, 32, 49]),
+    # G = 1, 4 and 8 over 4096-key slabs, at the split edges of the card's
+    # plan (lengths None: _decode_lengths)
+    (8, 8, 64, 4096, None),
+    (8, 2, 128, 4096, None),
+    (16, 2, 16, 4096, None),
 ]
 
 
@@ -401,20 +453,25 @@ def _partials_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,sk,lens", DENSE_CASES)
 def test_dense_decode_kernel(dev, dtype, h, kvh, d, sk, lens):
-    """Normalized output and partials over the whole slab; then the slab cut
-    at 40 into two shards, the second at ``kv_offset=40`` (rows of length
-    <= 40 reach none of its keys: the kernel's identity and the plain
-    version's p = 1 rows are compared after ``combine_partials``)."""
+    """Normalized output and partials over the whole slab, at split edges on
+    the 4096-key slabs, each launch bitwise repeatable; then the slab cut at
+    40 into two shards, the second at ``kv_offset=40`` (rows of length <= 40
+    reach none of its keys: the kernel's identity and the plain version's p
+    = 1 rows are compared after ``combine_partials``)."""
     rng = np.random.default_rng(11)
+    if lens is None:
+        lens = _decode_lengths(dev, 9, h, kvh, _paged.STAGE_KEYS,
+                               sk // _paged.STAGE_KEYS, _paged.STAGE_KEYS)
     b = len(lens)
     q = _rand(rng, (b, h, d), dtype, dev)
     k = _rand(rng, (b, sk, kvh, d), dtype, dev)
     v = _rand(rng, (b, sk, kvh, d), dtype, dev)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-    _close(kda.decode_attention(q, k, v, ln),
+    _close(_repeat_equal(lambda: kda.decode_attention(q, k, v, ln)),
            ref.decode_attention(q, k, v, lengths=ln), dtype)
-    _close(kda.decode_attention(q, k, v), ref.decode_attention(q, k, v), dtype)
-    _partials_close(kda.decode_attention_partial(q, k, v, ln),
+    _close(_repeat_equal(lambda: kda.decode_attention(q, k, v)),
+           ref.decode_attention(q, k, v), dtype)
+    _partials_close(_repeat_equal(lambda: kda.decode_attention_partial(q, k, v, ln)),
                     ref.decode_attention_partial(q, k, v, lengths=ln), dtype)
     cut = 40
     k1, v1 = k[:, :cut].contiguous(), v[:, :cut].contiguous()
@@ -899,31 +956,36 @@ def _counts(mod):
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,bs", SHARD_CASES)
-def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs):
+@pytest.mark.parametrize("mb", [6, 256])
+def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs, mb):
     """Four shards placed round-robin by the allocator: each shard's
     skip_null partial over its view of the pool against the plain version
-    (sequence 0 has one key, so shards 1-3 give the identity), counted as
-    a shard launch; the tree combine against the unsharded kernel; skip_null
-    over a table with no zero entry bit-equal to skip_null off; and the
-    control, the local tables with skip_null off, caught."""
+    (sequence 0 has one key, so shards 1-3 give the identity), bitwise
+    repeatable and counted as a shard launch; at MB 256 at the split edges
+    of the card's plan; the tree combine against the unsharded kernel;
+    skip_null over a table with no zero entry bit-equal to skip_null off;
+    and the control, the local tables with skip_null off, caught."""
     rng = np.random.default_rng(21)
-    b, mb = 5, 6
-    alloc = BlockAllocator(SHARDS + b * mb + 2, bs, b, mb, num_shards=SHARDS)
+    lens = ([1, bs, mb * bs, 2 * bs + 3, bs + 1] if mb == 6 else
+            _decode_lengths(dev, 8, h, kvh, bs, mb, bs)[:-1])
+    b = len(lens)
+    # the null page of each shard and the sequences' pages, whole shards
+    alloc = BlockAllocator(SHARDS * (1 + -(-(b * mb + 2) // SHARDS)), bs, b, mb,
+                           num_shards=SHARDS)
     for s in range(b):
         assert alloc.ensure(s, mb * bs)
     table = torch.from_numpy(alloc.table).to(dev)
     local = torch.from_numpy(alloc.shard_local(alloc.table)).to(dev)
     q = _rand(rng, (b, h, d), dtype, dev)
     kp, vp, ks, vs = _pool(rng, kvh, alloc.num_blocks, bs, d, dtype, dev, kind)
-    lens = torch.tensor([1, bs, mb * bs, 2 * bs + 3, bs + 1], dtype=torch.int32,
-                        device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     views = [TL.pool_shards(t, SHARDS) for t in (kp, vp, ks, vs)]
     n = _counts(kda)
     parts, bad, dead = [], [], 0
     for s, (kps, vps, kss, vss) in enumerate(zip(*views)):
         kw = dict(k_scales=kss, v_scales=vss)
-        got = kda.paged_decode_attention_partial(q, kps, vps, local[s], lens,
-                                                 skip_null=True, **kw)
+        got = _repeat_equal(lambda: kda.paged_decode_attention_partial(
+            q, kps, vps, local[s], lens, skip_null=True, **kw))
         want = ref.paged_decode_attention_partial(q, kps, vps, local[s],
                                                   lengths=lens, skip_null=True, **kw)
         dead += int((~_shard_parts_close(got, want, dtype)).sum())
@@ -933,7 +995,7 @@ def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs):
     assert dead >= 3 * h
     i8 = kind == "int8"
     assert _counts(kda) == (n[0] + SHARDS * (not i8), n[1] + SHARDS * i8,
-                            n[2] + SHARDS * (not i8), n[3] + SHARDS * i8)
+                            n[2] + 2 * SHARDS * (not i8), n[3] + 2 * SHARDS * i8)
     whole = kda.paged_decode_attention(q, kp, vp, table, lens, ks, vs)
     _close(noc.tree_softmax_combine(parts).to(dtype), whole, dtype)
     control = noc.tree_softmax_combine(bad).to(dtype)
@@ -950,21 +1012,28 @@ def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs):
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 128])
-def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d):
+@pytest.mark.parametrize("mb", [3, 256])
+def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d, mb):
     """Key j of the table at global position 40 + j: lengths below, inside
-    and past the table's 48 keys, skip_null off and on (one table entry 0
-    mid-table); a row below the offset gives the identity."""
+    and past the table's keys (at MB 256, also at the split edges of the
+    card's plan), skip_null off and on (one table entry 0 mid-table), each
+    launch bitwise repeatable; a row below the offset gives the identity."""
     rng = np.random.default_rng(22)
-    h, kvh, b, mb, nb, bs, off = 8, 2, 4, 3, 12, 16, 40
+    h, kvh, bs, off = 8, 2, 16, 40
+    lens = [30, 41, 70, 100]
+    if mb > 3:
+        lens += [off + n for n in _decode_lengths(dev, 11, h, kvh, bs, mb, bs)[1:-1]]
+    b = len(lens)
+    nb = b * mb + 1
     q = _rand(rng, (b, h, d), dtype, dev)
     kp, vp, ks, vs = _pool(rng, kvh, nb, bs, d, dtype, dev, kind)
     bt = torch.from_numpy(np.stack([rng.permutation(nb - 1)[:mb] + 1
                                     for _ in range(b)]).astype(np.int32)).to(dev)
     bt[2, 1] = 0
-    lens = torch.tensor([30, 41, 70, 100], dtype=torch.int32, device=dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     for skip in (False, True):
-        got = kda.paged_decode_attention_partial(q, kp, vp, bt, lens, ks, vs,
-                                                 off, skip)
+        got = _repeat_equal(lambda: kda.paged_decode_attention_partial(
+            q, kp, vp, bt, lens, ks, vs, off, skip))
         want = ref.paged_decode_attention_partial(
             q, kp, vp, bt, lengths=lens, kv_offset=off, skip_null=skip,
             k_scales=ks, v_scales=vs)
