@@ -87,8 +87,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    dt = softplus(N(0, 1)) f32, A = -linspace(1, 16, 112) as at init), held
    against their plain versions and timed as in 3 (no PyTorch call
    computes the SSD scan: no library time); a control shows the forward's
-   tolerance catches a kernel that drops one chunk's state term, and the
-   backward twice gives the same bits;
+   tolerance catches a kernel that drops one chunk's state term, another
+   that the backward's catch one that drops one chunk's exit-state
+   gradient, and the backward twice gives the same bits;
 13. flash attention at zamba2-7b's head dim 112 (q, k, v [2, 4096, 32,
    112] bf16, causal; rows 6c and 6d), forward and backward held with the
    flash tolerances of phase 6 and timed beside SDPA, SDPA's own error
@@ -231,6 +232,11 @@ PREFILL_GATE_REL = 5e-2
 # entry (Mamba2's ddt 0.181 of 3745) and are held to 1e-4 relative plus
 # 1e-4 of it; every output to a relative norm error of 1e-3 (17x the
 # largest reading)
+# the redesign of the bf16 Mamba2 scan, named on rows 8 and 8b of the
+# ``{"kernels": ...}`` line
+MAMBA_DESIGN = ("bf16 on mma.sync m16n8k16: C B^T once per (batch, chunk); a "
+                "forward state walk per (batch, head), cp.async a chunk ahead; "
+                "a reverse dS walk, then chunk-parallel gradients over head groups")
 SCAN_RTOL, SCAN_ATOL = 2 ** -7, 1e-3
 SCAN_F32_RTOL, SCAN_F32_ATOL = 1e-4, 1e-4
 SCAN_REL = 1e-3
@@ -777,11 +783,10 @@ def masked_decode(torch, q, k, v, valid):
 def decode_split(torch, q, kvh, keys, grain):
     """The split the decode kernel's plan gives these shapes on this card:
     (n_split, split_keys)."""
-    from repro_torch.kernels import _paged
-    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import _build, _paged
 
     b, h, _ = q.shape
-    plan = _paged.decode_plan(b, kvh, h // kvh, keys, grain, kda.n_sms(q.device))
+    plan = _paged.decode_plan(b, kvh, h // kvh, keys, grain, _build.n_sms(q.device))
     return plan.n_split, plan.split_keys
 
 
@@ -2344,10 +2349,89 @@ def dropped_state_control(torch, x, dt, A, B, C, y_ok, tol):
     del states, cum, contrib, bad
 
 
+def rounded_w_control(torch, x, dt, A, B, C, y_ok, tol):
+    """What the Mamba2 forward check reads for a kernel that drops the lo
+    half of its f32 operand: the plain forward with W = L o CB o dt rounded
+    once to bf16 before its product with x (the state term exact).  Logged
+    against the forward's hold, not gated: a single bf16 rounding of W may
+    lie inside y's one-ulp tolerance."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    b, s, h, p = x.shape
+    t = kmamba.CHUNK
+    nc = s // t
+    tri = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    states = ref.mamba2_chunk_states(x, dt, A, B, chunk=t)        # [B,H,NC,P,N]
+    cum = torch.cumsum((dt * A).reshape(b, nc, t, h), dim=2)
+    Bc, Cc = (m.float().reshape(b, nc, t, -1) for m in (B, C))
+    W = ref._seg_decay(cum.flatten(0, 1), tri).reshape(b, nc, t, t, h)
+    W *= torch.einsum("bctn,bcun->bctu", Cc, Bc)[..., None]
+    W *= dt.reshape(b, nc, 1, t, h)
+    W = W.to(torch.bfloat16).float()
+    y = torch.einsum("bctuh,bcuhp->bcthp", W, x.float().reshape(b, nc, t, h, p))
+    del W
+    y += torch.einsum("bctn,bhcpn,bcth->bcthp", Cc, states, torch.exp(cum))
+    bad = y.reshape(b, s, h, p).to(y_ok.dtype)
+    del states, cum, y
+    caught = not torch.allclose(bad.float(), y_ok.float(), **tol)
+    d_y = float((bad.float() - y_ok.float()).abs().max())
+    rel = rel_err(torch, bad, y_ok)
+    log(f"mamba2 lo-half control: a forward whose W = L o CB o dt is rounded to "
+        f"bf16 before its product reads max|err| y {d_y:.3g} (caught "
+        f"elementwise: {caught}; tolerance {tol}) and relative norm error "
+        f"{rel:.2g} (caught: {rel > SCAN_REL}); the forward's hold "
+        f"{'catches' if caught or rel > SCAN_REL else 'passes'} it")
+    del bad
+
+
+def dropped_dstate_control(torch, x, dt, A, B, C, dy, want, tols):
+    """What the Mamba2 backward check reads for a wrong kernel: one that
+    drops the exit-state gradient dS of one chunk of one sequence (all
+    heads), the chunk whose dS term is the smallest of all (the term dt_t
+    e^{cT - cum_t} dS B_t it adds to dx).  Fails unless the backward's
+    tolerances tell the two apart."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    b, s, h, p = x.shape
+    t = kmamba.CHUNK
+    nc = s // t
+    dstates = ref.mamba2_chunk_dstates(dt, A, C, dy, chunk=t)     # [B,H,NC,P,N]
+    cum = torch.cumsum((dt * A).reshape(b, nc, t, h), dim=2)
+    tail = torch.exp(cum[:, :, -1:] - cum) * dt.reshape(b, nc, t, h)
+    term = torch.einsum("bcth,bhcpn,bctn->bcthp", tail, dstates,
+                        B.float().reshape(b, nc, t, -1))           # [B,NC,T,H,P]
+    size = term.abs().amax(dim=(2, 3, 4))                          # [B, NC]
+    size[:, -1] = float("inf")                                     # dS = 0 there
+    bi, ci = (int(i) for i in torch.unravel_index(torch.argmin(size), size.shape))
+    del cum, tail, term
+    dstates[bi, :, ci] = 0.0
+    bad = ref.mamba2_bwd_local(x, dt, A, B, C, dy,
+                               ref.mamba2_chunk_states(x, dt, A, B, chunk=t),
+                               dstates, chunk=t)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    caught = [not torch.allclose(g.float(), w.float(), **tol)
+              for g, w, tol in zip(bad, want, tols)]
+    rels = [rel_err(torch, g, w) for g, w in zip(bad, want)]
+    log(f"mamba2 backward control: a backward that drops the exit-state gradient "
+        f"of chunk {ci} of sequence {bi} (the smallest dS term: max|dt tail dS B| "
+        f"{float(size[bi, ci]):.3g}; the largest {float(size[:, :-1].max()):.3g}) "
+        f"reads " + ", ".join(
+            f"{n} max|err| {float((g.float() - w.float()).abs().max()):.3g} "
+            f"(caught: {c}), rel {r:.2g}"
+            for n, g, w, c, r in zip(names, bad, want, caught, rels)))
+    if not any(caught):
+        fail("mamba2 backward control: the backward's tolerances pass a kernel "
+             "that drops one chunk's exit-state gradient")
+    del dstates, bad
+
+
 def mamba_kernel_phase(torch, timer, cfg):
     """The Mamba2 scan forward and backward at full-width zamba2-7b shapes:
     x [2, 4096, 112, 64] bf16, dt [2, 4096, 112] f32, A [112] f32, B, C
     [2, 4096, 64] bf16."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mamba_chunk as kmamba
     from repro_torch.kernels import ref
 
@@ -2376,6 +2460,7 @@ def mamba_kernel_phase(torch, timer, cfg):
     want_y, want_hf = ref.mamba2_scan(x, dt, A, B, C, chunk=t)
     y_tol, h_tol = scan_tol(torch, want_y), scan_tol(torch, want_hf)
     dropped_state_control(torch, x, dt, A, B, C, want_y, y_tol)
+    rounded_w_control(torch, x, dt, A, B, C, want_y, y_tol)
     del want_y, want_hf
     rows = [measure(
         torch, timer, "mamba2", src, rep,
@@ -2386,6 +2471,10 @@ def mamba_kernel_phase(torch, timer, cfg):
         note=f"; y, h_final; rel {SCAN_REL}; the training forward, which also "
              f"writes the {nc} chunk-entry states")]
 
+    slots = kmamba.bwd_slots(x.device, p, n)
+    log(f"mamba2 backward plan: {slots} resident blocks of the gradient kernel "
+        f"({slots // _build.n_sms(x.device)} an SM), groups of "
+        f"{kmamba.bwd_plan(b, s, h, slots)} heads")
     _, _, states = kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)
     first = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
     again = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
@@ -2395,7 +2484,9 @@ def mamba_kernel_phase(torch, timer, cfg):
         fail("mamba2 backward: two runs on the same inputs differ")
     log("mamba2 backward: two runs on the same inputs are bitwise equal")
     tols = tuple(scan_tol(torch, w) for w in want)
-    del first, again, want
+    del first, again
+    dropped_dstate_control(torch, x, dt, A, B, C, dy, want, tols)
+    del want
     rows.append(measure(
         torch, timer, "mamba2_bwd", src, rep,
         lambda: kmamba.mamba2_bwd(x, dt, A, B, C, dy, states),
@@ -2403,6 +2494,8 @@ def mamba_kernel_phase(torch, timer, cfg):
         nbytes=3 * io + 2 * dt.numel() * 4 + 4 * bc + 2 * h * 4 + state_bytes,
         flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
         note=f"; dx, ddt, dA, dB, dC; rel {SCAN_REL}"))
+    rows[0].update(row="8", design=MAMBA_DESIGN)
+    rows[1].update(row="8b", design=MAMBA_DESIGN)
     del x, dt, A, B, C, dy, states
     torch.cuda.empty_cache()
     return rows
@@ -2428,13 +2521,16 @@ def zamba_expect(cfg, n):
     block twice; each backward once.  A Mamba2 layer runs two norms (ln1,
     the gated norm) and one silu_mul; the shared block two norms, rope on q
     and k, flash attention and the FFN's silu_mul (rope's backward is its
-    forward kernel at -pos); the final norm is outside the remat."""
+    forward kernel at -pos); the final norm is outside the remat.  Every
+    Mamba2 forward also writes its chunk-entry states: under the
+    non-reentrant checkpoint the first forward wants a gradient too, and
+    its saved tensors are dropped, not left unwritten."""
     from repro_torch.models.model import hybrid_layout
 
     g, k, t = hybrid_layout(cfg)
     mf, mb = 3 * g * k + 2 * t, g * k + t          # Mamba2 layer forwards, backwards
     sf, sb = 2 * g, g                              # shared-block forwards, backwards
-    return {"mamba2": mf * n, "mamba2_bwd": mb * n,
+    return {"mamba2": mf * n, "mamba2_bwd": mb * n, "mamba2_states": mf * n,
             "flash_attention": sf * n, "flash_attention_bwd": sb * n,
             "rmsnorm": (2 * mf + 2 * sf + 1) * n, "rmsnorm_bwd": (2 * mb + 2 * sb + 1) * n,
             "apply_rope": (2 * sf + 2 * sb) * n,
@@ -2859,6 +2955,7 @@ def main() -> None:
     train_parity_phase(torch, reduced(get_config("zamba2-7b")))
     zamba_counters = {
         "mamba2": Counter(mamba_chunk), "mamba2_bwd": Counter(mamba_chunk, "bwd_launches"),
+        "mamba2_states": Counter(mamba_chunk, "states_launches"),
         **train_counters}
     zamba_launches, zamba_train = train_phase(torch, zcfg, zamba_counters,
                                               zamba_expect, zamba_watched)

@@ -59,8 +59,9 @@ _SIGNATURES = {
     "repro_rwkv6_fwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_rwkv6_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _P),
-    "repro_mamba2_fwd": (_I, *(_P,) * 8, _I, _I, _I, _I, _I, _P),
-    "repro_mamba2_bwd": (_I, *(_P,) * 14, _I, _I, _I, _I, _I, _P),
+    "repro_mamba2_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _I, _P),
+    "repro_mamba2_bwd": (_I, *(_P,) * 17, _I, _I, _I, _I, _I, _I, _P),
+    "repro_mamba2_bwd_occupancy": (_I, _I, _P),
     "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
@@ -189,3 +190,13 @@ def require_cuda(name: str, views=(), **tensors) -> None:
 def stream_ptr(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_n_sms: Dict[torch.device, int] = {}   # streaming multiprocessors of each card
+
+
+def n_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a card (the launch plans' input)."""
+    if device not in _n_sms:
+        _n_sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _n_sms[device]

@@ -33,6 +33,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// the sum over the four lanes of a quad (the lanes that hold one row of an
+// MMA accumulator)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -41,7 +48,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ---------------------------------------------------------------------------
 // Tensor-core and asynchronous-copy helpers (sm_80+ instructions, used on
-// sm_90a by matmul.cu and flash_attention.cu)
+// sm_90a by matmul.cu, flash_attention.cu and mamba2.cu)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -65,6 +72,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a (16 x 16, row) * b (16 x 8, col) with a zero accumulator (no
+// registers spent on zeroing it)
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -84,6 +102,67 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row)));
 }
+
+// m16n8k16 fragments from bf16 tiles in shared memory, row-major with a row
+// stride of LDS elements.  Lane l holds, of an A fragment, (row l / 4, cols
+// 2 (l % 4) and + 1) in a[0], row + 8 in a[1], cols + 8 in a[2], both in
+// a[3]; of a B fragment (k, n) = (2 (l % 4) and + 1, l / 4) in b0, k + 8 in
+// b1; of the f32 accumulator, (row l / 4, cols 2 (l % 4), + 1) in d[0..1]
+// and row + 8 in d[2..3].  So the accumulator tiles of columns 8 j.. and
+// 8 j + 8.. are, element for element, the A fragment of a 16-deep k step.
+
+// A[16 x 16] = rows r0.., cols c0.. of the tile: lanes 0-15 address rows
+// 0-15 at column c0, lanes 16-31 the same rows at c0 + 8.
+template <int LDS>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int r0,
+                                       int c0, int lane) {
+  ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + c0 + (lane >> 4) * 8);
+}
+
+// A[m][k] = tile[k][m] (a row-major tile used transposed): m rows m0..,
+// depth k0.., through ldmatrix.trans.
+template <int LDS>
+__device__ __forceinline__ void frag_at(uint32_t (&a)[4], const __nv_bfloat16* tile, int k0,
+                                        int m0, int lane) {
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + (lane >> 4) * 8) * LDS + m0 +
+                           ((lane >> 3) & 1) * 8);
+}
+
+// The B fragments of two adjacent 8-wide n tiles when B[k][n] = tile[n][k]
+// (K in Q K^T): rows n0.. and n0 + 8.., depth c0..c0 + 15.  b[0], b[1] for
+// n tile n0; b[2], b[3] for n0 + 8.
+template <int LDS>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const __nv_bfloat16* tile, int n0,
+                                        int c0, int lane) {
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * LDS + c0 + ((lane >> 3) & 1) * 8);
+}
+
+// The B fragments of two adjacent n tiles when B[k][n] = tile[k][n] (V in
+// P V): rows k0..k0 + 15, columns n0.. and n0 + 8.., through ldmatrix.trans.
+template <int LDS>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const __nv_bfloat16* tile, int k0,
+                                       int n0, int lane) {
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * LDS + n0 + (lane >> 4) * 8);
+}
+
+// An f32 operand carried as a bf16 pair, hi = bf16(v) and lo = bf16(v -
+// hi), for two MMAs: v to ~2^-17 relative where hi alone carries 2^-9.
+// v[2 i], v[2 i + 1] go into register i (the lower column in the low half).
+__device__ __forceinline__ void split_bf16(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(v[2 * i] - __low2float(h),
+                                                   v[2 * i + 1] - __high2float(h));
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// the two bf16 of a packed register as f32 (exact): the lower column first
+__device__ __forceinline__ float bf16_lo(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }
 
 // 16 bytes global -> shared without passing through registers (L2 only);
 // with valid false nothing is read and the 16 bytes are zero-filled

@@ -529,32 +529,12 @@ __device__ __forceinline__ void cp_stat(float* __restrict__ dst, const float* __
   }
 }
 
-// The A fragment of a 16 x 16 slice (rows r0.., cols c0..) of a row-major
-// bf16 tile: lanes 0-15 address rows 0-15 at column c0, lanes 16-31 the same
-// rows at c0 + 8.
-template <int LDS>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile, int r0, int c0,
-                                       int lane) {
-  repro::ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + c0 + (lane >> 4) * 8);
-}
-
-// The B fragments of two adjacent 8-wide n tiles when B[k][n] = tile[n][k]
-// (a row-major tile used transposed: K in Q K^T): rows n0.. and n0 + 8..,
-// depth c0..c0 + 15.  b[0], b[1] for n tile n0; b[2], b[3] for n0 + 8.
-template <int LDS>
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* tile, int n0, int c0,
-                                        int lane) {
-  repro::ldmatrix_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * LDS + c0 +
-                            ((lane >> 3) & 1) * 8);
-}
-
-// The B fragments of two adjacent n tiles when B[k][n] = tile[k][n] (V in
-// P V): rows k0..k0 + 15, columns n0.. and n0 + 8.., through ldmatrix.trans.
-template <int LDS>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* tile, int k0, int n0,
-                                       int lane) {
-  repro::ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * LDS + n0 + (lane >> 4) * 8);
-}
+// the fragment loaders of csrc/common.cuh (A, and B stored as [n][k] or
+// [k][n])
+using repro::frag_a;
+using repro::frag_b;
+using repro::frag_bt;
+using repro::quad_sum;
 
 // A [16, 16] A operand from two f32 accumulator tiles (columns 8 j.. and
 // 8 j + 8..): the accumulator layout of m16n8 is the A layout of m16k16, so
@@ -576,27 +556,12 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
 __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
                                                const float (&a)[4], const float (&b)[4]) {
   const float x[8] = {a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3]};
-  __nv_bfloat16 h[8], r[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    h[i] = __float2bfloat16_rn(x[i]);
-    r[i] = __float2bfloat16_rn(x[i] - __bfloat162float(h[i]));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = repro::pack_bf16(h[2 * i], h[2 * i + 1]);
-    lo[i] = repro::pack_bf16(r[2 * i], r[2 * i + 1]);
-  }
+  repro::split_bf16(hi, lo, x);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
   return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
 }
 
 // The tile count of a key (or query) range [begin, end) walked in tiles of

@@ -60,19 +60,10 @@ dense_launches = 0     # launches over a dense slab
 
 DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
 
-_n_sms = {}   # streaming multiprocessors of each card, for the split plan
-
-
-def n_sms(device: torch.device) -> int:
-    """Streaming multiprocessors of a card (the split plan's input)."""
-    if device not in _n_sms:
-        _n_sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _n_sms[device]
-
 
 def _plan(q: torch.Tensor, kvh: int, keys: int, grain: int) -> _paged.DecodePlan:
     b, h, _ = q.shape
-    return _paged.decode_plan(b, kvh, h // kvh, keys, grain, n_sms(q.device))
+    return _paged.decode_plan(b, kvh, h // kvh, keys, grain, _build.n_sms(q.device))
 
 
 def _outputs(q: torch.Tensor, partials: bool):
@@ -128,7 +119,7 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
         v_scales.data_ptr() if int8 else None, block_tables.data_ptr(),
         lengths.data_ptr(), int(kv_offset), int(bool(skip_null)), *ptrs, g.b,
         g.h, g.kvh, page_stride, scale_stride, g.bs, g.d, g.mb, plan.n_split,
-        plan.split_keys, n_sms(q.device), _build.stream_ptr(q))
+        plan.split_keys, _build.n_sms(q.device), _build.stream_ptr(q))
     if skip_null and not int8:
         shard_launches += 1
     elif skip_null:
@@ -199,7 +190,7 @@ def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,
     code = lib.repro_decode_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lengths is None else lengths.data_ptr(), int(kv_offset), *ptrs,
-        b, sk, h, kvh, d, plan.n_split, plan.split_keys, n_sms(q.device),
+        b, sk, h, kvh, d, plan.n_split, plan.split_keys, _build.n_sms(q.device),
         _build.stream_ptr(q))
     dense_launches += 1
     _build.check("decode_attention", code)

@@ -2,42 +2,90 @@
 (``csrc/mamba2.cu``): the forward and its deterministic backward.
 
 Replaces the TPU kernel ``src/repro/kernels/mamba_chunk.py``
-(``mamba2_chunked``, ``pallas_call`` at :86).  One block per (batch, head)
-carries the f32 state h [P, N] in shared memory across 64-row chunks; x
+(``mamba2_chunked``, its body ``_kernel``, ``pallas_call`` at :86).  x
 ``[B, S, H, P]``, dt ``[B, S, H]`` and B, C ``[B, S, N]`` are read in their
 layouts (no host-side transpose or padding: the ragged last chunk is masked
-in the kernel), and every decay exponent is <= 0 (the pair term is computed
-for u <= t only).  For training the forward also writes the state at each
-chunk's entry, ``[B, H, ceil(S/64), P, N]`` f32 (235 MB a layer at
-zamba2-7b's full width and 2 x 4096 tokens), which the backward reads
-instead of recomputing; under remat it lives only while one layer is
-recomputed.  The backward is one reverse pass over the chunks per (batch,
-head) without atomics: dB and dC are per-head partials summed over the
-heads in order by a second kernel, and dA's per-(batch, head) partials are
-summed over the batch here in a fixed order, so two runs give the same
-bits.  Bound on the H100 by bytes; this first version runs B * H blocks
-(224 at zamba2-7b's B = 2, H = 112) on 132 SMs and recomputes C B^T per
-head.
+in the kernel), and every decay exponent is <= 0.  For training the forward
+also writes the state at each chunk's entry, ``[B, H, ceil(S/64), P, N]``
+f32 (235 MB a layer at zamba2-7b's full width and 2 x 4096 tokens), which
+the backward reads instead of recomputing.
+
+bf16 runs on the tensor cores (``mma.sync``), bound by bytes: C B^T once
+per (batch, chunk) in a pre-pass, shared by the heads; a forward that walks
+the chunks per (batch, head) with the state in registers (warp w its rows
+16 w..) and the next chunk prefetched by ``cp.async``; a backward that
+walks dS in reverse per (batch, head) into scratch, then computes every
+gradient of a chunk locally, one block per (batch, chunk, group of heads)
+(:func:`bwd_plan`, on the card's resident slots), summing dB and dC over
+the group's heads in registers. The f32 operand of each product (the
+decays, dt, the state) enters as a bf16 hi + lo pair beside an exact bf16
+one. f32 (the fp32 parity runs) keeps the CUDA-core kernels: one block per
+(batch, head), C B^T per head. No atomics: every sum runs in a fixed order,
+so two runs give the same bits. ``launches`` and ``bwd_launches`` count
+calls of the wrappers; a bf16 call launches 2 CUDA kernels forward and 4
+backward, an f32 call 1 and 2.
 
 The plain versions are ``kernels/ref.py:mamba2_scan`` and ``mamba2_bwd``;
 ``kernels/ops.py`` sends CPU tensors there.  These wrappers take CUDA
-tensors only.
+tensors only; bf16 tensors must start on a 16-byte boundary.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 
-launches = 0       # forward kernel launches through this module
-bwd_launches = 0   # backward launches (one per mamba2_bwd call)
+launches = 0         # forward kernel launches through this module
+states_launches = 0  # those of them that also wrote the chunk-entry states
+bwd_launches = 0     # backward launches (one per mamba2_bwd call)
 
 SHAPES = ((64, 64), (16, 8))   # (head dim P, state N) the kernel is built for
 CHUNK = 64                     # rows per chunk (kChunk of csrc/mamba2.cu)
+PLAN_SLACK = 0.05              # bwd_plan: a score this far below the best still counts
 
 
 def n_chunks(s: int) -> int:
     return -(-s // CHUNK)
+
+
+_bwd_slots = {}   # (device, P, N) -> blocks of the bf16 gradient kernel resident at once
+
+
+def bwd_slots(device: torch.device, p: int, n: int) -> int:
+    """Blocks of the bf16 gradient kernel that ``device`` holds at once:
+    its SMs times the blocks an SM holds, which CUDA's occupancy calculator
+    reads off the kernel's registers and shared memory."""
+    key = (device, p, n)
+    if key not in _bwd_slots:
+        per_sm = ctypes.c_int(0)
+        _build.check("mamba2_bwd", _build.load().repro_mamba2_bwd_occupancy(
+            p, n, ctypes.addressof(per_sm)))
+        _bwd_slots[key] = _build.n_sms(device) * per_sm.value
+    return _bwd_slots[key]
+
+
+def bwd_plan(b: int, s: int, h: int, slots: int) -> int:
+    """Heads a block of the bf16 gradient kernel covers, G.  Its grid is B *
+    NC * ceil(H / G) blocks, ``slots`` of them resident at once
+    (:func:`bwd_slots`).  A grid's score is the share of its last wave's
+    slots that hold a block times the share of its last group's G heads
+    that exist.  The plan takes the fewest groups that score within
+    PLAN_SLACK of the best: fewer groups mean fewer dB / dC partials ([B,
+    S, ceil(H / G), N] f32) and fewer stagings of B, C and C B^T; more
+    groups fill a short grid."""
+    base = b * n_chunks(s)
+
+    def score(g):
+        ng = -(-h // g)
+        blocks = base * ng
+        return blocks / (-(-blocks // slots) * slots) * h / (ng * g)
+
+    # for each group count the smallest G that makes it (the fullest groups)
+    sizes = [-(-h // ng) for ng in range(1, h + 1)]
+    best = max(map(score, sizes))
+    return next(g for g in sizes if score(g) >= (1 - PLAN_SLACK) * best)
 
 
 def _check(name: str, x, dt, A, B, C):
@@ -61,25 +109,38 @@ def _check(name: str, x, dt, A, B, C):
     return b, s, h, p, n
 
 
+def _aligned(name: str, **tensors):
+    """bf16 tiles are copied 16 bytes at a time (cp.async)."""
+    for arg, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+
+
 def mamba2_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, C: torch.Tensor, *, save_states: bool = False):
     """x [B, S, H, P]; dt [B, S, H] f32; A [H] f32; B, C [B, S, N] -> (y like
     x, h_final [B, H, P, N] f32, chunk-entry states [B, H, NC, P, N] f32 or
     None)."""
-    global launches
+    global launches, states_launches
     b, s, h, p, n = _check("mamba2", x, dt, A, B, C)
     _build.require_cuda("mamba2", x=x, dt=dt, A=A, B=B, C=C)
+    _aligned("mamba2", x=x, B=B, C=C)
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
-    hf = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    states = (torch.empty((b, h, n_chunks(s), p, n), dtype=torch.float32,
-                          device=x.device) if save_states else None)
+    hf = torch.empty((b, h, p, n), **f32)
+    states = (torch.empty((b, h, n_chunks(s), p, n), **f32) if save_states
+              else None)
+    cb = (torch.empty((b, n_chunks(s), CHUNK, CHUNK), **f32)
+          if x.dtype == torch.bfloat16 else None)
     lib = _build.load()
     code = lib.repro_mamba2_fwd(_build.dtype_code(x), x.data_ptr(), dt.data_ptr(),
                                 A.data_ptr(), B.data_ptr(), C.data_ptr(),
                                 y.data_ptr(), hf.data_ptr(),
                                 states.data_ptr() if save_states else None,
+                                cb.data_ptr() if cb is not None else None,
                                 b, s, h, p, n, _build.stream_ptr(x))
     launches += 1
+    states_launches += save_states
     _build.check("mamba2", code)
     return y, hf, states
 
@@ -90,33 +151,42 @@ def mamba2_bwd(x, dt, A, B, C, dy, states):
     chunk-entry ``states`` that the forward wrote."""
     global bwd_launches
     b, s, h, p, n = _check("mamba2_bwd", x, dt, A, B, C)
+    nc = n_chunks(s)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"mamba2_bwd: dy {tuple(dy.shape)} {dy.dtype} must be "
                          f"like x")
-    if states is None or states.shape != (b, h, n_chunks(s), p, n) \
+    if states is None or states.shape != (b, h, nc, p, n) \
             or states.dtype != torch.float32:
         raise ValueError("mamba2_bwd: states must be the forward's chunk-entry "
-                         f"states [{b}, {h}, {n_chunks(s)}, {p}, {n}] float32")
+                         f"states [{b}, {h}, {nc}, {p}, {n}] float32")
     _build.require_cuda("mamba2_bwd", x=x, dt=dt, A=A, B=B, C=C, dy=dy,
                         states=states)
-    dev = x.device
+    _aligned("mamba2_bwd", x=x, B=B, C=C, dy=dy)
+    f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
+    dA = torch.empty((h,), **f32)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    dB_part = torch.empty((b, s, h, n), dtype=torch.float32, device=dev)
+    if x.dtype == torch.bfloat16:
+        g = bwd_plan(b, s, h, bwd_slots(x.device, p, n))
+        ng, n_part = -(-h // g), b * nc
+        cb = torch.empty((b, nc, CHUNK, CHUNK), **f32)
+        dstates = torch.empty_like(states)
+    else:
+        g, ng, n_part, cb, dstates = 1, h, b, None, None
+    dB_part = torch.empty((b, s, ng, n), **f32)
     dC_part = torch.empty_like(dB_part)
-    dA_part = torch.empty((b, h), dtype=torch.float32, device=dev)
+    dA_part = torch.empty((n_part, h), **f32)
     lib = _build.load()
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     code = lib.repro_mamba2_bwd(_build.dtype_code(x), x.data_ptr(), dt.data_ptr(),
                                 A.data_ptr(), B.data_ptr(), C.data_ptr(),
                                 dy.data_ptr(), states.data_ptr(), dx.data_ptr(),
-                                ddt.data_ptr(), dB_part.data_ptr(),
-                                dC_part.data_ptr(), dA_part.data_ptr(),
-                                dB.data_ptr(), dC.data_ptr(), b, s, h, p, n,
+                                ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                                dC.data_ptr(), dB_part.data_ptr(),
+                                dC_part.data_ptr(), dA_part.data_ptr(), ptr(cb),
+                                ptr(dstates), g, b, s, h, p, n,
                                 _build.stream_ptr(x))
     bwd_launches += 1
     _build.check("mamba2_bwd", code)
-    dA = dA_part[0].clone()
-    for i in range(1, b):                     # the sum over B in batch order
-        dA += dA_part[i]
     return dx, ddt, dA, dB, dC

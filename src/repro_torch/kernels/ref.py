@@ -684,12 +684,32 @@ def mamba2_chunk_states(x, dt, A, B, *, chunk: int = 64):
     return torch.stack(states, 2)
 
 
+def mamba2_chunk_dstates(dt, A, C, dy, *, chunk: int = 64):
+    """The gradient of each ``chunk``-row chunk's exit state for the output
+    gradient ``dy`` (and none on h_final): [Bt, H, ceil(S / chunk), P, N]
+    f32, what the backward kernel's reverse walk writes.  The last chunk's
+    is 0; then dS_{c-1} = e^{cT_c} dS_c + sum_t e^{cum_t} dy_t C_t^T over
+    chunk c (cum the inclusive sums of A dt within it, cT their total)."""
+    (dys,), dts, _, cs = _mamba2_chunks(dy, dt, C, C, chunk)
+    bt, nc, _, h, p = dys.shape
+    dS = torch.zeros((bt, h, p, C.shape[-1]), dtype=torch.float32,
+                     device=dy.device)
+    out = [dS] * nc
+    for c in reversed(range(nc)):
+        out[c] = dS
+        cum = torch.cumsum(dts[:, c] * A.float(), dim=1)
+        dS = dS * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bth,bthp,btn->bhpn", torch.exp(cum), dys[:, c], cs[:, c])
+    return torch.stack(out, 2)
+
+
 def mamba2_bwd(x, dt, A, B, C, dy, *, chunk: int = 64):
     """Gradients (dx, ddt, dA, dB, dC) of :func:`mamba2_scan`'s y with
     ``h0 = 0`` and a zero cotangent on h_final (the training case), by
     explicit formulas in the order of the backward kernel: the chunk-entry
-    states h0, then one reverse sweep over the chunks carrying dS, the
-    gradient of the chunk's exit state.
+    states h0 (the forward's), the exit-state gradients dS of every chunk
+    (:func:`mamba2_chunk_dstates`), then every chunk's gradients at once,
+    each from its own h0 and dS alone.
 
     With l_t = A dt_t, a_t = exp(l_t), h_t = a_t h_{t-1} + dt_t x_t B_t^T
     and y_t = h_t C_t, the state gradient g_t = dy_t C_t^T + a_{t+1} g_{t+1}
@@ -702,7 +722,6 @@ def mamba2_bwd(x, dt, A, B, C, dy, *, chunk: int = 64):
         e_t   = x_t . g_t B_t
         dB_t  = sum_heads dt_t (sum_s Q[s,t] C_s + e^{cT-cum_t} x_t^T dS)
         dC_t  = sum_heads (e^{cum_t} h0^T dy_t + sum_u Q[t,u] dt_u B_u)
-        dS   <- e^{cT} dS + sum_t e^{cum_t} dy_t C_t^T
 
     The log-decay gradient dl_j = <g_j, a_j h_{j-1}> is taken pair by pair
     over the (s >= j, u < j) terms that decay through step j, inside the
@@ -717,52 +736,60 @@ def mamba2_bwd(x, dt, A, B, C, dy, *, chunk: int = 64):
     loses f32 digits where the decays are strong).  Then ddt_t = e_t + A dl_t
     and dA = sum_{batch, t} dt_t dl_t.  dx, dB and dC come back in the
     dtypes of x, B and C; ddt and dA in f32."""
+    chunk = min(chunk, x.shape[1])
+    return mamba2_bwd_local(x, dt, A, B, C, dy,
+                            mamba2_chunk_states(x, dt, A, B, chunk=chunk),
+                            mamba2_chunk_dstates(dt, A, C, dy, chunk=chunk),
+                            chunk=chunk)
+
+
+def mamba2_bwd_local(x, dt, A, B, C, dy, states, dstates, *, chunk: int = 64):
+    """:func:`mamba2_bwd`'s gradients, every chunk's at once from its own
+    entry state (``states``, [Bt, H, NC, P, N]) and exit-state gradient
+    (``dstates``, the same shape) alone: the backward kernel's chunk-parallel
+    pass and its last sums."""
     bt, s, h, p = x.shape
-    chunk = min(chunk, s)
     (xs, dys), dts, bs, cs = _mamba2_chunks(x, dt, B, C, chunk, (dy,))
     nc = xs.shape[1]
-    af = A.float()
     dev = x.device
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
-    states = mamba2_chunk_states(x, dt, A, B, chunk=chunk)
-    dS = torch.zeros_like(states[:, :, 0])
-    dA = torch.zeros((h,), dtype=torch.float32, device=dev)
-    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (xs, dts, bs, cs))
-    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, [1]), 1), [1])
-    for c in reversed(range(nc)):
-        xc, dyc, dtc, bc, cc = xs[:, c], dys[:, c], dts[:, c], bs[:, c], cs[:, c]
-        h0 = states[:, :, c]
-        cum = torch.cumsum(dtc * af, dim=1)                        # [Bt,T,H]
-        cT = cum[:, -1]                                            # [Bt,H]
-        L = _seg_decay(cum, tri)                                   # [Bt,T,U,H]
-        M = L * torch.einsum("btn,bun->btu", cc, bc)[..., None]
-        dyx = torch.einsum("bthp,buhp->btuh", dyc, xc)             # dy_t . x_u
-        Q = L * dyx
-        tail = torch.exp(cT[:, None] - cum)                        # e^{cT - cum_t}
-        head = torch.exp(cum)                                      # e^{cum_t}
-        gB = (torch.einsum("bsth,bshp->bthp", M, dyc)
-              + tail[..., None] * torch.einsum("bhpn,btn->bthp", dS, bc))
-        dx[:, c] = dtc[..., None] * gB
-        e = (xc * gB).sum(-1)                                      # [Bt,T,H]
-        xdsb = torch.einsum("bthp,bhpn,btn->bth", xc, dS, bc)      # x_t^T dS B_t
-        dB[:, c] = torch.einsum(
-            "bth,bsth,bsn->btn", dtc, Q, cc) + torch.einsum(
-            "bth,bthp,bhpn->btn", dtc * tail, xc, dS)
-        hdy = torch.einsum("bhpn,bthp->bthn", h0, dyc)             # h0^T dy_t
-        dC[:, c] = (torch.einsum("bth,bthn->btn", head, hdy)
-                    + torch.einsum("btuh,buh,bun->btn", Q, dtc, bc))
-        K = M * dtc[:, None] * dyx                                 # [Bt,S,U,H]
-        before = torch.cumsum(K, dim=2) - K                        # sum_{u<j} K[s,u]
-        intra = torch.einsum("bsjh,sj->bjh", before, tri.float())  # sum_{s>=j}
-        h_side = rev(head * torch.einsum("btn,bthn->bth", cc, hdy))
-        s_side = tail * dtc * xdsb
-        s_side = torch.cumsum(s_side, 1) - s_side                  # sum_{u<j}
-        const = torch.exp(cT) * torch.einsum("bhpn,bhpn->bh", dS, h0)
-        dl = intra + h_side + s_side + const[:, None]
-        ddt[:, c] = e + af * dl
-        dA = dA + (dtc * dl).sum((0, 1))
-        dS = dS * torch.exp(cT)[..., None, None] + torch.einsum(
-            "bth,bthp,btn->bhpn", head, dyc, cc)
-    unchunk = lambda t: t.reshape(bt, nc * chunk, *t.shape[3:])[:, :s]
+    h0, dS = states, dstates
+    af = A.float()
+    cum = torch.cumsum(dts * af, dim=2)                          # [Bt,NC,T,H]
+    cT = cum[:, :, -1]                                           # [Bt,NC,H]
+    L = _seg_decay(cum.flatten(0, 1), tri).reshape(bt, nc, chunk, chunk, h)
+    cb = torch.einsum("bctn,bcun->bctu", cs, bs)
+    M = L * cb[..., None]
+    dyx = torch.einsum("bcthp,bcuhp->bctuh", dys, xs)            # dy_t . x_u
+    Q = L * dyx
+    tail = torch.exp(cT[:, :, None] - cum)                       # e^{cT - cum_t}
+    head = torch.exp(cum)                                        # e^{cum_t}
+    # dx, e
+    gB = (torch.einsum("bcsth,bcshp->bcthp", M, dys)
+          + tail[..., None] * torch.einsum("bhcpn,bctn->bcthp", dS, bs))
+    dx = dts[..., None] * gB
+    e = (xs * gB).sum(-1)                                        # [Bt,NC,T,H]
+    # dB, and x_t^T dS B_t
+    xdS = torch.einsum("bcthp,bhcpn->bcthn", xs, dS)
+    dB = torch.einsum("bcth,bcsth,bcsn->bctn", dts, Q, cs) + torch.einsum(
+        "bcth,bcthn->bctn", dts * tail, xdS)
+    xdsb = torch.einsum("bcthn,bctn->bcth", xdS, bs)
+    # dC, and C_t . h0^T dy_t
+    hdy = torch.einsum("bhcpn,bcthp->bcthn", h0, dys)            # h0^T dy_t
+    dC = (torch.einsum("bcth,bcthn->bctn", head, hdy)
+          + torch.einsum("bctuh,bcuh,bcun->bctn", Q, dts, bs))
+    hc = torch.einsum("bctn,bcthn->bcth", cs, hdy)
+    # dl, ddt, dA
+    K = M * dts[:, :, None] * dyx                                # [Bt,NC,S,U,H]
+    before = torch.cumsum(K, dim=3) - K                          # sum_{u<j} K[s,u]
+    intra = torch.einsum("bcsjh,sj->bcjh", before, tri.float())  # sum_{s>=j}
+    h_side = torch.flip(torch.cumsum(torch.flip(head * hc, [2]), 2), [2])
+    s_side = tail * dts * xdsb
+    s_side = torch.cumsum(s_side, 2) - s_side                    # sum_{u<j}
+    const = torch.exp(cT) * torch.einsum("bhcpn,bhcpn->bch", dS, h0)
+    dl = intra + h_side + s_side + const[:, :, None]
+    ddt = e + af * dl
+    dA = (dts * dl).sum((0, 1, 2))
+    unchunk = lambda t: t.reshape(bt, nc * chunk, *t.shape[3:])[:, :s]  # noqa: E731
     return (unchunk(dx).to(x.dtype), unchunk(ddt), dA,
             unchunk(dB).to(B.dtype), unchunk(dC).to(C.dtype))

@@ -49,13 +49,17 @@ def one_card_config(arch: str):
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu), by group;
 # the flash fragments take both forms (flash_fwd_kernel in f32,
-# flash_fwd_bf16_kernel on the tensor cores; flash_bwd_delta / dkdv / dq)
+# flash_fwd_bf16_kernel on the tensor cores; flash_bwd_delta / dkdv / dq),
+# and so do the Mamba2 ones (f32: mamba2_fwd_kernel, mamba2_bwd_kernel; bf16:
+# the C B^T pre-pass mamba2_fwd_cb / mamba2_bwd_cb, the walks
+# mamba2_fwd_tc and mamba2_bwd_walk, the chunk-parallel mamba2_bwd_tc; both:
+# the sums mamba2_bwd_sum)
 GROUPS = (("flash attention forward", ("flash_fwd_",)),
           ("flash attention backward", ("flash_bwd_",)),
           ("wkv6 forward", ("rwkv6_fwd_kernel",)),
           ("wkv6 backward", ("rwkv6_bwd_kernel",)),
-          ("Mamba2 scan forward", ("mamba2_fwd_kernel",)),
-          ("Mamba2 scan backward", ("mamba2_bwd_kernel", "mamba2_head_sum_")),
+          ("Mamba2 scan forward", ("mamba2_fwd_",)),
+          ("Mamba2 scan backward", ("mamba2_bwd_",)),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",
                                         "paged_attention_kernel")))
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")

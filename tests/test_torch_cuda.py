@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import noc  # noqa: E402
-from repro_torch.kernels import _paged  # noqa: E402
+from repro_torch.kernels import _build, _paged  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import mamba_chunk as kmamba  # noqa: E402
@@ -95,7 +95,7 @@ def _decode_lengths(dev, b_hint, h, kvh, bs, mb, keys_grain):
     if mb <= 4:
         return [1, bs, mb * bs, 2 * bs + 3, 1]
     plan = _paged.decode_plan(b_hint, kvh, h // kvh, mb * bs, keys_grain,
-                              kda.n_sms(dev))
+                              _build.n_sms(dev))
     e = plan.split_keys
     assert plan.n_split > 1
     return [1, mb * bs, bs - 1, bs + 1, e - 1, e, e + 1, 2 * e + bs, 1]
@@ -670,11 +670,14 @@ def _mamba_close(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,n", [(2, 70, 3, 16, 8), (1, 33, 2, 16, 8),
-                                       (1, 128, 2, 64, 64), (2, 100, 3, 64, 64)])
-def test_mamba2_kernels(dev, dtype, b, s, h, p, n):
+                                       (1, 128, 2, 64, 64), (2, 100, 3, 64, 64),
+                                       (2, 200, 20, 64, 64)])
+def test_mamba2_kernels(dev, dtype, b, s, h, p, n, monkeypatch):
     """Forward (y, h_final, the chunk-entry states) and backward (dx, ddt,
     dA, dB, dC) against the plain versions, ragged S included; the
-    backward twice on the same inputs gives the same bits."""
+    backward twice on the same inputs gives the same bits.  In bf16 the
+    backward runs with its plan's head group and with a plan of groups of
+    3, which leave a partial last group where 3 does not divide H."""
     rng = np.random.default_rng(9)
     x, dt, A, B, C, dy = _mamba_inputs(rng, b, s, h, p, n, dtype, dev)
     y, hf, states = kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)
@@ -682,14 +685,33 @@ def test_mamba2_kernels(dev, dtype, b, s, h, p, n):
     _mamba_close(y, want_y)
     _mamba_close(hf, want_hf)
     _mamba_close(states, ref.mamba2_chunk_states(x, dt, A, B, chunk=kmamba.CHUNK))
-    got = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
     want = ref.mamba2_bwd(x, dt, A, B, C, dy, chunk=kmamba.CHUNK)
-    for g, wt in zip(got, want):
-        assert g.dtype == wt.dtype and g.shape == wt.shape
-        _mamba_close(g, wt)
-    again = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
-    for g, a in zip(got, again):
-        assert torch.equal(g, a)
+    plans = [kmamba.bwd_plan]
+    if dtype == torch.bfloat16:
+        plans.append(lambda *a, **k: 3)
+    for plan in plans:
+        monkeypatch.setattr(kmamba, "bwd_plan", plan)
+        got = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+        for gt, wt in zip(got, want):
+            assert gt.dtype == wt.dtype and gt.shape == wt.shape
+            _mamba_close(gt, wt)
+        again = kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)
+        for gt, a in zip(got, again):
+            assert torch.equal(gt, a)
+
+
+def test_mamba2_bwd_slots(dev):
+    """The gradient kernel's resident-block slots, the backward plan's input:
+    a whole number of blocks on every SM, for each built (P, N); at
+    zamba2-7b's shapes on an H100 (2 blocks an SM) the plan takes groups of
+    56 heads, as ``tests/test_torch_mamba_plan.py`` assumes."""
+    sms = _build.n_sms(dev)
+    for p, n in kmamba.SHAPES:
+        slots = kmamba.bwd_slots(dev, p, n)
+        assert slots > 0 and slots % sms == 0
+    if sms == 132:
+        assert kmamba.bwd_slots(dev, 64, 64) == 264
+        assert kmamba.bwd_plan(2, 4096, 112, 264) == 56
 
 
 def test_mamba2_autograd_matches_plain_autograd(dev):

@@ -166,6 +166,28 @@ def _close_rel(got, want, rel, name):
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk,strong", SCAN_CASES)
+def test_chunk_dstates_match_jax_vjp(b, s, h, p, n, chunk, strong):
+    """The exit-state gradient of every chunk (the backward kernel's reverse
+    walk) against jax.vjp, with respect to h0, of the JAX oracle over the
+    sequence after that chunk with its share of dy: within 1e-5 of the
+    largest entry; the last chunk's is 0."""
+    x, dt, A, B, C, dy = _scan_inputs(np.random.default_rng(5), b, s, h, p, n,
+                                      strong)
+    got = tref.mamba2_chunk_dstates(_t(dt), _t(A), _t(C), _t(dy), chunk=chunk)
+    nc = -(-s // chunk)
+    assert got.shape == (b, h, nc, p, n) and got.dtype == torch.float32
+    assert not bool(got[:, :, -1].any())
+    for c in range(nc - 1):
+        r = (c + 1) * chunk
+        f = lambda h0: jref.mamba2_scan(  # noqa: E731
+            *[jnp.asarray(a[:, r:]) for a in (x, dt)], jnp.asarray(A),
+            *[jnp.asarray(a[:, r:]) for a in (B, C)], h0=h0, chunk=chunk)[0]
+        _, pull = jax.vjp(f, jnp.zeros((b, h, p, n), jnp.float32))
+        want = np.asarray(pull(jnp.asarray(dy[:, r:]))[0])
+        _close_rel(got[:, :, c].numpy(), want, BWD_REL, f"dS of chunk {c}")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,strong", SCAN_CASES)
 def test_mamba2_bwd_matches_jax_vjp(b, s, h, p, n, chunk, strong):
     """(dx, ddt, dA, dB, dC) against jax.vjp of the JAX oracle (h0 = 0, no
     cotangent on h_final), each within 1e-5 of its largest entry (with
@@ -185,6 +207,86 @@ def test_mamba2_bwd_matches_jax_vjp(b, s, h, p, n, chunk, strong):
         else:
             _close_rel(g.numpy(), wt, BWD_REL, name)
         _close_rel(g.numpy(), ex, F64_REL, name + " (float64)")
+
+
+def _sweep_bwd(x, dt, A, B, C, dy, chunk):
+    """(dx, ddt, dA, dB, dC) by one reverse sweep over the chunks that
+    carries dS, the exit-state gradient, from chunk to chunk: the plain
+    backward's earlier form, kept here as an oracle for the chunk-local
+    one (the same formulas as ``ref.mamba2_bwd``'s docstring, with dS
+    updated in the sweep instead of read from ``mamba2_chunk_dstates``)."""
+    bt, s, h, p = x.shape
+    (xs, dys), dts, bs, cs = tref._mamba2_chunks(x, dt, B, C, chunk, (dy,))
+    nc = xs.shape[1]
+    af = A.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    states = tref.mamba2_chunk_states(x, dt, A, B, chunk=chunk)
+    dS = torch.zeros_like(states[:, :, 0])
+    dA = torch.zeros((h,), dtype=torch.float32)
+    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (xs, dts, bs, cs))
+    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, [1]), 1), [1])  # noqa: E731
+    for c in reversed(range(nc)):
+        xc, dyc, dtc, bc, cc = xs[:, c], dys[:, c], dts[:, c], bs[:, c], cs[:, c]
+        h0 = states[:, :, c]
+        cum = torch.cumsum(dtc * af, dim=1)                        # [Bt,T,H]
+        cT = cum[:, -1]
+        L = tref._seg_decay(cum, tri)                              # [Bt,T,U,H]
+        M = L * torch.einsum("btn,bun->btu", cc, bc)[..., None]
+        dyx = torch.einsum("bthp,buhp->btuh", dyc, xc)             # dy_t . x_u
+        Q = L * dyx
+        tail, head = torch.exp(cT[:, None] - cum), torch.exp(cum)
+        gB = (torch.einsum("bsth,bshp->bthp", M, dyc)
+              + tail[..., None] * torch.einsum("bhpn,btn->bthp", dS, bc))
+        dx[:, c] = dtc[..., None] * gB
+        e = (xc * gB).sum(-1)
+        xdsb = torch.einsum("bthp,bhpn,btn->bth", xc, dS, bc)
+        dB[:, c] = (torch.einsum("bth,bsth,bsn->btn", dtc, Q, cc)
+                    + torch.einsum("bth,bthp,bhpn->btn", dtc * tail, xc, dS))
+        hdy = torch.einsum("bhpn,bthp->bthn", h0, dyc)
+        dC[:, c] = (torch.einsum("bth,bthn->btn", head, hdy)
+                    + torch.einsum("btuh,buh,bun->btn", Q, dtc, bc))
+        K = M * dtc[:, None] * dyx
+        before = torch.cumsum(K, dim=2) - K
+        intra = torch.einsum("bsjh,sj->bjh", before, tri.float())
+        h_side = rev(head * torch.einsum("btn,bthn->bth", cc, hdy))
+        s_side = tail * dtc * xdsb
+        s_side = torch.cumsum(s_side, 1) - s_side
+        const = torch.exp(cT) * torch.einsum("bhpn,bhpn->bh", dS, h0)
+        dl = intra + h_side + s_side + const[:, None]
+        ddt[:, c] = e + af * dl
+        dA = dA + (dtc * dl).sum((0, 1))
+        dS = dS * torch.exp(cT)[..., None, None] + torch.einsum(
+            "bth,bthp,btn->bhpn", head, dyc, cc)
+    unchunk = lambda t: t.reshape(bt, nc * chunk, *t.shape[3:])[:, :s]  # noqa: E731
+    return unchunk(dx), unchunk(ddt), dA, unchunk(dB), unchunk(dC)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,strong", [
+    (2, 300, 3, 16, 8, True), (1, 256, 2, 64, 64, True),
+    (2, 200, 3, 16, 8, False)])
+def test_chunk_local_bwd_matches_the_sequential_sweep(b, s, h, p, n, strong):
+    """``mamba2_bwd_local``, every chunk at once from (states, dstates),
+    against the reverse sweep that carries dS from chunk to chunk, at
+    several 64-row chunks (a ragged S included) and strong decays: every
+    gradient within 1e-5 of its largest entry (with strong decays dA
+    within STRONG_DA_ATOL), and both against a float64 recurrence within
+    1e-4."""
+    x, dt, A, B, C, dy = [_t(a) for a in _scan_inputs(
+        np.random.default_rng(8), b, s, h, p, n, strong)]
+    got = tref.mamba2_bwd_local(
+        x, dt, A, B, C, dy, tref.mamba2_chunk_states(x, dt, A, B, chunk=64),
+        tref.mamba2_chunk_dstates(dt, A, C, dy, chunk=64), chunk=64)
+    want = _sweep_bwd(x, dt, A, B, C, dy, 64)
+    exact = _f64_grads(*[a.numpy() for a in (x, dt, A, B, C, dy)])
+    for i, (name, g, wt, ex) in enumerate(zip(("dx", "ddt", "dA", "dB", "dC"),
+                                              got, want, exact)):
+        assert g.shape == wt.shape and np.isfinite(g.numpy()).all()
+        if strong and i == 2:
+            assert float((g - wt).abs().max()) <= STRONG_DA_ATOL
+        else:
+            _close_rel(g.numpy(), wt.numpy(), BWD_REL, name)
+        _close_rel(g.numpy(), ex, F64_REL, name + " (float64)")
+        _close_rel(wt.numpy(), ex, F64_REL, name + " (sweep, float64)")
 
 
 def test_autograd_finite_where_unmasked_exp_overflows():
