@@ -77,11 +77,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    against their plain versions and timed as in 3 (no PyTorch call
    computes wkv6: no library time); a control shows the forward's
    tolerance catches a kernel that drops one chunk's state contribution,
-   and the backward twice gives the same bits;
+   another that the backward's catch one that drops one chunk's exit-state
+   gradient, and the backward twice gives the same bits;
 10. rwkv train parity: phase 7 for reduced rwkv6-3b with a random nonzero
    ``w_b``;
 11. rwkv train: rwkv6-3b at full width and depth as in 8, with the wkv6
-   and rmsnorm launch counts held to the remat formulas;
+   and rmsnorm launch counts held to the remat formulas, every wkv6 call
+   on the bf16 tensor-core route;
 12. mamba kernels: the Mamba2 scan forward and backward at full-width
    zamba2-7b shapes (x [2, 4096, 112, 64] bf16, B, C [2, 4096, 64] bf16,
    dt = softplus(N(0, 1)) f32, A = -linspace(1, 16, 112) as at init), held
@@ -237,6 +239,10 @@ PREFILL_GATE_REL = 5e-2
 MAMBA_DESIGN = ("bf16 on mma.sync m16n8k16: C B^T once per (batch, chunk); a "
                 "forward state walk per (batch, head), cp.async a chunk ahead; "
                 "a reverse dS walk, then chunk-parallel gradients over head groups")
+# the redesign of the bf16 wkv6 scan, named on rows 9 and 9b
+WKV_DESIGN = ("bf16 on mma.sync m16n8k16, chunks of 64: chunk-parallel "
+              "increments, an in-place state scan a thread four values, then "
+              "chunk-parallel outputs / gradients from each chunk's state alone")
 SCAN_RTOL, SCAN_ATOL = 2 ** -7, 1e-3
 SCAN_F32_RTOL, SCAN_F32_ATOL = 1e-4, 1e-4
 SCAN_REL = 1e-3
@@ -2078,7 +2084,7 @@ def dropped_chunk_control(torch, r, k, v, w, o_ok, tol):
     from repro_torch.kernels import rwkv_chunk as kwkv
 
     b, s, h, d = r.shape
-    t = kwkv.CHUNK
+    t = kwkv.chunk_of(r.dtype)
     nc = s // t
     states = ref.rwkv6_chunk_states(k, v, w, chunk=t)              # [B,H,NC,D,D]
     lw = torch.log(torch.clamp(w, min=ref.W_FLOOR)).reshape(b, nc, t, h, d)
@@ -2105,6 +2111,49 @@ def dropped_chunk_control(torch, r, k, v, w, o_ok, tol):
     del states, lw, cum, rin, contrib, bad
 
 
+def dropped_wkv_dstate_control(torch, r, k, v, w, u, do, want, tols):
+    """What the wkv6 backward check reads for a wrong kernel: one that drops
+    the exit-state gradient dS of one chunk of one (sequence, head), the one
+    whose dS term (k_u e^{cT - cum_u}) dS in dv is the smallest of all.
+    Fails unless the backward's tolerances tell the two apart (dw held as
+    dl = dw w, as the backward's check holds it)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_chunk as kwkv
+
+    b, s, h, d = r.shape
+    t = kwkv.chunk_of(r.dtype)
+    nc = s // t
+    dstates = ref.rwkv6_chunk_dstates(r, w, do, chunk=t)           # [B,H,NC,D,D]
+    lw = torch.log(torch.clamp(w, min=ref.W_FLOOR)).reshape(b, nc, t, h, d)
+    cum = torch.cumsum(lw, dim=2)
+    kd = k.float().reshape(b, nc, t, h, d) * torch.exp(cum[:, :, -1:] - cum)
+    term = torch.einsum("bcthd,bhcde->bcthe", kd, dstates)         # [B,NC,T,H,D]
+    size = term.abs().amax(dim=(2, 4))                             # [B, NC, H]
+    size[:, -1] = float("inf")                                     # dS = 0 there
+    bi, ci, hi = (int(x) for x in torch.unravel_index(torch.argmin(size), size.shape))
+    del lw, cum, kd, term
+    dstates[bi, hi, ci] = 0.0
+    bad = ref.rwkv6_bwd_local(r, k, v, w, u, do,
+                              ref.rwkv6_chunk_states(k, v, w, chunk=t), dstates,
+                              chunk=t)
+    bad = (bad[0], bad[1], bad[2], bad[3] * w, bad[4])
+    names = ("dr", "dk", "dv", "dl", "du")
+    caught = [not torch.allclose(g.float(), x.float(), **tol)
+              for g, x, tol in zip(bad, want, tols)]
+    rels = [rel_err(torch, g, x) for g, x in zip(bad, want)]
+    log(f"wkv6 backward control: a backward that drops the exit-state gradient "
+        f"of chunk {ci} of sequence {bi}, head {hi} (the smallest dS term: "
+        f"max|kd dS| {float(size[bi, ci, hi]):.3g}; the largest "
+        f"{float(size[:, :-1].max()):.3g}) reads " + ", ".join(
+            f"{n} max|err| {float((g.float() - x.float()).abs().max()):.3g} "
+            f"(caught: {c}), rel {e:.2g}"
+            for n, g, x, c, e in zip(names, bad, want, caught, rels)))
+    if not any(caught):
+        fail("wkv6 backward control: the backward's tolerances pass a kernel "
+             "that drops one chunk's exit-state gradient")
+    del dstates, bad
+
+
 def rwkv_kernel_phase(torch, timer, cfg):
     """The wkv6 forward and backward at full-width rwkv6-3b shapes, bf16: r,
     k, v [2, 4096, 40, 64], w f32 data-dependent, u [40, 64] f32."""
@@ -2118,7 +2167,8 @@ def rwkv_kernel_phase(torch, timer, cfg):
         f"{float(w.max()):.6g}], {float(clamped.float().mean()):.4f} of it below "
         f"the 1e-20 clamp, {float((w < 1e-3).float().mean()):.4f} below 1e-3")
     src, rep = "src/repro_torch/kernels/csrc/rwkv6.cu", "src/repro/kernels/rwkv_chunk.py:87"
-    t, nc = kwkv.CHUNK, kwkv.n_chunks(s)
+    t = kwkv.chunk_of(r.dtype)
+    nc = kwkv.n_chunks(s, t)
     # FLOPs of the chunked algorithm per (batch, head, chunk): the state
     # products 2 T D^2 each (o from S and the S update forward; dr, dk, dv
     # and the dS update backward), the pair terms ~5 T^2 D / 2 each (att
@@ -2126,6 +2176,7 @@ def rwkv_kernel_phase(torch, timer, cfg):
     fwd_flops = b * h * nc * (4 * t * d * d + 5 * t * t * d)
     bwd_flops = b * h * nc * (8 * t * d * d + 10 * t * t * d)
     io = r.numel() * 2                                   # one [B,S,H,D] bf16 tensor
+    state_bytes = b * h * nc * d * d * 4                 # the chunk-entry states
 
     want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t)
     o_tol = scan_tol(torch, want_o)
@@ -2136,8 +2187,8 @@ def rwkv_kernel_phase(torch, timer, cfg):
         torch, timer, "rwkv6", src, rep,
         lambda: kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)[:2],
         lambda: ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t), (o_tol, s_tol),
-        nbytes=4 * io + w.numel() * 4 + u.numel() * 4 + b * h * d * d * 4,
-        flops=fwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
+        nbytes=4 * io + w.numel() * 4 + u.numel() * 4 + b * h * d * d * 4
+        + state_bytes, flops=fwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
         note=f"; o, S_final; rel {SCAN_REL}; the training forward, which also "
              f"writes the {nc} chunk-entry states")]
 
@@ -2156,15 +2207,20 @@ def rwkv_kernel_phase(torch, timer, cfg):
     # a difference of running sums times 1 / w in both versions, so the
     # check holds dl = dw w (what d logit = -dl e^logit uses)
     view = lambda g: (g[0], g[1], g[2], g[3] * w, g[4])
-    tols = tuple(scan_tol(torch, y) for y in view(want))
-    del first, again, want
+    want = view(want)
+    tols = tuple(scan_tol(torch, y) for y in want)
+    del first, again
+    dropped_wkv_dstate_control(torch, r, k, v, w, u, do, want, tols)
+    del want
     rows.append(measure(
         torch, timer, "rwkv6_bwd", src, rep,
         lambda: kwkv.rwkv6_bwd(r, k, v, w, u, do, states),
         lambda: ref.rwkv6_bwd(r, k, v, w, u, do, chunk=t), tols,
-        nbytes=7 * io + 2 * w.numel() * 4 + 2 * u.numel() * 4,
+        nbytes=7 * io + 2 * w.numel() * 4 + 2 * u.numel() * 4 + state_bytes,
         flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3, view=view,
         note=f"; dr, dk, dv, dl = dw w, du; rel {SCAN_REL}"))
+    rows[0].update(row="9", design=WKV_DESIGN)
+    rows[1].update(row="9b", design=WKV_DESIGN)
     del r, k, v, w, u, do, states, clamped
     torch.cuda.empty_cache()
     return rows
@@ -2200,10 +2256,12 @@ def granite_watched(st):
 
 def rwkv_expect(cfg, n):
     """Counted launches of n rwkv steps with remat: wkv6 in the forward and
-    the recompute, its backward once; three norms a layer (ln1, ln2 and the
-    time mix's) plus the final norm outside the remat."""
+    the recompute, its backward once, every call on the bf16 tensor-core
+    route; three norms a layer (ln1, ln2 and the time mix's) plus the final
+    norm outside the remat."""
     L = cfg.n_layers
     return {"rwkv6": 2 * L * n, "rwkv6_bwd": L * n,
+            "rwkv6_tc": 2 * L * n, "rwkv6_bwd_tc": L * n,
             "rmsnorm": (6 * L + 1) * n, "rmsnorm_bwd": (3 * L + 1) * n}
 
 
@@ -2942,6 +3000,8 @@ def main() -> None:
     train_parity_phase(torch, reduced(rcfg), perturb=rwkv_perturb)
     rwkv_counters = {
         "rwkv6": Counter(rwkv_chunk), "rwkv6_bwd": Counter(rwkv_chunk, "bwd_launches"),
+        "rwkv6_tc": Counter(rwkv_chunk, "tc_launches"),
+        "rwkv6_bwd_tc": Counter(rwkv_chunk, "tc_bwd_launches"),
         "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches")}
     rwkv_launches, rwkv_train = train_phase(torch, rcfg, rwkv_counters,
                                             rwkv_expect, rwkv_watched)

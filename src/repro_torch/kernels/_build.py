@@ -56,9 +56,8 @@ _SIGNATURES = {
                                _P),
     "repro_flash_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
-    "repro_rwkv6_fwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_rwkv6_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                        _I, _I, _I, _P),
+    "repro_rwkv6_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _P),
+    "repro_rwkv6_bwd": (_I, *(_P,) * 15, _I, _I, _I, _I, _P),
     "repro_mamba2_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _I, _P),
     "repro_mamba2_bwd": (_I, *(_P,) * 17, _I, _I, _I, _I, _I, _I, _P),
     "repro_mamba2_bwd_occupancy": (_I, _I, _P),

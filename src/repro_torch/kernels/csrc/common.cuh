@@ -160,6 +160,29 @@ __device__ __forceinline__ void split_bf16(uint32_t (&hi)[4], uint32_t (&lo)[4],
   }
 }
 
+// bf16 tiles sit in shared memory as rows of W + 8 elements (W a multiple of
+// 8): an odd count of 16-byte pieces, so the eight row addresses of an
+// ldmatrix 8 x 8 matrix fall in eight different bank groups.
+template <int W> __host__ __device__ constexpr int lds() { return W + 8; }
+
+// MMA accumulator tiles [NT][4]: cleared, and a piece's sum added on the
+// CUDA cores (the tensor cores' own accumulation truncates)
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+template <int NT>
+__device__ __forceinline__ void add(float (&acc)[NT][4], const float (&part)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
 // the two bf16 of a packed register as f32 (exact): the lower column first
 __device__ __forceinline__ float bf16_lo(uint32_t r) { return __uint_as_float(r << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t r) { return __uint_as_float(r & 0xffff0000u); }

@@ -572,10 +572,7 @@ static_assert(kTcWarps * 16 == kChunk, "a warp a 16-row slice of the chunk");
 
 template <int X> __host__ __device__ constexpr int pad16() { return (X + 15) / 16 * 16; }
 
-// bf16 tiles sit in shared memory as rows of W + 8 elements (W a multiple of
-// 16): an odd count of 16-byte chunks, so the eight row addresses of an
-// ldmatrix 8 x 8 matrix fall in eight different bank groups.
-template <int W> __host__ __device__ constexpr int lds() { return W + 8; }
+using repro::lds;
 
 // Rows t0 .. t0 + 64 of a bf16 tensor whose row r starts at base + r * rs,
 // W elements a row (a multiple of 8), into a [64][WP + 8] tile by 16-byte
@@ -649,21 +646,8 @@ __device__ __forceinline__ float quad_excl(float v) {
   return incl - v;
 }
 
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-}
-
-template <int NT>
-__device__ __forceinline__ void add(float (&acc)[NT][4], const float (&part)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-}
+using repro::add;
+using repro::zero;
 
 // acc[16 x 8 NT] += A[16 x 16] B[16 x 8 NT] for one 16-deep piece: B's
 // fragments two n tiles at a time from ldr(b, n0); A a hi + lo pair (ah,

@@ -519,30 +519,65 @@ def rwkv6_chunk_states(k, v, w, *, chunk: int = 32):
     return _entry_states(ks, vs, cum)
 
 
+def rwkv6_chunk_dstates(r, w, do, *, chunk: int = 32):
+    """The gradient of each ``chunk``-row chunk's exit state for the output
+    gradient ``do`` (and none on S_final): [B, H, ceil(S / chunk), D, D]
+    f32, what the backward kernel's reverse scan writes.  The last chunk's
+    is 0; then dS_{c-1} = e^{cT_c} dS_c + sum_t (r_t e^{cin_t})^T do_t over
+    chunk c (cum, cin as in :func:`_rwkv6_chunks`, cT the chunk's total)."""
+    (rs, _, dos), cum, cin = _rwkv6_chunks(r, r, do, w, chunk)
+    b, nc, _, h, d = rs.shape
+    dS = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    out = [dS] * nc
+    for c in reversed(range(nc)):
+        out[c] = dS
+        dS = dS * torch.exp(cum[:, c, -1])[..., None] + torch.einsum(
+            "bthd,bthe->bhde", rs[:, c] * torch.exp(cin[:, c]), dos[:, c])
+    return torch.stack(out, 2)
+
+
 def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
     """Gradients (dr, dk, dv, dw, du) of :func:`rwkv6_scan_chunked` with
     ``s0 = 0`` and a zero cotangent on S_final (the training case), by
-    explicit formulas in the order of the backward kernel: a forward sweep
-    for the chunk-entry states S0, then one reverse sweep over the chunks
-    carrying dS (the gradient of the chunk's exit state) and the running
-    decay sum ``acc``.  Within a chunk, with E[t, u] = exp(cin_t - cum_u)
+    explicit formulas in the order of the backward kernels: the chunk-entry
+    states S0 (:func:`rwkv6_chunk_states`), the exit-state gradients dS of
+    every chunk (:func:`rwkv6_chunk_dstates`), then every chunk's gradients
+    from its own S0 and dS alone (:func:`rwkv6_bwd_local`).  dr, dk, dv
+    come back in r's dtype, dw and du in f32."""
+    chunk = min(chunk, r.shape[1])
+    return rwkv6_bwd_local(r, k, v, w, u, do,
+                           rwkv6_chunk_states(k, v, w, chunk=chunk),
+                           rwkv6_chunk_dstates(r, w, do, chunk=chunk),
+                           chunk=chunk)
+
+
+def rwkv6_bwd_local(r, k, v, w, u, do, states, dstates, *, chunk: int = 32):
+    """:func:`rwkv6_bwd`'s gradients, each chunk's from its own entry state
+    S0 (``states``, [B, H, NC, D, D]) and exit-state gradient dS
+    (``dstates``, the same shape) alone: the backward kernel's
+    chunk-parallel pass.  Within a chunk, with E[t, u] = exp(cin_t - cum_u)
     (u < t), dov[t, u] = do_t . v_u, att and bonus as in the forward:
 
         dv_u  = sum_{t>u} att[t,u] do_t + bonus_u do_u + (k_u e^{cT-cum_u}) dS
-        dr'_t = e^{cin_t} (S0 do_t) + sum_{u<t} dov[t,u] E[t,u] k_u
-        dk'_u = e^{cT-cum_u} (dS v_u) + sum_{t>u} dov[t,u] E[t,u] r_t
+        dr'_t = e^{cin_t} (S0 do_t) + p'_t,  p'_t = sum_{u<t} dov[t,u] E[t,u] k_u
+        dk'_u = z'_u + q'_u,  z'_u = e^{cT-cum_u} (dS v_u),
+                q'_u = sum_{t>u} dov[t,u] E[t,u] r_t
         dr_t  = dr'_t + u k_t dov[t,t];   dk_u = dk'_u + u r_u dov[u,u]
         du    = sum_t r_t k_t dov[t,t]
-        dS   <- e^{cT} dS + sum_t (r_t e^{cin_t}) do_t^T
 
-    The decay: pair (t, j) is weighted exp(L_{t-1} - L_j) with L the
-    running sum of l = log max(w, 1e-20) over the whole sequence, so
-    dL_t = r_{t+1} dr'_{t+1} - k_t dk'_t and dl_j = sum_{t>=j} dL_t (a
-    reverse cumulative sum across chunk boundaries), dw = dl / w where
-    w > 1e-20 and 0 where the clamp holds.  dr, dk, dv come back in r's
-    dtype, dw and du in f32."""
+    The decay: the weight of a pair (u < t) decays through row j when
+    u < j < t, so the gradient of l_j = log max(w_j, 1e-20) gathers, per
+    channel, four groups of pairs, all inside the chunk:
+
+        dl_j = sum_{t>j} r_t p'_t - sum_{u>=j} k_u q'_u     (within the chunk)
+             + sum_{t>j} r_t e^{cin_t} (S0 do_t)            (entry state to t)
+             + sum_{u<j} k_u z'_u                           (u to the exit)
+             + e^{cT} <S0, dS>  (per key channel)           (entry to exit)
+
+    with no running sum across chunks, whose nearly cancelling terms lose
+    f32 digits where the decays are strong.  dw = dl / w where w > 1e-20
+    and 0 where the clamp holds."""
     b, s, h, d = r.shape
-    chunk = min(chunk, s)
     (rs, ks, vs, dos), cum, cin = _rwkv6_chunks(r, k, v, w, chunk, (do,))
     nc = rs.shape[1]
     uf = u.float()
@@ -550,14 +585,12 @@ def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev),
                      diagonal=-1)
     eye = torch.eye(chunk, dtype=torch.bool, device=dev)
-    states = _entry_states(ks, vs, cum)
-    dS = torch.zeros_like(states[:, :, 0])
-    acc = torch.zeros((b, h, d), dtype=torch.float32, device=dev)
     du = torch.zeros((h, d), dtype=torch.float32, device=dev)
     dr, dk, dv, dl = (torch.zeros_like(rs) for _ in range(4))
-    for c in reversed(range(nc)):
+    for c in range(nc):
         rc, kc, vc, doc = rs[:, c], ks[:, c], vs[:, c], dos[:, c]
-        cc, ci, S0 = cum[:, c], cin[:, c], states[:, :, c]
+        cc, ci = cum[:, c], cin[:, c]
+        S0, dS = states[:, :, c], dstates[:, :, c]
         cT = cc[:, -1]                                    # [B, H, D]
         E = _pair_decay(ci, cc, tri)                      # [B, T, U, H, D]
         dov = torch.einsum("bthe,buhe->bhtu", doc, vc)
@@ -569,21 +602,20 @@ def rwkv6_bwd(r, k, v, w, u, do, *, chunk: int = 32):
         kdec = torch.exp(cT[:, None] - cc)                # e^{cT - cum_u}
         dv[:, c] = (torch.einsum("bhtu,bthe->buhe", att, doc)
                     + torch.einsum("buhd,bhde->buhe", kc * kdec, dS))
-        drp = (torch.exp(ci) * torch.einsum("bhde,bthe->bthd", S0, doc)
-               + torch.einsum("bhtu,btuhd,buhd->bthd", datt, E, kc))
-        dkp = (kdec * torch.einsum("bhde,buhe->buhd", dS, vc)
-               + torch.einsum("bhtu,btuhd,bthd->buhd", datt, E, rc))
-        dr[:, c] = drp + uf * kc * diag[..., None]
-        dk[:, c] = dkp + uf * rc * diag[..., None]
+        entry = torch.exp(ci) * torch.einsum("bhde,bthe->bthd", S0, doc)
+        p = torch.einsum("bhtu,btuhd,buhd->bthd", datt, E, kc)
+        z = kdec * torch.einsum("bhde,buhe->buhd", dS, vc)
+        q = torch.einsum("bhtu,btuhd,bthd->buhd", datt, E, rc)
+        dr[:, c] = entry + p + uf * kc * diag[..., None]
+        dk[:, c] = z + q + uf * rc * diag[..., None]
         du = du + torch.einsum("bthd,bth->hd", rc * kc, diag)
-        x, y = rc * drp, kc * dkp                         # [B, T, H, D]
-        rev_x = torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1]) - x
-        rev_y = torch.flip(torch.cumsum(torch.flip(y, [1]), 1), [1])
-        dl[:, c] = acc[:, None] + rev_x - rev_y
-        acc = acc + x.sum(1) - y.sum(1)
-        dS = dS * torch.exp(cT)[..., None] + torch.einsum(
-            "bthd,bthe->bhde", rc * torch.exp(ci), doc)
-    unchunk = lambda t: t.reshape(b, nc * chunk, h, d)[:, :s]
+        x, y, zk = rc * (entry + p), kc * q, kc * z       # [B, T, H, D]
+        after = torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1]) - x
+        from_j = torch.flip(torch.cumsum(torch.flip(y, [1]), 1), [1])
+        before = torch.cumsum(zk, 1) - zk
+        ends = torch.exp(cT) * torch.einsum("bhde,bhde->bhd", S0, dS)
+        dl[:, c] = after - from_j + before + ends[:, None]
+    unchunk = lambda t: t.reshape(b, nc * chunk, h, d)[:, :s]  # noqa: E731
     wf = w.float()
     dw = torch.where(wf > W_FLOOR, unchunk(dl) / wf, 0.0)
     return (unchunk(dr).to(r.dtype), unchunk(dk).to(k.dtype),

@@ -2,22 +2,36 @@
 (``csrc/rwkv6.cu``): the forward and its deterministic backward.
 
 Replaces the TPU kernel ``src/repro/kernels/rwkv_chunk.py``
-(``rwkv6_chunked``, ``pallas_call`` at :87).  One block per (batch, head)
-carries the f32 state S [D, D] in shared memory across 32-token chunks;
-r, k, v, w are read in their ``[B, S, H, D]`` layout (no host-side
-transpose or padding: the ragged last chunk is masked in the kernel), and
-every decay exponent is <= 0 (the pairwise term is computed for u < t
-only).  For training the forward also writes the state at each chunk's
-entry, ``[B, H, ceil(S/32), D, D]`` f32, which the backward reads instead
-of recomputing; under remat it lives only while one layer is recomputed.
-The backward is one reverse pass over the chunks per (batch, head) without
-atomics (``du``'s sum over the batch is taken here in a fixed order), so
-two runs give the same bits.  Bound on the H100 by bytes; this first
-version runs B * H blocks (80 at rwkv6-3b's B = 2, H = 40) on 132 SMs.
+(``rwkv6_chunked``, ``pallas_call`` at :87).  r, k, v, w are read in their
+``[B, S, H, D]`` layout (no host-side transpose or padding: the ragged last
+chunk is masked in the kernel), and every decay exponent is <= 0.  For
+training the forward also writes the state at each chunk's entry, ``[B, H,
+NC, D, D]`` f32, which the backward reads instead of recomputing; under
+remat it lives only while one layer is recomputed.
+
+bf16 runs on the tensor cores (``mma.sync``) in chunks of 64 rows
+(``TC_CHUNK``), every pass but one chunk-parallel, one block per (batch,
+chunk, head): the forward writes each chunk's state increment, scans the
+chunks in place (one thread per four state values, so the slots end holding
+the chunk-entry states), then computes each chunk's output from its entry
+state; the backward writes each chunk's gradient increment, scans them in
+reverse into the gradient of each chunk's exit state, then computes every
+gradient of a chunk from its entry state and that gradient alone, the
+decay's too (no running sum across chunks).  The f32 operand of each
+product (decays, states, their gradients, do . v) enters as a bf16 hi + lo
+pair beside an exact bf16 one.  f32 (the fp32 parity runs) keeps the
+CUDA-core kernels: one block per (batch, head) walks chunks of 32
+(``CHUNK``).  No atomics: ``du``'s sum over the (batch, chunk) or batch
+partials runs in a fixed order, so two runs give the same bits.
+``launches`` and ``bwd_launches`` count calls of the wrappers, and
+``tc_launches`` / ``tc_bwd_launches`` those of them on the bf16 route; a
+bf16 call launches 3 CUDA kernels forward and 4 backward, an f32 call 1
+and 2.
 
 The plain versions are ``kernels/ref.py:rwkv6_scan_chunked`` and
 ``rwkv6_bwd``; ``kernels/ops.py`` sends CPU tensors there.  These wrappers
-take CUDA tensors only.
+take CUDA tensors only; on the bf16 route r, k, v, w (and do) must start on
+a 16-byte boundary.
 """
 from __future__ import annotations
 
@@ -25,15 +39,23 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0       # forward kernel launches through this module
-bwd_launches = 0   # backward launches (one per rwkv6_bwd call)
+launches = 0         # forward kernel launches through this module
+bwd_launches = 0     # backward launches (one per rwkv6_bwd call)
+tc_launches = 0      # forwards on the bf16 tensor-core route
+tc_bwd_launches = 0  # backwards on the bf16 tensor-core route
 
-HEAD_DIMS = (16, 32, 64)   # the head dims the kernel is built for
-CHUNK = 32                 # rows per chunk (kChunk of csrc/rwkv6.cu)
+HEAD_DIMS = (16, 32, 64)   # the head dims the kernels are built for
+CHUNK = 32                 # rows per chunk of the f32 kernels (kChunk of csrc/rwkv6.cu)
+TC_CHUNK = 64              # ... and of the bf16 ones (kTcChunk)
 
 
-def n_chunks(s: int) -> int:
-    return -(-s // CHUNK)
+def chunk_of(dtype: torch.dtype) -> int:
+    """Rows per chunk of the kernels that take ``dtype``."""
+    return TC_CHUNK if dtype == torch.bfloat16 else CHUNK
+
+
+def n_chunks(s: int, chunk: int = CHUNK) -> int:
+    return -(-s // chunk)
 
 
 def _check(name: str, r, k, v, w, u):
@@ -52,57 +74,80 @@ def _check(name: str, r, k, v, w, u):
     return b, s, h, d
 
 
+def _aligned(name: str, **tensors):
+    """The bf16 route copies rows 16 bytes at a time (cp.async)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte boundary")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, *, save_states: bool = False):
     """r, k, v [B, S, H, D]; w [B, S, H, D] f32; u [H, D] f32 -> (o like r,
     S_final [B, H, D, D] f32, chunk-entry states [B, H, NC, D, D] f32 or
-    None)."""
-    global launches
+    None), NC = ceil(S / chunk_of(r.dtype))."""
+    global launches, tc_launches
     b, s, h, d = _check("rwkv6", r, k, v, w, u)
     _build.require_cuda("rwkv6", r=r, k=k, v=v, w=w, u=u)
+    tc = r.dtype == torch.bfloat16
+    if tc:
+        _aligned("rwkv6", r=r, k=k, v=v, w=w)
+    nc = n_chunks(s, chunk_of(r.dtype))
+    f32 = dict(dtype=torch.float32, device=r.device)
     o = torch.empty_like(r)
-    sf = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
-    states = (torch.empty((b, h, n_chunks(s), d, d), dtype=torch.float32,
-                          device=r.device) if save_states else None)
+    sf = torch.empty((b, h, d, d), **f32)
+    # the bf16 route scans the states in place: a scratch when not saved
+    states = torch.empty((b, h, nc, d, d), **f32) if save_states or tc else None
+    dec = torch.empty((b, h, nc, d), **f32) if tc else None
     lib = _build.load()
     code = lib.repro_rwkv6_fwd(_build.dtype_code(r), r.data_ptr(), k.data_ptr(),
                                v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                               o.data_ptr(), sf.data_ptr(),
-                               states.data_ptr() if save_states else None,
-                               b, s, h, d, _build.stream_ptr(r))
+                               o.data_ptr(), sf.data_ptr(), _ptr(states),
+                               _ptr(dec), b, s, h, d, _build.stream_ptr(r))
     launches += 1
+    tc_launches += tc
     _build.check("rwkv6", code)
-    return o, sf, states
+    return o, sf, states if save_states else None
 
 
 def rwkv6_bwd(r, k, v, w, u, do, states):
     """Gradients (dr, dk, dv, dw, du) of :func:`rwkv6_fwd`'s ``o`` for the
     output gradient ``do`` (S_final's gradient taken as zero), from the
     chunk-entry ``states`` that the forward wrote."""
-    global bwd_launches
+    global bwd_launches, tc_bwd_launches
     b, s, h, d = _check("rwkv6_bwd", r, k, v, w, u)
+    nc = n_chunks(s, chunk_of(r.dtype))
     if do.shape != r.shape or do.dtype != r.dtype:
         raise ValueError(f"rwkv6_bwd: do {tuple(do.shape)} {do.dtype} must be "
                          f"like r")
-    if states is None or states.shape != (b, h, n_chunks(s), d, d) \
+    if states is None or states.shape != (b, h, nc, d, d) \
             or states.dtype != torch.float32:
         raise ValueError("rwkv6_bwd: states must be the forward's chunk-entry "
-                         f"states [{b}, {h}, {n_chunks(s)}, {d}, {d}] float32")
+                         f"states [{b}, {h}, {nc}, {d}, {d}] float32")
     _build.require_cuda("rwkv6_bwd", r=r, k=k, v=v, w=w, u=u, do=do,
                         states=states)
+    tc = r.dtype == torch.bfloat16
+    if tc:
+        _aligned("rwkv6_bwd", r=r, k=k, v=v, w=w, do=do)
+    f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw = torch.empty_like(w)
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    du = torch.empty((h, d), **f32)
+    du_part = torch.empty((b * nc if tc else b, h, d), **f32)
+    dstates = torch.empty_like(states) if tc else None
+    dec = torch.empty((b, h, nc, d), **f32) if tc else None
     lib = _build.load()
     code = lib.repro_rwkv6_bwd(_build.dtype_code(r), r.data_ptr(), k.data_ptr(),
                                v.data_ptr(), w.data_ptr(), u.data_ptr(),
                                do.data_ptr(), states.data_ptr(), dr.data_ptr(),
                                dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-                               du_part.data_ptr(), b, s, h, d,
-                               _build.stream_ptr(r))
+                               du_part.data_ptr(), du.data_ptr(), _ptr(dstates),
+                               _ptr(dec), b, s, h, d, _build.stream_ptr(r))
     bwd_launches += 1
+    tc_bwd_launches += tc
     _build.check("rwkv6_bwd", code)
-    du = du_part[0].clone()
-    for i in range(1, b):                     # the sum over B in batch order
-        du += du_part[i]
     return dr, dk, dv, dw, du

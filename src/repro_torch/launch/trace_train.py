@@ -53,11 +53,14 @@ def one_card_config(arch: str):
 # and so do the Mamba2 ones (f32: mamba2_fwd_kernel, mamba2_bwd_kernel; bf16:
 # the C B^T pre-pass mamba2_fwd_cb / mamba2_bwd_cb, the walks
 # mamba2_fwd_tc and mamba2_bwd_walk, the chunk-parallel mamba2_bwd_tc; both:
-# the sums mamba2_bwd_sum)
+# the sums mamba2_bwd_sum), and so do the wkv6 ones (f32: rwkv6_fwd_kernel,
+# rwkv6_bwd_kernel; bf16: the increments rwkv6_fwd_inc / rwkv6_bwd_inc, the
+# scans rwkv6_fwd_scan / rwkv6_bwd_scan, the chunk-parallel rwkv6_fwd_out
+# and rwkv6_bwd_grad; both: the du sum rwkv6_bwd_du)
 GROUPS = (("flash attention forward", ("flash_fwd_",)),
           ("flash attention backward", ("flash_bwd_",)),
-          ("wkv6 forward", ("rwkv6_fwd_kernel",)),
-          ("wkv6 backward", ("rwkv6_bwd_kernel",)),
+          ("wkv6 forward", ("rwkv6_fwd_",)),
+          ("wkv6 backward", ("rwkv6_bwd_",)),
           ("Mamba2 scan forward", ("mamba2_fwd_",)),
           ("Mamba2 scan backward", ("mamba2_bwd_",)),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",

@@ -591,28 +591,52 @@ def _wkv_close_grads(got, want, w):
         _wkv_close(g, wt)
 
 
+# (B, S, H, D): at each head dim an S below one chunk of either route (17,
+# 40, 50) and an S of several chunks with a ragged tail (96, 130, 200, 300)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d", [(2, 40, 3, 16), (1, 96, 2, 64),
-                                     (2, 17, 2, 64), (1, 130, 4, 32)])
+                                     (2, 17, 2, 64), (1, 130, 4, 32),
+                                     (1, 50, 2, 32), (2, 200, 3, 16),
+                                     (1, 300, 2, 64)])
 def test_rwkv6_kernels(dev, dtype, b, s, h, d):
     """Forward (o, S_final, the chunk-entry states) and backward (dr, dk,
-    dv, dw, du) against the plain versions, ragged S included; the backward
-    twice on the same inputs gives the same bits."""
+    dv, dw, du) against the plain versions at the route's chunk, ragged S
+    included; the backward twice on the same inputs gives the same bits."""
     rng = np.random.default_rng(7)
     r, k, v, w, u, do = _wkv_inputs(rng, b, s, h, d, dtype, dev)
+    chunk = kwkv.chunk_of(dtype)
     o, sf, states = kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)
-    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=kwkv.CHUNK)
+    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=chunk)
     _wkv_close(o, want_o)
     _wkv_close(sf, want_sf)
-    _wkv_close(states, ref.rwkv6_chunk_states(k, v, w, chunk=kwkv.CHUNK))
+    _wkv_close(states, ref.rwkv6_chunk_states(k, v, w, chunk=chunk))
     got = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
-    want = ref.rwkv6_bwd(r, k, v, w, u, do, chunk=kwkv.CHUNK)
+    want = ref.rwkv6_bwd(r, k, v, w, u, do, chunk=chunk)
     for g, wt in zip(got, want):
         assert g.dtype == wt.dtype and g.shape == wt.shape
     _wkv_close_grads(got, want, w)
     again = kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def test_rwkv6_routes(dev):
+    """A bf16 call runs the tensor-core route (3 CUDA launches forward, 4
+    backward), counted in tc_launches / tc_bwd_launches beside the calls;
+    an f32 call keeps the CUDA-core kernels and leaves those counts; a
+    forward without saved states returns none."""
+    rng = np.random.default_rng(11)
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        r, k, v, w, u, do = _wkv_inputs(rng, 1, 70, 2, 16, dtype, dev)
+        before = (kwkv.launches, kwkv.bwd_launches, kwkv.tc_launches,
+                  kwkv.tc_bwd_launches)
+        assert kwkv.rwkv6_fwd(r, k, v, w, u)[2] is None
+        _, _, states = kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)
+        assert states.shape[2] == -(-70 // kwkv.chunk_of(dtype))
+        kwkv.rwkv6_bwd(r, k, v, w, u, do, states)
+        after = (kwkv.launches, kwkv.bwd_launches, kwkv.tc_launches,
+                 kwkv.tc_bwd_launches)
+        assert [a - b_ for a, b_ in zip(after, before)] == [2, 1, 2 * tc, tc]
 
 
 def test_rwkv6_autograd_matches_plain_autograd(dev):

@@ -179,6 +179,104 @@ def test_rwkv6_bwd_finite_where_unmasked_exp_overflows():
     assert all(torch.isfinite(g).all() for g in grads)
 
 
+def _sweep_bwd(r, k, v, w, u, do, chunk):
+    """The backward as one reverse sweep over the whole sequence, carrying
+    dS and the running decay sum ``acc`` across chunk boundaries (the plain
+    backward before the chunk-local form; kept here as its oracle): dL_t =
+    r_{t+1} dr'_{t+1} - k_t dk'_t and dl_j = sum_{t>=j} dL_t."""
+    b, s, h, d = r.shape
+    (rs, ks, vs, dos), cum, cin = tref._rwkv6_chunks(r, k, v, w, chunk, (do,))
+    nc = rs.shape[1]
+    uf = u.float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), diagonal=-1)
+    eye = torch.eye(chunk, dtype=torch.bool)
+    states = tref.rwkv6_chunk_states(k, v, w, chunk=chunk)
+    dS = torch.zeros_like(states[:, :, 0])
+    acc = torch.zeros((b, h, d))
+    du = torch.zeros((h, d))
+    dr, dk, dv, dl = (torch.zeros_like(rs) for _ in range(4))
+    for c in reversed(range(nc)):
+        rc, kc, vc, doc = rs[:, c], ks[:, c], vs[:, c], dos[:, c]
+        cc, ci, S0 = cum[:, c], cin[:, c], states[:, :, c]
+        cT = cc[:, -1]
+        E = tref._pair_decay(ci, cc, tri)
+        dov = torch.einsum("bthe,buhe->bhtu", doc, vc)
+        diag = dov.diagonal(dim1=2, dim2=3).permute(0, 2, 1)
+        datt = torch.where(tri, dov, 0.0)
+        att = torch.einsum("bthd,btuhd,buhd->bhtu", rc, E, kc)
+        bonus = torch.einsum("bthd,hd,bthd->bth", rc, uf, kc)
+        att = att + torch.where(eye, bonus.permute(0, 2, 1)[..., None], 0.0)
+        kdec = torch.exp(cT[:, None] - cc)
+        dv[:, c] = (torch.einsum("bhtu,bthe->buhe", att, doc)
+                    + torch.einsum("buhd,bhde->buhe", kc * kdec, dS))
+        drp = (torch.exp(ci) * torch.einsum("bhde,bthe->bthd", S0, doc)
+               + torch.einsum("bhtu,btuhd,buhd->bthd", datt, E, kc))
+        dkp = (kdec * torch.einsum("bhde,buhe->buhd", dS, vc)
+               + torch.einsum("bhtu,btuhd,bthd->buhd", datt, E, rc))
+        dr[:, c] = drp + uf * kc * diag[..., None]
+        dk[:, c] = dkp + uf * rc * diag[..., None]
+        du = du + torch.einsum("bthd,bth->hd", rc * kc, diag)
+        x, y = rc * drp, kc * dkp
+        rev_x = torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1]) - x
+        rev_y = torch.flip(torch.cumsum(torch.flip(y, [1]), 1), [1])
+        dl[:, c] = acc[:, None] + rev_x - rev_y
+        acc = acc + x.sum(1) - y.sum(1)
+        dS = dS * torch.exp(cT)[..., None] + torch.einsum(
+            "bthd,bthe->bhde", rc * torch.exp(ci), doc)
+    unchunk = lambda t: t.reshape(b, nc * chunk, h, d)[:, :s]  # noqa: E731
+    return (unchunk(dr), unchunk(dk), unchunk(dv), unchunk(dl), du)
+
+
+# (B, S, H, D, chunk, lowest w): 4-5 chunks, a ragged last one, decays down
+# to 1e-3 a step (the chunk's log sums reach ~-300) with some below the clamp
+LOCAL_CASES = [(2, 70, 3, 8, 16, 0.05), (1, 80, 2, 16, 16, 1e-3),
+               (2, 150, 2, 8, 32, 1e-3)]
+
+
+@pytest.mark.parametrize("b,s,h,d,chunk,w_lo", LOCAL_CASES)
+def test_rwkv6_bwd_local_matches_the_sweep(b, s, h, d, chunk, w_lo):
+    """The chunk-local backward (every chunk from its own S0 and dS, dl by
+    the four groups of pairs inside the chunk) against the sequence-long
+    sweep with its running decay sum, both from the same f32 log sums (so
+    no allowance for their rounding): dr, dk, dv, du and dl = dw w each
+    within 1e-5 of its largest entry; dw is exactly 0 where the clamp
+    holds."""
+    r, k, v, w, u, do = _wkv(np.random.default_rng(12), b, s, h, d, True, w_lo)
+    tin = [_t(a) for a in (r, k, v, w, u, do)]
+    got = tref.rwkv6_bwd(*tin, chunk=chunk)
+    want = _sweep_bwd(*tin, chunk)
+    assert -(-s // chunk) in (4, 5)
+    for i, name in ((0, "dr"), (1, "dk"), (2, "dv"), (4, "du")):
+        _close_rel(got[i].numpy(), want[i].numpy(), BWD_REL, name)
+    live = w > 1e-20
+    assert not got[3].numpy()[~live].any()
+    dl = np.where(live, want[3].numpy(), 0.0)
+    _close_rel(got[3].numpy() * w, dl, BWD_REL, "dl = dw w")
+
+
+@pytest.mark.parametrize("b,s,h,d,chunk,w_lo", LOCAL_CASES)
+def test_rwkv6_chunk_dstates_match_jax_vjp(b, s, h, d, chunk, w_lo):
+    """dS of chunk c, the gradient of its exit state, against jax.vjp with
+    respect to s0 of the JAX chunked form run over the rows after chunk c
+    from that state, with do on those rows as o's cotangent; the last
+    chunk's is 0.  Within 1e-5 of the largest entry plus the log sums'
+    rounding."""
+    r, k, v, w, u, do = _wkv(np.random.default_rng(13), b, s, h, d, True, w_lo)
+    got = tref.rwkv6_chunk_dstates(_t(r), _t(w), _t(do), chunk=chunk).numpy()
+    nc = -(-s // chunk)
+    assert got.shape == (b, h, nc, d, d)
+    assert not got[:, :, -1].any()
+    rel = BWD_REL + _cum_rounding(w, chunk)
+    for c in range(nc - 1):
+        e = (c + 1) * chunk
+        f = lambda s0: jref.rwkv6_scan_chunked(  # noqa: E731
+            *[jnp.asarray(a[:, e:]) for a in (r, k, v, w)], jnp.asarray(u),
+            s0=s0, chunk=chunk)[0]
+        _, pull = jax.vjp(f, jnp.zeros((b, h, d, d), jnp.float32))
+        (want,) = pull(jnp.asarray(do[:, e:]))
+        _close_rel(got[:, :, c], np.asarray(want), rel, f"dS of chunk {c}")
+
+
 def test_ops_cpu_dispatch_and_wrapper_checks():
     """On the CPU ``ops.rwkv6_scan`` takes the plain versions as the JAX
     package does off the TPU (chunks of 16 once S >= 32, else the
@@ -201,6 +299,9 @@ def test_ops_cpu_dispatch_and_wrapper_checks():
     with pytest.raises(ValueError, match="head dim"):
         twkv.rwkv6_fwd(*bad)
     assert twkv.n_chunks(4096) == 128 and twkv.n_chunks(40) == 2
+    # the bf16 tensor-core route takes chunks of 64, the f32 kernels 32
+    assert twkv.chunk_of(torch.bfloat16) == 64 and twkv.chunk_of(torch.float32) == 32
+    assert twkv.n_chunks(4096, twkv.chunk_of(torch.bfloat16)) == 64
 
 
 # ---------------------------------------------------------------------------
