@@ -21,14 +21,19 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    control that drops the longest sequence's second split, and logged with
    its GB/s, its share of the bound and the time of a PyTorch sum over as
    many bytes; then timed with its split forced to 1, 2, 4 and 8 (logged,
-   not gated);
+   not gated); the paged prefill (the bf16 tensor-core form) is held to one
+   bf16 ulp relative plus 2e-3 and a relative norm of 1e-2, twice bitwise
+   equal, with a control that drops one 64-key stage of its last row tile,
+   and SDPA over the same K/V gathered beforehand into a slab is timed
+   beside it (logged, not gated);
 4. parity: the reduced stablelm-1.6b model on the card (CUDA kernels)
    against the CPU (plain versions) at fp32;
 5. serve: stablelm-1.6b at full width and depth (random bf16 weights from a
    seed) serving 16 requests through ``repro_torch.serve.ServeEngine``; the
    kernels' launch counters are zeroed just before and read just after,
-   and every kernel must have run; a rerun with prefix caching off must give
-   token-identical greedy outputs;
+   and every kernel must have run (every paged prefill launch a bf16 one,
+   on the tensor cores, here and in 17 and 18); a rerun with prefix caching
+   off must give token-identical greedy outputs;
 5b. dense kernels: flash-decoding over a dense KV slab (q [8, 32, 64],
    k/v [8, 1024, 32, 64], the live lengths of phase 3's paged decode) and
    the flash forward with a per-sequence key bound (q/k/v [1, 1024, 32, 64]
@@ -219,6 +224,19 @@ DENSE_STEP = 32                                # keys the flash-lengths control 
 DECODE_DESIGN = ("decode cluster: a split key walk over a thread-block cluster, "
                  "cp.async rings, merged over distributed shared memory")
 FLASH_LEN = 700                                # the flash-lengths row's bound
+# The paged prefill (row 2), bf16 at full width: a row of ~500-770 keys has
+# |o| ~ 0.05-0.2, where ATTN_TOL's 2e-2 is 10-20 bf16 ulps, the size of the
+# outputs themselves.  The output is held to one bf16 ulp relative plus
+# 2e-3 (2x the 0.000977 the CUDA-core kernel read at these shapes, PERF.md
+# row 2) and a relative norm error of 1e-2; the control drops one 64-key
+# stage of the last row tile (PREFILL_DROP_STAGE of its walk).
+PREFILL_TOL = dict(rtol=2 ** -7, atol=2e-3)
+PREFILL_REL = 1e-2
+PREFILL_DROP_STAGE = 6                         # keys [384, 448) of the last tile's walk
+# the redesign of the bf16 paged prefill, named on rows 2, 2q and 2s
+PREFILL_DESIGN = ("bf16 on mma.sync m16n8k16: 64-row tiles, the tile's owned "
+                  "pages listed once, 64-key stages through a cp.async ring, "
+                  "P as a bf16 hi + lo pair")
 # the slab prefill against the paged chunked prefill, full width in bf16:
 # the last-token logits' relative norm error read 0.0143 (PERF.md,
 # Findings); the tolerance is 3.5x that
@@ -550,19 +568,37 @@ def kernel_phase(torch, timer, cfg):
                 f"product")
     rows[-1]["design"] = DECODE_DESIGN
     log_rate(torch, timer, rows[-1], dec_bytes)
-    # prefill attention: a 512-row chunk at q_offset 256, table [64]
+    # prefill attention: a 512-row chunk at q_offset 256, table [64]; held
+    # twice bitwise equal, and against a kernel that loses one stage of its
+    # last row tile
     qp = randn(1, c, h, hd)
     table = tables[0].contiguous()
     total = qoff + c
     attended = sum(min(qoff + i + 1, total) for i in range(c))
+    repeat_equal(torch, "paged_prefill_attention",
+                 lambda: kpf.paged_prefill_attention(qp, kp, vp, table, q_offset=qoff,
+                                                     length=c))
+    kl, vl = ref.gather_pages(kp, table)[:total], ref.gather_pages(vp, table)[:total]
+    valid = (torch.arange(total, device=dev)[None, :]
+             <= qoff + torch.arange(c, device=dev)[:, None])
+    bad, what = stage_dropped(torch, valid, h // kvh)
+    dropped_step_control(torch, "paged_prefill_attention", what,
+                         masked_prefill(torch, qp, kl, vl, valid).to(bf),
+                         masked_prefill(torch, qp, kl, vl, bad).to(bf),
+                         PREFILL_TOL, PREFILL_REL)
+    del bad
     record("paged_prefill_attention", csrc + "paged_attention.cu",
            "src/repro/kernels/prefill_attention.py:273",
            lambda: kpf.paged_prefill_attention(qp, kp, vp, table, q_offset=qoff,
                                                length=c),
            lambda: ref.paged_prefill_attention(qp, kp, vp, table, q_offset=qoff,
                                                length=c),
-           ATTN_TOL, nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
-           flops=4 * h * hd * attended)
+           PREFILL_TOL, rel=PREFILL_REL,
+           nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
+           flops=4 * h * hd * attended, note=f"; rel {PREFILL_REL}")
+    rows[-1]["design"] = PREFILL_DESIGN
+    sdpa_slab_yardstick(torch, timer, rows[-1], qp, kl, vl, valid)
+    del kl, vl, valid
     # rmsnorm again, now that the card has run the phase's other kernels: the
     # first timed launch of a run has read up to 8x slower (PERF.md, section
     # 7), so the row keeps the repeat and the log both readings
@@ -736,7 +772,7 @@ def serve_phase(torch, cfg, params, counters):
     check_launches("serve", launches, {
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
         "silu_mul": L * (P + Dd), "paged_decode_attention": L * Dd,
-        "paged_prefill_attention": L * P})
+        "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P})
     if stats["prefix_hit_tokens"] <= 0:
         fail("serve: the shared-prefix requests never hit the prefix cache")
 
@@ -777,6 +813,59 @@ def dropped_step_control(torch, name, what, ok, bad, tol, rel, seq_rel=None):
     if not any(caught):
         fail(f"{name} control: the tolerances pass a kernel that drops "
              f"{what}")
+
+
+def masked_prefill(torch, q, k, v, valid):
+    """Plain f32 attention of a chunk q [1, C, H, D] over gathered keys k, v
+    [Sk, KvH, D] with a [C, Sk] bool key mask."""
+    g = q.shape[2] // k.shape[1]
+    kh = k.float().repeat_interleave(g, dim=1)
+    vh = v.float().repeat_interleave(g, dim=1)
+    s = torch.einsum("chd,khd->chk", q[0].float(), kh) / math.sqrt(q.shape[-1])
+    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    return torch.einsum("chk,khd->chd", torch.softmax(s, dim=-1), vh)[None]
+
+
+def stage_dropped(torch, valid, group):
+    """``valid`` [C, Sk] with one 64-key stage of the bf16 paged prefill's
+    last row tile masked (stage PREFILL_DROP_STAGE of its walk, for that
+    tile's chunk positions): what a kernel that loses the stage would
+    attend; also returns what it says."""
+    from repro_torch.kernels import _paged
+
+    c = valid.shape[0]
+    n_rows = c * group
+    first = (n_rows - 1) // _paged.TC_ROWS * _paged.TC_ROWS // group
+    k0 = PREFILL_DROP_STAGE * _paged.PREFILL_STAGE
+    k1 = k0 + _paged.PREFILL_STAGE
+    if not bool(valid[first:, k0:k1].all()):
+        fail(f"prefill control: the last tile's rows do not all see keys "
+             f"[{k0}, {k1})")
+    bad = valid.clone()
+    bad[first:, k0:k1] = False
+    return bad, (f"keys [{k0}, {k1}) (stage {PREFILL_DROP_STAGE} of the last "
+                 f"row tile) for chunk positions {first}-{c - 1}")
+
+
+def sdpa_slab_yardstick(torch, timer, row, q, k, v, valid) -> None:
+    """Log, not gated: SDPA with the same causal mask over the K/V gathered
+    beforehand into a slab (the gather outside the timed call): what the
+    same attention costs when nothing reads a page table.  Kept on the row
+    as ``sdpa_slab_ms`` (not ``library_ms``: no PyTorch call reads a paged
+    pool)."""
+    g = q.shape[2] // k.shape[1]
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
+    vs = v.repeat_interleave(g, dim=1).transpose(0, 1)[None].contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got = sdpa(qs, ks, vs, attn_mask=valid).transpose(1, 2)
+    want = masked_prefill(torch, q, k, v, valid)
+    row["sdpa_slab_ms"] = timer(lambda: sdpa(qs, ks, vs, attn_mask=valid))
+    log(f"kernel {row['name']}: SDPA over K/V gathered beforehand (a slab, the "
+        f"same causal mask; yardstick, not gated) {row['sdpa_slab_ms']:.4f} ms "
+        f"(the kernel {row['ms']:.4f}), its max|err| against the plain f32 "
+        f"attention {float((got.float() - want).abs().max()):.3g} (the "
+        f"kernel's against the plain version {row['max_abs_err']:.3g})")
 
 
 def masked_decode(torch, q, k, v, valid):
@@ -1065,7 +1154,8 @@ def dense_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
         "silu_mul": L * (P + Dd), "flash_attention_lengths": L * P,
         "decode_attention": L * Dd, "flash_attention": 0,
-        "paged_decode_attention": 0, "paged_prefill_attention": 0})
+        "paged_decode_attention": 0, "paged_prefill_attention": 0,
+        "paged_prefill_attention_tc": 0})
     same = sum(out[rid] == paged_out.get(rid) for rid in out)
     first = sorted(next((i for i, (a, b) in enumerate(zip(out[rid], paged_out[rid]))
                          if a != b), len(out[rid])) for rid in out)
@@ -1201,6 +1291,7 @@ def int8_kernel_phase(torch, timer, cfg, pool):
                       note=f"; rel {Q8_REL}; the float kernel on the pool before "
                            f"quantization {float_ms[name]:.4f} ms")
         rows.append(row)
+        row["design"] = DECODE_DESIGN if name.startswith("paged_decode") else PREFILL_DESIGN
         if name.startswith("paged_decode"):
             # the decode kernel's grain: the longest sequence loses its
             # second split (the plain version over the dequantized pages)
@@ -1213,7 +1304,6 @@ def int8_kernel_phase(torch, timer, cfg, pool):
                                  masked_decode(torch, qb, kl, vl, bad).to(qb.dtype),
                                  Q8_BF16_TOL, Q8_REL)
             del kl, vl, valid, bad
-            row["design"] = DECODE_DESIGN
             log_rate(torch, timer, row, nbytes)
     del k8, v8, ks, vs, ks_ctrl
     torch.cuda.empty_cache()
@@ -1294,7 +1384,7 @@ def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
         "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": L * Dd,
-        "paged_prefill_attention_int8": L * P})
+        "paged_prefill_attention_int8": L * P, "paged_prefill_attention_tc": L * P})
     if stats["prefix_hit_tokens"] <= 0:
         fail("int8 serve: the shared-prefix requests never hit the prefix cache")
     out_off, _, _, summary_off = serve_mix(torch, cfg, params, {},
@@ -1556,8 +1646,8 @@ def shard_kernel_phase(torch, timer, cfg, pool):
         log(f"kernel {name}: per shard launch {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
         rows.append(row)
+        row["design"] = DECODE_DESIGN if name.startswith("paged_decode") else PREFILL_DESIGN
         if name.startswith("paged_decode"):
-            row["design"] = DECODE_DESIGN
             log_rate(torch, timer, row, nbytes)
             # the decode kernel's grain: shard 0's partial with the longest
             # sequence's second split of its table keys lost
@@ -1677,7 +1767,8 @@ def shard_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "paged_prefill_attention": 0, "paged_decode_attention_int8": 0,
         "paged_prefill_attention_int8": 0,
         "paged_decode_attention_skip_null": S * L * Dd,
-        "paged_prefill_attention_skip_null": S * L * P})
+        "paged_prefill_attention_skip_null": S * L * P,
+        "paged_prefill_attention_tc": S * L * P})
     if stats["prefix_hit_tokens"] <= 0:
         fail("seq serve: the shared-prefix requests never hit the prefix cache")
     if stats["noc_combines"] != L * (P + Dd):
@@ -2935,7 +3026,8 @@ def main() -> None:
     counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
                 "silu_mul": Counter(swiglu),
                 "paged_decode_attention": Counter(decode_attention),
-                "paged_prefill_attention": Counter(prefill_attention)}
+                "paged_prefill_attention": Counter(prefill_attention),
+                "paged_prefill_attention_tc": Counter(prefill_attention, "tc_launches")}
     params = serve_params(torch, cfg)
     launches, serve, paged_out = serve_phase(torch, cfg, params, counters)
     for row in rows:

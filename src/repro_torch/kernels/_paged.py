@@ -5,22 +5,27 @@ flash-decoding kernel (``csrc/decode_attention.cu``, :func:`decode_plan`).
 
 The prefill kernel reads queries in their natural ``[B, C, H, D]`` layout
 and writes outputs in the same layout, so the host does no padding and no
-transposes: a tile of ``ROWS`` query rows of one (sequence, kv head) is cut
-out by index arithmetic inside the kernel.  :func:`geometry`,
-:func:`check_scales`, :func:`tile_key_ends`, :func:`decode_plan` and
-:func:`split_key_ranges` are the host-side parts that the CPU tests reach:
-argument checks, tile counts, the split plan and the key ranges the kernels
-compute for themselves.
+transposes: a tile of query rows of one (sequence, kv head) is cut out by
+index arithmetic inside the kernel, ``TC_ROWS`` rows for bf16 queries (the
+tensor-core form) and ``ROWS`` for f32 (the CUDA-core form), as
+:func:`prefill_rows` says.  :func:`geometry`, :func:`check_scales`,
+:func:`tile_key_ends`, :func:`owned_pages`, :func:`stage_positions`,
+:func:`decode_plan` and :func:`split_key_ranges` are the host-side parts
+that the CPU tests reach: argument checks, tile counts, the split plan, and
+the key ranges, page lists and stages the kernels compute for themselves.
 
 An int8 pool passes ``k_scales`` / ``v_scales`` [KvH, NB] f32, one scale
-per (kv head, page); the kernel's int8-page variant dequantizes each value
-as it stages it (q and the output keep their f32 or bf16 type).
+per (kv head, page) (q and the output keep their f32 or bf16 type): the
+bf16 prefill widens the int8 pages to bf16 and applies the scales to its
+score and P columns, the f32 prefill and decode dequantize each value as
+they stage it.
 
 A sequence-sharded pool passes each shard's view of the pool,
 ``pages[:, s*nbl:(s+1)*nbl]`` (and the same slice of the scales), with the
 shard-local table and ``skip_null``: the kernel reads the view through its
-kv-head stride, no copy, and masks the keys of zero table entries.  Decode
-may shift key positions by ``kv_offset``.
+kv-head stride, no copy, and skips the keys of zero table entries (the bf16
+prefill walks only the pages the shard owns).  Decode may shift key
+positions by ``kv_offset``.
 
 Decode splits each (sequence, kv head)'s keys over the blocks of a thread
 block cluster: :func:`decode_plan` picks the split from shapes alone (never
@@ -36,7 +41,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROWS = 16                      # prefill: query rows per block (csrc: kRows)
+ROWS = 16                      # f32 prefill: query rows per block (csrc: kRows)
+TC_ROWS = 64                   # bf16 prefill: query rows per block (kTcRows)
+PREFILL_STAGE = 64             # bf16 prefill: keys of a stage (kStage)
 HEAD_DIMS = (16, 64, 128)      # head dims the kernels are instantiated for
 #                                (the reduced configs, and every full-width
 #                                dense config of the registry)
@@ -59,15 +66,23 @@ class Geometry:
     bs: int
     d: int
     mb: int
-    n_tiles: int     # row tiles per (sequence, kv head): ceil(C*G / ROWS)
+    n_tiles: int     # row tiles per (sequence, kv head): ceil(C*G / rows)
+    rows: int = ROWS   # query rows of a tile (prefill_rows of q's dtype)
 
     @property
     def group(self) -> int:
         return self.h // self.kvh
 
 
-def geometry(q_shape, pages_shape, table_shape) -> Geometry:
-    """Validate shapes; q [B, C, H, D], pages [KvH, NB, BS, D], table [B, MB]."""
+def prefill_rows(dtype) -> int:
+    """Query rows of a prefill tile: ``TC_ROWS`` for bf16 queries (the
+    tensor-core form), ``ROWS`` for f32 (the CUDA-core form)."""
+    return TC_ROWS if dtype == torch.bfloat16 else ROWS
+
+
+def geometry(q_shape, pages_shape, table_shape, rows: int = ROWS) -> Geometry:
+    """Validate shapes; q [B, C, H, D], pages [KvH, NB, BS, D], table [B,
+    MB]; the prefill's tiles of ``rows`` query rows."""
     b, c, h, d = q_shape
     kvh, _, bs, pd = pages_shape
     tb, mb = table_shape
@@ -81,7 +96,7 @@ def geometry(q_shape, pages_shape, table_shape) -> Geometry:
     if d not in HEAD_DIMS:
         raise ValueError(f"paged attention: head dim {d} not in {HEAD_DIMS}")
     return Geometry(b, c, h, kvh, bs, d, mb,
-                    n_tiles=-(-(c * (h // kvh)) // ROWS))
+                    n_tiles=-(-(c * (h // kvh)) // rows), rows=rows)
 
 
 def check_scales(q_dtype, k_pages, v_pages, k_scales, v_scales) -> bool:
@@ -118,8 +133,29 @@ def tile_key_ends(g: Geometry, q_offset: int, total: int) -> List[int]:
     the live KV rows, already clamped to ``MB * BS``; the tile reads
     ``ceil(end / BS)`` pages (the TPU kernel's per-q-tile live-page clamp)."""
     n_rows = g.c * g.group
-    return [min(total, q_offset + (min((t + 1) * ROWS, n_rows) - 1) // g.group + 1)
+    return [min(total, q_offset + (min((t + 1) * g.rows, n_rows) - 1) // g.group + 1)
             for t in range(g.n_tiles)]
+
+
+def owned_pages(table, end: int, bs: int,
+                skip_null: bool) -> List[Tuple[int, int]]:
+    """The bf16 prefill's page list for a tile that walks the keys ``[0,
+    end)``: ``(page id, table index)`` of the table prefix ``[0, ceil(end /
+    BS))`` in table order, under ``skip_null`` only the nonzero entries (the
+    pages this shard owns) -- the kernel's ballot-and-popc compaction."""
+    n_prefix = -(-end // bs) if end > 0 else 0
+    return [(int(table[i]), i) for i in range(n_prefix)
+            if not skip_null or int(table[i]) != 0]
+
+
+def stage_positions(pages: List[Tuple[int, int]], end: int,
+                    bs: int) -> List[List[int]]:
+    """The logical key positions the bf16 prefill stages, in walk order:
+    the listed pages' keys page after page, cut at ``end`` (only the last
+    page can reach past it), in stages of ``PREFILL_STAGE`` keys (the last
+    one short)."""
+    walk = [i * bs + r for _, i in pages for r in range(bs) if i * bs + r < end]
+    return [walk[s:s + PREFILL_STAGE] for s in range(0, len(walk), PREFILL_STAGE)]
 
 
 @dataclass(frozen=True)
@@ -198,9 +234,10 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     MB] int32; ``q_offset`` and ``total`` (the live KV rows, clamped to MB *
     BS); an int8 pool passes its scales; the pages (and scales) may be a
     shard's view of a pool, dense past the kv-head dim, with ``skip_null``
-    for its shard-local table.  Returns the normalized output, or the f32
-    partials (acc, m, l)."""
-    g = geometry(q.shape, k_pages.shape, tables.shape)
+    for its shard-local table.  bf16 queries run the tensor-core form, whose
+    q and pages must start 16-byte aligned.  Returns the normalized output,
+    or the f32 partials (acc, m, l)."""
+    g = geometry(q.shape, k_pages.shape, tables.shape, prefill_rows(q.dtype))
     if k_pages.shape != v_pages.shape:
         raise ValueError("paged attention: k_pages and v_pages differ in shape")
     int8 = check_scales(q.dtype, k_pages, v_pages, k_scales, v_scales)
@@ -214,6 +251,12 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     _build.require_cuda("paged_attention",
                         views=("k_pages", "v_pages", "k_scales", "v_scales"),
                         **tensors)
+    if q.dtype == torch.bfloat16:
+        for arg, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"paged attention: {arg} must be 16-byte "
+                                 f"aligned (the bf16 kernel reads it by "
+                                 f"cp.async)")
     if partials:
         acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
         m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)

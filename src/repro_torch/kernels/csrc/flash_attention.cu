@@ -534,6 +534,7 @@ __device__ __forceinline__ void cp_stat(float* __restrict__ dst, const float* __
 using repro::frag_a;
 using repro::frag_b;
 using repro::frag_bt;
+using repro::quad_max;
 using repro::quad_sum;
 
 // A [16, 16] A operand from two f32 accumulator tiles (columns 8 j.. and
@@ -557,11 +558,6 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)
                                                const float (&a)[4], const float (&b)[4]) {
   const float x[8] = {a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3]};
   repro::split_bf16(hi, lo, x);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
 }
 
 // The tile count of a key (or query) range [begin, end) walked in tiles of

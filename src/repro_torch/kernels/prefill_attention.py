@@ -7,23 +7,29 @@ Replaces the TPU kernel ``src/repro/kernels/prefill_attention.py``
 :310).  One chunk's queries ``[1, C, H, D]`` attend to the paged KV (the
 chunk's own K/V already scattered into its pages), causal on global
 positions ``kpos <= q_offset + row // G`` and valid on ``kpos < q_offset +
-length``.  Each block takes a fixed tile of 16 query rows of one kv head,
+length``.  Each block takes a fixed tile of query rows of one kv head,
 row-major ``(position, group)``, and walks keys only up to its tile's causal
 end (the TPU kernel's per-q-tile live-page clamp, ``prefill_attention.py``
 :141-142).  ``C`` need not be a multiple of the tile, and ``block_table`` may
-be a prefix slice of the slot's table.  Bound on the H100: bytes at serving
-shapes; the products run on the CUDA cores in f32 in this first version.
+be a prefix slice of the slot's table.
 
-Because the query tile is fixed, no chunk size can overflow shared memory
-(41 KB at head dim 128), so the TPU kernel's VMEM sizing (``resolve_q_tile``,
-``q_tile_vmem_bytes``) has no counterpart.  An int8 pool (pages int8 with
-``k_scales`` / ``v_scales`` [KvH, NB] f32) runs the kernel's int8-page
-variant, which dequantizes each value as it stages it (the TPU kernel's
-quantized branch, :165-170).  ``skip_null`` (:142-146, a sequence-sharded
-pool): the pages are a shard's view of the pool, read through their
-kv-head stride, and a zero entry of the shard-local table is masked and its
-bytes never loaded; a row that sees no owned key returns ``(0, -1e30,
-0)``.
+bf16 queries run the tensor-core form: 64-row tiles (``_paged.TC_ROWS``),
+the tiles with the most keys first; the tile's pages listed once in shared
+memory; 64-key stages through a ``cp.async`` ring; S = Q K^T and P V on
+``mma.sync`` with the online softmax in f32 and P as a bf16 hi + lo pair.
+f32 queries (the fp32 parity runs) keep the CUDA-core form, 16-row tiles
+(``_paged.ROWS``) in f32.  Because the query tile is fixed, no chunk size
+can overflow shared memory, so the TPU kernel's VMEM sizing
+(``resolve_q_tile``, ``q_tile_vmem_bytes``) has no counterpart.  An int8
+pool (pages int8 with ``k_scales`` / ``v_scales`` [KvH, NB] f32) runs each
+form's int8-page variant (the TPU kernel's quantized branch, :165-170): the
+bf16 form widens the int8 pages to bf16 and scales its score and P columns,
+the f32 form dequantizes each value as it stages it.  ``skip_null``
+(:142-146, a sequence-sharded pool): the pages are a shard's view of the
+pool, read through their kv-head stride; the bf16 form walks only the pages
+the shard-local table owns (its nonzero entries), the f32 form masks the
+keys of zero entries and never loads their bytes; a row that sees no owned
+key returns ``(0, -1e30, 0)``.
 """
 from __future__ import annotations
 
@@ -37,11 +43,12 @@ launches = 0      # kernel launches over a float pool
 q8_launches = 0   # kernel launches over an int8 pool (its variant)
 shard_launches = 0      # skip_null launches over a shard of a float pool
 shard_q8_launches = 0   # skip_null launches over a shard of an int8 pool
+tc_launches = 0   # launches (of every mode above) with bf16 queries: the tensor-core form
 
 
 def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
              k_scales, v_scales, skip_null=False):
-    global launches, q8_launches, shard_launches, shard_q8_launches
+    global launches, q8_launches, shard_launches, shard_q8_launches, tc_launches
     if q.dim() != 4 or q.shape[0] != 1 or block_table.dim() != 1:
         raise ValueError(f"paged prefill: q must be [1, C, H, D] and the "
                          f"table [MB]; got {tuple(q.shape)}, "
@@ -60,6 +67,8 @@ def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
         launches += 1
     else:
         q8_launches += 1
+    if q.dtype == torch.bfloat16:
+        tc_launches += 1
     return res
 
 

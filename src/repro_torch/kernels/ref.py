@@ -414,6 +414,90 @@ def paged_prefill_attention(q, k_pages, v_pages, block_table, *,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def _bf16_pair(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x as hi = bf16(x) and lo = bf16(x - hi), both back in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def paged_prefill_staged_partial(q, k_pages, v_pages, block_table, *,
+                                 q_offset: int, length: int,
+                                 skip_null: bool = False,
+                                 k_scales: Optional[torch.Tensor] = None,
+                                 v_scales: Optional[torch.Tensor] = None,
+                                 rows: int = 64, stage: int = 64) -> Partials:
+    """The arithmetic of the bf16 paged-prefill kernel
+    (``csrc/paged_attention.cu``, its tensor-core form) in plain PyTorch, for
+    the CPU tests: the same partials as :func:`paged_prefill_attention_partial`
+    by another walk.  Query rows of each kv head, row-major (position,
+    group), in tiles of ``rows``; a tile walks the keys below its causal end
+    ``min(total, q_offset + its last position + 1)`` over its table prefix's
+    pages in table order (under ``skip_null`` only the nonzero entries, the
+    pages a shard owns), ``stage`` keys at a time, each key keeping its
+    logical position for the mask.  s = (q . k) * K scale * 1/sqrt(D) in f32
+    (the int8 pool's K scale on each score column), an online softmax in f32
+    whose l sums the unscaled p, and P V with p times V's scale carried as a
+    bf16 hi + lo pair against the (int8 or float) V rows.  A row that sees
+    no key is ``(0, -1e30, 0)``.  Returns (acc f32 [1,C,H,D], m [1,C,H], l
+    [1,C,H])."""
+    _, c, h, d = q.shape
+    kvh, _, bs, _ = k_pages.shape
+    g = h // kvh
+    n_rows = c * g
+    total = min(q_offset + length, block_table.shape[0] * bs)
+    scale = 1.0 / math.sqrt(d)
+    # [KvH, C * G, D], rows row-major (position, group)
+    qr = q[0].float().reshape(c, kvh, g, d).transpose(0, 1).reshape(kvh, n_rows, d)
+    acc = torch.zeros(kvh, n_rows, d, dtype=torch.float32, device=q.device)
+    m = torch.full((kvh, n_rows), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(kvh, n_rows, dtype=torch.float32, device=q.device)
+    tbl = block_table.long()
+    for r0 in range(0, n_rows, rows):
+        r1 = min(r0 + rows, n_rows)
+        qpos = q_offset + torch.arange(r0, r1, device=q.device) // g
+        end = min(total, q_offset + (r1 - 1) // g + 1)
+        n_prefix = -(-end // bs) if end > 0 else 0
+        idx = torch.arange(n_prefix, device=q.device)
+        if skip_null:
+            idx = idx[tbl[:n_prefix] != 0]
+        pos = (idx[:, None] * bs + torch.arange(bs, device=q.device)).flatten()
+        page = tbl[idx].repeat_interleave(bs)
+        row = torch.arange(bs, device=q.device).repeat(len(idx))
+        keep = pos < end
+        pos, page, row = pos[keep], page[keep], row[keep]
+        for h_kv in range(kvh):
+            qt = qr[h_kv, r0:r1]
+            mt = torch.full((r1 - r0,), NEG_INF, dtype=torch.float32, device=q.device)
+            lt = torch.zeros(r1 - r0, dtype=torch.float32, device=q.device)
+            at = torch.zeros(r1 - r0, d, dtype=torch.float32, device=q.device)
+            for s0 in range(0, len(pos), stage):
+                sl = slice(s0, s0 + stage)
+                kk = k_pages[h_kv, page[sl], row[sl]].float()
+                vv = v_pages[h_kv, page[sl], row[sl]].float()
+                s = qt @ kk.T
+                if k_scales is not None:
+                    s = s * k_scales[h_kv, page[sl]][None]
+                s = torch.where(pos[sl][None] <= qpos[:, None], s * scale,
+                                torch.tensor(NEG_INF, device=q.device))
+                m_new = torch.maximum(mt, s.amax(dim=1))
+                p = torch.exp(s - m_new[:, None])
+                corr = torch.exp(mt - m_new)
+                lt = lt * corr + p.sum(dim=1)
+                if v_scales is not None:
+                    p = p * v_scales[h_kv, page[sl]][None]
+                hi, lo = _bf16_pair(p)
+                at = at * corr[:, None] + hi @ vv + lo @ vv
+                mt = m_new
+            none = mt == NEG_INF
+            acc[h_kv, r0:r1] = torch.where(none[:, None], 0.0, at)
+            m[h_kv, r0:r1] = mt
+            l[h_kv, r0:r1] = torch.where(none, 0.0, lt)
+    acc = acc.reshape(kvh, c, g, d).transpose(0, 1).reshape(1, c, h, d)
+    m = m.reshape(kvh, c, g).transpose(0, 1).reshape(1, c, h)
+    l = l.reshape(kvh, c, g).transpose(0, 1).reshape(1, c, h)
+    return acc, m, l
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 wkv recurrence (linear attention with data-dependent decay)
 # ---------------------------------------------------------------------------

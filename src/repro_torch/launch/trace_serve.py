@@ -41,10 +41,12 @@ from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
 from repro_torch.models import model
 from repro_torch.serve import ServeEngine
 
-# kernel-name fragments of the port's CUDA kernels (csrc/*.cu)
+# kernel-name fragments of the port's CUDA kernels (csrc/*.cu); the paged
+# prefill's: paged_attention_kernel (f32 queries), paged_prefill_tc_kernel
+# (bf16)
+PREFILL_KERNELS = ("paged_attention_kernel", "paged_prefill_tc_kernel")
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
-                "paged_attention_kernel", "flash_decode_kernel",
-                "flash_fwd_kernel")
+                "flash_decode_kernel", "flash_fwd_kernel", *PREFILL_KERNELS)
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 TOP = 15                       # kernels listed by device time
 COMBINE = "noc_tree_softmax_combine"   # the profiler range of one combine
@@ -54,7 +56,7 @@ def _group(name: str) -> str:
     low = name.lower()
     if "flash_decode_kernel" in name:
         return "port CUDA kernels: decode attention"
-    if "paged_attention_kernel" in name:
+    if any(k in name for k in PREFILL_KERNELS):
         return "port CUDA kernels: paged prefill"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels: other"

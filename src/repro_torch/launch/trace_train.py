@@ -64,7 +64,8 @@ GROUPS = (("flash attention forward", ("flash_fwd_",)),
           ("Mamba2 scan forward", ("mamba2_fwd_",)),
           ("Mamba2 scan backward", ("mamba2_bwd_",)),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",
-                                        "paged_attention_kernel")))
+                                        "paged_attention_kernel",
+                                        "paged_prefill_tc_kernel")))
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 TOP = 15                       # kernels listed by device time
 

@@ -1137,6 +1137,124 @@ def test_sharded_paged_prefill_kernel(dev, dtype, kind, h, kvh, d, bs, c):
     assert _counts(kpf)[2:] == (n[2] + 3 * SHARDS * (not i8), n[3] + 3 * SHARDS * i8)
 
 
+# The bf16 paged prefill (its tensor-core form: 64-row tiles, 64-key stages).
+# (H, KvH, D, BS, C, q_offset): GQA 4:1 with C x G ragged (84 rows: a 20-row
+# tail tile), its first chunk (shards 1-3 own none of tile 0's keys); MHA over
+# 150 rows at BS 8 (a stage spans 8 pages); BS 128 (a page spans two
+# stages) at a mid-page offset; offsets of 2048 keys at BS 16 and 8.
+TC_PREFILL_CASES = [(8, 2, 64, 16, 21, 37), (8, 2, 64, 16, 21, 0),
+                    (4, 4, 128, 8, 150, 5), (8, 2, 16, 128, 40, 100),
+                    (8, 2, 64, 16, 64, 2048), (6, 2, 128, 8, 33, 2048 + 3)]
+# a bf16 output to one bf16 ulp relative plus chip_smoke.py's PREFILL_TOL
+# term; f32 partials from bf16 operands to the f32 sums' order (P enters P V
+# as a bf16 hi + lo pair, ~2^-17 relative)
+TC_OUT_TOL = dict(rtol=2 ** -7, atol=2e-3)
+TC_PARTS_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def _parts_close(got, want, tol):
+    """Partials on the rows that see a key (m, l, acc / l); the others must
+    be the identity (0, -1e30, 0).  Returns the live rows."""
+    acc, m, l = got
+    wacc, wm, wl = want
+    torch.cuda.synchronize()
+    live = wm > -1e29
+    torch.testing.assert_close(m[live], wm[live], **tol)
+    torch.testing.assert_close(l[live], wl[live], **tol)
+    torch.testing.assert_close((acc / l[..., None])[live],
+                               (wacc / wl[..., None])[live], **tol)
+    dead = ~live
+    assert bool((acc[dead] == 0).all() and (m[dead] == -1e30).all()
+                and (l[dead] == 0).all())
+    return live
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("h,kvh,d,bs,c,qoff", TC_PREFILL_CASES)
+def test_paged_prefill_tc_kernel(dev, kind, h, kvh, d, bs, c, qoff):
+    """The bf16 form over a whole table, output and partials, against the
+    plain version; each launch bitwise repeatable and counted as a bf16
+    launch of its pool."""
+    rng = np.random.default_rng(25)
+    bf = torch.bfloat16
+    mb = -(-(qoff + c) // bs) + 1
+    nb = mb + 3
+    q = _rand(rng, (1, c, h, d), bf, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, nb, bs, d, bf, dev, kind)
+    bt = torch.from_numpy((rng.permutation(nb - 1)[:mb] + 1).astype(np.int32)).to(dev)
+    n, tc = _counts(kpf), kpf.tc_launches
+    for ln in (c, c - 3):
+        kw = dict(q_offset=qoff, length=ln, k_scales=ks, v_scales=vs)
+        got = _repeat_equal(lambda: kpf.paged_prefill_attention(q, kp, vp, bt, **kw))
+        want = ref.paged_prefill_attention(q, kp, vp, bt, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **TC_OUT_TOL)
+        parts = _repeat_equal(
+            lambda: kpf.paged_prefill_attention_partial(q, kp, vp, bt, **kw))
+        live = _parts_close(parts, ref.paged_prefill_attention_partial(
+            q, kp, vp, bt, **kw), TC_PARTS_TOL)
+        assert bool(live.all())
+    i8 = kind == "int8"
+    assert _counts(kpf) == (n[0] + 8 * (not i8), n[1] + 8 * i8, n[2], n[3])
+    assert kpf.tc_launches == tc + 8
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("h,kvh,d,bs,c,qoff", TC_PREFILL_CASES)
+def test_sharded_paged_prefill_tc_kernel(dev, kind, h, kvh, d, bs, c, qoff):
+    """The bf16 form over each shard's view of a round-robin pool with its
+    local table (skip_null: only the owned pages are walked), against the
+    plain version; a shard that owns no page of a tile gives the identity;
+    each launch bitwise repeatable; the tree combine against the unsharded
+    kernel."""
+    rng = np.random.default_rng(26)
+    bf = torch.bfloat16
+    total = qoff + c
+    mb = -(-total // bs) + 1
+    alloc = BlockAllocator(SHARDS * (-(-mb // SHARDS) + 2), bs, 1, mb,
+                           num_shards=SHARDS)
+    assert alloc.ensure(0, total)
+    q = _rand(rng, (1, c, h, d), bf, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, alloc.num_blocks, bs, d, bf, dev, kind)
+    local = torch.from_numpy(alloc.shard_local(alloc.table[0])).to(dev)
+    n, tc = _counts(kpf), kpf.tc_launches
+    kw = dict(q_offset=qoff, length=c)
+    parts, dead = [], 0
+    for s, (kps, vps, kss, vss) in enumerate(zip(*(TL.pool_shards(t, SHARDS)
+                                                   for t in (kp, vp, ks, vs)))):
+        skw = dict(kw, skip_null=True, k_scales=kss, v_scales=vss)
+        got = _repeat_equal(lambda: kpf.paged_prefill_attention_partial(
+            q, kps, vps, local[s], **skw))
+        live = _parts_close(got, ref.paged_prefill_attention_partial(
+            q, kps, vps, local[s], **skw), TC_PARTS_TOL)
+        dead += int((~live).sum())
+        parts.append(got)
+    if qoff == 0:
+        assert dead >= 2 * c * h      # shards 2 and 3 own no key of the chunk
+    whole = kpf.paged_prefill_attention(
+        q, kp, vp, torch.from_numpy(alloc.table[0].copy()).to(dev), k_scales=ks,
+        v_scales=vs, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(noc.tree_softmax_combine(parts).to(bf).float(),
+                               whole.float(), **TC_OUT_TOL)
+    i8 = kind == "int8"
+    assert _counts(kpf)[2:] == (n[2] + 2 * SHARDS * (not i8), n[3] + 2 * SHARDS * i8)
+    assert kpf.tc_launches == tc + 2 * SHARDS + 1
+
+
+def test_paged_prefill_tc_refuses_unaligned(dev):
+    """The bf16 form reads q and the pages by 16-byte cp.async: a tensor that
+    starts off a 16-byte boundary is refused, not misread."""
+    rng = np.random.default_rng(27)
+    bf = torch.bfloat16
+    kp, vp, _, _ = _pool(rng, 2, 6, 16, 64, bf, dev, "float")
+    bt = torch.arange(1, 5, dtype=torch.int32, device=dev)
+    buf = _rand(rng, (1 + 9 * 8 * 64,), bf, dev)
+    q = buf[1:].view(1, 9, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kpf.paged_prefill_attention(q, kp, vp, bt, q_offset=0, length=9)
+
+
 @pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
 def test_sharded_engine_on_card_matches_cpu(dev, kv_dtype):
     """Reduced stablelm at fp32 through ServeEngine(seq_shards=4): greedy
