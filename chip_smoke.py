@@ -13,9 +13,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    stablelm-1.6b shapes of the serving path, in bf16, held against its plain
    PyTorch version on the card (stated tolerance) and timed with CUDA
    events beside the plain version, the least time the card could take, and
-   a library call where one computes the same function; rmsnorm, the first
-   kernel timed, is timed again after the others and its row keeps the
-   repeat (the first timed launch of a run reads slow); the paged decode
+   a library call where one computes the same function; rmsnorm at a
+   prefill chunk [512, 2048] and at decode's [8, 2048], rope on the chunk's
+   q, on its q and k in one launch and on decode's q and k [8, 1, 32, 64],
+   each held to one bf16 ulp relative plus ``NORM_ATOL`` and a relative norm
+   of ``NORM_REL``, a control (each row's last 8 elements left out of the
+   sum of squares) caught at both rmsnorm shapes, and logged with its GB/s,
+   share of the bound, a PyTorch read of as many bytes and an empty
+   launch's time (as are silu_mul and, in 6, the rmsnorm backward);
+   rmsnorm, the first kernel timed, is timed again after the others and its
+   row keeps the repeat (the first timed launch of a run reads slow); the
+   paged decode
    (flash-decoding split over a thread-block cluster) is held like the
    dense decode of 5b, also per sequence, twice bitwise equal, with a
    control that drops the longest sequence's second split, and logged with
@@ -32,7 +40,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    seed) serving 16 requests through ``repro_torch.serve.ServeEngine``; the
    kernels' launch counters are zeroed just before and read just after,
    and every kernel must have run (every paged prefill launch a bf16 one,
-   on the tensor cores, here and in 17 and 18); a rerun with prefix caching
+   on the tensor cores, every rope launch q and k together, every rmsnorm
+   and rope launch on the 16-byte vector route, here and in 5d, 17 and
+   18); a rerun with prefix caching
    off must give token-identical greedy outputs;
 5b. dense kernels: flash-decoding over a dense KV slab (q [8, 32, 64],
    k/v [8, 1024, 32, 64], the live lengths of phase 3's paged decode) and
@@ -60,7 +70,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 6. train kernels: the flash-attention forward and backward (``PERF.md``
    rows 6 and 6b, the bf16 kernels on ``mma.sync`` tensor cores with
    ``ldmatrix`` and ``cp.async`` rings), the rmsnorm and silu_mul backward
-   passes and rope's backward (the forward kernel at -pos) at full-width
+   passes and rope's backward (the forward kernel at sign -1 on dq and dk
+   in one launch) at full-width
    granite-3-2b shapes in bf16, held against their plain versions and
    timed as in 3 (library: SDPA forward/backward, autograd of
    ``F.rms_norm``); SDPA's own error against the plain version is logged
@@ -185,6 +196,30 @@ OUT = ROOT / "chiprun_out" / "chip_smoke"
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 BF16_TOL = dict(rtol=2 ** -6, atol=1e-2)      # two bf16 ulps, plus 1e-2
+# rmsnorm and rope (rows 3, 3d, 4, 4qk and 4d), bf16 at full width.  Kernel
+# and plain version round one f32 result once and differ only in the order
+# of rmsnorm's sum of squares and in how rope's products contract, so an
+# output is held to one bf16 ulp relative plus NORM_ATOL and to a relative
+# norm error of NORM_REL, both set from the parent's readings at these
+# shapes (tools/norm_rope_readings.py on an H100): every output within one
+# ulp relative (the largest excess over it -3.4e-10), relative norm errors
+# up to 1.34e-5 (rope; rmsnorm 7.6e-6), so 1e-5 absolute for results that
+# cancel towards zero and 1e-4 relative norm; BF16_TOL would pass a norm
+# whose scale is off by half a percent.  The control: the plain
+# rmsnorm with each row's last NORM_DROPPED elements (one 16-byte vector of
+# bf16) left out of its sum of squares, the mean still over the width.
+NORM_ATOL = 1e-5
+NORM_REL = 1e-4
+NORM_TOL = dict(rtol=2 ** -7, atol=NORM_ATOL)
+NORM_DROPPED = 8
+# the redesigns of rmsnorm and rope, named on their rows of the
+# ``{"kernels": ...}`` line
+RMSNORM_DESIGN = ("the row in registers: 16-byte vectors, w held across the "
+                  "rows a thread walks, warp-shuffle sums, the grid from the card")
+ROPE_DESIGN = ("cos/sin once per (token, pair) in shared memory, 16-byte "
+               "vectors, q and k in one launch, the grid from the card")
+# rows whose launches are read from another counter than their name's
+ROW_COUNTER = {"rmsnorm_decode": "rmsnorm", "apply_rope_qk_decode": "apply_rope_qk"}
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 # flash attention at S = 4096: a late row's output averages ~i keys, so |o|,
 # dq, dk and dv there are ~0.02-0.04 and ATTN_TOL's 2e-2 would pass a kernel
@@ -386,16 +421,21 @@ def bound(nbytes: float, flops: float):
 class Counter:
     """One kernel's launch count: an integer attribute of its wrapper
     module (``launches`` for forward kernels, ``bwd_launches`` for the
-    backward kernels)."""
+    backward kernels), or one ``route``'s entry of a dict attribute
+    (``launches_by_route``)."""
 
-    def __init__(self, module, attr: str = "launches"):
-        self.module, self.attr = module, attr
+    def __init__(self, module, attr: str = "launches", route=None):
+        self.module, self.attr, self.route = module, attr, route
 
     def reset(self) -> None:
-        setattr(self.module, self.attr, 0)
+        if self.route is None:
+            setattr(self.module, self.attr, 0)
+        else:
+            getattr(self.module, self.attr)[self.route] = 0
 
     def read(self) -> int:
-        return getattr(self.module, self.attr)
+        value = getattr(self.module, self.attr)
+        return value if self.route is None else value[self.route]
 
 
 def rel_err(torch, got, want) -> float:
@@ -481,6 +521,20 @@ def to_device(tree, dev):
 # phases
 # ---------------------------------------------------------------------------
 
+def norm_control(torch, name, x, w, eps) -> None:
+    """Fail unless NORM_TOL / NORM_REL tell the plain rmsnorm of x from one
+    whose sum of squares leaves out each row's last NORM_DROPPED elements
+    (what a kernel that loses one 16-byte vector of the row would give)."""
+    from repro_torch.kernels import ref
+
+    xf = x.float()
+    ss = (xf[..., :-NORM_DROPPED] ** 2).sum(-1, keepdim=True) / x.shape[-1]
+    bad = (xf * torch.rsqrt(ss + eps) * w.float()).to(x.dtype)
+    dropped_step_control(torch, name, f"each row's last {NORM_DROPPED} elements "
+                         f"from its sum of squares", ref.rmsnorm(x, w, eps), bad,
+                         NORM_TOL, NORM_REL)
+
+
 def kernel_phase(torch, timer, cfg):
     """Each kernel at the serving path's full-width shapes, bf16."""
     from repro_torch.kernels import decode_attention as kda
@@ -506,22 +560,66 @@ def kernel_phase(torch, timer, cfg):
         rows.append(measure(torch, timer, *args, **kw))
 
     csrc = "src/repro_torch/kernels/csrc/"
-    # rmsnorm on a prefill chunk's activations [1, 512, 2048]
+    eps, theta = cfg.norm_eps, cfg.rope_theta
+    # the decode-shape inputs of rows 3d / 4d and rope's k from a generator
+    # of their own, so the other rows keep their inputs
+    gen_new = torch.Generator(device=dev).manual_seed(11)
+
+    def randn_new(*shape):
+        return torch.randn(shape, generator=gen_new, device=dev).to(bf)
+
+    floor = timer(lambda: torch.cuda._sleep(1))
+    one = torch.zeros(1, device=dev)
+    one_ms = timer(lambda: one.add_(1.0))
+    log(f"empty launch (torch.cuda._sleep(1)) under the same timer: {floor:.4f} ms; "
+        f"a one-element add_ {one_ms:.4f} ms")
+
+    def small(name, source, replaces, kernel, plain, nbytes, flops, design,
+              library=None, note=""):
+        """Rows 3, 3d, 4, 4qk and 4d: held to NORM_TOL / NORM_REL, their
+        rates logged beside an empty launch's time."""
+        record(name, csrc + source, replaces, kernel, plain, NORM_TOL,
+               rel=NORM_REL, nbytes=nbytes, flops=flops, library=library,
+               note=f"; rel {NORM_REL}" + note)
+        rows[-1].update(design=design, launch_floor_ms=floor, one_element_ms=one_ms)
+        log_rate(torch, timer, rows[-1], nbytes)
+
+    # rmsnorm on a prefill chunk's activations [1, 512, 2048] (row 3) and on
+    # decode's [8, 2048] (row 3d), each beside a control the holds catch
     x, w = randn(1, c, d), randn(d)
-    record("rmsnorm", csrc + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:51",
-           lambda: krn.rmsnorm(x, w, cfg.norm_eps),
-           lambda: ref.rmsnorm(x, w, cfg.norm_eps), BF16_TOL,
-           nbytes=2 * x.numel() * 2 + d * 2, flops=4 * x.numel(),
-           library=lambda: torch.nn.functional.rms_norm(x, (d,), w, cfg.norm_eps))
+    xd = randn_new(slots, d)
+    for name, xx in (("rmsnorm", x), ("rmsnorm_decode", xd)):
+        norm_control(torch, name, xx, w, eps)
+        small(name, "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:51",
+              lambda xx=xx: krn.rmsnorm(xx, w, eps),
+              lambda xx=xx: ref.rmsnorm(xx, w, eps),
+              nbytes=2 * xx.numel() * 2 + d * 2, flops=4 * xx.numel(),
+              design=RMSNORM_DESIGN,
+              library=lambda xx=xx: torch.nn.functional.rms_norm(xx, (d,), w, eps))
     # rope on the chunk's queries [1, 512, 32, 64] at positions 256..767
+    # (row 4), on its queries and keys in one launch (4qk), and on decode's
+    # q and k [8, 1, 32, 64] (4d)
     q = randn(1, c, h, hd)
+    k = randn_new(1, c, kvh, hd)
     pos = (qoff + torch.arange(c, dtype=torch.int32, device=dev))[None]
-    record("apply_rope", csrc + "rope.cu", "src/repro/kernels/rope.py:52",
-           lambda: krope.apply_rope(q, pos, cfg.rope_theta),
-           lambda: ref.apply_rope(q, pos, cfg.rope_theta), BF16_TOL,
-           nbytes=2 * q.numel() * 2 + c * 4, flops=3 * q.numel(),
-           note="; the TPU kernel forms 1/theta^(j/half) as exp(-ln theta "
-                "j/half), the port follows the plain version")
+    qd1, kd1 = randn_new(slots, 1, h, hd), randn_new(slots, 1, kvh, hd)
+    posd = torch.randint(1, mb * bs, (slots, 1), generator=gen_new, device=dev,
+                         dtype=torch.int32)
+    small("apply_rope", "rope.cu", "src/repro/kernels/rope.py:52",
+          lambda: krope.apply_rope(q, pos, theta),
+          lambda: ref.apply_rope(q, pos, theta),
+          nbytes=2 * q.numel() * 2 + c * 4, flops=3 * q.numel(), design=ROPE_DESIGN,
+          note="; the TPU kernel forms 1/theta^(j/half) as exp(-ln theta "
+               "j/half), the port follows the plain version")
+    for name, qq, kk, pp in (("apply_rope_qk", q, k, pos),
+                             ("apply_rope_qk_decode", qd1, kd1, posd)):
+        small(name, "rope.cu", "src/repro/kernels/rope.py:52",
+              lambda qq=qq, kk=kk, pp=pp: krope.apply_rope_qk(qq, kk, pp, theta),
+              lambda qq=qq, kk=kk, pp=pp: (ref.apply_rope(qq, pp, theta),
+                                           ref.apply_rope(kk, pp, theta)),
+              nbytes=2 * (qq.numel() + kk.numel()) * 2 + pp.numel() * 4,
+              flops=3 * (qq.numel() + kk.numel()), design=ROPE_DESIGN,
+              note="; q and k in one launch")
     # silu_mul on the chunk's FFN hidden [1, 512, 5632]
     g, u = randn(1, c, ff, scale=3.0), randn(1, c, ff)
     record("silu_mul", csrc + "swiglu.cu", "src/repro/kernels/swiglu.py:59",
@@ -529,6 +627,7 @@ def kernel_phase(torch, timer, cfg):
            nbytes=3 * g.numel() * 2, flops=5 * g.numel(),
            note="; rounds silu(gate) to bf16 before the product as the plain "
                 "version does (the TPU kernel keeps it in f32)")
+    log_rate(torch, timer, rows[-1], 3 * g.numel() * 2)
     # decode attention: 8 slots, pages [32, 513, 16, 64], tables [8, 64]
     kp, vp = randn(kvh, nb, bs, hd), randn(kvh, nb, bs, hd)
     perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * mb] + 1
@@ -604,11 +703,12 @@ def kernel_phase(torch, timer, cfg):
     # 7), so the row keeps the repeat and the log both readings
     again = measure(torch, timer, "rmsnorm", csrc + "rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:51",
-                    lambda: krn.rmsnorm(x, w, cfg.norm_eps),
-                    lambda: ref.rmsnorm(x, w, cfg.norm_eps), BF16_TOL,
+                    lambda: krn.rmsnorm(x, w, eps),
+                    lambda: ref.rmsnorm(x, w, eps), NORM_TOL, rel=NORM_REL,
                     nbytes=2 * x.numel() * 2 + d * 2, flops=4 * x.numel(),
-                    library=lambda: torch.nn.functional.rms_norm(
-                        x, (d,), w, cfg.norm_eps))
+                    library=lambda: torch.nn.functional.rms_norm(x, (d,), w, eps))
+    again.update(design=RMSNORM_DESIGN, launch_floor_ms=floor, one_element_ms=one_ms)
+    log_rate(torch, timer, again, 2 * x.numel() * 2 + d * 2)
     first = rows[0]
     log(f"kernel rmsnorm re-timed after the phase: {again['ms']:.4f} ms (first "
         f"reading {first['ms']:.4f}), plain {again['plain_ms']:.4f} (first "
@@ -770,7 +870,9 @@ def serve_phase(torch, cfg, params, counters):
         f"{stats['prefix_hit_tokens']}, prefill chunks {P}, decode steps {Dd}, "
         f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB")
     check_launches("serve", launches, {
-        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
         "silu_mul": L * (P + Dd), "paged_decode_attention": L * Dd,
         "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P})
     if stats["prefix_hit_tokens"] <= 0:
@@ -1151,7 +1253,9 @@ def dense_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
     L = cfg.n_layers
     P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
     check_launches("dense serve", launches, {
-        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
         "silu_mul": L * (P + Dd), "flash_attention_lengths": L * P,
         "decode_attention": L * Dd, "flash_attention": 0,
         "paged_decode_attention": 0, "paged_prefill_attention": 0,
@@ -1381,7 +1485,9 @@ def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
     L = cfg.n_layers
     P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
     check_launches("int8 serve", launches, {
-        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
         "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": L * Dd,
         "paged_prefill_attention_int8": L * P, "paged_prefill_attention_tc": L * P})
@@ -1762,7 +1868,9 @@ def shard_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
     L, S = cfg.n_layers, SEQ_SHARDS
     P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
     check_launches("seq serve", launches, {
-        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": 2 * L * (P + Dd),
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
         "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": 0,
         "paged_prefill_attention_int8": 0,
@@ -1940,22 +2048,30 @@ def train_kernel_phase(torch, timer, cfg):
     rows += flash_rows(torch, timer, q, k, v, randn(b, s, h, hd))
     del q, k, v
 
-    # -- rope backward: the forward kernel at -pos (no row of its own)
-    x = randn(b, s, h, hd)
-    dy = randn(b, s, h, hd)
+    # -- rope backward: the forward kernel at sign -1 on dq and dk in one
+    # launch (no row of its own); k's side from a generator of its own, so
+    # the rows after keep their inputs
+    gen_k = torch.Generator(device=dev).manual_seed(12)
+    x, dy = randn(b, s, h, hd), randn(b, s, h, hd)
+    xk, dk = (torch.randn((b, s, kvh, hd), generator=gen_k, device=dev).to(bf)
+              for _ in range(2))
     pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s).contiguous()
-    xg = x.detach().requires_grad_()
-    (want,) = torch.autograd.grad(ref.apply_rope(xg, pos, cfg.rope_theta), xg, dy)
-    got = krope.apply_rope(dy, -pos, cfg.rope_theta)
+    xg, xkg = x.detach().requires_grad_(), xk.detach().requires_grad_()
+    want = torch.autograd.grad((ref.apply_rope(xg, pos, cfg.rope_theta),
+                                ref.apply_rope(xkg, pos, cfg.rope_theta)),
+                               (xg, xkg), (dy, dk))
+    got = krope.apply_rope_qk(dy, dk, pos, cfg.rope_theta, sign=-1)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), **BF16_TOL):
-        fail(f"rope backward (forward kernel at -pos) disagrees with autograd of "
-             f"the plain version: max |err| {err}")
-    log(f"rope backward [{b},{s},{h},{hd}] (forward kernel at -pos) vs autograd "
-        f"of the plain version: max|err| {err:.3g} (tol {BF16_TOL}), "
-        f"{timer(lambda: krope.apply_rope(dy, -pos, cfg.rope_theta)):.4f} ms")
-    del x, dy, xg, want, got
+    err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(got, want))
+    if not all(torch.allclose(g.float(), w_.float(), **BF16_TOL)
+               for g, w_ in zip(got, want)):
+        fail(f"rope backward (forward kernel at sign -1 on dq and dk) disagrees "
+             f"with autograd of the plain version: max |err| {err}")
+    log(f"rope backward dq [{b},{s},{h},{hd}], dk [{b},{s},{kvh},{hd}] (forward "
+        f"kernel at sign -1, one launch) vs autograd of the plain version: "
+        f"max|err| {err:.3g} (tol {BF16_TOL}), "
+        f"{timer(lambda: krope.apply_rope_qk(dy, dk, pos, cfg.rope_theta, sign=-1)):.4f} ms")
+    del x, xk, dy, dk, xg, xkg, want, got
 
     # -- rmsnorm backward on the training activations [8192, 2048]
     x, w, dy = randn(b * s, d), randn(d), randn(b * s, d)
@@ -1968,6 +2084,7 @@ def train_kernel_phase(torch, timer, cfg):
         nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(),
         library=lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True),
         note="; dx and dw"))
+    log_rate(torch, timer, rows[-1], 3 * x.numel() * 2 + 2 * d * 2)
     del x, w, dy, xg, wg, yg
 
     # -- silu_mul backward on the FFN hidden [8192, 8192]
@@ -2331,12 +2448,13 @@ def rwkv_perturb(params):
 def granite_expect(cfg, n):
     """Counted launches of n granite steps with remat: the forward, the
     recompute of each layer's forward in the backward, and the backward
-    (rope's is its forward kernel at -pos); the final norm is outside the
-    remat."""
+    (rope's is its forward kernel at sign -1, q and k in one launch each
+    way); the final norm is outside the remat."""
     L = cfg.n_layers
     return {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
             "rmsnorm": (4 * L + 1) * n, "rmsnorm_bwd": (2 * L + 1) * n,
-            "apply_rope": 6 * L * n, "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
+            "apply_rope": 3 * L * n, "apply_rope_qk": 3 * L * n,
+            "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
 
 
 def granite_watched(st):
@@ -2669,8 +2787,9 @@ def zamba_expect(cfg, n):
     group's recompute, its own recompute), a tail layer and the shared
     block twice; each backward once.  A Mamba2 layer runs two norms (ln1,
     the gated norm) and one silu_mul; the shared block two norms, rope on q
-    and k, flash attention and the FFN's silu_mul (rope's backward is its
-    forward kernel at -pos); the final norm is outside the remat.  Every
+    and k in one launch, flash attention and the FFN's silu_mul (rope's
+    backward is its forward kernel at sign -1); the final norm is outside
+    the remat.  Every
     Mamba2 forward also writes its chunk-entry states: under the
     non-reentrant checkpoint the first forward wants a gradient too, and
     its saved tensors are dropped, not left unwritten."""
@@ -2682,7 +2801,7 @@ def zamba_expect(cfg, n):
     return {"mamba2": mf * n, "mamba2_bwd": mb * n, "mamba2_states": mf * n,
             "flash_attention": sf * n, "flash_attention_bwd": sb * n,
             "rmsnorm": (2 * mf + 2 * sf + 1) * n, "rmsnorm_bwd": (2 * mb + 2 * sb + 1) * n,
-            "apply_rope": (2 * sf + 2 * sb) * n,
+            "apply_rope": (sf + sb) * n, "apply_rope_qk": (sf + sb) * n,
             "silu_mul": (mf + sf) * n, "silu_mul_bwd": (mb + sb) * n}
 
 
@@ -3024,6 +3143,9 @@ def main() -> None:
     sweep = split_sweep(torch, timer, pool)
     parity_phase(torch, reduced(cfg))
     counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
+                "apply_rope_qk": Counter(rope, "qk_launches"),
+                "rmsnorm_vector": Counter(rmsnorm, "launches_by_route", "vector"),
+                "apply_rope_vector": Counter(rope, "launches_by_route", "vector"),
                 "silu_mul": Counter(swiglu),
                 "paged_decode_attention": Counter(decode_attention),
                 "paged_prefill_attention": Counter(prefill_attention),
@@ -3031,7 +3153,7 @@ def main() -> None:
     params = serve_params(torch, cfg)
     launches, serve, paged_out = serve_phase(torch, cfg, params, counters)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[ROW_COUNTER.get(row["name"], row["name"])]
 
     dense_rows, row7_again = dense_kernel_phase(torch, timer, cfg, decode_lens)
     dense_parity_phase(torch, reduced(cfg))
@@ -3079,8 +3201,8 @@ def main() -> None:
         "flash_attention": Counter(flash_attention),
         "flash_attention_bwd": Counter(flash_attention, "bwd_launches"),
         "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches"),
-        "apply_rope": Counter(rope), "silu_mul": Counter(swiglu),
-        "silu_mul_bwd": Counter(swiglu, "bwd_launches")}
+        "apply_rope": Counter(rope), "apply_rope_qk": Counter(rope, "qk_launches"),
+        "silu_mul": Counter(swiglu), "silu_mul_bwd": Counter(swiglu, "bwd_launches")}
     train_launches, train = train_phase(torch, gcfg, train_counters,
                                         granite_expect, granite_watched)
     for row in train_rows:

@@ -41,8 +41,8 @@ _F = ctypes.c_float
 # argtypes of every C entry point: each pointer and the stream is c_void_p
 # (ctypes would otherwise pass a Python int as a 32-bit int and cut it)
 _SIGNATURES = {
-    "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _P),
-    "repro_rope": (_I, _P, _P, _P, _I64, _I, _I, _F, _P),
+    "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
+    "repro_rope": (_I, *(_P,) * 5, _I64, _I, _I, _I, _F, *(_I,) * 7, _P),
     "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _P),
     "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, *(_P,) * 4, _I, _I,
                               _I, _I, _I64, _I64, _I, _I, _I, _I, _P),

@@ -5,8 +5,9 @@ One :class:`torch.autograd.Function` per kernel on the training path:
 kernel, with ``ctx`` keeping what the backward reads.  RoPE needs no kernel
 of its own: the interleaved rotation by ``pos * inv_freq`` is orthogonal, so
 its vector-Jacobian product is the same rotation at ``-pos``, which the
-forward kernel computes.  Gradients arriving non-contiguous (from a reshape
-or a transposed product) are made contiguous before a launch.
+forward kernel computes at ``sign=-1`` (no negated position tensor); q and
+k go through one launch each way.  Gradients arriving non-contiguous (from
+a reshape or a transposed product) are made contiguous before a launch.
 
 These take CUDA tensors only; ``kernels/ops.py`` routes to them.  On the CPU
 autograd differentiates the plain versions directly.
@@ -49,7 +50,26 @@ class Rope(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (positions,) = ctx.saved_tensors
-        return _rope.apply_rope(dy.contiguous(), -positions, ctx.theta), None, None
+        return (_rope.apply_rope(dy.contiguous(), positions, ctx.theta, sign=-1),
+                None, None)
+
+
+class RopeQK(torch.autograd.Function):
+    """q and k rotated at the same positions by one launch, and their
+    gradients by one launch at ``sign=-1``."""
+
+    @staticmethod
+    def forward(ctx, q, k, positions, theta: float):
+        ctx.save_for_backward(positions)
+        ctx.theta = theta
+        return _rope.apply_rope_qk(q, k, positions, theta)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        (positions,) = ctx.saved_tensors
+        dq, dk = _rope.apply_rope_qk(dq.contiguous(), dk.contiguous(), positions,
+                                     ctx.theta, sign=-1)
+        return dq, dk, None, None
 
 
 class SiluMul(torch.autograd.Function):

@@ -68,6 +68,53 @@ __device__ __forceinline__ uint32_t pack_f32_bf16(float lo, float hi) {
   return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
 }
 
+// ---------------------------------------------------------------------------
+// 16-byte vectors of an element type (rmsnorm.cu, rope.cu): one access a
+// thread moves 4 f32 or 8 bf16, widened to f32 and rounded back in order
+// ---------------------------------------------------------------------------
+
+template <typename T> struct Vec16 { static constexpr int kN = 16 / sizeof(T); };
+
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* __restrict__ p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* __restrict__ p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// the kN elements of v as f32, in memory order
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 v, float (&f)[Vec16<T>::kN]) {
+  if constexpr (sizeof(T) == 4) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  } else {
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(u[i] << 16);
+      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+// kN f32 rounded to T (nearest-even, as from_f32) into one vector
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&f)[Vec16<T>::kN]) {
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  } else {
+    return make_uint4(pack_f32_bf16(f[0], f[1]), pack_f32_bf16(f[2], f[3]),
+                      pack_f32_bf16(f[4], f[5]), pack_f32_bf16(f[6], f[7]));
+  }
+}
+
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {

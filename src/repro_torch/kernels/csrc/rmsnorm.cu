@@ -8,65 +8,166 @@
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py (rmsnorm, pallas_call
 // at :51).  On the H100 it is bound by bytes: one read of x, one write of the
-// output.  One block normalises one row: its threads stride over the row
-// with neighbouring threads on neighbouring elements, reduce the sum of
-// squares through warp shuffles and one shared-memory step, then make a
-// second pass that scales and writes.  The second read of the row hits L1/L2
-// (a row is at most a few KiB), so device memory sees one read and one write.
+// output, and device memory sees exactly that.  The row lives in registers:
+// row_threads threads share a row (a power of two: part of a warp, a warp,
+// or several), each holding kPer 16-byte vectors of x (8 bf16 or 4 f32) and
+// the same columns of w, loaded once and kept across every row the thread
+// walks.  The sum of squares is reduced by warp shuffles, plus one
+// shared-memory step where a row spans warps; the scale comes from the
+// registers and goes out as one 16-byte store a vector.  A block holds
+// threads / row_threads rows at a time and walks row groups gridDim.x
+// apart, so the grid is sized from the card (kernels/rmsnorm.py:plan), not
+// from the row count.  kPer == 0 is the scalar route, for a width that is
+// not a multiple of the vector or a base off a 16-byte boundary: the same
+// walk, element by element, reading the row a second time (from L1/L2) to
+// scale it.  No atomics: two calls give the same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // threads of the backward's blocks
+constexpr int kMaxThreads = 512;    // threads of a forward block (the plan's largest)
+
+// rsqrt(ss / d + eps), native or by the Curry ALU's Newton steps
+__device__ __forceinline__ float inv_rms(float ss, int d, float eps, int rounds) {
+  const float v = ss / static_cast<float>(d) + eps;
+  if (rounds == 0) return rsqrtf(v);
+  float inv = rsqrtf(__bfloat162float(__float2bfloat16_rn(v)));
+  for (int r = 0; r < rounds; ++r)
+    inv = __fmul_rn(inv, __fsub_rn(1.5f, __fmul_rn(__fmul_rn(__fmul_rn(0.5f, v), inv), inv)));
+  return inv;
+}
+
+// The sum of ss over the row_threads threads of a row (aligned groups of
+// consecutive threads).  Every thread of the block calls it the same number
+// of times; red[parity] is the shared step for rows that span warps (two
+// buffers, so one barrier a row group suffices).
+__device__ __forceinline__ float row_sum(float ss, int row_threads, float (*red)[kMaxThreads / 32],
+                                         int parity) {
+  if (row_threads <= 32) {
+    for (int o = row_threads >> 1; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    return ss;
+  }
+  ss = repro::warp_sum(ss);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[parity][warp] = ss;
+  __syncthreads();
+  const int per_row = row_threads >> 5;
+  const int first = warp / per_row * per_row;
+  ss = 0.f;
+  for (int k = 0; k < per_row; ++k) ss += red[parity][first + k];
+  return ss;
+}
+
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+               int64_t rows, int d, int row_threads, float eps, int rounds) {
+  constexpr int kN = repro::Vec16<T>::kN;
+  __shared__ float red[2][kMaxThreads / 32];
+  const int groups = blockDim.x / row_threads;   // rows a block holds at a time
+  const int g = threadIdx.x / row_threads;
+  const int lane = threadIdx.x - g * row_threads;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * groups;
+  int parity = 0;
+  if constexpr (kPer == 0) {
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * groups; base < rows; base += step) {
+      const int64_t row = base + g;
+      const bool live = row < rows;
+      const T* xr = x + row * d;
+      float ss = 0.f;
+      if (live)
+        for (int i = lane; i < d; i += row_threads) {
+          const float v = repro::to_f32(xr[i]);
+          ss += v * v;
+        }
+      const float inv = inv_rms(row_sum(ss, row_threads, red, parity), d, eps, rounds);
+      parity ^= 1;
+      if (live) {
+        T* orow = out + row * d;
+        for (int i = lane; i < d; i += row_threads)
+          orow[i] = repro::from_f32<T>(repro::to_f32(xr[i]) * inv * repro::to_f32(w[i]));
+      }
+    }
+  } else {
+    const int dv = d / kN;                        // vectors a row
+    uint4 wv[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = lane + k * row_threads;
+      if (i < dv) wv[k] = repro::load16(w + i * kN);
+    }
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * groups; base < rows; base += step) {
+      const int64_t row = base + g;
+      const bool live = row < rows;
+      uint4 xv[kPer];
+      float ss = 0.f;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int i = lane + k * row_threads;
+        if (live && i < dv) {
+          xv[k] = repro::load16(x + row * d + i * kN);
+          float f[kN];
+          repro::unpack16<T>(xv[k], f);
+#pragma unroll
+          for (int e = 0; e < kN; ++e) ss += f[e] * f[e];
+        }
+      }
+      const float inv = inv_rms(row_sum(ss, row_threads, red, parity), d, eps, rounds);
+      parity ^= 1;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int i = lane + k * row_threads;
+        if (live && i < dv) {
+          float f[kN], s[kN];
+          repro::unpack16<T>(xv[k], f);
+          repro::unpack16<T>(wv[k], s);
+#pragma unroll
+          for (int e = 0; e < kN; ++e) f[e] = f[e] * inv * s[e];
+          repro::store16(out + row * d + i * kN, repro::pack16<T>(f));
+        }
+      }
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
-               int d, float eps, int rounds) {
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * d;
-  T* orow = out + row * d;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = repro::to_f32(xr[i]);
-    ss += v * v;
+int launch_rmsnorm(const T* x, const T* w, T* out, int64_t rows, int d, float eps, int rounds,
+                   int per, int row_threads, int threads, int grid, cudaStream_t s) {
+  void (*kernel)(const T*, const T*, T*, int64_t, int, int, float, int);
+  switch (per) {
+    case 0: kernel = rmsnorm_kernel<T, 0>; break;
+    case 1: kernel = rmsnorm_kernel<T, 1>; break;
+    case 2: kernel = rmsnorm_kernel<T, 2>; break;
+    case 4: kernel = rmsnorm_kernel<T, 4>; break;
+    default: return cudaErrorInvalidValue;
   }
-  __shared__ float red[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  ss = repro::warp_sum(ss);
-  if (lane == 0) red[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < kThreads / 32 ? red[lane] : 0.f;
-    ss = repro::warp_sum(ss);
-    if (lane == 0) red[0] = ss;
-  }
-  __syncthreads();
-  const float v = red[0] / static_cast<float>(d) + eps;
-  float inv;
-  if (rounds == 0) {
-    inv = rsqrtf(v);
-  } else {
-    inv = rsqrtf(__bfloat162float(__float2bfloat16_rn(v)));
-    for (int r = 0; r < rounds; ++r)
-      inv = __fmul_rn(inv, __fsub_rn(1.5f, __fmul_rn(__fmul_rn(__fmul_rn(0.5f, v), inv), inv)));
-  }
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    orow[i] = repro::from_f32<T>(repro::to_f32(xr[i]) * inv * repro::to_f32(w[i]));
-  }
+  kernel<<<grid, threads, 0, s>>>(x, w, out, rows, d, row_threads, eps, rounds);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int repro_rmsnorm(int dtype, const void* x, const void* w, void* out,
-                             int64_t rows, int d, float eps, int rounds, void* stream) {
+// x, out [rows, d]; w [d].  The launch shape comes from kernels/rmsnorm.py:
+// plan: per vectors a thread (0: the scalar route), row_threads threads a
+// row, threads a block, grid blocks.  A shape the kernel cannot cover is an
+// invalid-value error.
+extern "C" int repro_rmsnorm(int dtype, const void* x, const void* w, void* out, int64_t rows,
+                             int d, float eps, int rounds, int per, int row_threads, int threads,
+                             int grid, void* stream) {
   if (rows <= 0) return cudaSuccess;
+  if (d <= 0 || row_threads <= 0 || (row_threads & (row_threads - 1)) || threads > kMaxThreads ||
+      threads % 32 || threads % row_threads || grid <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_DTYPE(dtype, T,
-    rmsnorm_kernel<T><<<static_cast<unsigned int>(rows), kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d, eps, rounds));
-  return cudaGetLastError();
+  REPRO_DISPATCH_DTYPE(dtype, T, {
+    constexpr int kN = repro::Vec16<T>::kN;
+    if (per > 0 && (d % kN || d / kN > per * row_threads)) return cudaErrorInvalidValue;
+    return launch_rmsnorm<T>(static_cast<const T*>(x), static_cast<const T*>(w),
+                             static_cast<T*>(out), rows, d, eps, rounds, per, row_threads,
+                             threads, grid, s);
+  });
+  return cudaSuccess;
 }
 
 namespace {

@@ -51,6 +51,15 @@ def apply_rope(x, positions, *, theta: float = 10_000.0):
     return _ag.Rope.apply(x, positions, theta)
 
 
+def apply_rope_qk(q, k, positions, *, theta: float = 10_000.0):
+    """q [B, S, H, D] and k [B, S, KvH, D] rotated at the same positions:
+    on the CPU two calls of the plain version, on the card one launch (and
+    one for the gradients)."""
+    if _on_cpu(q):
+        return ref.apply_rope(q, positions, theta), ref.apply_rope(k, positions, theta)
+    return _ag.RopeQK.apply(q, k, positions, theta)
+
+
 def silu_mul(gate, up, *, curry_rounds: int = 0):
     """On the card ``curry_rounds`` nonzero launches the kernel's Curry-ALU
     form (Taylor exp in the sigmoid), forward only."""

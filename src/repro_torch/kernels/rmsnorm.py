@@ -3,13 +3,22 @@
 
 Replaces the TPU kernel ``src/repro/kernels/rmsnorm.py`` (``rmsnorm``,
 ``pallas_call`` at :51).  On the H100 it is bound by bytes — one read of x,
-one write of the output — and the kernel makes exactly that traffic: one
-block per row reduces the sum of squares in registers and shared memory,
-then scales the row (the second read of the row hits L1/L2).  The TPU
-kernel's ``curry_rounds`` form (the paper's Curry-ALU rsqrt: Newton steps
-from a bf16-rounded seed) is the same kernel with a runtime round count,
-forward only; it has no caller on a model path and its launches are counted
-apart (``curry_launches``).
+one write of the output — and the kernel makes exactly that traffic: each
+row lives in registers, read once in 16-byte vectors (8 bf16 or 4 f32 a
+thread a step) beside the same columns of ``w`` (loaded once a thread and
+kept across the rows it walks), its sum of squares reduced by warp shuffles
+(plus one shared-memory step where a row spans warps), then scaled from the
+registers and stored as 16-byte vectors.  :func:`plan` chooses the shape of
+the work from the width and the card: as many threads a row as leave each
+one or two vectors (a whole block a row at the models' widths, several
+rows a block for narrow ones), the grid within a wave of the card's
+resident blocks.
+A width that is not a multiple of the vector, or a base off a 16-byte
+boundary, takes the kernel's scalar route (chosen by the plan, counted in
+``launches_by_route``).  The TPU kernel's ``curry_rounds`` form (the
+paper's Curry-ALU rsqrt: Newton steps from a bf16-rounded seed) is the same
+kernel with a runtime round count, forward only; it has no caller on a model
+path and its launches are counted apart (``curry_launches``).
 
 The backward (no TPU kernel: the JAX package differentiates its oracle) is
 bound by bytes too: x and dy read once, dx written once.  ``dw`` is a column
@@ -23,6 +32,9 @@ tensors only.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -30,7 +42,50 @@ from repro_torch.kernels import _build
 launches = 0       # forward kernel launches through this module
 curry_launches = 0  # launches of the curry_rounds form
 bwd_launches = 0   # backward launches (one per rmsnorm_bwd call)
-BWD_BLOCKS = 528   # row blocks of the backward (4 per SM of the H100)
+launches_by_route = {"vector": 0, "scalar": 0}   # every forward launch
+BWD_BLOCKS_PER_SM = 4   # row blocks of the backward, per SM of the card
+
+VEC_BYTES = 16        # one access a thread: 8 bf16 or 4 f32
+PER_THREAD = (1, 2, 4)  # vectors a thread holds (the kernel's instantiations)
+BLOCK = 256           # threads of a block that holds several rows
+MAX_THREADS = 512     # threads of a block that holds one row (csrc kMaxThreads)
+BLOCKS_PER_SM = 8     # resident blocks of BLOCK threads an SM takes (2048 threads)
+
+
+class Plan(NamedTuple):
+    route: str         # "vector" (16-byte accesses, the row in registers) or "scalar"
+    per: int           # vectors a thread holds; 0 on the scalar route
+    row_threads: int   # threads that share a row (a power of two)
+    threads: int       # threads of a block: threads // row_threads rows at a time
+    grid: int          # blocks; block b takes row groups b, b + grid, ...
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(rows: int, d: int, elem_bytes: int, aligned: bool, n_sms: int) -> Plan:
+    """The launch shape of :func:`rmsnorm` for ``rows`` rows of ``d``
+    elements of ``elem_bytes`` bytes; ``aligned``: x and w start on a
+    16-byte boundary.  A row takes the largest power of two of threads, up
+    to ``MAX_THREADS``, that leaves none without a vector (one or two
+    vectors a thread; four for f32 rows past 4096 elements): a whole block
+    a row at every model width, several rows a block only for narrow rows.
+    Fewer registers a thread keep more blocks resident, which timed faster
+    than a warp or two a row holding four vectors a thread
+    (``tools/norm_rope_readings.py``'s sweep).  The grid is at most
+    ``BLOCKS_PER_SM`` blocks an SM; blocks walk the rest."""
+    vec = VEC_BYTES // elem_bytes
+    vector = aligned and d % vec == 0 and d // vec <= PER_THREAD[-1] * MAX_THREADS
+    # vectors a row; the scalar route spreads as many threads over its elements
+    units = d // vec if vector else -(-d // vec)
+    t = min(MAX_THREADS, _pow2_floor(units))
+    per = next(p for p in PER_THREAD if p * t >= units) if vector else 0
+    threads = t if t >= BLOCK else min(BLOCK, max(32, -(-rows * t // 32) * 32))
+    groups = threads // t
+    grid = max(1, min(-(-rows // groups), n_sms * BLOCKS_PER_SM))
+    return Plan("vector" if vector else "scalar", per, t, threads, grid)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
@@ -44,14 +99,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
         raise ValueError(f"rmsnorm: w must be [{d}] {x.dtype}, got "
                          f"{tuple(w.shape)} {w.dtype}")
     out = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    aligned = x.data_ptr() % VEC_BYTES == 0 and w.data_ptr() % VEC_BYTES == 0
+    p = plan(rows, d, x.element_size(), aligned, _build.n_sms(x.device))
     lib = _build.load()
     code = lib.repro_rmsnorm(_build.dtype_code(x), x.data_ptr(), w.data_ptr(),
-                             out.data_ptr(), x.numel() // d, d, float(eps),
-                             int(curry_rounds), _build.stream_ptr(x))
+                             out.data_ptr(), rows, d, float(eps),
+                             int(curry_rounds), p.per, p.row_threads,
+                             p.threads, p.grid, _build.stream_ptr(x))
     if curry_rounds:
         curry_launches += 1
     else:
         launches += 1
+    launches_by_route[p.route] += 1
     _build.check("rmsnorm", code)
     return out
 
@@ -68,7 +128,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                          f"{tuple(w.shape)} {w.dtype}, dy {tuple(dy.shape)} "
                          f"{dy.dtype} do not match")
     rows = x.numel() // d
-    blocks = max(1, min(rows, BWD_BLOCKS))
+    blocks = max(1, min(rows, BWD_BLOCKS_PER_SM * _build.n_sms(x.device)))
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)

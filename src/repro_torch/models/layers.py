@@ -221,8 +221,7 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     q = linear(p["wq"], x).reshape(b, s, h, hd)
     k = linear(p["wk"], x).reshape(b, s, kvh, hd)
     v = linear(p["wv"], x).reshape(b, s, kvh, hd)
-    q = ops.apply_rope(q, positions, theta=cfg.rope_theta)
-    k = ops.apply_rope(k, positions, theta=cfg.rope_theta)
+    q, k = ops.apply_rope_qk(q, k, positions, theta=cfg.rope_theta)
     return q, k, v
 
 

@@ -358,6 +358,10 @@ def test_autograd_functions_match_plain_autograd(dev):
          lambda a, b_: ref.rmsnorm(a, b_, 1e-5), (x, w)),
         (ops.silu_mul, ref.silu_mul, (g, u)),
         (lambda a: ops.apply_rope(a, pos), lambda a: ref.apply_rope(a, pos), (q,)),
+        # RopeQK: q and k (H 4, KvH 2) in one launch each way
+        (lambda a, b_: torch.cat([t.flatten() for t in ops.apply_rope_qk(a, b_, pos)]),
+         lambda a, b_: torch.cat([ref.apply_rope(a, pos).flatten(),
+                                  ref.apply_rope(b_, pos).flatten()]), (q, k)),
         (lambda a, b_, c: ops.flash_attention(a, b_, c, window=30),
          lambda a, b_, c: ref.flash_attention(a, b_, c, window=30), (q, k, v)),
     ]
@@ -1284,3 +1288,146 @@ def test_sharded_engine_on_card_matches_cpu(dev, kv_dtype):
     assert after[:2] == before[:2] and after[4:6] == before[4:6]
     assert stats["cow_copies"] >= 1
     assert card == drain(params, SHARDS)[0] == drain(gparams, 1)[0]
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and rope: the 16-byte vector routes, the scalar routes, q + k in
+# one launch.  Kernel and plain version round one f32 result once and differ
+# only in the order of rmsnorm's sum of squares (rope: the contraction of
+# its products), so a bf16 output is held to one bf16 ulp relative plus 1e-5
+# for results that cancel towards zero; f32 to 1e-5.
+# ---------------------------------------------------------------------------
+
+ULP_TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+NORM_ROWS = (1, 8, 512, 8192)
+NORM_WIDTHS = (64, 2048, 2560, 3584, 7168, 8192)
+ROPE_HEAD_DIMS = (16, 64, 112, 128)
+
+
+def _ulp_close(got, want, dtype):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **ULP_TOLS[dtype])
+
+
+def _routes(module):
+    return dict(module.launches_by_route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_rmsnorm_vector_route(dev, dtype, d):
+    """Every row count of the plan's shapes at one width: the vector route,
+    held, twice bitwise equal, and the curry form at 1 and 3 rounds."""
+    rng = np.random.default_rng(30)
+    w = _rand(rng, (d,), dtype, dev)
+    before = _routes(krn)
+    for rows in NORM_ROWS:
+        x = _rand(rng, (rows, d), dtype, dev)
+        got = krn.rmsnorm(x, w, 1e-5)
+        _ulp_close(got, ref.rmsnorm(x, w, 1e-5), dtype)
+        assert torch.equal(got, krn.rmsnorm(x, w, 1e-5))
+        for rounds in (1, 3):
+            _curry_close(krn.rmsnorm(x, w, 1e-5, curry_rounds=rounds),
+                         ref.rmsnorm(x, w, 1e-5, curry_rounds=rounds), dtype)
+    after = _routes(krn)
+    assert after["vector"] - before["vector"] == 4 * len(NORM_ROWS)
+    assert after["scalar"] == before["scalar"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_scalar_route(dev, dtype):
+    """An odd width and a view off a 16-byte boundary take the scalar
+    route and agree with the plain version."""
+    rng = np.random.default_rng(31)
+    before = _routes(krn)
+    for rows, d in ((8, 2049), (512, 2050), (3, 6)):
+        x, w = _rand(rng, (rows, d), dtype, dev), _rand(rng, (d,), dtype, dev)
+        got = krn.rmsnorm(x, w, 1e-5)
+        _ulp_close(got, ref.rmsnorm(x, w, 1e-5), dtype)
+        assert torch.equal(got, krn.rmsnorm(x, w, 1e-5))
+    base = _rand(rng, (512 * 2048 + 1,), dtype, dev)
+    x = base[1:].view(512, 2048)
+    w = _rand(rng, (2048,), dtype, dev)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _ulp_close(krn.rmsnorm(x, w, 1e-5), ref.rmsnorm(x, w, 1e-5), dtype)
+    _curry_close(krn.rmsnorm(x, w, 1e-5, curry_rounds=3),
+                 ref.rmsnorm(x, w, 1e-5, curry_rounds=3), dtype)
+    after = _routes(krn)
+    assert after["scalar"] - before["scalar"] == 8
+    assert after["vector"] == before["vector"]
+
+
+def _rope_grads(q, k, pos, dq, dk):
+    qs, ks = q.detach().requires_grad_(), k.detach().requires_grad_()
+    return torch.autograd.grad((ref.apply_rope(qs, pos), ref.apply_rope(ks, pos)),
+                               (qs, ks), (dq, dk))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", ROPE_HEAD_DIMS)
+def test_rope_qk_kernel(dev, dtype, hd):
+    """q and k (H 32 / KvH 8 and 24 / 8) in one launch at a prefill
+    chunk, decode and a training batch, positions up to 4096: held, twice
+    bitwise equal, bitwise equal to the one-tensor launch; [S] positions;
+    sign -1 against autograd of the plain version."""
+    rng = np.random.default_rng(32)
+    before = _routes(krope), krope.qk_launches
+    n = 0
+    for (h, kvh), (b, s) in [((32, 8), (1, 512)), ((32, 8), (8, 1)),
+                             ((24, 8), (2, 300)), ((24, 8), (8, 1))]:
+        q = _rand(rng, (b, s, h, hd), dtype, dev)
+        k = _rand(rng, (b, s, kvh, hd), dtype, dev)
+        pos = torch.from_numpy(rng.integers(0, 4097, size=(b, s)).astype(np.int32)).to(dev)
+        gq, gk = krope.apply_rope_qk(q, k, pos)
+        _ulp_close(gq, ref.apply_rope(q, pos), dtype)
+        _ulp_close(gk, ref.apply_rope(k, pos), dtype)
+        again = krope.apply_rope_qk(q, k, pos)
+        assert torch.equal(gq, again[0]) and torch.equal(gk, again[1])
+        assert torch.equal(gq, krope.apply_rope(q, pos))
+        assert torch.equal(gk, krope.apply_rope(k, pos))
+        p1 = pos[0].contiguous()
+        gq1, gk1 = krope.apply_rope_qk(q, k, p1)
+        _ulp_close(gq1, ref.apply_rope(q, p1), dtype)
+        _ulp_close(gk1, ref.apply_rope(k, p1), dtype)
+        dq, dk = _rand(rng, q.shape, dtype, dev), _rand(rng, k.shape, dtype, dev)
+        wq, wk = _rope_grads(q, k, pos, dq, dk)
+        gq, gk = krope.apply_rope_qk(dq, dk, pos, sign=-1)
+        _ulp_close(gq, wq, dtype)
+        _ulp_close(gk, wk, dtype)
+        _ulp_close(krope.apply_rope(dq, pos, sign=-1), wq, dtype)
+        n += 1
+    after = _routes(krope), krope.qk_launches
+    assert after[0]["vector"] - before[0]["vector"] == 7 * n
+    assert after[0]["scalar"] == before[0]["scalar"]
+    assert after[1] - before[1] == 4 * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_scalar_route(dev, dtype):
+    """A head dim that is not a multiple of the vector and q off a 16-byte
+    boundary take the scalar route and agree with the plain version."""
+    rng = np.random.default_rng(33)
+    before = _routes(krope)
+    q = _rand(rng, (2, 9, 4, 6), dtype, dev)
+    k = _rand(rng, (2, 9, 2, 6), dtype, dev)
+    pos = torch.from_numpy(rng.integers(0, 4097, size=(2, 9)).astype(np.int32)).to(dev)
+    gq, gk = krope.apply_rope_qk(q, k, pos)
+    _ulp_close(gq, ref.apply_rope(q, pos), dtype)
+    _ulp_close(gk, ref.apply_rope(k, pos), dtype)
+    base = _rand(rng, (1 * 512 * 32 * 64 + 1,), dtype, dev)
+    q = base[1:].view(1, 512, 32, 64)
+    k = _rand(rng, (1, 512, 8, 64), dtype, dev)
+    pos = torch.arange(256, 768, dtype=torch.int32, device=dev)[None]
+    gq, gk = krope.apply_rope_qk(q, k, pos)
+    _ulp_close(gq, ref.apply_rope(q, pos), dtype)
+    _ulp_close(gk, ref.apply_rope(k, pos), dtype)
+    dq = _rand(rng, (q.numel() + 1,), dtype, dev)[1:].view(q.shape)
+    dk = _rand(rng, k.shape, dtype, dev)
+    wq, wk = _rope_grads(q, k, pos, dq, dk)
+    gq, gk = krope.apply_rope_qk(dq, dk, pos, sign=-1)
+    _ulp_close(gq, wq, dtype)
+    _ulp_close(gk, wk, dtype)
+    after = _routes(krope)
+    assert after["scalar"] - before["scalar"] == 3
+    assert after["vector"] == before["vector"]
