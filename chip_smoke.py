@@ -20,7 +20,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    of ``NORM_REL``, a control (each row's last 8 elements left out of the
    sum of squares) caught at both rmsnorm shapes, and logged with its GB/s,
    share of the bound, a PyTorch read of as many bytes and an empty
-   launch's time (as are silu_mul and, in 6, the rmsnorm backward);
+   launch's time; silu_mul on the chunk's FFN hidden [512, 5632] and on
+   decode's [8, 5632], held to one bf16 ulp relative plus ``SILU_TOL``'s
+   1e-5 and a relative norm of ``SILU_REL`` and logged the same way;
    rmsnorm, the first kernel timed, is timed again after the others and its
    row keeps the repeat (the first timed launch of a run reads slow); the
    paged decode
@@ -41,8 +43,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    kernels' launch counters are zeroed just before and read just after,
    and every kernel must have run (every paged prefill launch a bf16 one,
    on the tensor cores, every rope launch q and k together, every rmsnorm
-   and rope launch on the 16-byte vector route, here and in 5d, 17 and
-   18); a rerun with prefix caching
+   and rope launch on the 16-byte vector route and no silu_mul launch on
+   its scalar route (decode's calls take its element route, prefill chunks
+   past one wave of the card's threads the vector route), here and in 5d,
+   17 and 18); a rerun with prefix caching
    off must give token-identical greedy outputs;
 5b. dense kernels: flash-decoding over a dense KV slab (q [8, 32, 64],
    k/v [8, 1024, 32, 64], the live lengths of phase 3's paged decode) and
@@ -70,14 +74,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 6. train kernels: the flash-attention forward and backward (``PERF.md``
    rows 6 and 6b, the bf16 kernels on ``mma.sync`` tensor cores with
    ``ldmatrix`` and ``cp.async`` rings), the rmsnorm and silu_mul backward
-   passes and rope's backward (the forward kernel at sign -1 on dq and dk
-   in one launch) at full-width
-   granite-3-2b shapes in bf16, held against their plain versions and
-   timed as in 3 (library: SDPA forward/backward, autograd of
-   ``F.rms_norm``); SDPA's own error against the plain version is logged
-   beside the flash kernels' (a yardstick, not gated); the flash backward
-   twice must give the same bits, and a control shows the flash tolerances
-   catch a forward that skips one 64-key tile;
+   passes, silu_mul's forward on the FFN hidden [8192, 8192] and rope's
+   backward (the forward kernel at sign -1 on dq and dk in one launch) at
+   full-width granite-3-2b shapes in bf16, held against their plain
+   versions and timed as in 3 (library: SDPA forward/backward, autograd of
+   ``F.rms_norm``); the rmsnorm backward's dx and dw are held to one bf16
+   ulp relative plus ``BWD_DX_TOL`` / ``BWD_DW_TOL`` and a relative norm of
+   ``BWD_REL``, with a control (its last 16 rows left out of dw) that must
+   be caught, and logged with the silu_mul forward as in 3; SDPA's own
+   error against the plain version is logged beside the flash kernels' (a
+   yardstick, not gated); the flash backward twice must give the same bits,
+   and a control shows the flash tolerances catch a forward that skips one
+   64-key tile;
 7. train parity: reduced granite-3-2b at fp32, every gradient leaf of the
    train loss and one train step on the card against the CPU, then a
    driver run on the card that crashes, resumes from its checkpoint and
@@ -86,7 +94,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    seed) for ``TRAIN_STEPS`` steps of 2 x 4096 tokens through
    ``make_train_step`` with remat (the step ``launch/train.py`` drives, called
    directly so that no 30 GB checkpoint is written); counters zeroed just
-   before, read just after, and every training-path kernel must have run;
+   before, read just after, and every training-path kernel must have run
+   (every silu_mul and rmsnorm backward launch on the vector route, here
+   and in 11 and 15);
 9. rwkv kernels: the wkv6 forward and backward at full-width rwkv6-3b
    shapes (r, k, v [2, 4096, 40, 64] bf16, a data-dependent decay drawn
    through the model's ``_decay`` with a random nonzero ``w_b``), held
@@ -212,14 +222,44 @@ NORM_ATOL = 1e-5
 NORM_REL = 1e-4
 NORM_TOL = dict(rtol=2 ** -7, atol=NORM_ATOL)
 NORM_DROPPED = 8
-# the redesigns of rmsnorm and rope, named on their rows of the
-# ``{"kernels": ...}`` line
+# silu_mul (rows 5, 5d, 5t) and the rmsnorm backward (row 3b), bf16 at full
+# width, held as rmsnorm is: one bf16 ulp relative plus an absolute term and
+# a relative norm error, both set from the parent's readings at these
+# shapes and at the backward's widths 2560-7168
+# (tools/swiglu_norm_bwd_readings.py on an H100).  silu_mul's parent read
+# no error at all against the plain version (both round the same f32
+# silu(g) and product), so 1e-5 and a relative norm of 1e-4.  The
+# backward's dx read every output within one ulp relative (largest excess
+# 1.1e-8) and relative norms up to 1.43e-5, so 1e-5 and 1e-4; its dw (8192
+# rows summed in f32 in another order, then rounded) read within one ulp
+# but near zero, where the largest excess was 8.8e-6, and relative norms
+# up to 3.9e-6 (3.0e-5 on this phase's inputs, where one bf16 ulp of the
+# largest entries flips, in the parent and the redesign alike), so 1e-4 and
+# 1e-4.  BF16_TOL's two ulps plus 1e-2 were looser than any of these
+# readings needs.  The control: the plain backward with its last
+# BWD_DROPPED_ROWS rows left out of dw.
+SILU_TOL = dict(rtol=2 ** -7, atol=1e-5)
+SILU_REL = 1e-4
+BWD_DX_TOL = dict(rtol=2 ** -7, atol=1e-5)
+BWD_DW_TOL = dict(rtol=2 ** -7, atol=1e-4)
+BWD_REL = 1e-4
+BWD_DROPPED_ROWS = 16
+# the redesigns of rmsnorm, rope, silu_mul and the rmsnorm backward, named on
+# their rows of the ``{"kernels": ...}`` line
 RMSNORM_DESIGN = ("the row in registers: 16-byte vectors, w held across the "
                   "rows a thread walks, warp-shuffle sums, the grid from the card")
 ROPE_DESIGN = ("cos/sin once per (token, pair) in shared memory, 16-byte "
                "vectors, q and k in one launch, the grid from the card")
+SILU_DESIGN = ("16-byte vector streams of gate and up past one wave of the card's "
+               "threads, one element a thread within it (decode), a grid of up to "
+               "eight waves from the card")
+RMSNORM_BWD_DESIGN = ("the row in registers: 16-byte vectors, the next row's loads "
+                      "in flight, w and f32 dw partials held across a block's "
+                      "contiguous rows, one barrier a row, a column pass of fixed "
+                      "warp slices, the grid from the card")
 # rows whose launches are read from another counter than their name's
-ROW_COUNTER = {"rmsnorm_decode": "rmsnorm", "apply_rope_qk_decode": "apply_rope_qk"}
+ROW_COUNTER = {"rmsnorm_decode": "rmsnorm", "apply_rope_qk_decode": "apply_rope_qk",
+               "silu_mul_decode": "silu_mul", "silu_mul_train": "silu_mul"}
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 # flash attention at S = 4096: a late row's output averages ~i keys, so |o|,
 # dq, dk and dv there are ~0.02-0.04 and ATTN_TOL's 2e-2 would pass a kernel
@@ -537,6 +577,7 @@ def norm_control(torch, name, x, w, eps) -> None:
 
 def kernel_phase(torch, timer, cfg):
     """Each kernel at the serving path's full-width shapes, bf16."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import prefill_attention as kpf
     from repro_torch.kernels import ref
@@ -575,12 +616,13 @@ def kernel_phase(torch, timer, cfg):
         f"a one-element add_ {one_ms:.4f} ms")
 
     def small(name, source, replaces, kernel, plain, nbytes, flops, design,
-              library=None, note=""):
-        """Rows 3, 3d, 4, 4qk and 4d: held to NORM_TOL / NORM_REL, their
-        rates logged beside an empty launch's time."""
-        record(name, csrc + source, replaces, kernel, plain, NORM_TOL,
-               rel=NORM_REL, nbytes=nbytes, flops=flops, library=library,
-               note=f"; rel {NORM_REL}" + note)
+              library=None, note="", tol=NORM_TOL, rel=NORM_REL):
+        """Rows 3, 3d, 4, 4qk, 4d, 5 and 5d: held to ``tol`` / ``rel``
+        (NORM_TOL / NORM_REL for rmsnorm and rope, SILU_TOL / SILU_REL for
+        silu_mul), their rates logged beside an empty launch's time."""
+        record(name, csrc + source, replaces, kernel, plain, tol,
+               rel=rel, nbytes=nbytes, flops=flops, library=library,
+               note=f"; rel {rel}" + note)
         rows[-1].update(design=design, launch_floor_ms=floor, one_element_ms=one_ms)
         log_rate(torch, timer, rows[-1], nbytes)
 
@@ -620,14 +662,21 @@ def kernel_phase(torch, timer, cfg):
               nbytes=2 * (qq.numel() + kk.numel()) * 2 + pp.numel() * 4,
               flops=3 * (qq.numel() + kk.numel()), design=ROPE_DESIGN,
               note="; q and k in one launch")
-    # silu_mul on the chunk's FFN hidden [1, 512, 5632]
+    # silu_mul on the chunk's FFN hidden [1, 512, 5632] (row 5) and on
+    # decode's [8, 5632] (row 5d, its inputs from a generator of its own)
     g, u = randn(1, c, ff, scale=3.0), randn(1, c, ff)
-    record("silu_mul", csrc + "swiglu.cu", "src/repro/kernels/swiglu.py:59",
-           lambda: ksw.silu_mul(g, u), lambda: ref.silu_mul(g, u), BF16_TOL,
-           nbytes=3 * g.numel() * 2, flops=5 * g.numel(),
-           note="; rounds silu(gate) to bf16 before the product as the plain "
-                "version does (the TPU kernel keeps it in f32)")
-    log_rate(torch, timer, rows[-1], 3 * g.numel() * 2)
+    gen_silu = torch.Generator(device=dev).manual_seed(13)
+    gd, ud = ((torch.randn((slots, ff), generator=gen_silu, device=dev) * sc).to(bf)
+              for sc in (3.0, 1.0))
+    for name, gg, uu in (("silu_mul", g, u), ("silu_mul_decode", gd, ud)):
+        small(name, "swiglu.cu", "src/repro/kernels/swiglu.py:59",
+              lambda gg=gg, uu=uu: ksw.silu_mul(gg, uu),
+              lambda gg=gg, uu=uu: ref.silu_mul(gg, uu),
+              nbytes=3 * gg.numel() * 2, flops=5 * gg.numel(), design=SILU_DESIGN,
+              tol=SILU_TOL, rel=SILU_REL,
+              note=f"; the {ksw.plan(gg.numel(), 2, True, _build.n_sms(gg.device)).route} "
+                   f"route; rounds silu(gate) to bf16 before the product as the plain "
+                   f"version does (the TPU kernel keeps it in f32)")
     # decode attention: 8 slots, pages [32, 513, 16, 64], tables [8, 64]
     kp, vp = randn(kvh, nb, bs, hd), randn(kvh, nb, bs, hd)
     perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * mb] + 1
@@ -873,7 +922,8 @@ def serve_phase(torch, cfg, params, counters):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
         "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
         "apply_rope_vector": L * (P + Dd),
-        "silu_mul": L * (P + Dd), "paged_decode_attention": L * Dd,
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "paged_decode_attention": L * Dd,
         "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P})
     if stats["prefix_hit_tokens"] <= 0:
         fail("serve: the shared-prefix requests never hit the prefix cache")
@@ -1256,7 +1306,8 @@ def dense_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
         "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
         "apply_rope_vector": L * (P + Dd),
-        "silu_mul": L * (P + Dd), "flash_attention_lengths": L * P,
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "flash_attention_lengths": L * P,
         "decode_attention": L * Dd, "flash_attention": 0,
         "paged_decode_attention": 0, "paged_prefill_attention": 0,
         "paged_prefill_attention_tc": 0})
@@ -1488,7 +1539,8 @@ def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
         "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
         "apply_rope_vector": L * (P + Dd),
-        "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": L * Dd,
         "paged_prefill_attention_int8": L * P, "paged_prefill_attention_tc": L * P})
     if stats["prefix_hit_tokens"] <= 0:
@@ -1871,7 +1923,8 @@ def shard_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
         "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
         "apply_rope_vector": L * (P + Dd),
-        "silu_mul": L * (P + Dd), "paged_decode_attention": 0,
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": 0,
         "paged_prefill_attention_int8": 0,
         "paged_decode_attention_skip_null": S * L * Dd,
@@ -2073,28 +2126,55 @@ def train_kernel_phase(torch, timer, cfg):
         f"{timer(lambda: krope.apply_rope_qk(dy, dk, pos, cfg.rope_theta, sign=-1)):.4f} ms")
     del x, xk, dy, dk, xg, xkg, want, got
 
-    # -- rmsnorm backward on the training activations [8192, 2048]
+    floor = timer(lambda: torch.cuda._sleep(1))
+    one = torch.zeros(1, device=dev)
+    one_ms = timer(lambda: one.add_(1.0))
+
+    def rate_row(nbytes, design):
+        """Rows 3b and 5t: the design, an empty launch's time and the
+        rate on the last row."""
+        rows[-1].update(design=design, launch_floor_ms=floor, one_element_ms=one_ms)
+        log_rate(torch, timer, rows[-1], nbytes)
+
+    # -- rmsnorm backward on the training activations [8192, 2048], beside
+    # a control the holds catch
     x, w, dy = randn(b * s, d), randn(d), randn(b * s, d)
     xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
     yg = F.rms_norm(xg, (d,), wg, cfg.norm_eps)
+    ok_dw = ref.rmsnorm_bwd(x, w, dy, cfg.norm_eps)[1]
+    bad_dw = ref.rmsnorm_bwd(x[:-BWD_DROPPED_ROWS], w, dy[:-BWD_DROPPED_ROWS],
+                             cfg.norm_eps)[1]
+    dropped_step_control(torch, "rmsnorm_bwd", f"the last {BWD_DROPPED_ROWS} rows "
+                         f"from dw", ok_dw, bad_dw, BWD_DW_TOL, BWD_REL)
+    del ok_dw, bad_dw
     rows.append(measure(
         torch, timer, "rmsnorm_bwd", csrc + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:51",
         lambda: krn.rmsnorm_bwd(x, w, dy, cfg.norm_eps),
-        lambda: ref.rmsnorm_bwd(x, w, dy, cfg.norm_eps), BF16_TOL,
-        nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(),
+        lambda: ref.rmsnorm_bwd(x, w, dy, cfg.norm_eps), (BWD_DX_TOL, BWD_DW_TOL),
+        nbytes=3 * x.numel() * 2 + 2 * d * 2, flops=10 * x.numel(), rel=BWD_REL,
         library=lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True),
-        note="; dx and dw"))
-    log_rate(torch, timer, rows[-1], 3 * x.numel() * 2 + 2 * d * 2)
+        note=f"; dx and dw; rel {BWD_REL}"))
+    repeat_equal(torch, "rmsnorm_bwd", lambda: krn.rmsnorm_bwd(x, w, dy, cfg.norm_eps))
+    rate_row(3 * x.numel() * 2 + 2 * d * 2, RMSNORM_BWD_DESIGN)
     del x, w, dy, xg, wg, yg
 
-    # -- silu_mul backward on the FFN hidden [8192, 8192]
+    # -- silu_mul backward on the FFN hidden [8192, 8192], then the forward
+    # on the same gate and up (row 5t)
     g, u, dy = randn(b * s, ff, scale=3.0), randn(b * s, ff), randn(b * s, ff)
     rows.append(measure(
         torch, timer, "silu_mul_bwd", csrc + "swiglu.cu", "src/repro/kernels/swiglu.py:59",
         lambda: ksw.silu_mul_bwd(g, u, dy), lambda: ref.silu_mul_bwd(g, u, dy),
         BF16_TOL, nbytes=5 * g.numel() * 2, flops=12 * g.numel(),
         note="; dgate and dup"))
-    del g, u, dy
+    del dy
+    rows.append(measure(
+        torch, timer, "silu_mul_train", csrc + "swiglu.cu", "src/repro/kernels/swiglu.py:59",
+        lambda: ksw.silu_mul(g, u), lambda: ref.silu_mul(g, u), SILU_TOL,
+        nbytes=3 * g.numel() * 2, flops=5 * g.numel(), rel=SILU_REL,
+        note=f"; rel {SILU_REL}"))
+    repeat_equal(torch, "silu_mul_train", lambda: ksw.silu_mul(g, u))
+    rate_row(3 * g.numel() * 2, SILU_DESIGN)
+    del g, u
     torch.cuda.empty_cache()
     return rows
 
@@ -2453,8 +2533,9 @@ def granite_expect(cfg, n):
     L = cfg.n_layers
     return {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
             "rmsnorm": (4 * L + 1) * n, "rmsnorm_bwd": (2 * L + 1) * n,
+            "rmsnorm_bwd_vector": (2 * L + 1) * n,
             "apply_rope": 3 * L * n, "apply_rope_qk": 3 * L * n,
-            "silu_mul": 2 * L * n, "silu_mul_bwd": L * n}
+            "silu_mul": 2 * L * n, "silu_mul_bwd": L * n, "silu_mul_vector": 2 * L * n}
 
 
 def granite_watched(st):
@@ -2471,7 +2552,8 @@ def rwkv_expect(cfg, n):
     L = cfg.n_layers
     return {"rwkv6": 2 * L * n, "rwkv6_bwd": L * n,
             "rwkv6_tc": 2 * L * n, "rwkv6_bwd_tc": L * n,
-            "rmsnorm": (6 * L + 1) * n, "rmsnorm_bwd": (3 * L + 1) * n}
+            "rmsnorm": (6 * L + 1) * n, "rmsnorm_bwd": (3 * L + 1) * n,
+            "rmsnorm_bwd_vector": (3 * L + 1) * n}
 
 
 def rwkv_watched(st):
@@ -2801,8 +2883,10 @@ def zamba_expect(cfg, n):
     return {"mamba2": mf * n, "mamba2_bwd": mb * n, "mamba2_states": mf * n,
             "flash_attention": sf * n, "flash_attention_bwd": sb * n,
             "rmsnorm": (2 * mf + 2 * sf + 1) * n, "rmsnorm_bwd": (2 * mb + 2 * sb + 1) * n,
+            "rmsnorm_bwd_vector": (2 * mb + 2 * sb + 1) * n,
             "apply_rope": (sf + sb) * n, "apply_rope_qk": (sf + sb) * n,
-            "silu_mul": (mf + sf) * n, "silu_mul_bwd": (mb + sb) * n}
+            "silu_mul": (mf + sf) * n, "silu_mul_bwd": (mb + sb) * n,
+            "silu_mul_vector": (mf + sf) * n}
 
 
 def zamba_watched(st):
@@ -3087,6 +3171,7 @@ def curry_rows(torch, timer, cfg, gen):
                      f"{native_silu:.4f} ms")]
     rows[0]["launches"] = launches["rmsnorm_curry"]
     rows[1]["launches"] = launches["silu_mul_curry"]
+    rows[1]["design"] = SILU_DESIGN + "; the Taylor rounds at a runtime count"
     return rows
 
 
@@ -3147,6 +3232,7 @@ def main() -> None:
                 "rmsnorm_vector": Counter(rmsnorm, "launches_by_route", "vector"),
                 "apply_rope_vector": Counter(rope, "launches_by_route", "vector"),
                 "silu_mul": Counter(swiglu),
+                "silu_mul_scalar": Counter(swiglu, "launches_by_route", "scalar"),
                 "paged_decode_attention": Counter(decode_attention),
                 "paged_prefill_attention": Counter(prefill_attention),
                 "paged_prefill_attention_tc": Counter(prefill_attention, "tc_launches")}
@@ -3201,12 +3287,14 @@ def main() -> None:
         "flash_attention": Counter(flash_attention),
         "flash_attention_bwd": Counter(flash_attention, "bwd_launches"),
         "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches"),
+        "rmsnorm_bwd_vector": Counter(rmsnorm, "bwd_launches_by_route", "vector"),
         "apply_rope": Counter(rope), "apply_rope_qk": Counter(rope, "qk_launches"),
-        "silu_mul": Counter(swiglu), "silu_mul_bwd": Counter(swiglu, "bwd_launches")}
+        "silu_mul": Counter(swiglu), "silu_mul_bwd": Counter(swiglu, "bwd_launches"),
+        "silu_mul_vector": Counter(swiglu, "launches_by_route", "vector")}
     train_launches, train = train_phase(torch, gcfg, train_counters,
                                         granite_expect, granite_watched)
     for row in train_rows:
-        row["launches"] = train_launches[row["name"]]
+        row["launches"] = train_launches[ROW_COUNTER.get(row["name"], row["name"])]
     rows += train_rows
 
     rcfg = get_config("rwkv6-3b")
@@ -3216,7 +3304,8 @@ def main() -> None:
         "rwkv6": Counter(rwkv_chunk), "rwkv6_bwd": Counter(rwkv_chunk, "bwd_launches"),
         "rwkv6_tc": Counter(rwkv_chunk, "tc_launches"),
         "rwkv6_bwd_tc": Counter(rwkv_chunk, "tc_bwd_launches"),
-        "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches")}
+        "rmsnorm": Counter(rmsnorm), "rmsnorm_bwd": Counter(rmsnorm, "bwd_launches"),
+        "rmsnorm_bwd_vector": Counter(rmsnorm, "bwd_launches_by_route", "vector")}
     rwkv_launches, rwkv_train = train_phase(torch, rcfg, rwkv_counters,
                                             rwkv_expect, rwkv_watched)
     for row in rwkv_rows:

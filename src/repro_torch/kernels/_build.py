@@ -43,13 +43,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
     "repro_rope": (_I, *(_P,) * 5, _I64, _I, _I, _I, _F, *(_I,) * 7, _P),
-    "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _P),
+    "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
     "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, *(_P,) * 4, _I, _I,
                               _I, _I, _I64, _I64, _I, _I, _I, _I, _P),
     "repro_paged_decode": (_I, *(_P,) * 7, _I, _I, *(_P,) * 4, _I, _I, _I,
                            _I64, _I64, _I, _I, _I, _I, _I, _I, _P),
-    "repro_rmsnorm_bwd": (_I, _P, _P, _P, _P, _P, _P, _I64, _I, _F, _I, _P),
-    "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _P),
+    "repro_rmsnorm_bwd": (_I, *(_P,) * 6, _I64, _I, _F, *(_I,) * 5, _P),
+    "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I, _P),
     "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
     "repro_decode_attention": (_I, _P, _P, _P, _P, _I, *(_P,) * 4, *(_I,) * 8,
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "repro_rwkv6_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _P),
     "repro_rwkv6_bwd": (_I, *(_P,) * 15, _I, _I, _I, _I, _P),
     "repro_mamba2_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _I, _P),
-    "repro_mamba2_bwd": (_I, *(_P,) * 17, _I, _I, _I, _I, _I, _I, _P),
+    "repro_mamba2_bwd": (_I, *(_P,) * 17, *(_I,) * 7, _P),
     "repro_mamba2_bwd_occupancy": (_I, _I, _P),
     "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -199,3 +199,14 @@ def n_sms(device: torch.device) -> int:
     if device not in _n_sms:
         _n_sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _n_sms[device]
+
+
+STRIDE_BLOCKS_PER_SM = 32   # blocks an SM of a grid-stride loop: 4 waves of 256 threads
+
+
+def stride_grid(n: int, threads: int, sms: int) -> int:
+    """Blocks of a grid-stride loop over ``n`` items, ``threads`` a block,
+    on a card of ``sms`` SMs: as many as the items need, at most
+    ``STRIDE_BLOCKS_PER_SM`` an SM (the silu_mul backward, the Mamba2
+    backward's last pass)."""
+    return max(1, min(-(-n // threads), sms * STRIDE_BLOCKS_PER_SM))

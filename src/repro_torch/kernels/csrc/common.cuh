@@ -69,8 +69,9 @@ __device__ __forceinline__ uint32_t pack_f32_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// 16-byte vectors of an element type (rmsnorm.cu, rope.cu): one access a
-// thread moves 4 f32 or 8 bf16, widened to f32 and rounded back in order
+// 16-byte vectors of an element type (rmsnorm.cu, rope.cu, swiglu.cu): one
+// access a thread moves 4 f32 or 8 bf16, widened to f32 and rounded back in
+// order
 // ---------------------------------------------------------------------------
 
 template <typename T> struct Vec16 { static constexpr int kN = 16 / sizeof(T); };
@@ -510,14 +511,6 @@ inline bool encode_tma_2d_bf16(CUtensorMap* map, const void* base, uint64_t inne
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Grid size for a grid-stride elementwise loop: enough blocks to fill the
-// 132 SMs several times over, never more than the work needs.
-inline unsigned int elementwise_blocks(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  const int64_t cap = 132 * 32;
-  return static_cast<unsigned int>(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
 }  // namespace repro

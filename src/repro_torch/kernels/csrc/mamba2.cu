@@ -1491,10 +1491,10 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T>
 cudaError_t bwd_sum(const float* dB_part, const float* dC_part, const float* dA_part, void* dB,
-                    void* dC, float* dA, const Geo& g, int N, int NG, int n_part, cudaStream_t s) {
+                    void* dC, float* dA, const Geo& g, int N, int NG, int n_part, int grid,
+                    cudaStream_t s) {
   const int64_t rows = static_cast<int64_t>(g.B) * g.S;
-  const int64_t work = rows * N > g.H ? rows * N : g.H;
-  mamba2_bwd_sum_kernel<T><<<repro::elementwise_blocks(work, kThreads), kThreads, 0, s>>>(
+  mamba2_bwd_sum_kernel<T><<<grid, kThreads, 0, s>>>(
       dB_part, dC_part, dA_part, static_cast<T*>(dB), static_cast<T*>(dC), dA, rows, N, NG,
       n_part, g.H);
   return cudaGetLastError();
@@ -1532,7 +1532,7 @@ template <int P, int N>
 cudaError_t bwd_f32(const void* x, const float* dt, const float* A, const void* Bm,
                     const void* Cm, const void* dy, const float* states, void* dx, float* ddt,
                     float* dA, void* dB, void* dC, float* dB_part, float* dC_part,
-                    float* dA_part, const Geo& g, cudaStream_t s) {
+                    float* dA_part, int sum_grid, const Geo& g, cudaStream_t s) {
   auto kern = mamba2_bwd_kernel<P, N>;
   if (cudaError_t e = allow_smem(kern, bwd_smem<P, N>())) return e;
   kern<<<g.B * g.H, kThreads, bwd_smem<P, N>(), s>>>(
@@ -1540,15 +1540,15 @@ cudaError_t bwd_f32(const void* x, const float* dt, const float* A, const void* 
       static_cast<const float*>(Cm), static_cast<const float*>(dy), states,
       static_cast<float*>(dx), ddt, dB_part, dC_part, dA_part, g);
   if (cudaError_t e = cudaGetLastError()) return e;
-  return bwd_sum<float>(dB_part, dC_part, dA_part, dB, dC, dA, g, N, g.H, g.B, s);
+  return bwd_sum<float>(dB_part, dC_part, dA_part, dB, dC, dA, g, N, g.H, g.B, sum_grid, s);
 }
 
 template <int P, int N>
 cudaError_t bwd_bf16(const void* x, const float* dt, const float* A, const void* Bm,
                      const void* Cm, const void* dy, const float* states, void* dx, float* ddt,
                      float* dA, void* dB, void* dC, float* dB_part, float* dC_part,
-                     float* dA_part, float* cb, float* dstates, int G, const Geo& g,
-                     cudaStream_t s) {
+                     float* dA_part, float* cb, float* dstates, int G, int sum_grid,
+                     const Geo& g, cudaStream_t s) {
   const bf16* Bp = static_cast<const bf16*>(Bm);
   const bf16* Cp = static_cast<const bf16*>(Cm);
   const bf16* dyp = static_cast<const bf16*>(dy);
@@ -1567,7 +1567,8 @@ cudaError_t bwd_bf16(const void* x, const float* dt, const float* A, const void*
       static_cast<const bf16*>(x), dt, A, Bp, Cp, dyp, cb, states, dstates,
       static_cast<bf16*>(dx), ddt, dB_part, dC_part, dA_part, g, G, NG);
   if (cudaError_t e = cudaGetLastError()) return e;
-  return bwd_sum<bf16>(dB_part, dC_part, dA_part, dB, dC, dA, g, N, NG, g.B * g.NC, s);
+  return bwd_sum<bf16>(dB_part, dC_part, dA_part, dB, dC, dA, g, N, NG, g.B * g.NC, sum_grid,
+                       s);
 }
 
 template <int P, int N>
@@ -1611,13 +1612,15 @@ extern "C" int repro_mamba2_fwd(int dtype, const void* x, const float* dt, const
 // dB_part, dC_part [B, S, NG, N] and dA_part [n_part, H], with NG = ceil(H
 // / G) and n_part = B * ceil(S / 64) in bf16, NG = H and n_part = B in f32;
 // in bf16 also cb [B, ceil(S / 64), 64, 64] and dstates like states (f32
-// takes null for both and ignores G).
+// takes null for both and ignores G).  sum_grid: the blocks of the last
+// pass's grid-stride loop over max(B S N, H) items
+// (kernels/_build.py:stride_grid).
 extern "C" int repro_mamba2_bwd(int dtype, const void* x, const float* dt, const float* A,
                                 const void* Bm, const void* Cm, const void* dy,
                                 const float* states, void* dx, float* ddt, float* dA, void* dB,
                                 void* dC, float* dB_part, float* dC_part, float* dA_part,
                                 float* cb, float* dstates, int G, int B, int S, int H, int P,
-                                int N, void* stream) {
+                                int N, int sum_grid, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, S, H, (S + kChunk - 1) / kChunk};
@@ -1625,11 +1628,11 @@ extern "C" int repro_mamba2_bwd(int dtype, const void* x, const float* dt, const
   if (P == PP && N == NN)                                                                     \
     return dtype == repro::kBF16                                                              \
                ? bwd_bf16<PP, NN>(x, dt, A, Bm, Cm, dy, states, dx, ddt, dA, dB, dC, dB_part, \
-                                  dC_part, dA_part, cb, dstates, G, g, s)                     \
+                                  dC_part, dA_part, cb, dstates, G, sum_grid, g, s)           \
                : bwd_f32<PP, NN>(x, dt, A, Bm, Cm, dy, states, dx, ddt, dA, dB, dC, dB_part,  \
-                                 dC_part, dA_part, g, s);
+                                 dC_part, dA_part, sum_grid, g, s);
   if ((dtype != repro::kF32 && dtype != repro::kBF16) ||
-      (dtype == repro::kBF16 && (!cb || !dstates || G <= 0)))
+      (dtype == repro::kBF16 && (!cb || !dstates || G <= 0)) || sum_grid <= 0)
     return cudaErrorInvalidValue;
   REPRO_MAMBA_SHAPES(REPRO_BWD_CASE)
 #undef REPRO_BWD_CASE

@@ -43,6 +43,7 @@ bwd_launches = 0     # backward launches (one per mamba2_bwd call)
 
 SHAPES = ((64, 64), (16, 8))   # (head dim P, state N) the kernel is built for
 CHUNK = 64                     # rows per chunk (kChunk of csrc/mamba2.cu)
+SUM_THREADS = 256              # threads of a block of the backward's last pass (kThreads)
 PLAN_SLACK = 0.05              # bwd_plan: a score this far below the best still counts
 
 
@@ -186,6 +187,8 @@ def mamba2_bwd(x, dt, A, B, C, dy, states):
                                 dC.data_ptr(), dB_part.data_ptr(),
                                 dC_part.data_ptr(), dA_part.data_ptr(), ptr(cb),
                                 ptr(dstates), g, b, s, h, p, n,
+                                _build.stride_grid(max(b * s * n, h), SUM_THREADS,
+                                                   _build.n_sms(x.device)),
                                 _build.stream_ptr(x))
     bwd_launches += 1
     _build.check("mamba2_bwd", code)

@@ -1431,3 +1431,126 @@ def test_rope_scalar_route(dev, dtype):
     after = _routes(krope)
     assert after["scalar"] - before["scalar"] == 3
     assert after["vector"] == before["vector"]
+
+
+# ---------------------------------------------------------------------------
+# silu_mul's 16-byte streams and the rmsnorm backward's rows in registers:
+# the vector routes at the shapes the serving and training paths give them,
+# element counts and widths off the vector, views off a 16-byte boundary
+# (the scalar routes), bitwise reruns.  silu_mul rounds the same f32 values
+# as the plain version; the backward sums in another order (dw over its
+# blocks' partials), so f32 holds dx to 1e-5 and dw to BWD_TOL, bf16 both to
+# TOLS.
+# ---------------------------------------------------------------------------
+
+# silu_mul: decode's hidden, a prefill chunk's, a training batch's, the
+# gated norm's width and odd element counts, within one wave of the card's
+# threads (the element route) and past it (the vector route)
+SILU_SHAPES = ((8, 5632), (512, 5632), (8192, 8192), (3, 7168), (40, 7168),
+               (5, 5631), (61, 5631))
+BWD_NORM_ROWS = (1, 8, 600, 8192)
+BWD_NORM_WIDTHS = (64, 2048, 2560, 3584, 7168)
+
+
+def _bwd_close(got, want, dtype):
+    _close(got[0], want[0], dtype)
+    torch.testing.assert_close(got[1].float(), want[1].float(),
+                               **(BWD_TOL if dtype == torch.float32 else TOLS[dtype]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_mul_vector_and_element_routes(dev, dtype):
+    """Each shape on the route its plan gives (the odd counts past one
+    wave: whole vectors, then the last elements one a thread), held, twice
+    bitwise equal; the curry form at 6 and 8 rounds."""
+    rng = np.random.default_rng(40)
+    before = _routes(ksw)
+    want = {"vector": 0, "element": 0, "scalar": 0}
+    for shape in SILU_SHAPES:
+        g = _rand(rng, shape, dtype, dev, 3.0)
+        u = _rand(rng, shape, dtype, dev)
+        route = ksw.plan(g.numel(), g.element_size(), True, _build.n_sms(dev)).route
+        got = ksw.silu_mul(g, u)
+        _close(got, ref.silu_mul(g, u), dtype)
+        assert torch.equal(got, ksw.silu_mul(g, u))
+        want[route] += 2
+        if shape[0] <= 512:
+            for rounds in (6, 8):
+                _curry_close(ksw.silu_mul(g, u, curry_rounds=rounds),
+                             ref.silu_mul(g, u, curry_rounds=rounds), dtype)
+            want[route] += 2
+        del g, u, got
+    after = _routes(ksw)
+    assert {k: after[k] - before[k] for k in want} == want
+    assert want["vector"] and want["element"] and not want["scalar"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_mul_scalar_route(dev, dtype):
+    """gate or up off a 16-byte boundary takes the scalar route and agrees
+    with the plain version, native and curry; the backward beside it."""
+    rng = np.random.default_rng(41)
+    before = _routes(ksw)
+    n = 512 * 5632
+    g = _rand(rng, (n + 1,), dtype, dev, 3.0)[1:].view(512, 5632)
+    u = _rand(rng, (512, 5632), dtype, dev)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    for gate, up in ((g, u), (u, g)):
+        got = ksw.silu_mul(gate, up)
+        _close(got, ref.silu_mul(gate, up), dtype)
+        assert torch.equal(got, ksw.silu_mul(gate, up))
+    _curry_close(ksw.silu_mul(g, u, curry_rounds=6), ref.silu_mul(g, u, 6), dtype)
+    dy = _rand(rng, (512, 5632), dtype, dev)
+    for a, b_ in zip(ksw.silu_mul_bwd(g, u, dy), ref.silu_mul_bwd(g, u, dy)):
+        _close(a, b_, dtype)
+    after = _routes(ksw)
+    assert after["scalar"] - before["scalar"] == 5
+    assert after["vector"] == before["vector"] and after["element"] == before["element"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", BWD_NORM_WIDTHS)
+def test_rmsnorm_bwd_vector_route(dev, dtype, d):
+    """Every row count at one width: the vector route, dx and dw held, twice
+    bitwise equal."""
+    rng = np.random.default_rng(42)
+    w = _rand(rng, (d,), dtype, dev)
+    before = dict(krn.bwd_launches_by_route)
+    for rows in BWD_NORM_ROWS:
+        x = _rand(rng, (rows, d), dtype, dev)
+        dy = _rand(rng, (rows, d), dtype, dev)
+        got = krn.rmsnorm_bwd(x, w, dy, 1e-5)
+        _bwd_close(got, ref.rmsnorm_bwd(x, w, dy, 1e-5), dtype)
+        again = krn.rmsnorm_bwd(x, w, dy, 1e-5)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        del x, dy, got, again
+    after = krn.bwd_launches_by_route
+    assert after["vector"] - before["vector"] == 2 * len(BWD_NORM_ROWS)
+    assert after["scalar"] == before["scalar"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_scalar_route(dev, dtype):
+    """Odd widths and an x off a 16-byte boundary take the scalar route
+    (several rows a block at the narrow width) and agree with the plain
+    version, twice bitwise equal; through autograd too."""
+    rng = np.random.default_rng(43)
+    before = dict(krn.bwd_launches_by_route)
+    for rows, d in ((8, 2049), (600, 2050), (3, 6), (8192, 2049)):
+        x, w = _rand(rng, (rows, d), dtype, dev), _rand(rng, (d,), dtype, dev)
+        dy = _rand(rng, (rows, d), dtype, dev)
+        got = krn.rmsnorm_bwd(x, w, dy, 1e-5)
+        _bwd_close(got, ref.rmsnorm_bwd(x, w, dy, 1e-5), dtype)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, krn.rmsnorm_bwd(x, w, dy, 1e-5)))
+    x = _rand(rng, (600 * 2048 + 1,), dtype, dev)[1:].view(600, 2048)
+    w = _rand(rng, (2048,), dtype, dev)
+    dy = _rand(rng, (600, 2048), dtype, dev)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _bwd_close(krn.rmsnorm_bwd(x, w, dy, 1e-5), ref.rmsnorm_bwd(x, w, dy, 1e-5), dtype)
+    xs = x.detach().requires_grad_()
+    ws = w.detach().requires_grad_()
+    got = torch.autograd.grad(ops.rmsnorm(xs, ws, eps=1e-5), (xs, ws), dy)
+    _bwd_close(got, ref.rmsnorm_bwd(x, w, dy, 1e-5), dtype)
+    after = krn.bwd_launches_by_route
+    assert after["scalar"] - before["scalar"] == 10
+    assert after["vector"] == before["vector"]
