@@ -181,7 +181,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    with a prefix hit and a copy-on-write; and the mix of 5 through
    ``ServeEngine(seq_shards=4)``, the skip_null kernels launched 4 L times a
    decode step and a prefill chunk and the unsharded paged kernels not at
-   all, one NoC combine per layer and dispatch, beside phase 5's run.
+   all, one NoC combine per layer and dispatch, beside phase 5's run;
+19. rwkv serving (after 11, with rwkv6-3b): row 9s, the wkv6 forward from
+   a carried state at the serving prefill chunk (r, k, v [1, 512, 40, 64]
+   bf16, S0 [1, 40, 64, 64] f32, the state a previous chunk leaves), held
+   against the plain chunked scan from the same S0 in bf16 and in f32 with
+   ``scan_tol``, twice bitwise equal, S0 = 0 bitwise equal to the
+   zero-state kernel (also at row 9's training shape), a control (the
+   plain scan with S0 left out) caught, timed beside the zero-state kernel
+   on the same chunk; rmsnorm at rwkv6-3b's decode [8, 2560] beside row
+   3d; reduced rwkv6-3b at fp32 through the runner's entry points from a
+   mid-stream slot state (two chunks, a decode step) on the card against
+   the CPU, logits and every slot-state key; rwkv6-3b at full width and
+   depth in fp32 through the runner engine (prompts of 40-700 tokens in
+   chunks of at most 128, so chunks carry their slot's state) and
+   ``ServeEngine(paged=False)``, token-identical; and the mix of 5 in bf16
+   through both engines, the carried-state kernel L times a prefill chunk
+   on the runner path and never on the slab path (the zero-state kernel L
+   times a prefill there), rmsnorm (3L + 1) times a prefill chunk and a
+   decode step, all on the vector route, with tok/s, TTFT and peak memory.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -190,6 +208,7 @@ report, the results) goes to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -396,6 +415,9 @@ SEQ_SHARDS = 4
 # the full-width training run: granite-3-2b at TRAIN_4K's sequence length,
 # global batch 2, all 40 layers; only the step count is cut
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
+# rwkv serving (19): row 9s's prefill chunk, the engine's slots (the mix of
+# 5) and the new tokens a request of the fp32 identity check
+SERVE_CHUNK, SERVE_SLOTS, FP32_NEW_TOKENS = 512, 8, 16
 
 
 def log(msg: str) -> None:
@@ -2336,9 +2358,10 @@ def scan_tol(torch, want):
     return dict(rtol=SCAN_F32_RTOL, atol=SCAN_F32_ATOL * scale)
 
 
-def rwkv_inputs(torch, cfg, seed):
-    """Full-width wkv6 inputs: r, k, v, do [TRAIN_BATCH, TRAIN_SEQ, H, D]
-    bf16 ~ N(0, 1) (what the projections of a normed input give), u [H, D]
+def rwkv_inputs(torch, cfg, seed, b=TRAIN_BATCH, s=TRAIN_SEQ):
+    """Full-width wkv6 inputs: r, k, v, do [b, s, H, D] (default
+    TRAIN_BATCH, TRAIN_SEQ) bf16 ~ N(0, 1) (what the projections of a
+    normed input give), u [H, D]
     f32, and w drawn through the port's ``models/rwkv.py:_decay`` on random
     inputs with a random nonzero ``w_b`` (N(0, WKV_WB_STD^2)), so the decay
     is data-dependent: its logit -5 + tanh(x W_a) W_b spreads over the
@@ -2352,7 +2375,7 @@ def rwkv_inputs(torch, cfg, seed):
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    b, s, h, d, dm = TRAIN_BATCH, TRAIN_SEQ, cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    h, d, dm = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
     r, k, v, do = (randn(b, s, h, d) for _ in range(4))
     tm = {"w0": torch.full((dm,), -5.0, device=dev),
           "w_a": randn(dm, cfg.rwkv_lora, scale=dm ** -0.5),
@@ -2507,8 +2530,12 @@ def rwkv_kernel_phase(torch, timer, cfg):
         nbytes=7 * io + 2 * w.numel() * 4 + 2 * u.numel() * 4 + state_bytes,
         flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3, view=view,
         note=f"; dr, dk, dv, dl = dw w, du; rel {SCAN_REL}"))
-    rows[0].update(row="9", design=WKV_DESIGN)
-    rows[1].update(row="9b", design=WKV_DESIGN)
+    rows[0].update(row="9", design=WKV_DESIGN, hash=digest(
+        torch, kwkv.rwkv6_fwd(r, k, v, w, u, save_states=True)))
+    rows[1].update(row="9b", design=WKV_DESIGN, hash=digest(
+        torch, kwkv.rwkv6_bwd(r, k, v, w, u, do, states)))
+    log(f"wkv6 hashes (sha256 of the outputs' bits on these inputs): row 9 "
+        f"{rows[0]['hash']}, row 9b {rows[1]['hash']}")
     del r, k, v, w, u, do, states, clamped
     torch.cuda.empty_cache()
     return rows
@@ -2640,6 +2667,254 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
                           grad_norms=gnorms, peak_mem_bytes=peak,
                           state_mem_bytes=state_mem, n_params=n_params,
                           launches_expected=expect)
+
+
+# ---------------------------------------------------------------------------
+# rwkv serving (19): the wkv6 forward from a carried state, the reduced
+# model's serving entry points, and rwkv6-3b through both engine paths
+# ---------------------------------------------------------------------------
+
+def digest(torch, outs) -> str:
+    """sha256 (first 16 hex digits) of the bytes of a tensor or a tuple of
+    tensors, in order: two trees' bits compared by their hashes."""
+    h = hashlib.sha256()
+    for t in outs if isinstance(outs, tuple) else (outs,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def carried_state(torch, cfg, seed, s=SERVE_CHUNK):
+    """Row 9s's inputs: a serving prefill chunk [1, s, H, D] (rwkv_inputs'
+    draws) and the wkv state S0 [1, H, D, D] f32 that a previous chunk of
+    the same kind leaves (the plain chunked scan from zero over it): the
+    state a slot carries into its next chunk."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv_chunk as kwkv
+
+    prev = rwkv_inputs(torch, cfg, seed + 1, b=1, s=s)
+    s0 = ref.rwkv6_scan_chunked(*prev[:5], chunk=kwkv.TC_CHUNK)[1].contiguous()
+    del prev
+    return rwkv_inputs(torch, cfg, seed, b=1, s=s)[:5] + (s0,)
+
+
+def rwkv_serve_kernel_phase(torch, timer, cfg):
+    """Row 9s, the wkv6 forward from a carried state at rwkv6-3b's serving
+    prefill chunk (r, k, v [1, 512, 40, 64] bf16, S0 [1, 40, 64, 64] f32),
+    held against the plain chunked scan from the same S0 in bf16 and in
+    f32 with ``scan_tol``, twice bitwise equal, with S0 = 0 giving the bits
+    of the zero-state kernel (here and at row 9's training shape) and a
+    control (the plain scan with S0 left out) that the hold must catch;
+    then rmsnorm at rwkv6-3b's decode [8, 2560] beside row 3d."""
+    from repro_torch.kernels import ref, rmsnorm
+    from repro_torch.kernels import rwkv_chunk as kwkv
+
+    r, k, v, w, u, s0 = carried_state(torch, cfg, seed=21)
+    b, s, h, d = r.shape
+    t = kwkv.chunk_of(r.dtype)
+    nc = kwkv.n_chunks(s, t)
+    src = "src/repro_torch/kernels/csrc/rwkv6.cu"
+    rep = "src/repro/kernels/rwkv_chunk.py:87"
+    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0, chunk=t)
+    o_tol, s_tol = scan_tol(torch, want_o), scan_tol(torch, want_sf)
+    dropped = ref.rwkv6_scan_chunked(r, k, v, w, u, chunk=t)
+    caught = [not torch.allclose(g.float(), x.float(), **tol) or rel_err(torch, g, x) > SCAN_REL
+              for g, x, tol in zip(dropped, (want_o, want_sf), (o_tol, s_tol))]
+    log(f"wkv6 s0 control: the plain scan with S0 left out reads o max|err| "
+        f"{float((dropped[0].float() - want_o.float()).abs().max()):.3g} (rel "
+        f"{rel_err(torch, dropped[0], want_o):.2g}), S_final max|err| "
+        f"{float((dropped[1] - want_sf).abs().max()):.3g} (rel "
+        f"{rel_err(torch, dropped[1], want_sf):.2g}); caught: {caught}")
+    if not caught[0]:
+        fail("wkv6 s0 control: the hold passes an output that drops the carried state")
+    del dropped, want_o, want_sf
+    repeat_equal(torch, "wkv6 s0", lambda: kwkv.rwkv6_fwd(r, k, v, w, u, s0=s0)[:2])
+    zero = kwkv.rwkv6_fwd(r, k, v, w, u, s0=torch.zeros_like(s0))[:2]
+    none = kwkv.rwkv6_fwd(r, k, v, w, u)[:2]
+    if not all(torch.equal(x, y) for x, y in zip(zero, none)):
+        fail("wkv6 s0: S0 = 0 does not give the zero-state kernel's bits")
+    # f32 (the fp32 parity runs' route, chunks of 32)
+    rf, kf, vf = r.float(), k.float(), v.float()
+    got32 = kwkv.rwkv6_fwd(rf, kf, vf, w, u, s0=s0)[:2]
+    want32 = ref.rwkv6_scan_chunked(rf, kf, vf, w, u, s0=s0, chunk=kwkv.CHUNK)
+    torch.cuda.synchronize()
+    err32 = [hold(torch, "wkv6 s0 f32", g, x, scan_tol(torch, x), SCAN_REL)
+             for g, x in zip(got32, want32)]
+    zero32 = kwkv.rwkv6_fwd(rf, kf, vf, w, u, s0=torch.zeros_like(s0))[:2]
+    none32 = kwkv.rwkv6_fwd(rf, kf, vf, w, u)[:2]
+    if not all(torch.equal(x, y) for x, y in zip(zero32, none32)):
+        fail("wkv6 s0 f32: S0 = 0 does not give the zero-state kernel's bits")
+    del rf, kf, vf, got32, want32, zero32, none32, zero, none
+    # at row 9's training shape: S0 = 0 against no S0
+    tr, tk, tv, tw, tu, _ = rwkv_inputs(torch, cfg, seed=4)
+    z = torch.zeros((tr.shape[0], h, d, d), device="cuda")
+    if not all(torch.equal(x, y) for x, y in zip(
+            kwkv.rwkv6_fwd(tr, tk, tv, tw, tu, s0=z)[:2],
+            kwkv.rwkv6_fwd(tr, tk, tv, tw, tu)[:2])):
+        fail("wkv6 s0: S0 = 0 at row 9's shape does not give the zero-state bits")
+    del tr, tk, tv, tw, tu, z
+    log(f"wkv6 s0: f32 route max|err| o {err32[0]:.3g}, S_final {err32[1]:.3g}; "
+        f"bf16 twice bitwise equal; S0 = 0 gives the zero-state kernel's bits in "
+        f"bf16 and f32 at [1, {s}] and in bf16 at row 9's [{TRAIN_BATCH}, {TRAIN_SEQ}]")
+    io = r.numel() * 2
+    row = measure(
+        torch, timer, "rwkv6_s0", src, rep,
+        lambda: kwkv.rwkv6_fwd(r, k, v, w, u, s0=s0)[:2],
+        lambda: ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0, chunk=t), (o_tol, s_tol),
+        nbytes=4 * io + w.numel() * 4 + u.numel() * 4 + 2 * s0.numel() * 4,
+        flops=b * h * nc * (4 * t * d * d + 5 * t * t * d), rel=SCAN_REL, iters=20,
+        plain_iters=5, note=f"; o, S_final; rel {SCAN_REL}; the serving chunk from a "
+                            f"carried state")
+    # the zero-state kernel on the same chunk: what S0's load costs
+    row["zero_state_ms"] = timer(lambda: kwkv.rwkv6_fwd(r, k, v, w, u)[:2])
+    row.update(row="9s", design=WKV_DESIGN + "; the scan starts at the carried S0",
+               hash=digest(torch, kwkv.rwkv6_fwd(r, k, v, w, u, s0=s0)[:2]),
+               f32_max_abs_err=max(err32),
+               replaces_note="rwkv6_chunked's counterpart with an initial state: the "
+                             "TPU path runs its plain chunked scan there "
+                             "(src/repro/kernels/ops.py:247-253)")
+    log(f"kernel rwkv6_s0: the zero-state kernel on the same chunk "
+        f"{row['zero_state_ms']:.4f} ms (S0's load and the carried scan: "
+        f"{row['ms'] - row['zero_state_ms']:+.4f} ms)")
+    del r, k, v, w, u, s0
+    x = (torch.randn((SERVE_SLOTS, cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(22), device="cuda")).to(torch.bfloat16)
+    wn = torch.ones((cfg.d_model,), dtype=torch.bfloat16, device="cuda")
+    norm = measure(
+        torch, timer, "rmsnorm_decode_rwkv", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm.py:51",
+        lambda: rmsnorm.rmsnorm(x, wn, cfg.norm_eps),
+        lambda: ref.rmsnorm(x, wn, cfg.norm_eps), NORM_TOL,
+        nbytes=2 * x.numel() * 2 + wn.numel() * 2, flops=0, rel=NORM_REL,
+        library=lambda: torch.nn.functional.rms_norm(x, (cfg.d_model,), wn, cfg.norm_eps),
+        note=f"; rwkv6-3b's decode [{SERVE_SLOTS}, {cfg.d_model}]")
+    norm.update(row="3d", design=RMSNORM_DESIGN)
+    del x, wn
+    torch.cuda.empty_cache()
+    return [row, norm]
+
+
+def rwkv_serve_parity_phase(torch, cfg_small):
+    """Reduced rwkv6-3b at fp32 (a random nonzero w_b) through the runner's
+    entry points from a mid-stream slot state: two right-padded 8-token
+    chunks (7 and 3 valid rows) at slot 1, then a batched decode step; the
+    logits and every slot-state key on the card (the kernel from a carried
+    state, f32 route) against the CPU (plain versions), within 1e-4."""
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    rwkv_perturb(params)
+    gen = torch.Generator().manual_seed(23)
+    start = {k: torch.randn(v.shape, generator=gen) * (0.3 if k == "wkv" else 1.0)
+             for k, v in M.init_serve_state(cfg_small, 3, 0, 8, dtype=torch.float32,
+                                            device="cpu").items()}
+    chunks = [torch.randint(0, cfg_small.vocab_size, (1, 8), generator=gen,
+                            dtype=torch.int32) for _ in range(2)]
+    nxt = torch.tensor([5, 9, 11], dtype=torch.int32)
+    lens = torch.tensor([4, 10, 2], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)
+        state = {k: v.to(dev, copy=True) for k, v in start.items()}
+        logits = []
+        for n, toks in zip((7, 3), chunks):
+            lg, state = M.serve_prefill_chunk(cfg_small, p, state, tokens=toks.to(dev),
+                                              length=n, q_offset=0, block_table=None,
+                                              slot=1)
+            logits.append(lg.cpu())
+        lg, state = M.serve_decode_step(cfg_small, p, state, nxt.to(dev), lens.to(dev))
+        out[dev] = [torch.cat(logits + [lg.cpu()])] + [state[k].cpu() for k in M.RWKV_STATE]
+    names = ("logits",) + M.RWKV_STATE
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, out["cuda"], out["cpu"])}
+    log(f"rwkv serve parity: reduced rwkv6-3b fp32, 2 chunks + 1 decode step from a "
+        f"carried slot state, card vs cpu max|err| {errs} (tol 1e-4)")
+    for n, a, b in zip(names, out["cuda"], out["cpu"]):
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            fail(f"rwkv serve parity: {n} on the card disagrees with the CPU: "
+                 f"max |err| {errs[n]}")
+    return errs
+
+
+def rwkv_fp32_identity(torch, cfg):
+    """rwkv6-3b at full width and depth in fp32 (parameters from seed 0):
+    prompts whose chunks cross prefill-chunk boundaries (budget 136, buckets
+    32 and 128: 40 -> one chunk, 200 -> 128 + 72, 333 -> 128 + 128 + 77, 700
+    -> six chunks) through the runner engine, every chunk after the first
+    carrying its slot's state into the kernel, against the dense-slab
+    engine's monolithic prefill from zero: greedy outputs must be
+    token-identical."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(24)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (40, 200, 333, 700)]
+    kw = dict(slots=4, max_seq=1024, prefill_buckets=(32, 128),
+              max_tokens_per_tick=136)
+    outs, stats = {}, {}
+    for name, paged in (("runner", None), ("slab", False)):
+        eng = ServeEngine(cfg, params, paged=paged, **kw)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=FP32_NEW_TOKENS)
+        outs[name] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        stats[name] = dict(eng.stats)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    diff = [rid for rid in outs["runner"] if outs["runner"][rid] != outs["slab"].get(rid)]
+    log(f"rwkv serve fp32: {len(prompts) - len(diff)} of {len(prompts)} requests "
+        f"token-identical, runner ({stats['runner']['prefill_dispatches']} prefill "
+        f"chunks) against the slab engine ({stats['slab']['prefill_dispatches']} "
+        f"monolithic prefills)")
+    if diff or len(outs["runner"]) != len(prompts):
+        fail(f"rwkv serve fp32: the runner and slab engines' greedy outputs differ "
+             f"(rids {diff})")
+    if stats["runner"]["prefill_dispatches"] <= len(prompts):
+        fail("rwkv serve fp32: no prompt crossed a prefill-chunk boundary")
+    return dict(prefill_chunks=stats["runner"]["prefill_dispatches"], requests=len(prompts))
+
+
+def rwkv_serve_phase(torch, cfg, counters):
+    """rwkv6-3b at full width and depth in bf16 (random weights, seed 0):
+    the mix of 5 through the runner engine (slot state, chunked prefill:
+    the wkv6 kernel from a carried state L times a prefill chunk, the
+    zero-state kernel never) and through ``ServeEngine(paged=False)`` (the
+    zero-state kernel L times a prefill, the carried-state one never),
+    rmsnorm (3L + 1) times a prefill chunk and a decode step on both,
+    counted; tok/s, TTFT and peak memory of each; token identity between
+    the two reported, not gated (bf16 near-ties may flip)."""
+    from repro_torch.serve import ServeEngine
+
+    params = serve_params(torch, cfg)
+    warm = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=160,
+                       prefill_buckets=(32, 128))
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    runs = {}
+    for name, kw in (("runner", {}), ("slab", dict(paged=False))):
+        out, stats, launches, summary = serve_mix(torch, cfg, params, counters, **kw)
+        P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+        norms = (3 * L + 1) * (P + Dd)
+        check_launches(f"rwkv serve {name}", launches, {
+            "rwkv6": L * P, "rwkv6_tc": L * P,
+            "rwkv6_s0": L * P if name == "runner" else 0, "rwkv6_bwd": 0,
+            "rmsnorm": norms, "rmsnorm_vector": norms})
+        log(f"rwkv serve {name}: {summary['requests']} requests, {summary['tokens']} "
+            f"tokens in {summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s), ttft "
+            f"p50 {summary['ttft_p50_ms']:.1f} ms, prefill dispatches {P}, decode steps "
+            f"{Dd}, state {summary['pool_bytes'] / 2**20:.1f} MiB, peak memory "
+            f"{summary['peak_mem_bytes'] / 2**30:.2f} GiB")
+        runs[name] = (out, launches, summary)
+    same = sum(runs["runner"][0][rid] == runs["slab"][0].get(rid) for rid in runs["runner"][0])
+    log(f"rwkv serve: {same} of {len(runs['runner'][0])} requests token-identical "
+        f"between the runner and slab engines in bf16 (not gated)")
+    del params
+    torch.cuda.empty_cache()
+    return ({n: r[1] for n, r in runs.items()},
+            dict(runner=runs["runner"][2], slab=runs["slab"][2], same_bf16=same))
 
 
 def mamba_inputs(torch, cfg, seed):
@@ -3312,6 +3587,25 @@ def main() -> None:
         row["launches"] = rwkv_launches[row["name"]]
     rows += rwkv_rows
 
+    rwkv_serve_rows = rwkv_serve_kernel_phase(torch, timer, rcfg)
+    rwkv_parity = rwkv_serve_parity_phase(torch, reduced(rcfg))
+    rwkv_fp32 = rwkv_fp32_identity(torch, rcfg)
+    rwkv_serve_counters = {
+        "rwkv6": Counter(rwkv_chunk), "rwkv6_tc": Counter(rwkv_chunk, "tc_launches"),
+        "rwkv6_s0": Counter(rwkv_chunk, "s0_launches"),
+        "rwkv6_bwd": Counter(rwkv_chunk, "bwd_launches"),
+        "rmsnorm": Counter(rmsnorm),
+        "rmsnorm_vector": Counter(rmsnorm, "launches_by_route", "vector")}
+    rwkv_serve_launches, rwkv_serve = rwkv_serve_phase(torch, rcfg, rwkv_serve_counters)
+    runner_launches = rwkv_serve_launches["runner"]
+    rwkv_serve_rows[0]["launches"] = runner_launches["rwkv6_s0"]
+    rwkv_serve_rows[1]["launches"] = runner_launches["rmsnorm"]
+    rwkv_rows[0]["serve_dense_launches"] = rwkv_serve_launches["slab"]["rwkv6"]
+    for row in rows:
+        if row["name"] in ("rmsnorm", "rmsnorm_decode"):
+            row["rwkv_serve_launches"] = runner_launches["rmsnorm"]
+    rows += rwkv_serve_rows
+
     zcfg = one_card_config("zamba2-7b")
     hybrid_rows = mamba_kernel_phase(torch, timer, zcfg)
     hybrid_rows += flash112_phase(torch, timer, zcfg)
@@ -3348,7 +3642,9 @@ def main() -> None:
              seq_launches=seq_launches, seq_readings=seq_readings,
              dense_launches=dense_launches, train=train,
              train_launches=train_launches, rwkv_train=rwkv_train,
-             rwkv_launches=rwkv_launches, zamba_train=zamba_train,
+             rwkv_launches=rwkv_launches, rwkv_serve=rwkv_serve,
+             rwkv_serve_launches=rwkv_serve_launches, rwkv_serve_parity=rwkv_parity,
+             rwkv_fp32_identity=rwkv_fp32, zamba_train=zamba_train,
              zamba_launches=zamba_launches, gemm_routes=gemm_routes, **kernels),
         indent=1))
     print(json.dumps(kernels), flush=True)

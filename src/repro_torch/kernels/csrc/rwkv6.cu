@@ -4,7 +4,10 @@
 // Replaces the TPU kernel src/repro/kernels/rwkv_chunk.py (rwkv6_chunked,
 // pallas_call at :87), which has no backward of its own: the JAX package
 // differentiates its oracle.  Per (batch, head) the state S [D, D] (key dim
-// first) is carried in f32 across chunks of T rows:
+// first) is carried in f32 across chunks of T rows, from zero (training) or
+// from a state S0 the caller carries in (recurrent serving: a slot's state
+// between prefill chunks; the TPU path runs its plain chunked scan there,
+// src/repro/kernels/ops.py:247-253, so the forward with S0 replaces none):
 //
 //   o_t   = (r_t e^{cin_t}) S + sum_{u<t} att[t,u] v_u + (r_t u k_t) v_t
 //   att[t,u] = sum_c r_t[c] e^{cin_t[c] - cum_u[c]} k_u[c]        (u < t)
@@ -162,8 +165,9 @@ template <int D> constexpr size_t fwd_smem() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 rwkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ w, const float* __restrict__ u, T* __restrict__ o,
-                 float* __restrict__ s_final, float* __restrict__ states, Geo g) {
+                 const float* __restrict__ w, const float* __restrict__ u,
+                 const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ s_final,
+                 float* __restrict__ states, Geo g) {
   constexpr int DP = D + 1, RG = kThreads / D, RPT = kChunk / RG, CPT = D / RG;
   static_assert(kThreads % D == 0 && kChunk % RG == 0 && D % RG == 0, "thread tiling");
   extern __shared__ float sm[];
@@ -181,7 +185,9 @@ rwkv6_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __re
 
   const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
   const int tid = threadIdx.x, e = tid % D, grp = tid / D;
-  for (int i = tid; i < D * D; i += kThreads) S_s[i] = 0.f;
+  // the carried state S0 [B, H, D, D] (key dim first), or zeros
+  const float* init = s0 != nullptr ? s0 + static_cast<int64_t>(bh) * D * D : nullptr;
+  for (int i = tid; i < D * D; i += kThreads) S_s[i] = init != nullptr ? init[i] : 0.f;
   if (tid < D) u_s[tid] = u[h * D + tid];
   __syncthreads();
 
@@ -822,10 +828,15 @@ rwkv6_bwd_inc_kernel(const bf16* __restrict__ r, const bf16* __restrict__ dout,
 // backward the gradient of each chunk's exit state (the last chunk's 0).
 // The increments' loads do not wait on the carried value: each thread
 // issues kScanAhead of them before it walks them, and the pass is bound by
-// bytes.
+// bytes.  The forward's carried value starts at the state S0 the caller
+// carries in (init, [B, H, D, D], 16-byte aligned; null: zeros), so every
+// chunk-entry state and S_final include S0 decayed through the chunks
+// before them, and the output pass reads chunk 0's entry state, S0, from
+// its slot like any other.
 template <bool kReverse>
 __device__ __forceinline__ void scan_elems(float* __restrict__ buf, const float* __restrict__ dec,
-                                           float* __restrict__ last, int64_t n, int D, int NC) {
+                                           const float* __restrict__ init, float* __restrict__ last,
+                                           int64_t n, int D, int NC) {
   // thread i: elements 4 i .. 4 i + 3, one row of one state (D % 4 == 0)
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kScanThreads + threadIdx.x;
   if (4 * i >= n) return;
@@ -833,7 +844,8 @@ __device__ __forceinline__ void scan_elems(float* __restrict__ buf, const float*
   float4* p = reinterpret_cast<float4*>(buf + bh * NC * dd + e);
   const float* q = dec + bh * NC * D + e / D;
   const int64_t step = dd / 4;
-  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x = init != nullptr ? reinterpret_cast<const float4*>(init)[i]
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j0 = 0; j0 < NC; j0 += kScanAhead) {
     float4 inc[kScanAhead];
     float dk[kScanAhead];
@@ -860,14 +872,15 @@ __device__ __forceinline__ void scan_elems(float* __restrict__ buf, const float*
 
 __global__ void __launch_bounds__(kScanThreads)
 rwkv6_fwd_scan_kernel(float* __restrict__ states, const float* __restrict__ dec,
-                      float* __restrict__ s_final, int64_t n, int D, int NC) {
-  scan_elems<false>(states, dec, s_final, n, D, NC);
+                      const float* __restrict__ s0, float* __restrict__ s_final, int64_t n,
+                      int D, int NC) {
+  scan_elems<false>(states, dec, s0, s_final, n, D, NC);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
 rwkv6_bwd_scan_kernel(float* __restrict__ dstates, const float* __restrict__ dec, int64_t n,
                       int D, int NC) {
-  scan_elems<true>(dstates, dec, nullptr, n, D, NC);
+  scan_elems<true>(dstates, dec, nullptr, nullptr, n, D, NC);
 }
 
 // ---------------------------------------------------------------------------
@@ -1465,19 +1478,20 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <int D>
 cudaError_t fwd_f32(const void* r, const void* k, const void* v, const float* w, const float* u,
-                    void* o, float* s_final, float* states, const Geo& g, cudaStream_t s) {
+                    const float* s0, void* o, float* s_final, float* states, const Geo& g,
+                    cudaStream_t s) {
   auto kern = rwkv6_fwd_kernel<float, D>;
   if (cudaError_t e = allow_smem(kern, fwd_smem<D>())) return e;
   kern<<<g.B * g.H, kThreads, fwd_smem<D>(), s>>>(
       static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v), w,
-      u, static_cast<float*>(o), s_final, states, g);
+      u, s0, static_cast<float*>(o), s_final, states, g);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t fwd_bf16(const void* r, const void* k, const void* v, const float* w, const float* u,
-                     void* o, float* s_final, float* states, float* dec, const Geo& g,
-                     cudaStream_t s) {
+                     const float* s0, void* o, float* s_final, float* states, float* dec,
+                     const Geo& g, cudaStream_t s) {
   const int blocks = g.B * g.NC * g.H;
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
@@ -1487,7 +1501,7 @@ cudaError_t fwd_bf16(const void* r, const void* k, const void* v, const float* w
   if (cudaError_t e = cudaGetLastError()) return e;
   const int64_t n = static_cast<int64_t>(g.B) * g.H * D * D;
   rwkv6_fwd_scan_kernel<<<(n / 4 + kScanThreads - 1) / kScanThreads, kScanThreads, 0, s>>>(
-      states, dec, s_final, n, D, g.NC);
+      states, dec, s0, s_final, n, D, g.NC);
   if (cudaError_t e = cudaGetLastError()) return e;
   auto out = rwkv6_fwd_out_kernel<D>;
   if (cudaError_t e = allow_smem(out, OutTc<D>::kSmem)) return e;
@@ -1546,22 +1560,24 @@ cudaError_t bwd_bf16(const void* r, const void* k, const void* v, const float* w
 
 #define REPRO_RWKV_DIMS(DIM_CASE) DIM_CASE(16) DIM_CASE(32) DIM_CASE(64)
 
-// r, k, v [B, S, H, D] (dtype), w [B, S, H, D] f32, u [H, D] f32 -> o like
-// r, s_final [B, H, D, D] f32 and the state at each chunk's entry [B, H, NC,
-// D, D] f32 (NC = ceil(S / 32) in f32, ceil(S / 64) in bf16).  f32: states
-// may be null (not wanted) and dec is ignored.  bf16: states is required
-// (scratch when not wanted) and so is dec [B, H, NC, D] f32 (scratch).
+// r, k, v [B, S, H, D] (dtype), w [B, S, H, D] f32, u [H, D] f32 and the
+// initial state s0 [B, H, D, D] f32 (key dim first; null: zeros, bf16: 16-byte
+// aligned) -> o like r, s_final [B, H, D, D] f32 and the state at each
+// chunk's entry [B, H, NC, D, D] f32 (NC = ceil(S / 32) in f32, ceil(S / 64)
+// in bf16).  f32: states may be null (not wanted) and dec is ignored.  bf16:
+// states is required (scratch when not wanted) and so is dec [B, H, NC, D]
+// f32 (scratch).
 extern "C" int repro_rwkv6_fwd(int dtype, const void* r, const void* k, const void* v,
-                               const float* w, const float* u, void* o, float* s_final,
-                               float* states, float* dec, int B, int S, int H, int D,
-                               void* stream) {
+                               const float* w, const float* u, const float* s0, void* o,
+                               float* s_final, float* states, float* dec, int B, int S, int H,
+                               int D, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBF16) {
     if (states == nullptr || dec == nullptr) return cudaErrorInvalidValue;
     const Geo g{B, S, H, (S + kTcChunk - 1) / kTcChunk};
 #define REPRO_FWD_CASE(DIM) \
-  case DIM: return fwd_bf16<DIM>(r, k, v, w, u, o, s_final, states, dec, g, s);
+  case DIM: return fwd_bf16<DIM>(r, k, v, w, u, s0, o, s_final, states, dec, g, s);
     switch (D) {
       REPRO_RWKV_DIMS(REPRO_FWD_CASE)
       default: return cudaErrorInvalidValue;
@@ -1571,7 +1587,7 @@ extern "C" int repro_rwkv6_fwd(int dtype, const void* r, const void* k, const vo
   if (dtype != repro::kF32) return cudaErrorInvalidValue;
   const Geo g{B, S, H, (S + kChunk - 1) / kChunk};
 #define REPRO_FWD_CASE(DIM) \
-  case DIM: return fwd_f32<DIM>(r, k, v, w, u, o, s_final, states, g, s);
+  case DIM: return fwd_f32<DIM>(r, k, v, w, u, s0, o, s_final, states, g, s);
   switch (D) {
     REPRO_RWKV_DIMS(REPRO_FWD_CASE)
     default: return cudaErrorInvalidValue;

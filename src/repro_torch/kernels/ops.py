@@ -19,6 +19,7 @@ from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import prefill_attention as _pf
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rwkv_chunk as _rwkv
 from repro_torch.kernels import swiglu as _sw
 
 
@@ -186,21 +187,28 @@ RWKV_REF_CHUNK = 16     # the JAX package's ``ops.rwkv6_scan(ref_chunk=16)``
 
 def rwkv6_scan(r, k, v, w, u, *, s0=None):
     """wkv recurrence: r, k, v [B, S, H, D]; w [B, S, H, D] f32; u [H, D]
-    f32 -> (o [B, S, H, D], S_final [B, H, D, D] f32).  On the CPU the plain
-    versions, chosen as the JAX package chooses off the TPU: the chunked
-    form (chunks of 16) once S >= 32, else the exact recurrence.  On the
-    card the kernel covers what the JAX package's Pallas path covers, a
-    zero initial state (training); a carried state is the recurrent serving
-    path."""
+    f32; s0 [B, H, D, D] f32 or None (zeros) -> (o [B, S, H, D], S_final
+    [B, H, D, D] f32).  On the CPU the plain versions, chosen as the JAX
+    package chooses off the TPU: the chunked form (chunks of 16) once S >=
+    32, else the exact recurrence.  On the card a zero initial state
+    (training) goes through the differentiable kernel pair; a carried state
+    ``s0`` (recurrent serving, where the JAX package runs its plain chunked
+    scan) launches the forward kernel from S0, forward only: no path of the
+    JAX package differentiates through a carried state, and an input that
+    requires grad raises."""
     if _on_cpu(r):
         if r.shape[1] >= 2 * RWKV_REF_CHUNK:
             return ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
                                           chunk=RWKV_REF_CHUNK)
         return ref.rwkv6_scan(r, k, v, w, u, s0=s0)
     if s0 is not None:
-        raise NotImplementedError(
-            "rwkv6_scan with an initial state s0 is the recurrent serving "
-            "path; it comes with the recurrent-serving slice of repro_torch")
+        if any(t.requires_grad for t in (r, k, v, w, u, s0)):
+            raise NotImplementedError(
+                "rwkv6_scan with an initial state s0 is the recurrent serving "
+                "forward, forward only: its kernel has no backward (nothing "
+                "trains through a carried state)")
+        return _rwkv.rwkv6_fwd(r.contiguous(), k.contiguous(), v.contiguous(),
+                               w.contiguous(), u.contiguous(), s0=s0)[:2]
     return _ag.RWKV6.apply(r.contiguous(), k.contiguous(), v.contiguous(),
                            w.contiguous(), u.contiguous())
 
@@ -223,6 +231,13 @@ def mamba2_scan(x, dt, A, B, C, *, h0=None):
             "path; it comes with the recurrent-serving slice of repro_torch")
     return _ag.Mamba2.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
                             B.contiguous(), C.contiguous())
+
+
+def rwkv6_step(rt, kt, vt, wt, u, S):
+    """One-token wkv update (decode): rt, kt, vt, wt [B, H, D]; S [B, H, D,
+    D] f32 -> (o [B, H, D] in rt's dtype, S_new f32).  Plain PyTorch on
+    every device: the JAX package has no kernel for it either."""
+    return ref.rwkv6_step(rt, kt, vt, wt, u, S)
 
 
 def silu(x):

@@ -582,6 +582,16 @@ def rwkv6_scan_chunked(r, k, v, w, u, *, s0: Optional[torch.Tensor] = None,
     return o.to(r.dtype), S
 
 
+def rwkv6_step(rt, kt, vt, wt, u, S):
+    """One-token wkv update (decode): rt, kt, vt, wt [B, H, D]; u [H, D]; S
+    [B, H, D, D] f32 -> (o [B, H, D] in rt's dtype, S_new [B, H, D, D] f32),
+    one step of :func:`rwkv6_scan`."""
+    rf, kf, vf, wf = (t.float() for t in (rt, kt, vt, wt))
+    kv = torch.einsum("bhd,bhe->bhde", kf, vf)
+    o = torch.einsum("bhd,bhde->bhe", rf, S + u.float()[None, :, :, None] * kv)
+    return o.to(rt.dtype), S * wf[..., None] + kv
+
+
 def _entry_states(ks, vs, cum):
     """The state at each chunk's entry from a zero state: [B, H, NC, D, D]."""
     b, nc, _, h, d = ks.shape

@@ -28,6 +28,15 @@ partials runs in a fixed order, so two runs give the same bits.
 bf16 call launches 3 CUDA kernels forward and 4 backward, an f32 call 1
 and 2.
 
+The forward also starts from a state ``s0`` the caller carries in
+(recurrent serving: a slot's wkv state between prefill chunks), where the
+JAX package runs its plain chunked scan on the TPU too
+(``src/repro/kernels/ops.py:247-253``): the bf16 route's in-place scan
+starts its carried value at S0, the f32 kernel loads S0 into the block's
+state, and everything downstream (each chunk-entry state, S_final, the
+output) follows.  ``s0_launches`` counts the forwards that took one; a
+forward without ``s0`` is the zero-state kernel, bit for bit.
+
 The plain versions are ``kernels/ref.py:rwkv6_scan_chunked`` and
 ``rwkv6_bwd``; ``kernels/ops.py`` sends CPU tensors there.  These wrappers
 take CUDA tensors only; on the bf16 route r, k, v, w (and do) must start on
@@ -43,6 +52,7 @@ launches = 0         # forward kernel launches through this module
 bwd_launches = 0     # backward launches (one per rwkv6_bwd call)
 tc_launches = 0      # forwards on the bf16 tensor-core route
 tc_bwd_launches = 0  # backwards on the bf16 tensor-core route
+s0_launches = 0      # forwards from a carried initial state s0
 
 HEAD_DIMS = (16, 32, 64)   # the head dims the kernels are built for
 CHUNK = 32                 # rows per chunk of the f32 kernels (kChunk of csrc/rwkv6.cu)
@@ -86,16 +96,22 @@ def _ptr(t):
 
 
 def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, *, save_states: bool = False):
-    """r, k, v [B, S, H, D]; w [B, S, H, D] f32; u [H, D] f32 -> (o like r,
-    S_final [B, H, D, D] f32, chunk-entry states [B, H, NC, D, D] f32 or
-    None), NC = ceil(S / chunk_of(r.dtype))."""
-    global launches, tc_launches
+              w: torch.Tensor, u: torch.Tensor, *, s0=None,
+              save_states: bool = False):
+    """r, k, v [B, S, H, D]; w [B, S, H, D] f32; u [H, D] f32; s0 [B, H, D,
+    D] f32 (key dim first) or None (zeros) -> (o like r, S_final
+    [B, H, D, D] f32, chunk-entry states [B, H, NC, D, D] f32 or None), NC =
+    ceil(S / chunk_of(r.dtype))."""
+    global launches, tc_launches, s0_launches
     b, s, h, d = _check("rwkv6", r, k, v, w, u)
-    _build.require_cuda("rwkv6", r=r, k=k, v=v, w=w, u=u)
+    if s0 is not None and (s0.shape != (b, h, d, d) or s0.dtype != torch.float32):
+        raise ValueError(f"rwkv6: s0 must be [{b}, {h}, {d}, {d}] float32, got "
+                         f"{tuple(s0.shape)} {s0.dtype}")
+    extra = {} if s0 is None else {"s0": s0}
+    _build.require_cuda("rwkv6", r=r, k=k, v=v, w=w, u=u, **extra)
     tc = r.dtype == torch.bfloat16
     if tc:
-        _aligned("rwkv6", r=r, k=k, v=v, w=w)
+        _aligned("rwkv6", r=r, k=k, v=v, w=w, **extra)
     nc = n_chunks(s, chunk_of(r.dtype))
     f32 = dict(dtype=torch.float32, device=r.device)
     o = torch.empty_like(r)
@@ -106,10 +122,11 @@ def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     code = lib.repro_rwkv6_fwd(_build.dtype_code(r), r.data_ptr(), k.data_ptr(),
                                v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                               o.data_ptr(), sf.data_ptr(), _ptr(states),
+                               _ptr(s0), o.data_ptr(), sf.data_ptr(), _ptr(states),
                                _ptr(dec), b, s, h, d, _build.stream_ptr(r))
     launches += 1
     tc_launches += tc
+    s0_launches += s0 is not None
     _build.check("rwkv6", code)
     return o, sf, states if save_states else None
 

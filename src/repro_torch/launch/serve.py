@@ -1,18 +1,23 @@
-"""Serving entry point of the port: stand up the engine for an arch (paged
-KV by default, ``--dense`` for the dense-slab baseline) and run a synthetic
-request stream.
+"""Serving entry point of the port: stand up the engine for an arch (the
+runner path by default, ``--dense`` for the dense-slab baseline) and run a
+synthetic request stream.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \\
       --reduced --device cpu --requests 8 [--dense | --kv-dtype int8] \
       [--seq-shards 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --reduced --device cpu [--dense]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
-Parameters are random, made from ``--seed``.  This slice serves the dense
-family with greedy sampling, from a page pool in the engine dtype or in int8
+Parameters are random, made from ``--seed``.  The port serves with greedy
+sampling the dense family, from a page pool in the engine dtype or in int8
 (``--kv-dtype int8``), whole or sequence-sharded (``--seq-shards S``: S
 shards of the one pool on the one device, their attention partials merged
-by the NoC tree combine, whose hop and energy totals are printed).
+by the NoC tree combine, whose hop and energy totals are printed), and
+RWKV6 (``--arch rwkv6-3b``) from its recurrent slot state, which has no
+page pool: the engine refuses ``--kv-dtype int8`` and ``--seq-shards`` for
+it.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.models import model
 from repro_torch.serve import ServeEngine
 
 # The full-width serving mix that chip_smoke.py and trace_serve.py drive:
-# stablelm-1.6b's engine at 8 slots, and 16 requests of 64 new tokens.
+# stablelm-1.6b's engine at 8 slots, and 16 requests of 64 new tokens (the
+# same engine and requests serve rwkv6-3b, which ignores block_size).
 MIX_ENGINE = dict(slots=8, max_seq=1024, block_size=16,
                   prefill_buckets=(32, 128, 512, 1024))
 MIX_NEW_TOKENS = 64
@@ -98,7 +104,8 @@ def main(argv=None):
                       block_size=args.block_size,
                       max_tokens_per_tick=args.token_budget,
                       paged=False if args.dense else None,
-                      prefix_caching=not (args.dense or args.no_prefix_cache),
+                      prefix_caching=(False if args.dense or args.no_prefix_cache
+                                      else None),
                       kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
                       **ekw)
     rng = np.random.default_rng(args.seed)
@@ -117,7 +124,7 @@ def main(argv=None):
               f"{r.out_tokens[:8]}{'...' if len(r.out_tokens) > 8 else ''}")
     ttfts = sorted(r.ttft for r in done if r.ttft is not None)
     p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else 0.0
-    mode = "dense" if args.dense else "paged"
+    mode = "dense" if args.dense else "paged" if eng.paged else "slot state"
     if eng.kv_dtype != "fp16":
         mode += f"/{eng.kv_dtype}"
     if eng.seq_shards > 1:

@@ -1,13 +1,14 @@
 """Where the device time goes when the port serves at full width.
 
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
-      [--dense | --kv-dtype int8 | --seq-shards 4]
+      [--arch rwkv6-3b] [--dense | --kv-dtype int8 | --seq-shards 4]
 
-Serves stablelm-1.6b (random bf16 weights from ``--seed``) on the card
-through the engine, paged (default; ``--kv-dtype int8`` for the int8 page
-pool, ``--seq-shards S`` for a sequence-sharded pool) or from the dense
-slabs (``--dense``, ``ServeEngine(paged=False)``),
-on the mix that ``chip_smoke.py`` drives
+Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
+``--seed``) at full width and depth on the card through the engine: the
+runner path (default: the page pool, ``--kv-dtype int8`` for the int8 page
+pool, ``--seq-shards S`` for a sequence-sharded pool; rwkv6-3b's slot
+state) or the dense-slab baseline (``--dense``,
+``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
 (``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
 untraced for the wall clock, once under ``torch.profiler``.  Prints the
 device kernel time by kernel and by group (the port's CUDA kernels,
@@ -16,13 +17,17 @@ over the untraced wall time (one stream, so kernels do not overlap).  The
 summary also lands in ``chiprun_out/trace_serve.json``.  Needs a CUDA
 device.  With ``--dense`` the default summary file is
 ``trace_serve_dense.json`` beside it, with ``--kv-dtype int8``
-``trace_serve_int8.json``, with ``--seq-shards S`` ``trace_serve_seqS.json``.
-The port's kernels are split into decode attention (the flash-decoding
-kernel, over pages or slabs), the paged prefill and the rest; a sharded
-run's traced pass also puts each ``core.noc.tree_softmax_combine`` call
-under a profiler range, so the combine's elementwise kernels (max, exp,
-products, sums, the division) are counted apart from the other PyTorch
-ops.
+``trace_serve_int8.json``, with ``--seq-shards S`` ``trace_serve_seqS.json``
+(another arch: its name before ``.json``).  The port's kernels are split
+into decode attention (the flash-decoding kernel, over pages or slabs),
+the paged prefill, the wkv6 forward (from a carried state on rwkv6-3b's
+runner path), rmsnorm and the rest.  The traced pass also puts each call of
+a few plain functions under a profiler range, and the non-GEMM kernels
+they launch are counted apart from the other PyTorch ops: the NoC tree
+combine (``core.noc.tree_softmax_combine``, a sharded run: max, exp,
+products, sums, the division) and RWKV6's plain one-token step
+(``ops.rwkv6_step``), decay (``models/rwkv.py:_decay``, its LoRA GEMMs
+left with the GEMMs) and token shift (``_shift``).
 """
 from __future__ import annotations
 
@@ -34,11 +39,12 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import noc
+from repro_torch.kernels import ops
 from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                       shared_prefix_mix)
-from repro_torch.models import model
+from repro_torch.models import model, rwkv
 from repro_torch.serve import ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu); the paged
@@ -48,8 +54,14 @@ PREFILL_KERNELS = ("paged_attention_kernel", "paged_prefill_tc_kernel")
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
                 "flash_decode_kernel", "flash_fwd_kernel", *PREFILL_KERNELS)
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+OTHER_OPS = "other PyTorch ops"
 TOP = 15                       # kernels listed by device time
-COMBINE = "noc_tree_softmax_combine"   # the profiler range of one combine
+# plain functions whose calls the traced pass puts under a profiler range:
+# (module, attribute, group of the non-GEMM kernels they launch)
+RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
+          (ops, "rwkv6_step", "rwkv plain ops: rwkv6_step"),
+          (rwkv, "_decay", "rwkv plain ops: decay"),
+          (rwkv, "_shift", "rwkv plain ops: token shift"))
 
 
 def _group(name: str) -> str:
@@ -58,15 +70,20 @@ def _group(name: str) -> str:
         return "port CUDA kernels: decode attention"
     if any(k in name for k in PREFILL_KERNELS):
         return "port CUDA kernels: paged prefill"
+    if "rwkv6_fwd_" in name:
+        return "port CUDA kernels: wkv6"
+    if "rmsnorm_kernel" in name:
+        return "port CUDA kernels: rmsnorm"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels: other"
     if any(m in low for m in GEMM_MARKS):
         return "GEMM (torch.matmul)"
-    return "other PyTorch ops"
+    return OTHER_OPS
 
 
 def _serve(cfg, params, prompts, dense: bool, kv_dtype: str,
            seq_shards: int) -> float:
+    """Wall seconds of one drained run of ``prompts``."""
     eng = ServeEngine(cfg, params, **MIX_ENGINE,
                       paged=False if dense else None, kv_dtype=kv_dtype,
                       seq_shards=seq_shards)
@@ -91,8 +108,16 @@ def _kernels(ev) -> list:
     return out
 
 
+def _ranged(fn, name):
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b", choices=list(ARCHS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dense", action="store_true",
                     help="serve from the dense KV slabs (paged=False)")
@@ -104,16 +129,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
     out = Path(args.out)
     if args.out == ap.get_default("out"):
+        stem = "trace_serve"
+        if args.arch != ap.get_default("arch"):
+            stem += f"_{args.arch}"
         if args.dense:
-            out = out.with_name("trace_serve_dense.json")
+            stem += "_dense"
         elif args.kv_dtype != "fp16":
-            out = out.with_name(f"trace_serve_{args.kv_dtype}.json")
+            stem += f"_{args.kv_dtype}"
         elif args.seq_shards > 1:
-            out = out.with_name(f"trace_serve_seq{args.seq_shards}.json")
+            stem += f"_seq{args.seq_shards}"
+        out = out.with_name(f"{stem}.json")
     if not torch.cuda.is_available():
         raise SystemExit("trace_serve needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("stablelm-1.6b")
+    cfg = get_config(args.arch)
     params = model.init_params(cfg, seed=args.seed, device="cuda")
     prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
     run = (args.dense, args.kv_dtype, args.seq_shards)
@@ -121,49 +150,55 @@ def main(argv=None):
     wall = _serve(cfg, params, prompts, *run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    combine = noc.tree_softmax_combine
-
-    def ranged_combine(parts):
-        with torch.profiler.record_function(COMBINE):
-            return combine(parts)
-    # the layers call the combine through the module, so the range covers
-    # every call of the traced pass; the untimed and untraced passes above
-    # ran without it
-    noc.tree_softmax_combine = ranged_combine
+    # the callers reach these functions through their modules, so a range
+    # covers every call of the traced pass; the untimed and untraced passes
+    # above ran without them
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in RANGED]
+    ranges = {}
+    for mod, attr, group in RANGED:
+        ranges[f"trace_serve::{attr}"] = group
+        setattr(mod, attr, _ranged(getattr(mod, attr), f"trace_serve::{attr}"))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             traced_wall = _serve(cfg, params, prompts, *run)
     finally:
-        noc.tree_softmax_combine = combine
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
-    combine_us, combine_n = 0.0, 0
+    moved = defaultdict(lambda: [0.0, 0])           # range group -> [us, calls]
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            if ev.name != COMBINE:                  # not the range's GPU span
+            if ev.name not in ranges:               # not a range's GPU span
                 per_kernel[ev.name][0] += ev.time_range.elapsed_us()
                 per_kernel[ev.name][1] += 1
-        elif ev.name == COMBINE:
-            kernels = _kernels(ev)
-            combine_us += sum(k.duration for k in kernels)
-            combine_n += len(kernels)
+        elif ev.name in ranges:
+            for k in _kernels(ev):
+                if _group(k.name) == OTHER_OPS:     # GEMMs stay GEMMs
+                    moved[ranges[ev.name]][0] += k.duration
+                    moved[ranges[ev.name]][1] += 1
     groups = defaultdict(float)
     group_n = defaultdict(int)
     for name, (us, n) in per_kernel.items():
         groups[_group(name)] += us
         group_n[_group(name)] += n
-    if combine_n:                 # elementwise kernels, out of "other ops"
-        groups["other PyTorch ops"] -= combine_us
-        group_n["other PyTorch ops"] -= combine_n
-        groups["NoC tree combine ops"] = combine_us
-        group_n["NoC tree combine ops"] = combine_n
+    for g, (us, n) in moved.items():                # out of "other ops"
+        groups[OTHER_OPS] -= us
+        group_n[OTHER_OPS] -= n
+        groups[g] = us
+        group_n[g] = n
     device_s = sum(groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
-    mode = "dense slabs" if args.dense else f"paged, {args.kv_dtype} pool"
+    if args.dense:
+        mode = "dense slabs"
+    elif cfg.rwkv:
+        mode = "slot state"
+    else:
+        mode = f"paged, {args.kv_dtype} pool"
     if args.seq_shards > 1:
         mode += f", {args.seq_shards} sequence shards"
     n_launch = sum(n for _, n in per_kernel.values())
-    print(f"[trace] {card}; {mode}; {n_launch} kernel launches; "
+    print(f"[trace] {card}; {args.arch}, {mode}; {n_launch} kernel launches; "
           f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
           f"traced; device kernel time {device_s:.3f} s; busy share "
           f"{device_s / wall:.3f} of the untraced wall")
@@ -175,7 +210,7 @@ def main(argv=None):
         print(f"[trace] {us / 1e3:9.2f} ms {n:7d} x  {name[:110]}")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
-        card=card, dense=args.dense, kv_dtype=args.kv_dtype,
+        card=card, arch=args.arch, dense=args.dense, kv_dtype=args.kv_dtype,
         seq_shards=args.seq_shards, wall_s=wall,
         traced_wall_s=traced_wall, launches=n_launch,
         group_launches=dict(group_n),

@@ -72,7 +72,12 @@ def state_from_jax(state, device="cpu"):
     ``repro_torch.train.step.TrainState``: parameters as in
     :func:`params_from_jax`, and the AdamW moments ``m`` / ``v``, which have
     the parameters' structure, carried the same way; the step count stays a
-    CPU int32 scalar."""
+    CPU int32 scalar.  A JAX serving or decode state (a dict with numpy
+    leaves: RWKV6's ``tm_shift`` / ``wkv`` / ``cm_shift`` stacked ``[L, B,
+    ...]``, the dense family's ``attn`` pages or slabs) -> the port's, each
+    leaf in its dtype and layout (the port keeps the layer stack)."""
+    if isinstance(state, dict):
+        return _map(state, lambda a: _tensor(a, device))
     opt = state.opt
     return TrainState(
         params=params_from_jax(state.params, device),

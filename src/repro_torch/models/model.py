@@ -1,6 +1,8 @@
 """Decoder LM: full-sequence forward (training) for the dense, RWKV6,
 Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for the dense
-family, over a paged KV cache or a dense KV slab.
+family (over a paged KV cache or a dense KV slab) and for RWKV6 (over a
+fixed-size recurrent state per sequence: the serve state's slot rows, or
+the dense-slab baseline's batch rows).
 
 Port of the JAX package's ``models/model.py``: the stacked-layer
 ``lax.scan`` becomes a Python loop over a list of per-layer parameter
@@ -9,17 +11,21 @@ and slabs are updated in place.  The hybrid family runs groups of
 ``attn_every`` Mamba2 layers, each group followed by one attention + FFN
 block whose weights all groups share, then an ungrouped tail; its
 parameters are ``groups`` (a list of groups, each a list of layer dicts),
-``tail`` (a list of layer dicts) and ``shared``.  What this port does not
-run yet raises ``NotImplementedError`` naming the slice of the port that
-brings it.
+``tail`` (a list of layer dicts) and ``shared``.  RWKV6's recurrent state
+is ``tm_shift`` [L, B, 1, d] and ``cm_shift`` [L, B, 1, d] in the model
+dtype and ``wkv`` [L, B, H, D, D] f32, the batch (or engine slot) on axis
+1 as in JAX; prefill and decode advance it in place.  What this port does
+not run yet raises ``NotImplementedError`` naming the slice of the port
+that brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
     forward(cfg, params, tokens, ...)              -> (logits [B, S, V], aux [2])
-    init_decode_state(cfg, batch, max_seq, dtype, device)   (dense KV slab)
+    init_decode_state(cfg, batch, max_seq, dtype, device)   (dense KV slab / RWKV6 state)
     prefill(cfg, params, state, tokens=..., lengths=...) -> (logits [B, 1, V], state)
     decode_step(cfg, params, state, tokens, lengths) -> (logits [B, V], state)
     init_serve_state(cfg, slots, num_blocks, block_size, dtype, device, kv_dtype)
+                                                   (pages / RWKV6 slot state)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
     serve_prefill_chunk / serve_decode_step        (the runner's entry points)
@@ -35,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, rwkv, ssm
 
-SERVED_FAMILIES = ("dense",)
+RWKV_STATE = ("tm_shift", "wkv", "cm_shift")   # RWKV6's recurrent state keys
 
 
 def _later(cfg: ModelConfig, serving: bool) -> str:
@@ -44,7 +50,7 @@ def _later(cfg: ModelConfig, serving: bool) -> str:
     if cfg.family == "moe":
         return "the MoE slice"
     if serving and cfg.family in ("ssm", "hybrid"):
-        return "the recurrent-serving slice"
+        return "the Mamba2 / hybrid recurrent-serving slice"
     return "a later slice"
 
 
@@ -59,12 +65,13 @@ def require_trainable(cfg: ModelConfig) -> None:
 
 
 def require_servable(cfg: ModelConfig) -> None:
-    """Serving, paged or over a dense slab: dense only."""
-    if cfg.family not in SERVED_FAMILIES:
+    """Serving: the dense family (paged or over a dense slab) and RWKV6
+    (``family == "ssm"`` with ``rwkv``, over its recurrent state)."""
+    if not (cfg.family == "dense" or (cfg.family == "ssm" and cfg.rwkv)):
         raise NotImplementedError(
             f"serving family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"it comes with {_later(cfg, True)} of repro_torch; this port "
-            f"serves family='dense'")
+            f"serves family='dense' and RWKV6 (family='ssm' with rwkv)")
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +145,19 @@ def hybrid_layout(cfg: ModelConfig):
     return g, k, cfg.n_layers - g * k
 
 
+def _rwkv_state(cfg: ModelConfig, batch: int, dtype, device):
+    return dict(zip(RWKV_STATE, rwkv.rwkv_state_init(cfg, batch, cfg.n_layers,
+                                                     dtype, device)))
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda"):
-    """Dense KV slabs ``[L, B, Smax, KvH, hd]`` (the dense-slab serving
-    baseline's state; dense family only)."""
+    """The dense-slab serving baseline's state: KV slabs ``[L, B, Smax, KvH,
+    hd]`` (dense), or RWKV6's zero recurrent state of B sequences
+    (``max_seq`` unused)."""
     require_servable(cfg)
+    if cfg.rwkv:
+        return _rwkv_state(cfg, batch, dtype, device)
     return {"attn": layers.attn_cache_init(cfg, batch, max_seq, dtype,
                                            n_slots=cfg.n_layers, device=device)}
 
@@ -150,11 +165,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
                      block_size: int, dtype=torch.bfloat16, device="cuda",
                      kv_dtype: str = "fp16"):
-    """Paged KV pages ``[L, KvH, NB, BS, hd]`` shared by all slots (``slots``
-    sizes the slot state of families that carry one; dense has none).
-    ``kv_dtype="int8"`` stores int8 pages plus per-(layer, kv head, page)
-    ``k_scales`` / ``v_scales`` [L, KvH, NB] f32."""
+    """The runner path's serving state.  Dense: paged KV pages ``[L, KvH,
+    NB, BS, hd]`` shared by all slots; ``kv_dtype="int8"`` stores int8 pages
+    plus per-(layer, kv head, page) ``k_scales`` / ``v_scales`` [L, KvH, NB]
+    f32.  RWKV6: the recurrent slot state of ``slots`` sequences only
+    (``num_blocks``, ``block_size`` and ``kv_dtype`` unused)."""
     require_servable(cfg)
+    if cfg.rwkv:
+        return _rwkv_state(cfg, slots, dtype, device)
     return {"attn": layers.paged_kv_cache_init(cfg, num_blocks, block_size,
                                                dtype, n_slots=cfg.n_layers,
                                                device=device,
@@ -190,6 +208,35 @@ def _rwkv_block(cfg, lp, x):
                           cfg)
     return x + rwkv.channel_mix(lp["cm"], layers.rmsnorm(lp["ln2"], x,
                                                           cfg.norm_eps))
+
+
+def _rwkv_block_state(cfg, lp, x, views, length, carry: bool):
+    """Pre-norm residual RWKV6 block over a right-padded chunk with
+    ``length`` valid rows (a [B] tensor), advancing the recurrent state
+    ``views`` (this layer's tm shift, wkv and cm shift rows) in place: from
+    the state they hold (``carry``, a serving chunk) or from zero (the
+    slab prefill, which starts every sequence afresh, as in JAX)."""
+    tms, wkv, cms = views if carry else (None, None, None)
+    y, (tms1, wkv1) = rwkv.time_mix(
+        lp["tm"], layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+        shift_state=tms, wkv_state=wkv, length=length, return_state=True)
+    x = x + y
+    y2, cms1 = rwkv.channel_mix(lp["cm"], layers.rmsnorm(lp["ln2"], x,
+                                                          cfg.norm_eps),
+                                shift_state=cms, length=length,
+                                return_state=True)
+    for dst, src in zip(views, (tms1, wkv1, cms1)):
+        dst.copy_(src)
+    return x + y2
+
+
+def _put_rows(dst: torch.Tensor, src: torch.Tensor, rows) -> None:
+    """Write ``src`` into ``dst`` in place: every batch row (``rows`` None),
+    or only the batch rows ``rows`` (an int64 tensor on dst's device)."""
+    if rows is None:
+        dst.copy_(src)
+    else:
+        dst.index_copy_(0, rows, src.index_select(0, rows))
 
 
 def _mamba_block(cfg, lp, x):
@@ -269,14 +316,23 @@ def prefill(cfg: ModelConfig, params, state, *,
     tokens [B, S] (or ``embeds`` [B, S, d]); lengths [B] int32 valid rows
     (default S).  Every layer writes its K/V into slab rows ``[0, S)`` of
     ``state`` in place and attends with the per-sequence key bound.
-    Returns (logits at each sequence's last valid row [B, 1, V], state)."""
+    Returns (logits at each sequence's last valid row [B, 1, V], state).
+    RWKV6 runs each sequence from a zero state (the state passed in is
+    only written: its rows end holding the state after each sequence's
+    ``lengths`` valid rows), the wkv scan on the zero-state kernel."""
     require_servable(cfg)
     x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    if cfg.rwkv:
+        for li, lp in enumerate(params["layers"]):
+            x = _rwkv_block_state(cfg, lp, x,
+                                  tuple(state[k][li] for k in RWKV_STATE),
+                                  lengths, carry=False)
+        return _logits(cfg, params, _last_token(x, lengths)), state
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
     ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
     for li, lp in enumerate(params["layers"]):
         cache = {"k": ck_all[li], "v": cv_all[li]}
@@ -295,19 +351,35 @@ def _last_token(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
                 lengths: torch.Tensor, *, embeds: Optional[torch.Tensor] = None,
-                attn_window: Optional[int] = None):
-    """Batched one-token decode over the slabs.
+                attn_window: Optional[int] = None, rows=None):
+    """Batched one-token decode over the slabs (or RWKV6's state).
 
     tokens [B] (or ``embeds`` [B, d]); lengths [B] int32 = cache fill level.
     Each layer writes the new K/V row at position ``lengths`` into its slab
     in place (the stacked cache carried through the layer loop, so no slab
-    is copied) and attends over ``[0, lengths]``.  Returns (logits [B, V],
-    state)."""
+    is copied) and attends over ``[0, lengths]``.  RWKV6 steps every row's
+    recurrent state (``ops.rwkv6_step``) and writes it back in place: every
+    row, or with ``rows`` (an int64 tensor of batch rows) those rows only,
+    the others kept bit for bit (the runner's slot mask).  Returns (logits
+    [B, V], state)."""
     require_servable(cfg)
     if embeds is not None:
         x = embeds[:, None, :]
     else:
         x = layers.embed(params["embed"], tokens[:, None])
+    if cfg.rwkv:
+        for li, lp in enumerate(params["layers"]):
+            views = tuple(state[k][li] for k in RWKV_STATE)
+            y, (tms1, wkv1) = rwkv.time_mix_step(
+                lp["tm"], layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                views[:2])
+            x = x + y
+            y2, cms1 = rwkv.channel_mix_step(
+                lp["cm"], layers.rmsnorm(lp["ln2"], x, cfg.norm_eps), views[2])
+            x = x + y2
+            for dst, src in zip(views, (tms1, wkv1, cms1)):
+                _put_rows(dst, src, rows)
+        return _logits(cfg, params, x)[:, 0], state
     ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
     for li, lp in enumerate(params["layers"]):
         x = _block(cfg, lp, x, lambda h: layers.attention_decode_stacked(
@@ -388,17 +460,37 @@ def copy_kv_page(state, src: int, dst: int):
 # ---------------------------------------------------------------------------
 
 def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
-                        q_offset, block_table, local_tables=None):
-    """One chunk of a single-sequence prefill against the serve state
-    (``local_tables``: a sequence-sharded pool's)."""
-    return prefill_paged(cfg, params, state, tokens=tokens, length=length,
-                         q_offset=q_offset, block_table=block_table,
-                         local_tables=local_tables)
+                        q_offset, block_table, slot: int = 0,
+                        local_tables=None):
+    """One chunk of a single-sequence prefill against the serve state.
+
+    tokens [1, C] (right-padded); ``length`` valid rows.  Dense: K/V land in
+    the pages of ``block_table`` (``local_tables``: a sequence-sharded
+    pool's).  RWKV6: the chunk runs from engine slot ``slot``'s recurrent
+    state and advances its rows in place (padding rows are state-neutral,
+    so repeated chunks reproduce one unpadded prefill; ``q_offset`` and the
+    tables are unused); the wkv scan is the kernel with a carried state.
+    Returns (logits at the chunk's last valid row [1, V], state)."""
+    if not cfg.rwkv:
+        return prefill_paged(cfg, params, state, tokens=tokens, length=length,
+                             q_offset=q_offset, block_table=block_table,
+                             local_tables=local_tables)
+    x = layers.embed(params["embed"], tokens)
+    lens = torch.full((1,), length, dtype=torch.int32, device=x.device)
+    for li, lp in enumerate(params["layers"]):
+        x = _rwkv_block_state(
+            cfg, lp, x, tuple(state[k][li][slot:slot + 1] for k in RWKV_STATE),
+            lens, carry=True)
+    logits = _logits(cfg, params, x[:, length - 1:length])
+    return logits[:, 0], state
 
 
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
-                      block_tables, local_tables=None):
-    """Batched one-token decode against the serve state (``local_tables``:
-    a sequence-sharded pool's)."""
-    return decode_step_paged(cfg, params, state, tokens, lengths, block_tables,
-                             local_tables)
+                      block_tables=None, local_tables=None, rows=None):
+    """Batched one-token decode against the serve state: the paged pool
+    (``local_tables``: a sequence-sharded pool's), or RWKV6's slot state,
+    of which only the batch rows ``rows`` are written when given."""
+    if not cfg.rwkv:
+        return decode_step_paged(cfg, params, state, tokens, lengths,
+                                 block_tables, local_tables)
+    return decode_step(cfg, params, state, tokens, lengths, rows=rows)

@@ -2,12 +2,18 @@
 drives.
 
 Port of the JAX package's ``models/runner.py`` (``cache_spec`` :89 and
-``ModelRunner`` :118) for the paged-only dense family: the serving cache is
-one paged component (attention KV for all L layers, addressed through one
-block table per sequence) and no fixed-size slot state.  Families with slot
-state (hybrid, ssm) come with a later slice.  The runner also holds the
-dense-slab baseline's state (``[L, slots, max_seq]`` slabs) and its
-monolithic prefill into one slot.
+``ModelRunner`` :118) for the families this port serves.  The dense
+family's serving cache is one paged component (attention KV for all L
+layers, addressed through one block table per sequence) and no slot state;
+RWKV6's is fixed-size slot state only (``tm_shift``, ``wkv`` and
+``cm_shift``, the engine slot on axis 1) and no paged component.  The
+engine reads the spec (``has_paged``: run a ``BlockAllocator``;
+``has_slot_state``: reset a slot at admission and gate its state in the
+batched decode) and never the family.  The runner also holds the
+dense-slab baseline's state (``[L, slots, max_seq]`` slabs, or RWKV6's
+state of ``slots`` rows) and its monolithic prefill into one slot.  The
+Mamba2 ``ssm`` variant and the hybrid family, and the slot-state swap
+(``extract_slot_state`` / ``insert_slot_state``), come with later slices.
 
 A sequence-sharded pool (``ServeEngine(seq_shards=S)``) stays one state on
 the card: shard ``s`` is the slice ``[s*nbl, (s+1)*nbl)`` of every paged
@@ -50,20 +56,45 @@ class PagedComponentSpec:
 
 
 @dataclass(frozen=True)
+class SlotStateSpec:
+    """One fixed-size per-slot state entry (a top-level serve-state key),
+    indexed by the engine slot on axis ``batch_axis``."""
+    key: str
+    batch_axis: int
+
+
+@dataclass(frozen=True)
 class CacheSpec:
+    """What a family's serving cache is made of."""
     paged: Tuple[PagedComponentSpec, ...]
+    slot_state: Tuple[SlotStateSpec, ...] = ()
+
+    @property
+    def has_paged(self) -> bool:
+        return bool(self.paged)
+
+    @property
+    def has_slot_state(self) -> bool:
+        return bool(self.slot_state)
 
 
 def cache_spec(cfg: ModelConfig) -> CacheSpec:
     M.require_servable(cfg)
+    if cfg.rwkv:
+        return CacheSpec(paged=(), slot_state=tuple(
+            SlotStateSpec(key, 1) for key in M.RWKV_STATE))
     return CacheSpec(paged=(PagedComponentSpec("attn", cfg.n_layers,
                                                cfg.n_kv_heads, cfg.hd),))
 
 
+def _slot_index(spec: SlotStateSpec, slot: int):
+    return (slice(None),) * spec.batch_axis + (slice(slot, slot + 1),)
+
+
 class ModelRunner:
-    """The engine's compute façade over ``models.model`` (paged dense).
-    ``kv_dtype`` is the pages' storage: "fp16" (the engine dtype) or "int8"
-    (plus per-(layer, kv head, page) scales)."""
+    """The engine's compute façade over ``models.model``.  ``kv_dtype`` is
+    the pages' storage: "fp16" (the engine dtype) or "int8" (plus
+    per-(layer, kv head, page) scales).  Slot state is updated in place."""
 
     def __init__(self, cfg: ModelConfig, slots: int, max_seq: int,
                  kv_dtype: str = "fp16"):
@@ -91,35 +122,64 @@ class ModelRunner:
         """Monolithic prefill of one right-padded prompt (tokens [1, S])
         straight into slot ``slot``'s rows of the slabs -> logits [1, V].
         Rows past S keep what an earlier occupant left: decode never
-        reads a row before writing it."""
-        view = {"attn": {key: t[:, slot:slot + 1]
-                         for key, t in state["attn"].items()}}
+        reads a row before writing it.  RWKV6's prefill starts from a zero
+        state and writes the slot's state rows whole, as the JAX engine
+        scatters its batch-of-one state into the slot."""
+        if self.spec.has_slot_state:
+            view = {s.key: state[s.key][_slot_index(s, slot)]
+                    for s in self.spec.slot_state}
+        else:
+            view = {"attn": {key: t[:, slot:slot + 1]
+                             for key, t in state["attn"].items()}}
         lens = torch.full((1,), length, dtype=torch.int32, device=tokens.device)
         logits, _ = M.prefill(self.cfg, params, view, tokens=tokens,
                               lengths=lens)
         return logits[:, 0]
 
     def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
-               block_tables: torch.Tensor,
+               block_tables: Optional[torch.Tensor], mask,
                local_tables: Optional[torch.Tensor] = None):
-        """Batched one-token decode over every slot.  Retired and
-        mid-prefill rows scatter into the null page or into a position the
-        next prefill chunk overwrites; their logits are ignored.
-        ``local_tables`` [S, slots, MB]: a sequence-sharded pool's
-        shard-local tables (``block_tables`` stays global, for the
+        """Batched one-token decode over every slot.  ``mask`` [slots] bool
+        (a CPU tensor or array) gates the slot state: a slot that is not
+        runnable (mid-prefill or empty) keeps its recurrent state bit for
+        bit, written back only at the runnable rows (an index copy in
+        place, not a select over the whole state).  Paged components need
+        no gating: retired and mid-prefill rows scatter into the null page
+        or into a position the next prefill chunk overwrites; their logits
+        are ignored.  ``local_tables`` [S, slots, MB]: a sequence-sharded
+        pool's shard-local tables (``block_tables`` stays global, for the
         scatter)."""
+        rows = None
+        if self.spec.has_slot_state:
+            mask = torch.as_tensor(mask, dtype=torch.bool).cpu()
+            if not bool(mask.all()):
+                rows = torch.nonzero(mask).flatten().to(tokens.device)
         return M.serve_decode_step(self.cfg, params, state, tokens, lengths,
-                                   block_tables, local_tables)
+                                   block_tables, local_tables, rows=rows)
 
     def prefill_chunk(self, params, state, tokens: torch.Tensor, length: int,
-                      q_offset: int, block_table: torch.Tensor,
-                      local_tables: Optional[torch.Tensor] = None):
-        """One right-padded chunk of a single-sequence prefill
-        (``local_tables`` [S, MB]: a sequence-sharded pool's)."""
+                      q_offset: int, block_table: Optional[torch.Tensor],
+                      slot: int, local_tables: Optional[torch.Tensor] = None):
+        """One right-padded chunk of a single-sequence prefill: attention
+        K/V land in the pages of ``block_table`` (``local_tables`` [S, MB]:
+        a sequence-sharded pool's), recurrent state reads and advances
+        ``slot``'s rows (padding rows are state-neutral)."""
         return M.serve_prefill_chunk(self.cfg, params, state, tokens=tokens,
                                      length=length, q_offset=q_offset,
-                                     block_table=block_table,
+                                     block_table=block_table, slot=slot,
                                      local_tables=local_tables)
+
+    def reset_slot(self, state, slot: int):
+        """Zero one slot's recurrent state in place (a fresh admission must
+        not inherit the previous occupant's)."""
+        for s in self.spec.slot_state:
+            state[s.key][_slot_index(s, slot)] = 0
+        return state
+
+    def slot_state_bytes(self, state) -> int:
+        """Bytes of ONE slot's recurrent state."""
+        return sum(state[s.key].numel() // state[s.key].shape[s.batch_axis]
+                   * state[s.key].element_size() for s in self.spec.slot_state)
 
     def copy_page(self, state, src: int, dst: int):
         """Physical-page copy across every paged component (copy-on-write

@@ -1,6 +1,6 @@
 """RWKV-6 "Finch" block: time mix (wkv6) + channel mix.
 
-Port of the JAX package's ``models/rwkv.py`` (the full-sequence path):
+Port of the JAX package's ``models/rwkv.py``:
 token-shift lerp and the *data-dependent* per-channel decay
 w_t = exp(-exp(w0 + tanh(x W_a) W_b)) from a low-rank (LoRA) projection,
 with the JAX version's simplifications (static token-shift mix ratios,
@@ -8,8 +8,11 @@ per-head RMSNorm instead of GroupNorm) and dtypes: ``w0`` and ``u`` are
 f32, ``mix``, ``w_a``, ``w_b`` and the linears in the model dtype; the
 decay runs in f32, the channel mix squares in f32 and casts back.  The wkv
 recurrence goes through ``kernels.ops.rwkv6_scan`` (the CUDA kernel on the
-card).  The one-token steps and the slot state come with the
-recurrent-serving slice.
+card, from zero or from a carried state); the one-token steps
+(:func:`time_mix_step`, :func:`channel_mix_step`) through
+``ops.rwkv6_step``, plain PyTorch as in JAX.  The recurrent state of a
+batch (:func:`rwkv_state_init`) is the time mix's and the channel mix's
+last input rows in the model dtype and the wkv state in f32.
 """
 from __future__ import annotations
 
@@ -124,3 +127,47 @@ def channel_mix(cm, x: torch.Tensor, *, shift_state=None, length=None,
     if return_state:
         return out, new_shift
     return out
+
+
+def time_mix_step(tm, x: torch.Tensor, cfg: ModelConfig, state):
+    """One-token step: x [B, 1, d]; state = (last x [B, 1, d], S [B, H, D, D]
+    f32) -> (out [B, 1, d], (x, S_new))."""
+    prev, S = state
+    b, _, d = x.shape
+    h, hd = cfg.rwkv_heads, cfg.rwkv_head_dim
+    mix = tm["mix"].to(x.dtype)
+    xr, xk, xv, xw, xg = (x * mix[i] + prev * (1 - mix[i]) for i in range(5))
+    r = layers.linear(tm["wr"], xr).reshape(b, h, hd)
+    k = layers.linear(tm["wk"], xk).reshape(b, h, hd)
+    v = layers.linear(tm["wv"], xv).reshape(b, h, hd)
+    g = layers.linear(tm["wg"], xg)
+    w = _decay(tm, xw).reshape(b, h, hd)
+    o, S_new = ops.rwkv6_step(r, k, v, w, tm["u"], S)
+    o = o.reshape(b, 1, d)
+    o = layers.rmsnorm(tm["ln"], o, cfg.norm_eps) * ops.silu(g)
+    return layers.linear(tm["wo"], o), (x, S_new)
+
+
+def channel_mix_step(cm, x: torch.Tensor, state):
+    """One-token step: x [B, 1, d]; state = last x [B, 1, d] -> (out, x)."""
+    prev = state
+    mix = cm["mix"].to(x.dtype)
+    xr = x * mix[0] + prev * (1 - mix[0])
+    xk = x * mix[1] + prev * (1 - mix[1])
+    r = torch.sigmoid(layers.linear(cm["wr"], xr).float())
+    k = layers.linear(cm["wk"], xk)
+    kk = torch.square(torch.relu(k.float())).to(x.dtype)
+    out = (r * layers.linear(cm["wv"], kk).float()).to(x.dtype)
+    return out, x
+
+
+def rwkv_state_init(cfg: ModelConfig, batch: int, n_layers: int,
+                    dtype=torch.bfloat16, device="cuda"):
+    """Zero recurrent state of ``batch`` sequences, stacked over layers:
+    (tm shift [L, B, 1, d] dtype, wkv [L, B, H, D, D] f32, cm shift [L, B,
+    1, d] dtype)."""
+    d, h, hd = cfg.d_model, cfg.rwkv_heads, cfg.rwkv_head_dim
+    return (torch.zeros((n_layers, batch, 1, d), dtype=dtype, device=device),
+            torch.zeros((n_layers, batch, h, hd, hd), dtype=torch.float32,
+                        device=device),
+            torch.zeros((n_layers, batch, 1, d), dtype=dtype, device=device))

@@ -1,6 +1,9 @@
-"""Paged-KV continuous-batching serving engine (single device).
+"""Paged-KV / slot-state continuous-batching serving engine (single device).
 
-Port of the JAX package's ``serve/engine.py`` core for the dense family:
+Port of the JAX package's ``serve/engine.py`` core for the dense family and
+RWKV6.  What a family's cache holds comes from the runner's ``CacheSpec``
+(``models/runner.py``); the engine never reads the family past its
+constructor:
 
 * **Paged KV cache** — physical pages ``[L, KvH, NB, BS, hd]`` shared by all
   slots through per-slot block tables; page 0 is the null sink.
@@ -18,11 +21,19 @@ Port of the JAX package's ``serve/engine.py`` core for the dense family:
 * **Greedy sampling** — one argmax over the whole batch per tick (a single
   device-to-host copy), first index on ties, as ``jnp.argmax``.
 * **Dense-slab baseline** (``paged=False``) — the JAX engine's A/B
-  baseline: ``[L, slots, max_seq]`` K/V slabs, one monolithic bucketed
-  prefill per tick written straight into the slot's rows (the JAX engine
-  prefills a batch-of-one state and scatters it into the slot; outputs and
-  stats are the same), and one batched decode over all slots through
-  ``model.decode_step``.  No pages, no prefix caching.
+  baseline: ``[L, slots, max_seq]`` K/V slabs (RWKV6: its recurrent state
+  of ``slots`` rows), one monolithic bucketed prefill per tick written
+  straight into the slot's rows (the JAX engine prefills a batch-of-one
+  state and scatters it into the slot; outputs and stats are the same),
+  and one batched decode over all slots through ``model.decode_step``.  No
+  pages, no prefix caching.
+* **Slot-state continuous batching** (a family with slot state and no
+  paged component, RWKV6, on the runner path) — the recurrent state
+  ``[L, slots, ...]`` is zeroed for a slot at admission, every prefill
+  chunk reads and advances its slot's rows, and the batched decode writes
+  the state back at the runnable slots only (a slot mid-prefill or empty
+  keeps its state bit for bit).  No ``BlockAllocator``, no page pressure,
+  no prefix caching (cached pages cannot rebuild a recurrent state).
 
 * **int8 page pool** (``kv_dtype="int8"``) — pages stored as int8 with one
   f32 scale per (layer, kv head, page); a decode row or a prefill chunk is
@@ -350,15 +361,17 @@ class ServeEngine:
         capacity ``slots * ceil(max_seq / block_size) + 1``.
         ``max_tokens_per_tick``: padded-token budget per tick shared by
         decode (reserved first) and prefill; default ``slots`` + the largest
-        bucket.  ``paged``: None or True serve from the page pool, False from
-        the dense ``[slots, max_seq]`` slabs (``block_size`` and
-        ``num_blocks`` then unused).  ``prefix_caching``: share full prompt
-        pages across requests (default: on when paged; it needs the pool).
-        ``kv_dtype``: page storage, "fp16" (the engine dtype) or "int8"
-        (int8 pages with per-page scales; paged only).  ``seq_shards``:
-        sequence-shard the page pool S ways (a power of two; paged only),
-        each shard's partials merged by the NoC tree combine.  Any other
-        JAX-engine option raises: it belongs to a later slice."""
+        bucket.  ``paged``: None serves through the runner (the page pool for a
+        family with a paged component, slot state for one without), True
+        demands a paged component, False serves from the dense slabs
+        (``block_size`` and ``num_blocks`` then unused).
+        ``prefix_caching``: share full prompt pages across requests
+        (default: on when paged; it needs the pool).  ``kv_dtype``: page
+        storage, "fp16" (the engine dtype) or "int8" (int8 pages with
+        per-page scales; paged only).  ``seq_shards``: sequence-shard the
+        page pool S ways (a power of two; paged only), each shard's
+        partials merged by the NoC tree combine.  Any other JAX-engine
+        option raises: it belongs to a later slice."""
         if later:
             raise NotImplementedError(
                 f"engine options {sorted(later)} are not ported yet: "
@@ -372,10 +385,22 @@ class ServeEngine:
         self.device, self.dtype = table.device, table.dtype
         self.runner = ModelRunner(cfg, slots, max_seq, kv_dtype=kv_dtype)
         self.kv_dtype = kv_dtype
-        self.paged = paged is not False      # False: the dense-slab baseline
+        spec = self.runner.spec
+        if paged and not spec.has_paged:
+            raise ValueError(
+                f"family {cfg.family!r} has no paged cache components "
+                f"(CacheSpec: slot state only) — serve it with paged=None "
+                f"(slot-state continuous batching) or paged=False (the "
+                f"dense-slab A/B baseline)")
+        # paged=None/True: the runner path (paged components through block
+        # tables, slot state batched over the slots); paged=False: the
+        # dense-slab baseline (monolithic prefill)
+        self.dense_baseline = paged is False
+        self.paged = not self.dense_baseline and spec.has_paged
+        self.has_slot_state = not self.dense_baseline and spec.has_slot_state
         if kv_dtype == "int8" and not self.paged:
             raise ValueError(
-                "kv_dtype='int8' quantizes the paged page pool: serve with "
+                "kv_dtype='int8' quantizes the paged page pool — serve with "
                 "a paged KV component (or keep kv_dtype='fp16')")
         if prefix_caching and not self.paged:
             raise ValueError("prefix_caching requires a paged KV component")
@@ -421,6 +446,10 @@ class ServeEngine:
                                         self.blocks_per_slot, num_shards=S)
             self.state = self.runner.init_state(num_blocks, block_size,
                                                 self.dtype, self.device)
+        elif not self.dense_baseline:
+            # slot-state-only runner path: no page pool at all
+            self.state = self.runner.init_state(0, block_size, self.dtype,
+                                                self.device)
         else:
             self.state = self.runner.init_dense_state(self.dtype, self.device)
 
@@ -502,6 +531,9 @@ class ServeEngine:
             req._published = 0
             self.active[slot] = req
             self.lengths[slot] = 0
+            if self.has_slot_state:
+                # the previous occupant's state must not leak
+                self.state = self.runner.reset_slot(self.state, slot)
             if self.prefix_caching:
                 self._attach_prefix(slot, req)
 
@@ -561,12 +593,13 @@ class ServeEngine:
 
     def _prefill_tick(self, budget: int, finished: List[Request]) -> int:
         """Advance pending prefills chunk by chunk under ``budget`` padded
-        tokens; returns the unspent budget.  Dense slabs cannot chunk: that
-        mode runs one monolithic prefill per tick, outside the budget (the
-        JAX engine's A/B baseline)."""
+        tokens; returns the unspent budget.  Runner slots (paged or slot
+        state) move chunk by chunk.  Dense slabs cannot chunk: that mode
+        runs one monolithic prefill per tick, outside the budget (the JAX
+        engine's A/B baseline)."""
         pending = [(slot, req) for slot, req in enumerate(self.active)
                    if req is not None and req.prefill_pos < self._plen(req)]
-        if not self.paged:
+        if self.dense_baseline:
             for slot, req in pending[:1]:
                 plen = self._plen(req)
                 bucket = self._bucket(plen)
@@ -592,7 +625,8 @@ class ServeEngine:
                         break
                     bucket = afford[-1]
                 n = min(remaining, bucket)
-                self._ensure(slot, req.prefill_pos + n)
+                if self.paged:
+                    self._ensure(slot, req.prefill_pos + n)
                 logits = self._run_prefill_chunk(slot, req, bucket, n)
                 budget -= bucket
                 self.stats["padded_tokens"] += bucket
@@ -609,28 +643,30 @@ class ServeEngine:
         self.stats["prefill_dispatches"] += 1
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = req.prompt[req.prefill_pos:req.prefill_pos + n]
-        if not self.paged:
+        if self.dense_baseline:
             return self.runner.prefill_slot(self.params, self.state, slot,
                                             self._to_device(padded), n)
-        # only the live prefix of the block table, rounded up to a power of
-        # two: per-chunk attention work follows the cached length
-        n_live = -(-(req.prefill_pos + n) // self.block_size)
-        mb = self._page_bucket(n_live)
-        bt = np.zeros((mb,), np.int32)
-        u = min(int(self.alloc.used[slot]), mb)
-        bt[:u] = self.alloc.table[slot, :u]
-        S, local = self.seq_shards, None
-        if S > 1:
-            local = self._to_device(self.alloc.shard_local(bt))   # [S, mb]
-            self._account_noc_combine(rows=bucket)
-        if self.device.type == "cpu":
-            # the CPU path gathers k and v per layer per chunk and shard (the
-            # kernel reads pages through the table and gathers nothing)
-            self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers * S
-            self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb * S
+        table = local = None                # slot state only: no tables
+        if self.paged:
+            # only the live prefix of the block table, rounded up to a power
+            # of two: per-chunk attention work follows the cached length
+            n_live = -(-(req.prefill_pos + n) // self.block_size)
+            mb = self._page_bucket(n_live)
+            bt = np.zeros((mb,), np.int32)
+            u = min(int(self.alloc.used[slot]), mb)
+            bt[:u] = self.alloc.table[slot, :u]
+            table, S = self._to_device(bt), self.seq_shards
+            if S > 1:
+                local = self._to_device(self.alloc.shard_local(bt))  # [S, mb]
+                self._account_noc_combine(rows=bucket)
+            if self.device.type == "cpu":
+                # the CPU path gathers k and v per layer per chunk and shard
+                # (the kernel reads pages through the table, gathers nothing)
+                self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers * S
+                self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb * S
         logits, self.state = self.runner.prefill_chunk(
             self.params, self.state, self._to_device(padded), n,
-            req.prefill_pos, self._to_device(bt), local)
+            req.prefill_pos, table, slot, local)
         return logits
 
     def _account_noc_combine(self, rows: int) -> None:
@@ -719,17 +755,23 @@ class ServeEngine:
             for i in live:
                 toks[i] = self.active[i].out_tokens[-1]
             lens = self._to_device(self.lengths.copy())
-            if self.paged:
-                for i in live:
-                    self._ensure(i, self.lengths[i] + 1)
-                local = None
-                if self.seq_shards > 1:
-                    local = self._to_device(
-                        self.alloc.shard_local(self.alloc.table))
-                    self._account_noc_combine(rows=self.slots)
+            if not self.dense_baseline:
+                tables = local = None
+                if self.paged:
+                    for i in live:
+                        self._ensure(i, self.lengths[i] + 1)
+                    tables = self._to_device(self.alloc.table.copy())
+                    if self.seq_shards > 1:
+                        local = self._to_device(
+                            self.alloc.shard_local(self.alloc.table))
+                        self._account_noc_combine(rows=self.slots)
+                # the mask gates the slot state: the batched decode must not
+                # advance a mid-prefill or empty neighbour's state
+                mask = np.zeros((self.slots,), bool)
+                mask[live] = True
                 logits, self.state = self.runner.decode(
                     self.params, self.state, self._to_device(toks), lens,
-                    self._to_device(self.alloc.table.copy()), local)
+                    tables, mask, local)
             else:
                 logits, self.state = M.decode_step(
                     self.cfg, self.params, self.state, self._to_device(toks),
@@ -812,5 +854,9 @@ class ServeEngine:
         return self.stats["occupancy_sum"] / t if t else 0.0
 
     def kv_cache_bytes(self) -> int:
-        return sum(a.numel() * a.element_size()
-                   for a in self.state["attn"].values())
+        """Bytes of the serving state: pages or slabs and any slot state."""
+        def nbytes(tree):
+            if isinstance(tree, dict):
+                return sum(nbytes(t) for t in tree.values())
+            return tree.numel() * tree.element_size()
+        return nbytes(self.state)

@@ -643,10 +643,70 @@ def test_rwkv6_routes(dev):
         assert [a - b_ for a, b_ in zip(after, before)] == [2, 1, 2 * tc, tc]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 33, 64, 65, 512])
+def test_rwkv6_kernel_from_carried_state(dev, dtype, d, s):
+    """The forward from a carried state s0 (recurrent serving) against the
+    plain chunked version at the route's chunk and the exact recurrence
+    from the same s0, B = 2, the last quarter of the rows right-padded as
+    the serving chunk pads them (k = 0, w = 1): o and S_final held as the
+    module docstring says; S_final also equal within it to the state after
+    the unpadded rows alone; a second call bitwise equal; s0 = 0 gives the
+    bits of the zero-state kernel; and the hold fails a result that drops
+    s0 (the control)."""
+    rng = np.random.default_rng(s + d)
+    b, h = 2, 3
+    r, k, v, w, u, _ = _wkv_inputs(rng, b, s, h, d, dtype, dev)
+    n = s - s // 4                               # valid rows
+    k[:, n:] = 0.0
+    w[:, n:] = 1.0
+    s0 = _rand(rng, (b, h, d, d), torch.float32, dev, 0.5)
+    before = (kwkv.launches, kwkv.s0_launches)
+    o, sf, _ = kwkv.rwkv6_fwd(r, k, v, w, u, s0=s0)
+    assert (kwkv.launches - before[0], kwkv.s0_launches - before[1]) == (1, 1)
+    want_o, want_sf = ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0,
+                                             chunk=kwkv.chunk_of(dtype))
+    _wkv_close(o, want_o)
+    _wkv_close(sf, want_sf)
+    if s <= 65:
+        for g, wt in zip((o, sf), ref.rwkv6_scan(r, k, v, w, u, s0=s0)):
+            _wkv_close(g, wt)
+    _wkv_close(sf, ref.rwkv6_scan_chunked(r[:, :n], k[:, :n], v[:, :n], w[:, :n],
+                                          u, s0=s0, chunk=kwkv.chunk_of(dtype))[1])
+    again = kwkv.rwkv6_fwd(r, k, v, w, u, s0=s0)
+    assert torch.equal(o, again[0]) and torch.equal(sf, again[1])
+    zero = kwkv.rwkv6_fwd(r, k, v, w, u, s0=torch.zeros_like(s0))
+    none = kwkv.rwkv6_fwd(r, k, v, w, u)
+    assert torch.equal(zero[0], none[0]) and torch.equal(zero[1], none[1])
+    with pytest.raises(AssertionError):         # the first rows read S0
+        _wkv_close(none[0], want_o)
+
+
+def test_rwkv6_carried_state_checks(dev):
+    """ops.rwkv6_scan with s0 launches the forward kernel on inputs that
+    need no gradient; the wrapper refuses an s0 of the wrong shape or
+    dtype, and on the bf16 route one off a 16-byte boundary, before any
+    launch."""
+    rng = np.random.default_rng(12)
+    r, k, v, w, u, _ = _wkv_inputs(rng, 1, 40, 2, 16, torch.bfloat16, dev)
+    s0 = _rand(rng, (1, 2, 16, 16), torch.float32, dev)
+    before = kwkv.s0_launches
+    o, sf = ops.rwkv6_scan(r, k, v, w, u, s0=s0)
+    assert kwkv.s0_launches == before + 1
+    _wkv_close(o, ref.rwkv6_scan_chunked(r, k, v, w, u, s0=s0, chunk=64)[0])
+    off = torch.empty(s0.numel() + 1, device=dev)[1:].view(s0.shape)
+    for bad in (s0[:, :1], s0.double(), off):
+        with pytest.raises(ValueError):
+            kwkv.rwkv6_fwd(r, k, v, w, u, s0=bad)
+    assert kwkv.s0_launches == before + 1
+
+
 def test_rwkv6_autograd_matches_plain_autograd(dev):
     """``ops.rwkv6_scan`` on the card (the Function: kernel forward + kernel
     backward) against autograd of the plain chunked version, fp32; a
-    carried state raises on the card."""
+    carried state with inputs that require grad raises on the card (its
+    kernel is forward only)."""
     rng = np.random.default_rng(8)
     xs = _wkv_inputs(rng, 2, 75, 3, 16, torch.float32, dev)[:5]
     dy = _rand(rng, (2, 75, 3, 16), torch.float32, dev)
@@ -661,8 +721,52 @@ def test_rwkv6_autograd_matches_plain_autograd(dev):
     for g, wt in zip(got[:2], want[:2]):
         _wkv_close(g, wt)
     _wkv_close_grads(got[2:], want[2:], xs[3])
-    with pytest.raises(NotImplementedError, match="recurrent-serving"):
-        ops.rwkv6_scan(*xs, s0=torch.zeros((2, 3, 16, 16), device=dev))
+    live = [x.detach().requires_grad_() for x in xs]
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.rwkv6_scan(*live, s0=torch.zeros((2, 3, 16, 16), device=dev))
+
+
+def test_rwkv_serving_on_card_matches_cpu(dev):
+    """Reduced rwkv6-3b at fp32 (a random nonzero w_b) served on the card
+    (the wkv6 kernel from a carried state in 8-token chunks, f32 route)
+    against the CPU (plain versions), same parameters: two right-padded
+    chunks at slot 1 and a batched decode step from a random mid-stream
+    state, logits and every state key within 1e-4; then the engine on both
+    paths token-identical to the CPU's on 3 prompts over 2 slots, one
+    prefilling in 8-token chunks while the other decodes."""
+    cfg = reduced(get_config("rwkv6-3b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    for lp in params["layers"]:
+        lp["tm"]["w_b"].copy_(torch.randn(lp["tm"]["w_b"].shape, generator=gen))
+    start = {k: torch.randn(v.shape, generator=gen) * (0.3 if k == "wkv" else 1.0)
+             for k, v in M.init_serve_state(cfg, 3, 0, 8, dtype=torch.float32,
+                                            device="cpu").items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 8), generator=gen, dtype=torch.int32)
+    nxt = torch.tensor([5, 9, 11], dtype=torch.int32)
+    lens = torch.tensor([4, 10, 2], dtype=torch.int32)
+    out = {}
+    for d, p in (("cpu", params), ("cuda", _to(params, dev))):
+        st = {k: v.to(d, copy=True) for k, v in start.items()}
+        got = []
+        for n, t in zip((7, 3), toks):
+            lg, st = M.serve_prefill_chunk(cfg, p, st, tokens=t.to(d), length=n,
+                                           q_offset=0, block_table=None, slot=1)
+            got.append(lg.cpu())
+        lg, st = M.serve_decode_step(cfg, p, st, nxt.to(d), lens.to(d))
+        out[d] = [torch.cat(got + [lg.cpu()])] + [st[k].cpu() for k in M.RWKV_STATE]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7], list(range(1, 20))]
+    kw = dict(max_seq=64, slots=2, prefill_buckets=(8, 16, 64), max_tokens_per_tick=12)
+    for paged in (None, False):
+        outs = []
+        for p in (params, _to(params, dev)):
+            eng = ServeEngine(cfg, p, paged=paged, **kw)
+            for q in prompts:
+                eng.submit(q, max_new_tokens=5)
+            outs.append({r.rid: r.out_tokens for r in eng.run_until_drained()})
+        assert outs[0] == outs[1], paged
 
 
 def _to(tree, dev):

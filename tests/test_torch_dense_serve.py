@@ -229,12 +229,15 @@ def test_dense_engine_refusals():
 
 
 @pytest.mark.parametrize("arch,slice_name", [
-    ("rwkv6-3b", "recurrent-serving slice"), ("zamba2-7b", "recurrent-serving slice"),
-    ("olmoe-1b-7b", "MoE slice")])
+    ("zamba2-7b-ssm", "recurrent-serving slice"),
+    ("zamba2-7b", "recurrent-serving slice"), ("olmoe-1b-7b", "MoE slice")])
 def test_dense_slab_refuses_other_families(arch, slice_name):
-    """The slab path serves the dense family only; the engine and the
-    model's slab entry points name the slice that brings the others."""
-    cfg = reduced(get_config(arch))
+    """The slab path serves the dense family and RWKV6 only; the engine and
+    the model's slab entry points name the slice that brings the others
+    (``zamba2-7b-ssm``: zamba2-7b's Mamba2 layers as family="ssm")."""
+    cfg = reduced(get_config(arch.removesuffix("-ssm")))
+    if arch.endswith("-ssm"):
+        cfg = cfg.replace(family="ssm")
     _, _, tparams = _pair("granite-3-2b")        # only the embedding is read
     with pytest.raises(NotImplementedError, match=slice_name):
         TEngine(cfg, tparams, paged=False, **ENGINE_KW)

@@ -116,10 +116,12 @@ def test_other_families_name_their_slice():
     cfg = t_reduced(t_get_config("olmoe-1b-7b"))
     with pytest.raises(NotImplementedError, match="MoE slice"):
         TM.init_params(cfg, device="cpu")
-    # rwkv6-3b and zamba2-7b train (their parameters exist) but are not
-    # served yet
-    for arch in ("rwkv6-3b", "zamba2-7b"):
-        cfg = t_reduced(t_get_config(arch))
+    # zamba2-7b and its Mamba2 family="ssm" variant train (their parameters
+    # exist) but are not served yet; rwkv6-3b serves
+    zamba = t_reduced(t_get_config("zamba2-7b"))
+    for cfg in (zamba, zamba.replace(family="ssm")):
         TM.init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
             TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
+    TM.init_serve_state(t_reduced(t_get_config("rwkv6-3b")), 2, 9, 8,
+                        dtype=torch.float32, device="cpu")

@@ -446,8 +446,14 @@ def test_launch_train_rwkv_cpu(tmp_path, capsys):
 
 
 def test_rwkv_serving_still_refused():
-    """Training takes rwkv6-3b; serving it is the recurrent-serving slice."""
+    """rwkv6-3b now serves (its slot state is made); the Mamba2 ``ssm``
+    variant and the hybrid zamba2-7b, which train, are still refused for
+    serving, naming the recurrent-serving slice that brings them."""
     cfg = t_reduced(t_get_config("rwkv6-3b"))
-    TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
-        TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
+    state = TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
+    assert sorted(state) == ["cm_shift", "tm_shift", "wkv"]
+    zamba = t_reduced(t_get_config("zamba2-7b"))
+    for cfg in (zamba, zamba.replace(family="ssm")):
+        TM.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
+            TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
