@@ -199,7 +199,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    through both engines, the carried-state kernel L times a prefill chunk
    on the runner path and never on the slab path (the zero-state kernel L
    times a prefill there), rmsnorm (3L + 1) times a prefill chunk and a
-   decode step, all on the vector route, with tok/s, TTFT and peak memory.
+   decode step, all on the vector route, with tok/s, TTFT and peak memory;
+20. hybrid serving (after 15, with zamba2-7b at its full 81 layers): row
+   8s, the Mamba2 forward from a carried state at the serving prefill
+   chunk (x [1, 512, 112, 64] bf16, h0 [1, 112, 64, 64] f32, the state a
+   previous chunk leaves), held against the plain scan from the same h0 in
+   bf16 and in f32 with ``scan_tol``, twice bitwise equal, h0 = 0 bitwise
+   equal to the zero-state kernel (also at row 8's training shape with its
+   chunk-entry states; rows 8 and 8b carry their outputs' hashes), a
+   control (the plain scan with h0 left out) caught, timed beside the
+   zero-state kernel on the same chunk; readings 1h, 2h and 7h, the paged
+   decode, paged prefill and slab decode at head dim 112 (zamba2-7b's 32
+   heads over 32 kv heads: decode q [8, 32, 112] over a 513-page pool,
+   a 512-row chunk at offset 256), held in bf16 (twice bitwise equal) and
+   f32, 1h and 2h also over the int8 pool and as the partials of 4
+   shards, each with a control (the kernel's output with its last 16 dims
+   dropped, the trap of a lane holding D // 32 dims) caught, timed as in
+   3; reduced zamba2-7b at fp32 through the runner's entry points from a
+   mid-stream slot state and pool (two chunks, a decode step) on the card
+   against the CPU, logits, every slot-state key and the pages; zamba2-7b
+   at full width and depth in fp32 through the runner engine (prefix
+   caching on and off; a shared-prefix pair must report 0 prefix-hit
+   tokens) and ``ServeEngine(paged=False)``, token-identical, prompts
+   crossing prefill-chunk boundaries; and the mix of 5 in bf16 through the
+   runner, slab, int8-pool and 4-shard engines, every kernel launch count
+   at its formula (the carried-state Mamba2 kernel 81 times a runner
+   prefill chunk and no zero-state one there, the paged kernels 13 times a
+   chunk and a step; the zero-state kernel 81 times a slab prefill, the
+   slab decode 13 times a step), with tok/s, TTFT and peak memory.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -2917,19 +2944,19 @@ def rwkv_serve_phase(torch, cfg, counters):
             dict(runner=runs["runner"][2], slab=runs["slab"][2], same_bf16=same))
 
 
-def mamba_inputs(torch, cfg, seed):
+def mamba_inputs(torch, cfg, seed, b=TRAIN_BATCH, s=TRAIN_SEQ):
     """Full-width Mamba2 scan inputs as the model makes them at init: x, dy
-    [TRAIN_BATCH, TRAIN_SEQ, H, P] and B, C [.., N] bf16 ~ N(0, 1); dt =
-    softplus(N(0, 1) + dt_bias) f32 with the init's dt_bias = 0; A =
-    -exp(A_log) f32 with the init's A_log = log(linspace(1, 16, H))."""
+    [b, s, H, P] (default TRAIN_BATCH, TRAIN_SEQ) and B, C [.., N] bf16 ~
+    N(0, 1); dt = softplus(N(0, 1) + dt_bias) f32 with the init's dt_bias =
+    0; A = -exp(A_log) f32 with the init's A_log = log(linspace(1, 16,
+    H))."""
     dev, bf = "cuda", torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, dtype=bf):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    b, s, h, p, n = (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim,
-                     cfg.ssm_state)
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     x, dy = randn(b, s, h, p), randn(b, s, h, p)
     B, C = randn(b, s, n), randn(b, s, n)
     dt_bias = torch.zeros((h,), device=dev)
@@ -3118,8 +3145,10 @@ def mamba_kernel_phase(torch, timer, cfg):
         nbytes=3 * io + 2 * dt.numel() * 4 + 4 * bc + 2 * h * 4 + state_bytes,
         flops=bwd_flops, rel=SCAN_REL, iters=10, plain_iters=3,
         note=f"; dx, ddt, dA, dB, dC; rel {SCAN_REL}"))
-    rows[0].update(row="8", design=MAMBA_DESIGN)
-    rows[1].update(row="8b", design=MAMBA_DESIGN)
+    rows[0].update(row="8", design=MAMBA_DESIGN, hash=digest(
+        torch, kmamba.mamba2_fwd(x, dt, A, B, C, save_states=True)))
+    rows[1].update(row="8b", design=MAMBA_DESIGN,
+                   hash=digest(torch, kmamba.mamba2_bwd(x, dt, A, B, C, dy, states)))
     del x, dt, A, B, C, dy, states
     torch.cuda.empty_cache()
     return rows
@@ -3171,6 +3200,488 @@ def zamba_watched(st):
             "tail_out_proj": p["tail"][-1]["mamba"]["out_proj"]["w"][:4],
             "shared_wq": p["shared"]["attn"]["wq"]["w"][:4],
             "lm_head": p["lm_head"]["w"][:4]}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: hybrid serving (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+def mamba_carried_state(torch, cfg, seed, s=SERVE_CHUNK):
+    """Row 8s's inputs: a serving prefill chunk x [1, s, H, P] with its dt,
+    A, B, C (mamba_inputs' draws) and the SSM state h0 [1, H, P, N] f32
+    that a previous chunk of the same kind leaves (the plain scan from zero
+    over it): the state a slot carries into its next chunk."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    prev = mamba_inputs(torch, cfg, seed + 1, b=1, s=s)
+    h0 = ref.mamba2_scan(*prev[:5], chunk=kmamba.CHUNK)[1].contiguous()
+    del prev
+    return mamba_inputs(torch, cfg, seed, b=1, s=s)[:5] + (h0,)
+
+
+def mamba_serve_row(torch, timer, cfg):
+    """Row 8s, the Mamba2 forward from a carried state at zamba2-7b's
+    serving prefill chunk (x [1, 512, 112, 64] bf16, h0 [1, 112, 64, 64]
+    f32), held against the plain scan from the same h0 in bf16 and in f32
+    with ``scan_tol``, twice bitwise equal, with h0 = 0 giving the bits of
+    the zero-state kernel (here and at row 8's training shape, its
+    chunk-entry states included) and a control (the plain scan with h0 left
+    out) that the hold must catch; timed beside the zero-state kernel on
+    the same chunk."""
+    from repro_torch.kernels import mamba_chunk as kmamba
+    from repro_torch.kernels import ref
+
+    x, dt, A, B, C, h0 = mamba_carried_state(torch, cfg, seed=25)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    t, nc = kmamba.CHUNK, kmamba.n_chunks(s)
+    want_y, want_hf = ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=t)
+    y_tol, h_tol = scan_tol(torch, want_y), scan_tol(torch, want_hf)
+    dropped = ref.mamba2_scan(x, dt, A, B, C, chunk=t)
+    caught = [not torch.allclose(g.float(), w.float(), **tol) or rel_err(torch, g, w) > SCAN_REL
+              for g, w, tol in zip(dropped, (want_y, want_hf), (y_tol, h_tol))]
+    log(f"mamba2 h0 control: the plain scan with h0 left out reads y max|err| "
+        f"{float((dropped[0].float() - want_y.float()).abs().max()):.3g} (rel "
+        f"{rel_err(torch, dropped[0], want_y):.2g}), h_final max|err| "
+        f"{float((dropped[1] - want_hf).abs().max()):.3g} (rel "
+        f"{rel_err(torch, dropped[1], want_hf):.2g}); caught: {caught}")
+    if not caught[0]:
+        fail("mamba2 h0 control: the hold passes an output that drops the carried state")
+    del dropped, want_y, want_hf
+    repeat_equal(torch, "mamba2 h0", lambda: kmamba.mamba2_fwd(x, dt, A, B, C, h0=h0)[:2])
+    zero = kmamba.mamba2_fwd(x, dt, A, B, C, h0=torch.zeros_like(h0))[:2]
+    none = kmamba.mamba2_fwd(x, dt, A, B, C)[:2]
+    if not all(torch.equal(u, v) for u, v in zip(zero, none)):
+        fail("mamba2 h0: h0 = 0 does not give the zero-state kernel's bits")
+    # f32 (the fp32 parity runs' route)
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    got32 = kmamba.mamba2_fwd(xf, dt, A, Bf, Cf, h0=h0)[:2]
+    want32 = ref.mamba2_scan(xf, dt, A, Bf, Cf, h0=h0, chunk=t)
+    torch.cuda.synchronize()
+    err32 = [hold(torch, "mamba2 h0 f32", g, w, scan_tol(torch, w), SCAN_REL)
+             for g, w in zip(got32, want32)]
+    zero32 = kmamba.mamba2_fwd(xf, dt, A, Bf, Cf, h0=torch.zeros_like(h0))[:2]
+    none32 = kmamba.mamba2_fwd(xf, dt, A, Bf, Cf)[:2]
+    if not all(torch.equal(u, v) for u, v in zip(zero32, none32)):
+        fail("mamba2 h0 f32: h0 = 0 does not give the zero-state kernel's bits")
+    del xf, Bf, Cf, got32, want32, zero32, none32, zero, none
+    # at row 8's training shape, the chunk-entry states written too
+    tx, tdt, tA, tB, tC, _ = mamba_inputs(torch, cfg, seed=6)
+    z = torch.zeros((tx.shape[0], h, p, n), device="cuda")
+    if not all(torch.equal(u, v) for u, v in zip(
+            kmamba.mamba2_fwd(tx, tdt, tA, tB, tC, h0=z, save_states=True),
+            kmamba.mamba2_fwd(tx, tdt, tA, tB, tC, save_states=True))):
+        fail("mamba2 h0: h0 = 0 at row 8's shape does not give the zero-state bits")
+    del tx, tdt, tA, tB, tC, z
+    log(f"mamba2 h0: f32 route max|err| y {err32[0]:.3g}, h_final {err32[1]:.3g}; "
+        f"bf16 twice bitwise equal; h0 = 0 gives the zero-state kernel's bits in "
+        f"bf16 and f32 at [1, {s}] and in bf16 at row 8's [{TRAIN_BATCH}, "
+        f"{TRAIN_SEQ}] with its chunk-entry states")
+    io, bc, st = x.numel() * 2, B.numel() * 2, b * h * p * n * 4
+    row = measure(
+        torch, timer, "mamba2_h0", "src/repro_torch/kernels/csrc/mamba2.cu",
+        "src/repro/kernels/mamba_chunk.py:86",
+        lambda: kmamba.mamba2_fwd(x, dt, A, B, C, h0=h0)[:2],
+        lambda: ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=t), (y_tol, h_tol),
+        nbytes=2 * io + dt.numel() * 4 + 2 * bc + h * 4 + 2 * st,
+        flops=b * h * nc * (2 * t * t * n + t * t * p + 4 * t * p * n), rel=SCAN_REL,
+        iters=20, plain_iters=5,
+        note=f"; y, h_final; rel {SCAN_REL}; the serving chunk from a carried state")
+    row["zero_state_ms"] = timer(lambda: kmamba.mamba2_fwd(x, dt, A, B, C)[:2])
+    row.update(row="8s", design=MAMBA_DESIGN + "; the state walk starts at the carried h0",
+               hash=digest(torch, kmamba.mamba2_fwd(x, dt, A, B, C, h0=h0)[:2]),
+               f32_max_abs_err=max(err32),
+               replaces_note="mamba2_chunked's counterpart with an initial state: the "
+                             "TPU path runs its plain chunked scan there "
+                             "(src/repro/kernels/ops.py:259-263)")
+    log(f"kernel mamba2_h0: the zero-state kernel on the same chunk "
+        f"{row['zero_state_ms']:.4f} ms (h0's load and the carried walk: "
+        f"{row['ms'] - row['zero_state_ms']:+.4f} ms)")
+    del x, dt, A, B, C, h0
+    torch.cuda.empty_cache()
+    return row
+
+
+def dims_dropped_control(torch, name, got, want, tol, rel, seq_rel=None):
+    """The head-dim trap (a lane holding D // 32 output dims drops the last
+    16 of 112): the kernel's output with its last 16 dims zeroed must fail
+    the hold that the output itself passes."""
+    bad = got.clone()
+    bad[..., -16:] = 0
+    dropped_step_control(torch, name, "its last 16 output dims (96-111)", want, bad,
+                         tol, rel, seq_rel)
+
+
+def attn112_rows(torch, timer, cfg):
+    """Readings 1h, 2h and 7h: the paged decode, the paged prefill and the
+    slab decode at zamba2-7b's shared-attention shapes (32 heads over 32 kv
+    heads at head dim 112): decode q [8, 32, 112] over a pool [32, 513, 16,
+    112] through tables [8, 64]; a 512-row prefill chunk at q_offset 256;
+    the slab decode over [8, 1024, 32, 112].  Each held against its plain
+    version in bf16 (twice bitwise equal; per sequence too at decode) and
+    in f32, with the dims-dropped control; 1h and 2h also over the int8 pool
+    and as skip_null partials over 4 shards (each shard held, their NoC
+    combine against the unsharded kernel); bf16 timed as in 3."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import noc
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import prefill_attention as kpf
+    from repro_torch.kernels import ref
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    c, qoff = SERVE_CHUNK, 256
+    slots, bs, mb = SERVE_SLOTS, 16, 64
+    nb = 1 + slots * mb
+    csrc = "src/repro_torch/kernels/csrc/"
+    kp, vp = randn(kvh, nb, bs, hd), randn(kvh, nb, bs, hd)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * mb] + 1
+    tables = perm.to(torch.int32).reshape(slots, mb).contiguous()
+    lens = torch.randint(1, mb * bs + 1, (slots,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qd, qp = randn(slots, h, hd), randn(1, c, h, hd)
+    table = tables[0].contiguous()
+    total = qoff + c
+    live = int(lens.sum())
+    kv_row = kvh * hd * 2 * 2
+    attended = sum(min(qoff + i + 1, total) for i in range(c))
+    k8, ks = quantize_pages(torch, kp)
+    v8, vs = quantize_pages(torch, vp)
+    pool = dict(kp=kp, vp=vp, lens=lens, tables=tables, qoff=qoff, qp=qp)
+    sp = shard_pool(torch, pool, SEQ_SHARDS)
+    S = sp["n"]
+
+    dec = dict(
+        kernel=lambda q, k, v, **kw: kda.paged_decode_attention(q, k, v, tables, lens, **kw),
+        plain=lambda q, k, v, **kw: ref.paged_decode_attention(q, k, v, tables,
+                                                               lengths=lens, **kw),
+        part=lambda q, k, v, s, **kw: kda.paged_decode_attention_partial(
+            q, k, v, sp["local"][s], sp["lens"], skip_null=True, **kw),
+        part_plain=lambda q, k, v, s, **kw: ref.paged_decode_attention_partial(
+            q, k, v, sp["local"][s], lengths=sp["lens"], skip_null=True, **kw),
+        whole=lambda q, k, v: kda.paged_decode_attention(q, k, v, sp["table"], sp["lens"]),
+        q=qd, tol=DECODE_TOL, rel=DECODE_REL, seq_rel=DECODE_SEQ_REL)
+    pre = dict(
+        kernel=lambda q, k, v, **kw: kpf.paged_prefill_attention(
+            q, k, v, table, q_offset=qoff, length=c, **kw),
+        plain=lambda q, k, v, **kw: ref.paged_prefill_attention(
+            q, k, v, table, q_offset=qoff, length=c, **kw),
+        part=lambda q, k, v, s, **kw: kpf.paged_prefill_attention_partial(
+            q, k, v, sp["plocal"][s], q_offset=qoff, length=c, skip_null=True, **kw),
+        part_plain=lambda q, k, v, s, **kw: ref.paged_prefill_attention_partial(
+            q, k, v, sp["plocal"][s], q_offset=qoff, length=c, skip_null=True, **kw),
+        whole=lambda q, k, v: kpf.paged_prefill_attention(
+            q, k, v, sp["ptable"], q_offset=qoff, length=c),
+        q=qp, tol=PREFILL_TOL, rel=PREFILL_REL, seq_rel=None)
+    for tag, cs in (("paged_decode_attention_hd112", dec),
+                    ("paged_prefill_attention_hd112", pre)):
+        q = cs["q"]
+        got = repeat_equal(torch, tag, lambda: cs["kernel"](q, kp, vp))
+        want = cs["plain"](q, kp, vp)
+        hold(torch, tag, got, want, cs["tol"], cs["rel"])
+        if cs["seq_rel"] is not None and seq_rel_err(torch, got, want) > cs["seq_rel"]:
+            fail(f"{tag}: a sequence's relative norm error {seq_rel_err(torch, got, want)}")
+        dims_dropped_control(torch, tag, got, want, cs["tol"], cs["rel"], cs["seq_rel"])
+        qf, kf, vf = q.float(), kp.float(), vp.float()
+        e32 = hold(torch, f"{tag} f32", cs["kernel"](qf, kf, vf), cs["plain"](qf, kf, vf),
+                   DENSE_F32_TOL, DENSE_F32_REL)
+        errs8 = []
+        for dtype, tol, rel in ((bf, Q8_BF16_TOL, Q8_REL), (torch.float32, Q8_F32_TOL, None)):
+            qq = q.to(dtype)
+            g8 = repeat_equal(torch, f"{tag} int8", lambda: cs["kernel"](
+                qq, k8, v8, k_scales=ks, v_scales=vs))
+            w8 = cs["plain"](qq, k8, v8, k_scales=ks, v_scales=vs)
+            errs8.append(hold(torch, f"{tag} int8 {str(dtype)[6:]}", g8, w8, tol, rel))
+            if dtype == bf:
+                dims_dropped_control(torch, f"{tag} int8", g8, w8, tol, rel)
+        errs_s = []
+        for dtype, tol, rel in ((bf, DECODE_TOL if cs is dec else PREFILL_TOL, cs["rel"]),
+                                (torch.float32, DENSE_F32_TOL, None)):
+            qq = q.to(dtype)
+            views = sp["views"][dtype]
+            parts = [cs["part"](qq, *views[s], s) for s in range(S)]
+            wparts = [cs["part_plain"](qq, *views[s], s) for s in range(S)]
+            torch.cuda.synchronize()
+            lv = [w[1] > -1e29 for w in wparts]
+            for g, w in zip(parts_view(torch, parts, lv), parts_view(torch, wparts, lv)):
+                hold(torch, f"{tag} shards {str(dtype)[6:]}", g, w, tol, rel)
+            n_dead = hold_identity(torch, f"{tag} shards", parts, lv)
+            comb = noc.tree_softmax_combine(parts).to(dtype)
+            errs_s.append(hold(torch, f"{tag} shards combined {str(dtype)[6:]}", comb,
+                               cs["whole"](qq, *sp["pools"][dtype]), tol, rel))
+        log(f"{tag}: f32 max|err| {e32:.3g}; int8 pool bf16 {errs8[0]:.3g}, f32 "
+            f"{errs8[1]:.3g}; {S} shards' NoC combine vs the unsharded kernel bf16 "
+            f"{errs_s[0]:.3g}, f32 {errs_s[1]:.3g} ({n_dead} f32 rows see no owned key)")
+        del got, want, qf, kf, vf
+    rows = []
+    rows.append(measure(
+        torch, timer, "paged_decode_attention_hd112", csrc + "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:300", lambda: dec["kernel"](qd, kp, vp),
+        lambda: dec["plain"](qd, kp, vp), DECODE_TOL, rel=DECODE_REL,
+        nbytes=2 * qd.numel() * 2 + live * kv_row + tables.numel() * 4,
+        flops=4 * h * hd * live,
+        note=f"; rel {DECODE_REL}; zamba2-7b's decode, {live} live keys"))
+    rows.append(measure(
+        torch, timer, "paged_prefill_attention_hd112", csrc + "paged_attention.cu",
+        "src/repro/kernels/prefill_attention.py:273", lambda: pre["kernel"](qp, kp, vp),
+        lambda: pre["plain"](qp, kp, vp), PREFILL_TOL, rel=PREFILL_REL,
+        nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
+        flops=4 * h * hd * attended,
+        note=f"; rel {PREFILL_REL}; zamba2-7b's prefill chunk at offset {qoff}"))
+    rows[0].update(row="1h", design=DECODE_DESIGN)
+    rows[1].update(row="2h", design=PREFILL_DESIGN)
+    del sp, k8, v8, ks, vs, qp
+    # the slab decode (7h) at the same lengths
+    k, v = randn(slots, mb * bs, kvh, hd), randn(slots, mb * bs, kvh, hd)
+    got = repeat_equal(torch, "decode_attention_hd112",
+                       lambda: kda.decode_attention(qd, k, v, lens))
+    want = ref.decode_attention(qd, k, v, lengths=lens)
+    dims_dropped_control(torch, "decode_attention_hd112", got, want, DECODE_TOL,
+                         DECODE_REL, DECODE_SEQ_REL)
+    e32 = hold(torch, "decode_attention_hd112 f32",
+               kda.decode_attention(qd.float(), k.float(), v.float(), lens),
+               ref.decode_attention(qd.float(), k.float(), v.float(), lengths=lens),
+               DENSE_F32_TOL, DENSE_F32_REL)
+    kpos = torch.arange(mb * bs, device=dev)
+    qs, kss, vss = qd[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+    rows.append(measure(
+        torch, timer, "decode_attention_hd112", csrc + "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:114",
+        lambda: kda.decode_attention(qd, k, v, lens),
+        lambda: ref.decode_attention(qd, k, v, lengths=lens), DECODE_TOL, rel=DECODE_REL,
+        nbytes=2 * qd.numel() * 2 + live * kv_row + slots * 4, flops=4 * h * hd * live,
+        library=lambda: F.scaled_dot_product_attention(qs, kss, vss, attn_mask=mask),
+        note=f"; rel {DECODE_REL}; f32 max|err| {e32:.3g}; zamba2-7b's slab decode"))
+    rows[-1].update(row="7h", design=DECODE_DESIGN)
+    del k, v, kp, vp, got, want, qs, kss, vss, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (row of the {"kernels": ...} line) -> the launch counter it is read from
+# in the zamba2-7b serving runs
+ZAMBA_ROW_COUNTER = {"mamba2_h0": ("runner", "mamba2_h0"),
+                     "paged_decode_attention_hd112": ("runner", "paged_decode_attention"),
+                     "paged_prefill_attention_hd112": ("runner", "paged_prefill_attention"),
+                     "decode_attention_hd112": ("slab", "decode_attention")}
+
+
+def zamba_serve_parity_phase(torch, cfg_small):
+    """Reduced zamba2-7b at fp32 through the runner's entry points from a
+    mid-stream state: slot state and pages drawn at random, two
+    right-padded 8-token chunks (7 and 3 valid rows) at slot 1 and q_offset
+    16 and 23 over its pages, then a batched decode step of 3 slots; the
+    logits, every slot-state key and the pages on the card (the Mamba2
+    kernel from a carried state, f32 route; the paged kernels at head dim
+    16) against the CPU (plain versions), within 1e-4."""
+    from repro_torch.models import model as M
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(27)
+    start = M.init_serve_state(cfg_small, 3, 9, 8, dtype=torch.float32, device="cpu")
+    start = {k: ({kk: torch.randn(vv.shape, generator=gen) for kk, vv in v.items()}
+                 if k == "attn" else
+                 torch.randn(v.shape, generator=gen) * (0.3 if "ssm" in k else 1.0))
+             for k, v in start.items()}
+    tables = torch.tensor([[1, 4, 0, 0], [3, 5, 2, 7], [6, 0, 0, 0]], dtype=torch.int32)
+    chunks = [torch.randint(0, cfg_small.vocab_size, (1, 8), generator=gen,
+                            dtype=torch.int32) for _ in range(2)]
+    nxt = torch.tensor([5, 9, 11], dtype=torch.int32)
+    lens = torch.tensor([9, 26, 2], dtype=torch.int32)
+    names = ("logits",) + M.HYBRID_STATE + ("k_pages", "v_pages")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = to_device(params, dev)
+        state = to_device(start, dev)
+        if dev == "cpu":                       # the calls update it in place
+            state = {k: ({kk: vv.clone() for kk, vv in v.items()}
+                         if isinstance(v, dict) else v.clone()) for k, v in state.items()}
+        logits, qoff = [], 16
+        for n, toks in zip((7, 3), chunks):
+            lg, state = M.serve_prefill_chunk(cfg_small, p, state, tokens=toks.to(dev),
+                                              length=n, q_offset=qoff,
+                                              block_table=tables[1].to(dev), slot=1)
+            logits.append(lg.cpu())
+            qoff += n
+        lg, state = M.serve_decode_step(cfg_small, p, state, nxt.to(dev), lens.to(dev),
+                                        tables.to(dev))
+        out[dev] = ([torch.cat(logits + [lg.cpu()])]
+                    + [state[k].cpu() for k in M.HYBRID_STATE]
+                    + [state["attn"][k].cpu() for k in ("k_pages", "v_pages")])
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, out["cuda"], out["cpu"])}
+    log(f"zamba serve parity: reduced zamba2-7b fp32, 2 chunks + 1 decode step from a "
+        f"mid-stream slot state and pool, card vs cpu max|err| {errs} (tol 1e-4)")
+    for n, a, b in zip(names, out["cuda"], out["cpu"]):
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            fail(f"zamba serve parity: {n} on the card disagrees with the CPU: "
+                 f"max |err| {errs[n]}")
+    return errs
+
+
+def zamba_fp32_identity(torch, cfg):
+    """zamba2-7b at full width and depth in fp32 (parameters from seed 0):
+    a shared-prefix pair (a 256-token prefix, 16 pages; its second member
+    admitted after the first has published them) and prompts of 40-700
+    tokens whose chunks cross prefill-chunk boundaries (budget 136, buckets
+    32 and 128), through the runner engine with prefix caching on and off,
+    every chunk after a prompt's first carrying its slot's state into the
+    Mamba2 kernel from a carried state, against the dense-slab engine's
+    monolithic prefill from zero (the zero-state kernel): greedy outputs
+    must be token-identical, and the runner must report 0 prefix-hit
+    tokens (a recurrent family never skips prefill)."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(28)
+    shared = torch.randint(0, cfg.vocab_size, (256,), generator=gen).tolist()
+    rest = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in (40, 200, 333, 700, 40, 72)]
+    prompts = [shared + rest[4]] + rest[:4] + [shared + rest[5]]
+    kw = dict(slots=4, max_seq=1024, prefill_buckets=(32, 128), max_tokens_per_tick=136)
+    outs, stats = {}, {}
+    for name, opts in (("runner", {}), ("runner_cache_off", dict(prefix_caching=False)),
+                       ("slab", dict(paged=False))):
+        eng = ServeEngine(cfg, params, **kw, **opts)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=FP32_NEW_TOKENS)
+        outs[name] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        stats[name] = dict(eng.stats, prefix_caching=eng.prefix_caching)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    diff = {name: [rid for rid in outs["slab"] if outs[name].get(rid) != outs["slab"][rid]]
+            for name in ("runner", "runner_cache_off")}
+    run = stats["runner"]
+    log(f"zamba serve fp32: runner (prefix caching {run['prefix_caching']}, "
+        f"{run['prefill_dispatches']} prefill chunks, prefix-hit tokens "
+        f"{run['prefix_hit_tokens']}) and runner with caching off against the slab "
+        f"engine ({stats['slab']['prefill_dispatches']} monolithic prefills): "
+        f"requests differing {diff} of {len(prompts)}")
+    if any(diff.values()) or len(outs["slab"]) != len(prompts):
+        fail(f"zamba serve fp32: the runner and slab engines' greedy outputs differ {diff}")
+    if not run["prefix_caching"] or run["prefix_hit_tokens"] != 0:
+        fail("zamba serve fp32: the runner with prefix caching on attached a cached "
+             "prefix (or had caching off)")
+    if run["prefill_dispatches"] <= len(prompts):
+        fail("zamba serve fp32: no prompt crossed a prefill-chunk boundary")
+    return dict(prefill_chunks=run["prefill_dispatches"], requests=len(prompts),
+                prefix_hit_tokens=run["prefix_hit_tokens"])
+
+
+def zamba_serve_phase(torch, cfg, counters):
+    """zamba2-7b at full width and depth in bf16 (random weights, seed 0):
+    the mix of 5 through the runner engine (the pool beside the slot state,
+    chunked prefill: the Mamba2 kernel from a carried state L times a
+    prefill chunk, the zero-state one never; the paged prefill G times a
+    chunk, the paged decode G times a step), ``ServeEngine(paged=False)``
+    (the zero-state Mamba2 kernel L times a prefill, the flash forward with
+    a key bound G times, the slab decode G times a step), an int8 pool and
+    4 sequence shards (their kernels G and 4 G times), with the rmsnorm,
+    rope and silu_mul counts of every step, counted; no prefix hit on a
+    paged run; tok/s, TTFT and peak memory of each."""
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.serve import ServeEngine
+
+    params = serve_params(torch, cfg)
+    warm = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=160,
+                       prefill_buckets=(32, 128))
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    L, G = cfg.n_layers, hybrid_layout(cfg)[0]
+    runs = {}
+    for name, kw in (("runner", {}), ("slab", dict(paged=False)),
+                     ("int8", dict(kv_dtype="int8")), ("seq4", dict(seq_shards=SEQ_SHARDS))):
+        out, stats, launches, summary = serve_mix(torch, cfg, params, counters, **kw)
+        P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+        steps = P + Dd
+        expect = {k: 0 for k in counters}
+        expect.update({
+            "mamba2": L * P, "rmsnorm": (2 * L + 2 * G + 1) * steps,
+            "rmsnorm_vector": (2 * L + 2 * G + 1) * steps, "apply_rope": G * steps,
+            "apply_rope_qk": G * steps, "apply_rope_vector": G * steps,
+            "silu_mul": (L + G) * steps})
+        if name == "slab":
+            expect.update(flash_attention_lengths=G * P, decode_attention=G * Dd)
+        else:
+            expect["mamba2_h0"] = L * P
+            n = SEQ_SHARDS if name == "seq4" else 1
+            key = {"runner": "", "int8": "_int8", "seq4": "_skip_null"}[name]
+            expect.update({f"paged_decode_attention{key}": n * G * Dd,
+                           f"paged_prefill_attention{key}": n * G * P,
+                           "paged_prefill_attention_tc": n * G * P})
+        check_launches(f"zamba serve {name}", launches, expect)
+        if stats["prefix_hit_tokens"]:
+            fail(f"zamba serve {name}: {stats['prefix_hit_tokens']} prefix-hit tokens "
+                 f"(a recurrent family must prefill every prompt)")
+        log(f"zamba serve {name}: {summary['requests']} requests, {summary['tokens']} "
+            f"tokens in {summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s), ttft "
+            f"p50 {summary['ttft_p50_ms']:.1f} ms, prefill dispatches {P}, decode steps "
+            f"{Dd}, state {summary['pool_bytes'] / 2**20:.1f} MiB, peak memory "
+            f"{summary['peak_mem_bytes'] / 2**30:.2f} GiB")
+        runs[name] = (out, launches, summary)
+    ref_out = runs["runner"][0]
+    same = {name: sum(runs[name][0][rid] == ref_out.get(rid) for rid in runs[name][0])
+            for name in ("slab", "int8", "seq4")}
+    first = {name: sorted(next((i for i, (a, b) in enumerate(zip(out[rid], ref_out[rid]))
+                                if a != b), len(out[rid])) for rid in out)
+             for name, (out, _, _) in runs.items() if name != "runner"}
+    log(f"zamba serve: requests token-identical to the runner run in bf16 (not "
+        f"gated): {same} of {len(ref_out)}; first differing token of each request, "
+        f"sorted: {first}")
+    gate = zamba_prefill_gate(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return ({n: r[1] for n, r in runs.items()},
+            dict({n: r[2] for n, r in runs.items()}, same_bf16=same,
+                 first_difference=first, prefill_gate_rel=gate))
+
+
+def zamba_prefill_gate(torch, cfg, params):
+    """One ~640-token prompt's last-token logits in bf16 at full width: the
+    slab ``prefill`` (bucket 1024: the zero-state Mamba2 kernel, flash with
+    a key bound) against the runner's chunked prefill (chunks of 512 and
+    128, the second carrying the slot's state into the Mamba2 kernel from a
+    carried state, the shared block through the pool); relative norm error
+    and argmax, logged (a reading, not gated)."""
+    from repro_torch.models import model as M
+
+    n, bs = 640, 16
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    slab = M.init_decode_state(cfg, 1, 1024, dtype=torch.bfloat16)
+    padded = torch.zeros((1, 1024), dtype=torch.int32, device="cuda")
+    padded[0, :n] = prompt
+    want, _ = M.prefill(cfg, params, slab, tokens=padded,
+                        lengths=torch.tensor([n], dtype=torch.int32, device="cuda"))
+    del slab
+    state = M.init_serve_state(cfg, 1, 1 + n // bs, bs, dtype=torch.bfloat16)
+    table = torch.arange(1, 1 + n // bs, dtype=torch.int32, device="cuda")
+    for off, c in ((0, 512), (512, 128)):
+        got, _ = M.serve_prefill_chunk(cfg, params, state, tokens=prompt[None, off:off + c],
+                                       length=c, q_offset=off, slot=0,
+                                       block_table=table[:-(-(off + c) // bs)])
+    del state
+    torch.cuda.empty_cache()
+    r = rel_err(torch, got, want[:, 0])
+    agree = bool(torch.argmax(got) == torch.argmax(want[:, 0]))
+    log(f"zamba serve gate: {n}-token prompt, last-token logits slab prefill vs the "
+        f"runner's chunked prefill (512 + 128, state carried) relative norm error "
+        f"{r:.3g}, argmax agrees: {agree} (a reading, not gated)")
+    if not math.isfinite(r):
+        fail("zamba serve gate: non-finite logits")
+    return r
 
 
 def gemm_inputs(torch, gen, m, k, n, dtype):
@@ -3620,6 +4131,30 @@ def main() -> None:
         row["launches"] = zamba_launches[row["name"].removesuffix("_hd112")]
     rows += hybrid_rows
 
+    sz_cfg = get_config("zamba2-7b")
+    zserve_rows = [mamba_serve_row(torch, timer, sz_cfg)] + attn112_rows(torch, timer, sz_cfg)
+    zamba_parity = zamba_serve_parity_phase(torch, reduced(sz_cfg))
+    zamba_fp32 = zamba_fp32_identity(torch, sz_cfg)
+    zserve_counters = {
+        "mamba2": Counter(mamba_chunk), "mamba2_h0": Counter(mamba_chunk, "h0_launches"),
+        "mamba2_states": Counter(mamba_chunk, "states_launches"),
+        "mamba2_bwd": Counter(mamba_chunk, "bwd_launches"),
+        **seq_counters, "decode_attention": Counter(decode_attention, "dense_launches"),
+        "flash_attention_lengths": Counter(flash_attention, "lengths_launches"),
+        "flash_attention": Counter(flash_attention)}
+    zserve_launches, zamba_serve = zamba_serve_phase(torch, sz_cfg, zserve_counters)
+    for row in zserve_rows:
+        path, counter = ZAMBA_ROW_COUNTER[row["name"]]
+        row["launches"] = zserve_launches[path][counter]
+    zrun = zserve_launches["runner"]
+    for row in rows:
+        name = ROW_COUNTER.get(row["name"], row["name"])
+        if row["name"] in ("rmsnorm", "rmsnorm_decode", "apply_rope_qk", "silu_mul"):
+            row["zamba_serve_launches"] = zrun[name]
+        if row["name"] == "mamba2":
+            row["zamba_serve_launches"] = zserve_launches["slab"]["mamba2"]
+    rows += zserve_rows
+
     fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
     row7 = dense_rows[0]
@@ -3645,7 +4180,9 @@ def main() -> None:
              rwkv_launches=rwkv_launches, rwkv_serve=rwkv_serve,
              rwkv_serve_launches=rwkv_serve_launches, rwkv_serve_parity=rwkv_parity,
              rwkv_fp32_identity=rwkv_fp32, zamba_train=zamba_train,
-             zamba_launches=zamba_launches, gemm_routes=gemm_routes, **kernels),
+             zamba_launches=zamba_launches, zamba_serve=zamba_serve,
+             zamba_serve_launches=zserve_launches, zamba_serve_parity=zamba_parity,
+             zamba_fp32_identity=zamba_fp32, gemm_routes=gemm_routes, **kernels),
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

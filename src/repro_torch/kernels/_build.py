@@ -58,7 +58,7 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _P),
     "repro_rwkv6_fwd": (_I, *(_P,) * 10, _I, _I, _I, _I, _P),
     "repro_rwkv6_bwd": (_I, *(_P,) * 15, _I, _I, _I, _I, _P),
-    "repro_mamba2_fwd": (_I, *(_P,) * 9, _I, _I, _I, _I, _I, _P),
+    "repro_mamba2_fwd": (_I, *(_P,) * 10, _I, _I, _I, _I, _I, _P),
     "repro_mamba2_bwd": (_I, *(_P,) * 17, *(_I,) * 7, _P),
     "repro_mamba2_bwd_occupancy": (_I, _I, _P),
     "repro_matmul": (_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

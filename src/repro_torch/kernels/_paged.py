@@ -44,9 +44,12 @@ from repro_torch.kernels import _build
 ROWS = 16                      # f32 prefill: query rows per block (csrc: kRows)
 TC_ROWS = 64                   # bf16 prefill: query rows per block (kTcRows)
 PREFILL_STAGE = 64             # bf16 prefill: keys of a stage (kStage)
-HEAD_DIMS = (16, 64, 128)      # head dims the kernels are instantiated for
-#                                (the reduced configs, and every full-width
-#                                dense config of the registry)
+HEAD_DIMS = (16, 64, 112, 128)  # head dims the kernels are instantiated for
+#                                 (the reduced configs, every full-width
+#                                 dense config of the registry, zamba2-7b's
+#                                 112: 7 k-steps and 14 n-tiles of the bf16
+#                                 prefill's mma.sync, 4 dims a lane of the
+#                                 decode's first 28 lanes)
 
 # the flash-decoding kernel (csrc/decode_attention.cu)
 DECODE_ROWS = 8        # query rows of one kv head a block holds (kMaxRows)

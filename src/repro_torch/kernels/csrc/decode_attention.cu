@@ -34,10 +34,10 @@
 // registers.  Lane j scores key j against the block's rows (a sum per
 // 16-byte chunk), a warp max gives the online-softmax update (l is summed
 // per lane, over the warp once at the end), and p goes through shared
-// memory to the PV product, where each lane accumulates D / 32 output
-// dims.  q and p stay in f32.  On the int8 pool each value is dequantized
-// as int8 * scale(kv head, page) in f32, rounded once, the plain version's
-// gather.
+// memory to the PV product, where each lane accumulates ceil(D / 32)
+// output dims (at D 16 and 112 the last lanes hold none).  q and p stay in
+// f32.  On the int8 pool each value is dequantized as int8 * scale(kv
+// head, page) in f32, rounded once, the plain version's gather.
 //
 // The merge.  Each block merges its warps' (acc, m, l) in shared memory,
 // in warp order, and stores the result into slot `split` of rank 0's
@@ -187,7 +187,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   constexpr int kChunks = L::kRowV / 16;        // 16-byte chunks of a row
   constexpr int kE = 16 / static_cast<int>(sizeof(P));   // elements of a chunk
-  constexpr int kDpl = D >= 32 ? D / 32 : 1;    // output dims a lane holds
+  // output dims a lane holds: ceil(D / 32), the lanes past D holding none
+  // (D 16: lanes 16-31; D 112: lanes 28-31, each of the others 4 dims)
+  constexpr int kDpl = (D + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   // phase 0 of the cluster barrier: this block has started (a peer waits
   // for it before its first store into rank 0's shared memory)
@@ -361,7 +363,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
     }
     if constexpr (kInt8) p_s[R * kKeys + lane] = vs;
     __syncwarp();
-    if (lane * kDpl < D) {   // at D = 16 half the lanes hold no dim
+    if (lane * kDpl < D) {   // at D = 16 half the lanes hold no dim, at 112 four
       const unsigned char* vcol = v_s + lane * kDpl * static_cast<int>(sizeof(P));
 #pragma unroll
       for (int j0 = 0; j0 < kKeys; j0 += 4) {
@@ -530,6 +532,7 @@ cudaError_t by_dim(const Args& a, int D, int n_split, int B, int n_sm, cudaStrea
   switch (D) {
     REPRO_DECODE_CASE(16)
     REPRO_DECODE_CASE(64)
+    REPRO_DECODE_CASE(112)
     REPRO_DECODE_CASE(128)
     default: return cudaErrorInvalidValue;
   }

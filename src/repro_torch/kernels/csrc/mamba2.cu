@@ -4,7 +4,11 @@
 // Replaces the TPU kernel src/repro/kernels/mamba_chunk.py (mamba2_chunked,
 // the kernel body _kernel, pallas_call at :86), which has no backward of its
 // own: the JAX package differentiates its oracle.  Per (batch, head) the
-// state h [P, N] is carried on chip in f32 across 64-row chunks:
+// state h [P, N] is carried on chip in f32 across 64-row chunks, from zero
+// (training) or from a state h0 the caller carries in (recurrent serving: a
+// slot's state between prefill chunks; the TPU path runs its plain chunked
+// scan there, src/repro/kernels/ops.py:259-263, so the forward with h0
+// replaces none):
 //
 //   y_t = sum_{u<=t} e^{cum_t - cum_u} (C_t . B_u) dt_u x_u + e^{cum_t} h C_t
 //   h  <- e^{cT} h + sum_u e^{cT - cum_u} dt_u x_u B_u^T
@@ -172,7 +176,8 @@ template <int P, int N>
 __global__ void __launch_bounds__(kThreads)
 mamba2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bm,
-                  const float* __restrict__ Cm, float* __restrict__ y, float* __restrict__ h_final,
+                  const float* __restrict__ Cm, const float* __restrict__ h0,
+                  float* __restrict__ y, float* __restrict__ h_final,
                   float* __restrict__ states, Geo g) {
   constexpr int XP = P + 1, XN = N + 1;
   constexpr int PT = (P + 15) / 16;            // columns of a [T, P] tile per thread
@@ -192,7 +197,10 @@ mamba2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float a = A[h];
-  for (int i = tid; i < P * XN; i += kThreads) h_s[i] = 0.f;
+  // the carried state h0 [B, H, P, N], or zeros
+  const float* init = h0 != nullptr ? h0 + static_cast<int64_t>(bh) * P * N : nullptr;
+  for (int i = tid; i < P * XN; i += kThreads)
+    h_s[i] = init != nullptr && i % XN < N ? init[(i / XN) * N + i % XN] : 0.f;
 
   for (int ic = 0; ic < g.NC; ++ic) {
     const int t0 = ic * kChunk;
@@ -758,6 +766,25 @@ __device__ __forceinline__ void store_acc(float* dst, const float (&acc)[NT][4],
   }
 }
 
+// ... its inverse: the fragments from a [rows][N] f32 matrix in global
+// memory (row stride N; the columns past N read 0)
+template <int N, int NT>
+__device__ __forceinline__ void load_acc(float (&acc)[NT][4], const float* src, int r0,
+                                         int lane) {
+  const int gr = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * q;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = col < N ? *reinterpret_cast<const float2*>(src + (r0 + gr + 8 * r) * N + col)
+                               : make_float2(0.f, 0.f);
+      acc[n][2 * r] = v.x;
+      acc[n][2 * r + 1] = v.y;
+    }
+  }
+}
+
 // ... and a state's fragments into a [P][LB] bf16 hi + lo tile pair
 template <int LB, int NT>
 __device__ __forceinline__ void acc_to_smem(bf16* hi, bf16* lo, const float (&acc)[NT][4],
@@ -869,8 +896,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 mamba2_fwd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ A, const bf16* __restrict__ Bm,
                      const bf16* __restrict__ Cm, const float* __restrict__ cb,
-                     bf16* __restrict__ y, float* __restrict__ h_final,
-                     float* __restrict__ states, Geo g) {
+                     const float* __restrict__ h0, bf16* __restrict__ y,
+                     float* __restrict__ h_final, float* __restrict__ states, Geo g) {
   using F = FwdTc<P, N>;
   constexpr int NP = F::NP, LX = F::LX, LB = F::LB, ST = F::kStages;
   constexpr int PT = P / 8, NT = NP / 8;
@@ -912,6 +939,15 @@ mamba2_fwd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int ta = r0 + gr, tb = ta + 8;
   float hs[NT][4];
   zero(hs);
+  if (h0 != nullptr) {
+    // the carried state: the owning warps' rows into registers, and as the
+    // hi + lo pair that chunk 0's C h^T reads (after the zeroing above)
+    __syncthreads();
+    if (owns) {
+      load_acc<N, NT>(hs, h0 + static_cast<int64_t>(bh) * P * N, r0, lane);
+      acc_to_smem<LB, NT>(hh, hl, hs, r0, lane);
+    }
+  }
   for (int c = 0; c < g.NC; ++c) {
     repro::cp_async_wait<ST - 1>();
     __syncthreads();
@@ -1502,20 +1538,20 @@ cudaError_t bwd_sum(const float* dB_part, const float* dC_part, const float* dA_
 
 template <int P, int N>
 cudaError_t fwd_f32(const void* x, const float* dt, const float* A, const void* Bm,
-                    const void* Cm, void* y, float* h_final, float* states, const Geo& g,
-                    cudaStream_t s) {
+                    const void* Cm, const float* h0, void* y, float* h_final, float* states,
+                    const Geo& g, cudaStream_t s) {
   auto kern = mamba2_fwd_kernel<P, N>;
   if (cudaError_t e = allow_smem(kern, fwd_smem<P, N>())) return e;
   kern<<<g.B * g.H, kThreads, fwd_smem<P, N>(), s>>>(
       static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-      static_cast<const float*>(Cm), static_cast<float*>(y), h_final, states, g);
+      static_cast<const float*>(Cm), h0, static_cast<float*>(y), h_final, states, g);
   return cudaGetLastError();
 }
 
 template <int P, int N>
 cudaError_t fwd_bf16(const void* x, const float* dt, const float* A, const void* Bm,
-                     const void* Cm, void* y, float* h_final, float* states, float* cb,
-                     const Geo& g, cudaStream_t s) {
+                     const void* Cm, const float* h0, void* y, float* h_final, float* states,
+                     float* cb, const Geo& g, cudaStream_t s) {
   const bf16* Bp = static_cast<const bf16*>(Bm);
   const bf16* Cp = static_cast<const bf16*>(Cm);
   mamba2_fwd_cb_kernel<N><<<g.B * g.NC, kTcThreads, 0, s>>>(Bp, Cp, cb, g);
@@ -1523,7 +1559,7 @@ cudaError_t fwd_bf16(const void* x, const float* dt, const float* A, const void*
   auto kern = mamba2_fwd_tc_kernel<P, N>;
   constexpr size_t smem = FwdTc<P, N>::kSmem;
   if (cudaError_t e = allow_smem(kern, smem)) return e;
-  kern<<<g.B * g.H, kTcThreads, smem, s>>>(static_cast<const bf16*>(x), dt, A, Bp, Cp, cb,
+  kern<<<g.B * g.H, kTcThreads, smem, s>>>(static_cast<const bf16*>(x), dt, A, Bp, Cp, cb, h0,
                                            static_cast<bf16*>(y), h_final, states, g);
   return cudaGetLastError();
 }
@@ -1584,21 +1620,22 @@ cudaError_t bwd_occupancy(int* blocks) {
 #define REPRO_MAMBA_SHAPES(SHAPE_CASE) SHAPE_CASE(64, 64) SHAPE_CASE(16, 8)
 
 // x [B, S, H, P] (dtype), dt [B, S, H] f32, A [H] f32, B, C [B, S, N] (dtype)
+// and the initial state h0 [B, H, P, N] f32 (null: zeros; 8-byte aligned)
 // -> y like x, h_final [B, H, P, N] f32 and, unless states is null, the
 // state at each chunk's entry [B, H, ceil(S / 64), P, N] f32.  bf16 takes
 // the scratch cb [B, ceil(S / 64), 64, 64] f32 (C B^T); f32 ignores it.
 extern "C" int repro_mamba2_fwd(int dtype, const void* x, const float* dt, const float* A,
-                                const void* Bm, const void* Cm, void* y, float* h_final,
-                                float* states, float* cb, int B, int S, int H, int P, int N,
-                                void* stream) {
+                                const void* Bm, const void* Cm, const float* h0, void* y,
+                                float* h_final, float* states, float* cb, int B, int S, int H,
+                                int P, int N, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, S, H, (S + kChunk - 1) / kChunk};
 #define REPRO_FWD_CASE(PP, NN)                                                         \
   if (P == PP && N == NN)                                                              \
     return dtype == repro::kBF16                                                       \
-               ? fwd_bf16<PP, NN>(x, dt, A, Bm, Cm, y, h_final, states, cb, g, s)      \
-               : fwd_f32<PP, NN>(x, dt, A, Bm, Cm, y, h_final, states, g, s);
+               ? fwd_bf16<PP, NN>(x, dt, A, Bm, Cm, h0, y, h_final, states, cb, g, s)  \
+               : fwd_f32<PP, NN>(x, dt, A, Bm, Cm, h0, y, h_final, states, g, s);
   if ((dtype != repro::kF32 && dtype != repro::kBF16) || (dtype == repro::kBF16 && !cb))
     return cudaErrorInvalidValue;
   REPRO_MAMBA_SHAPES(REPRO_FWD_CASE)

@@ -57,7 +57,7 @@
 // rows padded to D + 1 floats so that lane j reading key j is free of bank
 // conflicts); every warp then handles 4 query rows: lane j scores key j, a
 // warp max/sum gives the online-softmax update, and each lane accumulates
-// D / 32 output dims.  Its int8 variant multiplies each int8 value by its
+// ceil(D / 32) output dims (lane + 32 k, guarded below D).  Its int8 variant multiplies each int8 value by its
 // scale in f32 as it stages it (the product the plain version's gather
 // forms, rounded once).  Under skip_null a key whose table entry is 0 (a
 // page another shard owns) is masked and its K/V bytes are never loaded;
@@ -626,6 +626,7 @@ cudaError_t by_dim_tc(int D, dim3 grid, cudaStream_t s, const void* q, const voi
   switch (D) {
     REPRO_PREFILL_TC_CASE(16)
     REPRO_PREFILL_TC_CASE(64)
+    REPRO_PREFILL_TC_CASE(112)
     REPRO_PREFILL_TC_CASE(128)
     default: return cudaErrorInvalidValue;
   }
@@ -649,6 +650,7 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, cons
   switch (D) {
     REPRO_PAGED_CASE(16)
     REPRO_PAGED_CASE(64)
+    REPRO_PAGED_CASE(112)
     REPRO_PAGED_CASE(128)
     default: return cudaErrorInvalidValue;
   }

@@ -58,7 +58,7 @@ shard_launches = 0     # skip_null launches over a shard of a float pool
 shard_q8_launches = 0  # skip_null launches over a shard of an int8 pool
 dense_launches = 0     # launches over a dense slab
 
-DENSE_HEAD_DIMS = (16, 64, 128)   # csrc/decode_attention.cu's instantiations
+DENSE_HEAD_DIMS = (16, 64, 112, 128)   # csrc/decode_attention.cu's instantiations
 
 
 def _plan(q: torch.Tensor, kvh: int, keys: int, grain: int) -> _paged.DecodePlan:

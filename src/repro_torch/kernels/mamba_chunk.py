@@ -25,6 +25,16 @@ so two runs give the same bits. ``launches`` and ``bwd_launches`` count
 calls of the wrappers; a bf16 call launches 2 CUDA kernels forward and 4
 backward, an f32 call 1 and 2.
 
+The forward also starts from a state ``h0`` the caller carries in
+(recurrent serving: a slot's SSM state between prefill chunks), where the
+JAX package runs its plain chunked scan on the TPU too
+(``src/repro/kernels/ops.py:259-263``): on the bf16 route each state-owning
+warp loads its rows of h0 into registers and the shared hi + lo pair that
+chunk 0's C h^T reads; the f32 kernel loads h0 into the block's state.
+Every output, every chunk-entry state and h_final follow.  ``h0_launches``
+counts the forwards that took one; a forward without ``h0`` is the
+zero-state kernel, bit for bit.
+
 The plain versions are ``kernels/ref.py:mamba2_scan`` and ``mamba2_bwd``;
 ``kernels/ops.py`` sends CPU tensors there.  These wrappers take CUDA
 tensors only; bf16 tensors must start on a 16-byte boundary.
@@ -40,6 +50,7 @@ from repro_torch.kernels import _build
 launches = 0         # forward kernel launches through this module
 states_launches = 0  # those of them that also wrote the chunk-entry states
 bwd_launches = 0     # backward launches (one per mamba2_bwd call)
+h0_launches = 0      # forwards from a carried initial state h0
 
 SHAPES = ((64, 64), (16, 8))   # (head dim P, state N) the kernel is built for
 CHUNK = 64                     # rows per chunk (kChunk of csrc/mamba2.cu)
@@ -118,13 +129,23 @@ def _aligned(name: str, **tensors):
 
 
 def mamba2_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-               B: torch.Tensor, C: torch.Tensor, *, save_states: bool = False):
-    """x [B, S, H, P]; dt [B, S, H] f32; A [H] f32; B, C [B, S, N] -> (y like
-    x, h_final [B, H, P, N] f32, chunk-entry states [B, H, NC, P, N] f32 or
+               B: torch.Tensor, C: torch.Tensor, *, h0=None,
+               save_states: bool = False):
+    """x [B, S, H, P]; dt [B, S, H] f32; A [H] f32; B, C [B, S, N]; h0 [B, H,
+    P, N] f32 (contiguous, 16-byte aligned) or None (zeros) -> (y like x,
+    h_final [B, H, P, N] f32, chunk-entry states [B, H, NC, P, N] f32 or
     None)."""
-    global launches, states_launches
+    global launches, states_launches, h0_launches
     b, s, h, p, n = _check("mamba2", x, dt, A, B, C)
-    _build.require_cuda("mamba2", x=x, dt=dt, A=A, B=B, C=C)
+    extra = {}
+    if h0 is not None:
+        if h0.shape != (b, h, p, n) or h0.dtype != torch.float32 \
+                or not h0.is_contiguous() or h0.data_ptr() % 16:
+            raise ValueError(f"mamba2: h0 must be a contiguous [{b}, {h}, {p}, "
+                             f"{n}] float32 on a 16-byte boundary, got "
+                             f"{tuple(h0.shape)} {h0.dtype}")
+        extra["h0"] = h0
+    _build.require_cuda("mamba2", x=x, dt=dt, A=A, B=B, C=C, **extra)
     _aligned("mamba2", x=x, B=B, C=C)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
@@ -136,12 +157,14 @@ def mamba2_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     lib = _build.load()
     code = lib.repro_mamba2_fwd(_build.dtype_code(x), x.data_ptr(), dt.data_ptr(),
                                 A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                                h0.data_ptr() if h0 is not None else None,
                                 y.data_ptr(), hf.data_ptr(),
                                 states.data_ptr() if save_states else None,
                                 cb.data_ptr() if cb is not None else None,
                                 b, s, h, p, n, _build.stream_ptr(x))
     launches += 1
     states_launches += save_states
+    h0_launches += h0 is not None
     _build.check("mamba2", code)
     return y, hf, states
 

@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_chunk as _mamba
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import prefill_attention as _pf
 from repro_torch.kernels import ref
@@ -218,19 +219,35 @@ MAMBA_CHUNK = 64        # the JAX package's ``ops.mamba2_scan(chunk=64)``
 
 def mamba2_scan(x, dt, A, B, C, *, h0=None):
     """Mamba2 SSD scan: x [B, S, H, P]; dt [B, S, H] f32; A [H] f32; B, C
-    [B, S, N] -> (y [B, S, H, P], h_final [B, H, P, N] f32).  On the CPU the
-    plain chunked version with chunks of 64, as the JAX package runs off the
-    TPU.  On the card the kernel covers what the JAX package's Pallas path
-    covers, a zero initial state (training); a carried state is the
-    recurrent serving path."""
+    [B, S, N]; h0 [B, H, P, N] f32 or None (zeros) -> (y [B, S, H, P],
+    h_final [B, H, P, N] f32).  On the CPU the plain chunked version with
+    chunks of 64, as the JAX package runs off the TPU.  On the card a zero
+    initial state (training) goes through the differentiable kernel pair; a
+    carried state ``h0`` (recurrent serving, where the JAX package runs its
+    plain chunked scan) launches the forward kernel from h0, forward only:
+    no path of the JAX package differentiates through a carried state, and
+    an input that requires grad raises."""
     if _on_cpu(x):
         return ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=MAMBA_CHUNK)
     if h0 is not None:
-        raise NotImplementedError(
-            "mamba2_scan with an initial state h0 is the recurrent serving "
-            "path; it comes with the recurrent-serving slice of repro_torch")
+        if any(t.requires_grad for t in (x, dt, A, B, C, h0)):
+            raise NotImplementedError(
+                "mamba2_scan with an initial state h0 is the recurrent serving "
+                "forward, forward only: its kernel has no backward (nothing "
+                "trains through a carried state)")
+        return _mamba.mamba2_fwd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                                 B.contiguous(), C.contiguous(),
+                                 h0=h0.contiguous())[:2]
     return _ag.Mamba2.apply(x.contiguous(), dt.contiguous(), A.contiguous(),
                             B.contiguous(), C.contiguous())
+
+
+def mamba2_step(xt, dtt, A, Bt, Ct, h):
+    """One-token Mamba2 update (decode): xt [B, H, P]; dtt [B, H] f32; Bt,
+    Ct [B, N]; h [B, H, P, N] f32 -> (y [B, H, P] in xt's dtype, h_new f32).
+    Plain PyTorch on every device: the JAX package has no kernel for it
+    either."""
+    return ref.mamba2_step(xt, dtt, A, Bt, Ct, h)
 
 
 def rwkv6_step(rt, kt, vt, wt, u, S):

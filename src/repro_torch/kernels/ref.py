@@ -792,6 +792,18 @@ def mamba2_scan(x, dt, A, B, C, *, h0: Optional[torch.Tensor] = None,
     return y.to(x.dtype), hs
 
 
+def mamba2_step(xt, dtt, A, Bt, Ct, h):
+    """One-token Mamba2 update (decode): xt [B, H, P]; dtt [B, H]; A [H];
+    Bt, Ct [B, N]; h [B, H, P, N] f32 -> (y [B, H, P] in xt's dtype, h_new
+    [B, H, P, N] f32), one step of :func:`mamba2_scan`."""
+    dtf = dtt.float()
+    dA = torch.exp(dtf * A.float()[None, :])
+    hn = h * dA[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dtf, xt.float(), Bt.float())
+    y = torch.einsum("bhpn,bn->bhp", hn, Ct.float())
+    return y.to(xt.dtype), hn
+
+
 def mamba2_chunk_states(x, dt, A, B, *, chunk: int = 64):
     """The SSM state at the entry of each ``chunk``-row chunk, from a zero
     state: [Bt, H, ceil(S / chunk), P, N] f32 (what the training forward

@@ -7,6 +7,8 @@ synthetic request stream.
       [--seq-shards 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --reduced --device cpu [--dense]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
@@ -14,10 +16,12 @@ Parameters are random, made from ``--seed``.  The port serves with greedy
 sampling the dense family, from a page pool in the engine dtype or in int8
 (``--kv-dtype int8``), whole or sequence-sharded (``--seq-shards S``: S
 shards of the one pool on the one device, their attention partials merged
-by the NoC tree combine, whose hop and energy totals are printed), and
-RWKV6 (``--arch rwkv6-3b``) from its recurrent slot state, which has no
-page pool: the engine refuses ``--kv-dtype int8`` and ``--seq-shards`` for
-it.
+by the NoC tree combine, whose hop and energy totals are printed), RWKV6
+(``--arch rwkv6-3b``) from its recurrent slot state, which has no page
+pool: the engine refuses ``--kv-dtype int8`` and ``--seq-shards`` for it,
+and the hybrid (``--arch zamba2-7b``): its shared attention block's KV in
+the page pool (int8 and sequence shards too) beside its Mamba2 layers'
+slot state, or in dense slabs with ``--dense``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ from repro_torch.serve import ServeEngine
 
 # The full-width serving mix that chip_smoke.py and trace_serve.py drive:
 # stablelm-1.6b's engine at 8 slots, and 16 requests of 64 new tokens (the
-# same engine and requests serve rwkv6-3b, which ignores block_size).
+# same engine and requests serve rwkv6-3b, which ignores block_size, and
+# zamba2-7b, whose pool holds the shared block's 13 applications).
 MIX_ENGINE = dict(slots=8, max_seq=1024, block_size=16,
                   prefill_buckets=(32, 128, 512, 1024))
 MIX_NEW_TOKENS = 64
@@ -124,7 +129,10 @@ def main(argv=None):
               f"{r.out_tokens[:8]}{'...' if len(r.out_tokens) > 8 else ''}")
     ttfts = sorted(r.ttft for r in done if r.ttft is not None)
     p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else 0.0
-    mode = "dense" if args.dense else "paged" if eng.paged else "slot state"
+    mode = ("dense" if args.dense else
+            " + ".join(name for name, on in (("paged", eng.paged),
+                                             ("slot state", eng.has_slot_state))
+                       if on))
     if eng.kv_dtype != "fp16":
         mode += f"/{eng.kv_dtype}"
     if eng.seq_shards > 1:

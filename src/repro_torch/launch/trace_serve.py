@@ -1,13 +1,15 @@
 """Where the device time goes when the port serves at full width.
 
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
-      [--arch rwkv6-3b] [--dense | --kv-dtype int8 | --seq-shards 4]
+      [--arch rwkv6-3b | --arch zamba2-7b] \
+      [--dense | --kv-dtype int8 | --seq-shards 4]
 
 Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
 ``--seed``) at full width and depth on the card through the engine: the
 runner path (default: the page pool, ``--kv-dtype int8`` for the int8 page
 pool, ``--seq-shards S`` for a sequence-sharded pool; rwkv6-3b's slot
-state) or the dense-slab baseline (``--dense``,
+state; zamba2-7b's pool beside its Mamba2 slot state) or the dense-slab
+baseline (``--dense``,
 ``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
 (``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
 untraced for the wall clock, once under ``torch.profiler``.  Prints the
@@ -20,14 +22,18 @@ device.  With ``--dense`` the default summary file is
 ``trace_serve_int8.json``, with ``--seq-shards S`` ``trace_serve_seqS.json``
 (another arch: its name before ``.json``).  The port's kernels are split
 into decode attention (the flash-decoding kernel, over pages or slabs),
-the paged prefill, the wkv6 forward (from a carried state on rwkv6-3b's
-runner path), rmsnorm and the rest.  The traced pass also puts each call of
-a few plain functions under a profiler range, and the non-GEMM kernels
-they launch are counted apart from the other PyTorch ops: the NoC tree
-combine (``core.noc.tree_softmax_combine``, a sharded run: max, exp,
-products, sums, the division) and RWKV6's plain one-token step
-(``ops.rwkv6_step``), decay (``models/rwkv.py:_decay``, its LoRA GEMMs
-left with the GEMMs) and token shift (``_shift``).
+the paged prefill, the slab prefill (the flash forward with a key bound),
+the wkv6 forward (from a carried state on rwkv6-3b's runner path), the
+Mamba2 forward (from a carried state on zamba2-7b's runner path), rmsnorm
+and the rest.  The traced pass also puts each call of a few plain
+functions under a profiler range, and the non-GEMM kernels they launch are
+counted apart from the other PyTorch ops: the NoC tree combine
+(``core.noc.tree_softmax_combine``, a sharded run: max, exp, products,
+sums, the division), RWKV6's plain one-token step (``ops.rwkv6_step``),
+decay (``models/rwkv.py:_decay``, its LoRA GEMMs left with the GEMMs) and
+token shift (``_shift``), and Mamba2's plain one-token step
+(``ops.mamba2_step``) and its causal conv over a chunk
+(``models/ssm.py:_causal_conv``) or a token (``_conv_step``).
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from repro_torch.core import noc
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                       shared_prefix_mix)
-from repro_torch.models import model, rwkv
+from repro_torch.models import model, rwkv, ssm
 from repro_torch.serve import ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu); the paged
@@ -52,7 +58,7 @@ from repro_torch.serve import ServeEngine
 # (bf16)
 PREFILL_KERNELS = ("paged_attention_kernel", "paged_prefill_tc_kernel")
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
-                "flash_decode_kernel", "flash_fwd_kernel", *PREFILL_KERNELS)
+                "flash_decode_kernel", "flash_", *PREFILL_KERNELS)
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 OTHER_OPS = "other PyTorch ops"
 TOP = 15                       # kernels listed by device time
@@ -61,7 +67,10 @@ TOP = 15                       # kernels listed by device time
 RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
           (ops, "rwkv6_step", "rwkv plain ops: rwkv6_step"),
           (rwkv, "_decay", "rwkv plain ops: decay"),
-          (rwkv, "_shift", "rwkv plain ops: token shift"))
+          (rwkv, "_shift", "rwkv plain ops: token shift"),
+          (ops, "mamba2_step", "mamba plain ops: mamba2_step"),
+          (ssm, "_causal_conv", "mamba plain ops: conv"),
+          (ssm, "_conv_step", "mamba plain ops: conv"))
 
 
 def _group(name: str) -> str:
@@ -70,8 +79,12 @@ def _group(name: str) -> str:
         return "port CUDA kernels: decode attention"
     if any(k in name for k in PREFILL_KERNELS):
         return "port CUDA kernels: paged prefill"
+    if "flash_fwd_" in name:
+        return "port CUDA kernels: slab prefill (flash)"
     if "rwkv6_fwd_" in name:
         return "port CUDA kernels: wkv6"
+    if "mamba2_fwd_" in name:
+        return "port CUDA kernels: Mamba2"
     if "rmsnorm_kernel" in name:
         return "port CUDA kernels: rmsnorm"
     if any(k in name for k in PORT_KERNELS):
@@ -191,10 +204,12 @@ def main(argv=None):
     card = torch.cuda.get_device_name(0)
     if args.dense:
         mode = "dense slabs"
-    elif cfg.rwkv:
+    elif cfg.family == "ssm":
         mode = "slot state"
     else:
         mode = f"paged, {args.kv_dtype} pool"
+        if cfg.family == "hybrid":
+            mode += ", slot state"
     if args.seq_shards > 1:
         mode += f", {args.seq_shards} sequence shards"
     n_launch = sum(n for _, n in per_kernel.values())

@@ -73,8 +73,11 @@ def state_from_jax(state, device="cpu"):
     :func:`params_from_jax`, and the AdamW moments ``m`` / ``v``, which have
     the parameters' structure, carried the same way; the step count stays a
     CPU int32 scalar.  A JAX serving or decode state (a dict with numpy
-    leaves: RWKV6's ``tm_shift`` / ``wkv`` / ``cm_shift`` stacked ``[L, B,
-    ...]``, the dense family's ``attn`` pages or slabs) -> the port's, each
+    leaves: RWKV6's ``tm_shift`` / ``wkv`` / ``cm_shift`` and Mamba2's
+    ``conv`` / ``ssm`` stacked ``[L, B, ...]``, the hybrid's ``conv_g`` /
+    ``ssm_g`` ``[G, K, B, ...]`` and ``conv_t`` / ``ssm_t`` ``[max(tail, 1),
+    B, ...]``, the ``attn`` pages (and int8 scales) or slabs of the dense
+    family's L layers or the hybrid's G applications) -> the port's, each
     leaf in its dtype and layout (the port keeps the layer stack)."""
     if isinstance(state, dict):
         return _map(state, lambda a: _tensor(a, device))

@@ -1,8 +1,10 @@
 """Decoder LM: full-sequence forward (training) for the dense, RWKV6,
-Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for the dense
-family (over a paged KV cache or a dense KV slab) and for RWKV6 (over a
-fixed-size recurrent state per sequence: the serve state's slot rows, or
-the dense-slab baseline's batch rows).
+Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for all four:
+the dense family over a paged KV cache or a dense KV slab, RWKV6 and
+Mamba2 over a fixed-size recurrent state per sequence (the serve state's
+slot rows, or the dense-slab baseline's batch rows), and the hybrid over
+both (its shared attention block's KV in pages or slabs, its Mamba2
+layers' state in slots).
 
 Port of the JAX package's ``models/model.py``: the stacked-layer
 ``lax.scan`` becomes a Python loop over a list of per-layer parameter
@@ -14,18 +16,24 @@ parameters are ``groups`` (a list of groups, each a list of layer dicts),
 ``tail`` (a list of layer dicts) and ``shared``.  RWKV6's recurrent state
 is ``tm_shift`` [L, B, 1, d] and ``cm_shift`` [L, B, 1, d] in the model
 dtype and ``wkv`` [L, B, H, D, D] f32, the batch (or engine slot) on axis
-1 as in JAX; prefill and decode advance it in place.  What this port does
-not run yet raises ``NotImplementedError`` naming the slice of the port
-that brings it.
+1 as in JAX; prefill and decode advance it in place.  Mamba2's is
+``conv`` [L, B, W - 1, C] in the model dtype and ``ssm`` [L, B, H, P, N]
+f32; the hybrid's is ``conv_g`` / ``ssm_g`` [G, K, B, ...] for its groups
+and ``conv_t`` / ``ssm_t`` [max(tail, 1), B, ...] for its tail, beside
+``attn``, the pages [G, KvH, NB, BS, hd] (or slabs [G, B, Smax, KvH, hd])
+of the shared block's G applications; the JAX layouts, so
+``models/convert.py:state_from_jax`` is a plain map.  What this port does
+not run yet (MoE serving) raises ``NotImplementedError`` naming the slice
+of the port that brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
     forward(cfg, params, tokens, ...)              -> (logits [B, S, V], aux [2])
-    init_decode_state(cfg, batch, max_seq, dtype, device)   (dense KV slab / RWKV6 state)
+    init_decode_state(cfg, batch, max_seq, dtype, device)   (KV slabs / recurrent state)
     prefill(cfg, params, state, tokens=..., lengths=...) -> (logits [B, 1, V], state)
     decode_step(cfg, params, state, tokens, lengths) -> (logits [B, V], state)
     init_serve_state(cfg, slots, num_blocks, block_size, dtype, device, kv_dtype)
-                                                   (pages / RWKV6 slot state)
+                                                   (pages / slot state)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
     serve_prefill_chunk / serve_decode_step        (the runner's entry points)
@@ -42,15 +50,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, rwkv, ssm
 
 RWKV_STATE = ("tm_shift", "wkv", "cm_shift")   # RWKV6's recurrent state keys
+MAMBA_STATE = ("conv", "ssm")                  # Mamba2's (family "ssm")
+HYBRID_STATE = ("conv_g", "ssm_g", "conv_t", "ssm_t")   # the hybrid's slot state
 
 
 def _later(cfg: ModelConfig, serving: bool) -> str:
     """The slice of the port that brings ``cfg``'s family (for serving, or
     for training)."""
     if cfg.family == "moe":
-        return "the MoE slice"
-    if serving and cfg.family in ("ssm", "hybrid"):
-        return "the Mamba2 / hybrid recurrent-serving slice"
+        return ("the MoE slice (MoE serving: ROADMAP A.2)" if serving
+                else "the MoE slice")
     return "a later slice"
 
 
@@ -65,13 +74,14 @@ def require_trainable(cfg: ModelConfig) -> None:
 
 
 def require_servable(cfg: ModelConfig) -> None:
-    """Serving: the dense family (paged or over a dense slab) and RWKV6
-    (``family == "ssm"`` with ``rwkv``, over its recurrent state)."""
-    if not (cfg.family == "dense" or (cfg.family == "ssm" and cfg.rwkv)):
+    """Serving: the dense family (paged or over a dense slab), the ``ssm``
+    family (RWKV6 and Mamba2, over their recurrent state) and the hybrid
+    (paged or slab attention KV beside its Mamba2 state)."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"serving family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"it comes with {_later(cfg, True)} of repro_torch; this port "
-            f"serves family='dense' and RWKV6 (family='ssm' with rwkv)")
+            f"serves family='dense', 'ssm' (RWKV6, Mamba2) and 'hybrid'")
 
 
 # ---------------------------------------------------------------------------
@@ -150,16 +160,44 @@ def _rwkv_state(cfg: ModelConfig, batch: int, dtype, device):
                                                      dtype, device)))
 
 
+def _mamba_state(cfg: ModelConfig, batch: int, dtype, device):
+    """Mamba2's zero slot state of ``batch`` sequences in the JAX layouts:
+    ``conv`` / ``ssm`` [L, B, ...] (family "ssm"), or the hybrid's
+    ``conv_g`` / ``ssm_g`` [G, K, B, ...] and ``conv_t`` / ``ssm_t``
+    [max(tail, 1), B, ...]."""
+    if cfg.family == "ssm":
+        return dict(zip(MAMBA_STATE, ssm.mamba_state_init(
+            cfg, batch, cfg.n_layers, dtype, device)))
+    g, k, tail = hybrid_layout(cfg)
+    conv_g, ssm_g = ssm.mamba_state_init(cfg, batch, g * k, dtype, device)
+    conv_t, ssm_t = ssm.mamba_state_init(cfg, batch, max(tail, 1), dtype,
+                                         device)
+    return {"conv_g": conv_g.reshape(g, k, *conv_g.shape[1:]),
+            "ssm_g": ssm_g.reshape(g, k, *ssm_g.shape[1:]),
+            "conv_t": conv_t, "ssm_t": ssm_t}
+
+
+def _attn_apps(cfg: ModelConfig) -> int:
+    """Attention applications per token: L layers, or the hybrid's G."""
+    return hybrid_layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda"):
     """The dense-slab serving baseline's state: KV slabs ``[L, B, Smax, KvH,
-    hd]`` (dense), or RWKV6's zero recurrent state of B sequences
-    (``max_seq`` unused)."""
+    hd]`` (dense), the zero recurrent state of B sequences (RWKV6, Mamba2;
+    ``max_seq`` unused), or the hybrid's Mamba2 state beside slabs ``[G, B,
+    Smax, KvH, hd]``."""
     require_servable(cfg)
     if cfg.rwkv:
         return _rwkv_state(cfg, batch, dtype, device)
-    return {"attn": layers.attn_cache_init(cfg, batch, max_seq, dtype,
-                                           n_slots=cfg.n_layers, device=device)}
+    state = {} if cfg.family == "dense" else _mamba_state(cfg, batch, dtype,
+                                                          device)
+    if cfg.family != "ssm":
+        state["attn"] = layers.attn_cache_init(cfg, batch, max_seq, dtype,
+                                               n_slots=_attn_apps(cfg),
+                                               device=device)
+    return state
 
 
 def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
@@ -168,15 +206,21 @@ def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
     """The runner path's serving state.  Dense: paged KV pages ``[L, KvH,
     NB, BS, hd]`` shared by all slots; ``kv_dtype="int8"`` stores int8 pages
     plus per-(layer, kv head, page) ``k_scales`` / ``v_scales`` [L, KvH, NB]
-    f32.  RWKV6: the recurrent slot state of ``slots`` sequences only
-    (``num_blocks``, ``block_size`` and ``kv_dtype`` unused)."""
+    f32.  RWKV6 and Mamba2: the recurrent slot state of ``slots`` sequences
+    only (``num_blocks``, ``block_size`` and ``kv_dtype`` unused).  Hybrid:
+    the Mamba2 slot state beside pages ``[G, KvH, NB, BS, hd]`` for the
+    shared block's G applications (one block table per sequence serves
+    them all, as one serves the L layers of the dense family)."""
     require_servable(cfg)
     if cfg.rwkv:
         return _rwkv_state(cfg, slots, dtype, device)
-    return {"attn": layers.paged_kv_cache_init(cfg, num_blocks, block_size,
-                                               dtype, n_slots=cfg.n_layers,
-                                               device=device,
-                                               kv_dtype=kv_dtype)}
+    state = {} if cfg.family == "dense" else _mamba_state(cfg, slots, dtype,
+                                                          device)
+    if cfg.family != "ssm":
+        state["attn"] = layers.paged_kv_cache_init(
+            cfg, num_blocks, block_size, dtype, n_slots=_attn_apps(cfg),
+            device=device, kv_dtype=kv_dtype)
+    return state
 
 
 def _layer_scales(state, li: int):
@@ -243,6 +287,52 @@ def _mamba_block(cfg, lp, x):
     """Pre-norm residual Mamba2 block."""
     return x + ssm.mamba_apply(lp["mamba"],
                                layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg)
+
+
+def _mamba_block_state(cfg, lp, x, conv, h, length, carry: bool):
+    """Pre-norm residual Mamba2 block over a right-padded chunk with
+    ``length`` valid rows, advancing one layer's state views ``conv`` and
+    ``h`` in place: from the state they hold (``carry``, a serving chunk:
+    the scan kernel from a carried state) or from zero (the slab prefill:
+    the zero-state kernel)."""
+    y, (tail, hf) = ssm.mamba_apply(
+        lp["mamba"], layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+        conv_state=conv if carry else None, ssm_state=h if carry else None,
+        length=length, return_state=True)
+    conv.copy_(tail)
+    h.copy_(hf)
+    return x + y
+
+
+def _mamba_block_step(cfg, lp, x, conv, h, rows):
+    """Pre-norm residual Mamba2 block over one token, its state views
+    written back in place at the batch rows ``rows`` (all when None)."""
+    y, (conv1, h1) = ssm.mamba_decode_step(
+        lp["mamba"], layers.rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg, (conv, h))
+    _put_rows(conv, conv1, rows)
+    _put_rows(h, h1, rows)
+    return x + y
+
+
+def _mamba_stack(cfg, params, state, x, sl, layer, attend=None):
+    """``x`` through every Mamba2 layer in order, ``layer(lp, x, conv, h)``
+    given the layer's state views at the batch rows ``sl`` (a slice), and,
+    for the hybrid, through the shared attention + FFN block after each
+    group: ``attend(gi)`` maps the normed input to application ``gi``'s
+    attention output (its pages or its slab)."""
+    if cfg.family == "ssm":
+        for li, lp in enumerate(params["layers"]):
+            x = layer(lp, x, state["conv"][li, sl], state["ssm"][li, sl])
+        return x
+    sp = params["shared"]
+    for gi, gp in enumerate(params["groups"]):
+        for ki, lp in enumerate(gp):
+            x = layer(lp, x, state["conv_g"][gi, ki, sl],
+                      state["ssm_g"][gi, ki, sl])
+        x = _block(cfg, sp, x, attend(gi))
+    for ti, lp in enumerate(params["tail"]):
+        x = layer(lp, x, state["conv_t"][ti, sl], state["ssm_t"][ti, sl])
+    return x
 
 
 def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
@@ -317,9 +407,11 @@ def prefill(cfg: ModelConfig, params, state, *,
     (default S).  Every layer writes its K/V into slab rows ``[0, S)`` of
     ``state`` in place and attends with the per-sequence key bound.
     Returns (logits at each sequence's last valid row [B, 1, V], state).
-    RWKV6 runs each sequence from a zero state (the state passed in is
-    only written: its rows end holding the state after each sequence's
-    ``lengths`` valid rows), the wkv scan on the zero-state kernel."""
+    RWKV6 and Mamba2 run each sequence from a zero state (the state passed
+    in is only written: its rows end holding the state after each
+    sequence's ``lengths`` valid rows), the scans on the zero-state
+    kernels; the hybrid's shared block writes application ``gi``'s slab
+    and attends with the key bound, as the dense family's layers do."""
     require_servable(cfg)
     x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
     b, s, _ = x.shape
@@ -333,12 +425,23 @@ def prefill(cfg: ModelConfig, params, state, *,
         return _logits(cfg, params, _last_token(x, lengths)), state
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
-    for li, lp in enumerate(params["layers"]):
-        cache = {"k": ck_all[li], "v": cv_all[li]}
-        x = _block(cfg, lp, x, lambda h: layers.attention_prefill(
-            lp["attn"], h, positions, cfg, cache, lengths=lengths,
-            window=attn_window)[0])
+    if cfg.family != "ssm":
+        ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
+
+    def attend(p, i):
+        return lambda h: layers.attention_prefill(
+            p, h, positions, cfg, {"k": ck_all[i], "v": cv_all[i]},
+            lengths=lengths, window=attn_window)[0]
+
+    if cfg.family == "dense":
+        for li, lp in enumerate(params["layers"]):
+            x = _block(cfg, lp, x, attend(lp["attn"], li))
+    else:
+        x = _mamba_stack(
+            cfg, params, state, x, slice(None),
+            lambda lp, xc, conv, h: _mamba_block_state(cfg, lp, xc, conv, h,
+                                                       lengths, carry=False),
+            lambda gi: attend(params["shared"]["attn"], gi))
     return _logits(cfg, params, _last_token(x, lengths)), state
 
 
@@ -357,11 +460,12 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     tokens [B] (or ``embeds`` [B, d]); lengths [B] int32 = cache fill level.
     Each layer writes the new K/V row at position ``lengths`` into its slab
     in place (the stacked cache carried through the layer loop, so no slab
-    is copied) and attends over ``[0, lengths]``.  RWKV6 steps every row's
-    recurrent state (``ops.rwkv6_step``) and writes it back in place: every
-    row, or with ``rows`` (an int64 tensor of batch rows) those rows only,
-    the others kept bit for bit (the runner's slot mask).  Returns (logits
-    [B, V], state)."""
+    is copied) and attends over ``[0, lengths]``.  RWKV6 and Mamba2 step
+    every row's recurrent state (``ops.rwkv6_step``, ``ops.mamba2_step``)
+    and write it back in place: every row, or with ``rows`` (an int64
+    tensor of batch rows) those rows only, the others kept bit for bit (the
+    runner's slot mask); the hybrid's shared block attends over application
+    ``gi``'s slab.  Returns (logits [B, V], state)."""
     require_servable(cfg)
     if embeds is not None:
         x = embeds[:, None, :]
@@ -380,11 +484,22 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
             for dst, src in zip(views, (tms1, wkv1, cms1)):
                 _put_rows(dst, src, rows)
         return _logits(cfg, params, x)[:, 0], state
-    ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
-    for li, lp in enumerate(params["layers"]):
-        x = _block(cfg, lp, x, lambda h: layers.attention_decode_stacked(
-            lp["attn"], h, cfg, ck_all, cv_all, li, lengths,
-            window=attn_window)[0])
+    if cfg.family != "ssm":
+        ck_all, cv_all = state["attn"]["k"], state["attn"]["v"]
+
+    def attend(p, i):
+        return lambda h: layers.attention_decode_stacked(
+            p, h, cfg, ck_all, cv_all, i, lengths, window=attn_window)[0]
+
+    if cfg.family == "dense":
+        for li, lp in enumerate(params["layers"]):
+            x = _block(cfg, lp, x, attend(lp["attn"], li))
+    else:
+        x = _mamba_stack(
+            cfg, params, state, x, slice(None),
+            lambda lp, xc, conv, h: _mamba_block_step(cfg, lp, xc, conv, h,
+                                                      rows),
+            lambda gi: attend(params["shared"]["attn"], gi))
     return _logits(cfg, params, x)[:, 0], state
 
 
@@ -404,21 +519,33 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     ``block_table``, marks a sequence-sharded pool (the scatter stays on
     global page ids; attention runs per shard, ``layers.pool_shards``)."""
     require_servable(cfg)
-    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens)
-    c = x.shape[1]
+    attend = _paged_prefill_attend(cfg, state, x.shape[1], length, q_offset,
+                                   block_table, local_tables)
+    for li, lp in enumerate(params["layers"]):
+        x = _block(cfg, lp, x, attend(lp["attn"], li))
+    logits = _logits(cfg, params, x[:, length - 1:length])
+    return logits[:, 0], state
+
+
+def _paged_prefill_attend(cfg, state, c: int, length: int, q_offset: int,
+                          block_table, local_tables):
+    """``attend(p, i)``: the chunk's attention through application ``i``'s
+    pages (and an int8 pool's scales, or the shards' views), its K/V
+    scattered there first."""
+    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     positions = (q_offset + torch.arange(c, dtype=torch.int32,
-                                         device=x.device))[None]
+                                         device=kp_all.device))[None]
     idx = (None if "k_scales" in state["attn"] else      # int8: a window
            layers.prefill_scatter_index(block_table, q_offset, length, c,
                                         kp_all.shape[3]))
-    for li, lp in enumerate(params["layers"]):
-        ks, vs = _layer_scales(state, li)
-        x = _block(cfg, lp, x, lambda h: layers.attention_prefill_paged(
-            lp["attn"], h, positions, cfg, kp_all[li], vp_all[li], block_table,
-            q_offset, length, idx, ks, vs, local_tables))
-    logits = _logits(cfg, params, x[:, length - 1:length])
-    return logits[:, 0], state
+
+    def attend(p, i):
+        ks, vs = _layer_scales(state, i)
+        return lambda h: layers.attention_prefill_paged(
+            p, h, positions, cfg, kp_all[i], vp_all[i], block_table,
+            q_offset, length, idx, ks, vs, local_tables)
+    return attend
 
 
 def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
@@ -433,15 +560,26 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     in place.  ``local_tables`` [S, B, MB] int32 marks a sequence-sharded
     pool, as in :func:`prefill_paged`."""
     require_servable(cfg)
-    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
     x = layers.embed(params["embed"], tokens[:, None])
-    idx = layers.decode_scatter_index(lengths, block_tables, kp_all.shape[3])
+    attend = _paged_decode_attend(cfg, state, lengths, block_tables,
+                                  local_tables)
     for li, lp in enumerate(params["layers"]):
-        ks, vs = _layer_scales(state, li)
-        x = _block(cfg, lp, x, lambda h: layers.attention_decode_paged(
-            lp["attn"], h, cfg, kp_all[li], vp_all[li], lengths, block_tables,
-            idx, ks, vs, local_tables))
+        x = _block(cfg, lp, x, attend(lp["attn"], li))
     return _logits(cfg, params, x)[:, 0], state
+
+
+def _paged_decode_attend(cfg, state, lengths, block_tables, local_tables):
+    """``attend(p, i)``: one decode row per sequence through application
+    ``i``'s pages, the new K/V row scattered there first."""
+    kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
+    idx = layers.decode_scatter_index(lengths, block_tables, kp_all.shape[3])
+
+    def attend(p, i):
+        ks, vs = _layer_scales(state, i)
+        return lambda h: layers.attention_decode_paged(
+            p, h, cfg, kp_all[i], vp_all[i], lengths, block_tables, idx, ks,
+            vs, local_tables)
+    return attend
 
 
 def copy_kv_page(state, src: int, dst: int):
@@ -466,21 +604,36 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
 
     tokens [1, C] (right-padded); ``length`` valid rows.  Dense: K/V land in
     the pages of ``block_table`` (``local_tables``: a sequence-sharded
-    pool's).  RWKV6: the chunk runs from engine slot ``slot``'s recurrent
-    state and advances its rows in place (padding rows are state-neutral,
-    so repeated chunks reproduce one unpadded prefill; ``q_offset`` and the
-    tables are unused); the wkv scan is the kernel with a carried state.
-    Returns (logits at the chunk's last valid row [1, V], state)."""
-    if not cfg.rwkv:
+    pool's).  RWKV6 and Mamba2: the chunk runs from engine slot ``slot``'s
+    recurrent state and advances its rows in place (padding rows are
+    state-neutral, so repeated chunks reproduce one unpadded prefill;
+    ``q_offset`` and the tables are unused); the scans are the kernels with
+    a carried state.  Hybrid: both, the shared block's application ``gi``
+    through its pages at ``q_offset``.  Returns (logits at the chunk's last
+    valid row [1, V], state)."""
+    if cfg.family == "dense":
         return prefill_paged(cfg, params, state, tokens=tokens, length=length,
                              q_offset=q_offset, block_table=block_table,
                              local_tables=local_tables)
     x = layers.embed(params["embed"], tokens)
     lens = torch.full((1,), length, dtype=torch.int32, device=x.device)
-    for li, lp in enumerate(params["layers"]):
-        x = _rwkv_block_state(
-            cfg, lp, x, tuple(state[k][li][slot:slot + 1] for k in RWKV_STATE),
-            lens, carry=True)
+    sl = slice(slot, slot + 1)
+    if cfg.rwkv:
+        for li, lp in enumerate(params["layers"]):
+            x = _rwkv_block_state(
+                cfg, lp, x, tuple(state[k][li][sl] for k in RWKV_STATE),
+                lens, carry=True)
+    else:
+        attend = None
+        if cfg.family == "hybrid":
+            paged = _paged_prefill_attend(cfg, state, x.shape[1], length,
+                                          q_offset, block_table, local_tables)
+            attend = lambda gi: paged(params["shared"]["attn"], gi)  # noqa: E731
+        x = _mamba_stack(
+            cfg, params, state, x, sl,
+            lambda lp, xc, conv, h: _mamba_block_state(cfg, lp, xc, conv, h,
+                                                       lens, carry=True),
+            attend)
     logits = _logits(cfg, params, x[:, length - 1:length])
     return logits[:, 0], state
 
@@ -488,9 +641,20 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
                       block_tables=None, local_tables=None, rows=None):
     """Batched one-token decode against the serve state: the paged pool
-    (``local_tables``: a sequence-sharded pool's), or RWKV6's slot state,
-    of which only the batch rows ``rows`` are written when given."""
-    if not cfg.rwkv:
+    (``local_tables``: a sequence-sharded pool's), or the slot state (RWKV6,
+    Mamba2), of which only the batch rows ``rows`` are written when given,
+    or both (the hybrid: its shared block through the pool at application
+    ``gi``, its Mamba2 state gated by ``rows``)."""
+    if cfg.family == "dense":
         return decode_step_paged(cfg, params, state, tokens, lengths,
                                  block_tables, local_tables)
-    return decode_step(cfg, params, state, tokens, lengths, rows=rows)
+    if cfg.family == "ssm":
+        return decode_step(cfg, params, state, tokens, lengths, rows=rows)
+    x = layers.embed(params["embed"], tokens[:, None])
+    attend = _paged_decode_attend(cfg, state, lengths, block_tables,
+                                  local_tables)
+    x = _mamba_stack(
+        cfg, params, state, x, slice(None),
+        lambda lp, xc, conv, h: _mamba_block_step(cfg, lp, xc, conv, h, rows),
+        lambda gi: attend(params["shared"]["attn"], gi))
+    return _logits(cfg, params, x)[:, 0], state

@@ -5,15 +5,19 @@ Port of the JAX package's ``models/runner.py`` (``cache_spec`` :89 and
 ``ModelRunner`` :118) for the families this port serves.  The dense
 family's serving cache is one paged component (attention KV for all L
 layers, addressed through one block table per sequence) and no slot state;
-RWKV6's is fixed-size slot state only (``tm_shift``, ``wkv`` and
-``cm_shift``, the engine slot on axis 1) and no paged component.  The
-engine reads the spec (``has_paged``: run a ``BlockAllocator``;
-``has_slot_state``: reset a slot at admission and gate its state in the
-batched decode) and never the family.  The runner also holds the
-dense-slab baseline's state (``[L, slots, max_seq]`` slabs, or RWKV6's
-state of ``slots`` rows) and its monolithic prefill into one slot.  The
-Mamba2 ``ssm`` variant and the hybrid family, and the slot-state swap
-(``extract_slot_state`` / ``insert_slot_state``), come with later slices.
+RWKV6's and Mamba2's are fixed-size slot state only (``tm_shift``, ``wkv``
+and ``cm_shift``, or ``conv`` and ``ssm``, the engine slot on axis 1) and
+no paged component; the hybrid's is both: one paged component ``attn``
+for the shared block's G applications, and ``conv_g`` / ``ssm_g`` (the
+slot on axis 2, after the group and layer axes) and ``conv_t`` /
+``ssm_t`` (axis 1).  The engine reads the spec (``has_paged``: run a
+``BlockAllocator``; ``has_slot_state``: reset a slot at admission, gate
+its state in the batched decode, never attach a cached prefix) and never
+the family.  The runner also holds the dense-slab baseline's state
+(``[L, slots, max_seq]`` slabs, the recurrent state of ``slots`` rows, or
+the hybrid's both) and its monolithic prefill into one slot.  The
+slot-state swap (``extract_slot_state`` / ``insert_slot_state``) comes
+with a later slice.
 
 A sequence-sharded pool (``ServeEngine(seq_shards=S)``) stays one state on
 the card: shard ``s`` is the slice ``[s*nbl, (s+1)*nbl)`` of every paged
@@ -80,9 +84,16 @@ class CacheSpec:
 
 def cache_spec(cfg: ModelConfig) -> CacheSpec:
     M.require_servable(cfg)
-    if cfg.rwkv:
+    if cfg.family == "ssm":
+        keys = M.RWKV_STATE if cfg.rwkv else M.MAMBA_STATE
         return CacheSpec(paged=(), slot_state=tuple(
-            SlotStateSpec(key, 1) for key in M.RWKV_STATE))
+            SlotStateSpec(key, 1) for key in keys))
+    if cfg.family == "hybrid":
+        g, _, _ = M.hybrid_layout(cfg)
+        return CacheSpec(
+            paged=(PagedComponentSpec("attn", g, cfg.n_kv_heads, cfg.hd),),
+            slot_state=(SlotStateSpec("conv_g", 2), SlotStateSpec("ssm_g", 2),
+                        SlotStateSpec("conv_t", 1), SlotStateSpec("ssm_t", 1)))
     return CacheSpec(paged=(PagedComponentSpec("attn", cfg.n_layers,
                                                cfg.n_kv_heads, cfg.hd),))
 
@@ -122,15 +133,15 @@ class ModelRunner:
         """Monolithic prefill of one right-padded prompt (tokens [1, S])
         straight into slot ``slot``'s rows of the slabs -> logits [1, V].
         Rows past S keep what an earlier occupant left: decode never
-        reads a row before writing it.  RWKV6's prefill starts from a zero
-        state and writes the slot's state rows whole, as the JAX engine
-        scatters its batch-of-one state into the slot."""
-        if self.spec.has_slot_state:
-            view = {s.key: state[s.key][_slot_index(s, slot)]
-                    for s in self.spec.slot_state}
-        else:
-            view = {"attn": {key: t[:, slot:slot + 1]
-                             for key, t in state["attn"].items()}}
+        reads a row before writing it.  A recurrent prefill starts from a
+        zero state and writes the slot's state rows whole, as the JAX engine
+        scatters its batch-of-one state into the slot; the hybrid's view
+        holds both its state rows and its slabs' slot."""
+        view = {s.key: state[s.key][_slot_index(s, slot)]
+                for s in self.spec.slot_state}
+        if "attn" in state:
+            view["attn"] = {key: t[:, slot:slot + 1]
+                            for key, t in state["attn"].items()}
         lens = torch.full((1,), length, dtype=torch.int32, device=tokens.device)
         logits, _ = M.prefill(self.cfg, params, view, tokens=tokens,
                               lengths=lens)
@@ -183,8 +194,14 @@ class ModelRunner:
 
     def copy_page(self, state, src: int, dst: int):
         """Physical-page copy across every paged component (copy-on-write
-        for mid-page prefix-cache matches)."""
+        for mid-page prefix-cache matches); the slot state is untouched."""
         return M.copy_kv_page(state, src, dst)
+
+    @property
+    def attn_applications(self) -> int:
+        """Attention applications per token over the pool (the NoC combines
+        of one sharded dispatch): L layers, or the hybrid's G."""
+        return sum(c.n_apps for c in self.spec.paged)
 
     def page_kv_bytes(self, block_size: int, itemsize: int) -> int:
         """Bytes of ONE physical page across paged components, K and V.

@@ -8,8 +8,12 @@ the silu_mul and rmsnorm kernels; out_proj.  The JAX dtypes are kept:
 ``A_log``, ``D`` and ``dt_bias`` are f32, ``conv_w``, the norm and the
 linears in the model dtype; the conv accumulates in f32 and casts back,
 the softplus runs in f32, and the ``D`` skip adds in y's dtype.  The conv
-and silu are plain PyTorch (the JAX package has no kernel for them).  The
-one-token step and the slot state come with the recurrent-serving slice.
+and silu are plain PyTorch (the JAX package has no kernel for them).
+Serving keeps a (conv tail [B, W - 1, C] in the model dtype, SSM state
+[B, H, P, N] f32) pair per layer: :func:`mamba_apply` carries it through a
+right-padded chunk (on the card the scan kernel from a carried state), and
+:func:`mamba_decode_step` advances it by one token (``ops.mamba2_step``,
+plain PyTorch as in JAX; the one-row conv accumulates in f32).
 """
 from __future__ import annotations
 
@@ -108,3 +112,44 @@ def mamba_apply(p, x: torch.Tensor, cfg: ModelConfig, *, conv_state=None,
     if return_state:
         return out, (tail, hfin)
     return out
+
+
+def _conv_step(x: torch.Tensor, w: torch.Tensor, conv_tail: torch.Tensor):
+    """The causal conv over one token: x [B, 1, C]; w [W, C]; the tail [B,
+    W - 1, C] -> (y [B, 1, C] in x's dtype, accumulated in f32; the new
+    tail, the last W - 1 inputs)."""
+    xp = torch.cat([conv_tail.to(x.dtype), x], dim=1)
+    y = (xp.float() * w.float()[None]).sum(dim=1, keepdim=True)
+    return y.to(x.dtype), xp[:, 1:]
+
+
+def mamba_decode_step(p, x: torch.Tensor, cfg: ModelConfig, state):
+    """One-token step: x [B, 1, d]; state = (conv tail [B, W - 1, C], h [B,
+    H, P, N] f32) -> (y [B, 1, d], (conv tail, h))."""
+    conv_tail, h = state
+    b = x.shape[0]
+    di, n, hh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xin, B, C, dt = _split_proj(cfg, layers.linear(p["in_proj"], x))
+    y, tail = _conv_step(torch.cat([xin, B, C], dim=-1), p["conv_w"], conv_tail)
+    conv_out = ops.silu(y)
+    xs = conv_out[..., :di].reshape(b, hh, hd)
+    Bs = conv_out[:, 0, di:di + n]
+    Cs = conv_out[:, 0, di + n:]
+    dt_sp = F.softplus(dt[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    yt, hnew = ops.mamba2_step(xs, dt_sp, A, Bs, Cs, h)
+    yt = yt + xs.float().to(yt.dtype) * p["D"][None, :, None].to(yt.dtype)
+    yt = yt.reshape(b, 1, di)
+    yt = layers.rmsnorm(p["norm"], ops.silu_mul(z, yt), cfg.norm_eps)
+    return layers.linear(p["out_proj"], yt), (tail, hnew)
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, n_layers: int, dtype,
+                     device):
+    """Zero (conv tail [L, B, W - 1, d_inner + 2 N] in ``dtype``, SSM state
+    [L, B, H, P, N] f32) of ``n_layers`` layers and ``batch`` sequences."""
+    conv_c = cfg.d_inner + 2 * cfg.ssm_state
+    return (torch.zeros((n_layers, batch, cfg.conv_width - 1, conv_c),
+                        dtype=dtype, device=device),
+            torch.zeros((n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state), dtype=torch.float32, device=device))

@@ -1,7 +1,7 @@
 """Paged-KV / slot-state continuous-batching serving engine (single device).
 
-Port of the JAX package's ``serve/engine.py`` core for the dense family and
-RWKV6.  What a family's cache holds comes from the runner's ``CacheSpec``
+Port of the JAX package's ``serve/engine.py`` core for the dense family,
+RWKV6, Mamba2 and the hybrid (Zamba2).  What a family's cache holds comes from the runner's ``CacheSpec``
 (``models/runner.py``); the engine never reads the family past its
 constructor:
 
@@ -21,19 +21,24 @@ constructor:
 * **Greedy sampling** — one argmax over the whole batch per tick (a single
   device-to-host copy), first index on ties, as ``jnp.argmax``.
 * **Dense-slab baseline** (``paged=False``) — the JAX engine's A/B
-  baseline: ``[L, slots, max_seq]`` K/V slabs (RWKV6: its recurrent state
-  of ``slots`` rows), one monolithic bucketed prefill per tick written
+  baseline: ``[L, slots, max_seq]`` K/V slabs (RWKV6, Mamba2: the
+  recurrent state of ``slots`` rows; the hybrid: ``[G, slots, max_seq]``
+  slabs beside it), one monolithic bucketed prefill per tick written
   straight into the slot's rows (the JAX engine prefills a batch-of-one
   state and scatters it into the slot; outputs and stats are the same),
   and one batched decode over all slots through ``model.decode_step``.  No
   pages, no prefix caching.
-* **Slot-state continuous batching** (a family with slot state and no
-  paged component, RWKV6, on the runner path) — the recurrent state
-  ``[L, slots, ...]`` is zeroed for a slot at admission, every prefill
-  chunk reads and advances its slot's rows, and the batched decode writes
-  the state back at the runnable slots only (a slot mid-prefill or empty
-  keeps its state bit for bit).  No ``BlockAllocator``, no page pressure,
-  no prefix caching (cached pages cannot rebuild a recurrent state).
+* **Slot-state continuous batching** (a family with slot state, RWKV6 and
+  Mamba2 alone, the hybrid beside its page pool, on the runner path) — the
+  recurrent state (the slot on axis 1, or 2 for the hybrid's grouped keys)
+  is zeroed for a slot at admission, every prefill chunk reads and
+  advances its slot's rows, and the batched decode writes the state back
+  at the runnable slots only (a slot mid-prefill or empty keeps its state
+  bit for bit).  Without a paged component there is no
+  ``BlockAllocator``, no page pressure and no prefix caching.  With one
+  (the hybrid) pages are published under their digests but a cached
+  prefix is never attached (``prefix_attach`` is off): cached pages cannot
+  rebuild the recurrent state, so every prompt is prefilled whole.
 
 * **int8 page pool** (``kv_dtype="int8"``) — pages stored as int8 with one
   f32 scale per (layer, kv head, page); a decode row or a prefill chunk is
@@ -406,6 +411,13 @@ class ServeEngine:
             raise ValueError("prefix_caching requires a paged KV component")
         self.prefix_caching = (self.paged if prefix_caching is None
                                else bool(prefix_caching))
+        # a slot-state family publishes page digests but never skips prefill
+        # at admission: cached pages cannot rebuild the recurrent state that
+        # must advance through those tokens
+        self.prefix_attach = self.prefix_caching and not self.has_slot_state
+        # attention applications per token over the pool (L layers, or the
+        # hybrid shared block's G): the NoC combines of a sharded dispatch
+        self._n_apps = self.runner.attn_applications if self.paged else 0
         # kv_dtype-salted seed of the digest chain, as in the JAX engine:
         # int8 and fp16 pages never alias in the prefix registry
         self._digest_seed = hashlib.blake2b(
@@ -534,7 +546,7 @@ class ServeEngine:
             if self.has_slot_state:
                 # the previous occupant's state must not leak
                 self.state = self.runner.reset_slot(self.state, slot)
-            if self.prefix_caching:
+            if self.prefix_attach:
                 self._attach_prefix(slot, req)
 
     def _attach_prefix(self, slot: int, req: Request) -> None:
@@ -662,8 +674,8 @@ class ServeEngine:
             if self.device.type == "cpu":
                 # the CPU path gathers k and v per layer per chunk and shard
                 # (the kernel reads pages through the table, gathers nothing)
-                self.stats["gather_pages_calls"] += 2 * self.cfg.n_layers * S
-                self.stats["gather_page_volume"] += 2 * self.cfg.n_layers * mb * S
+                self.stats["gather_pages_calls"] += 2 * self._n_apps * S
+                self.stats["gather_page_volume"] += 2 * self._n_apps * mb * S
         logits, self.state = self.runner.prefill_chunk(
             self.params, self.state, self._to_device(padded), n,
             req.prefill_pos, table, slot, local)
@@ -671,9 +683,10 @@ class ServeEngine:
 
     def _account_noc_combine(self, rows: int) -> None:
         """Charge the in-transit combine traffic of one sharded dispatch:
-        one tree_softmax_combine per layer over ``rows`` query rows (the
-        slots for a decode step, the bucket for a prefill chunk)."""
-        cfg, n = self.cfg, self.cfg.n_layers
+        one tree_softmax_combine per attention application (L layers, or
+        the hybrid shared block's G) over ``rows`` query rows (the slots
+        for a decode step, the bucket for a prefill chunk)."""
+        cfg, n = self.cfg, self._n_apps
         c = noc.softmax_combine_cost(rows, cfg.n_heads, cfg.hd, self.seq_shards)
         self.stats["noc_combines"] += n
         self.stats["noc_hops"] += n * c["hops"]

@@ -82,10 +82,13 @@ def test_elementwise_kernels(dev, dtype):
 
 
 # (H, KvH, D, BS, MB): G = 2 at each head dim over a 4-page table; then
-# G = 1, 4 and 8 over caches of 4096 keys, cut into the plan's largest splits
+# G = 1, 4 and 8 over caches of 4096 keys, cut into the plan's largest
+# splits; then zamba2-7b's head dim 112 (3.5 lanes' worth of 32: each of
+# the first 28 lanes holds 4 output dims) at G = 2, 1 and 4
 PAGED_DECODE_CASES = [(8, 4, 64, 16, 4), (4, 2, 16, 8, 4), (8, 2, 128, 128, 4),
                       (8, 8, 64, 16, 256), (8, 2, 64, 16, 256),
-                      (16, 2, 128, 16, 256), (8, 1, 16, 8, 512)]
+                      (16, 2, 128, 16, 256), (8, 1, 16, 8, 512),
+                      (4, 2, 112, 16, 4), (8, 8, 112, 16, 256), (8, 2, 112, 16, 256)]
 
 
 def _decode_lengths(dev, b_hint, h, kvh, bs, mb, keys_grain):
@@ -152,7 +155,7 @@ def test_paged_decode_kernel(dev, dtype, h, kvh, d, bs, mb):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
-                                          (8, 2, 128, 128, 33)])
+                                          (8, 2, 128, 128, 33), (8, 2, 112, 16, 40)])
 def test_paged_prefill_kernel(dev, dtype, h, kvh, d, bs, c):
     rng = np.random.default_rng(2)
     nb = 12
@@ -221,7 +224,7 @@ def test_paged_decode_kernel_int8(dev, dtype, h, kvh, d, bs, mb):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
-                                          (8, 2, 128, 128, 33)])
+                                          (8, 2, 128, 128, 33), (8, 2, 112, 16, 40)])
 def test_paged_prefill_kernel_int8(dev, dtype, h, kvh, d, bs, c):
     rng = np.random.default_rng(4)
     nb = 12
@@ -440,6 +443,10 @@ DENSE_CASES = [  # (H, KvH, D, Sk, lengths): MHA and GQA at head dims 16, 64
     (8, 8, 64, 4096, None),
     (8, 2, 128, 4096, None),
     (16, 2, 16, 4096, None),
+    # zamba2-7b's head dim 112: MHA as the model runs it, and GQA
+    (8, 8, 112, 300, [1, 32, 33, 300, 129]),
+    (8, 8, 112, 4096, None),
+    (8, 2, 112, 200, [7, 200, 64, 1, 150]),
 ]
 
 
@@ -769,6 +776,60 @@ def test_rwkv_serving_on_card_matches_cpu(dev):
         assert outs[0] == outs[1], paged
 
 
+def test_hybrid_serving_on_card_matches_cpu(dev):
+    """Reduced zamba2-7b at fp32 served on the card (the Mamba2 kernel from a
+    carried state in 8-token chunks, f32 route; the paged kernels at head
+    dim 16) against the CPU (plain versions), same parameters: two
+    right-padded chunks at slot 1 and q_offset 16 from a random mid-stream
+    state (slot state and pages), then a batched decode step; logits and
+    every state key within 1e-4; then the engine token-identical to the
+    CPU's on 3 prompts over 2 slots, one prefilling in 8-token chunks while
+    the other decodes, on the runner path, the slab path, an int8 pool and
+    4 sequence shards."""
+    cfg = reduced(get_config("zamba2-7b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(4)
+    start = M.init_serve_state(cfg, 3, 9, 8, dtype=torch.float32, device="cpu")
+    start = {k: ({kk: torch.randn(vv.shape, generator=gen) for kk, vv in v.items()}
+                 if k == "attn" else
+                 torch.randn(v.shape, generator=gen) * (0.3 if "ssm" in k else 1.0))
+             for k, v in start.items()}
+    tables = torch.tensor([[1, 4, 0, 0], [3, 5, 2, 7], [6, 0, 0, 0]], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 8), generator=gen, dtype=torch.int32)
+    nxt = torch.tensor([5, 9, 11], dtype=torch.int32)
+    lens = torch.tensor([9, 26, 2], dtype=torch.int32)
+    out = {}
+    for d, p in (("cpu", params), ("cuda", _to(params, dev))):
+        st = _to(start, d)
+        if d == "cpu":                          # the calls update it in place
+            st = {k: ({kk: vv.clone() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.clone()) for k, v in st.items()}
+        got, qoff = [], 16
+        for n, t in zip((7, 3), toks):
+            lg, st = M.serve_prefill_chunk(cfg, p, st, tokens=t.to(d), length=n,
+                                           q_offset=qoff, block_table=tables[1].to(d),
+                                           slot=1)
+            got.append(lg.cpu())
+            qoff += n
+        lg, st = M.serve_decode_step(cfg, p, st, nxt.to(d), lens.to(d), tables.to(d))
+        out[d] = [torch.cat(got + [lg.cpu()])] + [
+            st[k].cpu() for k in M.HYBRID_STATE] + [st["attn"][k].cpu() for k in
+                                                    ("k_pages", "v_pages")]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7], list(range(1, 20))]
+    kw = dict(max_seq=64, slots=2, block_size=8, prefill_buckets=(8, 16, 64),
+              max_tokens_per_tick=12)
+    for opts in (dict(), dict(paged=False), dict(kv_dtype="int8"), dict(seq_shards=4)):
+        outs = []
+        for p in (params, _to(params, dev)):
+            eng = ServeEngine(cfg, p, **kw, **opts)
+            for q in prompts:
+                eng.submit(q, max_new_tokens=5)
+            outs.append({r.rid: r.out_tokens for r in eng.run_until_drained()})
+        assert outs[0] == outs[1], opts
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -870,8 +931,65 @@ def test_mamba2_autograd_matches_plain_autograd(dev):
             assert float((g - wt).abs().max()) <= 1e-3 * float(wt.abs().max())
         else:
             _mamba_close(g, wt)
-    with pytest.raises(NotImplementedError, match="recurrent-serving"):
-        ops.mamba2_scan(*xs[:5], h0=torch.zeros((2, 3, 16, 8), device=dev))
+    live = [t.detach().requires_grad_() for t in xs[:5]]
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.mamba2_scan(*live, h0=torch.zeros((2, 3, 16, 8), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", kmamba.SHAPES)
+@pytest.mark.parametrize("s", [1, 33, 64, 65, 512])
+def test_mamba2_kernel_from_carried_state(dev, dtype, p, n, s):
+    """The forward from a carried state h0 (recurrent serving) against the
+    plain chunked version from the same h0, B = 2, the last quarter of the
+    rows right-padded as the serving chunk pads them (dt = 0): y and
+    h_final held as ``_mamba_close`` holds them; h_final also equal within
+    it to the state after the unpadded rows alone; a second call bitwise
+    equal; h0 = 0 gives the bits of the zero-state kernel; and the hold
+    fails a result that drops h0 (the control)."""
+    rng = np.random.default_rng(s + p)
+    b, h = 2, 3
+    x, dt, A, B, C, _ = _mamba_inputs(rng, b, s, h, p, n, dtype, dev)
+    m = s - s // 4                               # valid rows
+    dt[:, m:] = 0.0
+    h0 = _rand(rng, (b, h, p, n), torch.float32, dev, 0.5)
+    before = (kmamba.launches, kmamba.h0_launches, kmamba.states_launches)
+    y, hf, states = kmamba.mamba2_fwd(x, dt, A, B, C, h0=h0)
+    assert states is None
+    assert (kmamba.launches - before[0], kmamba.h0_launches - before[1],
+            kmamba.states_launches - before[2]) == (1, 1, 0)
+    want_y, want_hf = ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=kmamba.CHUNK)
+    _mamba_close(y, want_y)
+    _mamba_close(hf, want_hf)
+    _mamba_close(hf, ref.mamba2_scan(x[:, :m], dt[:, :m], A, B[:, :m], C[:, :m],
+                                     h0=h0, chunk=kmamba.CHUNK)[1])
+    again = kmamba.mamba2_fwd(x, dt, A, B, C, h0=h0)
+    assert torch.equal(y, again[0]) and torch.equal(hf, again[1])
+    zero = kmamba.mamba2_fwd(x, dt, A, B, C, h0=torch.zeros_like(h0))
+    none = kmamba.mamba2_fwd(x, dt, A, B, C)
+    assert torch.equal(zero[0], none[0]) and torch.equal(zero[1], none[1])
+    with pytest.raises(AssertionError):         # the first rows read h0
+        _mamba_close(none[0], want_y)
+
+
+def test_mamba2_carried_state_checks(dev):
+    """ops.mamba2_scan with h0 launches the forward kernel (no chunk-entry
+    states) on inputs that need no gradient; the wrapper refuses an h0 of
+    the wrong shape or dtype, one that is not contiguous and one off a
+    16-byte boundary, before any launch."""
+    rng = np.random.default_rng(13)
+    x, dt, A, B, C, _ = _mamba_inputs(rng, 1, 40, 2, 16, 8, torch.bfloat16, dev)
+    h0 = _rand(rng, (1, 2, 16, 8), torch.float32, dev)
+    before = (kmamba.h0_launches, kmamba.states_launches)
+    y, hf = ops.mamba2_scan(x, dt, A, B, C, h0=h0)
+    assert (kmamba.h0_launches, kmamba.states_launches) == (before[0] + 1, before[1])
+    _mamba_close(y, ref.mamba2_scan(x, dt, A, B, C, h0=h0, chunk=kmamba.CHUNK)[0])
+    off = torch.empty(h0.numel() + 1, device=dev)[1:].view(h0.shape)
+    strided = torch.empty((1, 2, 16, 16), device=dev)[..., :8]
+    for bad in (h0[:, :1], h0.double(), off, strided):
+        with pytest.raises(ValueError, match="h0"):
+            kmamba.mamba2_fwd(x, dt, A, B, C, h0=bad)
+    assert kmamba.h0_launches == before[0] + 1
 
 
 def _mm_close(got, want):
@@ -1071,7 +1189,8 @@ def test_curry_kernels(dev, dtype, d):
 # ---------------------------------------------------------------------------
 
 SHARDS = 4
-SHARD_CASES = [(8, 4, 64, 16), (4, 2, 16, 8), (8, 2, 128, 16)]  # H, KvH, D, BS
+SHARD_CASES = [(8, 4, 64, 16), (4, 2, 16, 8), (8, 2, 128, 16),  # H, KvH, D, BS
+               (8, 2, 112, 16)]
 
 
 def _pool(rng, kvh, nb, bs, d, dtype, dev, kind):
@@ -1165,7 +1284,7 @@ def test_sharded_paged_decode_kernel(dev, dtype, kind, h, kvh, d, bs, mb):
 
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 112, 128])
 @pytest.mark.parametrize("mb", [3, 256])
 def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d, mb):
     """Key j of the table at global position 40 + j: lengths below, inside
@@ -1198,7 +1317,7 @@ def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d, mb):
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),
-                                          (8, 2, 128, 16, 33)])
+                                          (8, 2, 128, 16, 33), (8, 2, 112, 16, 33)])
 def test_sharded_paged_prefill_kernel(dev, dtype, kind, h, kvh, d, bs, c):
     """A chunk's skip_null partials per shard over bucketed prefix slices of
     a round-robin table, causal on global positions (the first chunk's
@@ -1249,10 +1368,12 @@ def test_sharded_paged_prefill_kernel(dev, dtype, kind, h, kvh, d, bs, c):
 # (H, KvH, D, BS, C, q_offset): GQA 4:1 with C x G ragged (84 rows: a 20-row
 # tail tile), its first chunk (shards 1-3 own none of tile 0's keys); MHA over
 # 150 rows at BS 8 (a stage spans 8 pages); BS 128 (a page spans two
-# stages) at a mid-page offset; offsets of 2048 keys at BS 16 and 8.
+# stages) at a mid-page offset; offsets of 2048 keys at BS 16 and 8; head
+# dim 112 (7 k-steps and 14 n-tiles, 2 ring stages) ragged and MHA.
 TC_PREFILL_CASES = [(8, 2, 64, 16, 21, 37), (8, 2, 64, 16, 21, 0),
                     (4, 4, 128, 8, 150, 5), (8, 2, 16, 128, 40, 100),
-                    (8, 2, 64, 16, 64, 2048), (6, 2, 128, 8, 33, 2048 + 3)]
+                    (8, 2, 64, 16, 64, 2048), (6, 2, 128, 8, 33, 2048 + 3),
+                    (8, 2, 112, 16, 21, 37), (4, 4, 112, 8, 150, 256)]
 # a bf16 output to one bf16 ulp relative plus chip_smoke.py's PREFILL_TOL
 # term; f32 partials from bf16 operands to the f32 sums' order (P enters P V
 # as a bf16 hi + lo pair, ~2^-17 relative)

@@ -116,12 +116,12 @@ def test_other_families_name_their_slice():
     cfg = t_reduced(t_get_config("olmoe-1b-7b"))
     with pytest.raises(NotImplementedError, match="MoE slice"):
         TM.init_params(cfg, device="cpu")
-    # zamba2-7b and its Mamba2 family="ssm" variant train (their parameters
-    # exist) but are not served yet; rwkv6-3b serves
+    # zamba2-7b, its Mamba2 family="ssm" variant and rwkv6-3b train and
+    # serve; MoE serving names its slice
     zamba = t_reduced(t_get_config("zamba2-7b"))
-    for cfg in (zamba, zamba.replace(family="ssm")):
-        TM.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
-            TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
-    TM.init_serve_state(t_reduced(t_get_config("rwkv6-3b")), 2, 9, 8,
-                        dtype=torch.float32, device="cpu")
+    for c in (zamba, zamba.replace(family="ssm"),
+              t_reduced(t_get_config("rwkv6-3b"))):
+        TM.init_params(c, device="cpu")
+        TM.init_serve_state(c, 2, 9, 8, dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")

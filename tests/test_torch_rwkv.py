@@ -32,6 +32,8 @@ from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import rwkv as TR  # noqa: E402
 from repro_torch.models.convert import params_from_jax, state_from_jax  # noqa: E402
+from repro_torch.models.runner import ModelRunner as TRunner  # noqa: E402
+from repro_torch.serve import ServeEngine as TEngine  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-4)       # tests/test_kernels_scan.py's own
@@ -446,14 +448,17 @@ def test_launch_train_rwkv_cpu(tmp_path, capsys):
 
 
 def test_rwkv_serving_still_refused():
-    """rwkv6-3b now serves (its slot state is made); the Mamba2 ``ssm``
-    variant and the hybrid zamba2-7b, which train, are still refused for
-    serving, naming the recurrent-serving slice that brings them."""
+    """rwkv6-3b serves (its slot state is made), as do the Mamba2 ``ssm``
+    variant and the hybrid zamba2-7b; MoE serving is still refused, by the
+    engine and the runner too, naming the slice that brings it (ROADMAP
+    A.2)."""
     cfg = t_reduced(t_get_config("rwkv6-3b"))
     state = TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
     assert sorted(state) == ["cm_shift", "tm_shift", "wkv"]
-    zamba = t_reduced(t_get_config("zamba2-7b"))
-    for cfg in (zamba, zamba.replace(family="ssm")):
-        TM.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
-            TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
+    moe = t_reduced(t_get_config("olmoe-1b-7b"))
+    for call in (lambda: TM.init_serve_state(moe, 2, 9, 8, device="cpu"),
+                 lambda: TRunner(moe, 2, 64),
+                 lambda: TEngine(moe, {"embed": {"table": torch.zeros(4, 4)}},
+                                 max_seq=32, slots=1)):
+        with pytest.raises(NotImplementedError, match="MoE slice.*ROADMAP A.2"):
+            call()

@@ -516,11 +516,19 @@ def test_launch_train_zamba_cpu(tmp_path, capsys):
 
 
 def test_mamba2_serving_refused():
-    """Training takes the Mamba2 and hybrid families; serving them is the
-    recurrent-serving slice."""
+    """The Mamba2 and hybrid families now serve as well as train (their
+    serving state is made, JAX's keys); MoE serving is still refused,
+    naming the slice that brings it (ROADMAP A.2)."""
     for family in ("hybrid", "ssm"):
         cfg = t_reduced(t_get_config("zamba2-7b"))
         cfg = cfg if family == "hybrid" else cfg.replace(family="ssm")
         TM.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="recurrent-serving slice"):
-            TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
+        state = TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32,
+                                    device="cpu")
+        assert sorted(state) == (["attn", "conv_g", "conv_t", "ssm_g", "ssm_t"]
+                                 if family == "hybrid" else ["conv", "ssm"])
+    moe = t_reduced(t_get_config("olmoe-1b-7b"))
+    for call in (lambda: TM.init_serve_state(moe, 2, 9, 8, device="cpu"),
+                 lambda: TM.init_decode_state(moe, 2, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+            call()
