@@ -226,7 +226,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    at its formula (the carried-state Mamba2 kernel 81 times a runner
    prefill chunk and no zero-state one there, the paged kernels 13 times a
    chunk and a step; the zero-state kernel 81 times a slab prefill, the
-   slab decode 13 times a step), with tok/s, TTFT and peak memory.
+   slab decode 13 times a step), with tok/s, TTFT and peak memory;
+21. MoE serving (after 20, with olmoe-1b-7b at its full 16 layers, 64
+   experts of 1024, top 8, head dim 128): rows 5e and 5ed, silu_mul
+   through ``ops.silu_mul`` on the routed experts' [64, 80, 1024] (a
+   512-row prefill chunk, the vector route) and [64, 4, 1024] (a decode
+   step of 8 slots, the element route), held in bf16 (twice bitwise equal,
+   timed as row 5) and f32; readings 1o, 2o and 7o, 20's attention rows at
+   olmoe's 16 heads of 128 (decode q [8, 16, 128], prefill q [1, 512, 16,
+   128]); one MoE layer at olmoe's and at qwen2-moe-a2.7b's width (60
+   experts padded to 64, 4 shared) in f32 on the card against the CPU, a
+   dispatch that drops, the routing and drops equal; reduced olmoe at fp32
+   skewed towards two experts, the runner and slab engines on the card
+   token-identical to the CPU's with as many dropped assignments; the mix
+   of 5 in bf16 at the default capacity factor through the runner, slab,
+   int8-pool and 4-shard engines, every launch count at its formula
+   (silu_mul L times a dispatch, on the element route at decode and the
+   vector route at prefill), with tok/s, TTFT and peak memory; and olmoe
+   at full width and depth in fp32 at the dropless cf = E / k through the
+   runner and 4 shards (prefix caching on and off) and the slab engine,
+   token-identical, no assignment dropped.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -3309,20 +3328,23 @@ def dims_dropped_control(torch, name, got, want, tol, rel, seq_rel=None):
     the hold that the output itself passes."""
     bad = got.clone()
     bad[..., -16:] = 0
-    dropped_step_control(torch, name, "its last 16 output dims (96-111)", want, bad,
-                         tol, rel, seq_rel)
+    d = got.shape[-1]
+    dropped_step_control(torch, name, f"its last 16 output dims ({d - 16}-{d - 1})",
+                         want, bad, tol, rel, seq_rel)
 
 
-def attn112_rows(torch, timer, cfg):
-    """Readings 1h, 2h and 7h: the paged decode, the paged prefill and the
-    slab decode at zamba2-7b's shared-attention shapes (32 heads over 32 kv
-    heads at head dim 112): decode q [8, 32, 112] over a pool [32, 513, 16,
-    112] through tables [8, 64]; a 512-row prefill chunk at q_offset 256;
-    the slab decode over [8, 1024, 32, 112].  Each held against its plain
-    version in bf16 (twice bitwise equal; per sequence too at decode) and
-    in f32, with the dims-dropped control; 1h and 2h also over the int8 pool
-    and as skip_null partials over 4 shards (each shard held, their NoC
-    combine against the unsharded kernel); bf16 timed as in 3."""
+def attn_rows(torch, timer, cfg, labels=("1h", "2h", "7h"), seed=26):
+    """Readings ``labels`` (1h, 2h and 7h at zamba2-7b's shared-attention
+    shapes, 32 heads over 32 kv heads at head dim 112; 1o, 2o and 7o at
+    olmoe-1b-7b's, 16 over 16 at head dim 128): the paged decode, the paged
+    prefill and the slab decode of ``cfg``'s attention, named with the head
+    dim: decode q [8, H, hd] over a pool [KvH, 513, 16, hd] through tables
+    [8, 64]; a 512-row prefill chunk at q_offset 256; the slab decode over
+    [8, 1024, KvH, hd].  Each held against its plain version in bf16 (twice
+    bitwise equal; per sequence too at decode) and in f32, with the
+    dims-dropped control; the paged two also over the int8 pool and as
+    skip_null partials over 4 shards (each shard held, their NoC combine
+    against the unsharded kernel); bf16 timed as in 3."""
     import torch.nn.functional as F
 
     from repro_torch.core import noc
@@ -3331,12 +3353,13 @@ def attn112_rows(torch, timer, cfg):
     from repro_torch.kernels import ref
 
     dev, bf = "cuda", torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(26)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sfx, who = f"_hd{hd}", cfg.name
     c, qoff = SERVE_CHUNK, 256
     slots, bs, mb = SERVE_SLOTS, 16, 64
     nb = 1 + slots * mb
@@ -3380,8 +3403,8 @@ def attn112_rows(torch, timer, cfg):
         whole=lambda q, k, v: kpf.paged_prefill_attention(
             q, k, v, sp["ptable"], q_offset=qoff, length=c),
         q=qp, tol=PREFILL_TOL, rel=PREFILL_REL, seq_rel=None)
-    for tag, cs in (("paged_decode_attention_hd112", dec),
-                    ("paged_prefill_attention_hd112", pre)):
+    for tag, cs in ((f"paged_decode_attention{sfx}", dec),
+                    (f"paged_prefill_attention{sfx}", pre)):
         q = cs["q"]
         got = repeat_equal(torch, tag, lambda: cs["kernel"](q, kp, vp))
         want = cs["plain"](q, kp, vp)
@@ -3422,30 +3445,30 @@ def attn112_rows(torch, timer, cfg):
         del got, want, qf, kf, vf
     rows = []
     rows.append(measure(
-        torch, timer, "paged_decode_attention_hd112", csrc + "decode_attention.cu",
+        torch, timer, f"paged_decode_attention{sfx}", csrc + "decode_attention.cu",
         "src/repro/kernels/decode_attention.py:300", lambda: dec["kernel"](qd, kp, vp),
         lambda: dec["plain"](qd, kp, vp), DECODE_TOL, rel=DECODE_REL,
         nbytes=2 * qd.numel() * 2 + live * kv_row + tables.numel() * 4,
         flops=4 * h * hd * live,
-        note=f"; rel {DECODE_REL}; zamba2-7b's decode, {live} live keys"))
+        note=f"; rel {DECODE_REL}; {who}'s decode, {live} live keys"))
     rows.append(measure(
-        torch, timer, "paged_prefill_attention_hd112", csrc + "paged_attention.cu",
+        torch, timer, f"paged_prefill_attention{sfx}", csrc + "paged_attention.cu",
         "src/repro/kernels/prefill_attention.py:273", lambda: pre["kernel"](qp, kp, vp),
         lambda: pre["plain"](qp, kp, vp), PREFILL_TOL, rel=PREFILL_REL,
         nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
         flops=4 * h * hd * attended,
-        note=f"; rel {PREFILL_REL}; zamba2-7b's prefill chunk at offset {qoff}"))
-    rows[0].update(row="1h", design=DECODE_DESIGN)
-    rows[1].update(row="2h", design=PREFILL_DESIGN)
+        note=f"; rel {PREFILL_REL}; {who}'s prefill chunk at offset {qoff}"))
+    rows[0].update(row=labels[0], design=DECODE_DESIGN)
+    rows[1].update(row=labels[1], design=PREFILL_DESIGN)
     del sp, k8, v8, ks, vs, qp
     # the slab decode (7h) at the same lengths
     k, v = randn(slots, mb * bs, kvh, hd), randn(slots, mb * bs, kvh, hd)
-    got = repeat_equal(torch, "decode_attention_hd112",
+    got = repeat_equal(torch, f"decode_attention{sfx}",
                        lambda: kda.decode_attention(qd, k, v, lens))
     want = ref.decode_attention(qd, k, v, lengths=lens)
-    dims_dropped_control(torch, "decode_attention_hd112", got, want, DECODE_TOL,
+    dims_dropped_control(torch, f"decode_attention{sfx}", got, want, DECODE_TOL,
                          DECODE_REL, DECODE_SEQ_REL)
-    e32 = hold(torch, "decode_attention_hd112 f32",
+    e32 = hold(torch, f"decode_attention{sfx} f32",
                kda.decode_attention(qd.float(), k.float(), v.float(), lens),
                ref.decode_attention(qd.float(), k.float(), v.float(), lengths=lens),
                DENSE_F32_TOL, DENSE_F32_REL)
@@ -3453,14 +3476,14 @@ def attn112_rows(torch, timer, cfg):
     qs, kss, vss = qd[:, :, None], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
     rows.append(measure(
-        torch, timer, "decode_attention_hd112", csrc + "decode_attention.cu",
+        torch, timer, f"decode_attention{sfx}", csrc + "decode_attention.cu",
         "src/repro/kernels/decode_attention.py:114",
         lambda: kda.decode_attention(qd, k, v, lens),
         lambda: ref.decode_attention(qd, k, v, lengths=lens), DECODE_TOL, rel=DECODE_REL,
         nbytes=2 * qd.numel() * 2 + live * kv_row + slots * 4, flops=4 * h * hd * live,
         library=lambda: F.scaled_dot_product_attention(qs, kss, vss, attn_mask=mask),
-        note=f"; rel {DECODE_REL}; f32 max|err| {e32:.3g}; zamba2-7b's slab decode"))
-    rows[-1].update(row="7h", design=DECODE_DESIGN)
+        note=f"; rel {DECODE_REL}; f32 max|err| {e32:.3g}; {who}'s slab decode"))
+    rows[-1].update(row=labels[2], design=DECODE_DESIGN)
     del k, v, kp, vp, got, want, qs, kss, vss, mask
     torch.cuda.empty_cache()
     return rows
@@ -3682,6 +3705,299 @@ def zamba_prefill_gate(torch, cfg, params):
     if not math.isfinite(r):
         fail("zamba serve gate: non-finite logits")
     return r
+
+
+# ---------------------------------------------------------------------------
+# phase 21: MoE serving (olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+def expert_silu_rows(torch, timer, cfg):
+    """Rows 5e and 5ed: silu_mul through ``ops.silu_mul`` at olmoe-1b-7b's
+    routed-expert shapes [E_pad, cap, moe_d_ff]: a 512-row prefill chunk's
+    (cap 80, the vector route) and a decode step's of 8 slots (cap 4,
+    262144 elements: the element route); each held in bf16 (twice bitwise
+    equal, timed and logged as row 5) and in f32."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import swiglu as ksw
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    e_pad, ff = moe.moe_padded_experts(cfg), cfg.moe_d_ff
+    floor = timer(lambda: torch.cuda._sleep(1))
+    rows = []
+    for name, label, t in (("silu_mul_experts", "5e", SERVE_CHUNK),
+                           ("silu_mul_experts_decode", "5ed", SERVE_SLOTS)):
+        cap = moe.capacity(t, cfg.top_k, cfg.capacity_factor, e_pad)
+        shape = (e_pad, cap, ff)
+        g = torch.randn(shape, generator=gen, device="cuda") * 3.0
+        u = torch.randn(shape, generator=gen, device="cuda")
+        e32 = hold(torch, f"{name} f32", ops.silu_mul(g, u), ref.silu_mul(g, u),
+                   DENSE_F32_TOL, DENSE_F32_REL)
+        g, u = g.to(torch.bfloat16), u.to(torch.bfloat16)
+        route = ksw.plan(g.numel(), 2, True, _build.n_sms(g.device)).route
+        repeat_equal(torch, name, lambda: ops.silu_mul(g, u))
+        nbytes = 3 * g.numel() * 2
+        row = measure(
+            torch, timer, name, "src/repro_torch/kernels/csrc/swiglu.cu",
+            "src/repro/kernels/swiglu.py:59", lambda: ops.silu_mul(g, u),
+            lambda: ref.silu_mul(g, u), SILU_TOL, rel=SILU_REL, nbytes=nbytes,
+            flops=5 * g.numel(),
+            note=f"; rel {SILU_REL}; f32 max|err| {e32:.3g}; [{e_pad}, {cap}, {ff}], "
+                 f"a dispatch of {t} rows; the {route} route")
+        row.update(row=label, design=SILU_DESIGN, launch_floor_ms=floor, route_taken=route)
+        log_rate(torch, timer, row, nbytes)
+        rows.append(row)
+        del g, u
+    return rows
+
+
+def skew_moe(torch, params, cfg, seed):
+    """Lean every token of ``params`` (an MoE model, in place) towards
+    experts 0 and 1: a unit direction c added three times to each
+    embedding row, c and c / 2 to every layer's router columns 0 and 1."""
+    d = cfg.d_model
+    gen = torch.Generator().manual_seed(seed)
+    c = torch.randn(d, generator=gen)
+    c = (c / c.norm()).to(params["embed"]["table"].device)
+    params["embed"]["table"] += (3.0 * c).to(params["embed"]["table"].dtype)
+    for lp in params["layers"]:
+        lp["moe"]["router"][:, 0] += c
+        lp["moe"]["router"][:, 1] += 0.5 * c
+
+
+class DropCounter:
+    """While entered, counts the dispatches of ``models/moe.py`` and the
+    assignments they drop (a host read per dispatch: checks only, never in
+    a timed run)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        self.dispatches = self.dropped = 0
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            r = self.route(*args, **kwargs)
+            self.dispatches += 1
+            self.dropped += int((~r.keep).sum())
+            return r
+        self.moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def moe_layer_check(torch, cfg, seed):
+    """One MoE layer at ``cfg``'s full width in f32 on the card against the
+    CPU, same parameters (drawn on the card, copied): 40 rows leaning
+    towards expert 0 at the default capacity factor, so the dispatch drops;
+    each assignment's buffer row, the kept set and the expert loads equal,
+    the gates and the output within 1e-4 (the card's f32 GEMMs sum in
+    another order)."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = moe.moe_init(cfg, gen, dtype=torch.float32, device="cuda")
+    c = torch.randn(cfg.d_model, generator=gen, device="cuda")
+    c /= c.norm()
+    x = torch.randn((1, 40, cfg.d_model), generator=gen, device="cuda") + 2.0 * c
+    p["router"][:, 0] += c
+    e_pad = p["router"].shape[1]
+    cap = moe.capacity(40, cfg.top_k, cfg.capacity_factor, e_pad)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pd, xd = to_device(p, dev), x.to(dev)
+        r = moe.route(pd, xd[0], cfg, cap)
+        y, aux = moe.moe_apply(pd, xd, cfg, return_stats=True)
+        out[dev] = dict(slot=r.slot.cpu(), keep=r.keep.cpu(), gates=r.gates.cpu(),
+                        y=y.cpu(), load=aux["expert_load"].cpu(),
+                        frac=float(aux["frac_dropped"]))
+        del pd
+    a, b = out["cuda"], out["cpu"]
+    errs = {k: float((a[k] - b[k]).abs().max()) for k in ("gates", "y")}
+    log(f"moe layer {cfg.name}: d {cfg.d_model}, {cfg.n_experts} experts (padded "
+        f"{e_pad}) of {cfg.moe_d_ff}, top {cfg.top_k}, {cfg.n_shared_experts} shared; "
+        f"40 rows, cap {cap}: dropped {a['frac']:.3f} (cpu {b['frac']:.3f}); card vs "
+        f"cpu f32 max|err| {errs} (tol 1e-4)")
+    if not (torch.equal(a["slot"], b["slot"]) and torch.equal(a["keep"], b["keep"])
+            and torch.equal(a["load"], b["load"])):
+        fail(f"moe layer {cfg.name}: the card routes or drops otherwise than the CPU")
+    if not a["frac"] > 0 or a["load"][cfg.n_experts:].any():
+        fail(f"moe layer {cfg.name}: no assignment dropped, or a padded expert routed")
+    for k in ("gates", "y"):
+        if not torch.allclose(a[k], b[k], rtol=1e-4, atol=1e-4):
+            fail(f"moe layer {cfg.name}: {k} on the card disagrees with the CPU: "
+                 f"max |err| {errs[k]}")
+    del p, x
+    torch.cuda.empty_cache()
+    return dict(errs, frac_dropped=a["frac"], cap=cap)
+
+
+def moe_serve_parity_phase(torch, cfg_small):
+    """Reduced olmoe-1b-7b at fp32, skewed towards experts 0 and 1 (so its
+    dispatches drop at the default capacity factor), through the runner
+    engine and the slab engine on the card (the paged kernels at head dim
+    16, silu_mul on the experts' [8, cap, 32]) against the same engines on
+    the CPU (plain versions): 8 prompts on 8 slots, the first four
+    finishing early so that idle decode rows come ahead of live ones;
+    token-identical, with the same number of dropped assignments."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    skew_moe(torch, params, cfg_small, seed=31)
+    prompts = [[5 + i, 9, 2 * i + 1] for i in range(8)]
+    news = [2] * 4 + [7] * 4
+    res = {}
+    for paged in (None, False):
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg_small, to_device(params, dev), paged=paged, slots=8,
+                              max_seq=32, block_size=8, prefill_buckets=(8, 32))
+            with DropCounter() as dc:
+                for p, n in zip(prompts, news):
+                    eng.submit(p, max_new_tokens=n)
+                out = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+            res[paged, dev] = (out, dc.dropped, dc.dispatches)
+    log(f"moe serve parity: reduced olmoe fp32 skewed, runner and slab engines, card "
+        f"vs cpu: dropped assignments (dispatches) "
+        f"{ {('slab' if k[0] is False else 'runner', k[1]): v[1:] for k, v in res.items()} }")
+    for paged in (None, False):
+        (o_cpu, d_cpu, _), (o_gpu, d_gpu, _) = res[paged, "cpu"], res[paged, "cuda"]
+        if o_cpu != o_gpu or d_cpu != d_gpu or d_cpu <= 0:
+            fail(f"moe serve parity ({'slab' if paged is False else 'runner'}): the "
+                 f"card's outputs or drops differ from the CPU's ({d_gpu} vs {d_cpu})")
+    return {("slab" if k[0] is False else "runner") + "_" + k[1]: v[1]
+            for k, v in res.items()}
+
+
+def moe_fp32_identity(torch, cfg):
+    """olmoe-1b-7b at full width and depth in fp32 (parameters from seed 0)
+    at the dropless capacity factor E / k (cap = the dispatch's rows): a
+    shared-prefix pair (a 256-token prefix, 16 pages; its second member
+    admitted after the first has published them) and prompts of 40-333
+    tokens whose chunks cross prefill-chunk boundaries (budget 136, buckets
+    32 and 128), through the runner engine and 4 sequence shards, each with
+    prefix caching on and off, against the dense-slab engine's monolithic
+    prefill: greedy outputs token-identical, no assignment dropped, the
+    prefix hit on the caching runs."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(32)
+    shared = torch.randint(0, cfg.vocab_size, (256,), generator=gen).tolist()
+    rest = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in (40, 200, 333, 40, 72)]
+    prompts = [shared + rest[3]] + rest[:3] + [shared + rest[4]]
+    kw = dict(slots=4, max_seq=1024, prefill_buckets=(32, 128), max_tokens_per_tick=136)
+    outs, stats = {}, {}
+    engines = (("runner", {}), ("runner_cache_off", dict(prefix_caching=False)),
+               ("slab", dict(paged=False)), ("seq4", dict(seq_shards=SEQ_SHARDS)),
+               ("seq4_cache_off", dict(seq_shards=SEQ_SHARDS, prefix_caching=False)))
+    for name, opts in engines:
+        eng = ServeEngine(cfg, params, **kw, **opts)
+        with DropCounter() as dc:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=FP32_NEW_TOKENS)
+            outs[name] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        stats[name] = dict(eng.stats, dropped=dc.dropped, dispatches=dc.dispatches)
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    diff = {name: [rid for rid in outs["slab"] if outs[name].get(rid) != outs["slab"][rid]]
+            for name, _ in engines if name != "slab"}
+    log(f"moe serve fp32 (cf = E/k = {cfg.capacity_factor:g}): against the slab "
+        f"engine ({stats['slab']['prefill_dispatches']} monolithic prefills), requests "
+        f"differing {diff} of {len(prompts)}; prefill chunks / prefix-hit tokens / "
+        f"dropped assignments by engine "
+        f"{ {n: (s['prefill_dispatches'], s['prefix_hit_tokens'], s['dropped']) for n, s in stats.items()} }")
+    if any(diff.values()) or len(outs["slab"]) != len(prompts):
+        fail(f"moe serve fp32: the engines' greedy outputs differ {diff}")
+    if any(s["dropped"] for s in stats.values()):
+        fail("moe serve fp32: an assignment dropped at the dropless capacity factor")
+    for name in ("runner", "seq4"):
+        if stats[name]["prefix_hit_tokens"] <= 0:
+            fail(f"moe serve fp32: {name} with prefix caching on never hit")
+    if stats["runner_cache_off"]["prefill_dispatches"] <= len(prompts):
+        fail("moe serve fp32: no prompt crossed a prefill-chunk boundary")
+    return dict(requests=len(prompts), **{f"{n}_prefill_chunks": s["prefill_dispatches"]
+                                          for n, s in stats.items()},
+                prefix_hit_tokens=stats["runner"]["prefix_hit_tokens"])
+
+
+def moe_serve_phase(torch, cfg, counters):
+    """olmoe-1b-7b at full width and depth in bf16 (random weights, seed 0)
+    on the mix of 5 at the default capacity factor: the runner engine
+    (prefix caching on), ``ServeEngine(paged=False)``, an int8 pool and 4
+    sequence shards, every kernel's launch count at its formula (the paged
+    kernels L times a chunk and a step; silu_mul L times a dispatch, on the
+    experts' [E_pad, cap, ff], the element route at decode and the vector
+    route at prefill; the slab's flash and decode L times); prefix hits on
+    the paged runs; tok/s, TTFT and peak memory of each, and the share of
+    requests token-identical to the runner's (not gated: the drops follow
+    each dispatch's rows, which prefix hits and bf16 near-ties move)."""
+    from repro_torch.serve import ServeEngine
+
+    params = serve_params(torch, cfg)
+    warm = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=160,
+                       prefill_buckets=(32, 128))
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    runs = {}
+    for name, kw in (("runner", {}), ("slab", dict(paged=False)),
+                     ("int8", dict(kv_dtype="int8")), ("seq4", dict(seq_shards=SEQ_SHARDS))):
+        out, stats, launches, summary = serve_mix(torch, cfg, params, counters, **kw)
+        P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+        steps = P + Dd
+        expect = {k: 0 for k in counters}
+        expect.update({
+            "rmsnorm": (2 * L + 1) * steps, "rmsnorm_vector": (2 * L + 1) * steps,
+            "apply_rope": L * steps, "apply_rope_qk": L * steps,
+            "apply_rope_vector": L * steps, "silu_mul": L * steps,
+            "silu_mul_element": L * Dd, "silu_mul_vector": L * P})
+        if name == "slab":
+            expect.update(flash_attention_lengths=L * P, decode_attention=L * Dd)
+        else:
+            n = SEQ_SHARDS if name == "seq4" else 1
+            key = {"runner": "", "int8": "_int8", "seq4": "_skip_null"}[name]
+            expect.update({f"paged_decode_attention{key}": n * L * Dd,
+                           f"paged_prefill_attention{key}": n * L * P,
+                           "paged_prefill_attention_tc": n * L * P})
+        check_launches(f"moe serve {name}", launches, expect)
+        if (name != "slab") != (stats["prefix_hit_tokens"] > 0):
+            fail(f"moe serve {name}: {stats['prefix_hit_tokens']} prefix-hit tokens "
+                 f"(the paged runs share the 256-token prefix, the slab never)")
+        log(f"moe serve {name}: {summary['requests']} requests, {summary['tokens']} "
+            f"tokens in {summary['wall_s']:.3f} s ({summary['tok_s']:.1f} tok/s), ttft "
+            f"p50 {summary['ttft_p50_ms']:.1f} ms, prefill dispatches {P}, decode steps "
+            f"{Dd}, prefix-hit tokens {stats['prefix_hit_tokens']}, pool "
+            f"{summary['pool_bytes'] / 2**20:.1f} MiB, peak memory "
+            f"{summary['peak_mem_bytes'] / 2**30:.2f} GiB")
+        summary["prefix_hit_tokens"] = stats["prefix_hit_tokens"]
+        runs[name] = (out, launches, summary)
+    ref_out = runs["runner"][0]
+    same = {name: sum(runs[name][0][rid] == ref_out.get(rid) for rid in runs[name][0])
+            for name in ("slab", "int8", "seq4")}
+    log(f"moe serve: requests token-identical to the runner run in bf16 (not gated): "
+        f"{same} of {len(ref_out)}")
+    del params
+    torch.cuda.empty_cache()
+    return ({n: r[1] for n, r in runs.items()},
+            dict({n: r[2] for n, r in runs.items()}, same_bf16=same))
+
+
+# (row of the {"kernels": ...} line) -> the launch counter it is read from
+# in the olmoe-1b-7b serving runs
+MOE_ROW_COUNTER = {"silu_mul_experts": ("runner", "silu_mul_vector"),
+                   "silu_mul_experts_decode": ("runner", "silu_mul_element"),
+                   "paged_decode_attention_hd128": ("runner", "paged_decode_attention"),
+                   "paged_prefill_attention_hd128": ("runner", "paged_prefill_attention"),
+                   "decode_attention_hd128": ("slab", "decode_attention")}
 
 
 def gemm_inputs(torch, gen, m, k, n, dtype):
@@ -4132,7 +4448,7 @@ def main() -> None:
     rows += hybrid_rows
 
     sz_cfg = get_config("zamba2-7b")
-    zserve_rows = [mamba_serve_row(torch, timer, sz_cfg)] + attn112_rows(torch, timer, sz_cfg)
+    zserve_rows = [mamba_serve_row(torch, timer, sz_cfg)] + attn_rows(torch, timer, sz_cfg)
     zamba_parity = zamba_serve_parity_phase(torch, reduced(sz_cfg))
     zamba_fp32 = zamba_fp32_identity(torch, sz_cfg)
     zserve_counters = {
@@ -4154,6 +4470,28 @@ def main() -> None:
         if row["name"] == "mamba2":
             row["zamba_serve_launches"] = zserve_launches["slab"]["mamba2"]
     rows += zserve_rows
+
+    mcfg = get_config("olmoe-1b-7b")
+    moe_rows = expert_silu_rows(torch, timer, mcfg) + attn_rows(
+        torch, timer, mcfg, labels=("1o", "2o", "7o"), seed=33)
+    moe_layers = {c.name: moe_layer_check(torch, c, seed) for c, seed in (
+        (mcfg, 34), (get_config("qwen2-moe-a2.7b"), 35))}
+    moe_parity = moe_serve_parity_phase(torch, reduced(mcfg))
+    moe_counters = {
+        **seq_counters, "decode_attention": Counter(decode_attention, "dense_launches"),
+        "flash_attention_lengths": Counter(flash_attention, "lengths_launches"),
+        "silu_mul_element": Counter(swiglu, "launches_by_route", "element"),
+        "silu_mul_vector": Counter(swiglu, "launches_by_route", "vector")}
+    moe_launches, moe_serve = moe_serve_phase(torch, mcfg, moe_counters)
+    moe_fp32 = moe_fp32_identity(torch, mcfg)
+    for row in moe_rows:
+        path, counter = MOE_ROW_COUNTER[row["name"]]
+        row["launches"] = moe_launches[path][counter]
+    mrun = moe_launches["runner"]
+    for row in rows:
+        if row["name"] in ("rmsnorm", "rmsnorm_decode", "apply_rope_qk", "silu_mul"):
+            row["moe_serve_launches"] = mrun[ROW_COUNTER.get(row["name"], row["name"])]
+    rows += moe_rows
 
     fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
@@ -4182,7 +4520,10 @@ def main() -> None:
              rwkv_fp32_identity=rwkv_fp32, zamba_train=zamba_train,
              zamba_launches=zamba_launches, zamba_serve=zamba_serve,
              zamba_serve_launches=zserve_launches, zamba_serve_parity=zamba_parity,
-             zamba_fp32_identity=zamba_fp32, gemm_routes=gemm_routes, **kernels),
+             zamba_fp32_identity=zamba_fp32, moe_layers=moe_layers,
+             moe_serve_parity=moe_parity, moe_serve=moe_serve,
+             moe_serve_launches=moe_launches, moe_fp32_identity=moe_fp32,
+             gemm_routes=gemm_routes, **kernels),
         indent=1))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -9,6 +9,8 @@ synthetic request stream.
       --reduced --device cpu [--dense]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+      --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
@@ -19,9 +21,13 @@ shards of the one pool on the one device, their attention partials merged
 by the NoC tree combine, whose hop and energy totals are printed), RWKV6
 (``--arch rwkv6-3b``) from its recurrent slot state, which has no page
 pool: the engine refuses ``--kv-dtype int8`` and ``--seq-shards`` for it,
-and the hybrid (``--arch zamba2-7b``): its shared attention block's KV in
+the hybrid (``--arch zamba2-7b``): its shared attention block's KV in
 the page pool (int8 and sequence shards too) beside its Mamba2 layers'
-slot state, or in dense slabs with ``--dense``.
+slot state, or in dense slabs with ``--dense``, and the MoE family
+(``--arch olmoe-1b-7b``, ``qwen2-moe-a2.7b``) as the dense one, its
+routed experts at the config's GShard ``capacity_factor``.  The JAX
+launcher's ``--expert-*`` flags (expert parallelism, the expert cache)
+come with a later slice.
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ from repro_torch.serve import ServeEngine
 
 # The full-width serving mix that chip_smoke.py and trace_serve.py drive:
 # stablelm-1.6b's engine at 8 slots, and 16 requests of 64 new tokens (the
-# same engine and requests serve rwkv6-3b, which ignores block_size, and
-# zamba2-7b, whose pool holds the shared block's 13 applications).
+# same engine and requests serve rwkv6-3b, which ignores block_size,
+# zamba2-7b, whose pool holds the shared block's 13 applications, and
+# olmoe-1b-7b).
 MIX_ENGINE = dict(slots=8, max_seq=1024, block_size=16,
                   prefill_buckets=(32, 128, 512, 1024))
 MIX_NEW_TOKENS = 64

@@ -1,14 +1,15 @@
 """Where the device time goes when the port serves at full width.
 
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
-      [--arch rwkv6-3b | --arch zamba2-7b] \
+      [--arch rwkv6-3b | --arch zamba2-7b | --arch olmoe-1b-7b] \
       [--dense | --kv-dtype int8 | --seq-shards 4]
 
 Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
 ``--seed``) at full width and depth on the card through the engine: the
 runner path (default: the page pool, ``--kv-dtype int8`` for the int8 page
 pool, ``--seq-shards S`` for a sequence-sharded pool; rwkv6-3b's slot
-state; zamba2-7b's pool beside its Mamba2 slot state) or the dense-slab
+state; zamba2-7b's pool beside its Mamba2 slot state; olmoe-1b-7b's pool)
+or the dense-slab
 baseline (``--dense``,
 ``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
 (``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
@@ -33,7 +34,13 @@ sums, the division), RWKV6's plain one-token step (``ops.rwkv6_step``),
 decay (``models/rwkv.py:_decay``, its LoRA GEMMs left with the GEMMs) and
 token shift (``_shift``), and Mamba2's plain one-token step
 (``ops.mamba2_step``) and its causal conv over a chunk
-(``models/ssm.py:_causal_conv``) or a token (``_conv_step``).
+(``models/ssm.py:_causal_conv``) or a token (``_conv_step``).  An MoE
+model's dispatch (``models/moe.py``: ``route``, the router GEMM, top-k
+and the positions; ``dispatch``, the scatter; ``combine``, the gather and
+the gated sum) is its own group, "MoE dispatch", GEMMs included, and the
+routed experts' batched GEMMs (``experts``) are counted apart from the
+other GEMMs, as "expert GEMMs" (their silu_mul stays with the port's
+kernels).
 """
 from __future__ import annotations
 
@@ -50,7 +57,7 @@ from repro_torch.core import noc
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                       shared_prefix_mix)
-from repro_torch.models import model, rwkv, ssm
+from repro_torch.models import model, moe, rwkv, ssm
 from repro_torch.serve import ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu); the paged
@@ -60,6 +67,7 @@ PREFILL_KERNELS = ("paged_attention_kernel", "paged_prefill_tc_kernel")
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
                 "flash_decode_kernel", "flash_", *PREFILL_KERNELS)
 GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+GEMMS = "GEMM (torch.matmul)"
 OTHER_OPS = "other PyTorch ops"
 TOP = 15                       # kernels listed by device time
 # plain functions whose calls the traced pass puts under a profiler range:
@@ -70,7 +78,14 @@ RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
           (rwkv, "_shift", "rwkv plain ops: token shift"),
           (ops, "mamba2_step", "mamba plain ops: mamba2_step"),
           (ssm, "_causal_conv", "mamba plain ops: conv"),
-          (ssm, "_conv_step", "mamba plain ops: conv"))
+          (ssm, "_conv_step", "mamba plain ops: conv"),
+          (moe, "route", "MoE dispatch"),
+          (moe, "dispatch", "MoE dispatch"),
+          (moe, "combine", "MoE dispatch"),
+          (moe, "experts", "expert GEMMs"))
+# the groups a range's kernels leave for its own (default: the non-GEMM
+# kernels, so a range's GEMMs stay GEMMs)
+MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,)}
 
 
 def _group(name: str) -> str:
@@ -90,7 +105,7 @@ def _group(name: str) -> str:
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels: other"
     if any(m in low for m in GEMM_MARKS):
-        return "GEMM (torch.matmul)"
+        return GEMMS
     return OTHER_OPS
 
 
@@ -179,27 +194,29 @@ def main(argv=None):
             setattr(mod, attr, fn)
 
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
-    moved = defaultdict(lambda: [0.0, 0])           # range group -> [us, calls]
+    # (from group, range group) -> [us, calls]
+    moved = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.name not in ranges:               # not a range's GPU span
                 per_kernel[ev.name][0] += ev.time_range.elapsed_us()
                 per_kernel[ev.name][1] += 1
         elif ev.name in ranges:
+            to = ranges[ev.name]
             for k in _kernels(ev):
-                if _group(k.name) == OTHER_OPS:     # GEMMs stay GEMMs
-                    moved[ranges[ev.name]][0] += k.duration
-                    moved[ranges[ev.name]][1] += 1
+                if _group(k.name) in MOVED_FROM.get(to, (OTHER_OPS,)):
+                    moved[(_group(k.name), to)][0] += k.duration
+                    moved[(_group(k.name), to)][1] += 1
     groups = defaultdict(float)
     group_n = defaultdict(int)
     for name, (us, n) in per_kernel.items():
         groups[_group(name)] += us
         group_n[_group(name)] += n
-    for g, (us, n) in moved.items():                # out of "other ops"
-        groups[OTHER_OPS] -= us
-        group_n[OTHER_OPS] -= n
-        groups[g] = us
-        group_n[g] = n
+    for (src, g), (us, n) in moved.items():
+        groups[src] -= us
+        group_n[src] -= n
+        groups[g] += us
+        group_n[g] += n
     device_s = sum(groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
     if args.dense:

@@ -46,12 +46,15 @@ def _count(stacked) -> int:
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX parameter tree (numpy leaves) -> port parameters, each leaf in its
     own dtype (the RWKV6 ``u`` / ``w0`` and the Mamba2 ``A_log`` / ``D`` /
-    ``dt_bias`` stay f32 among bf16 leaves), nested dicts (``tm`` / ``cm`` /
-    ``mamba``) kept as they are.  The stacked ``[L, ...]`` leaves of
-    ``layers`` are split per layer; for the hybrid family the ``[G, K, ...]``
-    leaves of ``groups`` become G lists of K layers, the ``[T, ...]`` leaves
-    of ``tail`` (None when the layer count divides into groups) a list of T
-    layers, and ``shared`` stays one block."""
+    ``dt_bias`` and the MoE router stay f32 among bf16 leaves), nested dicts
+    (``tm`` / ``cm`` / ``mamba`` / ``moe``) kept as they are.  The stacked
+    ``[L, ...]`` leaves of ``layers`` are split per layer (an MoE layer's
+    router [L, d, E_pad] and expert banks [L, E_pad, ...] into each layer's
+    [d, E_pad] and [E_pad, ...], its shared experts' FFN likewise); for the
+    hybrid family the ``[G, K, ...]`` leaves of ``groups`` become G lists of
+    K layers, the ``[T, ...]`` leaves of ``tail`` (None when the layer count
+    divides into groups) a list of T layers, and ``shared`` stays one
+    block."""
     stacks = ("layers", "groups", "tail")
     out = {k: _map(v, lambda a: _tensor(a, device))
            for k, v in tree.items() if k not in stacks}

@@ -1,15 +1,18 @@
 """Decoder LM: full-sequence forward (training) for the dense, RWKV6,
-Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for all four:
-the dense family over a paged KV cache or a dense KV slab, RWKV6 and
-Mamba2 over a fixed-size recurrent state per sequence (the serve state's
-slot rows, or the dense-slab baseline's batch rows), and the hybrid over
-both (its shared attention block's KV in pages or slabs, its Mamba2
-layers' state in slots).
+Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for every
+family: the dense and MoE families over a paged KV cache or a dense KV
+slab, RWKV6 and Mamba2 over a fixed-size recurrent state per sequence (the
+serve state's slot rows, or the dense-slab baseline's batch rows), and the
+hybrid over both (its shared attention block's KV in pages or slabs, its
+Mamba2 layers' state in slots).
 
 Port of the JAX package's ``models/model.py``: the stacked-layer
 ``lax.scan`` becomes a Python loop over a list of per-layer parameter
 dicts, ``jax.checkpoint`` becomes ``torch.utils.checkpoint``, and the pages
-and slabs are updated in place.  The hybrid family runs groups of
+and slabs are updated in place.  An MoE layer is a dense one whose FFN is
+``moe`` (``models/moe.py``: top-k routed experts with GShard capacity,
+optionally shared experts) in place of ``ffn``; its serving cache is the
+dense family's.  The hybrid family runs groups of
 ``attn_every`` Mamba2 layers, each group followed by one attention + FFN
 block whose weights all groups share, then an ungrouped tail; its
 parameters are ``groups`` (a list of groups, each a list of layer dicts),
@@ -23,8 +26,9 @@ and ``conv_t`` / ``ssm_t`` [max(tail, 1), B, ...] for its tail, beside
 ``attn``, the pages [G, KvH, NB, BS, hd] (or slabs [G, B, Smax, KvH, hd])
 of the shared block's G applications; the JAX layouts, so
 ``models/convert.py:state_from_jax`` is a plain map.  What this port does
-not run yet (MoE serving) raises ``NotImplementedError`` naming the slice
-of the port that brings it.
+not run yet (MoE training: the full-sequence ``forward`` with the aux
+losses) raises ``NotImplementedError`` naming the slice of the port that
+brings it.
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
@@ -47,41 +51,39 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, rwkv, ssm
+from repro_torch.models import layers, moe, rwkv, ssm
 
 RWKV_STATE = ("tm_shift", "wkv", "cm_shift")   # RWKV6's recurrent state keys
 MAMBA_STATE = ("conv", "ssm")                  # Mamba2's (family "ssm")
 HYBRID_STATE = ("conv_g", "ssm_g", "conv_t", "ssm_t")   # the hybrid's slot state
 
 
-def _later(cfg: ModelConfig, serving: bool) -> str:
-    """The slice of the port that brings ``cfg``'s family (for serving, or
-    for training)."""
+def _later(cfg: ModelConfig) -> str:
+    """The slice of the port that brings training for ``cfg``'s family."""
     if cfg.family == "moe":
-        return ("the MoE slice (MoE serving: ROADMAP A.2)" if serving
-                else "the MoE slice")
+        return "the MoE training slice (ROADMAP A.2c)"
     return "a later slice"
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """Parameters and the full-sequence forward: dense, RWKV6, Mamba2 and
+    """The full-sequence forward (training): dense, RWKV6, Mamba2 and
     hybrid."""
     if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: it comes "
-            f"with {_later(cfg, False)} of repro_torch; this port trains "
+            f"training family {cfg.family!r} ({cfg.name}) is not ported yet: "
+            f"it comes with {_later(cfg)} of repro_torch; this port trains "
             f"family='dense', 'ssm' (RWKV6, Mamba2) and 'hybrid'")
 
 
 def require_servable(cfg: ModelConfig) -> None:
-    """Serving: the dense family (paged or over a dense slab), the ``ssm``
-    family (RWKV6 and Mamba2, over their recurrent state) and the hybrid
-    (paged or slab attention KV beside its Mamba2 state)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    """Serving, and with it parameters (every family that trains also
+    serves): the dense and MoE families (paged or over a dense slab), the
+    ``ssm`` family (RWKV6 and Mamba2, over their recurrent state) and the
+    hybrid (paged or slab attention KV beside its Mamba2 state)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"serving family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"it comes with {_later(cfg, True)} of repro_torch; this port "
-            f"serves family='dense', 'ssm' (RWKV6, Mamba2) and 'hybrid'")
+            f"family {cfg.family!r} ({cfg.name}) is not ported: repro_torch "
+            f"serves family='dense', 'moe', 'ssm' and 'hybrid'")
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +95,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16):
     """Random parameters from ``seed``, made on ``device``: embeddings and
     linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales (the
-    RWKV6 and Mamba2 layers as ``models/rwkv.py:rwkv_init`` and
-    ``models/ssm.py:mamba_init`` make them)."""
-    require_trainable(cfg)
+    RWKV6, Mamba2 and MoE layers as ``models/rwkv.py:rwkv_init``,
+    ``models/ssm.py:mamba_init`` and ``models/moe.py:moe_init`` make them).
+    MoE parameters serve; ``forward`` refuses them (MoE training comes
+    later)."""
+    require_servable(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(shape, scale, dt=dtype):
@@ -117,21 +121,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = lin(d, cfg.vocab_size)
 
-    def attn_block():
-        return {
+    def attn_block(routed: bool = False):
+        p = {
             "ln1": norm(),
             "attn": {"wq": lin(d, h * hd, cfg.qkv_bias),
                      "wk": lin(d, kvh * hd, cfg.qkv_bias),
                      "wv": lin(d, kvh * hd, cfg.qkv_bias),
                      "wo": lin(h * hd, d)},
             "ln2": norm(),
-            "ffn": {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
-                    "down": lin(cfg.d_ff, d)},
         }
+        if routed:
+            p["moe"] = moe.moe_init(cfg, gen, dtype, device)
+        else:
+            p["ffn"] = {"gate": lin(d, cfg.d_ff), "up": lin(d, cfg.d_ff),
+                        "down": lin(cfg.d_ff, d)}
+        return p
 
     def layer():
-        if cfg.family == "dense":
-            return attn_block()
+        if cfg.family in ("dense", "moe"):
+            return attn_block(routed=cfg.family == "moe")
         if cfg.rwkv:
             return {"ln1": norm(), "ln2": norm(),
                     **rwkv.rwkv_init(cfg, normal, dtype, device)}
@@ -177,6 +185,12 @@ def _mamba_state(cfg: ModelConfig, batch: int, dtype, device):
             "conv_t": conv_t, "ssm_t": ssm_t}
 
 
+def _paged_family(cfg: ModelConfig) -> bool:
+    """A family whose every layer attends (dense, MoE): its serving cache is
+    KV pages or slabs alone, no slot state."""
+    return cfg.family in ("dense", "moe")
+
+
 def _attn_apps(cfg: ModelConfig) -> int:
     """Attention applications per token: L layers, or the hybrid's G."""
     return hybrid_layout(cfg)[0] if cfg.family == "hybrid" else cfg.n_layers
@@ -191,8 +205,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     require_servable(cfg)
     if cfg.rwkv:
         return _rwkv_state(cfg, batch, dtype, device)
-    state = {} if cfg.family == "dense" else _mamba_state(cfg, batch, dtype,
-                                                          device)
+    state = {} if _paged_family(cfg) else _mamba_state(cfg, batch, dtype,
+                                                        device)
     if cfg.family != "ssm":
         state["attn"] = layers.attn_cache_init(cfg, batch, max_seq, dtype,
                                                n_slots=_attn_apps(cfg),
@@ -214,8 +228,8 @@ def init_serve_state(cfg: ModelConfig, slots: int, num_blocks: int,
     require_servable(cfg)
     if cfg.rwkv:
         return _rwkv_state(cfg, slots, dtype, device)
-    state = {} if cfg.family == "dense" else _mamba_state(cfg, slots, dtype,
-                                                          device)
+    state = {} if _paged_family(cfg) else _mamba_state(cfg, slots, dtype,
+                                                        device)
     if cfg.family != "ssm":
         state["attn"] = layers.paged_kv_cache_init(
             cfg, num_blocks, block_size, dtype, n_slots=_attn_apps(cfg),
@@ -241,9 +255,13 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def _block(cfg, lp, x, attn):
     """Pre-norm residual block; ``attn`` maps the normed input to the
-    attention output."""
+    attention output.  The FFN is the layer's ``moe`` (every row of ``x``
+    routed in one dispatch) or its ``ffn``."""
     x = x + attn(layers.rmsnorm(lp["ln1"], x, cfg.norm_eps))
-    return x + layers.ffn(lp["ffn"], layers.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    h = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if "moe" in lp:
+        return x + moe.moe_apply(lp["moe"], h, cfg)[0]
+    return x + layers.ffn(lp["ffn"], h)
 
 
 def _rwkv_block(cfg, lp, x):
@@ -433,7 +451,7 @@ def prefill(cfg: ModelConfig, params, state, *,
             p, h, positions, cfg, {"k": ck_all[i], "v": cv_all[i]},
             lengths=lengths, window=attn_window)[0]
 
-    if cfg.family == "dense":
+    if _paged_family(cfg):
         for li, lp in enumerate(params["layers"]):
             x = _block(cfg, lp, x, attend(lp["attn"], li))
     else:
@@ -491,7 +509,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
         return lambda h: layers.attention_decode_stacked(
             p, h, cfg, ck_all, cv_all, i, lengths, window=attn_window)[0]
 
-    if cfg.family == "dense":
+    if _paged_family(cfg):
         for li, lp in enumerate(params["layers"]):
             x = _block(cfg, lp, x, attend(lp["attn"], li))
     else:
@@ -602,16 +620,16 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
                         local_tables=None):
     """One chunk of a single-sequence prefill against the serve state.
 
-    tokens [1, C] (right-padded); ``length`` valid rows.  Dense: K/V land in
-    the pages of ``block_table`` (``local_tables``: a sequence-sharded
-    pool's).  RWKV6 and Mamba2: the chunk runs from engine slot ``slot``'s
-    recurrent state and advances its rows in place (padding rows are
-    state-neutral, so repeated chunks reproduce one unpadded prefill;
-    ``q_offset`` and the tables are unused); the scans are the kernels with
-    a carried state.  Hybrid: both, the shared block's application ``gi``
+    tokens [1, C] (right-padded); ``length`` valid rows.  Dense and MoE:
+    K/V land in the pages of ``block_table`` (``local_tables``: a
+    sequence-sharded pool's).  RWKV6 and Mamba2: the chunk runs from engine
+    slot ``slot``'s recurrent state and advances its rows in place (padding
+    rows are state-neutral, so repeated chunks reproduce one unpadded
+    prefill; ``q_offset`` and the tables are unused); the scans are the
+    kernels with a carried state.  Hybrid: both, the shared block's application ``gi``
     through its pages at ``q_offset``.  Returns (logits at the chunk's last
     valid row [1, V], state)."""
-    if cfg.family == "dense":
+    if _paged_family(cfg):
         return prefill_paged(cfg, params, state, tokens=tokens, length=length,
                              q_offset=q_offset, block_table=block_table,
                              local_tables=local_tables)
@@ -645,7 +663,7 @@ def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
     Mamba2), of which only the batch rows ``rows`` are written when given,
     or both (the hybrid: its shared block through the pool at application
     ``gi``, its Mamba2 state gated by ``rows``)."""
-    if cfg.family == "dense":
+    if _paged_family(cfg):
         return decode_step_paged(cfg, params, state, tokens, lengths,
                                  block_tables, local_tables)
     if cfg.family == "ssm":

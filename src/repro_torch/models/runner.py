@@ -2,9 +2,9 @@
 drives.
 
 Port of the JAX package's ``models/runner.py`` (``cache_spec`` :89 and
-``ModelRunner`` :118) for the families this port serves.  The dense
-family's serving cache is one paged component (attention KV for all L
-layers, addressed through one block table per sequence) and no slot state;
+``ModelRunner`` :118) for every family.  The dense and MoE families'
+serving cache is one paged component (attention KV for all L layers,
+addressed through one block table per sequence) and no slot state;
 RWKV6's and Mamba2's are fixed-size slot state only (``tm_shift``, ``wkv``
 and ``cm_shift``, or ``conv`` and ``ssm``, the engine slot on axis 1) and
 no paged component; the hybrid's is both: one paged component ``attn``
@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models import moe
 
 
 @dataclass(frozen=True)
@@ -202,6 +203,17 @@ class ModelRunner:
         """Attention applications per token over the pool (the NoC combines
         of one sharded dispatch): L layers, or the hybrid's G."""
         return sum(c.n_apps for c in self.spec.paged)
+
+    def padded_experts(self) -> int:
+        """Routed expert count as the MoE dispatch pads it (the unit an
+        expert-parallel split must divide)."""
+        return moe.moe_padded_experts(self.cfg)
+
+    def expert_weight_bytes(self, itemsize: int) -> int:
+        """One routed expert's weights (gate, up and down) at ``itemsize``
+        bytes an element: the unit an expert placement cache prices a
+        migration in."""
+        return 3 * self.cfg.d_model * self.cfg.moe_d_ff * itemsize
 
     def page_kv_bytes(self, block_size: int, itemsize: int) -> int:
         """Bytes of ONE physical page across paged components, K and V.

@@ -1,9 +1,12 @@
 """Paged-KV / slot-state continuous-batching serving engine (single device).
 
-Port of the JAX package's ``serve/engine.py`` core for the dense family,
-RWKV6, Mamba2 and the hybrid (Zamba2).  What a family's cache holds comes from the runner's ``CacheSpec``
+Port of the JAX package's ``serve/engine.py`` core for every family: the
+dense and MoE families, RWKV6, Mamba2 and the hybrid (Zamba2).  What a
+family's cache holds comes from the runner's ``CacheSpec``
 (``models/runner.py``); the engine never reads the family past its
-constructor:
+constructor.  An MoE model routes every row of a dispatch, the padded rows
+of a prefill chunk and the idle rows of the batched decode included, so
+its GShard drops are the JAX engine's at any ``capacity_factor``:
 
 * **Paged KV cache** — physical pages ``[L, KvH, NB, BS, hd]`` shared by all
   slots through per-slot block tables; page 0 is the null sink.
@@ -66,8 +69,9 @@ constructor:
 
 Not ported in this slice (construction raises if asked for): preemption and
 swap (and with them swapping int8 pages), SLO classes and deadlines,
-prefill/decode roles, expert parallelism and the expert cache, temperature
-sampling, and a page pool below full capacity (which would need
+prefill/decode roles, expert parallelism, the expert cache and its
+telemetry (``expert_parallel``, ``expert_cache_size``, ``expert_prefetch``,
+``expert_placement``: ROADMAP A.2b), temperature sampling, and a page pool below full capacity (which would need
 preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
 the CUDA prefill kernel's query tile is fixed at 16 rows, so no chunk size
 can overflow its shared memory.
@@ -377,11 +381,17 @@ class ServeEngine:
         page pool S ways (a power of two; paged only), each shard's
         partials merged by the NoC tree combine.  Any other JAX-engine
         option raises: it belongs to a later slice."""
+        expert = sorted(k for k in later if k.startswith("expert_"))
+        if expert:
+            raise NotImplementedError(
+                f"engine options {expert} are not ported yet: they come with "
+                f"later slices of repro_torch (ROADMAP A.2b: expert "
+                f"parallelism, the expert cache and its telemetry)")
         if later:
             raise NotImplementedError(
                 f"engine options {sorted(later)} are not ported yet: "
-                f"preemption/swap, SLO classes, roles and expert options come "
-                f"with later slices of repro_torch")
+                f"preemption/swap, SLO classes and roles come with later "
+                f"slices of repro_torch")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq

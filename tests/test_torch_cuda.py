@@ -1779,3 +1779,68 @@ def test_rmsnorm_bwd_scalar_route(dev, dtype):
     after = krn.bwd_launches_by_route
     assert after["scalar"] - before["scalar"] == 10
     assert after["vector"] == before["vector"]
+
+
+# ---------------------------------------------------------------------------
+# MoE serving: silu_mul at the routed experts' 3-D shapes, and one MoE layer
+# at full width on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# [E_pad, cap, moe_d_ff] of olmoe-1b-7b: a decode step of 8 slots (cap 4,
+# 262144 elements, within one wave: the element route) and a 512-row
+# prefill chunk (cap 80: the vector route)
+EXPERT_SILU_SHAPES = {(64, 4, 1024): "element", (64, 80, 1024): "vector"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(EXPERT_SILU_SHAPES))
+def test_silu_mul_expert_shapes(dev, dtype, shape):
+    """ops.silu_mul on the experts' [E_pad, cap, ff] (a 3-D input, made
+    contiguous and sized by element count) on the route its plan gives,
+    held to one ulp relative plus 1e-5 (f32: 1e-5), twice bitwise equal."""
+    rng = np.random.default_rng(42)
+    g = _rand(rng, shape, dtype, dev, 3.0)
+    u = _rand(rng, shape, dtype, dev)
+    assert ksw.plan(g.numel(), g.element_size(), True,
+                    _build.n_sms(dev)).route == EXPERT_SILU_SHAPES[shape]
+    before = _routes(ksw)
+    got = ops.silu_mul(g, u)
+    _ulp_close(got, ref.silu_mul(g, u), dtype)
+    assert got.shape == shape and torch.equal(got, ops.silu_mul(g, u))
+    after = _routes(ksw)
+    assert after[EXPERT_SILU_SHAPES[shape]] - before[EXPERT_SILU_SHAPES[shape]] == 2
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_apply_on_card_matches_cpu(dev, arch):
+    """One MoE layer at the config's full width (olmoe-1b-7b: d 2048, 64
+    experts of 1024, top 8; qwen2-moe-a2.7b: 60 experts padded to 64, of
+    1408, top 4, 4 shared) in f32 on the card against the CPU, same
+    parameters: 40 rows leaning towards expert 0 at the default capacity
+    factor, so the dispatch drops; the routing (each assignment's buffer
+    row, the kept set) equal, the gates and the output within 1e-4."""
+    from repro_torch.models import moe as TMOE
+
+    cfg = get_config(arch)
+    p = TMOE.moe_init(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                      device="cpu")
+    rng = np.random.default_rng(43)
+    c = rng.normal(size=cfg.d_model).astype(np.float32)
+    x = rng.normal(size=(1, 40, cfg.d_model)).astype(np.float32) + 2.0 * c / np.linalg.norm(c)
+    p["router"][:, 0] += torch.from_numpy(c / np.linalg.norm(c))
+    xs = torch.from_numpy(x)
+    out = {}
+    for d in ("cpu", dev):
+        pd, xd = _to(p, d), xs.to(d)
+        e_pad = pd["router"].shape[1]
+        cap = TMOE.capacity(40, cfg.top_k, cfg.capacity_factor, e_pad)
+        r = TMOE.route(pd, xd[0], cfg, cap)
+        y, aux = TMOE.moe_apply(pd, xd, cfg, return_stats=True)
+        out[str(d)] = (r.slot.cpu(), r.keep.cpu(), r.gates.cpu(), y.cpu(),
+                       aux["expert_load"].cpu(), float(aux["frac_dropped"]))
+        del pd
+    (s0, k0, g0, y0, l0, f0), (s1, k1, g1, y1, l1, f1) = out["cpu"], out["cuda"]
+    assert torch.equal(s0, s1) and torch.equal(k0, k1) and torch.equal(l0, l1)
+    assert f0 == f1 > 0 and not l0[cfg.n_experts:].any()
+    torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)

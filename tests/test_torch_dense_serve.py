@@ -228,31 +228,32 @@ def test_dense_engine_refusals():
         2 * cfg.n_layers * 3 * 64 * cfg.n_kv_heads * cfg.hd * 4
 
 
-@pytest.mark.parametrize("arch,slice_name", [
-    ("zamba2-7b-ssm", None), ("zamba2-7b", None), ("olmoe-1b-7b", "MoE slice")],
-    ids=["zamba2-7b-ssm-recurrent-serving slice",
-         "zamba2-7b-recurrent-serving slice", "olmoe-1b-7b-MoE slice"])
-def test_dense_slab_refuses_other_families(arch, slice_name):
-    """The slab path serves every family but MoE: the engine stands up over
-    zamba2-7b (its Mamba2 slot state beside [G, slots, max_seq] slabs) and
-    its Mamba2 layers as family="ssm" (``zamba2-7b-ssm``: the slot state
-    alone); for MoE the engine and the model's slab entry points name the
-    slice that brings it."""
+@pytest.mark.parametrize("arch", ["zamba2-7b-ssm", "zamba2-7b", "olmoe-1b-7b"],
+                         ids=["zamba2-7b-ssm-recurrent-serving slice",
+                              "zamba2-7b-recurrent-serving slice",
+                              "olmoe-1b-7b-MoE slice"])
+def test_dense_slab_refuses_other_families(arch):
+    """The slab path serves every family: the engine stands up over
+    zamba2-7b (its Mamba2 slot state beside [G, slots, max_seq] slabs), its
+    Mamba2 layers as family="ssm" (``zamba2-7b-ssm``: the slot state alone)
+    and olmoe-1b-7b (the dense family's [L, slots, max_seq] slabs); a
+    family the port does not know is refused by the engine and the model's
+    slab entry points."""
     cfg = reduced(get_config(arch.removesuffix("-ssm")))
     if arch.endswith("-ssm"):
         cfg = cfg.replace(family="ssm")
     _, _, tparams = _pair("granite-3-2b")        # only the embedding is read
-    if slice_name is None:
-        eng = TEngine(cfg, tparams, paged=False, **ENGINE_KW)
-        assert eng.dense_baseline and not eng.has_slot_state
-        keys = {"conv", "ssm"} if cfg.family == "ssm" else \
-            {"conv_g", "ssm_g", "conv_t", "ssm_t", "attn"}
-        assert set(eng.state) == keys
-        return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        TEngine(cfg, tparams, paged=False, **ENGINE_KW)
-    for call in (lambda: TM.init_decode_state(cfg, 1, 8, device="cpu"),
-                 lambda: TM.prefill(cfg, tparams, {}, tokens=_t([[1]])),
-                 lambda: TM.decode_step(cfg, tparams, {}, _t([1]), _t([0]))):
-        with pytest.raises(NotImplementedError, match=slice_name):
+    eng = TEngine(cfg, tparams, paged=False, **ENGINE_KW)
+    assert eng.dense_baseline and not eng.has_slot_state
+    keys = {"conv", "ssm"} if cfg.family == "ssm" else \
+        {"attn"} if cfg.family == "moe" else \
+        {"conv_g", "ssm_g", "conv_t", "ssm_t", "attn"}
+    assert set(eng.state) == keys
+    unknown = cfg.replace(family="encoder")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TEngine(unknown, tparams, paged=False, **ENGINE_KW)
+    for call in (lambda: TM.init_decode_state(unknown, 1, 8, device="cpu"),
+                 lambda: TM.prefill(unknown, tparams, {}, tokens=_t([[1]])),
+                 lambda: TM.decode_step(unknown, tparams, {}, _t([1]), _t([0]))):
+        with pytest.raises(NotImplementedError, match="not ported"):
             call()

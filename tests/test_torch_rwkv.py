@@ -449,16 +449,16 @@ def test_launch_train_rwkv_cpu(tmp_path, capsys):
 
 def test_rwkv_serving_still_refused():
     """rwkv6-3b serves (its slot state is made), as do the Mamba2 ``ssm``
-    variant and the hybrid zamba2-7b; MoE serving is still refused, by the
-    engine and the runner too, naming the slice that brings it (ROADMAP
-    A.2)."""
+    variant, the hybrid zamba2-7b and MoE (its pool, runner and engine
+    stand up); MoE's expert options are still refused by the engine,
+    naming the slice that brings them (ROADMAP A.2b)."""
     cfg = t_reduced(t_get_config("rwkv6-3b"))
     state = TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
     assert sorted(state) == ["cm_shift", "tm_shift", "wkv"]
     moe = t_reduced(t_get_config("olmoe-1b-7b"))
-    for call in (lambda: TM.init_serve_state(moe, 2, 9, 8, device="cpu"),
-                 lambda: TRunner(moe, 2, 64),
-                 lambda: TEngine(moe, {"embed": {"table": torch.zeros(4, 4)}},
-                                 max_seq=32, slots=1)):
-        with pytest.raises(NotImplementedError, match="MoE slice.*ROADMAP A.2"):
-            call()
+    params = {"embed": {"table": torch.zeros(4, 4)}}
+    assert sorted(TM.init_serve_state(moe, 2, 9, 8, device="cpu")) == ["attn"]
+    assert TRunner(moe, 2, 64).padded_experts() == moe.n_experts
+    assert TEngine(moe, params, max_seq=32, slots=1).paged
+    with pytest.raises(NotImplementedError, match="expert.*ROADMAP A.2b"):
+        TEngine(moe, params, max_seq=32, slots=1, expert_parallel=2)

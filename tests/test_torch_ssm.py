@@ -517,8 +517,8 @@ def test_launch_train_zamba_cpu(tmp_path, capsys):
 
 def test_mamba2_serving_refused():
     """The Mamba2 and hybrid families now serve as well as train (their
-    serving state is made, JAX's keys); MoE serving is still refused,
-    naming the slice that brings it (ROADMAP A.2)."""
+    serving state is made, JAX's keys), and so does MoE (its pool and slabs,
+    the dense family's); a family the port does not know is refused."""
     for family in ("hybrid", "ssm"):
         cfg = t_reduced(t_get_config("zamba2-7b"))
         cfg = cfg if family == "hybrid" else cfg.replace(family="ssm")
@@ -528,7 +528,11 @@ def test_mamba2_serving_refused():
         assert sorted(state) == (["attn", "conv_g", "conv_t", "ssm_g", "ssm_t"]
                                  if family == "hybrid" else ["conv", "ssm"])
     moe = t_reduced(t_get_config("olmoe-1b-7b"))
-    for call in (lambda: TM.init_serve_state(moe, 2, 9, 8, device="cpu"),
-                 lambda: TM.init_decode_state(moe, 2, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+    assert sorted(TM.init_serve_state(moe, 2, 9, 8, device="cpu")["attn"]) == \
+        ["k_pages", "v_pages"]
+    assert sorted(TM.init_decode_state(moe, 2, 8, device="cpu")["attn"]) == ["k", "v"]
+    unknown = moe.replace(family="encoder")
+    for call in (lambda: TM.init_serve_state(unknown, 2, 9, 8, device="cpu"),
+                 lambda: TM.init_decode_state(unknown, 2, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="not ported"):
             call()
