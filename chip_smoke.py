@@ -245,7 +245,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    vector route at prefill), with tok/s, TTFT and peak memory; and olmoe
    at full width and depth in fp32 at the dropless cf = E / k through the
    runner and 4 shards (prefix caching on and off) and the slab engine,
-   token-identical, no assignment dropped.
+   token-identical, no assignment dropped;
+22. preemption and swap (a page pool below full capacity): stablelm-1.6b
+   at full width and depth on the mix of 5 over 129 pages (128 usable, a
+   quarter of the full pool) in bf16 with phase 5's parameters under the
+   swap, recompute and auto policies, every launch count at phase 5's
+   formulas over the engine's own (grown) dispatch counts, tok/s, TTFT and
+   peak memory logged beside phase 5's run with the preemptions by arm and
+   the swap bytes, the runs probed: every swapped victim's pages read back
+   bit-equal after its swap-in, the arena's device-to-host and
+   host-to-device GB/s and a replayed prefill token's seconds logged
+   beside the cost model's (the paper's CXL link and PIM banks); in fp32
+   (seed 0) swap, recompute, auto and swap with a proactive horizon of 2,
+   each token-identical to the unpressured run, preempted by its arm,
+   restored tokens no more than preempted ones and the decode work
+   unchanged; an int8 pool under swap against the unpressured int8 run,
+   its int8 pages and scales bit-equal after the round trip; 4 shards over
+   132 pages, swap and recompute, token-identical to the one-shard
+   pressured runs; then (after 20) zamba2-7b at full width cut to 14
+   layers in fp32 under swap and recompute against its unpressured run,
+   the slot-state blobs bit-equal after the round trip; and (after 21)
+   ROADMAP queue C: reduced olmoe skewed at the default capacity factor
+   over 4 shards, the 8-slot mix whose first four requests finish early,
+   the card engine token-identical to the CPU's with as many drops, every
+   decode step's logits (idle rows included) within 1e-4, two card runs'
+   null pages bit-equal and within 1e-4 of the CPU's, a control (the idle
+   row given the plain version's mean of the null pages) caught, and the
+   JAX package's scatter targets with duplicates in the card's write order
+   logged against the CPU's index order.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -464,6 +491,11 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3
 # rwkv serving (19): row 9s's prefill chunk, the engine's slots (the mix of
 # 5) and the new tokens a request of the fp32 identity check
 SERVE_CHUNK, SERVE_SLOTS, FP32_NEW_TOKENS = 512, 8, 16
+# preemption (22): the mix of 5 over 129 pages (128 usable: a quarter of the
+# full pool's 512, above the longest request's 52), over 132 at 4 shards (33
+# a shard, a null page each); the hybrid cut to 14 of zamba2-7b's 81 layers
+# (2 groups of 6 and a 2-layer tail: G = 2) to keep the phase's time
+PRESSURE_BLOCKS, PRESSURE_SHARD_BLOCKS, HYBRID_PRESSURE_LAYERS = 129, 132, 14
 
 
 def log(msg: str) -> None:
@@ -913,9 +945,10 @@ def serve_params(torch, cfg):
     return params
 
 
-def serve_mix(torch, cfg, params, counters, **engine_kw):
+def serve_mix(torch, cfg, params, counters, hook=None, **engine_kw):
     """Serve the full-width mix once through an engine built with
-    ``engine_kw``; the counters are zeroed just before and read just
+    ``engine_kw`` (``hook(engine)``, given, is called before the first
+    submission); the counters are zeroed just before and read just
     after."""
     from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                           shared_prefix_mix)
@@ -923,6 +956,8 @@ def serve_mix(torch, cfg, params, counters, **engine_kw):
 
     prompts = shared_prefix_mix(cfg.vocab_size)
     eng = ServeEngine(cfg, params, **{**MIX_ENGINE, **engine_kw})
+    if hook is not None:
+        hook(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -965,6 +1000,18 @@ def check_launches(tag, launches, expect):
             fail(f"{tag}: kernel {name} launched {n} times, expected {expect[name]}")
 
 
+def serve_expect(L, P, Dd):
+    """Phase 5's launch formulas over P prefill chunks and Dd decode steps
+    (a dense model of L layers, one shard, the engine dtype's pool)."""
+    return {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "paged_decode_attention": L * Dd,
+        "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P}
+
+
 def serve_phase(torch, cfg, params, counters):
     from repro_torch.serve import ServeEngine
 
@@ -986,13 +1033,7 @@ def serve_phase(torch, cfg, params, counters):
         f"{summary['ttft_p50_ms']:.1f} ms, prefix_hit_tokens "
         f"{stats['prefix_hit_tokens']}, prefill chunks {P}, decode steps {Dd}, "
         f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB")
-    check_launches("serve", launches, {
-        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
-        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
-        "apply_rope_vector": L * (P + Dd),
-        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
-        "paged_decode_attention": L * Dd,
-        "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P})
+    check_launches("serve", launches, serve_expect(L, P, Dd))
     if stats["prefix_hit_tokens"] <= 0:
         fail("serve: the shared-prefix requests never hit the prefix cache")
 
@@ -4289,8 +4330,402 @@ def fidelity_phase(torch, timer, cfg):
     return rows, routes
 
 
+# ---------------------------------------------------------------------------
+# 22: preemption and swap (an oversubscribed page pool)
+# ---------------------------------------------------------------------------
+
+class SwapProbe:
+    """Around one engine: each swap victim's live pages (the pinned prefix
+    chain and the parked rest, an int8 pool's scales) and, for a slot-state
+    family, its slot-state blob are read before its swap-out and again after
+    its swap-in, where they must be the same bytes; the arena's
+    device-to-host and host-to-device copies are timed (the card
+    synchronized on each side); and a recompute restore's replayed prefill
+    chunks (a request's that has decoded already, or below the tokens it
+    held at its eviction) are timed with the tokens they carry.  The
+    synchronizes slow the run, and its times carry them."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.serve import swap
+
+        self.torch, self.eng = torch, eng
+        self.parked, self.checked = {}, 0
+        self.d2h, self.h2d, self.replay = [0, 0.0], [0, 0.0], [0, 0.0]
+        swap_out, restore = eng._swap_out, eng._restore_swapped
+        run_chunk = eng._run_prefill_chunk
+
+        def pages(slot, n):
+            ids = torch.as_tensor(eng.alloc.table[slot, :n].astype("int64"),
+                                  device=eng.device)
+            return [t.clone() for t in eng.runner.extract_pages(eng.state, ids)
+                    if t is not None]
+
+        def blob(slot):
+            if not eng.has_slot_state:
+                return {}
+            return eng.runner.extract_slot_state(eng.state, slot)
+
+        def probed_out(slot, live):
+            n = -(-live // eng.block_size)
+            before, rid = (pages(slot, n), blob(slot)), eng.active[slot].rid
+            ok = swap_out(slot, live)
+            if ok:
+                self.parked[rid] = (n, before)
+            return ok
+
+        def probed_in(slot, req):
+            ok = restore(slot, req)
+            if ok and req.rid in self.parked:
+                n, (p0, b0) = self.parked.pop(req.rid)
+                p1, b1 = pages(slot, n), blob(slot)
+                same = all(torch.equal(a, b) for a, b in zip(p0, p1)) and all(
+                    torch.equal(b0[k], b1[k]) for k in b0)
+                if not same:
+                    fail(f"swap probe: request {req.rid}'s pages or slot state "
+                         f"came back changed after its swap-in")
+                self.checked += 1
+            return ok
+
+        def probed_chunk(slot, req, bucket, n):
+            if not req.out_tokens and req.prefill_pos >= req._preempted_live:
+                return run_chunk(slot, req, bucket, n)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run_chunk(slot, req, bucket, n)
+            torch.cuda.synchronize()
+            self.replay[0] += n
+            self.replay[1] += time.perf_counter() - t
+            return out
+
+        eng._swap_out, eng._restore_swapped = probed_out, probed_in
+        eng._run_prefill_chunk = probed_chunk
+        self.arena_cls = swap.SwapArena
+        self.write, self.read = swap.SwapArena.write, swap.SwapArena.read
+
+    def time_arena(self):
+        """Time every ``SwapArena`` write and read until the caller puts the
+        class's methods back (``probed_mix`` does)."""
+        torch, probe = self.torch, self
+
+        def timed_write(arena, slots, *ts):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            probe.write(arena, slots, *ts)
+            torch.cuda.synchronize()
+            probe.d2h[0] += sum(x.numel() * x.element_size() for x in ts
+                                if x is not None)
+            probe.d2h[1] += time.perf_counter() - t
+
+        def timed_read(arena, slots):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = probe.read(arena, slots)
+            torch.cuda.synchronize()
+            probe.h2d[0] += sum(x.numel() * x.element_size() for x in out)
+            probe.h2d[1] += time.perf_counter() - t
+            return out
+
+        self.arena_cls.write, self.arena_cls.read = timed_write, timed_read
+        return self
+
+    def rates(self) -> dict:
+        """GB/s of the arena's copies (None where none ran) and seconds per
+        replayed token."""
+        gbs = lambda b_s: b_s[0] / b_s[1] / 1e9 if b_s[1] else None   # noqa: E731
+        return dict(d2h_gb_s=gbs(self.d2h), h2d_gb_s=gbs(self.h2d),
+                    d2h_bytes=self.d2h[0], h2d_bytes=self.h2d[0],
+                    replay_tokens=self.replay[0], replay_s=self.replay[1],
+                    victims_checked=self.checked)
+
+
+PREEMPT_KEYS = ("preemptions", "preempt_proactive", "preempt_swaps",
+                "preempt_recomputes", "swap_bytes", "preempted_tokens",
+                "restored_tokens", "stalled_ticks", "decode_tokens",
+                "prefill_tokens", "prefill_dispatches", "decode_dispatches")
+
+
+def probed_mix(torch, cfg, params, counters, **engine_kw):
+    """``serve_mix`` with a ``SwapProbe`` around its engine; returns its
+    four results and the probe."""
+    from repro_torch.serve import swap
+
+    probes = []
+    saved = swap.SwapArena.write, swap.SwapArena.read
+    try:
+        res = serve_mix(torch, cfg, params, counters,
+                        hook=lambda e: probes.append(SwapProbe(torch, e).time_arena()),
+                        **engine_kw)
+    finally:
+        swap.SwapArena.write, swap.SwapArena.read = saved
+    return res + (probes[0],)
+
+
+def pressure_gate(tag, out, stats, base_out, base_stats, arm=None):
+    """An fp32 pressured run against its unpressured counterpart: every
+    request token-identical, preempted at least once (by ``arm`` when
+    given), restored_tokens <= preempted_tokens, and no decoded token
+    replayed (the same decode work)."""
+    diff = [rid for rid in base_out if out.get(rid) != base_out[rid]]
+    st = {k: stats[k] for k in PREEMPT_KEYS}
+    log(f"{tag}: {len(base_out) - len(diff)} of {len(base_out)} requests "
+        f"token-identical to the unpressured run; {st}")
+    if diff or len(out) != len(base_out):
+        fail(f"{tag}: greedy outputs differ from the unpressured run (rids {diff})")
+    if stats["preemptions"] < 1 or (arm is not None and stats[arm] < 1):
+        fail(f"{tag}: no preemption{'' if arm is None else ' by ' + arm}")
+    if stats["preempt_swaps"] + stats["preempt_recomputes"] < 1:
+        fail(f"{tag}: no victim took the swap or the recompute arm")
+    if stats["restored_tokens"] > stats["preempted_tokens"]:
+        fail(f"{tag}: restored_tokens above preempted_tokens")
+    if stats["decode_tokens"] != base_stats["decode_tokens"]:
+        fail(f"{tag}: {stats['decode_tokens']} decode tokens against the "
+             f"unpressured {base_stats['decode_tokens']}: a decoded token replayed")
+    return st
+
+
+def preempt_phase(torch, cfg, params, counters, serve):
+    """22: stablelm-1.6b at full width and depth on the mix of 5 over a pool
+    of ``PRESSURE_BLOCKS`` pages (128 usable, a quarter of the full 513,
+    still above the longest request's 52).  bf16 (``params``, logged
+    beside phase 5's run, not gated but for the launch formulas and the
+    probe): swap, recompute and auto, every launch count at phase 5's
+    formulas over the engine's own dispatches, tok/s, TTFT, peak memory,
+    the preemptions by arm and the swap bytes; the swap run probed
+    (``SwapProbe``: the victims' pages bit-equal after the round trip, the
+    copies' GB/s beside the paper's modeled link), the recompute run too
+    (a replayed token's seconds beside ``recompute_cost``).  fp32 (the same
+    seed), gated against the unpressured mix: swap, recompute, auto and
+    swap with ``proactive_horizon=2``; an int8 pool under swap (probed: the
+    int8 pages and their scales bit-equal) against the unpressured int8
+    run; 4 shards over ``PRESSURE_SHARD_BLOCKS`` pages, swap and recompute,
+    against the one-shard pressured runs."""
+    from repro_torch.core import noc
+    from repro_torch.models import model as M
+
+    L = cfg.n_layers
+    fpt = 2.0 * cfg.param_count(active_only=True)
+    res = dict(modeled=dict(swap_link_gb_s=noc.SWAP_LINK_BYTES_PER_S / 1e9,
+                            recompute_s_per_token=noc.recompute_cost(1, fpt)["seconds"],
+                            source="the paper's CXL link and SRAM-PIM banks "
+                                   "(pimsim.params), not the H100's"))
+    for pol in ("swap", "recompute", "auto"):
+        out, stats, launches, summary, probe = probed_mix(
+            torch, cfg, params, counters, num_blocks=PRESSURE_BLOCKS,
+            preempt_policy=pol)
+        P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+        check_launches(f"pressure bf16 {pol}", launches, serve_expect(L, P, Dd))
+        rates = probe.rates()
+        res[f"bf16_{pol}"] = dict(summary, **{k: stats[k] for k in PREEMPT_KEYS},
+                                  launches=launches, **rates)
+        log(f"pressure bf16 {pol} ({PRESSURE_BLOCKS} pages; probed, so the "
+            f"times carry its synchronizes): "
+            f"{summary['tok_s']:.1f} tok/s (phase 5, full pool: {serve['tok_s']:.1f}), "
+            f"ttft p50 {summary['ttft_p50_ms']:.1f} ms ({serve['ttft_p50_ms']:.1f}), "
+            f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB "
+            f"({serve['peak_mem_bytes'] / 2**30:.2f}); preemptions "
+            f"{stats['preemptions']} (swap {stats['preempt_swaps']}, recompute "
+            f"{stats['preempt_recomputes']}), swap bytes {stats['swap_bytes']}, "
+            f"prefill chunks {P} (phase 5: {serve['prefill_dispatches']}), "
+            f"decode steps {Dd}")
+        log(f"pressure bf16 {pol} probe: {rates['victims_checked']} swapped "
+            f"victims' pages bit-equal after the round trip; arena copies "
+            f"device-to-host {rates['d2h_gb_s']} GB/s ({rates['d2h_bytes']} B), "
+            f"host-to-device {rates['h2d_gb_s']} GB/s ({rates['h2d_bytes']} B), "
+            f"beside the modeled link's {noc.SWAP_LINK_BYTES_PER_S / 1e9:.1f} GB/s; "
+            f"replayed prefill {rates['replay_tokens']} tokens in "
+            f"{rates['replay_s']:.4f} s "
+            f"({rates['replay_s'] / max(rates['replay_tokens'], 1) * 1e6:.2f} us a "
+            f"token, beside the modeled recompute_cost's "
+            f"{noc.recompute_cost(1, fpt)['seconds'] * 1e6:.4f} us)")
+        if stats["preemptions"] < 1:
+            fail(f"pressure bf16 {pol}: the pool of {PRESSURE_BLOCKS} pages never "
+                 f"preempted")
+        if pol == "swap" and rates["victims_checked"] < 1:
+            fail("pressure bf16 swap: no swapped victim came back to be checked")
+    params32 = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    base, base_st, _, _ = serve_mix(torch, cfg, params32, {})
+    if base_st["preemptions"]:
+        fail("pressure fp32: the full pool preempted")
+    gates = {}
+    runs = {}
+    for name, kw, arm in (("swap", dict(preempt_policy="swap"), "preempt_swaps"),
+                          ("recompute", dict(preempt_policy="recompute"),
+                           "preempt_recomputes"),
+                          ("auto", dict(preempt_policy="auto"), None),
+                          ("proactive", dict(preempt_policy="swap",
+                                             proactive_horizon=2), "preempt_proactive")):
+        out, st, _, _ = serve_mix(torch, cfg, params32, {},
+                                  num_blocks=PRESSURE_BLOCKS, **kw)
+        gates[name] = pressure_gate(f"pressure fp32 {name}", out, st, base, base_st, arm)
+        runs[name] = out
+    q8_base, q8_st, _, _ = serve_mix(torch, cfg, params32, {}, kv_dtype="int8")
+    out, st, _, _, probe = probed_mix(torch, cfg, params32, {}, kv_dtype="int8",
+                                      num_blocks=PRESSURE_BLOCKS,
+                                      preempt_policy="swap")
+    gates["int8_swap"] = pressure_gate("pressure fp32 int8 swap", out, st, q8_base,
+                                       q8_st, "preempt_swaps")
+    gates["int8_swap"].update(probe.rates())
+    if probe.checked < 1:
+        fail("pressure fp32 int8 swap: no swapped victim came back to be checked")
+    log(f"pressure fp32 int8 swap: {probe.checked} victims' int8 pages and "
+        f"scales bit-equal after the round trip")
+    for pol in ("swap", "recompute"):
+        out, st, _, _ = serve_mix(torch, cfg, params32, {}, seq_shards=SEQ_SHARDS,
+                                  num_blocks=PRESSURE_SHARD_BLOCKS, preempt_policy=pol)
+        gates[f"seq4_{pol}"] = pressure_gate(
+            f"pressure fp32 {SEQ_SHARDS} shards {pol}", out, st, base, base_st,
+            "preempt_swaps" if pol == "swap" else "preempt_recomputes")
+        diff = [rid for rid in runs[pol] if runs[pol][rid] != out.get(rid)]
+        if diff:
+            fail(f"pressure fp32 {SEQ_SHARDS} shards {pol}: differs from the "
+                 f"one-shard pressured run (rids {diff})")
+    del params32
+    torch.cuda.empty_cache()
+    res["fp32"] = gates
+    return res
+
+
+def hybrid_preempt_phase(torch, cfg):
+    """22, hybrid: zamba2-7b at full width, cut to ``HYBRID_PRESSURE_LAYERS``
+    layers (2 groups of 6 Mamba2 layers with the shared attention block
+    after each, and a 2-layer tail: G = 2 applications), in fp32 from seed
+    0, on the mix of 5 over a pool of ``PRESSURE_BLOCKS`` pages: swap and
+    recompute token-identical to the unpressured run, the swap run probed
+    (every swapped victim's pages and Mamba2 slot-state blob bit-equal after
+    the round trip)."""
+    from repro_torch.models import model as M
+
+    cfg = cfg.replace(n_layers=HYBRID_PRESSURE_LAYERS)
+    params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    base, base_st, _, _ = serve_mix(torch, cfg, params, {})
+    gates = {}
+    for pol in ("swap", "recompute"):
+        out, st, _, _, probe = probed_mix(torch, cfg, params, {},
+                                          num_blocks=PRESSURE_BLOCKS,
+                                          preempt_policy=pol)
+        gates[pol] = pressure_gate(
+            f"pressure hybrid fp32 {pol} ({cfg.n_layers} layers)", out, st, base,
+            base_st, "preempt_swaps" if pol == "swap" else "preempt_recomputes")
+        gates[pol].update(probe.rates())
+        if pol == "swap":
+            if probe.checked < 1:
+                fail("pressure hybrid swap: no swapped victim came back to be checked")
+            log(f"pressure hybrid swap: {probe.checked} victims' pages and "
+                f"slot-state blobs bit-equal after the round trip")
+    del params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, **gates)
+
+
+def queue_c_phase(torch, cfg_small):
+    """22, queue C: reduced olmoe at fp32, skewed towards experts 0 and 1,
+    the default capacity factor 1.25, 4 sequence shards, on the mix of
+    8 slots whose first four requests finish early (their idle decode rows
+    then see no key in any shard, and the MoE layers route them ahead of
+    the live rows).  The card engine against the CPU engine: token-identical,
+    as many dropped assignments, every decode step's logits (idle rows
+    included) within 1e-4; two card runs leave the same bytes in the null
+    pages (the ordered scatter), within 1e-4 of the CPU's.  Controls: the
+    CPU engine without the idle row's zeroing (the plain version's mean of
+    the null pages, the value the card's zero-weight partial never gave)
+    must fail the logits check; the engines with the JAX package's scatter
+    targets, duplicates left in the order each device writes them, are
+    logged: whether the card's null pages match the CPU's index order then
+    depends on which writer the card lets win."""
+    from repro_torch.models import layers, model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    skew_moe(torch, params, cfg_small, seed=31)
+    prompts = [[5 + i, 9, 2 * i + 1] for i in range(8)]
+    news = [2] * 4 + [7] * 4
+    kw = dict(slots=8, max_seq=32, block_size=8, prefill_buckets=(8, 32),
+              seq_shards=SEQ_SHARDS)
+    sharded = layers._sharded_attention
+    indices = layers.decode_scatter_index, layers.prefill_scatter_index
+
+    def run(dev, zero_idle=True, ordered=True):
+        eng = ServeEngine(cfg_small, to_device(params, dev), **kw)
+        decode, logits = eng.runner.decode, []
+
+        def recorded(*a, **k):
+            out = decode(*a, **k)
+            logits.append(out[0].float().cpu())
+            return out
+        eng.runner.decode = recorded
+        if not zero_idle:
+            layers._sharded_attention = lambda *a, unseen_zero=False, **k: sharded(*a, **k)
+        if not ordered:
+            # the targets as the JAX package computes them, duplicates left to
+            # the order the card writes them in
+            def decode_index(lengths, tables, bs):
+                lens = lengths.long()
+                rows = torch.arange(lens.shape[0], device=lens.device)
+                return tables.long()[rows, lens // bs], lens % bs, None
+
+            def prefill_index(*a):
+                return indices[1](*a)[:2] + (None,)
+            layers.decode_scatter_index, layers.prefill_scatter_index = (
+                decode_index, prefill_index)
+        try:
+            with DropCounter() as dc:
+                for p, n in zip(prompts, news):
+                    eng.submit(p, max_new_tokens=n)
+                out = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        finally:
+            layers._sharded_attention = sharded
+            layers.decode_scatter_index, layers.prefill_scatter_index = indices
+        nbl = eng.alloc.nb_local
+        nulls = [s * nbl for s in range(SEQ_SHARDS)]
+        null = torch.cat([eng.state["attn"][k][:, :, nulls].float().cpu().flatten()
+                          for k in ("k_pages", "v_pages")])
+        return out, dc.dropped, logits, null
+
+    cpu = run("cpu")
+    gpu = run("cuda")
+    gpu2 = run("cuda")
+    ctrl = run("cpu", zero_idle=False)
+    unord, unord_cpu = run("cuda", ordered=False), run("cpu", ordered=False)
+
+    def logits_err(a, b):
+        if len(a[2]) != len(b[2]):
+            return math.inf
+        return max(float((x - y).abs().max()) for x, y in zip(a[2], b[2]))
+
+    err = logits_err(gpu, cpu)
+    ctrl_err = logits_err(gpu, ctrl)
+    null_err = float((gpu[3] - cpu[3]).abs().max())
+    unord_err = float((unord[3] - unord_cpu[3]).abs().max())
+    log(f"queue C: reduced olmoe fp32 skewed, cf {cfg_small.capacity_factor}, "
+        f"{SEQ_SHARDS} shards, 4 idle decode rows: card vs cpu tokens "
+        f"{'identical' if gpu[0] == cpu[0] else 'DIFFERENT'}, dropped "
+        f"{gpu[1]} vs {cpu[1]}, decode logits max|err| {err:.3g} over "
+        f"{len(gpu[2])} steps; null pages card vs cpu {null_err:.3g}, two card "
+        f"runs {'bit-equal' if torch.equal(gpu[3], gpu2[3]) else 'DIFFERENT'}; "
+        f"control without the idle row's zeroing: logits max|err| {ctrl_err:.3g}; "
+        f"the JAX package's scatter targets, duplicates in the card's write order "
+        f"(logged): null pages vs the CPU's index order {unord_err:.3g}")
+    if gpu[0] != cpu[0] or gpu[1] != cpu[1] or cpu[1] <= 0:
+        fail(f"queue C: the card's 4-shard MoE engine differs from the CPU's "
+             f"(drops {gpu[1]} vs {cpu[1]})")
+    if err > 1e-4:
+        fail(f"queue C: decode logits card vs cpu max|err| {err} (tolerance 1e-4)")
+    if not torch.equal(gpu[3], gpu2[3]):
+        fail("queue C: two card runs left different null-page bytes")
+    if null_err > 1e-4:
+        fail(f"queue C: the card's null pages differ from the CPU's by {null_err}")
+    if ctrl_err <= 1e-4:
+        fail("queue C: the control (the idle row's mean of the null pages) was "
+             "not caught by the logits check")
+    return dict(tokens_identical=gpu[0] == cpu[0], dropped=gpu[1],
+                logits_err=err, null_err=null_err, control_logits_err=ctrl_err,
+                unordered_null_err=unord_err, decode_steps=len(gpu[2]))
+
+
 def main() -> None:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an "
@@ -4379,6 +4814,14 @@ def main() -> None:
     for row in seq_rows:
         row["launches"] = seq_launches[row["name"]]
     rows += seq_rows
+    t_phase = time.perf_counter()
+    pressure = preempt_phase(torch, cfg, params, counters, serve)
+    log(f"pressure: phase 22's stablelm part took {time.perf_counter() - t_phase:.1f} s")
+    for row in rows:
+        name = ROW_COUNTER.get(row["name"], row["name"])
+        for pol in ("swap", "recompute"):
+            if name in pressure[f"bf16_{pol}"]["launches"]:
+                row[f"pressure_{pol}_launches"] = pressure[f"bf16_{pol}"]["launches"][name]
     del params
     torch.cuda.empty_cache()
 
@@ -4470,6 +4913,9 @@ def main() -> None:
         if row["name"] == "mamba2":
             row["zamba_serve_launches"] = zserve_launches["slab"]["mamba2"]
     rows += zserve_rows
+    t_phase = time.perf_counter()
+    hybrid_pressure = hybrid_preempt_phase(torch, sz_cfg)
+    log(f"pressure: phase 22's hybrid part took {time.perf_counter() - t_phase:.1f} s")
 
     mcfg = get_config("olmoe-1b-7b")
     moe_rows = expert_silu_rows(torch, timer, mcfg) + attn_rows(
@@ -4492,6 +4938,7 @@ def main() -> None:
         if row["name"] in ("rmsnorm", "rmsnorm_decode", "apply_rope_qk", "silu_mul"):
             row["moe_serve_launches"] = mrun[ROW_COUNTER.get(row["name"], row["name"])]
     rows += moe_rows
+    queue_c = queue_c_phase(torch, reduced(mcfg))
 
     fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
@@ -4523,8 +4970,10 @@ def main() -> None:
              zamba_fp32_identity=zamba_fp32, moe_layers=moe_layers,
              moe_serve_parity=moe_parity, moe_serve=moe_serve,
              moe_serve_launches=moe_launches, moe_fp32_identity=moe_fp32,
+             pressure=pressure, hybrid_pressure=hybrid_pressure, queue_c=queue_c,
              gemm_routes=gemm_routes, **kernels),
         indent=1))
+    log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,8 @@ synthetic request stream.
       --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --num-blocks 12 --preempt-policy swap [--proactive-horizon 2]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
@@ -25,9 +27,13 @@ the hybrid (``--arch zamba2-7b``): its shared attention block's KV in
 the page pool (int8 and sequence shards too) beside its Mamba2 layers'
 slot state, or in dense slabs with ``--dense``, and the MoE family
 (``--arch olmoe-1b-7b``, ``qwen2-moe-a2.7b``) as the dense one, its
-routed experts at the config's GShard ``capacity_factor``.  The JAX
-launcher's ``--expert-*`` flags (expert parallelism, the expert cache)
-come with a later slice.
+routed experts at the config's GShard ``capacity_factor``.  A paged pool
+may be smaller than full capacity (``--num-blocks``): the engine then
+stalls, preempts and restores under pressure, each victim swapped to the
+host arena or recomputed (``--preempt-policy``, ``--swap-pages``,
+``--proactive-horizon``), and the summary line counts the preemptions by
+arm.  The JAX launcher's ``--expert-*`` flags (expert parallelism, the
+expert cache) come with a later slice.
 """
 from __future__ import annotations
 
@@ -74,6 +80,9 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged-KV page size (tokens)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="physical page pool size (default: full capacity); "
+                         "a smaller pool oversubscribes and preempts")
     ap.add_argument("--kv-dtype", default="fp16", choices=["fp16", "int8"],
                     help="paged-pool storage: fp16 keeps the engine dtype, "
                          "int8 stores quantized pages with per-page-per-head "
@@ -82,6 +91,19 @@ def main(argv=None):
                     help="sequence-shard the page pool S ways (a power of "
                          "two; paged only): S shards of the one pool on the "
                          "one device, merged by the NoC tree combine")
+    ap.add_argument("--preempt-policy", default="auto",
+                    choices=["swap", "recompute", "auto"],
+                    help="how preemption victims keep their progress: swap "
+                         "pages to the host arena, drop + recompute via the "
+                         "prefix cache, or pick per victim from the "
+                         "link-bytes-vs-prefill-FLOPs cost model (the "
+                         "paper's CXL and PIM rates)")
+    ap.add_argument("--swap-pages", type=int, default=None,
+                    help="host swap-arena capacity in pages (default: one "
+                         "full pool's worth)")
+    ap.add_argument("--proactive-horizon", type=int, default=0,
+                    help="preempt on predicted page-pool exhaustion this "
+                         "many ticks ahead (0 = deadlock-only)")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="max padded tokens (prefill+decode) per tick")
     ap.add_argument("--prefill-buckets", default=None,
@@ -113,13 +135,15 @@ def main(argv=None):
         ekw["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
     eng = ServeEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
-                      block_size=args.block_size,
+                      block_size=args.block_size, num_blocks=args.num_blocks,
                       max_tokens_per_tick=args.token_budget,
                       paged=False if args.dense else None,
                       prefix_caching=(False if args.dense or args.no_prefix_cache
                                       else None),
                       kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
-                      **ekw)
+                      preempt_policy=args.preempt_policy,
+                      swap_pages=args.swap_pages,
+                      proactive_horizon=args.proactive_horizon, **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
@@ -151,8 +175,20 @@ def main(argv=None):
           f"prefill_dispatches={eng.stats['prefill_dispatches']:.0f}, "
           f"prefix_hit_tokens={eng.stats['prefix_hit_tokens']:.0f}, "
           f"cow_copies={eng.stats['cow_copies']:.0f}, "
+          f"preemptions={eng.stats['preemptions']:.0f} "
+          f"(swap={eng.stats['preempt_swaps']:.0f}/"
+          f"recompute={eng.stats['preempt_recomputes']:.0f}, "
+          f"restored={eng.stats['restored_tokens']:.0f} of "
+          f"{eng.stats['preempted_tokens']:.0f} preempted tokens, "
+          f"swap_bytes={eng.stats['swap_bytes']:.0f}), "
           f"gather_volume={eng.stats['gather_page_volume']:.0f}, "
           f"ttft_p50={p50:.1f}ms")
+    if eng.stats["preempt_proactive"]:
+        print(f"[serve] proactive preemptions (horizon="
+              f"{eng.proactive_horizon}): "
+              f"{eng.stats['preempt_proactive']:.0f}, "
+              f"stalled_ticks={eng.stats['stalled_ticks']:.0f} "
+              f"of {eng.stats['ticks']:.0f} ticks")
     if eng.seq_shards > 1:
         print(f"[serve] noc: combines={eng.stats['noc_combines']:.0f}, "
               f"hops={eng.stats['noc_hops']:.0f}, "

@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
       [--arch rwkv6-3b | --arch zamba2-7b | --arch olmoe-1b-7b] \
-      [--dense | --kv-dtype int8 | --seq-shards 4]
+      [--dense | --kv-dtype int8 | --seq-shards 4] \
+      [--num-blocks 129 --preempt-policy swap|recompute|auto]
 
 Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
 ``--seed``) at full width and depth on the card through the engine: the
@@ -40,7 +41,17 @@ and the positions; ``dispatch``, the scatter; ``combine``, the gather and
 the gated sum) is its own group, "MoE dispatch", GEMMs included, and the
 routed experts' batched GEMMs (``experts``) are counted apart from the
 other GEMMs, as "expert GEMMs" (their silu_mul stays with the port's
-kernels).
+kernels).  ``--num-blocks`` below the pool's full capacity serves the mix
+under page pressure (``--preempt-policy``): the engine's swap-out
+(``ServeEngine._swap_out``: the page gathers and the device-to-host
+copies), swap-in (``_restore_swapped``: the host-to-device copies and the
+page scatters) and the replayed prefill chunks of a recompute restore (a
+chunk of a request that has decoded already, or below the tokens it held
+when it was preempted) are ranged
+as "swap out", "swap in" and "recompute", every kernel under them (a
+replayed chunk's GEMMs and attention included) moved to that group, so the
+device time of a pressured run splits by arm; the summary file then ends
+in ``_nbN`` and records the preemption statistics.
 """
 from __future__ import annotations
 
@@ -84,8 +95,12 @@ RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
           (moe, "combine", "MoE dispatch"),
           (moe, "experts", "expert GEMMs"))
 # the groups a range's kernels leave for its own (default: the non-GEMM
-# kernels, so a range's GEMMs stay GEMMs)
-MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,)}
+# kernels, so a range's GEMMs stay GEMMs; None: every group)
+MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,),
+              "swap out": None, "swap in": None, "recompute": None}
+# the engine's preemption arms: (method, group); the replay chunks of a
+# recompute restore are ranged by _replay_ranged
+ARMS = (("_swap_out", "swap out"), ("_restore_swapped", "swap in"))
 
 
 def _group(name: str) -> str:
@@ -109,12 +124,20 @@ def _group(name: str) -> str:
     return OTHER_OPS
 
 
+PREEMPT_STATS = ("preemptions", "preempt_proactive", "preempt_swaps",
+                 "preempt_recomputes", "swap_bytes", "preempted_tokens",
+                 "restored_tokens", "stalled_ticks", "prefill_tokens",
+                 "decode_tokens", "ticks")
+
+
 def _serve(cfg, params, prompts, dense: bool, kv_dtype: str,
-           seq_shards: int) -> float:
-    """Wall seconds of one drained run of ``prompts``."""
+           seq_shards: int, num_blocks=None, preempt_policy="auto"):
+    """Wall seconds of one drained run of ``prompts``, and the engine's
+    preemption statistics."""
     eng = ServeEngine(cfg, params, **MIX_ENGINE,
                       paged=False if dense else None, kv_dtype=kv_dtype,
-                      seq_shards=seq_shards)
+                      seq_shards=seq_shards, num_blocks=num_blocks,
+                      preempt_policy=preempt_policy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in prompts:
@@ -122,9 +145,10 @@ def _serve(cfg, params, prompts, dense: bool, kv_dtype: str,
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    stats = {k: eng.stats[k] for k in PREEMPT_STATS}
     del eng
     torch.cuda.empty_cache()
-    return wall
+    return wall, stats
 
 
 def _kernels(ev) -> list:
@@ -143,6 +167,18 @@ def _ranged(fn, name):
     return call
 
 
+def _replay_ranged(fn):
+    """``ServeEngine._run_prefill_chunk`` with a recompute replay's chunks
+    (any chunk of a request that has decoded already, or below the tokens
+    it held at its last preemption) under the "recompute" range."""
+    def call(self, slot, req, bucket, n):
+        if req.out_tokens or req.prefill_pos < req._preempted_live:
+            with torch.profiler.record_function("trace_serve::recompute"):
+                return fn(self, slot, req, bucket, n)
+        return fn(self, slot, req, bucket, n)
+    return call
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-1.6b", choices=list(ARCHS))
@@ -153,6 +189,11 @@ def main(argv=None):
                     help="paged-pool storage (int8: quantized pages)")
     ap.add_argument("--seq-shards", type=int, default=1,
                     help="sequence-shard the page pool S ways")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="page pool size (default: full capacity); below "
+                         "it the mix runs under page pressure")
+    ap.add_argument("--preempt-policy", default="auto",
+                    choices=["swap", "recompute", "auto"])
     ap.add_argument("--out", default="chiprun_out/trace_serve.json")
     args = ap.parse_args(argv)
     out = Path(args.out)
@@ -166,6 +207,8 @@ def main(argv=None):
             stem += f"_{args.kv_dtype}"
         elif args.seq_shards > 1:
             stem += f"_seq{args.seq_shards}"
+        if args.num_blocks is not None:
+            stem += f"_nb{args.num_blocks}_{args.preempt_policy}"
         out = out.with_name(f"{stem}.json")
     if not torch.cuda.is_available():
         raise SystemExit("trace_serve needs a CUDA device")
@@ -173,29 +216,35 @@ def main(argv=None):
     cfg = get_config(args.arch)
     params = model.init_params(cfg, seed=args.seed, device="cuda")
     prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
-    run = (args.dense, args.kv_dtype, args.seq_shards)
+    run = (args.dense, args.kv_dtype, args.seq_shards, args.num_blocks,
+           args.preempt_policy)
     _serve(cfg, params, prompts[:2], *run)          # warm-up
-    wall = _serve(cfg, params, prompts, *run)
+    wall, stats = _serve(cfg, params, prompts, *run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     # the callers reach these functions through their modules, so a range
     # covers every call of the traced pass; the untimed and untraced passes
     # above ran without them
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in RANGED]
-    ranges = {}
-    for mod, attr, group in RANGED:
+    ranged = RANGED + tuple((ServeEngine, a, g) for a, g in ARMS)
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in ranged]
+    saved.append((ServeEngine, "_run_prefill_chunk",
+                  ServeEngine._run_prefill_chunk))
+    ranges = {"trace_serve::recompute": "recompute"}
+    for mod, attr, group in ranged:
         ranges[f"trace_serve::{attr}"] = group
         setattr(mod, attr, _ranged(getattr(mod, attr), f"trace_serve::{attr}"))
+    ServeEngine._run_prefill_chunk = _replay_ranged(ServeEngine._run_prefill_chunk)
     try:
         with torch.profiler.profile(activities=acts) as prof:
-            traced_wall = _serve(cfg, params, prompts, *run)
+            traced_wall, _ = _serve(cfg, params, prompts, *run)
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
 
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
-    # (from group, range group) -> [us, calls]
-    moved = defaultdict(lambda: [0.0, 0])
+    # a kernel under nested ranges goes to the outermost (the longest) one
+    # that takes its group: kernel -> (range span us, from group, to, us)
+    taken = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             if ev.name not in ranges:               # not a range's GPU span
@@ -203,10 +252,19 @@ def main(argv=None):
                 per_kernel[ev.name][1] += 1
         elif ev.name in ranges:
             to = ranges[ev.name]
+            span = ev.time_range.elapsed_us()
+            allowed = MOVED_FROM.get(to, (OTHER_OPS,))
             for k in _kernels(ev):
-                if _group(k.name) in MOVED_FROM.get(to, (OTHER_OPS,)):
-                    moved[(_group(k.name), to)][0] += k.duration
-                    moved[(_group(k.name), to)][1] += 1
+                src = _group(k.name)
+                key = id(k)                         # one object per launch
+                if (allowed is None or src in allowed) and \
+                        span > taken.get(key, (-1.0,))[0]:
+                    taken[key] = (span, src, to, k.duration)
+    # (from group, range group) -> [us, calls]
+    moved = defaultdict(lambda: [0.0, 0])
+    for _, src, to, us in taken.values():
+        moved[(src, to)][0] += us
+        moved[(src, to)][1] += 1
     groups = defaultdict(float)
     group_n = defaultdict(int)
     for name, (us, n) in per_kernel.items():
@@ -229,6 +287,9 @@ def main(argv=None):
             mode += ", slot state"
     if args.seq_shards > 1:
         mode += f", {args.seq_shards} sequence shards"
+    if args.num_blocks is not None:
+        mode += (f", {args.num_blocks} pages ({args.preempt_policy}): "
+                 + ", ".join(f"{k} {stats[k]:.0f}" for k in PREEMPT_STATS))
     n_launch = sum(n for _, n in per_kernel.values())
     print(f"[trace] {card}; {args.arch}, {mode}; {n_launch} kernel launches; "
           f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
@@ -243,7 +304,8 @@ def main(argv=None):
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
         card=card, arch=args.arch, dense=args.dense, kv_dtype=args.kv_dtype,
-        seq_shards=args.seq_shards, wall_s=wall,
+        seq_shards=args.seq_shards, num_blocks=args.num_blocks,
+        preempt_policy=args.preempt_policy, preempt_stats=stats, wall_s=wall,
         traced_wall_s=traced_wall, launches=n_launch,
         group_launches=dict(group_n),
         device_s=device_s,

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import noc
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +79,9 @@ def paged_kv_cache_init(cfg: ModelConfig, num_blocks: int, block_size: int,
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-ScatterIndex = Tuple[torch.Tensor, torch.Tensor]   # (page [N], offset [N])
+# (page [N], offset [N], writer [N] or None): row i's target, and the row
+# whose values land there (None: every row writes its own)
+ScatterIndex = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
 # ---------------------------------------------------------------------------
@@ -105,42 +107,92 @@ def pool_shards(t: Optional[torch.Tensor], n_shards: int) -> list:
     return [t[:, s * nbl:(s + 1) * nbl] for s in range(n_shards)]
 
 
-def _sharded_attention(partial, q, kp, vp, ks, vs, local_tables, **kw):
+def _sharded_attention(partial, q, kp, vp, ks, vs, local_tables, *,
+                       unseen_zero: bool = False, **kw):
     """``partial``'s skip_null partials over each shard's view of one
     layer's pool with its local table (``local_tables`` [S, ...]), merged by
-    the NoC tree combine -> the normalized output, f32."""
+    the NoC tree combine -> the normalized output, f32.
+
+    ``unseen_zero``: a row that sees no key in any shard reads 0.  That is
+    the decode's idle row (token 0, length 0, a table of zeros: every entry
+    foreign to every shard).  Each shard's partial then has m = -1e30; the
+    card's kernel gives the zero-weight partial (0, -1e30, 0) of
+    ``docs/kernels.md`` (the Pallas kernel's too, so o = 0), while the plain
+    version gives every gathered null-page row weight 1 (the JAX oracle's
+    form, o = their mean).  The row's output is set to the former on both
+    devices, so it never reads the null pages' bytes."""
     n = local_tables.shape[0]
-    return noc.tree_softmax_combine([
-        partial(q, kps, vps, lt, skip_null=True, k_scales=kss, v_scales=vss,
-                **kw)
-        for kps, vps, kss, vss, lt in zip(
-            pool_shards(kp, n), pool_shards(vp, n), pool_shards(ks, n),
-            pool_shards(vs, n), local_tables)])
+    parts = [partial(q, kps, vps, lt, skip_null=True, k_scales=kss,
+                     v_scales=vss, **kw)
+             for kps, vps, kss, vss, lt in zip(
+                 pool_shards(kp, n), pool_shards(vp, n), pool_shards(ks, n),
+                 pool_shards(vs, n), local_tables)]
+    o = noc.tree_softmax_combine(parts)
+    if unseen_zero:
+        seen = torch.stack([m for _, m, _ in parts]).amax(dim=0) > 0.5 * ref.NEG_INF
+        o = torch.where(seen[..., None], o, 0.0)
+    return o
+
+
+# The K/V scatters resolve duplicate targets (every one in the null page) to
+# the last writer in index order, the order of the CPU's index_put and of
+# XLA's scatter, so the card's unordered writes leave the CPU's null page,
+# the same from run to run.  A decode step's duplicates are idle, stalled or
+# mid-prefill slots aimed at row 0 of the null page: the index moves every
+# one but the last to a row of the null page that nothing reads (rows 1, 2,
+# ... in order), so the targets are distinct and no layer pays for it.  A
+# prefill chunk's duplicates are its padding rows past one page of padding:
+# there each target takes its last writer's row.
+
+def _last_writer(keys: torch.Tensor) -> torch.Tensor:
+    """For each entry of ``keys`` [N], the index of the last entry with the
+    same key (an N x N comparison: N is a decode batch)."""
+    rows = torch.arange(keys.shape[0], device=keys.device)
+    same = keys[:, None] == keys[None, :]
+    return torch.where(same, rows[None, :], -1).amax(dim=1)
 
 
 def decode_scatter_index(lengths: torch.Tensor, block_tables: torch.Tensor,
                          block_size: int) -> ScatterIndex:
     """Page and row of position ``lengths`` per sequence (retired slots
-    carry an all-zero table row, so they land in the null page)."""
+    carry an all-zero table row, so they land in the null page), every
+    target but its last writer's moved to a free row of the null page
+    (computed once per dispatch)."""
     lens = lengths.long()
     rows = torch.arange(lens.shape[0], device=lens.device)
-    return block_tables.long()[rows, lens // block_size], lens % block_size
+    phys = block_tables.long()[rows, lens // block_size]
+    off = lens % block_size
+    if block_size == 1:                    # no free row: each takes its writer
+        return phys, off, _last_writer(phys)
+    later = _last_writer(phys * block_size + off) != rows
+    rank = torch.cumsum(later.long(), 0) - 1
+    return (torch.where(later, 0, phys),
+            torch.where(later, 1 + rank % (block_size - 1), off), None)
 
 
 def prefill_scatter_index(block_table: torch.Tensor, q_offset: int, length: int,
                           c: int, block_size: int) -> ScatterIndex:
-    """Page and row of each chunk position; invalid (padding) rows -> page 0."""
+    """Page and row of each chunk position; invalid (padding) rows -> page 0,
+    at row ``(q_offset + t) % BS``.  Past one page of padding a target is
+    shared: it takes its last writer's row, the last padding row ``t + k BS``
+    below ``c`` (valid rows own their targets)."""
     t = torch.arange(c, device=block_table.device)
     pos = q_offset + t
     lb = torch.clamp(pos // block_size, 0, block_table.shape[0] - 1)
-    phys = torch.where(t < length, block_table.long()[lb], 0)
-    return phys, pos % block_size
+    pad = t >= length
+    phys = torch.where(pad, 0, block_table.long()[lb])
+    if c - length <= block_size:
+        return phys, pos % block_size, None
+    last = t + (c - 1 - t) // block_size * block_size
+    return phys, pos % block_size, torch.where(pad, last, t)
 
 
 def _scatter(pages: torch.Tensor, idx: ScatterIndex, rows: torch.Tensor) -> None:
     """pages [KvH, NB, BS, hd] (one layer's view of the pool, written in
-    place); rows [N, KvH, hd].  Duplicate targets only ever hit page 0."""
-    phys, off = idx
+    place); rows [N, KvH, hd], each target taking its writer's row."""
+    phys, off, win = idx
+    if win is not None:
+        rows = rows.index_select(0, win)
     pages[:, phys, off] = rows.transpose(0, 1).to(pages.dtype)
 
 
@@ -148,18 +200,20 @@ def _decode_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
                           idx: ScatterIndex, row: torch.Tensor) -> None:
     """Scatter one decode row per sequence into one layer's int8 pages, in
     place: pages [KvH, NB, BS, hd] int8, scales [KvH, NB] f32; ``idx`` the
-    target (page [B], row offset [B]); row [B, KvH, hd] float.
+    target (page [B], row offset [B], and any more entries of a
+    :data:`ScatterIndex`); row [B, KvH, hd] float.
 
     The page scale is monotone within a page's life: a page starting a new
     occupancy (offset 0) drops the previous occupant's scale, then each
     appended row can only grow it (``max(old, amax(row) / 127)``, floored at
     ``KV_SCALE_EPS``).  On growth the page's earlier rows are requantized at
     the new scale (ratio <= 1, so no clipping); rows past the offset are
-    stale and zeroed.  Duplicate targets (retired slots -> null page 0)
-    write garbage into the null sink, which is never read as valid KV.
-    The JAX package's ``layers._decode_scatter_quant``, rounding points
-    included."""
-    phys, off = idx
+    stale and zeroed.  The write is of whole pages, so rows that share a
+    page (retired slots -> the null page 0) take the page and scale of its
+    last writer.  The JAX package's ``layers._decode_scatter_quant``,
+    rounding points included."""
+    phys, off = idx[0], idx[1]
+    win = _last_writer(phys)
     bs = pages.shape[2]
     rowT = row.float().transpose(0, 1)                       # [KvH, B, hd]
     # the divisions by arrays below stay true divisions, as in the reference
@@ -175,8 +229,9 @@ def _decode_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
     newq = torch.round(rowT / new_s[..., None])
     sel = ridx[None, None, :] == off[None, :, None]
     page = torch.where(sel[..., None], newq[:, :, None, :], req)
-    pages[:, phys] = torch.clamp(page, -127.0, 127.0).to(torch.int8)
-    scales[:, phys] = new_s
+    page = torch.clamp(page, -127.0, 127.0).to(torch.int8)
+    pages[:, phys] = page.index_select(1, win)
+    scales[:, phys] = new_s.index_select(1, win)
 
 
 def _prefill_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
@@ -192,7 +247,9 @@ def _prefill_scatter_quant(pages: torch.Tensor, scales: torch.Tensor,
     rows into it, zero the stale rows past the live end so that they cannot
     inflate a page's amax, and requantize each window page at its own fresh
     scale.  The JAX package's ``layers._prefill_scatter_quant``, rounding
-    points included."""
+    points included.  Window pages repeated in ``tbl`` are null entries past
+    the chunk's rows: all zero, at one floor scale, so duplicates carry
+    equal bytes."""
     kvh, _, bs, hd = pages.shape
     c = chunk_rows.shape[0]
     npg = -(-c // bs) + 1
@@ -320,7 +377,8 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
     kernel dequantizes page by page.  ``local_tables`` [S, B, MB] int32
     marks a sequence-sharded pool: each shard's skip_null partials over its
     view of the pool (:func:`pool_shards`) and its local table, merged by
-    the NoC tree combine, as the JAX package's ``seq_axis`` path does."""
+    the NoC tree combine, as the JAX package's ``seq_axis`` path does; a
+    row that sees no key in any shard (an idle row) reads 0."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, lengths[:, None])
     if ks is None:
@@ -335,7 +393,7 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
                                        v_scales=vs)
     else:
         o = _sharded_attention(ops.paged_decode_attention_partial, q[:, 0], kp,
-                               vp, ks, vs, local_tables,
+                               vp, ks, vs, local_tables, unseen_zero=True,
                                lengths=lengths + 1).to(x.dtype)
     return linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd))
 

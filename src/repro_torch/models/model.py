@@ -42,6 +42,7 @@ Public API:
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
     serve_prefill_chunk / serve_decode_step        (the runner's entry points)
     copy_kv_page(state, src, dst)                  (prefix-cache copy-on-write)
+    extract_kv_pages / insert_kv_pages             (the device halves of a page swap)
 """
 from __future__ import annotations
 
@@ -608,6 +609,43 @@ def copy_kv_page(state, src: int, dst: int):
     one pool."""
     for t in state["attn"].values():      # pages [L, KvH, NB, ...], scales
         t[:, :, dst] = t[:, :, src]
+    return state
+
+
+def extract_kv_pages(state, pages: torch.Tensor):
+    """Gather physical KV pages by global id: the device half of a page
+    swap-out (the JAX package's ``extract_kv_pages``).  ``pages`` [P] int;
+    returns ``(k, v, k_scales, v_scales)``, pages ``[A, KvH, P, BS, hd]``
+    and scales ``[A, KvH, P]`` (None for a float pool), new tensors on the
+    pool's device.  The engine pads ``pages`` to a power of two with the
+    null page and makes one call per shard of a sequence-sharded pool."""
+    att = state["attn"]
+    idx = pages.to(att["k_pages"].device).long()
+    ks = vs = None
+    if "k_scales" in att:
+        ks = att["k_scales"].index_select(2, idx)
+        vs = att["v_scales"].index_select(2, idx)
+    return (att["k_pages"].index_select(2, idx),
+            att["v_pages"].index_select(2, idx), ks, vs)
+
+
+def insert_kv_pages(state, pages: torch.Tensor, k, v, k_scales=None,
+                    v_scales=None):
+    """Scatter swapped-out pages back into the pool in place: the device half
+    of a swap-in (the JAX package's ``insert_kv_pages``).  ``pages`` [P]
+    global destination ids; ``k`` / ``v`` ``[A, KvH, P, BS, hd]`` as
+    :func:`extract_kv_pages` gives them, ``k_scales`` / ``v_scales`` ``[A,
+    KvH, P]`` an int8 pool's scales.  The engine pads ``pages`` with the
+    null page 0 and the data with zero pages and scales, as the JAX
+    engine does: every duplicate target then receives the same bytes, so
+    the order of the writes never matters.  Slot state passes through."""
+    att = state["attn"]
+    idx = pages.to(att["k_pages"].device).long()
+    att["k_pages"].index_copy_(2, idx, k.to(att["k_pages"].dtype))
+    att["v_pages"].index_copy_(2, idx, v.to(att["v_pages"].dtype))
+    if "k_scales" in att:
+        att["k_scales"].index_copy_(2, idx, k_scales.to(att["k_scales"].dtype))
+        att["v_scales"].index_copy_(2, idx, v_scales.to(att["v_scales"].dtype))
     return state
 
 

@@ -15,9 +15,11 @@ slot on axis 2, after the group and layer axes) and ``conv_t`` /
 its state in the batched decode, never attach a cached prefix) and never
 the family.  The runner also holds the dense-slab baseline's state
 (``[L, slots, max_seq]`` slabs, the recurrent state of ``slots`` rows, or
-the hybrid's both) and its monolithic prefill into one slot.  The
-slot-state swap (``extract_slot_state`` / ``insert_slot_state``) comes
-with a later slice.
+the hybrid's both) and its monolithic prefill into one slot, and the
+device halves of a swap preemption: the pages (``extract_pages`` /
+``insert_pages``) and one slot's recurrent state as a host blob
+(``extract_slot_state`` / ``insert_slot_state``), so the engine sees one
+interface for every family.
 
 A sequence-sharded pool (``ServeEngine(seq_shards=S)``) stays one state on
 the card: shard ``s`` is the slice ``[s*nbl, (s+1)*nbl)`` of every paged
@@ -97,6 +99,17 @@ def cache_spec(cfg: ModelConfig) -> CacheSpec:
                         SlotStateSpec("conv_t", 1), SlotStateSpec("ssm_t", 1)))
     return CacheSpec(paged=(PagedComponentSpec("attn", cfg.n_layers,
                                                cfg.n_kv_heads, cfg.hd),))
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``, complete on return: pinned for a card tensor
+    (one DMA copy, then the stream synchronized)."""
+    if t.device.type != "cuda":
+        return t.detach().clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return out
 
 
 def _slot_index(spec: SlotStateSpec, slot: int):
@@ -188,6 +201,21 @@ class ModelRunner:
             state[s.key][_slot_index(s, slot)] = 0
         return state
 
+    def extract_slot_state(self, state, slot: int):
+        """One slot's recurrent state as a host blob (key -> tensor, the
+        slot axis dropped; pinned on the card, the copy complete on
+        return): the fixed-size half of a swap (pages are the other)."""
+        return {s.key: to_host(state[s.key].select(s.batch_axis, slot))
+                for s in self.spec.slot_state}
+
+    def insert_slot_state(self, state, slot: int, blob):
+        """Write a blob from :meth:`extract_slot_state` back into slot
+        ``slot``'s rows, in place."""
+        for s in self.spec.slot_state:
+            dst = state[s.key].select(s.batch_axis, slot)
+            dst.copy_(blob[s.key].to(dst.dtype), non_blocking=True)
+        return state
+
     def slot_state_bytes(self, state) -> int:
         """Bytes of ONE slot's recurrent state."""
         return sum(state[s.key].numel() // state[s.key].shape[s.batch_axis]
@@ -197,6 +225,24 @@ class ModelRunner:
         """Physical-page copy across every paged component (copy-on-write
         for mid-page prefix-cache matches); the slot state is untouched."""
         return M.copy_kv_page(state, src, dst)
+
+    def extract_pages(self, state, pages: torch.Tensor):
+        """Gather physical pages by id: the device half of a swap-out.
+        Returns (k, v, k_scales, v_scales): pages ``[A, KvH, P, BS, hd]``,
+        scales ``[A, KvH, P]`` (None for a float pool)."""
+        return M.extract_kv_pages(state, pages)
+
+    def insert_pages(self, state, pages: torch.Tensor, k, v, k_scales=None,
+                     v_scales=None):
+        """Scatter swapped-out pages back in place: the device half of a
+        swap-in (slot state untouched)."""
+        return M.insert_kv_pages(state, pages, k, v, k_scales, v_scales)
+
+    def page_shape(self, block_size: int) -> Tuple[int, ...]:
+        """One physical page's shape ``(A, KvH, BS, hd)``: the swap
+        arena's slot."""
+        (comp,) = self.spec.paged
+        return comp.page_shape(block_size)
 
     @property
     def attn_applications(self) -> int:

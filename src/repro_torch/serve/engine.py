@@ -67,14 +67,34 @@ its GShard drops are the JAX engine's at any ``capacity_factor``:
   nothing to shard, and no device count is checked.  Shards on several
   cards over ``torch.distributed`` come with the distributed slice.
 
-Not ported in this slice (construction raises if asked for): preemption and
-swap (and with them swapping int8 pages), SLO classes and deadlines,
-prefill/decode roles, expert parallelism, the expert cache and its
-telemetry (``expert_parallel``, ``expert_cache_size``, ``expert_prefetch``,
-``expert_placement``: ROADMAP A.2b), temperature sampling, and a page pool below full capacity (which would need
-preemption).  The JAX engine's prefill-bucket VMEM guard has no counterpart:
-the CUDA prefill kernel's query tile is fixed at 16 rows, so no chunk size
-can overflow its shared memory.
+* **Progress-preserving preemption** (a pool below full capacity,
+  ``num_blocks``) — an allocation deadlock under page pressure (every live
+  slot waiting on pages, nothing moved) is broken by evicting the cheapest
+  victim (pages held x restore seconds x the class weight), and with
+  ``proactive_horizon > 0`` a victim is evicted before the stall, when the
+  active slots' page demand over the next ticks exceeds the grantable pool.
+  The victim keeps its progress: its pages are **swapped** to a host arena
+  (``serve/swap.py``, pinned host tensors on the card; pages registered
+  under the victim's own digest chain are pinned in the pool instead and
+  re-attached by reference; a slot-state family's blob rides along) and
+  copied back at restore, or **dropped and recomputed**: full pages,
+  decoded ones included, are published under the chained digest first, and
+  the rest is re-prefilled from ``prompt + out_tokens``.
+  ``preempt_policy`` "swap", "recompute" or "auto" (``core.noc``'s cost
+  model, the paper's CXL link against its PIM banks); a full arena turns a
+  swap into a recompute.  Preempted requests re-admit ahead of new ones,
+  and no decoded token is replayed, so greedy outputs are token-identical
+  to an unpressured run.  The JAX engine's machinery, order for order, with
+  its one latency class ``interactive``.
+
+Not ported in this slice (construction raises if asked for): SLO classes
+and deadlines, prefill/decode roles (and with them ``HandoffHandle``),
+expert parallelism, the expert cache and its telemetry
+(``expert_parallel``, ``expert_cache_size``, ``expert_prefetch``,
+``expert_placement``: ROADMAP A.2b) and temperature sampling.  The JAX
+engine's prefill-bucket VMEM guard has no counterpart: the CUDA prefill
+kernel's query tile is fixed at 16 rows, so no chunk size can overflow its
+shared memory.
 """
 from __future__ import annotations
 
@@ -92,6 +112,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import noc
 from repro_torch.models import model as M
 from repro_torch.models.runner import ModelRunner
+from repro_torch.serve import swap
+
+# The JAX engine's weight of its default latency class, "interactive": a
+# victim's eviction score is pages x restore seconds x weight.  The port
+# serves that one class until SLO classes come (ROADMAP A.4).
+INTERACTIVE_WEIGHT = 8.0
+PREEMPT_POLICIES = ("swap", "recompute", "auto")
 
 
 @dataclass
@@ -112,8 +139,12 @@ class Request:
     finish_tick: Optional[int] = None
     _t_submit: float = 0.0
     _t_first: float = 0.0
+    resume_len: int = 0                 # preempted: KV tokens to restore
+    _preempted_live: int = 0            # KV tokens live at last eviction
     _digests: List[bytes] = field(default_factory=list)  # per-full-page chain
     _published: int = 0                 # this slot's pages already registered
+    _resume_tokens: Optional[np.ndarray] = None  # prompt + decoded, [resume_len]
+    _swap: Optional[swap.SwapHandle] = None      # parked progress (swap arm)
 
 
 class RequestFuture(int):
@@ -360,14 +391,19 @@ class ServeEngine:
                  max_tokens_per_tick: Optional[int] = None,
                  paged: Optional[bool] = None,
                  prefix_caching: Optional[bool] = None,
-                 kv_dtype: str = "fp16", seq_shards: int = 1, **later):
+                 kv_dtype: str = "fp16", seq_shards: int = 1,
+                 preempt_policy: str = "auto",
+                 swap_pages: Optional[int] = None,
+                 proactive_horizon: int = 0, **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
         on the card unless asked for the CPU); their dtype is the pool's.
         ``prefill_buckets``: chunk sizes for chunked prefill (``max_seq`` is
-        always added).  ``num_blocks``: page-pool size, at least full
-        capacity ``slots * ceil(max_seq / block_size) + 1``.
+        always added).  ``num_blocks``: page-pool size (default full
+        capacity, ``slots * ceil(max_seq / block_size)`` plus a null page
+        per shard); a smaller pool oversubscribes, and the engine then
+        stalls, preempts and restores under pressure.
         ``max_tokens_per_tick``: padded-token budget per tick shared by
         decode (reserved first) and prefill; default ``slots`` + the largest
         bucket.  ``paged``: None serves through the runner (the page pool for a
@@ -379,8 +415,15 @@ class ServeEngine:
         storage, "fp16" (the engine dtype) or "int8" (int8 pages with
         per-page scales; paged only).  ``seq_shards``: sequence-shard the
         page pool S ways (a power of two; paged only), each shard's
-        partials merged by the NoC tree combine.  Any other JAX-engine
-        option raises: it belongs to a later slice."""
+        partials merged by the NoC tree combine.  ``preempt_policy``: how
+        a preemption victim keeps its progress, "swap" (pages to the host
+        arena), "recompute" (re-prefilled at restore; prefix-cache hits skip
+        most of it) or "auto" (per victim, ``core.noc.preempt_decision``).
+        ``swap_pages``: the host arena's capacity in pages (default one full
+        pool's); a full arena turns a swap into a recompute.
+        ``proactive_horizon``: ticks of look-ahead for proactive preemption
+        (0: only a deadlock preempts).  Any other JAX-engine option raises:
+        it belongs to a later slice."""
         expert = sorted(k for k in later if k.startswith("expert_"))
         if expert:
             raise NotImplementedError(
@@ -389,9 +432,9 @@ class ServeEngine:
                 f"parallelism, the expert cache and its telemetry)")
         if later:
             raise NotImplementedError(
-                f"engine options {sorted(later)} are not ported yet: "
-                f"preemption/swap, SLO classes and roles come with later "
-                f"slices of repro_torch")
+                f"engine options {sorted(later)} are not ported yet: SLO "
+                f"classes, sampling and roles come with later slices of "
+                f"repro_torch (ROADMAP A.4, A.5)")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -449,21 +492,24 @@ class ServeEngine:
                 f"max_tokens_per_tick={self.max_tokens_per_tick} can never "
                 f"afford the smallest prefill bucket "
                 f"({self.prefill_buckets[0]}); no request could ever start")
+        if preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(
+                f"preempt_policy must be 'swap', 'recompute' or 'auto', "
+                f"got {preempt_policy!r}")
+        self.preempt_policy = preempt_policy
+        self.proactive_horizon = int(proactive_horizon)
+        if self.proactive_horizon < 0:
+            raise ValueError(
+                f"proactive_horizon must be >= 0, got {proactive_horizon}")
 
         self.block_size = block_size
         self.blocks_per_slot = -(-max_seq // block_size)
         self.alloc: Optional[BlockAllocator] = None
         if self.paged:
             S = self.seq_shards
-            full = S + slots * self.blocks_per_slot    # a null page per shard
-            if num_blocks is None:
-                num_blocks = full
+            if num_blocks is None:                 # a null page per shard
+                num_blocks = S + slots * self.blocks_per_slot
             num_blocks = S * -(-num_blocks // S)   # whole shards, as in JAX
-            if num_blocks < full:
-                raise NotImplementedError(
-                    f"num_blocks={num_blocks} is below full capacity ({full}); "
-                    f"an oversubscribed pool needs preemption, which comes "
-                    f"with a later slice of repro_torch")
             self.alloc = BlockAllocator(num_blocks, block_size, slots,
                                         self.blocks_per_slot, num_shards=S)
             self.state = self.runner.init_state(num_blocks, block_size,
@@ -475,9 +521,19 @@ class ServeEngine:
         else:
             self.state = self.runner.init_dense_state(self.dtype, self.device)
 
+        self._slot_state_bytes = (self.runner.slot_state_bytes(self.state)
+                                  if self.has_slot_state else 0)
+
         self.lengths = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
         self._queue: Deque[Request] = deque()
+        # preempted requests re-admit from here ahead of new submissions
+        self.restore_queue: Deque[Request] = deque()
+        self.swap_pages = (swap_pages if swap_pages is not None
+                           else (slots * self.blocks_per_slot
+                                 if self.paged else 0))
+        self._arena: Optional[swap.SwapArena] = None   # built at first swap
+        self._stalled_this_tick = False
         self._rid = itertools.count()
         self._reqs: Dict[int, Request] = {}
         self._tick = 0
@@ -539,10 +595,37 @@ class ServeEngine:
         return max(1, min(len(req.prompt),
                           self.max_seq - req.max_new_tokens - 1))
 
+    def _prefill_target(self, req: Request) -> int:
+        """Tokens that must be in the KV cache before ``req`` can decode: the
+        clamped prompt, or for a decode-phase preemption victim
+        ``resume_len`` (prompt and decoded tokens)."""
+        if req.out_tokens and req.resume_len:
+            return req.resume_len
+        return self._plen(req)
+
+    def _prefill_source(self, req: Request) -> np.ndarray:
+        """What chunked prefill reads: the prompt, or for a decode-phase
+        restore the preserved ``prompt + out_tokens[:-1]``."""
+        if req.out_tokens and req.resume_len:
+            return req._resume_tokens
+        return req.prompt
+
     # -- scheduling ----------------------------------------------------
     def _admit(self) -> None:
-        """Move queued requests (FIFO) into free slots, attaching each
-        prompt's longest cached page prefix."""
+        """Move requests into free slots: preempted ones first (FIFO), then
+        queued ones (FIFO), attaching each prompt's longest cached page
+        prefix.  A restore that cannot be placed yet (a swap-in short of
+        free pages) blocks every admission behind it, so new work never
+        takes the pages its victim was evicted to free.  (The JAX engine
+        orders classes by weight and admits fresh work by deficit
+        round-robin; with its one class that is this order.)"""
+        for req in list(self.restore_queue):
+            slot = self._free_slot()
+            if slot is None:
+                return
+            if not self._restore(slot, req):
+                return                     # it waits for pages
+            self.restore_queue.remove(req)
         while self._queue:
             slot = self._free_slot()
             if slot is None:
@@ -593,20 +676,145 @@ class ServeEngine:
         self.stats["prefix_hits"] += 1
         self.stats["prefix_hit_tokens"] += match
 
+    def _restore(self, slot: int, req: Request) -> bool:
+        """Re-admit a preempted request into ``slot`` with its progress;
+        False if it cannot be placed yet (a swap-in short of pages).  A swap
+        victim gets its pages back from the arena; a recompute victim
+        re-enters like a new admission, except that the cached chain it
+        re-attaches may run over decoded pages (published at preemption)
+        and the rest is re-prefilled from ``prompt + out_tokens``: decode
+        resumes where it stopped, no sampled token replayed."""
+        if req._swap is not None:
+            return self._restore_swapped(slot, req)
+        self.active[slot] = req
+        self.lengths[slot] = 0
+        req.prefill_pos = 0
+        req.cached_len = 0
+        req._published = 0
+        if self.has_slot_state:
+            # the replay runs the family's prefill from token 0
+            self.state = self.runner.reset_slot(self.state, slot)
+        if self.prefix_attach:
+            hit0 = self.stats["prefix_hit_tokens"]
+            if req.out_tokens:
+                self._attach_resume(slot, req)
+            else:
+                self._attach_prefix(slot, req)
+            # restored = preserved progress that skipped the replay, capped
+            # at what this victim held (an attach may reach further through
+            # pages others published), so restored <= preempted
+            self.stats["restored_tokens"] += min(
+                self.stats["prefix_hit_tokens"] - hit0, req._preempted_live)
+        return True
+
+    def _attach_resume(self, slot: int, req: Request) -> None:
+        """Share the cached page chain of a decode-phase victim: it may run
+        over decoded pages and has no ``plen - 1`` cap (the next logits come
+        from decoding ``out_tokens[-1]``); only full pages were published,
+        so the match is page-aligned (no copy-on-write)."""
+        attached = 0
+        for dg in req._digests[:req.resume_len // self.block_size]:
+            page = self.alloc.lookup(dg)
+            if page is None or not self.alloc.share(slot, page):
+                break
+            attached += 1
+        match = attached * self.block_size
+        req.prefill_pos = match
+        req.cached_len = match
+        req._published = attached
+        self.lengths[slot] = match
+        if match:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += match
+
+    def _restore_swapped(self, slot: int, req: Request) -> bool:
+        """Swap-in: share the handle's pinned prefix-chain pages, allocate
+        fresh pages for the parked rest and copy it back (one call per
+        shard), then the slot-state blob.  All or nothing: False, and
+        nothing held, when the pool cannot grant the rest and the next
+        token's page yet."""
+        handle = req._swap
+        need = handle.n_pages
+        n_pin = len(handle.pinned)
+        if self.alloc.free_blocks < max(
+                need, -(-(handle.tokens + 1) // self.block_size) - n_pin):
+            return False
+        self.active[slot] = req
+        for page in handle.pinned:
+            self.alloc.share(slot, page)
+        pages: List[int] = []
+        for _ in range(need):
+            page = self.alloc.alloc_page(slot)
+            if page is None:            # shard rounding stranded pages
+                self.alloc.release(slot)
+                self.active[slot] = None
+                return False
+            pages.append(page)
+        if pages:
+            parked = self._arena.read(handle.slots)   # [n, A, KvH, ...]
+            for _, idx in self._by_shard(pages):
+                ids = self._pad_pow2([pages[i] for i in idx])
+                sel = torch.as_tensor(idx, device=self.device)
+                args = [self._pad_pages(t.index_select(0, sel).movedim(0, 2))
+                        for t in parked]
+                self.state = self.runner.insert_pages(
+                    self.state, self._to_device(ids), *args)
+        if handle.state is not None:
+            self.state = self.runner.insert_slot_state(self.state, slot,
+                                                       handle.state)
+        self.stats["swap_bytes"] += (need * self._page_kv_bytes()
+                                     + handle.state_bytes)
+        self.stats["restored_tokens"] += handle.tokens
+        # the restored coverage is [0, tokens); a gap up to the resume
+        # target (a victim preempted again mid-restore) is re-prefilled
+        req.prefill_pos = handle.tokens
+        req.cached_len = handle.tokens
+        for page in handle.pinned:
+            self.alloc.unpin(page)      # the slot's own reference remains
+        handle.pinned = []
+        if handle.slots:
+            self._arena.free(handle)
+        req._swap = None
+        req._published = min(req._published, n_pin + need)
+        self.lengths[slot] = req.prefill_pos
+        return True
+
+    def _by_shard(self, pages: List[int]):
+        """Positions of ``pages`` grouped by owning shard (a swap copy
+        touches one shard's slice of the pool per call)."""
+        groups: Dict[int, List[int]] = {}
+        for i, p in enumerate(pages):
+            groups.setdefault(self.alloc.owner(p), []).append(i)
+        return sorted(groups.items())
+
+    @staticmethod
+    def _pad_pow2(ids: List[int]) -> np.ndarray:
+        """A page-id list padded to a power of two with the null page 0."""
+        out = np.zeros((_next_pow2(len(ids)),), np.int32)
+        out[:len(ids)] = ids
+        return out
+
+    @staticmethod
+    def _pad_pages(t: torch.Tensor) -> torch.Tensor:
+        """Zero-pad the page axis (2) of pages ``[A, KvH, P, BS, hd]`` or
+        scales ``[A, KvH, P]`` to :meth:`_pad_pow2`'s length."""
+        p = t.shape[2]
+        b = _next_pow2(p)
+        if b == p:
+            return t
+        pad = torch.zeros(t.shape[:2] + (b - p,) + t.shape[3:], dtype=t.dtype,
+                          device=t.device)
+        return torch.cat([t, pad], dim=2)
+
     def _publish_pages(self, slot: int, req: Request) -> None:
-        """Register the slot's freshly completed full prompt pages."""
+        """Register the slot's freshly completed full pages (after a
+        recompute preemption the digest chain runs over decoded pages too,
+        so replayed pages republish)."""
         n_done = min(req.prefill_pos // self.block_size, len(req._digests))
         while req._published < n_done:
             i = req._published
             self.alloc.register(int(self.alloc.table[slot, i]), req._digests[i])
             req._published += 1
-
-    def _ensure(self, slot: int, n_tokens: int) -> None:
-        # at full capacity every active slot's pages fit at once (cached
-        # pages are reclaimable), so a failed grant is a bookkeeping bug
-        if not self.alloc.ensure(slot, n_tokens):
-            raise RuntimeError(f"page pool exhausted for slot {slot} at "
-                               f"{n_tokens} tokens despite full capacity")
 
     def _page_bucket(self, n_pages: int) -> int:
         """Live page count rounded up to a power of two (capped at the
@@ -620,7 +828,8 @@ class ServeEngine:
         runs one monolithic prefill per tick, outside the budget (the JAX
         engine's A/B baseline)."""
         pending = [(slot, req) for slot, req in enumerate(self.active)
-                   if req is not None and req.prefill_pos < self._plen(req)]
+                   if req is not None
+                   and req.prefill_pos < self._prefill_target(req)]
         if self.dense_baseline:
             for slot, req in pending[:1]:
                 plen = self._plen(req)
@@ -633,7 +842,7 @@ class ServeEngine:
                 self._finish_prefill(slot, req, logits, finished)
             return budget
         for slot, req in pending:
-            plen = self._plen(req)
+            plen = self._prefill_target(req)
             while req.prefill_pos < plen:
                 remaining = plen - req.prefill_pos
                 bucket = self._bucket(min(remaining, max(budget, 1)))
@@ -647,8 +856,11 @@ class ServeEngine:
                         break
                     bucket = afford[-1]
                 n = min(remaining, bucket)
-                if self.paged:
-                    self._ensure(slot, req.prefill_pos + n)
+                if self.paged and not self.alloc.ensure(
+                        slot, req.prefill_pos + n):
+                    self.stats["stall_events"] += 1
+                    self._stalled_this_tick = True
+                    break                      # pool exhausted: wait
                 logits = self._run_prefill_chunk(slot, req, bucket, n)
                 budget -= bucket
                 self.stats["padded_tokens"] += bucket
@@ -657,14 +869,17 @@ class ServeEngine:
                 self.lengths[slot] = req.prefill_pos
                 if self.prefix_caching:
                     self._publish_pages(slot, req)
-                if req.prefill_pos >= plen:
+                # a decode-phase restore discards its last chunk's logits:
+                # the next decode feeds out_tokens[-1] (never re-sampled)
+                if req.prefill_pos >= plen and not req.out_tokens:
                     self._finish_prefill(slot, req, logits, finished)
         return budget
 
     def _run_prefill_chunk(self, slot: int, req: Request, bucket: int, n: int):
         self.stats["prefill_dispatches"] += 1
         padded = np.zeros((1, bucket), np.int32)
-        padded[0, :n] = req.prompt[req.prefill_pos:req.prefill_pos + n]
+        src = self._prefill_source(req)
+        padded[0, :n] = src[req.prefill_pos:req.prefill_pos + n]
         if self.dense_baseline:
             return self.runner.prefill_slot(self.params, self.state, slot,
                                             self._to_device(padded), n)
@@ -735,26 +950,40 @@ class ServeEngine:
 
     # -- engine tick ---------------------------------------------------
     def _decode_ready(self, slot: int) -> bool:
+        """Decode runs once the whole prefill target is cached: for a
+        restore victim that is ``resume_len``, not the prompt."""
         req = self.active[slot]
         return bool(req is not None and req.out_tokens
-                    and req.prefill_pos >= self._plen(req))
+                    and req.prefill_pos >= self._prefill_target(req))
 
     def step(self) -> List[Request]:
         """One engine tick; returns the requests completed this tick.
 
-        (1) decode-ready slots reserve their next page; (2) admit queued
-        requests into free slots; (3) advance chunked prefills under the
-        budget left after reserving one token per decode-ready slot; (4) one
-        batched decode over the runnable slots, sampled by one argmax over
-        the batch; (5) retire finished requests."""
+        (0) with ``proactive_horizon`` a victim is preempted ahead of a
+        predicted stall; (1) decode-ready slots reserve their next page
+        before any restore or admission can take it; (2) admit restores,
+        then queued requests; (3) advance chunked prefills under the budget
+        left after one token per decode-ready slot; (4) one batched decode
+        over the runnable slots (those whose next page was granted),
+        sampled by one argmax over the batch; (5) retire finished requests.
+        A tick that moved nothing while a slot waited on pages breaks the
+        deadlock by preempting the cheapest victim."""
         self._tick += 1
         self.stats["ticks"] += 1
-        for i in range(self.slots):
-            if self.paged and self._decode_ready(i):
-                self._ensure(i, self.lengths[i] + 1)
+        self._stalled_this_tick = False
+        progress0 = self.stats["prefill_tokens"] + self.stats["decode_tokens"]
+        if self.paged and self.proactive_horizon > 0:
+            self._preempt_proactive()
+        if self.paged:
+            for i in range(self.slots):
+                if self._decode_ready(i):
+                    self.alloc.ensure(i, self.lengths[i] + 1)
         self._admit()
         finished: List[Request] = []
         decode_slots = [i for i in range(self.slots) if self._decode_ready(i)]
+        if self.paged:
+            for i in decode_slots:
+                self.alloc.ensure(i, self.lengths[i] + 1)
         spare = self._prefill_tick(self.max_tokens_per_tick - len(decode_slots),
                                    finished)
         # a prefill that completed inside this tick rides along only if the
@@ -772,50 +1001,282 @@ class ServeEngine:
         n_active = sum(r is not None for r in self.active)
         self.stats["occupancy_sum"] += n_active / self.slots
         self.stats["peak_active"] = max(self.stats["peak_active"], n_active)
-        if live:
-            self.stats["decode_dispatches"] += 1
-            toks = np.zeros((self.slots,), np.int32)
-            for i in live:
-                toks[i] = self.active[i].out_tokens[-1]
-            lens = self._to_device(self.lengths.copy())
-            if not self.dense_baseline:
-                tables = local = None
-                if self.paged:
-                    for i in live:
-                        self._ensure(i, self.lengths[i] + 1)
-                    tables = self._to_device(self.alloc.table.copy())
-                    if self.seq_shards > 1:
-                        local = self._to_device(
-                            self.alloc.shard_local(self.alloc.table))
-                        self._account_noc_combine(rows=self.slots)
-                # the mask gates the slot state: the batched decode must not
-                # advance a mid-prefill or empty neighbour's state
-                mask = np.zeros((self.slots,), bool)
-                mask[live] = True
-                logits, self.state = self.runner.decode(
-                    self.params, self.state, self._to_device(toks), lens,
-                    tables, mask, local)
-            else:
-                logits, self.state = M.decode_step(
-                    self.cfg, self.params, self.state, self._to_device(toks),
-                    lens)
-            nxt_all = torch.argmax(logits, dim=-1).tolist()
-            for i in live:
-                req = self.active[i]
-                self.lengths[i] += 1
-                self.stats["decode_tokens"] += 1
-                self.stats["padded_tokens"] += 1
-                nxt = int(nxt_all[i])
-                req.out_tokens.append(nxt)
-                hit_eos = req.eos_id is not None and nxt == req.eos_id
-                if (len(req.out_tokens) >= req.max_new_tokens or hit_eos
-                        or self.lengths[i] >= self.max_seq - 1):
-                    self._finish(i, req, finished)
+        runnable = []
+        for i in live:
+            if self.paged and not self.alloc.ensure(i, self.lengths[i] + 1):
+                self.stats["stall_events"] += 1
+                self._stalled_this_tick = True
+                continue                       # stalled: decoded later
+            runnable.append(i)
+        if runnable:
+            self._decode(runnable, finished)
         if self.paged:
             for k in ("pages_allocated", "pages_freed", "pages_shared",
                       "pages_evicted"):
                 self.stats[k] = getattr(self.alloc, k)
+        if self._stalled_this_tick:
+            self.stats["stalled_ticks"] += 1
+        made_progress = (self.stats["prefill_tokens"]
+                         + self.stats["decode_tokens"] > progress0)
+        if (self.paged and not made_progress and not finished
+                and self._stalled_this_tick):
+            self._preempt_for_deadlock()
         return finished
+
+    def _decode(self, runnable: List[int], finished: List[Request]) -> None:
+        """One batched decode over every slot; the runnable ones feed their
+        last token and take the next."""
+        self.stats["decode_dispatches"] += 1
+        toks = np.zeros((self.slots,), np.int32)
+        for i in runnable:
+            toks[i] = self.active[i].out_tokens[-1]
+        lens = self._to_device(self.lengths.copy())
+        if not self.dense_baseline:
+            tables = local = None
+            if self.paged:
+                tables = self._to_device(self.alloc.table.copy())
+                if self.seq_shards > 1:
+                    local = self._to_device(
+                        self.alloc.shard_local(self.alloc.table))
+                    self._account_noc_combine(rows=self.slots)
+            # the mask gates the slot state: the batched decode must not
+            # advance a mid-prefill, stalled or empty neighbour's state
+            mask = np.zeros((self.slots,), bool)
+            mask[runnable] = True
+            logits, self.state = self.runner.decode(
+                self.params, self.state, self._to_device(toks), lens, tables,
+                mask, local)
+        else:
+            logits, self.state = M.decode_step(
+                self.cfg, self.params, self.state, self._to_device(toks), lens)
+        nxt_all = torch.argmax(logits, dim=-1).tolist()
+        for i in runnable:
+            req = self.active[i]
+            self.lengths[i] += 1
+            self.stats["decode_tokens"] += 1
+            self.stats["padded_tokens"] += 1
+            nxt = int(nxt_all[i])
+            req.out_tokens.append(nxt)
+            hit_eos = req.eos_id is not None and nxt == req.eos_id
+            if (len(req.out_tokens) >= req.max_new_tokens or hit_eos
+                    or self.lengths[i] >= self.max_seq - 1):
+                self._finish(i, req, finished)
+
+    # -- preemption ----------------------------------------------------
+    def _victims(self) -> List[int]:
+        return [i for i, r in enumerate(self.active)
+                if r is not None and self.alloc.used[i] > 0]
+
+    def _preempt_for_deadlock(self) -> None:
+        """Two or more partly allocated slots wait on each other's pages:
+        preempt the cheapest victim (:meth:`_victim_score`), its progress
+        preserved.  With fewer than two, a parked swap restore may hold
+        pages hostage through its pins: demote the first such handle to the
+        recompute arm rather than livelock."""
+        victims = self._victims()
+        if len(victims) < 2:
+            for parked in self.restore_queue:
+                if parked._swap is not None:
+                    self._demote_swap(parked)
+                    break
+            return
+        self._preempt(min(victims, key=self._victim_score))
+
+    def _flops_per_token(self) -> float:
+        return 2.0 * self.cfg.param_count(active_only=True)
+
+    def _restore_seconds(self, req: Request, live_tokens: int) -> float:
+        """What bringing this victim back would cost under the engine's
+        policy (``core.noc.restore_cost_seconds``, the paper's rates)."""
+        n_pages = -(-live_tokens // self.block_size)
+        return noc.restore_cost_seconds(
+            n_pages, self._page_kv_bytes(), live_tokens,
+            flops_per_token=self._flops_per_token(),
+            state_bytes=self._slot_state_bytes, policy=self.preempt_policy)
+
+    def _victim_score(self, slot: int):
+        """Evict the slot whose loss costs least: pages held x restore
+        seconds x the interactive class's weight (JAX's score); ties by
+        decoded tokens, prefill progress, then the slot index."""
+        req = self.active[slot]
+        live = int(self.lengths[slot])
+        pages = int(self.alloc.used[slot])
+        score = (pages * self._restore_seconds(req, live)
+                 * INTERACTIVE_WEIGHT)
+        return (score, len(req.out_tokens), req.prefill_pos, slot)
+
+    def _page_demand(self, horizon: int) -> int:
+        """Pages the active slots will ask for over the next ``horizon``
+        ticks beyond what they hold: a whole budget a tick mid-prefill, one
+        token a tick decoding, capped at the request's total length."""
+        need = 0
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            cur = int(self.lengths[slot])
+            total = self._prefill_target(req) + req.max_new_tokens
+            if req.prefill_pos < self._prefill_target(req):
+                grow = horizon * self.max_tokens_per_tick
+            else:
+                grow = horizon
+            future = min(total, cur + grow)
+            need += max(0, -(-future // self.block_size)
+                        - int(self.alloc.used[slot]))
+        return need
+
+    def _preempt_proactive(self) -> None:
+        """Preempt before the pool stalls: when the predicted demand over
+        ``proactive_horizon`` ticks exceeds the grantable pool (parked
+        cached pages count), evict the cheapest victim now.  Held while a
+        restore is parked (evicting to re-admit would ping-pong)."""
+        if self.restore_queue:
+            return
+        victims = self._victims()
+        if len(victims) < 2:
+            return
+        if self._page_demand(self.proactive_horizon) <= self.alloc.free_blocks:
+            return
+        self.stats["preempt_proactive"] += 1
+        self._preempt(min(victims, key=self._victim_score))
+
+    def _demote_swap(self, req: Request) -> None:
+        """Turn a parked swap handle into a recompute restore: its pins and
+        arena slots go back, and the restore replays from
+        ``_resume_tokens``."""
+        handle = req._swap
+        for page in handle.pinned:
+            self.alloc.unpin(page)
+        handle.pinned = []
+        if handle.slots:
+            self._arena.free(handle)
+        req._swap = None
+        self.stats["swap_demotions"] += 1
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``, preserving its progress: its live KV rows
+        (``lengths[slot]``) are swapped to the arena or dropped for a
+        recompute (full pages published first, so the prefix cache can
+        hand them back), as ``preempt_policy`` decides; the request goes to
+        ``restore_queue``."""
+        req = self.active[slot]
+        live = int(self.lengths[slot])
+        self.stats["preemptions"] += 1
+        self.stats["preempted_tokens"] += live
+        req._preempted_live = live
+        if live == 0:                   # nothing cached yet: plain requeue
+            req.prefill_pos = 0
+            self._retire(slot)
+            self.restore_queue.append(req)
+            return
+        plen = self._plen(req)
+        if req.out_tokens:
+            # every decoded token but the unfed last sample must be back in
+            # the cache before decode continues
+            target = plen + len(req.out_tokens) - 1
+            kv_seq = np.concatenate([
+                req.prompt[:plen].astype(np.int32),
+                np.asarray(req.out_tokens[:-1], np.int32)])
+        else:
+            target = 0                  # the prompt prefill resumes it
+            kv_seq = req.prompt[:plen].astype(np.int32)
+        policy = self._preempt_choice(live)
+        if policy == "swap" and not self._swap_out(slot, live):
+            policy = "recompute"        # arena full: recompute, never fail
+        if policy == "swap":
+            self.stats["preempt_swaps"] += 1
+        else:
+            self.stats["preempt_recomputes"] += 1
+            if self.prefix_caching:
+                self._extend_digests(req, kv_seq)
+                self._publish_resume_pages(slot, req, live)
+        req.resume_len = target
+        req._resume_tokens = kv_seq
+        req.prefill_pos = 0
+        self._retire(slot)
+        self.restore_queue.append(req)
+
+    def _preempt_choice(self, live_tokens: int) -> str:
+        if self.preempt_policy != "auto":
+            return self.preempt_policy
+        return noc.preempt_decision(
+            -(-live_tokens // self.block_size), self._page_kv_bytes(),
+            live_tokens, flops_per_token=self._flops_per_token(),
+            state_bytes=self._slot_state_bytes)
+
+    def _page_kv_bytes(self) -> int:
+        """Bytes of one physical page over every application, K and V, at
+        the pool's storage width (int8: 1-byte values and the scales)."""
+        return self.runner.page_kv_bytes(self.block_size, self.dtype.itemsize)
+
+    def _swap_out(self, slot: int, live_tokens: int) -> bool:
+        """Park the victim's progress: pages registered under its own digest
+        chain are pinned (restore shares them back), the rest is copied
+        into the arena (one call per shard), and a slot-state family's blob
+        rides along.  False when the arena cannot hold the rest."""
+        req = self.active[slot]
+        n_pages = -(-live_tokens // self.block_size)
+        pages = [int(p) for p in self.alloc.table[slot, :n_pages]]
+        n_pin = 0
+        if self.prefix_caching:
+            for i, p in enumerate(pages):
+                if (i < len(req._digests)
+                        and self.alloc.page_digest(p) == req._digests[i]):
+                    n_pin += 1
+                else:
+                    break
+        rest = pages[n_pin:]
+        if rest:
+            if self._arena is None:
+                if self.swap_pages < 1:
+                    return False
+                quant = self.kv_dtype == "int8"
+                self._arena = swap.SwapArena(
+                    self.swap_pages, self.runner.page_shape(self.block_size),
+                    torch.int8 if quant else self.dtype, quantized=quant,
+                    device=self.device)
+            handle = self._arena.alloc(len(rest))
+            if handle is None:
+                return False
+        else:
+            handle = swap.SwapHandle([])   # every page pinned
+        handle.tokens = live_tokens
+        handle.pinned = pages[:n_pin]
+        for p in handle.pinned:
+            self.alloc.pin(p)           # survives release(); LRU cannot take it
+        if self.has_slot_state:
+            handle.state = self.runner.extract_slot_state(self.state, slot)
+            handle.state_bytes = self._slot_state_bytes
+        for _, idx in self._by_shard(rest):
+            ids = self._pad_pow2([rest[i] for i in idx])
+            got = self.runner.extract_pages(self.state, self._to_device(ids))
+            k, v, ks, vs = (None if t is None
+                            else t.movedim(2, 0)[:len(idx)].contiguous()
+                            for t in got)
+            # complete before _retire frees the device pages
+            self._arena.write([handle.slots[i] for i in idx], k, v, ks, vs)
+        self.stats["swap_bytes"] += (len(rest) * self._page_kv_bytes()
+                                     + handle.state_bytes)
+        req._swap = handle
+        return True
+
+    def _extend_digests(self, req: Request, kv_seq: np.ndarray) -> None:
+        """Grow the chained digest list over decoded pages, so the decode
+        suffix can be published and matched again (page i commits to every
+        token of [0, (i + 1) BS), through the one chain of submit)."""
+        bs = self.block_size
+        n_full = len(kv_seq) // bs
+        if n_full > len(req._digests):
+            req._digests = _page_digests(kv_seq, bs, n_full,
+                                         seed=self._digest_seed)
+
+    def _publish_resume_pages(self, slot: int, req: Request,
+                              live_tokens: int) -> None:
+        """Register every full live page (prompt and decoded) before the
+        drop, so a restore can share them back while they survive in the
+        LRU."""
+        for i in range(live_tokens // self.block_size):
+            self.alloc.register(int(self.alloc.table[slot, i]),
+                                req._digests[i])
 
     # -- async future driver protocol ----------------------------------
     def _future_done(self, rid: int) -> bool:
@@ -829,19 +1290,29 @@ class ServeEngine:
 
     def run_until_drained(self, max_ticks: int = 10_000,
                           strict: bool = True) -> List[Request]:
-        """Step until the queue and the slots are empty; returns every
+        """Step until the queue, the restore queue and the slots are empty;
+        returns every
         finished request.  With ``strict`` an engine that cannot drain
         within ``max_ticks`` raises instead of returning a partial set."""
         done: List[Request] = []
         for _ in range(max_ticks):
             done.extend(self.step())
-            if not self._queue and all(r is None for r in self.active):
+            if (not self._queue and not self.restore_queue
+                    and all(r is None for r in self.active)):
                 return done
         if strict:
             live = [r.rid for r in self.active if r is not None]
+            st = self.stats
             raise RuntimeError(
                 f"engine not drained after {max_ticks} ticks "
-                f"(queued={self.queued}, active rids={live})")
+                f"(queued={self.queued}, "
+                f"awaiting_restore={len(self.restore_queue)}, "
+                f"active rids={live}, "
+                f"stalled_ticks={st['stalled_ticks']:.0f}, "
+                f"preemptions={st['preemptions']:.0f}, "
+                f"preempt_swaps={st['preempt_swaps']:.0f}, "
+                f"preempt_recomputes={st['preempt_recomputes']:.0f}, "
+                f"restored_tokens={st['restored_tokens']:.0f})")
         return done
 
     # -- introspection -------------------------------------------------
@@ -851,6 +1322,15 @@ class ServeEngine:
             "ticks": 0, "prefill_tokens": 0, "decode_tokens": 0,
             "occupancy_sum": 0.0, "padded_tokens": 0, "prefill_dispatches": 0,
             "decode_dispatches": 0,
+            # stall_events counts per-slot waits on pages, stalled_ticks the
+            # ticks with one or more; every preemption is a swap or a
+            # recompute; preempted_tokens counts the KV rows live at
+            # eviction, restored_tokens those brought back without a replay
+            # (swap-in or a prefix-cache hit)
+            "stalled_ticks": 0, "stall_events": 0,
+            "preemptions": 0, "preempt_proactive": 0, "preempt_swaps": 0,
+            "preempt_recomputes": 0, "swap_bytes": 0, "swap_demotions": 0,
+            "preempted_tokens": 0, "restored_tokens": 0,
             "prefix_hits": 0, "prefix_hit_tokens": 0, "cow_copies": 0,
             "pages_allocated": 0, "pages_freed": 0, "pages_shared": 0,
             "pages_evicted": 0, "gather_pages_calls": 0,
@@ -860,8 +1340,7 @@ class ServeEngine:
             # core.noc.softmax_combine_cost
             "noc_combines": 0, "noc_hops": 0, "noc_bytes": 0,
             "noc_energy_pj": 0.0,
-            "kv_bytes_per_page": (self.runner.page_kv_bytes(
-                self.block_size, self.dtype.itemsize) if self.paged else 0),
+            "kv_bytes_per_page": self._page_kv_bytes() if self.paged else 0,
         }
         if self.paged:
             self.alloc.reset_counters()

@@ -830,6 +830,11 @@ def test_hybrid_serving_on_card_matches_cpu(dev):
         assert outs[0] == outs[1], opts
 
 
+def _idx_to(idx, dev):
+    """A ScatterIndex on ``dev`` (its writer entry may be None)."""
+    return tuple(None if t is None else t.to(dev) for t in idx)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1844,3 +1849,119 @@ def test_moe_apply_on_card_matches_cpu(dev, arch):
     assert f0 == f1 > 0 and not l0[cfg.n_experts:].any()
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# preemption and swap: the page round trip through pinned host memory, the
+# ordered K/V scatter, and an engine under page pressure
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_swap_arena_round_trip_through_pinned_memory(dev, quantized):
+    """Pages gathered from a card pool by ``extract_kv_pages``, parked in a
+    ``SwapArena`` (pinned host slabs: the device-to-host copies complete
+    when ``write`` returns) and written back into other pages through
+    ``read`` and ``insert_kv_pages`` come back bit for bit, an int8 pool's
+    scales too; the pool's other pages are untouched."""
+    from repro_torch.serve.swap import SwapArena
+
+    rng = np.random.default_rng(50)
+    a, kvh, nb, bs, hd = 3, 2, 12, 16, 64
+    if quantized:
+        att = {k: torch.from_numpy(rng.integers(-127, 128, (a, kvh, nb, bs, hd))
+                                   .astype(np.int8)).to(dev)
+               for k in ("k_pages", "v_pages")}
+        att.update({k: torch.from_numpy(rng.uniform(0.1, 2, (a, kvh, nb))
+                                        .astype(np.float32)).to(dev)
+                    for k in ("k_scales", "v_scales")})
+    else:
+        att = {k: _rand(rng, (a, kvh, nb, bs, hd), torch.bfloat16, dev)
+               for k in ("k_pages", "v_pages")}
+    state = {"attn": att}
+    before = {k: t.clone() for k, t in att.items()}
+    src = torch.tensor([5, 2, 9], device=dev)
+    got = M.extract_kv_pages(state, src)
+    arena = SwapArena(4, (a, kvh, bs, hd), torch.int8 if quantized else torch.bfloat16,
+                      quantized=quantized, device=dev)
+    assert arena._k.is_pinned()
+    h = arena.alloc(3)
+    arena.write(h.slots, *[None if t is None else t.movedim(2, 0).contiguous()
+                           for t in got])
+    for t in got:                        # the device copies may be reused now
+        if t is not None:
+            t.zero_()
+    parked = arena.read(h.slots)
+    dst = torch.tensor([7, 3, 11], device=dev)
+    M.insert_kv_pages(state, dst, *[t.movedim(0, 2) for t in parked])
+    torch.cuda.synchronize()
+    for key, t in att.items():
+        assert torch.equal(t[:, :, dst], before[key][:, :, src]), key
+        keep = torch.ones(nb, dtype=torch.bool, device=dev)
+        keep[dst] = False
+        assert torch.equal(t[:, :, keep], before[key][:, :, keep]), key
+
+
+def test_ordered_scatter_matches_cpu(dev):
+    """The K/V scatter with duplicate targets (idle decode rows at row 0 of
+    the null page; a prefill chunk's padding rows) on the card gives the
+    CPU's bytes, the last writer's in index order, at bf16 and f32, twice
+    alike; so does the int8 decode scatter's whole-page write."""
+    rng = np.random.default_rng(51)
+    kvh, nb, bs, hd = 4, 10, 16, 64
+    tables = torch.tensor([[3, 0, 0], [0, 0, 0], [5, 2, 0], [0, 0, 0],
+                           [0, 0, 0]], dtype=torch.int32)
+    lens = torch.tensor([2, 0, 21, 0, 0], dtype=torch.int32)
+    cases = [(TL.decode_scatter_index(lens, tables, bs), 5),
+             (TL.prefill_scatter_index(torch.tensor([4, 6], dtype=torch.int32), 7,
+                                       9, 64, bs), 64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for idx, n in cases:
+            pages = _rand(rng, (kvh, nb, bs, hd), dtype, "cpu")
+            rows = _rand(rng, (n, kvh, hd), dtype, "cpu")
+            want = pages.clone()
+            TL._scatter(want, idx, rows)
+            outs = []
+            for _ in range(2):
+                got = pages.to(dev)
+                TL._scatter(got, _idx_to(idx, dev), rows.to(dev))
+                outs.append(got.cpu())
+            assert torch.equal(outs[0], want) and torch.equal(outs[1], want)
+    idx = cases[0][0]
+    pages = torch.from_numpy(rng.integers(-127, 128, (kvh, nb, bs, hd)).astype(np.int8))
+    scales = torch.from_numpy(rng.uniform(0.01, 0.05, (kvh, nb)).astype(np.float32))
+    row = _rand(rng, (5, kvh, hd), torch.float32, "cpu")
+    want_p, want_s = pages.clone(), scales.clone()
+    TL._decode_scatter_quant(want_p, want_s, idx, row)
+    got_p, got_s = pages.to(dev), scales.to(dev)
+    TL._decode_scatter_quant(got_p, got_s, _idx_to(idx, dev), row.to(dev))
+    assert torch.equal(got_s.cpu(), want_s)
+    assert (got_p.cpu().int() - want_p.int()).abs().max() <= 1   # one int8 step
+
+
+@pytest.mark.parametrize("policy", ["swap", "recompute"])
+def test_engine_under_pressure_on_card_matches_cpu(dev, policy):
+    """Reduced stablelm-1.6b at fp32 over 10 usable pages (the granite mix
+    of tests/test_torch_preemption.py): the card engine token-identical to
+    the CPU engine with the same preemption statistics, and to the
+    unpressured card run."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    kw = dict(max_seq=64, slots=2, block_size=8, prefill_buckets=(16, 64))
+    reqs = [list(range(1, 13)), list(range(5, 17))]
+
+    def drain(p, **extra):
+        eng = ServeEngine(cfg, p, **kw, **extra)
+        for r in reqs:
+            eng.submit(r, max_new_tokens=40)
+        out = {r.rid: r.out_tokens for r in eng.run_until_drained(max_ticks=600)}
+        return out, eng.stats
+
+    gpu_params = _to(params, dev)
+    base, _ = drain(gpu_params)
+    got, gst = drain(gpu_params, num_blocks=11, preempt_policy=policy)
+    want, cst = drain(params, num_blocks=11, preempt_policy=policy)
+    assert got == want == base and gst["preemptions"] >= 1
+    for k in ("preemptions", "preempt_swaps", "preempt_recomputes", "swap_bytes",
+              "preempted_tokens", "restored_tokens", "decode_tokens"):
+        assert gst[k] == cst[k], k
+

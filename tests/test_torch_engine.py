@@ -129,12 +129,17 @@ def test_allocator_share_release_and_lru():
 def test_engine_refuses_unported_options(granite):
     _, _, tparams = granite
     cfg = reduced(get_config("granite-3-2b"))
-    for kw in (dict(expert_parallel=2), dict(preempt_policy="swap"),
+    for kw in (dict(expert_parallel=2), dict(class_weights={"batch": 1.0}),
                dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="later slices"):
             TEngine(cfg, tparams, max_seq=32, slots=1, **kw)
-    with pytest.raises(NotImplementedError, match="preemption"):
-        TEngine(cfg, tparams, max_seq=32, slots=2, block_size=8, num_blocks=5)
+    # preemption is ported: a pool below full capacity stands up, and a bad
+    # policy is refused as in JAX
+    small = TEngine(cfg, tparams, max_seq=32, slots=2, block_size=8,
+                    num_blocks=5, preempt_policy="swap")
+    assert small.alloc.usable_blocks == 4
+    with pytest.raises(ValueError, match="preempt_policy"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, preempt_policy="restart")
     eng = TEngine(cfg, tparams, max_seq=32, slots=1)
     for bad in ([], [cfg.vocab_size], [-1]):
         with pytest.raises(ValueError):

@@ -37,13 +37,16 @@ from repro.models.runner import cache_spec as j_cache_spec  # noqa: E402
 from repro.serve import ServeEngine as JEngine  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tlaunch  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import moe as TMOE  # noqa: E402
 from repro_torch.models.convert import params_from_jax, state_from_jax  # noqa: E402
 from repro_torch.models.runner import ModelRunner as TRunner  # noqa: E402
 from repro_torch.models.runner import cache_spec as t_cache_spec  # noqa: E402
 from repro_torch.serve import ServeEngine as TEngine  # noqa: E402
+from repro_torch.serve.engine import BlockAllocator  # noqa: E402
 
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)    # one MoE layer, the same f32 products
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_torch_model.py's model hold
@@ -71,7 +74,7 @@ OPTIONS = {"runner": {}, "slab": dict(paged=False), "int8": dict(kv_dtype="int8"
            "seq4": dict(seq_shards=4)}
 ENGINE_CASES = [(m, o) for m in ("interleaved", "chunked") for o in ("runner", "slab")] \
     + [("sharded", "int8"), ("sharded", "seq4"), ("staggered", "runner"),
-       ("staggered", "slab")]
+       ("staggered", "slab"), ("staggered", "seq4")]
 
 
 def _skew(p, seed=5):
@@ -133,8 +136,8 @@ from repro.serve import ServeEngine
 cfg = reduced(get_config("olmoe-1b-7b"))
 params = jax.tree.map(jnp.asarray, _skew(
     M.init_params(cfg, jax.random.key(0), dtype=jnp.float32)))
-eng = ServeEngine(cfg, params, seq_shards=4, **SHARDED["engine"])
-out = _drain(eng, SHARDED["prompts"], SHARDED["max_new"])
+eng = ServeEngine(cfg, params, seq_shards=4, **MIX["engine"])
+out = _drain(eng, MIX["prompts"], MIX["max_new"])
 print("RESULT " + json.dumps({"toks": {str(k): v for k, v in out.items()},
                               "stats": {k: float(v) for k, v in eng.stats.items()}}))
 """
@@ -144,8 +147,8 @@ print("RESULT " + json.dumps({"toks": {str(k): v for k, v in out.items()},
 def jax_out(model):
     """JAX's engine outputs and stats by (mix, options), each engine run
     once for the module: the int8 case against JAX's int8 engine, 4
-    sequence shards against JAX's at 4 shards, in one subprocess (its mesh
-    needs four host devices)."""
+    sequence shards against JAX's at 4 shards, in a subprocess a mix (its
+    mesh needs four host devices)."""
     cache = {}
     cfg, _, jparams, _ = model
 
@@ -154,7 +157,7 @@ def jax_out(model):
         if key not in cache:
             m = MIXES[mix]
             if opt == "seq4":
-                code = "\n".join([f"SHARDED = {SHARDED!r}", inspect.getsource(_skew),
+                code = "\n".join([f"MIX = {m!r}", inspect.getsource(_skew),
                                   inspect.getsource(_drain), _JAX_SHARDED])
                 line = [ln for ln in run_subprocess(code, devices=4).splitlines()
                         if ln.startswith("RESULT ")][-1]
@@ -381,7 +384,10 @@ def test_engine_matches_jax(model, jax_out, drops, mix, opt):
     """The port's ServeEngine token-identical to JAX's at the default
     capacity factor: the runner path and the dense-slab baseline on the
     interleaved, chunked and staggered mixes, an int8 pool and 4 sequence
-    shards (against JAX's engine at 4 shards) on the sharded mix; the same
+    shards (against JAX's engine at 4 shards) on the sharded mix, and 4
+    shards on the staggered mix, whose idle decode rows see no key in any
+    shard (ROADMAP queue C: they read 0, JAX's plain path the mean of its
+    null pages; the routing and every token agree); the same
     token counts, dispatches and ticks; and the dispatches dropped
     assignments."""
     _, tcfg, _, tparams = model
@@ -434,6 +440,83 @@ def test_live_rows_only_control_diverges(model, jax_out, monkeypatch):
     got = _drain(eng, m["prompts"], m["max_new"])
     assert {r: len(t) for r, t in got.items()} == {r: len(t) for r, t in want.items()}
     assert got != want
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP queue C: the idle decode row under sequence shards, and the order
+# of the K/V scatters' duplicate writes
+# ---------------------------------------------------------------------------
+
+def test_idle_decode_row_reads_zero_over_shards(model):
+    """One layer's decode over 4 shards of a random pool with an idle row
+    (token 0, length 0, a table of zeros: foreign to every shard) between
+    live rows: the idle row's output is exactly 0, as the card's zero-weight
+    partials give it; the live rows equal the unsharded decode within 1e-5.
+    The control (the plain partials' combine without the zeroing) gives the
+    idle row the mean of the null pages' rows instead."""
+    _, tcfg, _, tparams = model
+    rng = np.random.default_rng(11)
+    S, nb, bs, mb = 4, 4 * 6, 8, 4
+    kvh, hd = tcfg.n_kv_heads, tcfg.hd
+    kp = _t(rng.normal(size=(kvh, nb, bs, hd)).astype(np.float32))
+    vp = _t(rng.normal(size=(kvh, nb, bs, hd)).astype(np.float32))
+    alloc = BlockAllocator(nb, bs, 3, mb, num_shards=S)
+    for slot, n in ((0, 19), (2, 30)):
+        assert alloc.ensure(slot, n + 1)
+    lens = _t(np.array([19, 0, 30], np.int32))
+    tables = _t(alloc.table.copy())
+    local = _t(alloc.shard_local(alloc.table))
+    x = _t(rng.normal(size=(3, 1, tcfg.d_model)).astype(np.float32))
+    p = tparams["layers"][0]["attn"]
+    args = (p, x, tcfg)
+    ys = TL.attention_decode_paged(*args, kp.clone(), vp.clone(), lens, tables,
+                                   TL.decode_scatter_index(lens, tables, bs),
+                                   local_tables=local)
+    y1 = TL.attention_decode_paged(*args, kp.clone(), vp.clone(), lens, tables,
+                                   TL.decode_scatter_index(lens, tables, bs))
+    assert torch.equal(ys[1], torch.zeros_like(ys[1]))
+    _close(ys[[0, 2]], y1[[0, 2]], dict(rtol=1e-5, atol=1e-5))
+    q = torch.zeros((3, tcfg.n_heads, hd))
+    plain = TL._sharded_attention(ops.paged_decode_attention_partial, q, kp, vp,
+                                  None, None, local, lengths=lens + 1)
+    assert float(plain[1].abs().max()) > 0            # the control: not 0
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_last_writer_scatter_matches_cpu_index_order(kind):
+    """The K/V page scatter with duplicate targets (idle decode rows at row 0
+    of the null page; a prefill chunk's padding rows, more than a page of
+    them) leaves every target what writing the rows one by one in index
+    order leaves there (the CPU's index_put, XLA's scatter): the last
+    writer's row.  At decode the earlier writers move to free rows of the
+    null page (1, 2, ... in order), so the targets are distinct; a prefill
+    chunk's targets take their last writer's row."""
+    rng = np.random.default_rng(12)
+    kvh, nb, bs, hd = 2, 6, 4, 3
+    pages = _t(rng.normal(size=(kvh, nb, bs, hd)).astype(np.float32))
+    if kind == "decode":
+        tables = _t(np.array([[3, 0], [0, 0], [5, 2], [0, 0], [0, 0]], np.int32))
+        lens = _t(np.array([2, 0, 5, 0, 0], np.int32))
+        idx = TL.decode_scatter_index(lens, tables, bs)
+        first = (_t(np.array([3, 0, 2, 0, 0])), _t(np.array([2, 0, 1, 0, 0])))
+        assert idx[2] is None and idx[0].tolist() == [3, 0, 2, 0, 0]
+        assert idx[1].tolist() == [2, 1, 1, 2, 0]          # rows 1, 3 moved
+    else:
+        idx = TL.prefill_scatter_index(_t(np.array([3, 5], np.int32)), 2, 3, 16, bs)
+        first = idx[:2]
+        assert idx[2].tolist()[:3] == [0, 1, 2] and idx[2].tolist()[3:7] == [15, 12, 13, 14]
+        short = TL.prefill_scatter_index(_t(np.array([3, 5], np.int32)), 2, 3, 7, bs)
+        assert short[2] is None                          # under a page of padding
+    rows = _t(rng.normal(size=(idx[0].shape[0], kvh, hd)).astype(np.float32))
+    want = pages.clone()
+    for i in range(rows.shape[0]):
+        want[:, first[0][i], first[1][i]] = rows[i]
+    got = pages.clone()
+    TL._scatter(got, idx, rows)
+    if kind == "decode":
+        assert torch.equal(got[:, 0, 1], rows[1]) and torch.equal(got[:, 0, 2], rows[3])
+        got[:, 0, 1:3] = want[:, 0, 1:3]
+    assert torch.equal(got, want)
 
 
 def test_expert_options_raise(model):
