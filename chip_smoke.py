@@ -272,7 +272,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    null pages bit-equal and within 1e-4 of the CPU's, a control (the idle
    row given the plain version's mean of the null pages) caught, and the
    JAX package's scatter targets with duplicates in the card's write order
-   logged against the CPU's index order.
+   logged against the CPU's index order;
+23. GQA serving (after 21 and queue C, the earlier models freed):
+   minitron-4b (32 layers, d 3072, 24 heads over 8 kv heads of 128, so G =
+   3, vocab 256000) at full width and depth; rows 1g and 2g, the paged
+   decode (q [8, 24, 128] over pages [8, 513, 16, 128]) and the paged
+   prefill (q [1, 512, 24, 128] at offset 256), held against their plain
+   versions in bf16 (twice bitwise equal) and f32, each with a control (q
+   head h read against kv head h mod 8 instead of h // 3) caught, timed
+   as in 3; the mix of 5 in bf16 with prefix caching on (every launch count
+   at phase 5's formulas, L = 32) and off, token-identical, with tok/s,
+   TTFT p50, peak memory and pool bytes beside phase 5's run; the mix in
+   fp32, the slab engine token-identical to the runner;
+24. classes and sampling (after 22, with phase 5's parameters): the mix of
+   5 with half its requests, drawn from a seed, in the batch class with
+   twice the new tokens (``launch/serve.py --batch-frac 0.5``) and the
+   deadlines of ``--deadline-ms`` ``CLASS_DEADLINE_MS``, over 129 pages
+   under swap and recompute: every request finished with its class's
+   tokens, the class stats summing to what was submitted, no fresh request
+   admitted past a restore of its class or a heavier one (checked around
+   every admission), phase 5's launch formulas over the run's dispatches,
+   per-class TTFT p50 and SLO violations logged; the engine's sampler:
+   ``SAMPLE_DRAWS`` draws at T = ``SAMPLE_T`` from a row of stablelm's
+   100352 logits (32 carrying the mass) within the chi-square bound of
+   softmax(logits / T), a control that skips the division by T outside it,
+   the draws from one seed equal twice, a T = 0 row the argmax; two engines
+   from one seed token-identical on a stream of sampled and greedy
+   requests, the greedy ones equal to a greedy-only run's.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -281,6 +307,7 @@ report, the results) goes to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import math
@@ -496,6 +523,11 @@ SERVE_CHUNK, SERVE_SLOTS, FP32_NEW_TOKENS = 512, 8, 16
 # a shard, a null page each); the hybrid cut to 14 of zamba2-7b's 81 layers
 # (2 groups of 6 and a 2-layer tail: G = 2) to keep the phase's time
 PRESSURE_BLOCKS, PRESSURE_SHARD_BLOCKS, HYBRID_PRESSURE_LAYERS = 129, 132, 14
+# classes and sampling (24): the interactive class's deadline (the batch
+# class's is 10x, as launch/serve.py --deadline-ms sets them); the sampler's
+# draws, temperature and the chi-square bound's quantile (0.999, z = 3.0902)
+CLASS_DEADLINE_MS = 2000.0
+SAMPLE_DRAWS, SAMPLE_T, SAMPLE_Z = 20000, 0.7, 3.0902
 
 
 def log(msg: str) -> None:
@@ -4457,6 +4489,12 @@ def probed_mix(torch, cfg, params, counters, **engine_kw):
                         **engine_kw)
     finally:
         swap.SwapArena.write, swap.SwapArena.read = saved
+    # the probe's wrappers on the engine form a reference cycle with it:
+    # drop the probe's hold and collect, so the engine's pool and the
+    # caller's parameters go when the caller lets them go, not at the next
+    # garbage collection (they inflated later phases' peak memory)
+    probes[0].eng = None
+    gc.collect()
     return res + (probes[0],)
 
 
@@ -4722,6 +4760,372 @@ def queue_c_phase(torch, cfg_small):
                 unordered_null_err=unord_err, decode_steps=len(gpu[2]))
 
 
+# ---------------------------------------------------------------------------
+# GQA serving (23): minitron-4b, 24 query heads over 8 kv heads of 128
+# ---------------------------------------------------------------------------
+
+def wrong_group_control(torch, name, got, plain, q, kp, vp, tol, rel, seq_rel=None):
+    """The grouping trap: a kernel that reads q head h against kv head h
+    mod KvH instead of h // G (the plain version over the pool re-indexed
+    so) must fail the hold that the kernel's output passes."""
+    h, kvh = q.shape[-2], kp.shape[0]
+    wrong = torch.arange(h, device=kp.device) % kvh
+    bad = plain(q, kp[wrong], vp[wrong])
+    dropped_step_control(torch, name, f"its head grouping (q head h read against kv "
+                         f"head h mod {kvh}, not h // {h // kvh})", got, bad, tol,
+                         rel, seq_rel)
+
+
+def gqa_rows(torch, timer, cfg):
+    """Rows 1g and 2g at minitron-4b's attention (24 heads over 8 kv heads of
+    128: G = 3): the paged decode, q [8, 24, 128] over a pool [8, 513, 16,
+    128] through tables [8, 64], and the paged prefill, a 512-row chunk q
+    [1, 512, 24, 128] at q_offset 256 (C x G = 1536 rows a kv head).  Each
+    held against its plain version in bf16 (twice bitwise equal; per
+    sequence too at decode) and in f32, the wrong-group control caught in
+    both, and timed in bf16 as in 3."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import prefill_attention as kpf
+    from repro_torch.kernels import ref
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    c, qoff = SERVE_CHUNK, 256
+    slots, bs, mb = SERVE_SLOTS, 16, 64
+    nb = 1 + slots * mb
+    csrc = "src/repro_torch/kernels/csrc/"
+    kp, vp = randn(kvh, nb, bs, hd), randn(kvh, nb, bs, hd)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev)[:slots * mb] + 1
+    tables = perm.to(torch.int32).reshape(slots, mb).contiguous()
+    lens = torch.randint(1, mb * bs + 1, (slots,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    qd, qp = randn(slots, h, hd), randn(1, c, h, hd)
+    table = tables[0].contiguous()
+    total = qoff + c
+    live = int(lens.sum())
+    kv_row = kvh * hd * 2 * 2
+    attended = sum(min(qoff + i + 1, total) for i in range(c))
+    cases = (
+        ("paged_decode_attention_gqa",
+         lambda q, k, v: kda.paged_decode_attention(q, k, v, tables, lens),
+         lambda q, k, v: ref.paged_decode_attention(q, k, v, tables, lengths=lens),
+         qd, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL),
+        ("paged_prefill_attention_gqa",
+         lambda q, k, v: kpf.paged_prefill_attention(q, k, v, table, q_offset=qoff,
+                                                     length=c),
+         lambda q, k, v: ref.paged_prefill_attention(q, k, v, table, q_offset=qoff,
+                                                     length=c),
+         qp, PREFILL_TOL, PREFILL_REL, None))
+    for tag, kernel, plain, q, tol, rel, seq_rel in cases:
+        got = repeat_equal(torch, tag, lambda: kernel(q, kp, vp))
+        want = plain(q, kp, vp)
+        hold(torch, tag, got, want, tol, rel)
+        if seq_rel is not None and seq_rel_err(torch, got, want) > seq_rel:
+            fail(f"{tag}: a sequence's relative norm error {seq_rel_err(torch, got, want)}")
+        wrong_group_control(torch, tag, got, plain, q, kp, vp, tol, rel, seq_rel)
+        qf, kf, vf = q.float(), kp.float(), vp.float()
+        g32 = repeat_equal(torch, f"{tag} f32", lambda: kernel(qf, kf, vf))
+        e32 = hold(torch, f"{tag} f32", g32, plain(qf, kf, vf), DENSE_F32_TOL,
+                   DENSE_F32_REL)
+        wrong_group_control(torch, f"{tag} f32", g32, plain, qf, kf, vf,
+                            DENSE_F32_TOL, DENSE_F32_REL)
+        log(f"{tag}: f32 max|err| {e32:.3g}")
+        del got, want, g32, qf, kf, vf
+    rows = [measure(
+        torch, timer, "paged_decode_attention_gqa", csrc + "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:300", lambda: cases[0][1](qd, kp, vp),
+        lambda: cases[0][2](qd, kp, vp), DECODE_TOL, rel=DECODE_REL,
+        nbytes=2 * qd.numel() * 2 + live * kv_row + tables.numel() * 4,
+        flops=4 * h * hd * live,
+        note=f"; rel {DECODE_REL}; {cfg.name}'s decode, G {h // kvh}, {live} live keys"),
+        measure(
+        torch, timer, "paged_prefill_attention_gqa", csrc + "paged_attention.cu",
+        "src/repro/kernels/prefill_attention.py:273", lambda: cases[1][1](qp, kp, vp),
+        lambda: cases[1][2](qp, kp, vp), PREFILL_TOL, rel=PREFILL_REL,
+        nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
+        flops=4 * h * hd * attended,
+        note=f"; rel {PREFILL_REL}; {cfg.name}'s prefill chunk at offset {qoff}, "
+             f"{c * h // kvh} rows a kv head")]
+    rows[0].update(row="1g", design=DECODE_DESIGN)
+    rows[1].update(row="2g", design=PREFILL_DESIGN)
+    del kp, vp, qd, qp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gqa_serve_phase(torch, cfg, counters, serve):
+    """23: minitron-4b at full width and all 32 layers (random bf16 weights,
+    seed 0) on the mix of 5: the runner with prefix caching on, every launch
+    count at phase 5's formulas (L = 32), and off, token-identical; tok/s,
+    TTFT p50, peak memory and pool bytes beside phase 5's run; then the mix
+    in fp32, the slab engine token-identical to the runner."""
+    from repro_torch.serve import ServeEngine
+
+    params = serve_params(torch, cfg)
+    warm = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_seq=160,
+                       prefill_buckets=(32, 128))
+    warm.submit(list(range(40)), max_new_tokens=3)
+    warm.run_until_drained()
+    del warm
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                              prefix_caching=True)
+    P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+    check_launches("gqa serve", launches, serve_expect(L, P, Dd))
+    if stats["prefix_hit_tokens"] <= 0:
+        fail("gqa serve: the shared-prefix requests never hit the prefix cache")
+    out_off, stats_off, _, summary_off = serve_mix(torch, cfg, params, counters,
+                                                   prefix_caching=False)
+    if out_off != out:
+        diff = [rid for rid in out if out[rid] != out_off.get(rid)]
+        fail(f"gqa serve: greedy outputs differ with prefix caching off (rids {diff})")
+    log(f"gqa serve: {cfg.name} ({L} L, {cfg.n_heads} H over {cfg.n_kv_heads} kv "
+        f"heads, hd {cfg.hd}, vocab {cfg.vocab_size}): {summary['requests']} requests, "
+        f"{summary['tokens']} tokens in {summary['wall_s']:.3f} s "
+        f"({summary['tok_s']:.1f} tok/s; stablelm-1.6b's phase 5 {serve['tok_s']:.1f}), "
+        f"ttft p50 {summary['ttft_p50_ms']:.1f} ms ({serve['ttft_p50_ms']:.1f}), "
+        f"peak memory {summary['peak_mem_bytes'] / 2**30:.2f} GiB "
+        f"({serve['peak_mem_bytes'] / 2**30:.2f}), pool "
+        f"{summary['pool_bytes'] / 2**30:.3f} GiB ({serve['pool_bytes'] / 2**30:.3f}), "
+        f"prefill chunks {P}, decode steps {Dd}, prefix-hit tokens "
+        f"{stats['prefix_hit_tokens']}; caching off token-identical, "
+        f"{summary_off['wall_s']:.3f} s")
+    summary.update(prefix_hit_tokens=stats["prefix_hit_tokens"],
+                   wall_s_cache_off=summary_off["wall_s"])
+    del params
+    torch.cuda.empty_cache()
+    fp32_identity(torch, cfg)
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# classes and sampling (24): stablelm-1.6b with phase 5's parameters
+# ---------------------------------------------------------------------------
+
+def chi_square(torch, tokens, probs):
+    """(statistic, bound, bins) of ``tokens`` against ``probs`` (float64 on
+    the CPU): bins of expected count under 5 merged
+    into one (into the smallest bin if the merged one is still under 5);
+    the bound is chi-square's 0.999 quantile at (bins - 1) degrees of
+    freedom (Wilson-Hilferty); a draw outside the support fails."""
+    n = tokens.numel()
+    counts = torch.bincount(tokens.cpu(), minlength=probs.numel()).double()
+    if bool(counts[probs == 0].any()):
+        fail("sampling: a draw outside the support of softmax(logits / T)")
+    exp = probs * n
+    big = exp >= 5
+    obs, ex = counts[big].tolist(), exp[big].tolist()
+    rest = ~big & (probs > 0)
+    ro, re_ = float(counts[rest].sum()), float(exp[rest].sum())
+    if re_ > 0:
+        if re_ < 5:
+            i = min(range(len(ex)), key=ex.__getitem__)
+            obs[i] += ro
+            ex[i] += re_
+        else:
+            obs.append(ro)
+            ex.append(re_)
+    stat = sum((o - e) ** 2 / e for o, e in zip(obs, ex))
+    df = len(ex) - 1
+    bound = df * (1 - 2 / (9 * df) + SAMPLE_Z * math.sqrt(2 / (9 * df))) ** 3
+    return stat, bound, len(ex)
+
+
+def sampling_check(torch, cfg, params):
+    """The engine's sampler on the card: ``SAMPLE_DRAWS`` draws from one
+    logits row at stablelm-1.6b's vocabulary width (its mass on 32 tokens
+    at N(0, 1.5), the rest at -1e30) at T = ``SAMPLE_T``, within the
+    chi-square bound of softmax(logits / T), and a sampler that skips the
+    division by T (the same noise at T = 1) outside it; the draws twice from
+    one seed equal; a T = 0 row the argmax beside sampled rows; then the
+    first four prompts of the mix at T = 0.8 beside four greedy ones
+    through two engines from one seed, token-identical, the greedy ones
+    equal to a greedy-only engine's."""
+    from repro_torch.launch.serve import MIX_ENGINE, shared_prefix_mix
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import sample_tokens
+
+    dev, V = "cuda", cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(50)
+    row = torch.full((V,), -1e30, device=dev)
+    idx = torch.randperm(V, generator=gen, device=dev)[:32]
+    row[idx] = torch.randn(32, generator=gen, device=dev) * 1.5
+    probs = torch.softmax(row.double().cpu() / SAMPLE_T, dim=0)
+
+    def draws(t, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        block = SAMPLE_DRAWS // 10
+        logits = row[None].expand(block, V)
+        return torch.cat([sample_tokens(logits, [t] * block, g) for _ in range(10)])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = draws(SAMPLE_T, 51)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    stat, bnd, bins = chi_square(torch, got, probs)
+    bad, _, _ = chi_square(torch, draws(1.0, 51), probs)
+    same = bool(torch.equal(got, draws(SAMPLE_T, 51)))
+    log(f"sampling: {SAMPLE_DRAWS} draws at T {SAMPLE_T} over a {V}-wide row "
+        f"({draw_s:.3f} s): chi-square {stat:.2f} against the bound {bnd:.2f} "
+        f"({bins} bins); the control without the division by T {bad:.2f} "
+        f"(caught: {bad > bnd}); the draws again from seed 51 equal: {same}")
+    if stat > bnd:
+        fail(f"sampling: chi-square {stat:.2f} above the bound {bnd:.2f}")
+    if bad <= bnd:
+        fail("sampling control: the bound passes a sampler that skips the "
+             "division by T")
+    if not same:
+        fail("sampling: two runs from one seed gave different draws")
+    mixed = torch.stack([row, row * 0.5, row, torch.roll(row, 7)])
+    picks = sample_tokens(mixed, [0.0, 0.8, 0.0, 1.3],
+                          torch.Generator(device=dev).manual_seed(52))
+    greedy = torch.argmax(mixed, dim=-1)
+    if int(picks[0]) != int(greedy[0]) or int(picks[2]) != int(greedy[2]):
+        fail("sampling: a T = 0 row is not the argmax of its logits")
+    prompts = shared_prefix_mix(V)[:8]
+    temps = [0.8, 0.0] * 4
+    runs = []
+    for seed, ts in ((5, temps), (5, temps), (5, [0.0] * 8)):
+        eng = ServeEngine(cfg, params, **MIX_ENGINE, seed=seed)
+        rids = [eng.submit(p, max_new_tokens=16, temperature=t)
+                for p, t in zip(prompts, ts)]
+        done = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        runs.append([done[r] for r in rids])
+        del eng
+    if runs[0] != runs[1]:
+        fail("sampling: two engines from one seed gave different tokens")
+    if any(runs[0][i] != runs[2][i] for i in range(1, 8, 2)):
+        fail("sampling: a greedy request beside sampled ones differs from the "
+             "greedy-only run")
+    n_moved = sum(runs[0][i] != runs[2][i] for i in range(0, 8, 2))
+    log(f"sampling: engines from seed 5 token-identical; the greedy requests equal "
+        f"the greedy-only run's, {n_moved} of 4 sampled requests differ from it")
+    return dict(draws=SAMPLE_DRAWS, t=SAMPLE_T, chi_square=stat, bound=bnd, bins=bins,
+                control=bad, draw_s=draw_s, sampled_moved=n_moved)
+
+
+def class_mix(torch, cfg, params, counters, **engine_kw):
+    """The mix of 5 as ``launch/serve.py --batch-frac 0.5`` submits it (a
+    seeded half in the batch class with twice the new tokens) with the
+    deadlines of ``--deadline-ms CLASS_DEADLINE_MS``; the counters zeroed
+    just before and read just after; ``_admit`` checked around every call:
+    no fresh request of weight <= a restore it left parked was admitted."""
+    import numpy as np
+
+    from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
+                                          shared_prefix_mix)
+    from repro_torch.serve import ServeEngine
+
+    prompts = shared_prefix_mix(cfg.vocab_size)
+    rng = np.random.default_rng(24)
+    classes = ["batch" if rng.random() < 0.5 else "interactive" for _ in prompts]
+    eng = ServeEngine(cfg, params, **{**MIX_ENGINE, **engine_kw},
+                      class_deadlines_ms={"interactive": CLASS_DEADLINE_MS,
+                                          "batch": 10 * CLASS_DEADLINE_MS})
+    admit, parked_calls = eng._admit, [0]
+
+    def checked():
+        parked = list(eng.restore_queue)
+        queued = {r.rid for r in eng.queue}
+        admit()
+        held = [r for r in parked if r in eng.restore_queue]
+        for r in eng.active:
+            if r is None or r.rid not in queued:
+                continue
+            for p in held:
+                if eng.class_weights[r.priority] <= eng.class_weights[p.priority]:
+                    fail(f"classes: fresh request {r.rid} ({r.priority}) admitted "
+                         f"past the parked restore of {p.rid} ({p.priority})")
+        parked_calls[0] += bool(parked and queued)
+
+    eng._admit = checked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t = time.perf_counter()
+    for p, cls in zip(prompts, classes):
+        eng.submit(p, priority=cls, max_new_tokens=(2 * MIX_NEW_TOKENS if cls == "batch"
+                                                    else MIX_NEW_TOKENS))
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: c.read() for name, c in counters.items()}
+    stats, cs = dict(eng.stats), {k: dict(v) for k, v in eng.class_stats.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del eng
+    torch.cuda.empty_cache()
+    n_sub = sum(c["submitted"] for c in cs.values())
+    if len(done) != len(prompts) or n_sub != len(prompts):
+        fail(f"classes: {len(done)} finished and {n_sub} counted submitted of "
+             f"{len(prompts)}")
+    for r in done:
+        want = 2 * MIX_NEW_TOKENS if r.priority == "batch" else MIX_NEW_TOKENS
+        if len(r.out_tokens) != want:
+            fail(f"classes: request {r.rid} ({r.priority}) gave {len(r.out_tokens)} "
+                 f"tokens, not {want}")
+    for cls, c in cs.items():
+        n_cls = sum(r.priority == cls for r in done)
+        tok = sum(len(r.out_tokens) for r in done if r.priority == cls)
+        if c["submitted"] != n_cls or c["finished"] != n_cls or c["finished_tokens"] != tok:
+            fail(f"classes: class {cls}'s stats {c} against {n_cls} requests, {tok} tokens")
+    if sum(c["preemptions"] for c in cs.values()) != stats["preemptions"]:
+        fail("classes: the class preemptions do not sum to the engine's")
+    if sum(c["slo_violations"] for c in cs.values()) != stats["slo_violations"]:
+        fail("classes: the class SLO violations do not sum to the engine's")
+    per = {}
+    for cls in cs:
+        ttfts = sorted(r.ttft for r in done if r.priority == cls)
+        per[cls] = dict(cs[cls], ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3 if ttfts else None)
+    n_tok = sum(len(r.out_tokens) for r in done)
+    return launches, stats, dict(per_class=per, tokens=n_tok, wall_s=wall,
+                                 tok_s=n_tok / wall, peak_mem_bytes=peak,
+                                 parked_with_backlog=parked_calls[0])
+
+
+def class_phase(torch, cfg, params, counters, serve):
+    """24: the class-mixed stream (``--batch-frac 0.5``, deadlines of
+    ``CLASS_DEADLINE_MS`` / 10x) over ``PRESSURE_BLOCKS`` pages under swap
+    and recompute, every request finished with its class's new tokens, the
+    class stats summing to what was submitted, restores ahead of new work
+    (checked around every admission), phase 5's launch formulas over the
+    run's dispatches, the per-class TTFT p50 and SLO violations logged;
+    then the sampler (``sampling_check``)."""
+    L = cfg.n_layers
+    res = {}
+    for pol in ("swap", "recompute"):
+        launches, stats, summ = class_mix(torch, cfg, params, counters,
+                                          num_blocks=PRESSURE_BLOCKS,
+                                          preempt_policy=pol)
+        P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+        check_launches(f"classes {pol}", launches, serve_expect(L, P, Dd))
+        if stats["preemptions"] < 1:
+            fail(f"classes {pol}: the pool of {PRESSURE_BLOCKS} pages never preempted")
+        per = summ["per_class"]
+        log(f"classes {pol} ({PRESSURE_BLOCKS} pages, deadlines {CLASS_DEADLINE_MS:g} / "
+            f"{10 * CLASS_DEADLINE_MS:g} ms): {summ['tokens']} tokens in "
+            f"{summ['wall_s']:.3f} s ({summ['tok_s']:.1f} tok/s; phase 5 "
+            f"{serve['tok_s']:.1f}), preemptions {stats['preemptions']} (swap "
+            f"{stats['preempt_swaps']}, recompute {stats['preempt_recomputes']}), "
+            f"{summ['parked_with_backlog']} admissions with a restore parked and "
+            f"fresh work queued; " + "; ".join(
+                f"{cls}: {c['finished']}/{c['submitted']} finished, {c['finished_tokens']} "
+                f"tokens, {c['preemptions']} preempted, {c['slo_violations']} SLO "
+                f"violations, ttft p50 {c['ttft_p50_ms']:.1f} ms"
+                for cls, c in per.items() if c["submitted"]))
+        res[pol] = dict(summ, launches=launches,
+                        **{k: stats[k] for k in PREEMPT_KEYS + ("slo_violations",)})
+    res["sampling"] = sampling_check(torch, cfg, params)
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -4817,6 +5221,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     pressure = preempt_phase(torch, cfg, params, counters, serve)
     log(f"pressure: phase 22's stablelm part took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    classes = class_phase(torch, cfg, params, counters, serve)
+    log(f"classes: phase 24 took {time.perf_counter() - t_phase:.1f} s")
     for row in rows:
         name = ROW_COUNTER.get(row["name"], row["name"])
         for pol in ("swap", "recompute"):
@@ -4940,6 +5347,17 @@ def main() -> None:
     rows += moe_rows
     queue_c = queue_c_phase(torch, reduced(mcfg))
 
+    t_phase = time.perf_counter()
+    ncfg = get_config("minitron-4b")
+    gqa = gqa_rows(torch, timer, ncfg)
+    gqa_launches, gqa_serve = gqa_serve_phase(torch, ncfg, counters, serve)
+    for row, name in zip(gqa, ("paged_decode_attention", "paged_prefill_attention")):
+        row["launches"] = gqa_launches[name]
+        row["per_step"] = (f"L = {ncfg.n_layers} per "
+                           + ("decode step" if "decode" in name else "prefill chunk"))
+    rows += gqa
+    log(f"gqa: phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
     fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
     row7 = dense_rows[0]
@@ -4971,6 +5389,7 @@ def main() -> None:
              moe_serve_parity=moe_parity, moe_serve=moe_serve,
              moe_serve_launches=moe_launches, moe_fp32_identity=moe_fp32,
              pressure=pressure, hybrid_pressure=hybrid_pressure, queue_c=queue_c,
+             classes=classes, gqa_serve=gqa_serve, gqa_launches=gqa_launches,
              gemm_routes=gemm_routes, **kernels),
         indent=1))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -13,11 +13,24 @@ synthetic request stream.
       --reduced --device cpu [--dense | --kv-dtype int8 | --seq-shards 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --num-blocks 12 --preempt-policy swap [--proactive-horizon 2]
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --batch-frac 0.5 --deadline-ms 1e6 [--temperature 0.8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --ckpt-dir /tmp/ckpt        # what launch/train.py --ckpt-dir wrote
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
-Parameters are random, made from ``--seed``.  The port serves with greedy
-sampling the dense family, from a page pool in the engine dtype or in int8
+Parameters are random, made from ``--seed``, unless ``--ckpt-dir`` names a
+checkpoint of ``launch/train.py``: its latest step's parameters are served
+(an empty directory keeps the random ones).  ``--temperature`` samples
+(0: greedy; the draw is seeded by ``--seed``).  ``--batch-frac`` submits
+that share of the stream in the ``batch`` latency class with twice the new
+tokens, the rest ``interactive``; ``--deadline-ms`` gives the interactive
+class an SLO deadline and the batch class ten times it; a line per class
+reports its finishes, preemptions, SLO violations and TTFT p50.  The port
+serves the dense family (grouped kv heads too: ``--arch minitron-4b``),
+from a page pool in the engine dtype or in int8
 (``--kv-dtype int8``), whole or sequence-sharded (``--seq-shards S``: S
 shards of the one pool on the one device, their attention partials merged
 by the NoC tree combine, whose hop and energy totals are printed), RWKV6
@@ -33,7 +46,9 @@ stalls, preempts and restores under pressure, each victim swapped to the
 host arena or recomputed (``--preempt-policy``, ``--swap-pages``,
 ``--proactive-horizon``), and the summary line counts the preemptions by
 arm.  The JAX launcher's ``--expert-*`` flags (expert parallelism, the
-expert cache) come with a later slice.
+expert cache), ``--disagg`` and ``--handoff-pages`` come with later
+slices; ``--q-tile`` sizes the Pallas prefill's VMEM tile and has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -43,9 +58,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs import ARCHS, get_config, reduced as reduce_cfg
 from repro_torch.models import model
 from repro_torch.serve import ServeEngine
+from repro_torch.train import step as train_step
 
 # The full-width serving mix that chip_smoke.py and trace_serve.py drive:
 # stablelm-1.6b's engine at 8 slots, and 16 requests of 64 new tokens (the
@@ -78,6 +95,8 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of every request (0: greedy)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged-KV page size (tokens)")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -115,6 +134,17 @@ def main(argv=None):
     ap.add_argument("--dense", action="store_true",
                     help="serve from the dense [slots, max_seq] KV slabs "
                          "(the A/B baseline; turns prefix caching off)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="interactive-class SLO deadline in wall ms (the "
+                         "batch class gets 10x); finishes past the "
+                         "effective deadline count as slo_violations")
+    ap.add_argument("--batch-frac", type=float, default=0.0,
+                    help="fraction of the synthetic stream submitted as "
+                         "the 'batch' latency class (twice the new tokens, "
+                         "weight 1) instead of 'interactive' (weight 8)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest step's parameters of a "
+                         "checkpoint that launch/train.py wrote")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (the CUDA kernels) or "
                          "cpu (their plain PyTorch versions)")
@@ -130,7 +160,19 @@ def main(argv=None):
         raise SystemExit("no CUDA device visible; pass --device cpu to run "
                          "the plain PyTorch path")
     params = model.init_params(cfg, seed=args.seed, device=device)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        step_no, state = CheckpointManager(args.ckpt_dir).restore(
+            train_step.init_state(cfg, args.seed, device=device))
+        if state is not None:
+            # each leaf in the dtype init_params gives it
+            params = T.map(lambda p, r: p.to(r.dtype), state.params, params)
+            del state
+            print(f"[serve] restored step {step_no} from {args.ckpt_dir}")
     ekw = {}
+    if args.deadline_ms is not None:
+        ekw["class_deadlines_ms"] = {"interactive": args.deadline_ms,
+                                     "batch": 10.0 * args.deadline_ms}
     if args.prefill_buckets:
         ekw["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
@@ -143,13 +185,19 @@ def main(argv=None):
                       kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
                       preempt_policy=args.preempt_policy,
                       swap_pages=args.swap_pages,
-                      proactive_horizon=args.proactive_horizon, **ekw)
+                      proactive_horizon=args.proactive_horizon,
+                      seed=args.seed, **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
         plen = int(rng.integers(2, max(3, min(24, args.max_seq // 4))))
+        # drawn only with --batch-frac, so a one-class stream keeps its prompts
+        batch = args.batch_frac > 0 and rng.random() < args.batch_frac
         eng.submit(rng.integers(0, cfg.vocab_size, plen).tolist(),
-                   max_new_tokens=args.max_new_tokens)
+                   max_new_tokens=(2 * args.max_new_tokens if batch
+                                   else args.max_new_tokens),
+                   temperature=args.temperature,
+                   priority="batch" if batch else "interactive")
     done = eng.run_until_drained()
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -183,6 +231,24 @@ def main(argv=None):
           f"swap_bytes={eng.stats['swap_bytes']:.0f}), "
           f"gather_volume={eng.stats['gather_page_volume']:.0f}, "
           f"ttft_p50={p50:.1f}ms")
+    for cls in eng.class_order:
+        cs = eng.class_stats[cls]
+        if not cs["submitted"]:
+            continue
+        ttfts = sorted(r.ttft for r in done
+                       if r.priority == cls and r.ttft is not None)
+        p50 = ttfts[len(ttfts) // 2] * 1e3 if ttfts else 0.0
+        print(f"[serve] class {cls} (w={eng.class_weights[cls]:g}): "
+              f"finished={cs['finished']:.0f}/{cs['submitted']:.0f}, "
+              f"tokens={cs['finished_tokens']:.0f}, "
+              f"preemptions={cs['preemptions']:.0f}, "
+              f"slo_violations={cs['slo_violations']:.0f}, "
+              f"ttft_p50={p50:.1f}ms")
+    if args.deadline_ms is not None:
+        print(f"[serve] slo: interactive deadline {args.deadline_ms:g}ms "
+              f"(batch {10 * args.deadline_ms:g}ms): "
+              f"{eng.stats['slo_violations']:.0f} of {len(done)} finished "
+              f"requests violated")
     if eng.stats["preempt_proactive"]:
         print(f"[serve] proactive preemptions (horizon="
               f"{eng.proactive_horizon}): "

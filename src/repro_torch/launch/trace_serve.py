@@ -1,7 +1,7 @@
 """Where the device time goes when the port serves at full width.
 
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
-      [--arch rwkv6-3b | --arch zamba2-7b | --arch olmoe-1b-7b] \
+      [--arch rwkv6-3b | zamba2-7b | olmoe-1b-7b | minitron-4b] \
       [--dense | --kv-dtype int8 | --seq-shards 4] \
       [--num-blocks 129 --preempt-policy swap|recompute|auto]
 
@@ -9,12 +9,12 @@ Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
 ``--seed``) at full width and depth on the card through the engine: the
 runner path (default: the page pool, ``--kv-dtype int8`` for the int8 page
 pool, ``--seq-shards S`` for a sequence-sharded pool; rwkv6-3b's slot
-state; zamba2-7b's pool beside its Mamba2 slot state; olmoe-1b-7b's pool)
-or the dense-slab
-baseline (``--dense``,
-``ServeEngine(paged=False)``), on the mix that ``chip_smoke.py`` drives
-(``launch/serve.py:shared_prefix_mix``): once untimed to warm up, once
-untraced for the wall clock, once under ``torch.profiler``.  Prints the
+state; zamba2-7b's pool beside its Mamba2 slot state; olmoe-1b-7b's pool;
+minitron-4b's pool of 8 kv heads under 24 query heads) or the dense-slab
+baseline (``--dense``, ``ServeEngine(paged=False)``), on the mix that
+``chip_smoke.py`` drives (``launch/serve.py:shared_prefix_mix``): once
+untimed to warm up, once untraced for the wall clock, once under
+``torch.profiler``.  Prints the
 device kernel time by kernel and by group (the port's CUDA kernels,
 GEMMs, other PyTorch ops) and the device busy share: summed kernel time
 over the untraced wall time (one stream, so kernels do not overlap).  The
@@ -41,7 +41,9 @@ and the positions; ``dispatch``, the scatter; ``combine``, the gather and
 the gated sum) is its own group, "MoE dispatch", GEMMs included, and the
 routed experts' batched GEMMs (``experts``) are counted apart from the
 other GEMMs, as "expert GEMMs" (their silu_mul stays with the port's
-kernels).  ``--num-blocks`` below the pool's full capacity serves the mix
+kernels).  The LM head (``models/model.py:_logits``: the final norm and
+the vocabulary-wide GEMM) is its own group, "LM head", its rmsnorm left
+with the port's kernels.  ``--num-blocks`` below the pool's full capacity serves the mix
 under page pressure (``--preempt-policy``): the engine's swap-out
 (``ServeEngine._swap_out``: the page gathers and the device-to-host
 copies), swap-in (``_restore_swapped``: the host-to-device copies and the
@@ -93,10 +95,12 @@ RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
           (moe, "route", "MoE dispatch"),
           (moe, "dispatch", "MoE dispatch"),
           (moe, "combine", "MoE dispatch"),
-          (moe, "experts", "expert GEMMs"))
+          (moe, "experts", "expert GEMMs"),
+          (model, "_logits", "LM head"))
 # the groups a range's kernels leave for its own (default: the non-GEMM
 # kernels, so a range's GEMMs stay GEMMs; None: every group)
 MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,),
+              "LM head": (OTHER_OPS, GEMMS),
               "swap out": None, "swap in": None, "recompute": None}
 # the engine's preemption arms: (method, group); the replay chunks of a
 # recompute restore are ranged by _replay_ranged

@@ -21,8 +21,24 @@ its GShard drops are the JAX engine's at any ``capacity_factor``:
   statistics match); a new prompt's longest cached page prefix is attached
   by reference (refcounted, copy-on-write when the match ends mid-page) and
   cold cached pages are evicted LRU under pool pressure.
-* **Greedy sampling** — one argmax over the whole batch per tick (a single
-  device-to-host copy), first index on ties, as ``jnp.argmax``.
+* **Sampling** — one pass over the batch per tick with a per-row
+  temperature and a single device-to-host copy: a row at ``T = 0`` takes the
+  argmax of its raw logits (first index on ties, as ``jnp.argmax``), a row
+  at ``T > 0`` the Gumbel-max draw ``argmax(logits / T + Gumbel)`` in f32,
+  the form of ``jax.random.categorical``, its noise drawn from one
+  ``torch.Generator`` on the engine's device seeded by ``seed``.  A tick
+  whose rows are all greedy draws no noise, so a greedy stream runs as it
+  did before sampling came.  The bits cannot match JAX's threefry stream;
+  the distributions do.
+* **Latency classes** (``LATENCY_CLASSES``, ``class_weights``) — one queue
+  per class; restores re-admit first, class by class, a blocked restore
+  holding back its own and every lighter class; fresh work is admitted by
+  deficit-weighted round-robin over the classes (credit reset when a
+  class's queue is empty).  A victim's eviction score carries its own
+  class's weight.  ``class_stats`` counts submissions, finishes, tokens,
+  preemptions and SLO violations per class; a finish later than the
+  request's ``deadline_ms`` (or its class's ``class_deadlines_ms``) on the
+  wall clock is a violation.
 * **Dense-slab baseline** (``paged=False``) — the JAX engine's A/B
   baseline: ``[L, slots, max_seq]`` K/V slabs (RWKV6, Mamba2: the
   recurrent state of ``slots`` rows; the hybrid: ``[G, slots, max_seq]``
@@ -84,17 +100,15 @@ its GShard drops are the JAX engine's at any ``capacity_factor``:
   model, the paper's CXL link against its PIM banks); a full arena turns a
   swap into a recompute.  Preempted requests re-admit ahead of new ones,
   and no decoded token is replayed, so greedy outputs are token-identical
-  to an unpressured run.  The JAX engine's machinery, order for order, with
-  its one latency class ``interactive``.
+  to an unpressured run.  The JAX engine's machinery, order for order.
 
-Not ported in this slice (construction raises if asked for): SLO classes
-and deadlines, prefill/decode roles (and with them ``HandoffHandle``),
-expert parallelism, the expert cache and its telemetry
+Not ported in this slice (construction raises if asked for): prefill/decode
+roles and with them ``HandoffHandle`` and ``submit_handoff`` (ROADMAP A.5),
+and expert parallelism, the expert cache and its telemetry
 (``expert_parallel``, ``expert_cache_size``, ``expert_prefetch``,
-``expert_placement``: ROADMAP A.2b) and temperature sampling.  The JAX
-engine's prefill-bucket VMEM guard has no counterpart: the CUDA prefill
-kernel's query tile is fixed at 16 rows, so no chunk size can overflow its
-shared memory.
+``expert_placement``: ROADMAP A.2b).  The JAX engine's ``q_tile`` and its
+prefill-bucket VMEM guard have no counterpart: the CUDA prefill kernel's
+query tile is fixed, so no chunk size can overflow its shared memory.
 """
 from __future__ import annotations
 
@@ -114,10 +128,12 @@ from repro_torch.models import model as M
 from repro_torch.models.runner import ModelRunner
 from repro_torch.serve import swap
 
-# The JAX engine's weight of its default latency class, "interactive": a
-# victim's eviction score is pages x restore seconds x weight.  The port
-# serves that one class until SLO classes come (ROADMAP A.4).
-INTERACTIVE_WEIGHT = 8.0
+# Latency classes and their default weights (the JAX engine's): a victim's
+# eviction score is pages x restore seconds x its class's weight, and
+# admission serves heavier classes first, by deficit-weighted round-robin
+# among fresh work.  The engine's ``class_weights`` overrides or extends them.
+LATENCY_CLASSES = ("interactive", "batch")
+CLASS_WEIGHTS = {"interactive": 8.0, "batch": 1.0}
 PREEMPT_POLICIES = ("swap", "recompute", "auto")
 
 
@@ -127,7 +143,10 @@ class Request:
     rid: int
     prompt: np.ndarray                  # [len] int32
     max_new_tokens: int = 32
+    temperature: float = 0.0            # 0: greedy
     eos_id: Optional[int] = None
+    priority: str = "interactive"       # latency class
+    deadline_ms: Optional[float] = None  # SLO deadline, submit -> finish
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     prefill_pos: int = 0                # tokens already prefilled (chunked)
@@ -187,6 +206,27 @@ class RequestFuture(int):
             self._driver._future_step()
         raise RuntimeError(
             f"request {int(self)} unfinished after {max_ticks} ticks")
+
+
+def sample_tokens(logits: torch.Tensor, temperature,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One token per row of ``logits`` [B, V] (a device tensor of int64):
+    where the row's ``temperature`` (B host floats) is 0, the argmax of its
+    raw logits; where it is above 0, the Gumbel-max draw ``argmax(logits / T
+    + G)`` in f32, ``G = -log(-log(U))`` with U uniform from ``generator``
+    (the form of ``jax.random.categorical``).  A batch of greedy rows draws
+    nothing from the generator."""
+    greedy = torch.argmax(logits, dim=-1)
+    temps = np.asarray(temperature, np.float32).reshape(-1)
+    hot = temps > 0
+    if not hot.any():
+        return greedy
+    lf = logits.float()
+    t = torch.from_numpy(np.where(hot, temps, np.float32(1))).to(lf.device)
+    u = torch.rand(lf.shape, generator=generator, device=lf.device,
+                   dtype=torch.float32)
+    drawn = torch.argmax(lf / t[:, None] - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(torch.from_numpy(hot).to(lf.device), drawn, greedy)
 
 
 def _next_pow2(n: int) -> int:
@@ -386,7 +426,8 @@ class BlockAllocator:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_seq: int = 512,
-                 slots: int = 8, prefill_buckets=(32, 128, 512, 2048),
+                 slots: int = 8, seed: int = 0,
+                 prefill_buckets=(32, 128, 512, 2048),
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_tokens_per_tick: Optional[int] = None,
                  paged: Optional[bool] = None,
@@ -394,16 +435,20 @@ class ServeEngine:
                  kv_dtype: str = "fp16", seq_shards: int = 1,
                  preempt_policy: str = "auto",
                  swap_pages: Optional[int] = None,
+                 class_weights: Optional[Dict[str, float]] = None,
+                 class_deadlines_ms: Optional[Dict[str, float]] = None,
                  proactive_horizon: int = 0, **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
         on the card unless asked for the CPU); their dtype is the pool's.
-        ``prefill_buckets``: chunk sizes for chunked prefill (``max_seq`` is
-        always added).  ``num_blocks``: page-pool size (default full
-        capacity, ``slots * ceil(max_seq / block_size)`` plus a null page
-        per shard); a smaller pool oversubscribes, and the engine then
-        stalls, preempts and restores under pressure.
+        ``seed``: the sampling generator's seed (rows at ``temperature``
+        0 draw nothing from it).  ``prefill_buckets``: chunk sizes for
+        chunked prefill (``max_seq`` is always added).  ``num_blocks``:
+        page-pool size (default full capacity, ``slots * ceil(max_seq /
+        block_size)`` plus a null page per shard); a smaller pool
+        oversubscribes, and the engine then stalls, preempts and restores
+        under pressure.
         ``max_tokens_per_tick``: padded-token budget per tick shared by
         decode (reserved first) and prefill; default ``slots`` + the largest
         bucket.  ``paged``: None serves through the runner (the page pool for a
@@ -421,9 +466,13 @@ class ServeEngine:
         most of it) or "auto" (per victim, ``core.noc.preempt_decision``).
         ``swap_pages``: the host arena's capacity in pages (default one full
         pool's); a full arena turns a swap into a recompute.
-        ``proactive_horizon``: ticks of look-ahead for proactive preemption
-        (0: only a deadlock preempts).  Any other JAX-engine option raises:
-        it belongs to a later slice."""
+        ``class_weights``: latency class -> weight (positive), over
+        ``CLASS_WEIGHTS``; admission and the victim score follow it.
+        ``class_deadlines_ms``: a class's default SLO deadline (submit ->
+        finish, wall ms), counted in ``stats["slo_violations"]`` and
+        ``class_stats``.  ``proactive_horizon``: ticks of look-ahead for
+        proactive preemption (0: only a deadlock preempts).  Any other
+        JAX-engine option raises: it belongs to a later slice."""
         expert = sorted(k for k in later if k.startswith("expert_"))
         if expert:
             raise NotImplementedError(
@@ -432,9 +481,9 @@ class ServeEngine:
                 f"parallelism, the expert cache and its telemetry)")
         if later:
             raise NotImplementedError(
-                f"engine options {sorted(later)} are not ported yet: SLO "
-                f"classes, sampling and roles come with later slices of "
-                f"repro_torch (ROADMAP A.4, A.5)")
+                f"engine options {sorted(later)} are not ported yet: "
+                f"prefill/decode roles and the handoff come with later "
+                f"slices of repro_torch (ROADMAP A.5)")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -501,6 +550,24 @@ class ServeEngine:
         if self.proactive_horizon < 0:
             raise ValueError(
                 f"proactive_horizon must be >= 0, got {proactive_horizon}")
+        self.class_weights = dict(CLASS_WEIGHTS)
+        if class_weights:
+            self.class_weights.update(class_weights)
+        if any(w <= 0 for w in self.class_weights.values()):
+            raise ValueError(f"class weights must be positive: "
+                             f"{self.class_weights}")
+        # admission order: heaviest class first, by name on ties
+        self.class_order = tuple(sorted(
+            self.class_weights, key=lambda c: (-self.class_weights[c], c)))
+        self.class_deadlines_ms = dict(class_deadlines_ms or {})
+        unknown = set(self.class_deadlines_ms) - set(self.class_weights)
+        if unknown:
+            raise ValueError(
+                f"class_deadlines_ms names unknown classes {sorted(unknown)}"
+                f"; this engine serves {sorted(self.class_weights)}")
+        # deficit round-robin credit per class (fresh admissions only)
+        self._deficit = {cls: 0.0 for cls in self.class_order}
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.block_size = block_size
         self.blocks_per_slot = -(-max_seq // block_size)
@@ -526,7 +593,9 @@ class ServeEngine:
 
         self.lengths = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
-        self._queue: Deque[Request] = deque()
+        # one FIFO per latency class, admitted in class_order by _admit
+        self._queues: Dict[str, Deque[Request]] = {
+            cls: deque() for cls in self.class_order}
         # preempted requests re-admit from here ahead of new submissions
         self.restore_queue: Deque[Request] = deque()
         self.swap_pages = (swap_pages if swap_pages is not None
@@ -540,19 +609,35 @@ class ServeEngine:
         self.stats: Dict[str, float] = {}
         self.reset_stats()
 
+    @staticmethod
+    def _zero_class_stats() -> Dict[str, float]:
+        return {"submitted": 0, "finished": 0, "finished_tokens": 0,
+                "preemptions": 0, "slo_violations": 0}
+
+    @property
+    def queue(self) -> List[Request]:
+        """Queued requests, class by class in ``class_order`` and by age
+        within a class: a snapshot, not the admission order (``_admit``
+        interleaves classes by deficit round-robin)."""
+        return [r for cls in self.class_order for r in self._queues[cls]]
+
     @property
     def queued(self) -> int:
-        return len(self._queue)
+        return sum(len(q) for q in self._queues.values())
 
     # -- submission ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32,
-               eos_id: Optional[int] = None) -> RequestFuture:
-        """Queue one greedy generation request; returns a
-        :class:`RequestFuture`.  Empty or out-of-vocab prompts raise (an
-        out-of-vocab id would poison recycled pages), as does a request that
-        could never fit the pool.  With prefix caching the chained page
-        digests are computed here so admission can attach the longest
-        cached prefix."""
+               eos_id: Optional[int] = None, temperature: float = 0.0,
+               priority: str = "interactive",
+               deadline_ms: Optional[float] = None) -> RequestFuture:
+        """Queue one generation request; returns a :class:`RequestFuture`.
+        ``temperature`` 0 is greedy; ``priority`` is the latency class (a
+        key of ``class_weights``); ``deadline_ms`` overrides the class's
+        SLO deadline.  Empty or out-of-vocab prompts raise (an out-of-vocab
+        id would poison recycled pages), as do an unknown class and a
+        request that could never fit the pool.  With prefix caching the
+        chained page digests are computed here so admission can attach the
+        longest cached prefix."""
         prompt = np.array(prompt, np.int32, copy=True)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -561,7 +646,12 @@ class ServeEngine:
                 f"token ids must be in [0, {self.cfg.vocab_size}); got "
                 f"range [{prompt.min()}, {prompt.max()}]")
         req = Request(next(self._rid), prompt, max_new_tokens=max_new_tokens,
-                      eos_id=eos_id)
+                      temperature=temperature, eos_id=eos_id,
+                      priority=priority, deadline_ms=deadline_ms)
+        if req.priority not in self.class_weights:
+            raise ValueError(
+                f"unknown latency class {req.priority!r}; this engine "
+                f"serves {sorted(self.class_weights)}")
         req._t_submit = time.perf_counter()
         req.submit_tick = self._tick
         pages = -(-min(self._plen(req) + req.max_new_tokens, self.max_seq)
@@ -575,8 +665,9 @@ class ServeEngine:
             req._digests = _page_digests(prompt, self.block_size,
                                          self._plen(req) // self.block_size,
                                          seed=self._digest_seed)
+        self.class_stats[req.priority]["submitted"] += 1
         self._reqs[req.rid] = req
-        self._queue.append(req)
+        self._queues[req.priority].append(req)
         return RequestFuture(req.rid, self)
 
     def _free_slot(self) -> Optional[int]:
@@ -612,25 +703,49 @@ class ServeEngine:
 
     # -- scheduling ----------------------------------------------------
     def _admit(self) -> None:
-        """Move requests into free slots: preempted ones first (FIFO), then
-        queued ones (FIFO), attaching each prompt's longest cached page
-        prefix.  A restore that cannot be placed yet (a swap-in short of
-        free pages) blocks every admission behind it, so new work never
-        takes the pages its victim was evicted to free.  (The JAX engine
-        orders classes by weight and admits fresh work by deficit
-        round-robin; with its one class that is this order.)"""
-        for req in list(self.restore_queue):
+        """Move requests into free slots, in the JAX engine's two phases.
+        **Restores first**, class by class in ``class_order``, FIFO within
+        a class: a restore that cannot be placed yet (a swap-in short of
+        free pages) holds back everything of its own and every lighter
+        class, so equal or lighter new work never takes the pages its
+        victim was evicted to free, while a strictly heavier class may
+        still pass it.  **Fresh submissions** then go by deficit-weighted
+        round-robin over the classes above that barrier: when no candidate
+        class has a credit, each gains its weight; the class with the most
+        credit (the heavier on ties) admits its oldest request and spends
+        one.  A class's credit resets while its queue is empty, so an idle
+        engine admits a burst in class-then-age order.  Each admission
+        attaches the prompt's longest cached page prefix."""
+        barrier = 0.0          # classes of weight <= barrier are held back
+        for cls in self.class_order:
+            w = self.class_weights[cls]
+            if w <= barrier:
+                continue
+            for req in [r for r in self.restore_queue if r.priority == cls]:
+                slot = self._free_slot()
+                if slot is None:
+                    return
+                if not self._restore(slot, req):
+                    barrier = max(barrier, w)   # it waits for pages
+                    break
+                self.restore_queue.remove(req)
+        for cls in self.class_order:
+            if not self._queues[cls]:
+                self._deficit[cls] = 0.0       # no credit accrues idle
+        while True:
+            cand = [c for c in self.class_order
+                    if self._queues[c] and self.class_weights[c] > barrier]
+            if not cand:
+                return
             slot = self._free_slot()
             if slot is None:
                 return
-            if not self._restore(slot, req):
-                return                     # it waits for pages
-            self.restore_queue.remove(req)
-        while self._queue:
-            slot = self._free_slot()
-            if slot is None:
-                return
-            req = self._queue.popleft()
+            if all(self._deficit[c] < 1.0 for c in cand):
+                for c in cand:
+                    self._deficit[c] += self.class_weights[c]
+            cls = max(cand, key=lambda c: (self._deficit[c],
+                                           self.class_weights[c]))
+            req = self._queues[cls].popleft()
             req.prefill_pos = 0
             req.cached_len = 0
             req._published = 0
@@ -641,6 +756,7 @@ class ServeEngine:
                 self.state = self.runner.reset_slot(self.state, slot)
             if self.prefix_attach:
                 self._attach_prefix(slot, req)
+            self._deficit[cls] -= 1.0
 
     def _attach_prefix(self, slot: int, req: Request) -> None:
         """Share the longest registered page chain matching the prompt.  The
@@ -923,8 +1039,9 @@ class ServeEngine:
 
     def _finish_prefill(self, slot: int, req: Request, logits,
                         finished: List[Request]) -> None:
-        """Prompt fully cached: take the first token (greedy)."""
-        first = int(torch.argmax(logits[0]))
+        """Prompt fully cached: sample the first token."""
+        first = int(sample_tokens(logits[0].reshape(1, -1), [req.temperature],
+                                  self.generator)[0])
         req.out_tokens.append(first)
         req._t_first = time.perf_counter()
         req.ttft = req._t_first - req._t_submit
@@ -934,11 +1051,22 @@ class ServeEngine:
             self._finish(slot, req, finished)
 
     def _finish(self, slot: int, req: Request, finished: List[Request]) -> None:
+        """Retire a completed request: its clocks, its class's counts, and
+        an SLO violation when it finished past its deadline (its own
+        ``deadline_ms``, else its class's) on the wall clock."""
         req.done = True
         req.finish_tick = self._tick
+        now = time.perf_counter()
         if len(req.out_tokens) > 1 and req._t_first:
-            req.tpot = ((time.perf_counter() - req._t_first)
-                        / (len(req.out_tokens) - 1))
+            req.tpot = (now - req._t_first) / (len(req.out_tokens) - 1)
+        cs = self.class_stats[req.priority]
+        cs["finished"] += 1
+        cs["finished_tokens"] += len(req.out_tokens)
+        dl = (req.deadline_ms if req.deadline_ms is not None
+              else self.class_deadlines_ms.get(req.priority))
+        if dl is not None and req._t_submit and (now - req._t_submit) * 1e3 > dl:
+            self.stats["slo_violations"] += 1
+            cs["slo_violations"] += 1
         finished.append(req)
         self._retire(slot)
 
@@ -1049,7 +1177,10 @@ class ServeEngine:
         else:
             logits, self.state = M.decode_step(
                 self.cfg, self.params, self.state, self._to_device(toks), lens)
-        nxt_all = torch.argmax(logits, dim=-1).tolist()
+        temps = np.zeros((self.slots,), np.float32)
+        for i in runnable:
+            temps[i] = self.active[i].temperature
+        nxt_all = sample_tokens(logits, temps, self.generator).tolist()
         for i in runnable:
             req = self.active[i]
             self.lengths[i] += 1
@@ -1096,13 +1227,15 @@ class ServeEngine:
 
     def _victim_score(self, slot: int):
         """Evict the slot whose loss costs least: pages held x restore
-        seconds x the interactive class's weight (JAX's score); ties by
-        decoded tokens, prefill progress, then the slot index."""
+        seconds x the victim's class weight (JAX's score), so an
+        interactive request falls only when no equal-cost batch victim
+        exists; ties by decoded tokens, prefill progress, then the slot
+        index."""
         req = self.active[slot]
         live = int(self.lengths[slot])
         pages = int(self.alloc.used[slot])
         score = (pages * self._restore_seconds(req, live)
-                 * INTERACTIVE_WEIGHT)
+                 * self.class_weights[req.priority])
         return (score, len(req.out_tokens), req.prefill_pos, slot)
 
     def _page_demand(self, horizon: int) -> int:
@@ -1161,6 +1294,7 @@ class ServeEngine:
         req = self.active[slot]
         live = int(self.lengths[slot])
         self.stats["preemptions"] += 1
+        self.class_stats[req.priority]["preemptions"] += 1
         self.stats["preempted_tokens"] += live
         req._preempted_live = live
         if live == 0:                   # nothing cached yet: plain requeue
@@ -1297,7 +1431,7 @@ class ServeEngine:
         done: List[Request] = []
         for _ in range(max_ticks):
             done.extend(self.step())
-            if (not self._queue and not self.restore_queue
+            if (not self.queued and not self.restore_queue
                     and all(r is None for r in self.active)):
                 return done
         if strict:
@@ -1317,7 +1451,8 @@ class ServeEngine:
 
     # -- introspection -------------------------------------------------
     def reset_stats(self) -> None:
-        """Zero the counters (the prefix-cache registry is kept)."""
+        """Zero the counters and the class stats (the prefix-cache registry
+        is kept)."""
         self.stats = {
             "ticks": 0, "prefill_tokens": 0, "decode_tokens": 0,
             "occupancy_sum": 0.0, "padded_tokens": 0, "prefill_dispatches": 0,
@@ -1341,7 +1476,12 @@ class ServeEngine:
             "noc_combines": 0, "noc_hops": 0, "noc_bytes": 0,
             "noc_energy_pj": 0.0,
             "kv_bytes_per_page": self._page_kv_bytes() if self.paged else 0,
+            # finished requests past their deadline (per request, else
+            # their class's), also counted per class in class_stats
+            "slo_violations": 0,
         }
+        self.class_stats: Dict[str, Dict[str, float]] = {
+            cls: self._zero_class_stats() for cls in self.class_order}
         if self.paged:
             self.alloc.reset_counters()
 

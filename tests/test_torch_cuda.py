@@ -177,6 +177,38 @@ def test_paged_prefill_kernel(dev, dtype, h, kvh, d, bs, c):
                 _close(a[0, :ln], b_[0, :ln], dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_minitron_paged_kernels(dev, dtype):
+    """minitron-4b's grouped heads, 24 query heads over 8 kv heads of 128
+    (G = 3, a group short of the decode block's 8 rows): the paged decode
+    over a 64-page table at lengths on page and split edges, and a 512-row
+    prefill chunk at offset 256 (C x G = 1536 rows, 24 bf16 tiles), each
+    against the plain version and bitwise repeatable; a version that reads
+    q head h against kv head h mod 8 instead of h // 3 fails the same
+    tolerance."""
+    h, kvh, d, bs, mb = 24, 8, 128, 16, 64
+    rng = np.random.default_rng(32)
+    lens = _decode_lengths(dev, 8, h, kvh, bs, mb, bs)
+    b = len(lens)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    kp, vp, _, _, bt = _decode_pool(rng, dev, b, mb, b * mb + 4, kvh, bs, d,
+                                    dtype, False)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    wrong = torch.arange(h, device=dev) % kvh
+    got = _repeat_equal(lambda: kda.paged_decode_attention(q, kp, vp, bt, lens))
+    _close(got, ref.paged_decode_attention(q, kp, vp, bt, lengths=lens), dtype)
+    bad = ref.paged_decode_attention(q, kp[wrong], vp[wrong], bt, lengths=lens)
+    assert not torch.allclose(got.float(), bad.float(), **TOLS[dtype])
+    c, qoff = 512, 256
+    qp = _rand(rng, (1, c, h, d), dtype, dev)
+    table = bt[0].contiguous()
+    kw = dict(q_offset=qoff, length=c)
+    got = _repeat_equal(lambda: kpf.paged_prefill_attention(qp, kp, vp, table, **kw))
+    _close(got, ref.paged_prefill_attention(qp, kp, vp, table, **kw), dtype)
+    bad = ref.paged_prefill_attention(qp, kp[wrong], vp[wrong], table, **kw)
+    assert not torch.allclose(got.float(), bad.float(), **TOLS[dtype])
+
+
 def _int8_pool(rng, kvh, nb, bs, d, dev):
     """int8 K and V pages [KvH, NB, BS, D] with their per-(kv head, page)
     f32 scales, quantized from N(0, 1) pages with numpy."""

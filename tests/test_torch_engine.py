@@ -129,10 +129,16 @@ def test_allocator_share_release_and_lru():
 def test_engine_refuses_unported_options(granite):
     _, _, tparams = granite
     cfg = reduced(get_config("granite-3-2b"))
-    for kw in (dict(expert_parallel=2), dict(class_weights={"batch": 1.0}),
-               dict(role="prefill")):
+    for kw in (dict(expert_parallel=2), dict(role="prefill")):
         with pytest.raises(NotImplementedError, match="later slices"):
             TEngine(cfg, tparams, max_seq=32, slots=1, **kw)
+    # latency classes are ported: a class weight stands up, a bad one is
+    # refused as in JAX
+    assert TEngine(cfg, tparams, max_seq=32, slots=1,
+                   class_weights={"batch": 2.0}).class_weights["batch"] == 2.0
+    with pytest.raises(ValueError, match="positive"):
+        TEngine(cfg, tparams, max_seq=32, slots=1,
+                class_weights={"batch": 0.0})
     # preemption is ported: a pool below full capacity stands up, and a bad
     # policy is refused as in JAX
     small = TEngine(cfg, tparams, max_seq=32, slots=2, block_size=8,

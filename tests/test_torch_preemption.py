@@ -422,14 +422,14 @@ def test_deadlock_broken_by_preemption_matches_jax():
 def test_engine_options_and_strict_drain(monkeypatch):
     """preempt_policy and proactive_horizon are validated as in JAX; a pool
     below full capacity stands up; the strict drain error names the
-    preemptions by arm and the restore backlog; the other late options
-    still raise."""
+    preemptions by arm and the restore backlog; the roles and the JAX
+    engine's q_tile still raise."""
     tcfg, _, _, tp = _model("granite-3-2b")
     with pytest.raises(ValueError, match="preempt_policy"):
         TEngine(tcfg, tp, preempt_policy="restart", **KW)
     with pytest.raises(ValueError, match="proactive_horizon"):
         TEngine(tcfg, tp, proactive_horizon=-1, **KW)
-    for opt in ("class_weights", "role", "temperature"):
+    for opt in ("role", "q_tile"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TEngine(tcfg, tp, **{opt: None}, **KW)
     eng = TEngine(tcfg, tp, num_blocks=3, **KW)
