@@ -298,7 +298,37 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    softmax(logits / T), a control that skips the division by T outside it,
    the draws from one seed equal twice, a T = 0 row the argmax; two engines
    from one seed token-identical on a stream of sampled and greedy
-   requests, the greedy ones equal to a greedy-only run's.
+   requests, the greedy ones equal to a greedy-only run's;
+25. MoE training (after 23, the serving models freed; olmoe-1b-7b at
+   full width cut to ``trace_train.ONE_CARD_LAYERS``'s 8 of 16 layers):
+   rows 6o and 6ob, the flash pair at q/k/v [2, 4096, 16, 128] bf16 held
+   with phase 6's tolerances (the backward twice bitwise equal) and timed
+   beside SDPA; rows 5et and 5eb, silu_mul and its backward on the routed
+   experts' [64, 1280, 1024] (cap = 8192 rows x top 8 x 1.25 / 64) held
+   in bf16 (twice bitwise equal, timed as phase 3) and f32; one MoE
+   layer's vjp (0.5 |y|^2 + 0.01 lb + 1e-3 z) in f32 at olmoe's and at
+   qwen2-moe-a2.7b's width (60 experts padded to 64, 4 shared), card
+   against CPU: routing and drops equal, every gradient within 1e-4 of the
+   leaf's largest entry, the padded router columns' gradients zero;
+   reduced olmoe at fp32 as phase 7, its routing equal on both devices in
+   every layer's forward and recompute before the gradients are compared,
+   a crash and resume bit-identical; olmoe-1b-7b at 8 layers in bf16 for
+   ``TRAIN_STEPS`` steps of 2 x 4096 tokens through ``make_train_step``
+   with remat: every launch count at granite's formulas with L = 8
+   (silu_mul the experts' one call a layer, 2L forward on the vector route
+   and L backward), each step's recomputes routed as its forward, loss,
+   lb, z and each layer's drop fraction finite and logged with the step
+   seconds, tokens/s and peak memory;
+26. the expert cache (after 21, with its olmoe-1b-7b parameters at full
+   width and depth): the mix of 5 in bf16 through the runner with
+   ``expert_cache_size`` ``EXPERT_CACHE`` (adaptive with prefetch,
+   adaptive without, static, adaptive again), each after a run without
+   the cache, each token-identical to phase 21's runner run with every
+   launch count equal to it, the accounting invariants holding (hits +
+   misses = lookups = L k routed tokens, migration bytes = migrations x
+   an expert's bytes, one telemetry read a dispatch), static placement
+   never migrating; hit rates, migrations, the telemetry's host ms a
+   dispatch and every run's tok/s logged beside phase 21's.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -2382,7 +2412,11 @@ def train_parity_phase(torch, cfg_small, perturb=None):
     the card (kernels) against the CPU (plain versions) from the same
     parameters (``perturb`` edits the initial parameters in place), then a
     crash and resume on the card that must end bit-identical to an
-    uninterrupted run (the JAX driver's contract)."""
+    uninterrupted run (the JAX driver's contract).  An MoE config's routing
+    (every layer's forward and remat recompute) must be equal on the two
+    devices before its gradients are compared: a flipped near-tie would
+    otherwise show as a large gradient miss."""
+    import contextlib
     import shutil
 
     from repro_torch import tree as T
@@ -2399,16 +2433,34 @@ def train_parity_phase(torch, cfg_small, perturb=None):
     lr, wd = 1e-3, 0.1
     batch = SyntheticLM(cfg_small.vocab_size, 64, 4, seed=1).batch(0)
     grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg_small))
-    out = {}
+    out, routes = {}, {}
+    moe = cfg_small.family == "moe"
     for dev in ("cpu", "cuda"):
         state = init(dev)
-        (_, _), grads = grad_fn(state.params, _batch_to(batch, dev))
+        with RouteRecorder() if moe else contextlib.nullcontext() as rec:
+            (_, _), grads = grad_fn(state.params, _batch_to(batch, dev))
+        if moe:
+            routes[dev] = [(sl.cpu(), int(kept)) for sl, kept, _ in rec.calls]
         grads = [g.cpu() for g in T.leaves(grads)]
         step = TS.make_train_step(cfg_small, base_lr=lr, warmup=1, weight_decay=wd)
         state, met = step(state, _batch_to(batch, dev))
         out[dev] = (grads, T.leaves(state.params), float(met["loss"]),
                     float(met["grad_norm"]))
     (grc, pc, lc, gc), (grg, pg, lg, gg) = out["cpu"], out["cuda"]
+    if moe:
+        L = cfg_small.n_layers
+        if not len(routes["cuda"]) == len(routes["cpu"]) == 2 * L:
+            fail(f"train parity: {len(routes['cuda'])} / {len(routes['cpu'])} "
+                 f"routings, expected 2 L = {2 * L}")
+        for i, ((sg, kg), (sc, kc)) in enumerate(zip(routes["cuda"], routes["cpu"])):
+            if not torch.equal(sg, sc) or kg != kc:
+                fail(f"train parity: routing {i} (layer {i if i < L else 2 * L - 1 - i}, "
+                     f"{'forward' if i < L else 'recompute'}) differs between the "
+                     f"card and the CPU: {int((sg != sc).sum())} slots, kept {kg} vs {kc}")
+        kept = [k for _, k in routes["cuda"][:L]]
+        log(f"train parity: {cfg_small.name}: routing equal on the card and the CPU "
+            f"in every layer's forward and recompute ({2 * L} dispatches, kept "
+            f"{kept} of {routes['cuda'][0][0].numel()} assignments a layer)")
     # every gradient leaf, card (kernels forward and backward) against the
     # CPU (autograd of the plain versions), relative to the leaf's largest
     # entry: a wrong sign or a lost term in one leaf shows here even where
@@ -2713,7 +2765,9 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
     """Full width and depth, bf16, TRAIN_STEPS steps of TRAIN_BATCH x
     TRAIN_SEQ tokens through make_train_step with remat; ``expect_fn(cfg,
     steps)`` gives the exact launch count of every counted kernel and
-    ``watched(state)`` the weight matrices that must move.  Weight
+    ``watched(state)`` the weight matrices that must move.  An MoE config
+    also logs the aux losses and each layer's drop fraction, and each
+    step's recomputes must route as its forward did.  Weight
     matrices, not norm scales: a scale of 1.0 has a bf16 ulp of 2^-7,
     larger than an early step's update (~lr), so it stays at 1.0 in bf16
     training in either framework."""
@@ -2746,16 +2800,35 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
-    times, losses, gnorms = [], [], []
+    times, losses, gnorms, aux, routed = [], [], [], [], []
+    moe = cfg.family == "moe"
     for i in range(TRAIN_STEPS):
+        rec = RouteRecorder() if moe else None
         t = time.perf_counter()
-        state, met = step(state, batches[i])
+        if moe:
+            rec.__enter__()
+        try:
+            state, met = step(state, batches[i])
+        finally:
+            if moe:
+                rec.__exit__()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         losses.append(float(met["loss"]))
         gnorms.append(float(met["grad_norm"]))
+        aux.append((float(met["lb"]), float(met["z"])))
+        if moe:
+            remat_routing_equal(torch, rec.calls, cfg.n_layers, f"train: {cfg.name} step {i}")
+            routed.append(rec.fracs(rec.calls[:cfg.n_layers]))
+            del rec
     launches = {name: c.read() for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
+    if moe:
+        log(f"train: {cfg.name}: lb, z a step {aux}; drop fraction by layer a step "
+            f"{[[round(f, 4) for f in r] for r in routed]}; every recompute routed "
+            f"as its forward")
+        if not all(math.isfinite(a) for pair in aux for a in pair):
+            fail(f"train: {cfg.name}: non-finite aux losses {aux}")
 
     n = TRAIN_STEPS
     expect = expect_fn(cfg, n)
@@ -2784,6 +2857,7 @@ def train_phase(torch, cfg, counters, expect_fn, watched):
                           step_s=times, steady_step_s=step_s,
                           tokens_s=tokens / step_s, losses=losses,
                           grad_norms=gnorms, peak_mem_bytes=peak,
+                          aux_lb_z=aux, frac_dropped=routed,
                           state_mem_bytes=state_mem, n_params=n_params,
                           launches_expected=expect)
 
@@ -4061,7 +4135,7 @@ def moe_serve_phase(torch, cfg, counters):
     del params
     torch.cuda.empty_cache()
     return ({n: r[1] for n, r in runs.items()},
-            dict({n: r[2] for n, r in runs.items()}, same_bf16=same))
+            dict({n: r[2] for n, r in runs.items()}, same_bf16=same), ref_out)
 
 
 # (row of the {"kernels": ...} line) -> the launch counter it is read from
@@ -4071,6 +4145,294 @@ MOE_ROW_COUNTER = {"silu_mul_experts": ("runner", "silu_mul_vector"),
                    "paged_decode_attention_hd128": ("runner", "paged_decode_attention"),
                    "paged_prefill_attention_hd128": ("runner", "paged_prefill_attention"),
                    "decode_attention_hd128": ("slab", "decode_attention")}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the expert telemetry and the placement-aware expert cache
+# (olmoe-1b-7b with phase 21's parameters), and phase 25: MoE training
+# ---------------------------------------------------------------------------
+
+EXPERT_CACHE = 32                  # of olmoe's 64 experts a layer (phase 26)
+# the cache runs, each after a run without the cache on the same
+# parameters, so that the cache's tok/s is read against its neighbours in
+# time as well as against phase 21's runner run (None: the cache off)
+EXPERT_CACHE_RUNS = (("off", None), ("adaptive", {}),
+                     ("off", None), ("adaptive_no_prefetch", dict(expert_prefetch=False)),
+                     ("off", None), ("static", dict(expert_placement="static")),
+                     ("off", None), ("adaptive", {}))
+
+
+def _timed(fn, tally):
+    """``fn`` with its calls counted and their host seconds summed into
+    ``tally`` [calls, seconds]."""
+    def call(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        tally[1] += time.perf_counter() - t
+        tally[0] += 1
+        return out
+    return call
+
+
+def expert_cache_phase(torch, cfg, counters, runner_out, runner_launches,
+                       runner_summary):
+    """Phase 26: phase 21's olmoe-1b-7b (full width and depth, bf16, the
+    same seed) on the mix of 5 through the runner, without the cache and
+    with ``expert_cache_size=EXPERT_CACHE`` (adaptive with prefetch,
+    adaptive without, static) in turn (``EXPERT_CACHE_RUNS``).  Each run
+    token-identical to phase 21's runner run without the cache (the cache
+    is a host-side model: it changes no device result), every launch count
+    equal to that run's (phase 21's formulas: the telemetry adds no counted
+    launch); with the cache, the accounting invariants (hits + misses =
+    lookups = the load's sum = L k routed tokens; migration bytes =
+    migrations x one expert's bytes), static placement never migrating.
+    Logged for each run: tok/s beside its neighbours without the cache and
+    phase 21's, and with the cache the telemetry's host time a dispatch
+    (``ServeEngine._account_expert``: the wait for the dispatch, the
+    read back, the cache's ``observe``, timed apart) and the hit rates and
+    migrations."""
+    from repro_torch.launch._trace import patched
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.expert_cache import ExpertCache
+
+    params = serve_params(torch, cfg)
+    L, k = cfg.n_layers, cfg.top_k
+    runs = []
+    for name, kw in EXPERT_CACHE_RUNS:
+        # timed on the classes for the run (on an instance the wrapper
+        # would hold its engine in a cycle, past the run, with its pool)
+        account, observe = [0, 0.0], [0, 0.0]
+        timed = [(ServeEngine, "_account_expert",
+                  _timed(ServeEngine._account_expert, account)),
+                 (ExpertCache, "observe", _timed(ExpertCache.observe, observe))]
+        engines = []
+        cache_kw = {} if kw is None else dict(kw, expert_cache_size=EXPERT_CACHE)
+        with patched(timed):
+            out, stats, launches, summary = serve_mix(
+                torch, cfg, params, counters, hook=engines.append, **cache_kw)
+        cache = engines.pop().expert_cache
+        diff = [rid for rid in runner_out if out.get(rid) != runner_out[rid]]
+        if diff or len(out) != len(runner_out):
+            fail(f"expert cache {name}: requests {diff} differ from phase 21's "
+                 f"runner run without the cache")
+        if launches != runner_launches:
+            fail(f"expert cache {name}: launches {launches} differ from phase "
+                 f"21's runner run {runner_launches}")
+        row = dict(summary, name=name)
+        if cache is None:
+            log(f"expert cache {name}: token-identical to phase 21's runner run, "
+                f"launches equal; {summary['tok_s']:.1f} tok/s (phase 21's runner "
+                f"{runner_summary['tok_s']:.1f}), ttft p50 {summary['ttft_p50_ms']:.1f} ms")
+            runs.append(row)
+            continue
+        c = dict(cache.counters)
+        routed = stats["expert_routed_tokens"]
+        load = float(stats["expert_load"].sum())
+        if not (c["hits"] + c["misses"] == c["lookups"] == load == L * k * routed):
+            fail(f"expert cache {name}: hits {c['hits']} + misses {c['misses']}, "
+                 f"lookups {c['lookups']}, load {load}, L k routed {L * k * routed}")
+        if c["migration_bytes"] != c["migrations"] * cache.expert_bytes or \
+                c["promotions"] != c["demotions"] or \
+                c["migrations"] != stats["expert_migrations"]:
+            fail(f"expert cache {name}: migration accounting broken: {c}")
+        if (name == "static") != (c["migrations"] == 0):
+            fail(f"expert cache {name}: {c['migrations']} migrations")
+        if account[0] != observe[0] or account[0] != (stats["prefill_dispatches"]
+                                                      + stats["decode_dispatches"]):
+            fail(f"expert cache {name}: {account[0]} telemetry reads, {observe[0]} "
+                 f"cache ticks, {stats['prefill_dispatches']} prefill dispatches "
+                 f"+ {stats['decode_dispatches']} decode dispatches")
+        row.update(hit_rate=stats["expert_sram_hit_rate"],
+                   migrations=c["migrations"], migration_bytes=c["migration_bytes"],
+                   prefetches=c["prefetches"], lookups=c["lookups"],
+                   routed_tokens=routed, dropped_tokens=stats["expert_dropped_tokens"],
+                   skew=stats["expert_skew"], gini=stats["expert_gini"],
+                   telemetry_dispatches=account[0],
+                   telemetry_ms=account[1] / account[0] * 1e3,
+                   observe_ms=observe[1] / observe[0] * 1e3,
+                   telemetry_s=account[1])
+        log(f"expert cache {name} ({EXPERT_CACHE} of {cache.n_experts} experts a "
+            f"layer): token-identical to phase 21's runner run, launches equal; "
+            f"sram hit rate {row['hit_rate']:.4f}, {c['migrations']} migrations "
+            f"({c['migration_bytes'] / 2**20:.1f} MiB), {c['prefetches']} "
+            f"prefetches, {routed} routed tokens ({row['dropped_tokens']:.0f} "
+            f"assignments dropped), skew {row['skew']:.3f}, gini {row['gini']:.4f}; "
+            f"{summary['tok_s']:.1f} tok/s (phase 21's runner "
+            f"{runner_summary['tok_s']:.1f}), ttft p50 {summary['ttft_p50_ms']:.1f} ms; "
+            f"telemetry {row['telemetry_ms']:.3f} ms a dispatch on the host "
+            f"({account[0]} dispatches, {account[1]:.3f} s of {summary['wall_s']:.3f} "
+            f"s; the cache's observe {row['observe_ms']:.3f} ms of it)")
+        runs.append(row)
+        del cache
+    off = [r["tok_s"] for r in runs if r["name"] == "off"]
+    on = [r["tok_s"] for r in runs if r["name"] != "off"]
+    log(f"expert cache: tok/s in run order {[(r['name'], round(r['tok_s'], 1)) for r in runs]}; "
+        f"without the cache {min(off):.1f}-{max(off):.1f}, with it "
+        f"{min(on):.1f}-{max(on):.1f} (phase 21's runner {runner_summary['tok_s']:.1f})")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def expert_train_rows(torch, timer, cfg):
+    """Rows 6o / 6ob and 5et / 5eb: the flash pair at olmoe-1b-7b's
+    training shape q/k/v [2, 4096, 16, 128] bf16 (phase 6's tolerances, the
+    backward twice bitwise equal, timed beside SDPA), and silu_mul and its
+    backward on the routed experts' [64, 1280, 1024] (cap = 8192 rows x top
+    8 x 1.25 / 64) in bf16 (twice bitwise equal, timed as phase 3) and in
+    f32."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import swiglu as ksw
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    b, s, h, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd
+    rows = flash_rows(torch, timer, randn(b, s, h, hd), randn(b, s, h, hd),
+                      randn(b, s, h, hd), randn(b, s, h, hd), suffix="_hd128")
+    rows[0]["row"], rows[1]["row"] = "6o", "6ob"
+    e_pad, ff = moe.moe_padded_experts(cfg), cfg.moe_d_ff
+    cap = moe.capacity(b * s, cfg.top_k, cfg.capacity_factor, e_pad)
+    shape = (e_pad, cap, ff)
+    f32 = {}
+    g, u, dy = (randn(*shape, scale=sc, dtype=torch.float32) for sc in (3.0, 1.0, 1.0))
+    f32["fwd"] = hold(torch, "silu_mul_experts_train f32", ksw.silu_mul(g, u),
+                      ref.silu_mul(g, u), DENSE_F32_TOL, DENSE_F32_REL)
+    f32["bwd"] = max(hold(torch, "silu_mul_experts_bwd f32", a, w, DENSE_F32_TOL,
+                          DENSE_F32_REL)
+                     for a, w in zip(ksw.silu_mul_bwd(g, u, dy), ref.silu_mul_bwd(g, u, dy)))
+    g, u, dy = g.to(bf), u.to(bf), dy.to(bf)
+    del_note = f"[{e_pad}, {cap}, {ff}], the experts of a 2 x 4096-token step"
+    route = ksw.plan(g.numel(), 2, True, _build.n_sms(g.device)).route
+    repeat_equal(torch, "silu_mul_experts_train", lambda: ksw.silu_mul(g, u))
+    repeat_equal(torch, "silu_mul_experts_bwd", lambda: ksw.silu_mul_bwd(g, u, dy))
+    floor = timer(lambda: torch.cuda._sleep(1))
+    fwd = measure(
+        torch, timer, "silu_mul_experts_train", "src/repro_torch/kernels/csrc/swiglu.cu",
+        "src/repro/kernels/swiglu.py:59", lambda: ksw.silu_mul(g, u),
+        lambda: ref.silu_mul(g, u), SILU_TOL, rel=SILU_REL, nbytes=3 * g.numel() * 2,
+        flops=5 * g.numel(),
+        note=f"; rel {SILU_REL}; f32 max|err| {f32['fwd']:.3g}; {del_note}; the "
+             f"{route} route")
+    fwd.update(row="5et", design=SILU_DESIGN, launch_floor_ms=floor, route_taken=route)
+    log_rate(torch, timer, fwd, 3 * g.numel() * 2)
+    bwd = measure(
+        torch, timer, "silu_mul_experts_bwd", "src/repro_torch/kernels/csrc/swiglu.cu",
+        "src/repro/kernels/swiglu.py:59", lambda: ksw.silu_mul_bwd(g, u, dy),
+        lambda: ref.silu_mul_bwd(g, u, dy), BF16_TOL, nbytes=5 * g.numel() * 2,
+        flops=12 * g.numel(), note=f"; dgate and dup; f32 max|err| {f32['bwd']:.3g}; "
+                                   f"{del_note}")
+    bwd.update(row="5eb", launch_floor_ms=floor)
+    log_rate(torch, timer, bwd, 5 * g.numel() * 2)
+    del g, u, dy
+    torch.cuda.empty_cache()
+    return rows + [fwd, bwd]
+
+
+class RouteRecorder:
+    """While entered, keeps every routing ``models/moe.py`` makes, in call
+    order: each call's ``slot`` (a copy, on its device) and its kept count
+    (a device scalar: no host read in the timed steps)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        self.calls = []
+
+    def __enter__(self):
+        def recorded(*args, **kwargs):
+            r = self.route(*args, **kwargs)
+            self.calls.append((r.slot.clone(), r.keep.sum(), r.keep.numel()))
+            return r
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def fracs(self, calls=None):
+        """The drop fraction of each call."""
+        return [1.0 - int(kept) / n for _, kept, n in (calls or self.calls)]
+
+
+def remat_routing_equal(torch, calls, n_layers, tag):
+    """Under remat one step routes L times forward, then L times in the
+    backward's recomputes, the last layer first: each recompute's slots
+    must equal its forward's."""
+    if len(calls) != 2 * n_layers:
+        fail(f"{tag}: {len(calls)} routings a step, expected 2 L = {2 * n_layers}")
+    for li, (fwd, rec) in enumerate(zip(calls[:n_layers], calls[n_layers:][::-1])):
+        if not torch.equal(fwd[0], rec[0]):
+            fail(f"{tag}: layer {li}'s recompute routed otherwise than its forward "
+                 f"({int((fwd[0] != rec[0]).sum())} slots differ)")
+
+
+def moe_layer_vjp_check(torch, cfg, seed):
+    """One MoE layer at ``cfg``'s full width in f32, its vjp on the card
+    against the CPU from the same parameters (drawn on the card, copied):
+    40 rows leaning towards expert 0 at the default capacity factor (so the
+    dispatch drops), the loss 0.5 |y|^2 + 0.01 lb + 1e-3 z; the routing and
+    drops equal first, then every gradient (x, router, the banks, the
+    shared experts) within 1e-4 of the leaf's largest entry, the padded
+    experts' router columns exactly zero on both devices."""
+    from repro_torch import tree as T
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = moe.moe_init(cfg, gen, dtype=torch.float32, device="cuda")
+    c = torch.randn(cfg.d_model, generator=gen, device="cuda")
+    c /= c.norm()
+    x = torch.randn((1, 40, cfg.d_model), generator=gen, device="cuda") + 2.0 * c
+    p["router"][:, 0] += c
+    out = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in T.leaves(p)]
+        pd = T.unflatten(p, leaves)
+        xd = x.to(dev).requires_grad_()
+        with RouteRecorder() as rec:
+            y, aux = moe.moe_apply(pd, xd, cfg, losses=True)
+        loss = 0.5 * (y.float() ** 2).sum() + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+        grads = torch.autograd.grad(loss, [xd] + leaves)
+        out[dev] = dict(slot=rec.calls[0][0].cpu(), frac=rec.fracs()[0],
+                        loss=float(loss.detach()), grads=[g.cpu() for g in grads])
+        del leaves, pd, xd, y, aux, loss, grads
+    a, b = out["cuda"], out["cpu"]
+    if not torch.equal(a["slot"], b["slot"]):
+        fail(f"moe layer vjp {cfg.name}: the card routes otherwise than the CPU")
+    if not a["frac"] > 0 or a["frac"] != b["frac"]:
+        fail(f"moe layer vjp {cfg.name}: drops {a['frac']} (cpu {b['frac']})")
+    names = ["x"] + [path for path, _ in T.leaves_with_paths(p)]
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(a["grads"], b["grads"])]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    e, e_pad = cfg.n_experts, p["router"].shape[1]
+    ri = names.index("router") if "router" in names else None
+    pad_zero = all(int(torch.count_nonzero(o["grads"][ri][:, e:])) == 0
+                   for o in (a, b))
+    log(f"moe layer vjp {cfg.name}: {e} experts (padded {e_pad}), 40 rows, dropped "
+        f"{a['frac']:.3f} on both; loss {a['loss']:.6f} (cpu {b['loss']:.6f}); "
+        f"{len(rel)} gradients, largest max|diff| / max|g| {rel[worst]:.3g} at "
+        f"{names[worst]} (tolerance 1e-4); padded router columns' gradients zero "
+        f"on both: {pad_zero}")
+    if rel[worst] > 1e-4:
+        fail(f"moe layer vjp {cfg.name}: the card's gradient of {names[worst]} "
+             f"disagrees with the CPU's")
+    if not pad_zero:
+        fail(f"moe layer vjp {cfg.name}: a padded router column took a gradient")
+    del p, x
+    torch.cuda.empty_cache()
+    return dict(frac_dropped=a["frac"], worst_rel=rel[worst], worst=names[worst])
+
+
+def moe_watched(st):
+    return {"embed": st.params["embed"]["table"][:4],
+            "wq0": st.params["layers"][0]["attn"]["wq"]["w"][:4],
+            "router0": st.params["layers"][0]["moe"]["router"][:4],
+            "w_down_last": st.params["layers"][-1]["moe"]["w_down"][:2, :4]}
 
 
 def gemm_inputs(torch, gen, m, k, n, dtype):
@@ -5335,7 +5697,12 @@ def main() -> None:
         "flash_attention_lengths": Counter(flash_attention, "lengths_launches"),
         "silu_mul_element": Counter(swiglu, "launches_by_route", "element"),
         "silu_mul_vector": Counter(swiglu, "launches_by_route", "vector")}
-    moe_launches, moe_serve = moe_serve_phase(torch, mcfg, moe_counters)
+    moe_launches, moe_serve, moe_runner_out = moe_serve_phase(torch, mcfg, moe_counters)
+    t_phase = time.perf_counter()
+    expert_cache = expert_cache_phase(torch, mcfg, moe_counters, moe_runner_out,
+                                      moe_launches["runner"], moe_serve["runner"])
+    del moe_runner_out
+    log(f"expert cache: phase 26 took {time.perf_counter() - t_phase:.1f} s")
     moe_fp32 = moe_fp32_identity(torch, mcfg)
     for row in moe_rows:
         path, counter = MOE_ROW_COUNTER[row["name"]]
@@ -5357,6 +5724,28 @@ def main() -> None:
                            + ("decode step" if "decode" in name else "prefill chunk"))
     rows += gqa
     log(f"gqa: phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    tcfg = one_card_config("olmoe-1b-7b")
+    moe_train_rows = expert_train_rows(torch, timer, tcfg)
+    moe_vjp = {c.name: moe_layer_vjp_check(torch, c, seed) for c, seed in (
+        (mcfg, 41), (get_config("qwen2-moe-a2.7b"), 42))}
+    train_parity_phase(torch, reduced(mcfg))
+    # granite's formulas: olmoe has no shared experts, so silu_mul is the
+    # routed experts' one call a layer (2L forward, every launch on the
+    # vector route at cap 1280, and L backward)
+    moe_train_launches, moe_train = train_phase(torch, tcfg, train_counters,
+                                                granite_expect, moe_watched)
+    for row, name in zip(moe_train_rows, ("flash_attention", "flash_attention_bwd",
+                                          "silu_mul_vector", "silu_mul_bwd")):
+        row["launches"] = moe_train_launches[name]
+        row["per_step"] = (f"{'L' if 'bwd' in name else '2L'} a step, moe train "
+                           f"(olmoe-1b-7b, L = {tcfg.n_layers})")
+    rows += moe_train_rows
+    for row in rows:
+        if row["name"] in ("rmsnorm_bwd", "silu_mul_bwd"):
+            row["moe_train_launches"] = moe_train_launches[row["name"]]
+    log(f"moe train: phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
     fid_rows, gemm_routes = fidelity_phase(torch, timer, cfg)
     rows += fid_rows
@@ -5390,6 +5779,8 @@ def main() -> None:
              moe_serve_launches=moe_launches, moe_fp32_identity=moe_fp32,
              pressure=pressure, hybrid_pressure=hybrid_pressure, queue_c=queue_c,
              classes=classes, gqa_serve=gqa_serve, gqa_launches=gqa_launches,
+             expert_cache=expert_cache, moe_layer_vjp=moe_vjp, moe_train=moe_train,
+             moe_train_launches=moe_train_launches,
              gemm_routes=gemm_routes, **kernels),
         indent=1))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -7,7 +7,9 @@ the hop/energy cost model the engine charges per combine
 (``softmax_combine_cost``, :147-166, and ``E_HOP_PJ_PER_BIT``), and the
 swap-versus-recompute preemption cost model (``swap_cost``,
 ``recompute_cost``, ``preempt_decision``, ``restore_cost_seconds`` and
-their four rates, :179-259).
+their four rates, :179-259), and the hot/cold expert placement cost model
+the expert cache prices its promotions with (``expert_placement_cost``,
+``expert_promotion_worthwhile`` and the ``EXPERT_*`` rates, :301-365).
 
 The paper embeds a Curry ALU in every NoC router so that the softmax
 combine of attention partials happens while they move (Fig. 10).  The JAX
@@ -19,7 +21,8 @@ the NoC, not what the card spends.  Likewise the preemption cost model
 prices a swap over the paper's CXL link and a recompute on its SRAM-PIM
 banks (``pimsim.params``): the engine's ``preempt_policy="auto"`` and its
 victim ranking follow the paper's model, not the H100's copy engines or
-tensor cores.
+tensor cores, and the expert cache's tiers are the paper's SRAM-PIM and
+DRAM-PIM banks, not the card's memory.
 """
 from __future__ import annotations
 
@@ -170,3 +173,58 @@ def restore_cost_seconds(n_pages: int, page_bytes: int, tokens: int,
     if policy == "recompute":
         return r
     return min(s, r)
+
+
+# hot/cold expert placement cost model ------------------------------------
+#
+# CompAir's hybrid premise for MoE: hot experts live in the sub-10 ns
+# SRAM-PIM tier, cold ones in the high-capacity DRAM-PIM tier, and every
+# promotion moves the expert's weights over the CXL/NoC link.  The serving
+# engine's expert cache (``serve/expert_cache.py``) prices its promotions
+# with this arm.  Per-bank stream rates: the SRAM tier feeds weights over
+# hybrid bonds (6.4x the GDDR6 bank read-out), so a hot expert's dispatch is
+# proportionally cheaper, worth a migration once its predicted traffic
+# amortizes the link transfer.  Module-level, as the preemption model's.
+
+EXPERT_SRAM_BYTES_PER_S = _SRAM.hb_bw_per_bank
+EXPERT_SRAM_E_PJ_PER_BIT = _SRAM.e_access_pj_per_bit
+EXPERT_DRAM_BYTES_PER_S = _DRAM.bank_bw
+EXPERT_DRAM_E_PJ_PER_BIT = _DRAM.e_access_pj_per_bit
+EXPERT_LINK_BYTES_PER_S = _CXL.p2p_bw
+EXPERT_LINK_E_PJ_PER_BIT = _CXL.e_pj_per_bit + E_HOP_PJ_PER_BIT
+
+
+def expert_placement_cost(expert_bytes: int, accesses: float = 1.0) -> dict:
+    """Price serving ``accesses`` routed-token dispatches of ONE expert from
+    each placement arm.
+
+    ``expert_bytes`` is the routed expert's weights (gate, up and down);
+    ``accesses`` the token dispatches that stream it (each re-reads the
+    weights from its tier: the un-batched bound the placement decision
+    prices).  Returns ``{"sram": {"seconds", "energy_pj"}, "dram":
+    {"seconds", "energy_pj"}, "migrate": {"seconds", "bytes",
+    "energy_pj"}}``: a resident hit, a cold access in DRAM-PIM, and one
+    DRAM -> SRAM move over the link.  With the default rates the sram-dram
+    gap grows with ``accesses`` and the migration does not, so the
+    crossover is an access count, whatever ``expert_bytes``."""
+    bits = 8.0 * expert_bytes
+    return {
+        "sram": {"seconds": accesses * expert_bytes / EXPERT_SRAM_BYTES_PER_S,
+                 "energy_pj": accesses * bits * EXPERT_SRAM_E_PJ_PER_BIT},
+        "dram": {"seconds": accesses * expert_bytes / EXPERT_DRAM_BYTES_PER_S,
+                 "energy_pj": accesses * bits * EXPERT_DRAM_E_PJ_PER_BIT},
+        "migrate": {"seconds": expert_bytes / EXPERT_LINK_BYTES_PER_S,
+                    "bytes": expert_bytes,
+                    "energy_pj": bits * EXPERT_LINK_E_PJ_PER_BIT},
+    }
+
+
+def expert_promotion_worthwhile(expert_bytes: int,
+                                predicted_accesses: float) -> bool:
+    """Should a cold expert move to the SRAM-PIM tier?  True when the link
+    transfer plus its predicted SRAM-resident serving time beats leaving it
+    in DRAM-PIM: the expert cache's promotion gate (experts whose predicted
+    traffic cannot amortize the move stay cold)."""
+    c = expert_placement_cost(expert_bytes, predicted_accesses)
+    return (c["migrate"]["seconds"] + c["sram"]["seconds"]
+            < c["dram"]["seconds"])

@@ -45,9 +45,13 @@ may be smaller than full capacity (``--num-blocks``): the engine then
 stalls, preempts and restores under pressure, each victim swapped to the
 host arena or recomputed (``--preempt-policy``, ``--swap-pages``,
 ``--proactive-horizon``), and the summary line counts the preemptions by
-arm.  The JAX launcher's ``--expert-*`` flags (expert parallelism, the
-expert cache), ``--disagg`` and ``--handoff-pages`` come with later
-slices; ``--q-tile`` sizes the Pallas prefill's VMEM tile and has no
+arm.  An MoE family takes the placement-aware expert cache on the runner
+path (``--expert-cache N`` experts per layer in the paper's SRAM-PIM
+tier, ``--no-expert-prefetch``, ``--expert-placement static``), and the
+expert telemetry and cache lines are printed.  ``--expert-parallel``
+raises (expert parallelism comes with a later slice, ROADMAP A.2b), as do
+the JAX launcher's ``--disagg`` and ``--handoff-pages``, not accepted
+here; ``--q-tile`` sizes the Pallas prefill's VMEM tile and has no
 counterpart.
 """
 from __future__ import annotations
@@ -142,6 +146,22 @@ def main(argv=None):
                     help="fraction of the synthetic stream submitted as "
                          "the 'batch' latency class (twice the new tokens, "
                          "weight 1) instead of 'interactive' (weight 8)")
+    ap.add_argument("--expert-parallel", type=int, default=None,
+                    help="shard a MoE family's routed experts N ways "
+                         "(raises: expert parallelism comes with a later "
+                         "slice, ROADMAP A.2b)")
+    ap.add_argument("--expert-cache", type=int, default=None,
+                    help="SRAM-PIM-resident experts per layer for the "
+                         "placement-aware hot/cold expert cache (MoE "
+                         "families, the runner path; default off)")
+    ap.add_argument("--no-expert-prefetch", action="store_true",
+                    help="commit expert promotions at once instead of "
+                         "double-buffered staging")
+    ap.add_argument("--expert-placement", default="adaptive",
+                    choices=["adaptive", "static"],
+                    help="adaptive migrates hot experts into SRAM residency "
+                         "per the NoC cost model; static keeps the initial "
+                         "placement (the A/B baseline)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve the latest step's parameters of a "
                          "checkpoint that launch/train.py wrote")
@@ -186,6 +206,10 @@ def main(argv=None):
                       preempt_policy=args.preempt_policy,
                       swap_pages=args.swap_pages,
                       proactive_horizon=args.proactive_horizon,
+                      expert_parallel=args.expert_parallel,
+                      expert_cache_size=args.expert_cache,
+                      expert_prefetch=not args.no_expert_prefetch,
+                      expert_placement=args.expert_placement,
                       seed=args.seed, **ekw)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -260,6 +284,21 @@ def main(argv=None):
               f"hops={eng.stats['noc_hops']:.0f}, "
               f"bytes={eng.stats['noc_bytes'] / 1e6:.2f}MB, "
               f"energy={eng.stats['noc_energy_pj'] / 1e6:.2f}uJ")
+    if eng.expert_cache is not None:
+        print(f"[serve] experts: "
+              f"routed_tokens={eng.stats['expert_routed_tokens']:.0f}, "
+              f"dropped={eng.stats['expert_dropped_tokens']:.1f}, "
+              f"skew={eng.stats['expert_skew']:.2f}, "
+              f"gini={eng.stats['expert_gini']:.3f}")
+        print(f"[serve] expert cache "
+              f"(capacity={eng.expert_cache.capacity}/layer, "
+              f"{'adaptive' if eng.expert_cache.adaptive else 'static'}"
+              f"{'' if eng.expert_cache.prefetch else ', no prefetch'}): "
+              f"sram_hit_rate={eng.stats['expert_sram_hit_rate']:.3f}, "
+              f"migrations={eng.stats['expert_migrations']:.0f}, "
+              f"migration_bytes="
+              f"{eng.stats['expert_migration_bytes'] / 1e6:.2f}MB, "
+              f"prefetches={eng.stats['expert_prefetches']:.0f}")
 
 
 if __name__ == "__main__":

@@ -68,6 +68,8 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import noc
 from repro_torch.kernels import ops
+from repro_torch.launch import _trace
+from repro_torch.launch._trace import GEMMS, OTHER_OPS
 from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                       shared_prefix_mix)
 from repro_torch.models import model, moe, rwkv, ssm
@@ -79,9 +81,6 @@ from repro_torch.serve import ServeEngine
 PREFILL_KERNELS = ("paged_attention_kernel", "paged_prefill_tc_kernel")
 PORT_KERNELS = ("rmsnorm_kernel", "rope_kernel", "silu_mul_kernel",
                 "flash_decode_kernel", "flash_", *PREFILL_KERNELS)
-GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
-GEMMS = "GEMM (torch.matmul)"
-OTHER_OPS = "other PyTorch ops"
 TOP = 15                       # kernels listed by device time
 # plain functions whose calls the traced pass puts under a profiler range:
 # (module, attribute, group of the non-GEMM kernels they launch)
@@ -108,7 +107,6 @@ ARMS = (("_swap_out", "swap out"), ("_restore_swapped", "swap in"))
 
 
 def _group(name: str) -> str:
-    low = name.lower()
     if "flash_decode_kernel" in name:
         return "port CUDA kernels: decode attention"
     if any(k in name for k in PREFILL_KERNELS):
@@ -123,7 +121,7 @@ def _group(name: str) -> str:
         return "port CUDA kernels: rmsnorm"
     if any(k in name for k in PORT_KERNELS):
         return "port CUDA kernels: other"
-    if any(m in low for m in GEMM_MARKS):
+    if _trace.is_gemm(name):
         return GEMMS
     return OTHER_OPS
 
@@ -153,22 +151,6 @@ def _serve(cfg, params, prompts, dense: bool, kv_dtype: str,
     del eng
     torch.cuda.empty_cache()
     return wall, stats
-
-
-def _kernels(ev) -> list:
-    """The device kernels launched by a profiler CPU event and its
-    descendants."""
-    out = list(ev.kernels)
-    for child in ev.cpu_children:
-        out += _kernels(child)
-    return out
-
-
-def _ranged(fn, name):
-    def call(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-    return call
 
 
 def _replay_ranged(fn):
@@ -230,56 +212,26 @@ def main(argv=None):
     # covers every call of the traced pass; the untimed and untraced passes
     # above ran without them
     ranged = RANGED + tuple((ServeEngine, a, g) for a, g in ARMS)
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in ranged]
-    saved.append((ServeEngine, "_run_prefill_chunk",
-                  ServeEngine._run_prefill_chunk))
-    ranges = {"trace_serve::recompute": "recompute"}
-    for mod, attr, group in ranged:
-        ranges[f"trace_serve::{attr}"] = group
-        setattr(mod, attr, _ranged(getattr(mod, attr), f"trace_serve::{attr}"))
-    ServeEngine._run_prefill_chunk = _replay_ranged(ServeEngine._run_prefill_chunk)
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            traced_wall, _ = _serve(cfg, params, prompts, *run)
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    ranges = {f"trace_serve::{attr}": group for _, attr, group in ranged}
+    ranges["trace_serve::recompute"] = "recompute"
+    patches = [(mod, attr, _trace.ranged(getattr(mod, attr), f"trace_serve::{attr}"))
+               for mod, attr, _ in ranged]
+    patches.append((ServeEngine, "_run_prefill_chunk",
+                    _replay_ranged(ServeEngine._run_prefill_chunk)))
+    with _trace.patched(patches), torch.profiler.profile(activities=acts) as prof:
+        traced_wall, _ = _serve(cfg, params, prompts, *run)
 
+    events = prof.events()
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
-    # a kernel under nested ranges goes to the outermost (the longest) one
-    # that takes its group: kernel -> (range span us, from group, to, us)
-    taken = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            if ev.name not in ranges:               # not a range's GPU span
-                per_kernel[ev.name][0] += ev.time_range.elapsed_us()
-                per_kernel[ev.name][1] += 1
-        elif ev.name in ranges:
-            to = ranges[ev.name]
-            span = ev.time_range.elapsed_us()
-            allowed = MOVED_FROM.get(to, (OTHER_OPS,))
-            for k in _kernels(ev):
-                src = _group(k.name)
-                key = id(k)                         # one object per launch
-                if (allowed is None or src in allowed) and \
-                        span > taken.get(key, (-1.0,))[0]:
-                    taken[key] = (span, src, to, k.duration)
-    # (from group, range group) -> [us, calls]
-    moved = defaultdict(lambda: [0.0, 0])
-    for _, src, to, us in taken.values():
-        moved[(src, to)][0] += us
-        moved[(src, to)][1] += 1
-    groups = defaultdict(float)
-    group_n = defaultdict(int)
-    for name, (us, n) in per_kernel.items():
-        groups[_group(name)] += us
-        group_n[_group(name)] += n
-    for (src, g), (us, n) in moved.items():
-        groups[src] -= us
-        group_n[src] -= n
-        groups[g] += us
-        group_n[g] += n
-    device_s = sum(groups.values()) / 1e6
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.name not in ranges:              # not a range's GPU span
+            per_kernel[ev.name][0] += ev.time_range.elapsed_us()
+            per_kernel[ev.name][1] += 1
+    groups = _trace.regroup(per_kernel,
+                            _trace.attribute(events, ranges, MOVED_FROM, _group),
+                            _group)
+    device_s = sum(us for us, _ in groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
     if args.dense:
         mode = "dense slabs"
@@ -299,8 +251,8 @@ def main(argv=None):
           f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
           f"traced; device kernel time {device_s:.3f} s; busy share "
           f"{device_s / wall:.3f} of the untraced wall")
-    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[trace] group {g}: {us / 1e3:.1f} ms in {group_n[g]} launches "
+    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"[trace] group {g}: {us / 1e3:.1f} ms in {n} launches "
               f"({us / 1e6 / device_s:.3f} of device time)")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (us, n) in top:
@@ -311,9 +263,10 @@ def main(argv=None):
         seq_shards=args.seq_shards, num_blocks=args.num_blocks,
         preempt_policy=args.preempt_policy, preempt_stats=stats, wall_s=wall,
         traced_wall_s=traced_wall, launches=n_launch,
-        group_launches=dict(group_n),
+        group_launches={g: n for g, (_, n) in groups.items()},
         device_s=device_s,
-        busy_share=device_s / wall, groups_ms={g: us / 1e3 for g, us in groups.items()},
+        busy_share=device_s / wall,
+        groups_ms={g: us / 1e3 for g, (us, _) in groups.items()},
         top=[dict(name=n, ms=us / 1e3, calls=c) for n, (us, c) in top]), indent=1))
 
 

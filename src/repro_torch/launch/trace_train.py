@@ -2,9 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.trace_train [--arch rwkv6-3b]
 
-Trains ``--arch`` (granite-3-2b by default, rwkv6-3b, or zamba2-7b) at full
-width and depth (zamba2-7b at ``ONE_CARD_LAYERS``'s depth; random bf16
-weights from ``--seed``) on ``--batch`` x ``--seq-len``
+Trains ``--arch`` (granite-3-2b by default, rwkv6-3b, zamba2-7b or
+olmoe-1b-7b) at full width and depth (zamba2-7b and olmoe-1b-7b at
+``ONE_CARD_LAYERS``'s depth; random bf16 weights from ``--seed``) on
+``--batch`` x ``--seq-len``
 tokens per step through ``train/step.py:make_train_step`` with remat, the
 step ``chip_smoke.py``'s train phases drive: one step untimed to warm up,
 ``--steps`` untraced steps for the wall clock, one step under
@@ -12,9 +13,22 @@ step ``chip_smoke.py``'s train phases drive: one step untimed to warm up,
 kernel and by group (the flash-attention, wkv6 and Mamba2-scan forward and
 backward kernels each in a group of their own, the port's other CUDA
 kernels, GEMMs, other PyTorch ops) and the device busy share: summed kernel time over the
-mean untraced step (one stream, so kernels do not overlap).  The summary
-also lands in ``chiprun_out/trace_train[_<arch>].json``.  Needs a CUDA
-device.
+mean untraced step (one stream, so kernels do not overlap).  An MoE
+model's dispatch is split out as ``trace_serve`` splits it: the traced
+step puts each call of ``models/moe.py``'s ``route``, ``dispatch`` and
+``combine`` under a profiler range ("MoE dispatch", its GEMMs included)
+and of ``experts`` under another ("expert GEMMs": the routed experts'
+batched GEMMs; their silu_mul stays with the port's kernels), in the
+forward and in remat's recompute alike.  A backward node takes the range
+of the forward op that made it (the profiler's sequence number and
+forward thread), so the dispatch's and the expert GEMMs' gradients land
+in those groups too.  The recompute runs inside a backward node (the
+first that unpacks a saved tensor of its layer), so each checkpointed
+function runs under a fence range as well: the recompute's kernels stay
+with their own ranges and groups and never join that node's
+(``launch/_trace.py``).  The
+summary also lands in ``chiprun_out/trace_train[_<arch>].json``.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -29,14 +43,21 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import for_cell
+from repro_torch.launch import _trace
+from repro_torch.launch._trace import GEMMS, OTHER_OPS
+from repro_torch.models import model, moe
 from repro_torch.train import step as TS
 
-# Training depth on one 80 GB card where the full depth does not fit: at 81
-# layers zamba2-7b has 6.75 B parameters, ~81 GB of bf16 weights and
-# gradients with f32 AdamW moments.  33 layers are 5 groups of 6 Mamba2
-# layers, the full config's 3-layer tail and 5 applications of the shared
-# block (3.01 B parameters), at full width.
-ONE_CARD_LAYERS = {"zamba2-7b": 33}
+# Training depth on one 80 GB card where the full depth does not fit, at 12
+# bytes a parameter (bf16 weights and gradients, f32 AdamW moments): at 81
+# layers zamba2-7b has 6.75 B parameters, ~81 GB; 33 layers are 5 groups of
+# 6 Mamba2 layers, the full config's 3-layer tail and 5 applications of the
+# shared block (3.01 B parameters), at full width.  olmoe-1b-7b at 16
+# layers has 6.92 B parameters, 83.0 GB; 8 layers are 3.563 B, 42.8 GB,
+# which leaves room for the activations of 2 x 4096 tokens (the combine's
+# f32 gather alone is [8192, 8, 2048], 537 MB a layer, and the f32 logits
+# 1.65 GB).
+ONE_CARD_LAYERS = {"zamba2-7b": 33, "olmoe-1b-7b": 8}
 
 
 def one_card_config(arch: str):
@@ -66,17 +87,43 @@ GROUPS = (("flash attention forward", ("flash_fwd_",)),
           ("port CUDA kernels, other", ("rmsnorm_", "rope_kernel", "silu_mul_",
                                         "paged_attention_kernel",
                                         "paged_prefill_tc_kernel")))
-GEMM_MARKS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 TOP = 15                       # kernels listed by device time
+# MoE functions whose calls the traced step ranges: (attribute of
+# models/moe.py, group), the groups a range's kernels leave for it, and the
+# fence over each checkpointed function (a recompute's range)
+RANGED = (("route", "MoE dispatch"), ("dispatch", "MoE dispatch"),
+          ("combine", "MoE dispatch"), ("experts", "expert GEMMs"))
+MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,)}
+FENCE = "trace_train::checkpointed"
 
 
 def _group(name: str) -> str:
     for group, marks in GROUPS:
         if any(m in name for m in marks):
             return group
-    if any(m in name.lower() for m in GEMM_MARKS):
-        return "GEMM (torch.matmul)"
-    return "other PyTorch ops"
+    if _trace.is_gemm(name):
+        return GEMMS
+    return OTHER_OPS
+
+
+def _fenced(checkpoint):
+    """``checkpoint`` with the function it runs under the ``FENCE`` range,
+    in the forward and in the backward's recompute."""
+    def call(fn, *args, **kwargs):
+        return checkpoint(_trace.ranged(fn, FENCE), *args, **kwargs)
+    return call
+
+
+def traced_ranges():
+    """The patches that range the traced step (the MoE functions, reached
+    by ``models/model.py`` through the moe module, and the checkpoint that
+    ``forward`` calls), and {range name: group} (the fence's None)."""
+    patches = [(moe, attr, _trace.ranged(getattr(moe, attr), f"trace_train::{attr}"))
+               for attr, _ in RANGED]
+    patches.append((model, "checkpoint", _fenced(model.checkpoint)))
+    ranges = {f"trace_train::{attr}": group for attr, group in RANGED}
+    ranges[FENCE] = None
+    return patches, ranges
 
 
 def main(argv=None):
@@ -113,21 +160,23 @@ def main(argv=None):
     wall = sum(walls) / len(walls)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # the untraced steps above ran without the ranges
+    patches, ranges = traced_ranges()
+    with _trace.patched(patches), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batches[n - 1])
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
 
+    events = prof.events()
     per_kernel = defaultdict(lambda: [0.0, 0])      # name -> [us, calls]
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.name not in ranges:              # not a range's GPU span
             per_kernel[ev.name][0] += ev.time_range.elapsed_us()
             per_kernel[ev.name][1] += 1
-    groups = defaultdict(lambda: [0.0, 0])
-    for name, (us, calls) in per_kernel.items():
-        groups[_group(name)][0] += us
-        groups[_group(name)][1] += calls
+    taken = _trace.attribute(events, ranges, MOVED_FROM, _group)
+    groups = _trace.regroup(per_kernel, taken, _group)
     device_s = sum(us for us, _ in groups.values()) / 1e6
     card = torch.cuda.get_device_name(0)
     tokens = args.batch * args.seq_len
@@ -136,7 +185,31 @@ def main(argv=None):
           f"per step, remat; untraced steps {[round(w, 4) for w in walls]} s "
           f"(mean {wall:.4f} s, {tokens / wall:.1f} tokens/s), traced step "
           f"{traced_wall:.4f} s; device kernel time {device_s:.4f} s; busy "
-          f"share {device_s / wall:.3f} of the untraced step")
+          f"share {device_s / wall:.3f} of the untraced step; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    moe_summary = {}
+    if cfg.family == "moe":
+        # the recompute's fences that ran inside a backward node, by node
+        holders = defaultdict(int)
+        for ev in events:
+            if ev.name == FENCE and ev.cpu_parent is not None:
+                holders[ev.cpu_parent.name] += 1
+        # the routed experts' GEMMs: 3 a layer in the forward, 3 in the
+        # recompute, 6 in the backward, each 2 E_pad cap d ff operations
+        e_pad = moe.moe_padded_experts(cfg)
+        cap = moe.capacity(tokens, cfg.top_k, cfg.capacity_factor, e_pad)
+        flop = 12 * cfg.n_layers * 2 * e_pad * cap * cfg.d_model * cfg.moe_d_ff
+        us, launches = groups["expert GEMMs"]
+        moe_summary = dict(moved_kernels=len(taken), recompute_holders=dict(holders),
+                           expert_gemm_tflop=flop / 1e12,
+                           expert_gemm_launches=launches,
+                           expert_gemm_launches_expected=12 * cfg.n_layers,
+                           expert_gemm_tflops=flop / (us / 1e6) / 1e12)
+        print(f"[trace] MoE ranges: {len(taken)} kernels moved; the recompute "
+              f"ran inside {dict(holders)}; expert GEMMs {launches} launches "
+              f"(12 L = {12 * cfg.n_layers}), {flop / 1e12:.2f} TFLOP a step "
+              f"(E_pad {e_pad}, cap {cap}) in {us / 1e3:.1f} ms: "
+              f"{moe_summary['expert_gemm_tflops']:.1f} TFLOP/s")
     for g, (us, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"[trace] group {g}: {us / 1e3:.1f} ms in {calls} launches "
               f"({us / 1e6 / device_s:.3f} of device time, "
@@ -152,6 +225,8 @@ def main(argv=None):
         card=card, arch=cfg.name, n_layers=cfg.n_layers, batch=args.batch, seq_len=args.seq_len,
         step_s=walls, mean_step_s=wall, traced_step_s=traced_wall,
         device_s=device_s, busy_share=device_s / wall,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        moe=moe_summary,
         groups={g: dict(ms=us / 1e3, launches=c) for g, (us, c) in groups.items()},
         top=[dict(name=k, ms=us / 1e3, calls=c) for k, (us, c) in top]), indent=1))
 

@@ -4,12 +4,17 @@ train step, on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --device cpu --steps 50 --ckpt-dir /tmp/ckpt
 
-``--arch`` takes the dense family, rwkv6-3b (RWKV6) and zamba2-7b (the
-Mamba2 hybrid); the MoE family raises, naming the slice of the port that
-brings it.  zamba2-7b at its 81 layers does not fit one 80 GB card for
-training (bf16 weights and gradients with f32 moments, ~81 GB), as in the
-JAX package on one chip; ``launch/trace_train.py`` and ``chip_smoke.py``
-train it at full width and the depth one card holds.
+``--arch`` takes every family: the dense configs, rwkv6-3b (RWKV6),
+zamba2-7b (the Mamba2 hybrid) and the MoE configs olmoe-1b-7b and
+qwen2-moe-a2.7b (the loss adds 0.01 x the load-balance loss and 1e-3 x
+the router z-loss, as the JAX package's).  At 12 bytes a parameter (bf16
+weights and gradients, f32 AdamW moments) three of them do not fit one 80
+GB card at full depth: zamba2-7b at 81 layers (6.75 B parameters, ~81
+GB), olmoe-1b-7b at 16 layers (6.92 B, 83.0 GB) and qwen2-moe-a2.7b at 24
+layers (14.3 B, 171.8 GB), as in the JAX package on one chip.
+``launch/trace_train.py`` and ``chip_smoke.py`` train zamba2-7b and
+olmoe-1b-7b at full width and the depth one card holds
+(``trace_train.ONE_CARD_LAYERS``: 33 and 8 layers).
 
 The step runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels, forward and backward; ``--device cpu`` runs the

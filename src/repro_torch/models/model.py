@@ -1,5 +1,4 @@
-"""Decoder LM: full-sequence forward (training) for the dense, RWKV6,
-Mamba2 (``ssm``) and hybrid (Zamba2) families, and serving for every
+"""Decoder LM: full-sequence forward (training) and serving for every
 family: the dense and MoE families over a paged KV cache or a dense KV
 slab, RWKV6 and Mamba2 over a fixed-size recurrent state per sequence (the
 serve state's slot rows, or the dense-slab baseline's batch rows), and the
@@ -25,10 +24,10 @@ f32; the hybrid's is ``conv_g`` / ``ssm_g`` [G, K, B, ...] for its groups
 and ``conv_t`` / ``ssm_t`` [max(tail, 1), B, ...] for its tail, beside
 ``attn``, the pages [G, KvH, NB, BS, hd] (or slabs [G, B, Smax, KvH, hd])
 of the shared block's G applications; the JAX layouts, so
-``models/convert.py:state_from_jax`` is a plain map.  What this port does
-not run yet (MoE training: the full-sequence ``forward`` with the aux
-losses) raises ``NotImplementedError`` naming the slice of the port that
-brings it.
+``models/convert.py:state_from_jax`` is a plain map.  The MoE forward
+returns the load-balance and z losses summed over the layers, as JAX's
+does; the paged serving functions return the per-layer expert load on
+request (``expert_stats``, the serving engine's expert telemetry).
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
@@ -40,6 +39,7 @@ Public API:
                                                    (pages / slot state)
     prefill_paged(cfg, params, state, ...)         -> (logits [1, V], state)
     decode_step_paged(cfg, params, state, ...)     -> (logits [B, V], state)
+                          (expert_stats=True: the expert telemetry third)
     serve_prefill_chunk / serve_decode_step        (the runner's entry points)
     copy_kv_page(state, src, dst)                  (prefix-cache copy-on-write)
     extract_kv_pages / insert_kv_pages             (the device halves of a page swap)
@@ -59,21 +59,14 @@ MAMBA_STATE = ("conv", "ssm")                  # Mamba2's (family "ssm")
 HYBRID_STATE = ("conv_g", "ssm_g", "conv_t", "ssm_t")   # the hybrid's slot state
 
 
-def _later(cfg: ModelConfig) -> str:
-    """The slice of the port that brings training for ``cfg``'s family."""
-    if cfg.family == "moe":
-        return "the MoE training slice (ROADMAP A.2c)"
-    return "a later slice"
-
-
 def require_trainable(cfg: ModelConfig) -> None:
-    """The full-sequence forward (training): dense, RWKV6, Mamba2 and
-    hybrid."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    """The full-sequence forward (training): dense, MoE, RWKV6, Mamba2 and
+    hybrid, every family the port serves."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"training family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"it comes with {_later(cfg)} of repro_torch; this port trains "
-            f"family='dense', 'ssm' (RWKV6, Mamba2) and 'hybrid'")
+            f"training family {cfg.family!r} ({cfg.name}) is not ported: "
+            f"repro_torch trains family='dense', 'moe', 'ssm' (RWKV6, "
+            f"Mamba2) and 'hybrid'")
 
 
 def require_servable(cfg: ModelConfig) -> None:
@@ -97,9 +90,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     """Random parameters from ``seed``, made on ``device``: embeddings and
     linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales (the
     RWKV6, Mamba2 and MoE layers as ``models/rwkv.py:rwkv_init``,
-    ``models/ssm.py:mamba_init`` and ``models/moe.py:moe_init`` make them).
-    MoE parameters serve; ``forward`` refuses them (MoE training comes
-    later)."""
+    ``models/ssm.py:mamba_init`` and ``models/moe.py:moe_init`` make them;
+    an MoE router is f32 whatever ``dtype``)."""
     require_servable(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -254,15 +246,26 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return layers.linear(params["lm_head"], x)
 
 
-def _block(cfg, lp, x, attn):
-    """Pre-norm residual block; ``attn`` maps the normed input to the
-    attention output.  The FFN is the layer's ``moe`` (every row of ``x``
-    routed in one dispatch) or its ``ffn``."""
+def _block(cfg, lp, x, attn, **moe_kw):
+    """Pre-norm residual block -> (x, aux); ``attn`` maps the normed input
+    to the attention output.  The FFN is the layer's ``moe`` (every row of
+    ``x`` routed in one dispatch; ``aux`` is ``moe_apply``'s, holding what
+    ``moe_kw`` asks for: ``losses``, ``return_stats``) or its ``ffn``
+    (``aux`` empty)."""
     x = x + attn(layers.rmsnorm(lp["ln1"], x, cfg.norm_eps))
     h = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
-        return x + moe.moe_apply(lp["moe"], h, cfg)[0]
-    return x + layers.ffn(lp["ffn"], h)
+        y, aux = moe.moe_apply(lp["moe"], h, cfg, **moe_kw)
+        return x + y, aux
+    return x + layers.ffn(lp["ffn"], h), {}
+
+
+def _expert_stats(auxs):
+    """The paged serving functions' telemetry from each MoE layer's aux:
+    ``expert_load`` [L, E_pad] and ``frac_dropped``, the layers' mean (the
+    JAX package's ``expert_stats`` value)."""
+    return {"expert_load": torch.stack([a["expert_load"] for a in auxs]),
+            "frac_dropped": torch.stack([a["frac_dropped"] for a in auxs]).mean()}
 
 
 def _rwkv_block(cfg, lp, x):
@@ -348,7 +351,7 @@ def _mamba_stack(cfg, params, state, x, sl, layer, attend=None):
         for ki, lp in enumerate(gp):
             x = layer(lp, x, state["conv_g"][gi, ki, sl],
                       state["ssm_g"][gi, ki, sl])
-        x = _block(cfg, sp, x, attend(gi))
+        x = _block(cfg, sp, x, attend(gi))[0]
     for ti, lp in enumerate(params["tail"]):
         x = layer(lp, x, state["conv_t"][ti, sl], state["ssm_t"][ti, sl])
     return x
@@ -364,12 +367,15 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
     tokens [B, S] (or ``embeds`` [B, S, d]); positions [B, S] int32
     (default 0..S-1).  With ``train`` and ``remat`` each layer runs under
     ``torch.utils.checkpoint``: only its input is kept, and the backward
-    recomputes its forward (kernels included).  The hybrid family nests the
-    remat as the JAX package does: a checkpoint per layer inside a
+    recomputes its forward (kernels included; an MoE layer's routing too,
+    which deterministic kernels repeat exactly).  The hybrid family nests
+    the remat as the JAX package does: a checkpoint per layer inside a
     checkpoint per group (the group's backward recomputes its layers'
     forwards, and each layer's backward recomputes its own forward once
     more), and one per layer in the tail.  ``aux`` holds the MoE
-    (load-balance, z) losses, zeros for the families ported here."""
+    (load-balance, z) losses summed over the layers (each layer's
+    ``moe_apply`` over its B x S rows, as JAX's ``forward``), zeros for the
+    other families."""
     require_trainable(cfg)
     x = embeds if embeds is not None else layers.embed(params["embed"], tokens)
     b, s, _ = x.shape
@@ -383,11 +389,13 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
                                           lengths=lengths, window=attn_window)
 
     def body(xc, lp):
-        if cfg.family == "dense":
-            return _block(cfg, lp, xc, attend(lp))
+        """One layer -> (x, its aux [2], or None for a layer without)."""
+        if cfg.family in ("dense", "moe"):
+            xc, a = _block(cfg, lp, xc, attend(lp), losses=True)
+            return xc, (torch.stack([a["lb_loss"], a["z_loss"]]) if a else None)
         if cfg.rwkv:
-            return _rwkv_block(cfg, lp, xc)
-        return _mamba_block(cfg, lp, xc)
+            return _rwkv_block(cfg, lp, xc), None
+        return _mamba_block(cfg, lp, xc), None
 
     def run(fn, xc, p):
         if remat:
@@ -395,23 +403,28 @@ def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None, *,
                               preserve_rng_state=False)
         return fn(xc, p)
 
+    auxs = []
+
     def scan(xc, layer_params):
         for lp in layer_params:
-            xc = run(body, xc, lp)
+            xc, a = run(body, xc, lp)
+            if a is not None:
+                auxs.append(a)
         return xc
 
     if cfg.family == "hybrid":
         sp = params["shared"]
 
         def group_body(xc, gp):
-            return _block(cfg, sp, scan(xc, gp), attend(sp))
+            return _block(cfg, sp, scan(xc, gp), attend(sp))[0]
 
         for gp in params["groups"]:
             x = run(group_body, x, gp)
         x = scan(x, params["tail"])
     else:
         x = scan(x, params["layers"])
-    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    aux = (torch.stack(auxs).sum(0) if auxs else
+           torch.zeros((2,), dtype=torch.float32, device=x.device))
     return _logits(cfg, params, x), aux
 
 
@@ -454,7 +467,7 @@ def prefill(cfg: ModelConfig, params, state, *,
 
     if _paged_family(cfg):
         for li, lp in enumerate(params["layers"]):
-            x = _block(cfg, lp, x, attend(lp["attn"], li))
+            x = _block(cfg, lp, x, attend(lp["attn"], li))[0]
     else:
         x = _mamba_stack(
             cfg, params, state, x, slice(None),
@@ -512,7 +525,7 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
 
     if _paged_family(cfg):
         for li, lp in enumerate(params["layers"]):
-            x = _block(cfg, lp, x, attend(lp["attn"], li))
+            x = _block(cfg, lp, x, attend(lp["attn"], li))[0]
     else:
         x = _mamba_stack(
             cfg, params, state, x, slice(None),
@@ -522,9 +535,27 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     return _logits(cfg, params, x)[:, 0], state
 
 
+def _require_stats(cfg: ModelConfig, expert_stats: bool) -> None:
+    if expert_stats and cfg.family != "moe":
+        raise ValueError(f"expert_stats needs a moe family, got "
+                         f"{cfg.family!r}")
+
+
+def _paged_layers(cfg, params, x, attend, expert_stats: bool):
+    """``x`` through the dense or MoE layers over the pool -> (x, the
+    expert telemetry or None)."""
+    auxs = []
+    for li, lp in enumerate(params["layers"]):
+        x, a = _block(cfg, lp, x, attend(lp["attn"], li),
+                      return_stats=expert_stats)
+        auxs.append(a)
+    return x, (_expert_stats(auxs) if expert_stats else None)
+
+
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
                   length: int, q_offset: int, block_table: torch.Tensor,
-                  local_tables: Optional[torch.Tensor] = None):
+                  local_tables: Optional[torch.Tensor] = None,
+                  expert_stats: bool = False):
     """One chunk of a single-sequence prefill into the paged KV cache.
 
     tokens [1, C] (right-padded chunk); ``length`` valid rows; ``q_offset``
@@ -536,14 +567,19 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     ``state`` (and an int8 pool's scales) are updated in place.
     ``local_tables`` [S, MB] int32, the shard-local forms of
     ``block_table``, marks a sequence-sharded pool (the scatter stays on
-    global page ids; attention runs per shard, ``layers.pool_shards``)."""
+    global page ids; attention runs per shard, ``layers.pool_shards``).
+    ``expert_stats`` (MoE): return a third value, ``{"expert_load" [L,
+    E_pad], "frac_dropped"}``, the per-layer routed-token counts of this
+    chunk (the serving telemetry), as the JAX package does."""
     require_servable(cfg)
+    _require_stats(cfg, expert_stats)
     x = layers.embed(params["embed"], tokens)
     attend = _paged_prefill_attend(cfg, state, x.shape[1], length, q_offset,
                                    block_table, local_tables)
-    for li, lp in enumerate(params["layers"]):
-        x = _block(cfg, lp, x, attend(lp["attn"], li))
+    x, est = _paged_layers(cfg, params, x, attend, expert_stats)
     logits = _logits(cfg, params, x[:, length - 1:length])
+    if expert_stats:
+        return logits[:, 0], state, est
     return logits[:, 0], state
 
 
@@ -569,7 +605,8 @@ def _paged_prefill_attend(cfg, state, c: int, length: int, q_offset: int,
 
 def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
                       lengths: torch.Tensor, block_tables: torch.Tensor,
-                      local_tables: Optional[torch.Tensor] = None):
+                      local_tables: Optional[torch.Tensor] = None,
+                      expert_stats: bool = False):
     """Batched one-token decode over the paged KV cache.
 
     tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
@@ -577,13 +614,16 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     and the paged decode kernel reads through the block table.  Returns
     (logits [B, V], state); pages (and an int8 pool's scales) are updated
     in place.  ``local_tables`` [S, B, MB] int32 marks a sequence-sharded
-    pool, as in :func:`prefill_paged`."""
+    pool, and ``expert_stats`` asks for the expert telemetry of the step's
+    B rows, as in :func:`prefill_paged`."""
     require_servable(cfg)
+    _require_stats(cfg, expert_stats)
     x = layers.embed(params["embed"], tokens[:, None])
     attend = _paged_decode_attend(cfg, state, lengths, block_tables,
                                   local_tables)
-    for li, lp in enumerate(params["layers"]):
-        x = _block(cfg, lp, x, attend(lp["attn"], li))
+    x, est = _paged_layers(cfg, params, x, attend, expert_stats)
+    if expert_stats:
+        return _logits(cfg, params, x)[:, 0], state, est
     return _logits(cfg, params, x)[:, 0], state
 
 
@@ -655,7 +695,7 @@ def insert_kv_pages(state, pages: torch.Tensor, k, v, k_scales=None,
 
 def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
                         q_offset, block_table, slot: int = 0,
-                        local_tables=None):
+                        local_tables=None, expert_stats: bool = False):
     """One chunk of a single-sequence prefill against the serve state.
 
     tokens [1, C] (right-padded); ``length`` valid rows.  Dense and MoE:
@@ -666,11 +706,14 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
     prefill; ``q_offset`` and the tables are unused); the scans are the
     kernels with a carried state.  Hybrid: both, the shared block's application ``gi``
     through its pages at ``q_offset``.  Returns (logits at the chunk's last
-    valid row [1, V], state)."""
+    valid row [1, V], state), and with ``expert_stats`` (MoE only) the
+    chunk's expert telemetry third."""
     if _paged_family(cfg):
         return prefill_paged(cfg, params, state, tokens=tokens, length=length,
                              q_offset=q_offset, block_table=block_table,
-                             local_tables=local_tables)
+                             local_tables=local_tables,
+                             expert_stats=expert_stats)
+    _require_stats(cfg, expert_stats)
     x = layers.embed(params["embed"], tokens)
     lens = torch.full((1,), length, dtype=torch.int32, device=x.device)
     sl = slice(slot, slot + 1)
@@ -695,15 +738,19 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
 
 
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
-                      block_tables=None, local_tables=None, rows=None):
+                      block_tables=None, local_tables=None, rows=None,
+                      expert_stats: bool = False):
     """Batched one-token decode against the serve state: the paged pool
-    (``local_tables``: a sequence-sharded pool's), or the slot state (RWKV6,
-    Mamba2), of which only the batch rows ``rows`` are written when given,
-    or both (the hybrid: its shared block through the pool at application
-    ``gi``, its Mamba2 state gated by ``rows``)."""
+    (``local_tables``: a sequence-sharded pool's; ``expert_stats``, MoE
+    only: the step's expert telemetry returned third), or the slot state
+    (RWKV6, Mamba2), of which only the batch rows ``rows`` are written when
+    given, or both (the hybrid: its shared block through the pool at
+    application ``gi``, its Mamba2 state gated by ``rows``)."""
     if _paged_family(cfg):
         return decode_step_paged(cfg, params, state, tokens, lengths,
-                                 block_tables, local_tables)
+                                 block_tables, local_tables,
+                                 expert_stats=expert_stats)
+    _require_stats(cfg, expert_stats)
     if cfg.family == "ssm":
         return decode_step(cfg, params, state, tokens, lengths, rows=rows)
     x = layers.embed(params["embed"], tokens[:, None])

@@ -19,11 +19,18 @@ decode decide which live assignments drop, exactly as in the JAX package.
 Top-k breaks ties towards the lower expert index, as ``jax.lax.top_k``
 does (a stable descending sort).  No step reads a value back to the host.
 
-The Switch load-balance loss, the router z-loss, the dropped fraction and
-the per-expert load are computed only when the caller asks
-(``return_stats``): the serving path never reads them.  The
-expert-parallel dispatches (``_moe_apply_ep``, ``_moe_apply_ep_local``,
-``expert_param_specs``) come with the expert-parallel slice (ROADMAP A.2b).
+The Switch load-balance loss, the router z-loss and the dropped fraction
+(what the JAX function returns on every call) are computed only when the
+caller asks: the training forward (``losses``: the two losses and the
+dropped fraction), or the serving engine's expert telemetry
+(``return_stats``: the per-expert load and the dropped fraction, no loss).
+A serving dispatch without the telemetry computes none of them.  Every step
+is differentiable where JAX's is: the router's gradient reaches it through
+the gates, the load-balance loss and the z-loss; the padded experts'
+router columns take exactly zero gradient (their logits are overwritten
+in place).  The expert-parallel dispatches (``_moe_apply_ep``,
+``_moe_apply_ep_local``, ``expert_param_specs``) come with the
+expert-parallel slice (ROADMAP A.2b).
 """
 from __future__ import annotations
 
@@ -145,15 +152,17 @@ def combine(expert_out: torch.Tensor, r: Routing, dtype) -> torch.Tensor:
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-              return_stats: bool = False
+              losses: bool = False, return_stats: bool = False
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, d] -> (y [B, S, d], aux).
 
-    ``aux`` is empty unless ``return_stats``: then it holds the JAX
-    function's ``lb_loss`` (the Switch load-balance loss over the real
-    experts), ``z_loss`` (the router's mean squared logsumexp),
+    ``aux`` is empty unless asked for.  ``losses`` gives the JAX
+    function's aux: ``lb_loss`` (the Switch load-balance loss over the real
+    experts), ``z_loss`` (the router's mean squared logsumexp) and
+    ``frac_dropped``; ``return_stats`` gives the serving telemetry:
     ``frac_dropped`` and ``expert_load`` [E_pad], each expert's
-    routed-token count in this dispatch (f32)."""
+    routed-token count in this dispatch (f32).  Both together give what
+    JAX's ``return_stats`` does."""
     b, s, d = x.shape
     t = b * s
     e_pad = p["router"].shape[1]
@@ -165,10 +174,12 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     if "shared" in p:
         y = y + layers.ffn(p["shared"], xt)
     aux = {}
-    if return_stats:
+    if losses or return_stats:
+        aux["frac_dropped"] = 1.0 - r.keep.float().mean()
+    if losses:
         ce = r.assign.float().mean(0) * cfg.n_experts / k
-        aux = {"lb_loss": (r.probs.mean(0) * ce)[:cfg.n_experts].sum(),
-               "z_loss": (torch.logsumexp(r.logits, dim=-1) ** 2).mean(),
-               "frac_dropped": 1.0 - r.keep.float().mean(),
-               "expert_load": r.assign.sum(0).float()}
+        aux["lb_loss"] = (r.probs.mean(0) * ce)[:cfg.n_experts].sum()
+        aux["z_loss"] = (torch.logsumexp(r.logits, dim=-1) ** 2).mean()
+    if return_stats:
+        aux["expert_load"] = r.assign.sum(0).float()
     return y.reshape(b, s, d), aux

@@ -163,7 +163,8 @@ class ModelRunner:
 
     def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
                block_tables: Optional[torch.Tensor], mask,
-               local_tables: Optional[torch.Tensor] = None):
+               local_tables: Optional[torch.Tensor] = None,
+               expert_stats: bool = False):
         """Batched one-token decode over every slot.  ``mask`` [slots] bool
         (a CPU tensor or array) gates the slot state: a slot that is not
         runnable (mid-prefill or empty) keeps its recurrent state bit for
@@ -173,26 +174,31 @@ class ModelRunner:
         or into a position the next prefill chunk overwrites; their logits
         are ignored.  ``local_tables`` [S, slots, MB]: a sequence-sharded
         pool's shard-local tables (``block_tables`` stays global, for the
-        scatter)."""
+        scatter).  ``expert_stats`` (MoE): the per-layer expert load and
+        the drop fraction of the step's rows, returned third."""
         rows = None
         if self.spec.has_slot_state:
             mask = torch.as_tensor(mask, dtype=torch.bool).cpu()
             if not bool(mask.all()):
                 rows = torch.nonzero(mask).flatten().to(tokens.device)
         return M.serve_decode_step(self.cfg, params, state, tokens, lengths,
-                                   block_tables, local_tables, rows=rows)
+                                   block_tables, local_tables, rows=rows,
+                                   expert_stats=expert_stats)
 
     def prefill_chunk(self, params, state, tokens: torch.Tensor, length: int,
                       q_offset: int, block_table: Optional[torch.Tensor],
-                      slot: int, local_tables: Optional[torch.Tensor] = None):
+                      slot: int, local_tables: Optional[torch.Tensor] = None,
+                      expert_stats: bool = False):
         """One right-padded chunk of a single-sequence prefill: attention
         K/V land in the pages of ``block_table`` (``local_tables`` [S, MB]:
         a sequence-sharded pool's), recurrent state reads and advances
-        ``slot``'s rows (padding rows are state-neutral)."""
+        ``slot``'s rows (padding rows are state-neutral).  ``expert_stats``
+        as in :meth:`decode`."""
         return M.serve_prefill_chunk(self.cfg, params, state, tokens=tokens,
                                      length=length, q_offset=q_offset,
                                      block_table=block_table, slot=slot,
-                                     local_tables=local_tables)
+                                     local_tables=local_tables,
+                                     expert_stats=expert_stats)
 
     def reset_slot(self, state, slot: int):
         """Zero one slot's recurrent state in place (a fresh admission must

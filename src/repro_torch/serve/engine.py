@@ -102,11 +102,22 @@ its GShard drops are the JAX engine's at any ``capacity_factor``:
   and no decoded token is replayed, so greedy outputs are token-identical
   to an unpressured run.  The JAX engine's machinery, order for order.
 
+* **Expert telemetry and the placement-aware expert cache** (an MoE
+  family on the runner path, ``expert_cache_size``) — every prefill chunk
+  and decode step also returns its per-layer expert load [L, E_pad] and
+  drop fraction (one device-to-host read per dispatch, only with the cache
+  on), folded into the ``expert_*`` stats (load, routed and dropped tokens,
+  skew, Gini) and into ``serve/expert_cache.py``'s ``ExpertCache``: LRU
+  residency in the paper's SRAM-PIM tier with EMA promotion through the
+  NoC cost gate, double-buffered prefetch (``expert_prefetch``), or the
+  static placement (``expert_placement="static"``).  The cache is a
+  host-side model: it never changes what the card computes, only the
+  ``expert_*`` counters; ``reset_stats`` keeps its placement.
+
 Not ported in this slice (construction raises if asked for): prefill/decode
 roles and with them ``HandoffHandle`` and ``submit_handoff`` (ROADMAP A.5),
-and expert parallelism, the expert cache and its telemetry
-(``expert_parallel``, ``expert_cache_size``, ``expert_prefetch``,
-``expert_placement``: ROADMAP A.2b).  The JAX engine's ``q_tile`` and its
+and expert parallelism (``expert_parallel``: ROADMAP A.2b).  The JAX
+engine's ``q_tile`` and its
 prefill-bucket VMEM guard have no counterpart: the CUDA prefill kernel's
 query tile is fixed, so no chunk size can overflow its shared memory.
 """
@@ -127,6 +138,7 @@ from repro_torch.core import noc
 from repro_torch.models import model as M
 from repro_torch.models.runner import ModelRunner
 from repro_torch.serve import swap
+from repro_torch.serve.expert_cache import ExpertCache
 
 # Latency classes and their default weights (the JAX engine's): a victim's
 # eviction score is pages x restore seconds x its class's weight, and
@@ -135,6 +147,17 @@ from repro_torch.serve import swap
 LATENCY_CLASSES = ("interactive", "batch")
 CLASS_WEIGHTS = {"interactive": 8.0, "batch": 1.0}
 PREEMPT_POLICIES = ("swap", "recompute", "auto")
+
+
+def _gini(x: np.ndarray) -> float:
+    """Gini coefficient of a nonnegative load vector (0: balanced, towards
+    1: all the load on one expert), as the JAX engine's."""
+    x = np.sort(np.asarray(x, np.float64))
+    n, tot = x.size, float(x.sum())
+    if n < 2 or tot <= 0.0:
+        return 0.0
+    i = np.arange(1, n + 1)
+    return float(2.0 * (i * x).sum() / (n * tot) - (n + 1.0) / n)
 
 
 @dataclass
@@ -437,7 +460,11 @@ class ServeEngine:
                  swap_pages: Optional[int] = None,
                  class_weights: Optional[Dict[str, float]] = None,
                  class_deadlines_ms: Optional[Dict[str, float]] = None,
-                 proactive_horizon: int = 0, **later):
+                 proactive_horizon: int = 0,
+                 expert_parallel: Optional[int] = None,
+                 expert_cache_size: Optional[int] = None,
+                 expert_prefetch: bool = True,
+                 expert_placement: str = "adaptive", **later):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
@@ -471,14 +498,20 @@ class ServeEngine:
         ``class_deadlines_ms``: a class's default SLO deadline (submit ->
         finish, wall ms), counted in ``stats["slo_violations"]`` and
         ``class_stats``.  ``proactive_horizon``: ticks of look-ahead for
-        proactive preemption (0: only a deadlock preempts).  Any other
-        JAX-engine option raises: it belongs to a later slice."""
-        expert = sorted(k for k in later if k.startswith("expert_"))
-        if expert:
+        proactive preemption (0: only a deadlock preempts).
+        ``expert_cache_size``: SRAM-PIM-resident experts per layer of the
+        placement-aware expert cache (an MoE family on the runner path;
+        None, the default, turns the cache and its telemetry off);
+        ``expert_prefetch``: stage promotions a tick ahead (False commits
+        them at once); ``expert_placement``: "adaptive" (hot experts
+        migrate, ``core.noc.expert_placement_cost``) or "static" (the
+        initial placement, the A/B baseline).  ``expert_parallel`` and any
+        other JAX-engine option raise: they belong to later slices."""
+        if expert_parallel is not None:
             raise NotImplementedError(
-                f"engine options {expert} are not ported yet: they come with "
-                f"later slices of repro_torch (ROADMAP A.2b: expert "
-                f"parallelism, the expert cache and its telemetry)")
+                "engine option expert_parallel is not ported yet: expert "
+                "parallelism comes with later slices of repro_torch "
+                "(ROADMAP A.2b)")
         if later:
             raise NotImplementedError(
                 f"engine options {sorted(later)} are not ported yet: "
@@ -531,6 +564,30 @@ class ServeEngine:
                 "(the NoC butterfly combine is a recursive-doubling tree)")
         if self.seq_shards > 1 and not self.paged:
             raise ValueError("seq_shards > 1 requires the paged KV cache")
+        if expert_placement not in ("adaptive", "static"):
+            raise ValueError(
+                f"expert_placement must be 'adaptive' or 'static', got "
+                f"{expert_placement!r}")
+        self.expert_cache: Optional[ExpertCache] = None
+        if expert_cache_size is not None:
+            if cfg.n_experts <= 0:
+                raise ValueError(
+                    f"expert_cache_size requires a MoE family "
+                    f"(cfg.n_experts > 0); {cfg.family!r} has none")
+            if self.dense_baseline:
+                raise ValueError(
+                    "expert_cache_size needs the runner path's expert "
+                    "telemetry — incompatible with paged=False")
+            self.expert_cache = ExpertCache(
+                cfg.n_layers, self.runner.padded_experts(),
+                int(expert_cache_size),
+                self.runner.expert_weight_bytes(self.dtype.itemsize),
+                prefetch=expert_prefetch,
+                adaptive=(expert_placement == "adaptive"))
+        # the telemetry is asked of the runner only with the cache on (the
+        # keyword passed only then): an engine without it reads nothing
+        # more from the card
+        self._stats_kw = {} if self.expert_cache is None else {"expert_stats": True}
 
         bks = sorted({min(b, max_seq) for b in prefill_buckets} | {max_seq})
         self.prefill_buckets = tuple(bks)
@@ -1017,9 +1074,12 @@ class ServeEngine:
                 # (the kernel reads pages through the table, gathers nothing)
                 self.stats["gather_pages_calls"] += 2 * self._n_apps * S
                 self.stats["gather_page_volume"] += 2 * self._n_apps * mb * S
-        logits, self.state = self.runner.prefill_chunk(
+        out = self.runner.prefill_chunk(
             self.params, self.state, self._to_device(padded), n,
-            req.prefill_pos, table, slot, local)
+            req.prefill_pos, table, slot, local, **self._stats_kw)
+        logits, self.state = out[:2]
+        if self._stats_kw:
+            self._account_expert(out[2], rows=bucket)
         return logits
 
     def _account_noc_combine(self, rows: int) -> None:
@@ -1033,6 +1093,33 @@ class ServeEngine:
         self.stats["noc_hops"] += n * c["hops"]
         self.stats["noc_bytes"] += n * c["bytes"]
         self.stats["noc_energy_pj"] += n * c["energy_pj"]
+
+    def _account_expert(self, est, rows: int) -> None:
+        """Fold one dispatch's expert telemetry (``est``: the per-layer
+        routed counts [L, E_pad] and the drop fraction, read back in one
+        copy) into the stats and the placement cache.  ``rows`` is the
+        dispatch's rows (the slots for a decode step, the bucket for a
+        prefill chunk): padded and idle rows route too, so they count."""
+        vals = torch.cat([est["expert_load"].reshape(-1),
+                          est["frac_dropped"].reshape(1)]).cpu().numpy()
+        cfg = self.cfg
+        load = vals[:-1].astype(np.float64).reshape(cfg.n_layers, -1)
+        self.stats["expert_load"] = self.stats["expert_load"] + load.sum(0)
+        self.stats["expert_routed_tokens"] += rows
+        self.stats["expert_dropped_tokens"] += (float(vals[-1]) * rows
+                                                * cfg.top_k)
+        cum = self.stats["expert_load"][:cfg.n_experts]
+        tot = float(cum.sum())
+        if tot > 0.0:
+            self.stats["expert_skew"] = float(cum.max() * cum.size / tot)
+            self.stats["expert_gini"] = _gini(cum)
+        tick = self.expert_cache.observe(load)
+        self.stats["expert_hits"] += tick["hits"]
+        self.stats["expert_misses"] += tick["misses"]
+        self.stats["expert_migrations"] += tick["migrations"]
+        self.stats["expert_migration_bytes"] += tick["migration_bytes"]
+        self.stats["expert_prefetches"] += tick["prefetches"]
+        self.stats["expert_sram_hit_rate"] = self.expert_cache.sram_hit_rate
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -1171,9 +1258,13 @@ class ServeEngine:
             # advance a mid-prefill, stalled or empty neighbour's state
             mask = np.zeros((self.slots,), bool)
             mask[runnable] = True
-            logits, self.state = self.runner.decode(
+            out = self.runner.decode(
                 self.params, self.state, self._to_device(toks), lens, tables,
-                mask, local)
+                mask, local, **self._stats_kw)
+            logits, self.state = out[:2]
+            if self._stats_kw:
+                # the batched decode routes every slot's row, idle ones too
+                self._account_expert(out[2], rows=self.slots)
         else:
             logits, self.state = M.decode_step(
                 self.cfg, self.params, self.state, self._to_device(toks), lens)
@@ -1452,7 +1543,7 @@ class ServeEngine:
     # -- introspection -------------------------------------------------
     def reset_stats(self) -> None:
         """Zero the counters and the class stats (the prefix-cache registry
-        is kept)."""
+        and the expert cache's placement, staging and EMA are kept)."""
         self.stats = {
             "ticks": 0, "prefill_tokens": 0, "decode_tokens": 0,
             "occupancy_sum": 0.0, "padded_tokens": 0, "prefill_dispatches": 0,
@@ -1479,11 +1570,26 @@ class ServeEngine:
             # finished requests past their deadline (per request, else
             # their class's), also counted per class in class_stats
             "slo_violations": 0,
+            # expert telemetry (MoE, with the expert cache): expert_load is
+            # the routed-token count per padded expert summed over layers
+            # and dispatches; skew = max / mean load and the Gini index over
+            # the real experts; the cache counters are
+            # serve/expert_cache.py's
+            "expert_load": (np.zeros(self.runner.padded_experts())
+                            if self._stats_kw else 0.0),
+            "expert_routed_tokens": 0, "expert_dropped_tokens": 0.0,
+            "expert_skew": 0.0, "expert_gini": 0.0,
+            "expert_hits": 0.0, "expert_misses": 0.0,
+            "expert_sram_hit_rate": 0.0,
+            "expert_migrations": 0, "expert_migration_bytes": 0,
+            "expert_prefetches": 0,
         }
         self.class_stats: Dict[str, Dict[str, float]] = {
             cls: self._zero_class_stats() for cls in self.class_order}
         if self.paged:
             self.alloc.reset_counters()
+        if self.expert_cache is not None:
+            self.expert_cache.reset_counters()
 
     @property
     def prefix_hit_rate(self) -> float:

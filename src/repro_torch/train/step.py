@@ -93,7 +93,9 @@ def make_train_step(cfg: ModelConfig, *, base_lr: float = 3e-4,
 
     ``microbatch``: split the batch into this many sequential chunks with
     gradient accumulation in f32 -- the activation-memory lever for the
-    biggest shapes."""
+    biggest shapes.  Each chunk is its own forward, so an MoE layer routes
+    each chunk as one dispatch, its GShard capacity from that chunk's rows,
+    as in JAX's scan over microbatches."""
     grad_fn = value_and_grad(make_loss_fn(cfg, attn_window=attn_window,
                                           remat=remat))
 

@@ -295,6 +295,7 @@ FLASH_CASES = [  # (B, Sq, Sk, H, KvH, D, causal, window)
     (1, 300, 300, 4, 4, 112, True, 100),       # a window across tile edges
     (2, 33, 200, 4, 2, 64, False, 25),         # non-causal, Sq < Sk, a window
     (1, 257, 257, 4, 4, 128, True, None),      # one row past the last tile
+    (2, 512, 512, 16, 16, 128, True, None),    # olmoe-1b-7b's heads, training
 ]
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -1997,3 +1998,93 @@ def test_engine_under_pressure_on_card_matches_cpu(dev, policy):
               "preempted_tokens", "restored_tokens", "decode_tokens"):
         assert gst[k] == cst[k], k
 
+
+
+# ---------------------------------------------------------------------------
+# MoE training: the silu_mul backward on the routed experts' 3-D tensor, the
+# reduced model's gradients on the card against the CPU, and the engine's
+# expert telemetry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 80, 1024), (8, 37, 32)])
+def test_silu_mul_bwd_expert_shapes(dev, dtype, shape):
+    """The silu_mul backward on an experts' [E_pad, cap, ff] (olmoe's
+    prefill-chunk cap, and a reduced model's ragged one) against its plain
+    version, directly and through autograd of ``ops.silu_mul``, twice
+    bitwise equal; one backward launch a call."""
+    rng = np.random.default_rng(44)
+    g = _rand(rng, shape, dtype, dev, 3.0)
+    u = _rand(rng, shape, dtype, dev)
+    dy = _rand(rng, shape, dtype, dev)
+    want = ref.silu_mul_bwd(g, u, dy)
+    n0 = ksw.bwd_launches
+    got = ksw.silu_mul_bwd(g, u, dy)
+    _bwd_close(got, want, dtype)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, ksw.silu_mul_bwd(g, u, dy)))
+    gs, us = g.detach().requires_grad_(), u.detach().requires_grad_()
+    auto = torch.autograd.grad(ops.silu_mul(gs, us), (gs, us), dy)
+    assert all(torch.equal(a, b_) for a, b_ in zip(auto, got))
+    assert ksw.bwd_launches - n0 == 3
+
+
+def test_moe_train_gradients_on_card_match_cpu(dev):
+    """Reduced olmoe-1b-7b at fp32: the loss's routing on the card equal to
+    the CPU's in every layer's forward and remat recompute (so a flip
+    would show as a flip), then the loss and every gradient leaf within
+    1e-4 of the leaf's largest entry."""
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import moe as TMOE
+    from repro_torch.train import step as TS
+
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=1).batch(0)
+    grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg))
+    route, out = TMOE.route, {}
+    for d in ("cpu", dev):
+        seen = []
+
+        def recorded(*args):
+            r = route(*args)
+            seen.append(r.slot.cpu())
+            return r
+        TMOE.route = recorded
+        try:
+            (loss, met), grads = grad_fn(_to(params, d), {
+                k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        finally:
+            TMOE.route = route
+        out[str(d)] = (seen, float(loss), [g.cpu() for g in T.leaves(grads)])
+    (r0, l0, g0), (r1, l1, g1) = out["cpu"], out["cuda"]
+    assert len(r0) == len(r1) == 2 * cfg.n_layers
+    for i, (a, b_) in enumerate(zip(r0, r1)):
+        assert torch.equal(a, b_), f"routing {i} differs"
+    assert abs(l0 - l1) <= 1e-4
+    for (path, _), a, b_ in zip(T.leaves_with_paths(params), g1, g0):
+        assert float((a - b_).abs().max() / b_.abs().max().clamp_min(1e-30)) <= 1e-4, path
+
+
+def test_engine_expert_telemetry_on_card_matches_cpu(dev):
+    """``ServeEngine(expert_cache_size=4)`` on reduced olmoe-1b-7b at fp32:
+    the card engine token-identical to the CPU engine with every
+    ``expert_*`` stat equal and the cache's residents equal."""
+    cfg = reduced(get_config("olmoe-1b-7b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    kw = dict(max_seq=64, slots=2, block_size=8, prefill_buckets=(8, 16, 64),
+              max_tokens_per_tick=12, expert_cache_size=4)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6], [2, 7], list(range(1, 20))]
+    res = {}
+    for d in ("cpu", dev):
+        eng = ServeEngine(cfg, _to(params, d), **kw)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        out = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        res[str(d)] = (out, {k: v for k, v in eng.stats.items() if k.startswith("expert_")},
+                       [eng.expert_cache.residents(li) for li in range(cfg.n_layers)])
+    (o0, s0, c0), (o1, s1, c1) = res["cpu"], res["cuda"]
+    assert o0 == o1 and c0 == c1 and set(s0) == set(s1)
+    for k in s0:
+        np.testing.assert_array_equal(np.asarray(s1[k]), np.asarray(s0[k]), err_msg=k)
+    assert s0["expert_routed_tokens"] > 0 and s0["expert_migrations"] > 0

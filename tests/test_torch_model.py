@@ -114,14 +114,13 @@ def test_copy_kv_page_matches_jax():
 
 def test_other_families_name_their_slice():
     cfg = t_reduced(t_get_config("olmoe-1b-7b"))
-    # zamba2-7b, its Mamba2 family="ssm" variant and rwkv6-3b train and
-    # serve; MoE serves (its parameters and pool are made) and its training
-    # names its slice
+    # zamba2-7b, its Mamba2 family="ssm" variant, rwkv6-3b and MoE all
+    # train and serve: no family names a later slice any more
     zamba = t_reduced(t_get_config("zamba2-7b"))
     for c in (zamba, zamba.replace(family="ssm"),
               t_reduced(t_get_config("rwkv6-3b")), cfg):
-        TM.init_params(c, device="cpu")
+        params = TM.init_params(c, device="cpu")
         TM.init_serve_state(c, 2, 9, 8, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
-        TM.forward(cfg, TM.init_params(cfg, device="cpu"),
-                   torch.zeros(1, 4, dtype=torch.int32))
+        logits, aux = TM.forward(c, params, torch.zeros(1, 4, dtype=torch.int32))
+        assert logits.shape == (1, 4, c.vocab_size)
+        assert bool(torch.all(aux > 0)) == (c.family == "moe")

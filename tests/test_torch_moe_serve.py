@@ -219,8 +219,10 @@ LAYER_CASES = ("skewed", "dropless", "padded", "shared", "zero_router")
 @pytest.mark.parametrize("name", LAYER_CASES)
 def test_moe_apply_matches_jax(name):
     """moe_apply against JAX's within 1e-5: the output, and with
-    ``return_stats`` lb_loss, z_loss, frac_dropped and expert_load (exact);
-    without it the aux dict is empty.  The skewed router drops (at the
+    ``losses`` and ``return_stats`` lb_loss, z_loss, frac_dropped and
+    expert_load (exact); ``return_stats`` alone gives only expert_load and
+    frac_dropped, ``losses`` alone no expert_load; without either the aux
+    dict is empty.  The skewed router drops (at the
     default capacity factor), the dropless cf = E / k keeps every
     assignment, 20 experts pad to 32 (the padded ones never routed), the
     shared expert is added, and a zero router takes experts 0..k-1 (the
@@ -231,9 +233,15 @@ def test_moe_apply_matches_jax(name):
                             return_stats=True)
     if cf is not None:                        # the port reads cfg.capacity_factor
         tcfg = tcfg.replace(capacity_factor=cf)
-    ty, ta = TMOE.moe_apply(tp, _t(x), tcfg, return_stats=True)
+    ty, ta = TMOE.moe_apply(tp, _t(x), tcfg, losses=True, return_stats=True)
     _close(ty, jy, LAYER_TOL)
     assert set(ta) == set(ja)
+    _, stats = TMOE.moe_apply(tp, _t(x), tcfg, return_stats=True)
+    assert set(stats) == {"expert_load", "frac_dropped"}
+    assert torch.equal(stats["expert_load"], ta["expert_load"])
+    assert torch.equal(stats["frac_dropped"], ta["frac_dropped"])
+    _, lossed = TMOE.moe_apply(tp, _t(x), tcfg, losses=True)
+    assert set(lossed) == {"lb_loss", "z_loss", "frac_dropped"}
     for k in ("lb_loss", "z_loss", "frac_dropped"):
         _close(ta[k], ja[k], LAYER_TOL, err_msg=k)
     np.testing.assert_array_equal(ta["expert_load"].numpy(), np.asarray(ja["expert_load"]))
@@ -520,28 +528,43 @@ def test_last_writer_scatter_matches_cpu_index_order(kind):
 
 
 def test_expert_options_raise(model):
-    """The JAX engine's expert options are refused, naming ROADMAP A.2b
-    (expert parallelism, the expert cache and its telemetry)."""
+    """Of the JAX engine's expert options only ``expert_parallel`` is still
+    refused, naming ROADMAP A.2b; the expert cache's options build (the
+    cache and its telemetry: tests/test_torch_expert_cache.py)."""
     _, tcfg, _, tparams = model
-    for kw in (dict(expert_parallel=2), dict(expert_cache_size=4),
-               dict(expert_prefetch=True), dict(expert_placement="adaptive")):
-        with pytest.raises(NotImplementedError, match="A.2b"):
-            TEngine(tcfg, tparams, max_seq=32, slots=1, **kw)
+    for ep in (1, 2):
+        with pytest.raises(NotImplementedError, match="expert parallelism.*A.2b"):
+            TEngine(tcfg, tparams, max_seq=32, slots=1, expert_parallel=ep)
+    for kw in (dict(expert_cache_size=4),
+               dict(expert_cache_size=4, expert_prefetch=False),
+               dict(expert_cache_size=2, expert_placement="static")):
+        eng = TEngine(tcfg, tparams, max_seq=32, slots=1, **kw)
+        assert eng.expert_cache.capacity == kw["expert_cache_size"]
+        assert eng.expert_cache.prefetch == kw.get("expert_prefetch", True)
+        assert eng.expert_cache.adaptive == (kw.get("expert_placement")
+                                             != "static")
+    # the options alone (no cache size) leave the cache off, as in JAX
+    assert TEngine(tcfg, tparams, max_seq=32, slots=1,
+                   expert_prefetch=True).expert_cache is None
 
 
-def test_forward_refuses_moe(model, capsys):
-    """MoE parameters and serving state build, but the full-sequence forward
-    (MoE training) is refused, naming ROADMAP A.2c, and so is the train
-    launcher."""
+def test_forward_refuses_moe(model, capsys, tmp_path):
+    """MoE parameters and serving state build, and (since MoE training was
+    ported) the full-sequence forward runs on the skewed model: finite
+    logits and a positive aux [lb, z] (its JAX parity is held in
+    tests/test_torch_moe_train.py); the train launcher trains a step."""
     _, tcfg, _, tparams = model
     assert set(TM.init_params(tcfg, device="cpu")["layers"][0]) == \
         {"ln1", "attn", "ln2", "moe"}
-    with pytest.raises(NotImplementedError, match="MoE training.*A.2c"):
-        TM.forward(tcfg, tparams, torch.zeros(1, 4, dtype=torch.int32))
+    toks = torch.arange(12, dtype=torch.int32).reshape(2, 6) % tcfg.vocab_size
+    tl, taux = TM.forward(tcfg, tparams, toks)
+    assert tl.shape == (2, 6, tcfg.vocab_size) and torch.isfinite(tl).all()
+    assert taux.shape == (2,) and bool((taux > 0).all())
     from repro_torch.launch import train as ttrain
-    with pytest.raises(NotImplementedError, match="A.2c"):
-        ttrain.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
-                     "--steps", "1", "--seq-len", "8", "--global-batch", "1"])
+    ttrain.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                 "--steps", "1", "--seq-len", "8", "--global-batch", "1",
+                 "--ckpt-dir", str(tmp_path)])
+    assert "[train] done at step 0" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch,extra,mode", [

@@ -317,6 +317,14 @@ def test_launch_train_cpu(tmp_path, capsys):
 
 
 def test_forward_refuses_other_families():
-    with pytest.raises(NotImplementedError, match="MoE training slice.*A.2c"):
-        TM.forward(t_reduced(t_get_config("olmoe-1b-7b")), {},
+    """No family is left to refuse: MoE trains too (its forward returns
+    logits and nonzero [lb, z] aux; tests/test_torch_moe_train.py holds it
+    to JAX), and an unknown family still raises."""
+    cfg = t_reduced(t_get_config("olmoe-1b-7b"))
+    logits, aux = TM.forward(cfg, TM.init_params(cfg, device="cpu"),
+                             torch.zeros(1, 4, dtype=torch.int32))
+    assert logits.shape == (1, 4, cfg.vocab_size) and aux.shape == (2,)
+    assert bool(torch.all(aux > 0))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TM.forward(cfg.replace(family="vision"), {},
                    torch.zeros(1, 4, dtype=torch.int32))
