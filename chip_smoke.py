@@ -328,7 +328,40 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    misses = lookups = L k routed tokens, migration bytes = migrations x
    an expert's bytes, one telemetry read a dispatch), static placement
    never migrating; hit rates, migrations, the telemetry's host ms a
-   dispatch and every run's tok/s logged beside phase 21's.
+   dispatch and every run's tok/s logged beside phase 21's;
+27. disaggregation (after 24, with phase 5's parameters): stablelm-1.6b
+   at full width and depth through ``serve/disagg.py:DisaggServer`` on the
+   mix of 5.  bf16, the launcher's shape (4 prefill and 4 decode slots,
+   the decode role under swap, the default arena): every request finished
+   with its 64 tokens, the prefill role's launches at phase 5's per-chunk
+   formulas over its own chunks and the decode role's at the per-step ones
+   over its own steps with no prefill launch; tok/s, TTFT, each role's
+   worker seconds, the handoff bytes and peak memory beside phase 5's;
+   again probed (``HandoffProbe``: every handoff's moved pages bit-equal in
+   the decode pool after admission; the arena's device-to-host and
+   host-to-device GB/s beside ``noc.handoff_cost``'s modeled seconds).
+   fp32 (the same seed), both roles at 8 slots: token-identical to the
+   monolithic runner with prefix caching on (pages re-attached on the
+   decode side, the handoff bytes exactly the moved pages') and off; an
+   int8 pair against the int8 runner, pages and scales bit-equal after the
+   round trip; a decode pool of ``PRESSURE_BLOCKS`` pages and an arena of
+   one longest chain, both stalls counted, the tokens unchanged.  Inside
+   phase 19's fp32 check a rwkv6-3b pair and inside phase 22's hybrid part
+   a zamba2-7b pair (14 layers), each token-identical to its monolithic
+   runner with every slot-state blob bit-equal after admission;
+28. expert parallelism (after 26, with phase 21's olmoe-1b-7b at full
+   width and depth): rows 5ep and 5epd, silu_mul on one of 4 expert
+   shards, [16, 80, 1024] and [16, 4, 1024], held in bf16 (twice bitwise
+   equal, timed as phase 3) and f32; the mix in bf16 at ``EP_RUNS`` (ep 4,
+   ep 4 with the expert cache, ep 2 x 2 sequence shards): every launch at
+   its formula (silu_mul ep L a dispatch on its shard shape's route, the
+   expert GEMMs 3 ep L), ``sum(expert_load) == L k routed tokens``, tok/s
+   and TTFT beside phase 21's runner run and the share of its tokens
+   matched (not gated: each shard's bf16 cast rounds as JAX's sharded
+   dispatch does); reduced olmoe skewed at fp32 through the same settings
+   on the card token-identical to the CPU's runs without expert shards,
+   with as many drops; and inside phase 21's fp32 check, ep 4 at full
+   width token-identical to its other engines.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -3034,7 +3067,8 @@ def rwkv_fp32_identity(torch, cfg):
     -> six chunks) through the runner engine, every chunk after the first
     carrying its slot's state into the kernel, against the dense-slab
     engine's monolithic prefill from zero: greedy outputs must be
-    token-identical."""
+    token-identical.  Phase 27's rwkv6-3b pair (``recurrent_pair``) runs
+    here, on these parameters and prompts, against the runner."""
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
 
@@ -3052,6 +3086,8 @@ def rwkv_fp32_identity(torch, cfg):
         outs[name] = {r.rid: r.out_tokens for r in eng.run_until_drained()}
         stats[name] = dict(eng.stats)
         del eng
+    pair = recurrent_pair(torch, cfg, params, prompts, FP32_NEW_TOKENS,
+                          outs["runner"], **kw)
     del params
     torch.cuda.empty_cache()
     diff = [rid for rid in outs["runner"] if outs["runner"][rid] != outs["slab"].get(rid)]
@@ -3064,7 +3100,8 @@ def rwkv_fp32_identity(torch, cfg):
              f"(rids {diff})")
     if stats["runner"]["prefill_dispatches"] <= len(prompts):
         fail("rwkv serve fp32: no prompt crossed a prefill-chunk boundary")
-    return dict(prefill_chunks=stats["runner"]["prefill_dispatches"], requests=len(prompts))
+    return dict(prefill_chunks=stats["runner"]["prefill_dispatches"], requests=len(prompts),
+                disagg_pair=pair)
 
 
 def rwkv_serve_phase(torch, cfg, counters):
@@ -3858,24 +3895,28 @@ def zamba_prefill_gate(torch, cfg, params):
 # phase 21: MoE serving (olmoe-1b-7b)
 # ---------------------------------------------------------------------------
 
-def expert_silu_rows(torch, timer, cfg):
+def expert_silu_rows(torch, timer, cfg, ep=1):
     """Rows 5e and 5ed: silu_mul through ``ops.silu_mul`` at olmoe-1b-7b's
     routed-expert shapes [E_pad, cap, moe_d_ff]: a 512-row prefill chunk's
     (cap 80, the vector route) and a decode step's of 8 slots (cap 4,
     262144 elements: the element route); each held in bf16 (twice bitwise
-    equal, timed and logged as row 5) and in f32."""
+    equal, timed and logged as row 5) and in f32.  With ``ep`` (rows 5ep
+    and 5epd) the same on one expert shard's [E_pad / ep, cap, ff], the cap
+    still from the global E_pad."""
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import swiglu as ksw
     from repro_torch.models import moe
 
-    gen = torch.Generator(device="cuda").manual_seed(30)
+    gen = torch.Generator(device="cuda").manual_seed(30 + ep)
     e_pad, ff = moe.moe_padded_experts(cfg), cfg.moe_d_ff
     floor = timer(lambda: torch.cuda._sleep(1))
     rows = []
-    for name, label, t in (("silu_mul_experts", "5e", SERVE_CHUNK),
-                           ("silu_mul_experts_decode", "5ed", SERVE_SLOTS)):
+    suffix, tag = ("", "5e") if ep == 1 else (f"_ep{ep}", "5ep")
+    for name, label, t in ((f"silu_mul_experts{suffix}", tag, SERVE_CHUNK),
+                           (f"silu_mul_experts{suffix}_decode", f"{tag}d",
+                            SERVE_SLOTS)):
         cap = moe.capacity(t, cfg.top_k, cfg.capacity_factor, e_pad)
-        shape = (e_pad, cap, ff)
+        shape = (e_pad // ep, cap, ff)
         g = torch.randn(shape, generator=gen, device="cuda") * 3.0
         u = torch.randn(shape, generator=gen, device="cuda")
         e32 = hold(torch, f"{name} f32", ops.silu_mul(g, u), ref.silu_mul(g, u),
@@ -3889,8 +3930,10 @@ def expert_silu_rows(torch, timer, cfg):
             "src/repro/kernels/swiglu.py:59", lambda: ops.silu_mul(g, u),
             lambda: ref.silu_mul(g, u), SILU_TOL, rel=SILU_REL, nbytes=nbytes,
             flops=5 * g.numel(),
-            note=f"; rel {SILU_REL}; f32 max|err| {e32:.3g}; [{e_pad}, {cap}, {ff}], "
-                 f"a dispatch of {t} rows; the {route} route")
+            note=f"; rel {SILU_REL}; f32 max|err| {e32:.3g}; {list(shape)}, "
+                 f"a dispatch of {t} rows"
+                 + (f", one of {ep} expert shards" if ep > 1 else "")
+                 + f"; the {route} route")
         row.update(row=label, design=SILU_DESIGN, launch_floor_ms=floor, route_taken=route)
         log_rate(torch, timer, row, nbytes)
         rows.append(row)
@@ -4025,9 +4068,10 @@ def moe_fp32_identity(torch, cfg):
     admitted after the first has published them) and prompts of 40-333
     tokens whose chunks cross prefill-chunk boundaries (budget 136, buckets
     32 and 128), through the runner engine and 4 sequence shards, each with
-    prefix caching on and off, against the dense-slab engine's monolithic
-    prefill: greedy outputs token-identical, no assignment dropped, the
-    prefix hit on the caching runs."""
+    prefix caching on and off, and (phase 28) the runner at 4 expert
+    shards, against the dense-slab engine's monolithic prefill: greedy
+    outputs token-identical, no assignment dropped, the prefix hit on the
+    caching runs."""
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
 
@@ -4042,7 +4086,8 @@ def moe_fp32_identity(torch, cfg):
     outs, stats = {}, {}
     engines = (("runner", {}), ("runner_cache_off", dict(prefix_caching=False)),
                ("slab", dict(paged=False)), ("seq4", dict(seq_shards=SEQ_SHARDS)),
-               ("seq4_cache_off", dict(seq_shards=SEQ_SHARDS, prefix_caching=False)))
+               ("seq4_cache_off", dict(seq_shards=SEQ_SHARDS, prefix_caching=False)),
+               ("ep4", dict(expert_parallel=4)))
     for name, opts in engines:
         eng = ServeEngine(cfg, params, **kw, **opts)
         with DropCounter() as dc:
@@ -4064,7 +4109,7 @@ def moe_fp32_identity(torch, cfg):
         fail(f"moe serve fp32: the engines' greedy outputs differ {diff}")
     if any(s["dropped"] for s in stats.values()):
         fail("moe serve fp32: an assignment dropped at the dropless capacity factor")
-    for name in ("runner", "seq4"):
+    for name in ("runner", "seq4", "ep4"):
         if stats[name]["prefix_hit_tokens"] <= 0:
             fail(f"moe serve fp32: {name} with prefix caching on never hit")
     if stats["runner_cache_off"]["prefill_dispatches"] <= len(prompts):
@@ -4992,13 +5037,14 @@ def hybrid_preempt_phase(torch, cfg):
     0, on the mix of 5 over a pool of ``PRESSURE_BLOCKS`` pages: swap and
     recompute token-identical to the unpressured run, the swap run probed
     (every swapped victim's pages and Mamba2 slot-state blob bit-equal after
-    the round trip)."""
+    the round trip).  Phase 27's zamba2-7b pair (``recurrent_pair``) runs
+    here, on these parameters, against the unpressured run."""
     from repro_torch.models import model as M
 
     cfg = cfg.replace(n_layers=HYBRID_PRESSURE_LAYERS)
     params = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     base, base_st, _, _ = serve_mix(torch, cfg, params, {})
-    gates = {}
+    gates = {"disagg_pair": recurrent_pair(torch, cfg, params, None, None, base)}
     for pol in ("swap", "recompute"):
         out, st, _, _, probe = probed_mix(torch, cfg, params, {},
                                           num_blocks=PRESSURE_BLOCKS,
@@ -5488,6 +5534,494 @@ def class_phase(torch, cfg, params, counters, serve):
     return res
 
 
+# ---------------------------------------------------------------------------
+# 27: prefill/decode disaggregation (serve/disagg.py)
+# ---------------------------------------------------------------------------
+
+class HandoffProbe:
+    """Around one ``DisaggServer``: each handoff's transferred pages (an
+    int8 pool's scales too) and, for a slot-state family, its blob are read
+    from the prefill pool just before staging and from the decode pool just
+    after admission, where they must be the same bytes; and, given
+    ``counters``, each role's kernel launches are counted apart (the
+    counters read around each engine's ``step``).  ``close`` takes the
+    wrappers off the engines."""
+
+    def __init__(self, torch, srv, counters=None, check=True):
+        self.srv, self.staged, self.checked = srv, {}, 0
+        self.launches = {role: {n: 0 for n in (counters or {})}
+                         for role in ("prefill", "decode")}
+        pre, dec = srv.prefill, srv.decode
+
+        def pages(eng, ids):
+            t = torch.as_tensor(ids, dtype=torch.int64, device=eng.device)
+            return [x.clone() for x in eng.runner.extract_pages(eng.state, t)
+                    if x is not None]
+
+        def blob(eng, slot):
+            return (eng.runner.extract_slot_state(eng.state, slot)
+                    if eng.has_slot_state else {})
+
+        def probed_stage(slot, arena, cached=()):
+            n = -(-int(pre.lengths[slot]) // pre.block_size) if pre.paged else 0
+            rest = ([int(p) for p in pre.alloc.table[slot, len(cached):n]]
+                    if pre.paged else [])
+            before = (pages(pre, rest) if rest else [], blob(pre, slot))
+            rid = pre.active[slot].rid
+            handle = stage(slot, arena, cached)
+            if handle is not None:
+                self.staged[rid] = (len(cached), n, before)
+            return handle
+
+        def probed_admit(slot, req):
+            rid = req.rid
+            ok = admit(slot, req)
+            if ok and rid in self.staged:
+                c, n, (p0, b0) = self.staged.pop(rid)
+                ids = [int(p) for p in dec.alloc.table[slot, c:n]] if dec.paged else []
+                p1, b1 = (pages(dec, ids) if ids else []), blob(dec, slot)
+                same = len(p0) == len(p1) and all(
+                    torch.equal(a, b) for a, b in zip(p0, p1)) and all(
+                    torch.equal(b0[k], b1[k]) for k in b0)
+                if not same:
+                    fail(f"handoff probe: request {rid}'s transferred pages or "
+                         f"slot state differ after admission")
+                self.checked += 1
+            return ok
+
+        def counted(step, role):
+            def call():
+                before = {n: c.read() for n, c in counters.items()}
+                out = step()
+                for n, c in counters.items():
+                    self.launches[role][n] += c.read() - before[n]
+                return out
+            return call
+
+        stage, admit = pre.stage_handoff, dec._admit_handoff
+        if check:
+            pre.stage_handoff, dec._admit_handoff = probed_stage, probed_admit
+        if counters:
+            pre.step = counted(pre.step, "prefill")
+            dec.step = counted(dec.step, "decode")
+
+    def close(self):
+        """The engines' own methods back (the wrappers hold them in a
+        cycle), so the pools go with the server."""
+        for eng, attrs in ((self.srv.prefill, ("stage_handoff", "step")),
+                           (self.srv.decode, ("_admit_handoff", "step"))):
+            for a in attrs:
+                eng.__dict__.pop(a, None)
+        self.srv = None
+        gc.collect()
+
+
+def arena_timing(torch, d2h, h2d):
+    """``SwapArena.write`` / ``read`` timed (the card synchronized on each
+    side), their bytes and seconds summed into ``d2h`` / ``h2d``: patches
+    for ``_trace.patched``."""
+    from repro_torch.serve import swap
+
+    write, read = swap.SwapArena.write, swap.SwapArena.read
+
+    def timed_write(arena, slots, *ts):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        write(arena, slots, *ts)
+        torch.cuda.synchronize()
+        d2h[0] += sum(x.numel() * x.element_size() for x in ts if x is not None)
+        d2h[1] += time.perf_counter() - t
+
+    def timed_read(arena, slots):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = read(arena, slots)
+        torch.cuda.synchronize()
+        h2d[0] += sum(x.numel() * x.element_size() for x in out)
+        h2d[1] += time.perf_counter() - t
+        return out
+
+    return [(swap.SwapArena, "write", timed_write), (swap.SwapArena, "read", timed_read)]
+
+
+HANDOFF_KEYS = ("handoffs", "handoff_pages", "handoff_cached_pages",
+                "handoff_bytes", "handoff_seconds", "arena_stalls",
+                "prefill_step_seconds", "decode_step_seconds")
+
+
+def disagg_mix(torch, cfg, params, counters=None, check=True, timed=False,
+               prompts=None, new_tokens=None, prefill=None, decode=None,
+               **shared):
+    """The mix of 5 (or ``prompts``) once through a ``DisaggServer`` over
+    ``params``: each role at ``MIX_ENGINE``'s 8 slots unless ``prefill`` /
+    ``decode`` say otherwise, ``shared`` over both; a ``HandoffProbe``
+    around it (``check``: every handoff's pages and blob bit-equal after
+    admission; ``counters``: each role's launches, zeroed just before);
+    ``timed``: the arena's copies timed.  Returns (tokens by rid, summary)."""
+    from repro_torch.launch._trace import patched
+    from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
+                                          shared_prefix_mix)
+    from repro_torch.serve import DisaggServer
+
+    prompts = prompts or shared_prefix_mix(cfg.vocab_size)
+    new_tokens = new_tokens or MIX_NEW_TOKENS
+    kw = {**MIX_ENGINE, **shared}
+    slots = kw.pop("slots")
+    srv = DisaggServer(cfg, params, prefill={"slots": slots, **(prefill or {})},
+                       decode={"slots": slots, **(decode or {})}, **kw)
+    probe = HandoffProbe(torch, srv, counters, check)
+    d2h, h2d = [0, 0.0], [0, 0.0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (counters or {}).values():
+        c.reset()
+    t = time.perf_counter()
+    with patched(arena_timing(torch, d2h, h2d) if timed else []):
+        for p in prompts:
+            srv.submit(p, max_new_tokens=new_tokens)
+        done = srv.run_until_drained()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    out = {r.rid: list(r.out_tokens) for r in done}
+    pre, dec = srv.prefill, srv.decode
+    n_tok = sum(len(x) for x in out.values())
+    ttfts = sorted(r.ttft for r in done)
+    summary = dict(
+        {k: srv.stats[k] for k in HANDOFF_KEYS}, requests=len(out), tokens=n_tok,
+        wall_s=wall, tok_s=n_tok / wall, ttft_p50_ms=ttfts[len(ttfts) // 2] * 1e3,
+        handoff_stalls=dec.stats["handoff_stalls"],
+        prefill_dispatches=pre.stats["prefill_dispatches"],
+        prefill_decode_dispatches=pre.stats["decode_dispatches"],
+        decode_dispatches=dec.stats["decode_dispatches"],
+        decode_prefill_dispatches=dec.stats["prefill_dispatches"],
+        decode_preemptions=dec.stats["preemptions"],
+        page_kv_bytes=pre._page_kv_bytes() if pre.paged else 0,
+        slot_state_bytes=pre._slot_state_bytes,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        probe_checked=probe.checked, launches=probe.launches,
+        d2h_bytes=d2h[0], h2d_bytes=h2d[0],
+        d2h_gb_s=d2h[0] / d2h[1] / 1e9 if d2h[1] else None,
+        h2d_gb_s=h2d[0] / h2d[1] / 1e9 if h2d[1] else None)
+    probe.close()
+    del srv, pre, dec, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(out) != len(prompts) or any(
+            not 0 <= x < cfg.vocab_size for toks in out.values() for x in toks):
+        fail(f"disagg: {len(out)} of {len(prompts)} requests finished, or a token "
+             f"outside the vocabulary")
+    if check and summary["probe_checked"] != summary["handoffs"]:
+        fail(f"disagg: {summary['probe_checked']} of {summary['handoffs']} "
+             f"handoffs checked after admission")
+    return out, summary
+
+
+def pair_gate(tag, out, want, summary):
+    """A pair's tokens against its monolithic run's, every request."""
+    diff = [rid for rid in want if out.get(rid) != want[rid]]
+    log(f"{tag}: {len(want) - len(diff)} of {len(want)} requests token-identical "
+        f"to the monolithic runner; handoffs {summary['handoffs']} (pages moved "
+        f"{summary['handoff_pages']}, cached {summary['handoff_cached_pages']}, "
+        f"{summary['handoff_bytes']} B, slot state {summary['slot_state_bytes']} B "
+        f"each), arena stalls {summary['arena_stalls']}, handoff stalls "
+        f"{summary['handoff_stalls']}, {summary['probe_checked']} handoffs' pages "
+        f"and blobs bit-equal after admission; {summary['tok_s']:.1f} tok/s")
+    if diff or len(out) != len(want):
+        fail(f"{tag}: greedy outputs differ from the monolithic runner (rids {diff})")
+
+
+def recurrent_pair(torch, cfg, params, prompts, new_tokens, mono, **kw):
+    """27, a slot-state family in fp32 (rwkv6-3b with phase 19's prompts
+    and engine, or the cut zamba2-7b of phase 22 on the mix of 5): a
+    prefill/decode pair at the monolithic run's slots, token-identical to
+    it, every handoff's slot-state blob (and pages) bit-equal after
+    admission."""
+    t = time.perf_counter()
+    out, summary = disagg_mix(torch, cfg, params, prompts=prompts,
+                              new_tokens=new_tokens, **kw)
+    summary["seconds"] = time.perf_counter() - t
+    pair_gate(f"disagg {cfg.name} fp32 ({cfg.n_layers} layers)", out, mono, summary)
+    if summary["slot_state_bytes"] <= 0 or summary["probe_checked"] < len(mono):
+        fail(f"disagg {cfg.name}: no slot-state blob crossed")
+    want = (summary["handoff_pages"] * summary["page_kv_bytes"]
+            + summary["handoffs"] * summary["slot_state_bytes"])
+    if summary["handoff_bytes"] != want:
+        fail(f"disagg {cfg.name}: handoff bytes {summary['handoff_bytes']}, "
+             f"expected {want}")
+    log(f"disagg {cfg.name}: phase 27's pair took {summary['seconds']:.1f} s")
+    return {k: v for k, v in summary.items() if k != "launches"}
+
+
+def disagg_phase(torch, cfg, params, counters, serve, serve_out):
+    """27: stablelm-1.6b at full width and depth.  bf16 (phase 5's
+    ``params`` and mix), the launcher's shape: 4 prefill and 4 decode slots,
+    the decode role under swap, the default arena; every request finished,
+    the prefill role's launches at phase 5's formulas over its own chunks
+    and the decode role's over its own steps with no prefill launch; a
+    second run probed (every handoff's pages bit-equal after admission, the
+    arena's copies timed beside ``noc.handoff_cost``'s modeled link).
+    fp32 (the same seed), both roles at 8 slots: token-identical to the
+    monolithic runner with prefix caching on (the shared prefix's pages
+    re-attached on the decode side: ``handoff_cached_pages`` > 0, the bytes
+    the moved pages' exactly) and off; an int8 pair against the int8
+    runner, its pages and scales bit-equal after the round trip; a small
+    decode pool (``PRESSURE_BLOCKS``) and an arena of one longest chain:
+    both stalls counted, every request finished, the tokens unchanged."""
+    from repro_torch.core import noc
+    from repro_torch.launch.serve import MIX_ENGINE, shared_prefix_mix
+    from repro_torch.models import model as M
+
+    L = cfg.n_layers
+    res = dict(modeled_link_gb_s=noc.SWAP_LINK_BYTES_PER_S / 1e9,
+               source="the paper's CXL link (pimsim.params), not the H100's")
+    split = dict(prefill=dict(slots=SERVE_SLOTS // 2),
+                 decode=dict(slots=SERVE_SLOTS - SERVE_SLOTS // 2,
+                             preempt_policy="swap"))
+    out, s = disagg_mix(torch, cfg, params, counters, check=False, **split)
+    pre_l, dec_l = s["launches"]["prefill"], s["launches"]["decode"]
+    check_launches("disagg bf16 prefill role", pre_l,
+                   serve_expect(L, s["prefill_dispatches"], 0))
+    check_launches("disagg bf16 decode role", dec_l,
+                   serve_expect(L, 0, s["decode_dispatches"]))
+    if s["prefill_decode_dispatches"] or s["decode_prefill_dispatches"]:
+        fail("disagg bf16: the prefill role decoded or the decode role prefilled")
+    if any(len(x) != 64 for x in out.values()):
+        fail("disagg bf16: a request finished short of its tokens")
+    same = sum(out.get(rid) == toks for rid, toks in serve_out.items())
+    log(f"disagg bf16 (4 prefill + 4 decode slots, decode under swap): "
+        f"{s['requests']} requests, {s['tokens']} tokens in {s['wall_s']:.3f} s "
+        f"({s['tok_s']:.1f} tok/s; phase 5's one engine of 8 slots "
+        f"{serve['tok_s']:.1f}), ttft p50 {s['ttft_p50_ms']:.1f} ms "
+        f"({serve['ttft_p50_ms']:.1f}), worker seconds prefill "
+        f"{s['prefill_step_seconds']:.3f} / decode {s['decode_step_seconds']:.3f}, "
+        f"prefill chunks {s['prefill_dispatches']}, decode steps "
+        f"{s['decode_dispatches']}, handoffs {s['handoffs']} ({s['handoff_pages']} "
+        f"pages moved, {s['handoff_cached_pages']} re-attached, "
+        f"{s['handoff_bytes'] / 2**20:.1f} MiB; modeled "
+        f"{s['handoff_seconds'] * 1e3:.3f} ms on the paper's link), stalls "
+        f"arena {s['arena_stalls']} / decode pool {s['handoff_stalls']}, peak "
+        f"memory {s['peak_mem_bytes'] / 2**30:.2f} GiB "
+        f"({serve['peak_mem_bytes'] / 2**30:.2f}); {same} of {len(out)} requests "
+        f"token-identical to phase 5's (bf16, not gated)")
+    res["bf16"] = {k: v for k, v in s.items() if k != "launches"}
+    res["bf16"].update(prefill_launches=pre_l, decode_launches=dec_l,
+                       same_as_phase5=same)
+    _, p = disagg_mix(torch, cfg, params, timed=True, **split)
+    log(f"disagg bf16 probed: {p['probe_checked']} handoffs' pages bit-equal after "
+        f"admission; arena device-to-host {p['d2h_gb_s']} GB/s ({p['d2h_bytes']} B), "
+        f"host-to-device {p['h2d_gb_s']} GB/s ({p['h2d_bytes']} B), beside the "
+        f"modeled link's {noc.SWAP_LINK_BYTES_PER_S / 1e9:.1f} GB/s "
+        f"({p['handoff_seconds'] * 1e3:.3f} ms modeled for {p['handoff_bytes']} B); "
+        f"{p['tok_s']:.1f} tok/s with the probe's synchronizes")
+    res["bf16_probed"] = {k: v for k, v in p.items() if k != "launches"}
+
+    params32 = M.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    mono, _, _, _ = serve_mix(torch, cfg, params32, {})
+    q8_mono, _, _, _ = serve_mix(torch, cfg, params32, {}, kv_dtype="int8")
+    bs = MIX_ENGINE["block_size"]
+    longest = max(-(-len(x) // bs) for x in shared_prefix_mix(cfg.vocab_size))
+    gates = {}
+    for name, kw, want in (
+            ("cache_on", {}, mono),
+            ("cache_off", dict(prefix_caching=False), mono),
+            ("int8", dict(kv_dtype="int8"), q8_mono),
+            ("stalls", dict(decode=dict(num_blocks=PRESSURE_BLOCKS,
+                                        preempt_policy="swap"),
+                            handoff_pages=longest), mono)):
+        out, g = disagg_mix(torch, cfg, params32, **kw)
+        pair_gate(f"disagg fp32 {name}", out, want, g)
+        if g["handoff_bytes"] != g["handoff_pages"] * g["page_kv_bytes"]:
+            fail(f"disagg fp32 {name}: handoff bytes {g['handoff_bytes']} are not "
+                 f"the moved pages' {g['handoff_pages']} x {g['page_kv_bytes']}")
+        if name.startswith("cache_") and \
+                (name == "cache_on") != (g["handoff_cached_pages"] > 0):
+            fail(f"disagg fp32 {name}: {g['handoff_cached_pages']} pages re-attached "
+                 f"on the decode side")
+        if name == "stalls" and not (g["arena_stalls"] > 0 and g["handoff_stalls"] > 0):
+            fail(f"disagg fp32 stalls: arena stalls {g['arena_stalls']}, handoff "
+                 f"stalls {g['handoff_stalls']} (an arena of {longest} pages, a "
+                 f"decode pool of {PRESSURE_BLOCKS})")
+        gates[name] = {k: v for k, v in g.items() if k != "launches"}
+    del params32
+    torch.cuda.empty_cache()
+    res["fp32"] = gates
+    return res
+
+
+# ---------------------------------------------------------------------------
+# 28: expert parallelism (olmoe-1b-7b's experts as shard views of the banks)
+# ---------------------------------------------------------------------------
+
+EP_RUNS = (("ep4", dict(expert_parallel=4)),
+           ("ep4_cache", dict(expert_parallel=4, expert_cache_size=EXPERT_CACHE)),
+           ("ep2_seq2", dict(expert_parallel=2, seq_shards=2)))
+
+
+class ExpertCalls:
+    """While entered, counts the routed experts' batched GEMMs
+    (``models/moe.py:experts``, three ``bmm`` a call) in ``launches``, the
+    counter a ``Counter`` reads."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.experts, self.launches = moe, moe.experts, 0
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.launches += 3
+            return self.experts(*args, **kwargs)
+        self.moe.experts = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.experts = self.experts
+
+
+def ep_expect(torch, cfg, counters, stats, buckets, ep, seq):
+    """The expert-parallel mix's launch formulas: phase 21's for the paged
+    kernels (``seq`` shards), rmsnorm and rope; silu_mul ``ep L`` a
+    dispatch, on the route of one shard's [E_pad / ep, cap, ff] (the
+    prefill buckets ``buckets`` and the decode step's slots set each cap);
+    the expert GEMMs ``3 ep L`` a dispatch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swiglu as ksw
+    from repro_torch.models import moe
+
+    L = cfg.n_layers
+    P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
+    steps = P + Dd
+    e_pad = moe.moe_padded_experts(cfg)
+    n_sms = _build.n_sms(torch.device("cuda"))
+
+    def route(rows):
+        cap = moe.capacity(rows, cfg.top_k, cfg.capacity_factor, e_pad)
+        return ksw.plan(e_pad // ep * cap * cfg.moe_d_ff, 2, True, n_sms).route
+
+    by_route = {"element": 0, "vector": 0}
+    for b in buckets:
+        by_route[route(b)] += ep * L
+    by_route[route(SERVE_SLOTS)] += ep * L * Dd
+    expect = {k: 0 for k in counters}
+    key = "" if seq == 1 else "_skip_null"
+    expect.update({
+        "rmsnorm": (2 * L + 1) * steps, "rmsnorm_vector": (2 * L + 1) * steps,
+        "apply_rope": L * steps, "apply_rope_qk": L * steps,
+        "apply_rope_vector": L * steps, "silu_mul": ep * L * steps,
+        "silu_mul_element": by_route["element"], "silu_mul_vector": by_route["vector"],
+        "expert_gemms": 3 * ep * L * steps,
+        f"paged_decode_attention{key}": seq * L * Dd,
+        f"paged_prefill_attention{key}": seq * L * P,
+        "paged_prefill_attention_tc": seq * L * P})
+    return expect
+
+
+def ep_serve_phase(torch, cfg, counters, runner_out, runner_summary):
+    """28, bf16: olmoe-1b-7b at full width and depth (phase 21's seed) on
+    the mix of 5 under ``EP_RUNS``: every launch count at its formula
+    (``ep_expect``), the silu_mul launches of the prefill chunks and of the
+    decode steps counted apart (rows 5ep / 5epd), ``sum(expert_load) == L k
+    routed tokens``; tok/s and TTFT beside phase 21's runner run, and the
+    share of requests token-identical to it (not gated: each shard's bf16
+    cast rounds as JAX's sharded dispatch does, not as the unsharded one)."""
+    from repro_torch.models import moe
+
+    params = serve_params(torch, cfg)
+    L, k = cfg.n_layers, cfg.top_k
+    runs = {}
+    for name, kw in EP_RUNS:
+        buckets, silu_prefill = [], [0]
+
+        def hook(eng):
+            run_chunk = eng._run_prefill_chunk
+
+            def counted(slot, req, bucket, n):
+                before = counters["silu_mul"].read()
+                logits = run_chunk(slot, req, bucket, n)
+                silu_prefill[0] += counters["silu_mul"].read() - before
+                buckets.append(bucket)
+                return logits
+            eng._run_prefill_chunk = counted
+            engines.append(eng)
+
+        engines = []
+        with ExpertCalls() as calls:
+            counters["expert_gemms"] = Counter(calls)
+            out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
+                                                      hook=hook, **kw)
+        del counters["expert_gemms"]
+        engines[0].__dict__.pop("_run_prefill_chunk", None)
+        engines.clear()
+        gc.collect()
+        ep, seq = kw["expert_parallel"], kw.get("seq_shards", 1)
+        check_launches(f"ep serve {name}", launches,
+                       ep_expect(torch, cfg, counters, stats, buckets, ep, seq))
+        load = float(stats["expert_load"].sum())
+        if load != L * k * stats["expert_routed_tokens"] or load <= 0:
+            fail(f"ep serve {name}: sum(expert_load) {load} != L k routed tokens "
+                 f"{L * k * stats['expert_routed_tokens']}")
+        same = sum(out[rid] == runner_out.get(rid) for rid in out)
+        log(f"ep serve {name}: {summary['tokens']} tokens in {summary['wall_s']:.3f} s "
+            f"({summary['tok_s']:.1f} tok/s; phase 21's runner "
+            f"{runner_summary['tok_s']:.1f}), ttft p50 {summary['ttft_p50_ms']:.1f} ms "
+            f"({runner_summary['ttft_p50_ms']:.1f}), prefill chunks "
+            f"{stats['prefill_dispatches']}, decode steps {stats['decode_dispatches']}, "
+            f"silu_mul {silu_prefill[0]} at prefill / "
+            f"{launches['silu_mul'] - silu_prefill[0]} at decode, expert GEMMs "
+            f"{launches['expert_gemms']}, {stats['expert_dropped_tokens']:.0f} "
+            f"assignments dropped, peak memory {summary['peak_mem_bytes'] / 2**30:.2f} "
+            f"GiB; {same} of {len(out)} requests token-identical to phase 21's "
+            f"runner run (bf16, not gated)")
+        runs[name] = dict(summary, launches=launches, same_as_phase21=same,
+                          silu_prefill=silu_prefill[0],
+                          silu_decode=launches["silu_mul"] - silu_prefill[0],
+                          dropped=stats["expert_dropped_tokens"])
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def ep_parity_phase(torch, cfg_small):
+    """28, fp32: reduced olmoe-1b-7b skewed towards experts 0 and 1 (phase
+    21's parity mix: its dispatches drop at the default capacity factor)
+    through the runner on the CPU and on the card without expert shards, at
+    one and at two sequence shards, and on the card under ``EP_RUNS`` (the
+    cache at 4 of 8 experts): every run token-identical to the CPU's run at
+    its sequence shards without expert shards, with as many dropped
+    assignments.  (At two sequence shards the idle decode rows read 0, at
+    one the null pages' mean, ROADMAP queue C's closed fault, and an MoE
+    layer routes them with the live rows: so each sequence-shard count has
+    its own reference.)"""
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    params = M.init_params(cfg_small, seed=0, device="cpu", dtype=torch.float32)
+    skew_moe(torch, params, cfg_small, seed=31)
+    prompts = [[5 + i, 9, 2 * i + 1] for i in range(8)]
+    news = [2] * 4 + [7] * 4
+    res = {}
+    runs = [(f"{dev}_seq{s}", dev, dict(seq_shards=s))
+            for s in (1, 2) for dev in ("cpu", "cuda")] + [
+        (name, "cuda", dict(kw, expert_cache_size=4) if "cache" in name else kw)
+        for name, kw in EP_RUNS]
+    for name, dev, kw in runs:
+        eng = ServeEngine(cfg_small, to_device(params, dev), slots=8, max_seq=32,
+                          block_size=8, prefill_buckets=(8, 32), **kw)
+        with DropCounter() as dc:
+            for p, n in zip(prompts, news):
+                eng.submit(p, max_new_tokens=n)
+            out = {r.rid: r.out_tokens for r in eng.run_until_drained()}
+        res[name] = (out, dc.dropped)
+    log(f"ep parity: reduced olmoe fp32 skewed, dropped assignments by run "
+        f"{ {n: r[1] for n, r in res.items()} }")
+    for name, _, kw in runs:
+        ref = f"cpu_seq{kw.get('seq_shards', 1)}"
+        (out, d), (want, dropped) = res[name], res[ref]
+        if out != want or d != dropped or d <= 0:
+            fail(f"ep parity {name}: outputs or drops ({d}) differ from the CPU's "
+                 f"run without expert shards ({ref}: {dropped})")
+    return {n: r[1] for n, r in res.items()}
+
+
 def main() -> None:
     import torch
 
@@ -5586,6 +6120,9 @@ def main() -> None:
     t_phase = time.perf_counter()
     classes = class_phase(torch, cfg, params, counters, serve)
     log(f"classes: phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    disagg = disagg_phase(torch, cfg, params, counters, serve, paged_out)
+    log(f"disagg: phase 27's stablelm part took {time.perf_counter() - t_phase:.1f} s")
     for row in rows:
         name = ROW_COUNTER.get(row["name"], row["name"])
         for pol in ("swap", "recompute"):
@@ -5701,8 +6238,21 @@ def main() -> None:
     t_phase = time.perf_counter()
     expert_cache = expert_cache_phase(torch, mcfg, moe_counters, moe_runner_out,
                                       moe_launches["runner"], moe_serve["runner"])
-    del moe_runner_out
     log(f"expert cache: phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    ep_rows = expert_silu_rows(torch, timer, mcfg, ep=EP_RUNS[0][1]["expert_parallel"])
+    ep_serve = ep_serve_phase(torch, mcfg, moe_counters, moe_runner_out,
+                              moe_serve["runner"])
+    del moe_runner_out
+    ep_parity = ep_parity_phase(torch, reduced(mcfg))
+    ep4 = ep_serve[EP_RUNS[0][0]]
+    for row, n, at in zip(ep_rows, (ep4["silu_prefill"], ep4["silu_decode"]),
+                          ("prefill chunk", "decode step")):
+        row["launches"] = n
+        row["per_step"] = f"ep L per {at} (ep = 4, L = {mcfg.n_layers})"
+    rows += ep_rows
+    log(f"expert parallelism: phase 28 (rows 5ep / 5epd, the bf16 runs, the fp32 "
+        f"parity) took {time.perf_counter() - t_phase:.1f} s")
     moe_fp32 = moe_fp32_identity(torch, mcfg)
     for row in moe_rows:
         path, counter = MOE_ROW_COUNTER[row["name"]]
@@ -5780,6 +6330,7 @@ def main() -> None:
              pressure=pressure, hybrid_pressure=hybrid_pressure, queue_c=queue_c,
              classes=classes, gqa_serve=gqa_serve, gqa_launches=gqa_launches,
              expert_cache=expert_cache, moe_layer_vjp=moe_vjp, moe_train=moe_train,
+             disagg=disagg, ep_serve=ep_serve, ep_parity=ep_parity,
              moe_train_launches=moe_train_launches,
              gemm_routes=gemm_routes, **kernels),
         indent=1))

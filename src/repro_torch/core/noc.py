@@ -7,7 +7,9 @@ the hop/energy cost model the engine charges per combine
 (``softmax_combine_cost``, :147-166, and ``E_HOP_PJ_PER_BIT``), and the
 swap-versus-recompute preemption cost model (``swap_cost``,
 ``recompute_cost``, ``preempt_decision``, ``restore_cost_seconds`` and
-their four rates, :179-259), and the hot/cold expert placement cost model
+their four rates, :179-259), the prefill -> decode handoff's
+(``handoff_cost``, ``handoff_admission_cost``, :260-298), and the hot/cold
+expert placement cost model
 the expert cache prices its promotions with (``expert_placement_cost``,
 ``expert_promotion_worthwhile`` and the ``EXPERT_*`` rates, :301-365).
 
@@ -173,6 +175,45 @@ def restore_cost_seconds(n_pages: int, page_bytes: int, tokens: int,
     if policy == "recompute":
         return r
     return min(s, r)
+
+
+# prefill -> decode handoff (disaggregated serving, serve/disagg.py): a
+# finished prefill's page chain and slot state cross the swap tier's link
+# one way.  int8 pages move at storage width (``page_bytes`` is priced by
+# the caller at the pool's width), and pages the decode pool already holds
+# registered (prefix-cached chains) move nothing.
+
+def handoff_cost(n_pages: int, page_bytes: int, state_bytes: int = 0,
+                 cached_pages: int = 0, n_hops: int = 1) -> dict:
+    """One-way cost of streaming one finished prefill to the decode role.
+
+    ``n_pages`` is the whole KV chain, of which ``cached_pages`` leading
+    pages are already registered in the decode pool and transfer nothing;
+    ``page_bytes`` is one page's K and V at the pool's storage width;
+    ``state_bytes`` the slot-state blob, which always transfers; ``n_hops``
+    the link traversals between the two workers (each hop past the first
+    adds router energy, not time).  Returns ``{"bytes", "hops", "seconds",
+    "energy_pj"}``."""
+    moved = max(n_pages - cached_pages, 0)
+    b = moved * page_bytes + state_bytes
+    return {"bytes": b, "hops": n_hops,
+            "seconds": b / SWAP_LINK_BYTES_PER_S,
+            "energy_pj": b * 8 * (SWAP_E_PJ_PER_BIT
+                                  + max(n_hops - 1, 0) * E_HOP_PJ_PER_BIT)}
+
+
+def handoff_admission_cost(n_pages: int, page_bytes: int, free_pages: int,
+                           state_bytes: int = 0,
+                           cached_pages: int = 0) -> dict:
+    """The decode pool's admission arm for one staged handoff with
+    ``free_pages`` grantable pages now: :func:`handoff_cost`'s transfer plus
+    ``need_pages`` (the uncached remainder) and ``deferred`` (the pool
+    cannot grant it yet: the handoff stays in the arena and is retried)."""
+    c = handoff_cost(n_pages, page_bytes, state_bytes, cached_pages)
+    need = max(n_pages - cached_pages, 0)
+    c["need_pages"] = need
+    c["deferred"] = free_pages < need
+    return c
 
 
 # hot/cold expert placement cost model ------------------------------------

@@ -18,6 +18,10 @@ synthetic request stream.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --ckpt-dir /tmp/ckpt        # what launch/train.py --ckpt-dir wrote
   PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --disagg [--handoff-pages 8]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --reduced --device cpu --expert-parallel 4 [--seq-shards 2]
 
 The engine runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels; ``--device cpu`` runs the plain PyTorch versions.
@@ -48,11 +52,19 @@ host arena or recomputed (``--preempt-policy``, ``--swap-pages``,
 arm.  An MoE family takes the placement-aware expert cache on the runner
 path (``--expert-cache N`` experts per layer in the paper's SRAM-PIM
 tier, ``--no-expert-prefetch``, ``--expert-placement static``), and the
-expert telemetry and cache lines are printed.  ``--expert-parallel``
-raises (expert parallelism comes with a later slice, ROADMAP A.2b), as do
-the JAX launcher's ``--disagg`` and ``--handoff-pages``, not accepted
-here; ``--q-tile`` sizes the Pallas prefill's VMEM tile and has no
-counterpart.
+expert telemetry and cache lines are printed; ``--expert-parallel N``
+splits its routed experts N ways (views of the one card's banks, the
+shards' outputs summed; it composes with ``--seq-shards`` and
+``--expert-cache``) and prints the telemetry line.  ``--disagg`` serves
+through a prefill/decode pair (``serve/disagg.py:DisaggServer``):
+``--slots`` split between the roles, the decode role under swap
+preemption, finished prefills handed over through a pinned arena of
+``--handoff-pages`` pages (default: the prefill pool's full coverage); two
+lines report the handoff ledger (pages moved and re-attached, the modeled
+link bytes and energy, the stalls) and each role's worker seconds, and the
+per-class counts take the prefill front door as the arrival count.
+``--disagg --dense`` is refused.  The JAX launcher's ``--q-tile`` sizes
+the Pallas prefill's VMEM tile and has no counterpart.
 """
 from __future__ import annotations
 
@@ -65,7 +77,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs import ARCHS, get_config, reduced as reduce_cfg
 from repro_torch.models import model
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import DisaggServer, ServeEngine
 from repro_torch.train import step as train_step
 
 # The full-width serving mix that chip_smoke.py and trace_serve.py drive:
@@ -146,10 +158,21 @@ def main(argv=None):
                     help="fraction of the synthetic stream submitted as "
                          "the 'batch' latency class (twice the new tokens, "
                          "weight 1) instead of 'interactive' (weight 8)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through a prefill/decode-disaggregated "
+                         "pair (DisaggServer): --slots split between the "
+                         "roles, finished prefills handed over (pages and "
+                         "slot state) through a pinned arena, priced on "
+                         "the paper's link")
+    ap.add_argument("--handoff-pages", type=int, default=None,
+                    help="handoff-arena capacity in pages (the prefill -> "
+                         "decode handoffs in flight; default: the prefill "
+                         "pool's full slot coverage)")
     ap.add_argument("--expert-parallel", type=int, default=None,
-                    help="shard a MoE family's routed experts N ways "
-                         "(raises: expert parallelism comes with a later "
-                         "slice, ROADMAP A.2b)")
+                    help="shard a MoE family's routed experts N ways: N "
+                         "expert shards, views of the one device's banks, "
+                         "their outputs summed (composes with "
+                         "--seq-shards and --expert-cache)")
     ap.add_argument("--expert-cache", type=int, default=None,
                     help="SRAM-PIM-resident experts per layer for the "
                          "placement-aware hot/cold expert cache (MoE "
@@ -196,33 +219,50 @@ def main(argv=None):
     if args.prefill_buckets:
         ekw["prefill_buckets"] = tuple(
             int(b) for b in args.prefill_buckets.split(","))
-    eng = ServeEngine(cfg, params, slots=args.slots, max_seq=args.max_seq,
-                      block_size=args.block_size, num_blocks=args.num_blocks,
-                      max_tokens_per_tick=args.token_budget,
-                      paged=False if args.dense else None,
-                      prefix_caching=(False if args.dense or args.no_prefix_cache
-                                      else None),
-                      kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
-                      preempt_policy=args.preempt_policy,
-                      swap_pages=args.swap_pages,
-                      proactive_horizon=args.proactive_horizon,
-                      expert_parallel=args.expert_parallel,
-                      expert_cache_size=args.expert_cache,
-                      expert_prefetch=not args.no_expert_prefetch,
-                      expert_placement=args.expert_placement,
-                      seed=args.seed, **ekw)
+    ekw.update(max_seq=args.max_seq, block_size=args.block_size,
+               max_tokens_per_tick=args.token_budget,
+               paged=False if args.dense else None,
+               prefix_caching=(False if args.dense or args.no_prefix_cache
+                               else None),
+               kv_dtype=args.kv_dtype, seq_shards=args.seq_shards,
+               swap_pages=args.swap_pages,
+               proactive_horizon=args.proactive_horizon,
+               expert_parallel=args.expert_parallel,
+               expert_cache_size=args.expert_cache,
+               expert_prefetch=not args.no_expert_prefetch,
+               expert_placement=args.expert_placement, seed=args.seed)
+    if args.disagg:
+        if args.dense:
+            ap.error("--disagg serves through the paged/slot-state "
+                     "engines; drop --dense")
+        p_slots = max(1, args.slots // 2)
+        # the decode role never prefills, so swap is the one preemption
+        # policy that can restore its victims
+        srv = DisaggServer(
+            cfg, params,
+            prefill=dict(slots=p_slots, num_blocks=args.num_blocks),
+            decode=dict(slots=max(1, args.slots - p_slots),
+                        num_blocks=args.num_blocks, preempt_policy="swap"),
+            handoff_pages=args.handoff_pages, **ekw)
+        eng = srv.decode                # decode owns the finished stream
+        engines = (srv.prefill, srv.decode)
+    else:
+        srv = eng = ServeEngine(cfg, params, slots=args.slots,
+                                num_blocks=args.num_blocks,
+                                preempt_policy=args.preempt_policy, **ekw)
+        engines = (eng,)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     for _ in range(args.requests):
         plen = int(rng.integers(2, max(3, min(24, args.max_seq // 4))))
         # drawn only with --batch-frac, so a one-class stream keeps its prompts
         batch = args.batch_frac > 0 and rng.random() < args.batch_frac
-        eng.submit(rng.integers(0, cfg.vocab_size, plen).tolist(),
+        srv.submit(rng.integers(0, cfg.vocab_size, plen).tolist(),
                    max_new_tokens=(2 * args.max_new_tokens if batch
                                    else args.max_new_tokens),
                    temperature=args.temperature,
                    priority="batch" if batch else "interactive")
-    done = eng.run_until_drained()
+    done = srv.run_until_drained()
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -240,6 +280,10 @@ def main(argv=None):
         mode += f"/{eng.kv_dtype}"
     if eng.seq_shards > 1:
         mode += f"/seq{eng.seq_shards}"
+    if eng.expert_parallel:
+        mode += f"/ep{eng.expert_parallel}"
+    if args.disagg:
+        mode += "/disagg"
     print(f"[serve] {len(done)} requests, {total} tokens, {dt:.2f}s "
           f"({total / dt:.1f} tok/s) on {device}  kv={mode} "
           f"({eng.kv_cache_bytes() / 1e6:.1f} MB), "
@@ -255,8 +299,36 @@ def main(argv=None):
           f"swap_bytes={eng.stats['swap_bytes']:.0f}), "
           f"gather_volume={eng.stats['gather_page_volume']:.0f}, "
           f"ttft_p50={p50:.1f}ms")
+    if args.disagg:
+        hs = srv.stats
+        pre = srv.prefill
+        payload = pre.runner.handoff_payload_bytes(
+            pre.block_size, 1 if pre.kv_dtype == "int8" else pre.dtype.itemsize,
+            int(hs["handoff_pages"]) + int(hs["handoff_cached_pages"]),
+            int(hs["handoff_cached_pages"]))
+        print(f"[serve] disagg: prefill={pre.slots} slots / "
+              f"decode={srv.decode.slots} slots, "
+              f"arena={srv.handoff_pages} pages; "
+              f"handoffs={hs['handoffs']:.0f} "
+              f"({hs['handoff_pages']:.0f} pages moved + "
+              f"{hs['handoff_cached_pages']:.0f} decode-cached), "
+              f"link={hs['handoff_bytes'] / 1e6:.2f}MB "
+              f"(paged payload {payload / 1e6:.2f}MB), "
+              f"energy={hs['handoff_energy_pj'] / 1e6:.2f}uJ, "
+              f"arena_stalls={hs['arena_stalls']:.0f}, "
+              f"handoff_stalls={srv.decode.stats['handoff_stalls']:.0f}")
+        print(f"[serve] disagg prefill side: "
+              f"prefill_dispatches={pre.stats['prefill_dispatches']:.0f}, "
+              f"occupancy={pre.mean_occupancy:.2f}, "
+              f"worker_s={hs['prefill_step_seconds']:.2f} vs "
+              f"decode worker_s={hs['decode_step_seconds']:.2f}")
     for cls in eng.class_order:
-        cs = eng.class_stats[cls]
+        cs = {k: sum(e.class_stats[cls][k] for e in engines)
+              for k in eng.class_stats[cls]}
+        if args.disagg:
+            # a handed-off rid counts as submitted on both engines: the
+            # prefill front door alone is the arrival count
+            cs["submitted"] = srv.prefill.class_stats[cls]["submitted"]
         if not cs["submitted"]:
             continue
         ttfts = sorted(r.ttft for r in done
@@ -271,8 +343,8 @@ def main(argv=None):
     if args.deadline_ms is not None:
         print(f"[serve] slo: interactive deadline {args.deadline_ms:g}ms "
               f"(batch {10 * args.deadline_ms:g}ms): "
-              f"{eng.stats['slo_violations']:.0f} of {len(done)} finished "
-              f"requests violated")
+              f"{sum(e.stats['slo_violations'] for e in engines):.0f} of "
+              f"{len(done)} finished requests violated")
     if eng.stats["preempt_proactive"]:
         print(f"[serve] proactive preemptions (horizon="
               f"{eng.proactive_horizon}): "
@@ -284,12 +356,14 @@ def main(argv=None):
               f"hops={eng.stats['noc_hops']:.0f}, "
               f"bytes={eng.stats['noc_bytes'] / 1e6:.2f}MB, "
               f"energy={eng.stats['noc_energy_pj'] / 1e6:.2f}uJ")
-    if eng.expert_cache is not None:
+    if eng._moe_stats:
         print(f"[serve] experts: "
               f"routed_tokens={eng.stats['expert_routed_tokens']:.0f}, "
               f"dropped={eng.stats['expert_dropped_tokens']:.1f}, "
               f"skew={eng.stats['expert_skew']:.2f}, "
-              f"gini={eng.stats['expert_gini']:.3f}")
+              f"gini={eng.stats['expert_gini']:.3f}, "
+              f"ep={eng.expert_parallel or 1}")
+    if eng.expert_cache is not None:
         print(f"[serve] expert cache "
               f"(capacity={eng.expert_cache.capacity}/layer, "
               f"{'adaptive' if eng.expert_cache.adaptive else 'static'}"

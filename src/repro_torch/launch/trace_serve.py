@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.trace_serve \
       [--arch rwkv6-3b | zamba2-7b | olmoe-1b-7b | minitron-4b] \
       [--dense | --kv-dtype int8 | --seq-shards 4] \
-      [--num-blocks 129 --preempt-policy swap|recompute|auto]
+      [--num-blocks 129 --preempt-policy swap|recompute|auto] \
+      [--disagg] [--expert-parallel 4]
 
 Serves ``--arch`` (default stablelm-1.6b; random bf16 weights from
 ``--seed``) at full width and depth on the card through the engine: the
@@ -53,7 +54,19 @@ when it was preempted) are ranged
 as "swap out", "swap in" and "recompute", every kernel under them (a
 replayed chunk's GEMMs and attention included) moved to that group, so the
 device time of a pressured run splits by arm; the summary file then ends
-in ``_nbN`` and records the preemption statistics.
+in ``_nbN`` and records the preemption statistics.  ``--disagg`` serves
+the mix through a prefill/decode pair (``serve/disagg.py``: the 8 slots
+split 4 and 4, the decode role under swap, the default arena), as
+``launch/serve.py --disagg`` builds it; the prefill side's staging
+(``ServeEngine.stage_handoff``: the page gathers and the device-to-host
+copies into the arena) and the decode side's admission
+(``_admit_handoff``: the host-to-device copies and the page scatters) are
+ranged as "handoff out" and "handoff in", fenced as the swap arms are, and
+the summary file ends in ``_disagg`` with the handoff ledger.
+``--expert-parallel N`` (an MoE arch) runs every MoE layer over N expert
+shards; each shard's batched GEMMs count as "expert GEMMs" (the ranges sit
+on ``models/moe.py``'s functions, which every shard calls), and the file
+ends in ``_epN``.
 """
 from __future__ import annotations
 
@@ -73,7 +86,7 @@ from repro_torch.launch._trace import GEMMS, OTHER_OPS
 from repro_torch.launch.serve import (MIX_ENGINE, MIX_NEW_TOKENS,
                                       shared_prefix_mix)
 from repro_torch.models import model, moe, rwkv, ssm
-from repro_torch.serve import ServeEngine
+from repro_torch.serve import DisaggServer, ServeEngine
 
 # kernel-name fragments of the port's CUDA kernels (csrc/*.cu); the paged
 # prefill's: paged_attention_kernel (f32 queries), paged_prefill_tc_kernel
@@ -100,10 +113,13 @@ RANGED = ((noc, "tree_softmax_combine", "NoC tree combine ops"),
 # kernels, so a range's GEMMs stay GEMMs; None: every group)
 MOVED_FROM = {"MoE dispatch": (OTHER_OPS, GEMMS), "expert GEMMs": (GEMMS,),
               "LM head": (OTHER_OPS, GEMMS),
-              "swap out": None, "swap in": None, "recompute": None}
-# the engine's preemption arms: (method, group); the replay chunks of a
-# recompute restore are ranged by _replay_ranged
-ARMS = (("_swap_out", "swap out"), ("_restore_swapped", "swap in"))
+              "swap out": None, "swap in": None, "recompute": None,
+              "handoff out": None, "handoff in": None}
+# the engine's preemption arms and the two halves of a handoff: (method,
+# group); the replay chunks of a recompute restore are ranged by
+# _replay_ranged
+ARMS = (("_swap_out", "swap out"), ("_restore_swapped", "swap in"),
+        ("stage_handoff", "handoff out"), ("_admit_handoff", "handoff in"))
 
 
 def _group(name: str) -> str:
@@ -130,25 +146,41 @@ PREEMPT_STATS = ("preemptions", "preempt_proactive", "preempt_swaps",
                  "preempt_recomputes", "swap_bytes", "preempted_tokens",
                  "restored_tokens", "stalled_ticks", "prefill_tokens",
                  "decode_tokens", "ticks")
+HANDOFF_STATS = ("handoffs", "handoff_pages", "handoff_cached_pages",
+                 "handoff_bytes", "handoff_seconds", "arena_stalls",
+                 "decode_step_seconds", "prefill_step_seconds")
 
 
 def _serve(cfg, params, prompts, dense: bool, kv_dtype: str,
-           seq_shards: int, num_blocks=None, preempt_policy="auto"):
+           seq_shards: int, num_blocks=None, preempt_policy="auto",
+           disagg=False, expert_parallel=None):
     """Wall seconds of one drained run of ``prompts``, and the engine's
-    preemption statistics."""
-    eng = ServeEngine(cfg, params, **MIX_ENGINE,
-                      paged=False if dense else None, kv_dtype=kv_dtype,
-                      seq_shards=seq_shards, num_blocks=num_blocks,
-                      preempt_policy=preempt_policy)
+    preemption statistics (the decode side's, with the server's handoff
+    ledger, under ``disagg``)."""
+    kw = dict(MIX_ENGINE, paged=False if dense else None, kv_dtype=kv_dtype,
+              seq_shards=seq_shards, num_blocks=num_blocks,
+              expert_parallel=expert_parallel)
+    if disagg:
+        slots = kw.pop("slots")
+        srv = DisaggServer(cfg, params, prefill=dict(slots=slots // 2),
+                           decode=dict(slots=slots - slots // 2,
+                                       preempt_policy="swap"), **kw)
+        eng = srv.decode
+    else:
+        srv = eng = ServeEngine(cfg, params, preempt_policy=preempt_policy,
+                                **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in prompts:
-        eng.submit(p, max_new_tokens=MIX_NEW_TOKENS)
-    eng.run_until_drained()
+        srv.submit(p, max_new_tokens=MIX_NEW_TOKENS)
+    srv.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = {k: eng.stats[k] for k in PREEMPT_STATS}
-    del eng
+    if disagg:
+        stats.update({k: srv.stats[k] for k in HANDOFF_STATS},
+                     handoff_stalls=eng.stats["handoff_stalls"])
+    del eng, srv
     torch.cuda.empty_cache()
     return wall, stats
 
@@ -180,6 +212,11 @@ def main(argv=None):
                          "it the mix runs under page pressure")
     ap.add_argument("--preempt-policy", default="auto",
                     choices=["swap", "recompute", "auto"])
+    ap.add_argument("--disagg", action="store_true",
+                    help="serve through a prefill/decode pair, the handoff "
+                         "halves ranged")
+    ap.add_argument("--expert-parallel", type=int, default=None,
+                    help="an MoE arch's experts over N shards")
     ap.add_argument("--out", default="chiprun_out/trace_serve.json")
     args = ap.parse_args(argv)
     out = Path(args.out)
@@ -195,6 +232,10 @@ def main(argv=None):
             stem += f"_seq{args.seq_shards}"
         if args.num_blocks is not None:
             stem += f"_nb{args.num_blocks}_{args.preempt_policy}"
+        if args.disagg:
+            stem += "_disagg"
+        if args.expert_parallel is not None:
+            stem += f"_ep{args.expert_parallel}"
         out = out.with_name(f"{stem}.json")
     if not torch.cuda.is_available():
         raise SystemExit("trace_serve needs a CUDA device")
@@ -203,7 +244,7 @@ def main(argv=None):
     params = model.init_params(cfg, seed=args.seed, device="cuda")
     prompts = shared_prefix_mix(cfg.vocab_size, args.seed)
     run = (args.dense, args.kv_dtype, args.seq_shards, args.num_blocks,
-           args.preempt_policy)
+           args.preempt_policy, args.disagg, args.expert_parallel)
     _serve(cfg, params, prompts[:2], *run)          # warm-up
     wall, stats = _serve(cfg, params, prompts, *run)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -243,9 +284,15 @@ def main(argv=None):
             mode += ", slot state"
     if args.seq_shards > 1:
         mode += f", {args.seq_shards} sequence shards"
+    if args.expert_parallel is not None:
+        mode += f", {args.expert_parallel} expert shards"
     if args.num_blocks is not None:
         mode += (f", {args.num_blocks} pages ({args.preempt_policy}): "
                  + ", ".join(f"{k} {stats[k]:.0f}" for k in PREEMPT_STATS))
+    if args.disagg:
+        mode += (", prefill/decode pair (4 + 4 slots): "
+                 + ", ".join(f"{k} {stats[k]:.4g}" for k in HANDOFF_STATS)
+                 + f", handoff_stalls {stats['handoff_stalls']:.0f}")
     n_launch = sum(n for _, n in per_kernel.values())
     print(f"[trace] {card}; {args.arch}, {mode}; {n_launch} kernel launches; "
           f"wall {wall:.3f} s untraced, {traced_wall:.3f} s "
@@ -261,7 +308,8 @@ def main(argv=None):
     out.write_text(json.dumps(dict(
         card=card, arch=args.arch, dense=args.dense, kv_dtype=args.kv_dtype,
         seq_shards=args.seq_shards, num_blocks=args.num_blocks,
-        preempt_policy=args.preempt_policy, preempt_stats=stats, wall_s=wall,
+        preempt_policy=args.preempt_policy, disagg=args.disagg,
+        expert_parallel=args.expert_parallel, preempt_stats=stats, wall_s=wall,
         traced_wall_s=traced_wall, launches=n_launch,
         group_launches={g: n for g, (_, n) in groups.items()},
         device_s=device_s,

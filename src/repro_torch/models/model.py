@@ -27,7 +27,8 @@ of the shared block's G applications; the JAX layouts, so
 ``models/convert.py:state_from_jax`` is a plain map.  The MoE forward
 returns the load-balance and z losses summed over the layers, as JAX's
 does; the paged serving functions return the per-layer expert load on
-request (``expert_stats``, the serving engine's expert telemetry).
+request (``expert_stats``, the serving engine's expert telemetry) and run
+each MoE layer over expert shards on request (``expert_parallel``).
 
 Public API:
     init_params(cfg, seed, device, dtype)          -> params
@@ -535,19 +536,23 @@ def decode_step(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     return _logits(cfg, params, x)[:, 0], state
 
 
-def _require_stats(cfg: ModelConfig, expert_stats: bool) -> None:
-    if expert_stats and cfg.family != "moe":
-        raise ValueError(f"expert_stats needs a moe family, got "
-                         f"{cfg.family!r}")
+def _require_stats(cfg: ModelConfig, expert_stats: bool,
+                   expert_parallel: Optional[int] = None) -> None:
+    if (expert_stats or expert_parallel is not None) and cfg.family != "moe":
+        raise ValueError(f"expert_stats / expert_parallel need a moe family, "
+                         f"got {cfg.family!r}")
 
 
-def _paged_layers(cfg, params, x, attend, expert_stats: bool):
+def _paged_layers(cfg, params, x, attend, expert_stats: bool,
+                  expert_parallel: Optional[int] = None):
     """``x`` through the dense or MoE layers over the pool -> (x, the
-    expert telemetry or None)."""
+    expert telemetry or None); ``expert_parallel``: each MoE layer over
+    that many expert shards (``moe._moe_apply_ep_local``)."""
     auxs = []
     for li, lp in enumerate(params["layers"]):
         x, a = _block(cfg, lp, x, attend(lp["attn"], li),
-                      return_stats=expert_stats)
+                      return_stats=expert_stats,
+                      expert_parallel=expert_parallel)
         auxs.append(a)
     return x, (_expert_stats(auxs) if expert_stats else None)
 
@@ -555,7 +560,8 @@ def _paged_layers(cfg, params, x, attend, expert_stats: bool):
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
                   length: int, q_offset: int, block_table: torch.Tensor,
                   local_tables: Optional[torch.Tensor] = None,
-                  expert_stats: bool = False):
+                  expert_stats: bool = False,
+                  expert_parallel: Optional[int] = None):
     """One chunk of a single-sequence prefill into the paged KV cache.
 
     tokens [1, C] (right-padded chunk); ``length`` valid rows; ``q_offset``
@@ -570,13 +576,18 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     global page ids; attention runs per shard, ``layers.pool_shards``).
     ``expert_stats`` (MoE): return a third value, ``{"expert_load" [L,
     E_pad], "frac_dropped"}``, the per-layer routed-token counts of this
-    chunk (the serving telemetry), as the JAX package does."""
+    chunk (the serving telemetry), as the JAX package does.
+    ``expert_parallel`` (MoE): every MoE layer over that many expert
+    shards; with ``local_tables`` too, attention runs per sequence shard
+    and the MoE layer per expert shard (every expert shard of JAX's
+    ``(seq, expert)`` mesh holds its sequence shard's whole KV)."""
     require_servable(cfg)
-    _require_stats(cfg, expert_stats)
+    _require_stats(cfg, expert_stats, expert_parallel)
     x = layers.embed(params["embed"], tokens)
     attend = _paged_prefill_attend(cfg, state, x.shape[1], length, q_offset,
                                    block_table, local_tables)
-    x, est = _paged_layers(cfg, params, x, attend, expert_stats)
+    x, est = _paged_layers(cfg, params, x, attend, expert_stats,
+                           expert_parallel)
     logits = _logits(cfg, params, x[:, length - 1:length])
     if expert_stats:
         return logits[:, 0], state, est
@@ -606,7 +617,8 @@ def _paged_prefill_attend(cfg, state, c: int, length: int, q_offset: int,
 def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
                       lengths: torch.Tensor, block_tables: torch.Tensor,
                       local_tables: Optional[torch.Tensor] = None,
-                      expert_stats: bool = False):
+                      expert_stats: bool = False,
+                      expert_parallel: Optional[int] = None):
     """Batched one-token decode over the paged KV cache.
 
     tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
@@ -615,13 +627,15 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     (logits [B, V], state); pages (and an int8 pool's scales) are updated
     in place.  ``local_tables`` [S, B, MB] int32 marks a sequence-sharded
     pool, and ``expert_stats`` asks for the expert telemetry of the step's
-    B rows, as in :func:`prefill_paged`."""
+    B rows and ``expert_parallel`` for the expert shards, as in
+    :func:`prefill_paged`."""
     require_servable(cfg)
-    _require_stats(cfg, expert_stats)
+    _require_stats(cfg, expert_stats, expert_parallel)
     x = layers.embed(params["embed"], tokens[:, None])
     attend = _paged_decode_attend(cfg, state, lengths, block_tables,
                                   local_tables)
-    x, est = _paged_layers(cfg, params, x, attend, expert_stats)
+    x, est = _paged_layers(cfg, params, x, attend, expert_stats,
+                           expert_parallel)
     if expert_stats:
         return _logits(cfg, params, x)[:, 0], state, est
     return _logits(cfg, params, x)[:, 0], state
@@ -695,7 +709,8 @@ def insert_kv_pages(state, pages: torch.Tensor, k, v, k_scales=None,
 
 def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
                         q_offset, block_table, slot: int = 0,
-                        local_tables=None, expert_stats: bool = False):
+                        local_tables=None, expert_stats: bool = False,
+                        expert_parallel: Optional[int] = None):
     """One chunk of a single-sequence prefill against the serve state.
 
     tokens [1, C] (right-padded); ``length`` valid rows.  Dense and MoE:
@@ -707,13 +722,15 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
     kernels with a carried state.  Hybrid: both, the shared block's application ``gi``
     through its pages at ``q_offset``.  Returns (logits at the chunk's last
     valid row [1, V], state), and with ``expert_stats`` (MoE only) the
-    chunk's expert telemetry third."""
+    chunk's expert telemetry third; ``expert_parallel`` (MoE only): the
+    expert shards of :func:`prefill_paged`."""
     if _paged_family(cfg):
         return prefill_paged(cfg, params, state, tokens=tokens, length=length,
                              q_offset=q_offset, block_table=block_table,
                              local_tables=local_tables,
-                             expert_stats=expert_stats)
-    _require_stats(cfg, expert_stats)
+                             expert_stats=expert_stats,
+                             expert_parallel=expert_parallel)
+    _require_stats(cfg, expert_stats, expert_parallel)
     x = layers.embed(params["embed"], tokens)
     lens = torch.full((1,), length, dtype=torch.int32, device=x.device)
     sl = slice(slot, slot + 1)
@@ -739,18 +756,21 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
 
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
                       block_tables=None, local_tables=None, rows=None,
-                      expert_stats: bool = False):
+                      expert_stats: bool = False,
+                      expert_parallel: Optional[int] = None):
     """Batched one-token decode against the serve state: the paged pool
     (``local_tables``: a sequence-sharded pool's; ``expert_stats``, MoE
-    only: the step's expert telemetry returned third), or the slot state
+    only: the step's expert telemetry returned third; ``expert_parallel``,
+    MoE only: its expert shards), or the slot state
     (RWKV6, Mamba2), of which only the batch rows ``rows`` are written when
     given, or both (the hybrid: its shared block through the pool at
     application ``gi``, its Mamba2 state gated by ``rows``)."""
     if _paged_family(cfg):
         return decode_step_paged(cfg, params, state, tokens, lengths,
                                  block_tables, local_tables,
-                                 expert_stats=expert_stats)
-    _require_stats(cfg, expert_stats)
+                                 expert_stats=expert_stats,
+                                 expert_parallel=expert_parallel)
+    _require_stats(cfg, expert_stats, expert_parallel)
     if cfg.family == "ssm":
         return decode_step(cfg, params, state, tokens, lengths, rows=rows)
     x = layers.embed(params["embed"], tokens[:, None])

@@ -28,13 +28,29 @@ A serving dispatch without the telemetry computes none of them.  Every step
 is differentiable where JAX's is: the router's gradient reaches it through
 the gates, the load-balance loss and the z-loss; the padded experts'
 router columns take exactly zero gradient (their logits are overwritten
-in place).  The expert-parallel dispatches (``_moe_apply_ep``,
-``_moe_apply_ep_local``, ``expert_param_specs``) come with the
-expert-parallel slice (ROADMAP A.2b).
+in place).
+
+Expert parallelism (``moe_apply(expert_parallel=ep)``, the serving
+engine's ``expert_parallel``) is the counterpart of the JAX package's
+``_moe_apply_ep_local`` (:255-331), with one card's ``ep`` shards as views:
+shard ``e`` sees ``w_gate`` / ``w_up`` / ``w_down[e * E_loc:(e + 1) *
+E_loc]`` (``expert_shards``; no bank is copied), routes the full token set
+against the full router, with ``cap`` from the global ``E_pad``, and keeps
+only its own assignments (its drop slot is ``E_loc``).  The routing is one
+``route`` for every shard: JAX's shards each compute the same replicated
+routing, and an expert's positions come from its own column of the
+cumsum.  Each shard's f32 combine is cast to the activation dtype, and the
+shards' outputs are summed in shard order in that dtype, where JAX sums
+them with one ``psum``; so bf16 rounds as JAX's sharded dispatch does, not
+as the unsharded one.  The shared experts are added once, after the sum.
+The JAX train path's ``_moe_apply_ep`` (FSDP gather, dp mean) has no
+counterpart: training runs on one card.  ``expert_param_specs`` names the
+expert-sharded leaves of a parameter tree, as JAX's does with its
+partition specs.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -91,13 +107,17 @@ class Routing(NamedTuple):
     ``slot`` [T * K] int64 (row ``e * cap + pos`` of the expert buffer, or
     ``E_pad * cap`` for a dropped assignment), and what the aux values
     read: ``logits`` / ``probs`` [T, E_pad] f32, ``assign`` [T, E_pad]
-    (the one-hot of the chosen experts) and ``keep`` [T, K] bool."""
+    (the one-hot of the chosen experts) and ``keep`` [T, K] bool; ``idx``
+    and ``pos`` [T, K] (each assignment's expert and its position there)
+    for an expert shard's own slots."""
     gates: torch.Tensor
     slot: torch.Tensor
     logits: torch.Tensor
     probs: torch.Tensor
     assign: torch.Tensor
     keep: torch.Tensor
+    idx: torch.Tensor
+    pos: torch.Tensor
 
 
 def route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int) -> Routing:
@@ -119,7 +139,7 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int) -> Routing:
     pos = (torch.cumsum(assign, dim=0, dtype=torch.int32) - assign).gather(1, idx)
     keep = pos < cap
     slot = torch.where(keep, idx * cap + pos, e_pad * cap).reshape(-1)
-    return Routing(gates, slot, logits, probs, assign, keep)
+    return Routing(gates, slot, logits, probs, assign, keep, idx, pos)
 
 
 def dispatch(xt: torch.Tensor, slot: torch.Tensor, e_pad: int, cap: int,
@@ -151,8 +171,55 @@ def combine(expert_out: torch.Tensor, r: Routing, dtype) -> torch.Tensor:
     return torch.einsum("tk,tkd->td", r.gates, gathered.float()).to(dtype)
 
 
+def expert_shards(p, ep: int) -> List[dict]:
+    """Shard ``e`` of ``ep``'s routed banks: ``w_gate`` / ``w_up`` /
+    ``w_down[e * E_loc:(e + 1) * E_loc]``, views of ``p``'s (the banks a
+    device of JAX's ``expert`` mesh axis would hold)."""
+    e_loc = p["w_gate"].shape[0] // ep
+    return [{w: p[w][e * e_loc:(e + 1) * e_loc]
+             for w in ("w_gate", "w_up", "w_down")} for e in range(ep)]
+
+
+def expert_param_specs(params) -> dict:
+    """The expert-sharded leaves of a serving parameter tree: the same tree
+    with 0 (the axis an expert shard slices) at every layer's routed banks
+    (``moe`` -> ``w_gate`` / ``w_up`` / ``w_down``) and None at every other
+    leaf (the router, the shared experts, the rest: replicated), as JAX's
+    ``expert_param_specs`` gives ``P(None, axis)`` and ``P()`` (its layers
+    are stacked on a leading axis, so its expert axis is 1)."""
+    def spec(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: spec(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [spec(v, path) for v in tree]
+        sharded = (len(path) >= 2 and path[-2] == "moe"
+                   and path[-1] in ("w_gate", "w_up", "w_down"))
+        return 0 if sharded else None
+    return spec(params)
+
+
+def _moe_apply_ep_local(p, xt: torch.Tensor, r: Routing, cap: int, k: int,
+                        ep: int, dtype) -> torch.Tensor:
+    """The routed experts of ``xt`` [T, d] over ``ep`` expert shards, views
+    of ``p``'s banks, under the replicated routing ``r`` -> [T, d] in
+    ``dtype``: each shard keeps its own assignments (its drop slot is
+    ``E_loc``), casts its f32 combine to ``dtype``, and the shards are
+    summed in shard order (JAX's ``psum``)."""
+    e_loc = p["w_gate"].shape[0] // ep
+    y = None
+    for e, bank in enumerate(expert_shards(p, ep)):
+        loc = r.idx - e * e_loc
+        mine = r.keep & (loc >= 0) & (loc < e_loc)
+        slot = torch.where(mine, loc * cap + r.pos, e_loc * cap).reshape(-1)
+        ye = combine(experts(bank, dispatch(xt, slot, e_loc, cap, k)),
+                     r._replace(slot=slot), dtype)
+        y = ye if y is None else y + ye
+    return y
+
+
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
-              losses: bool = False, return_stats: bool = False
+              losses: bool = False, return_stats: bool = False,
+              expert_parallel: Optional[int] = None,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B, S, d] -> (y [B, S, d], aux).
 
@@ -162,7 +229,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     ``frac_dropped``; ``return_stats`` gives the serving telemetry:
     ``frac_dropped`` and ``expert_load`` [E_pad], each expert's
     routed-token count in this dispatch (f32).  Both together give what
-    JAX's ``return_stats`` does."""
+    JAX's ``return_stats`` does.  ``expert_parallel``: the routed experts
+    over that many expert shards (``_moe_apply_ep_local``), under the same
+    routing, so the aux values are the unsharded dispatch's."""
     b, s, d = x.shape
     t = b * s
     e_pad = p["router"].shape[1]
@@ -170,7 +239,10 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     cap = capacity(t, k, cfg.capacity_factor, e_pad)
     xt = x.reshape(t, d)
     r = route(p, xt, cfg, cap)
-    y = combine(experts(p, dispatch(xt, r.slot, e_pad, cap, k)), r, x.dtype)
+    if expert_parallel is None:
+        y = combine(experts(p, dispatch(xt, r.slot, e_pad, cap, k)), r, x.dtype)
+    else:
+        y = _moe_apply_ep_local(p, xt, r, cap, k, expert_parallel, x.dtype)
     if "shared" in p:
         y = y + layers.ffn(p["shared"], xt)
     aux = {}

@@ -164,7 +164,8 @@ class ModelRunner:
     def decode(self, params, state, tokens: torch.Tensor, lengths: torch.Tensor,
                block_tables: Optional[torch.Tensor], mask,
                local_tables: Optional[torch.Tensor] = None,
-               expert_stats: bool = False):
+               expert_stats: bool = False,
+               expert_parallel: Optional[int] = None):
         """Batched one-token decode over every slot.  ``mask`` [slots] bool
         (a CPU tensor or array) gates the slot state: a slot that is not
         runnable (mid-prefill or empty) keeps its recurrent state bit for
@@ -175,7 +176,9 @@ class ModelRunner:
         are ignored.  ``local_tables`` [S, slots, MB]: a sequence-sharded
         pool's shard-local tables (``block_tables`` stays global, for the
         scatter).  ``expert_stats`` (MoE): the per-layer expert load and
-        the drop fraction of the step's rows, returned third."""
+        the drop fraction of the step's rows, returned third.
+        ``expert_parallel`` (MoE): each MoE layer over that many expert
+        shards, views of the one card's banks (``models/moe.py``)."""
         rows = None
         if self.spec.has_slot_state:
             mask = torch.as_tensor(mask, dtype=torch.bool).cpu()
@@ -183,22 +186,25 @@ class ModelRunner:
                 rows = torch.nonzero(mask).flatten().to(tokens.device)
         return M.serve_decode_step(self.cfg, params, state, tokens, lengths,
                                    block_tables, local_tables, rows=rows,
-                                   expert_stats=expert_stats)
+                                   expert_stats=expert_stats,
+                                   expert_parallel=expert_parallel)
 
     def prefill_chunk(self, params, state, tokens: torch.Tensor, length: int,
                       q_offset: int, block_table: Optional[torch.Tensor],
                       slot: int, local_tables: Optional[torch.Tensor] = None,
-                      expert_stats: bool = False):
+                      expert_stats: bool = False,
+                      expert_parallel: Optional[int] = None):
         """One right-padded chunk of a single-sequence prefill: attention
         K/V land in the pages of ``block_table`` (``local_tables`` [S, MB]:
         a sequence-sharded pool's), recurrent state reads and advances
         ``slot``'s rows (padding rows are state-neutral).  ``expert_stats``
-        as in :meth:`decode`."""
+        and ``expert_parallel`` as in :meth:`decode`."""
         return M.serve_prefill_chunk(self.cfg, params, state, tokens=tokens,
                                      length=length, q_offset=q_offset,
                                      block_table=block_table, slot=slot,
                                      local_tables=local_tables,
-                                     expert_stats=expert_stats)
+                                     expert_stats=expert_stats,
+                                     expert_parallel=expert_parallel)
 
     def reset_slot(self, state, slot: int):
         """Zero one slot's recurrent state in place (a fresh admission must
@@ -226,6 +232,22 @@ class ModelRunner:
         """Bytes of ONE slot's recurrent state."""
         return sum(state[s.key].numel() // state[s.key].shape[s.batch_axis]
                    * state[s.key].element_size() for s in self.spec.slot_state)
+
+    def handoff_payload_bytes(self, block_size: int, itemsize: int,
+                              n_pages: int, cached_pages: int = 0,
+                              state=None) -> int:
+        """Bytes ONE prefill -> decode handoff moves over the link: the
+        uncached remainder of the page chain at the pool's storage width
+        plus the slot-state blob (sized from ``state`` when the family has
+        one).  Prefix-cached pages re-attach by reference on the decode side
+        and move nothing: the payload ``core.noc.handoff_cost`` prices."""
+        pages = 0
+        if self.spec.paged:
+            pages = (max(0, n_pages - cached_pages)
+                     * self.page_kv_bytes(block_size, itemsize))
+        blob = (self.slot_state_bytes(state)
+                if state is not None and self.spec.slot_state else 0)
+        return pages + blob
 
     def copy_page(self, state, src: int, dst: int):
         """Physical-page copy across every paged component (copy-on-write
@@ -260,6 +282,11 @@ class ModelRunner:
         """Routed expert count as the MoE dispatch pads it (the unit an
         expert-parallel split must divide)."""
         return moe.moe_padded_experts(self.cfg)
+
+    def expert_param_specs(self, params):
+        """The expert-sharded leaves of ``params`` (``moe.expert_param_specs``:
+        0 at each layer's routed banks, None elsewhere)."""
+        return moe.expert_param_specs(params)
 
     def expert_weight_bytes(self, itemsize: int) -> int:
         """One routed expert's weights (gate, up and down) at ``itemsize``

@@ -114,11 +114,32 @@ its GShard drops are the JAX engine's at any ``capacity_factor``:
   host-side model: it never changes what the card computes, only the
   ``expert_*`` counters; ``reset_stats`` keeps its placement.
 
-Not ported in this slice (construction raises if asked for): prefill/decode
-roles and with them ``HandoffHandle`` and ``submit_handoff`` (ROADMAP A.5),
-and expert parallelism (``expert_parallel``: ROADMAP A.2b).  The JAX
-engine's ``q_tile`` and its
-prefill-bucket VMEM guard have no counterpart: the CUDA prefill kernel's
+* **Expert parallelism** (an MoE family on the runner path,
+  ``expert_parallel=N``) — every MoE layer's routed experts split N ways
+  (``models/moe.py``'s expert-parallel dispatch): shard e is the view of
+  the banks that device e of JAX's ``expert`` mesh axis would hold, the
+  routing is replicated, and the shards' outputs are summed in shard order
+  where JAX ``psum``s them.  It turns the expert telemetry on (the
+  ``expert_*`` load stats), composes with the expert cache and with
+  ``seq_shards`` (attention per sequence shard, the MoE layer per expert
+  shard, as on JAX's ``(seq, expert)`` mesh).  As for ``seq_shards``, the
+  shards stay on the one card, and no device count is checked.
+
+* **Prefill/decode roles** (``role="prefill"`` or ``"decode"``, paired by
+  ``serve/disagg.py:DisaggServer``) — a prefill-role engine admits and
+  prefills, samples the first token and parks the request
+  (``poll_handoffs``) until ``stage_handoff`` moves its page chain's
+  uncached remainder (and a slot-state blob) into the pinned arena the
+  server owns; a decode-role engine admits only staged
+  ``swap.HandoffHandle``s (``submit_handoff``, the rid adopted):
+  cached pages re-attached by reference, the rest copied in from the arena,
+  the slot state inserted, all or nothing (a full pool defers it,
+  ``stats["handoff_stalls"]``), and decode resumes at the staged position
+  from the prefill side's token.  The JAX engine's machinery, order for
+  order.
+
+The JAX engine's ``q_tile`` and its prefill-bucket VMEM guard have no
+counterpart (construction refuses a ``q_tile``): the CUDA prefill kernel's
 query tile is fixed, so no chunk size can overflow its shared memory.
 """
 from __future__ import annotations
@@ -187,6 +208,8 @@ class Request:
     _published: int = 0                 # this slot's pages already registered
     _resume_tokens: Optional[np.ndarray] = None  # prompt + decoded, [resume_len]
     _swap: Optional[swap.SwapHandle] = None      # parked progress (swap arm)
+    _await_handoff: bool = False        # prefill role: parked after prefill
+    _handoff: Optional[swap.HandoffHandle] = None  # decode role: staged
 
 
 class RequestFuture(int):
@@ -443,6 +466,19 @@ class BlockAllocator:
             raise RuntimeError(f"pin of unreferenced physical page {page}")
         self.refcount[page] += 1
 
+    def acquire(self, page: int) -> None:
+        """As :meth:`pin`, but may take back a parked (refcount 0,
+        registered) page out of the LRU: handoff staging acquires the
+        decode pool's cached chain prefix, so eviction cannot invalidate
+        the match before admission.  Only a registered page may be
+        acquired from refcount 0 (an unregistered one is on a free list)."""
+        if self.refcount[page] == 0:
+            if page not in self._page_hash:
+                raise RuntimeError(
+                    f"acquire of free unregistered physical page {page}")
+            self._lru.pop(page, None)
+        self.refcount[page] += 1
+
     def unpin(self, page: int) -> None:
         self._unref(page)
 
@@ -464,7 +500,9 @@ class ServeEngine:
                  expert_parallel: Optional[int] = None,
                  expert_cache_size: Optional[int] = None,
                  expert_prefetch: bool = True,
-                 expert_placement: str = "adaptive", **later):
+                 expert_placement: str = "adaptive",
+                 role: Optional[str] = None,
+                 q_tile: Optional[int] = None):
         """Stand up a serving engine over ``params``.
 
         The engine runs where the parameters live (``init_params`` puts them
@@ -505,18 +543,22 @@ class ServeEngine:
         ``expert_prefetch``: stage promotions a tick ahead (False commits
         them at once); ``expert_placement``: "adaptive" (hot experts
         migrate, ``core.noc.expert_placement_cost``) or "static" (the
-        initial placement, the A/B baseline).  ``expert_parallel`` and any
-        other JAX-engine option raise: they belong to later slices."""
-        if expert_parallel is not None:
+        initial placement, the A/B baseline).
+        ``expert_parallel``: split an MoE family's routed experts N ways
+        (N >= 1 dividing the padded expert count; the runner path), each
+        shard a view of the card's banks, the shards' outputs summed; it
+        turns the expert telemetry on.  JAX checks that ``seq_shards`` x N
+        devices are visible; the port's shards stay on its one card, so
+        nothing is checked.  ``role``: None (both phases), "prefill" (admit
+        and prefill, then park each request for ``stage_handoff``) or
+        "decode" (admit only ``submit_handoff``'s staged prefills and
+        decode them); a role needs the runner path.  ``q_tile``: the JAX
+        engine's Pallas query tile, which has no counterpart here."""
+        if q_tile is not None:
             raise NotImplementedError(
-                "engine option expert_parallel is not ported yet: expert "
-                "parallelism comes with later slices of repro_torch "
-                "(ROADMAP A.2b)")
-        if later:
-            raise NotImplementedError(
-                f"engine options {sorted(later)} are not ported yet: "
-                f"prefill/decode roles and the handoff come with later "
-                f"slices of repro_torch (ROADMAP A.5)")
+                "engine option q_tile has no counterpart in repro_torch: the "
+                "CUDA paged prefill's query tile is fixed, so no chunk size "
+                "can overflow its shared memory")
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -568,6 +610,26 @@ class ServeEngine:
             raise ValueError(
                 f"expert_placement must be 'adaptive' or 'static', got "
                 f"{expert_placement!r}")
+        self.expert_parallel = (None if expert_parallel is None
+                                else int(expert_parallel))
+        if self.expert_parallel is not None:
+            if self.expert_parallel < 1:
+                raise ValueError(
+                    f"expert_parallel must be >= 1, got {expert_parallel}")
+            if cfg.n_experts <= 0:
+                raise ValueError(
+                    f"expert_parallel requires a MoE family "
+                    f"(cfg.n_experts > 0); {cfg.family!r} has none")
+            if self.dense_baseline:
+                raise ValueError(
+                    "expert_parallel shards the runner dispatch — it is "
+                    "incompatible with the dense-slab baseline "
+                    "(paged=False)")
+            e_pad = self.runner.padded_experts()
+            if e_pad % self.expert_parallel:
+                raise ValueError(
+                    f"expert_parallel={self.expert_parallel} must divide "
+                    f"the padded expert count ({e_pad})")
         self.expert_cache: Optional[ExpertCache] = None
         if expert_cache_size is not None:
             if cfg.n_experts <= 0:
@@ -584,25 +646,45 @@ class ServeEngine:
                 self.runner.expert_weight_bytes(self.dtype.itemsize),
                 prefetch=expert_prefetch,
                 adaptive=(expert_placement == "adaptive"))
-        # the telemetry is asked of the runner only with the cache on (the
-        # keyword passed only then): an engine without it reads nothing
-        # more from the card
-        self._stats_kw = {} if self.expert_cache is None else {"expert_stats": True}
+        # the telemetry is asked of the runner only with expert parallelism
+        # or the cache (the keywords passed only then): an engine without
+        # either reads nothing more from the card
+        self._moe_stats = (not self.dense_baseline and cfg.n_experts > 0
+                           and (self.expert_parallel is not None
+                                or self.expert_cache is not None))
+        self._moe_kw = {"expert_stats": True} if self._moe_stats else {}
+        if self.expert_parallel is not None:
+            self._moe_kw["expert_parallel"] = self.expert_parallel
 
         bks = sorted({min(b, max_seq) for b in prefill_buckets} | {max_seq})
         self.prefill_buckets = tuple(bks)
         self.max_tokens_per_tick = (max_tokens_per_tick if max_tokens_per_tick
                                     else slots + self.prefill_buckets[-1])
         if self.max_tokens_per_tick < self.prefill_buckets[0]:
-            raise ValueError(
-                f"max_tokens_per_tick={self.max_tokens_per_tick} can never "
-                f"afford the smallest prefill bucket "
-                f"({self.prefill_buckets[0]}); no request could ever start")
+            # a decode-role engine under swap-only preemption never runs a
+            # prefill chunk (handoff admission and swap restores insert
+            # pages directly), so its budget only has to cover decodes
+            if not (role == "decode" and preempt_policy == "swap"):
+                raise ValueError(
+                    f"max_tokens_per_tick={self.max_tokens_per_tick} can "
+                    f"never afford the smallest prefill bucket "
+                    f"({self.prefill_buckets[0]}); no request could ever "
+                    f"start (role='decode' with preempt_policy='swap' is "
+                    f"exempt: it admits handoffs, never prefill chunks)")
         if preempt_policy not in PREEMPT_POLICIES:
             raise ValueError(
                 f"preempt_policy must be 'swap', 'recompute' or 'auto', "
                 f"got {preempt_policy!r}")
         self.preempt_policy = preempt_policy
+        if role not in (None, "prefill", "decode"):
+            raise ValueError(
+                f"role must be None, 'prefill' or 'decode', got {role!r}")
+        if role is not None and self.dense_baseline:
+            raise ValueError(
+                "role-restricted engines hand KV progress across workers "
+                "— the dense-slab baseline (paged=False) has no "
+                "extract/insert page path; serve it monolithic")
+        self.role = role
         self.proactive_horizon = int(proactive_horizon)
         if self.proactive_horizon < 0:
             raise ValueError(
@@ -694,7 +776,12 @@ class ServeEngine:
         id would poison recycled pages), as do an unknown class and a
         request that could never fit the pool.  With prefix caching the
         chained page digests are computed here so admission can attach the
-        longest cached prefix."""
+        longest cached prefix.  A decode-role engine refuses: it admits
+        only through :meth:`submit_handoff`."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "decode-role engine admits handoffs only; submit prompts "
+                "to the prefill role (or the DisaggServer front door)")
         prompt = np.array(prompt, np.int32, copy=True)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -722,10 +809,40 @@ class ServeEngine:
             req._digests = _page_digests(prompt, self.block_size,
                                          self._plen(req) // self.block_size,
                                          seed=self._digest_seed)
+        return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> RequestFuture:
         self.class_stats[req.priority]["submitted"] += 1
         self._reqs[req.rid] = req
         self._queues[req.priority].append(req)
         return RequestFuture(req.rid, self)
+
+    def submit_handoff(self, handle: swap.HandoffHandle) -> RequestFuture:
+        """Queue one staged prefill (a ``swap.HandoffHandle``) for admission
+        on the decode side.  A prefill-role engine refuses; a monolithic one
+        accepts (the round trip alone, as the tests run it).  The handle's
+        rid is adopted, so this engine's own rid counter is never consumed
+        and the future is the one the server's front door returned.  No
+        token is sampled here: decode resumes by feeding the last of the
+        handle's ``out_tokens``."""
+        if self.role == "prefill":
+            raise RuntimeError("prefill-role engine cannot admit handoffs")
+        req = Request(int(handle.rid), np.array(handle.prompt, np.int32),
+                      max_new_tokens=handle.max_new_tokens,
+                      temperature=handle.temperature,
+                      eos_id=handle.eos_id, priority=handle.priority,
+                      deadline_ms=handle.deadline_ms)
+        if req.priority not in self.class_weights:
+            raise ValueError(
+                f"unknown latency class {req.priority!r}; this engine "
+                f"serves {sorted(self.class_weights)}")
+        req.out_tokens = list(handle.out_tokens)
+        req._digests = list(handle.digests)
+        req._handoff = handle
+        req._t_submit = handle.t_submit or time.perf_counter()
+        req.ttft = handle.ttft
+        req.submit_tick = self._tick
+        return self._enqueue(req)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.active):
@@ -772,7 +889,11 @@ class ServeEngine:
         credit (the heavier on ties) admits its oldest request and spends
         one.  A class's credit resets while its queue is empty, so an idle
         engine admits a burst in class-then-age order.  Each admission
-        attaches the prompt's longest cached page prefix."""
+        attaches the prompt's longest cached page prefix.  A queue head
+        that carries a ``HandoffHandle`` is admitted by
+        :meth:`_admit_handoff`; when the pool cannot take it yet it stays
+        at the head, ``stats["handoff_stalls"]`` counts the deferral and its
+        class is held back like a blocked restore."""
         barrier = 0.0          # classes of weight <= barrier are held back
         for cls in self.class_order:
             w = self.class_weights[cls]
@@ -802,18 +923,91 @@ class ServeEngine:
                     self._deficit[c] += self.class_weights[c]
             cls = max(cand, key=lambda c: (self._deficit[c],
                                            self.class_weights[c]))
-            req = self._queues[cls].popleft()
-            req.prefill_pos = 0
-            req.cached_len = 0
-            req._published = 0
-            self.active[slot] = req
-            self.lengths[slot] = 0
-            if self.has_slot_state:
-                # the previous occupant's state must not leak
-                self.state = self.runner.reset_slot(self.state, slot)
-            if self.prefix_attach:
-                self._attach_prefix(slot, req)
+            q = self._queues[cls]
+            req = q[0]
+            if req._handoff is not None:
+                if not self._admit_handoff(slot, req):
+                    # the pool cannot take it yet: it waits at the head,
+                    # and nothing of its class or lighter takes its pages
+                    self.stats["handoff_stalls"] += 1
+                    barrier = max(barrier, self.class_weights[cls])
+                    continue
+                q.popleft()
+            else:
+                q.popleft()
+                req.prefill_pos = 0
+                req.cached_len = 0
+                req._published = 0
+                self.active[slot] = req
+                self.lengths[slot] = 0
+                if self.has_slot_state:
+                    # the previous occupant's state must not leak
+                    self.state = self.runner.reset_slot(self.state, slot)
+                if self.prefix_attach:
+                    self._attach_prefix(slot, req)
             self._deficit[cls] -= 1.0
+
+    def _admit_handoff(self, slot: int, req: Request) -> bool:
+        """Adopt one staged prefill into ``slot``: share its cached pages by
+        reference, allocate pages for the transferred rest and copy it in
+        from the arena (one call per shard), insert the slot-state blob (or
+        reset the slot), and resume decode at exactly the staged position.
+        All or nothing: False, and nothing held, when the pool cannot grant
+        the rest and one decode step's headroom yet.  The transferred full
+        pages are registered under their digests, so a later handoff of the
+        same prefix moves only its uncached rest."""
+        handle = req._handoff
+        n_pub = 0
+        if self.paged:
+            need = handle.n_pages
+            grow = -(-(handle.tokens + 1) // self.block_size)
+            if self.alloc.free_blocks < max(need, grow - len(handle.cached)):
+                return False
+            self.active[slot] = req
+            for page in handle.cached:
+                self.alloc.share(slot, page)
+            fresh: List[int] = []
+            for _ in range(need):
+                page = self.alloc.alloc_page(slot)
+                if page is None:        # shard rounding stranded pages
+                    self.alloc.release(slot)
+                    self.active[slot] = None
+                    return False
+                fresh.append(page)
+            if fresh:
+                self._pages_in(handle.arena, handle.slots, fresh)
+            # register the transferred full pages, so the next handoff (or
+            # a local prefix hit) of this prompt skips their transfer
+            n_pub = len(handle.cached)
+            if self.prefix_caching:
+                full = handle.tokens // self.block_size
+                chain = self.alloc.table[slot]
+                for i in range(n_pub, min(full, len(handle.digests))):
+                    self.alloc.register(int(chain[i]), handle.digests[i])
+                    n_pub = i + 1
+            # drop the staging references taken when the match was made
+            for page in handle.cached:
+                self.alloc.unpin(page)
+            handle.arena.free(handle)
+        if handle.state is not None:
+            # the blob covers every slot-state key: no reset needed
+            self.state = self.runner.insert_slot_state(self.state, slot,
+                                                       handle.state)
+        elif self.has_slot_state:
+            self.state = self.runner.reset_slot(self.state, slot)
+        self.active[slot] = req
+        plen = self._plen(req)
+        req.prefill_pos = handle.tokens
+        req.cached_len = handle.tokens
+        req.resume_len = handle.tokens
+        req._resume_tokens = req.prompt[:plen].astype(np.int32)
+        req._published = n_pub if self.paged else 0
+        req._handoff = None
+        self.lengths[slot] = handle.tokens
+        req.first_tick = self._tick
+        req._t_first = time.perf_counter()
+        self.stats["handoffs"] += 1
+        return True
 
     def _attach_prefix(self, slot: int, req: Request) -> None:
         """Share the longest registered page chain matching the prompt.  The
@@ -924,14 +1118,7 @@ class ServeEngine:
                 return False
             pages.append(page)
         if pages:
-            parked = self._arena.read(handle.slots)   # [n, A, KvH, ...]
-            for _, idx in self._by_shard(pages):
-                ids = self._pad_pow2([pages[i] for i in idx])
-                sel = torch.as_tensor(idx, device=self.device)
-                args = [self._pad_pages(t.index_select(0, sel).movedim(0, 2))
-                        for t in parked]
-                self.state = self.runner.insert_pages(
-                    self.state, self._to_device(ids), *args)
+            self._pages_in(self._arena, handle.slots, pages)
         if handle.state is not None:
             self.state = self.runner.insert_slot_state(self.state, slot,
                                                        handle.state)
@@ -951,6 +1138,32 @@ class ServeEngine:
         req._published = min(req._published, n_pin + need)
         self.lengths[slot] = req.prefill_pos
         return True
+
+    def _pages_out(self, arena: swap.SwapArena, slots: List[int],
+                   pages: List[int]) -> None:
+        """Copy device ``pages`` into ``arena``'s ``slots`` (one extract a
+        shard); the copies are complete on return, so the caller may free
+        the pages."""
+        for _, idx in self._by_shard(pages):
+            ids = self._pad_pow2([pages[i] for i in idx])
+            got = self.runner.extract_pages(self.state, self._to_device(ids))
+            k, v, ks, vs = (None if t is None
+                            else t.movedim(2, 0)[:len(idx)].contiguous()
+                            for t in got)
+            arena.write([slots[i] for i in idx], k, v, ks, vs)
+
+    def _pages_in(self, arena: swap.SwapArena, slots: List[int],
+                  pages: List[int]) -> None:
+        """Copy ``arena``'s ``slots`` into the device ``pages`` (one insert
+        a shard)."""
+        parked = arena.read(slots)                 # [n, A, KvH, ...]
+        for _, idx in self._by_shard(pages):
+            ids = self._pad_pow2([pages[i] for i in idx])
+            sel = torch.as_tensor(idx, device=self.device)
+            args = [self._pad_pages(t.index_select(0, sel).movedim(0, 2))
+                    for t in parked]
+            self.state = self.runner.insert_pages(
+                self.state, self._to_device(ids), *args)
 
     def _by_shard(self, pages: List[int]):
         """Positions of ``pages`` grouped by owning shard (a swap copy
@@ -1076,9 +1289,9 @@ class ServeEngine:
                 self.stats["gather_page_volume"] += 2 * self._n_apps * mb * S
         out = self.runner.prefill_chunk(
             self.params, self.state, self._to_device(padded), n,
-            req.prefill_pos, table, slot, local, **self._stats_kw)
+            req.prefill_pos, table, slot, local, **self._moe_kw)
         logits, self.state = out[:2]
-        if self._stats_kw:
+        if self._moe_stats:
             self._account_expert(out[2], rows=bucket)
         return logits
 
@@ -1097,7 +1310,7 @@ class ServeEngine:
     def _account_expert(self, est, rows: int) -> None:
         """Fold one dispatch's expert telemetry (``est``: the per-layer
         routed counts [L, E_pad] and the drop fraction, read back in one
-        copy) into the stats and the placement cache.  ``rows`` is the
+        copy) into the stats and, when there is one, the placement cache.  ``rows`` is the
         dispatch's rows (the slots for a decode step, the bucket for a
         prefill chunk): padded and idle rows route too, so they count."""
         vals = torch.cat([est["expert_load"].reshape(-1),
@@ -1113,6 +1326,8 @@ class ServeEngine:
         if tot > 0.0:
             self.stats["expert_skew"] = float(cum.max() * cum.size / tot)
             self.stats["expert_gini"] = _gini(cum)
+        if self.expert_cache is None:
+            return
         tick = self.expert_cache.observe(load)
         self.stats["expert_hits"] += tick["hits"]
         self.stats["expert_misses"] += tick["misses"]
@@ -1126,7 +1341,9 @@ class ServeEngine:
 
     def _finish_prefill(self, slot: int, req: Request, logits,
                         finished: List[Request]) -> None:
-        """Prompt fully cached: sample the first token."""
+        """Prompt fully cached: sample the first token.  A prefill-role
+        engine then parks the request for :meth:`stage_handoff` instead of
+        decoding it."""
         first = int(sample_tokens(logits[0].reshape(1, -1), [req.temperature],
                                   self.generator)[0])
         req.out_tokens.append(first)
@@ -1136,6 +1353,8 @@ class ServeEngine:
         hit_eos = req.eos_id is not None and first == req.eos_id
         if hit_eos or req.max_new_tokens <= 1:
             self._finish(slot, req, finished)
+        elif self.role == "prefill":
+            req._await_handoff = True
 
     def _finish(self, slot: int, req: Request, finished: List[Request]) -> None:
         """Retire a completed request: its clocks, its class's counts, and
@@ -1166,9 +1385,11 @@ class ServeEngine:
     # -- engine tick ---------------------------------------------------
     def _decode_ready(self, slot: int) -> bool:
         """Decode runs once the whole prefill target is cached: for a
-        restore victim that is ``resume_len``, not the prompt."""
+        restore victim that is ``resume_len``, not the prompt.  A request
+        parked for its handoff never decodes here."""
         req = self.active[slot]
         return bool(req is not None and req.out_tokens
+                    and not req._await_handoff
                     and req.prefill_pos >= self._prefill_target(req))
 
     def step(self) -> List[Request]:
@@ -1260,9 +1481,9 @@ class ServeEngine:
             mask[runnable] = True
             out = self.runner.decode(
                 self.params, self.state, self._to_device(toks), lens, tables,
-                mask, local, **self._stats_kw)
+                mask, local, **self._moe_kw)
             logits, self.state = out[:2]
-            if self._stats_kw:
+            if self._moe_stats:
                 # the batched decode routes every slot's row, idle ones too
                 self._account_expert(out[2], rows=self.slots)
         else:
@@ -1287,7 +1508,8 @@ class ServeEngine:
     # -- preemption ----------------------------------------------------
     def _victims(self) -> List[int]:
         return [i for i, r in enumerate(self.active)
-                if r is not None and self.alloc.used[i] > 0]
+                if r is not None and self.alloc.used[i] > 0
+                and not r._await_handoff]
 
     def _preempt_for_deadlock(self) -> None:
         """Two or more partly allocated slots wait on each other's pages:
@@ -1471,14 +1693,7 @@ class ServeEngine:
         if self.has_slot_state:
             handle.state = self.runner.extract_slot_state(self.state, slot)
             handle.state_bytes = self._slot_state_bytes
-        for _, idx in self._by_shard(rest):
-            ids = self._pad_pow2([rest[i] for i in idx])
-            got = self.runner.extract_pages(self.state, self._to_device(ids))
-            k, v, ks, vs = (None if t is None
-                            else t.movedim(2, 0)[:len(idx)].contiguous()
-                            for t in got)
-            # complete before _retire frees the device pages
-            self._arena.write([handle.slots[i] for i in idx], k, v, ks, vs)
+        self._pages_out(self._arena, handle.slots, rest)
         self.stats["swap_bytes"] += (len(rest) * self._page_kv_bytes()
                                      + handle.state_bytes)
         req._swap = handle
@@ -1502,6 +1717,53 @@ class ServeEngine:
         for i in range(live_tokens // self.block_size):
             self.alloc.register(int(self.alloc.table[slot, i]),
                                 req._digests[i])
+
+    # -- disaggregated handoff (prefill side) --------------------------
+    def poll_handoffs(self) -> List[int]:
+        """Slots parked for their handoff (a prefill-role engine parks each
+        request after :meth:`_finish_prefill`; empty on other roles)."""
+        return [i for i, r in enumerate(self.active)
+                if r is not None and r._await_handoff]
+
+    def stage_handoff(self, slot: int, arena: Optional[swap.SwapArena],
+                      cached=()) -> Optional[swap.HandoffHandle]:
+        """Move one parked prefill out of ``slot`` into ``arena`` and retire
+        the slot -> the ``HandoffHandle``, or None when the arena cannot
+        hold the chain's rest (the slot stays parked; the caller retries,
+        and the arena's backpressure becomes this pool's).  ``cached``: the
+        decode pool's page ids of the leading full pages it already holds
+        registered (matched and acquired by the server): they never cross,
+        only the rest is extracted (one call per shard), as
+        ``core.noc.handoff_cost`` prices.  This pool keeps its own
+        registered copies parked in the LRU for later local hits."""
+        req = self.active[slot]
+        if req is None or not req._await_handoff:
+            raise RuntimeError(f"slot {slot} holds no handoff-ready request")
+        tokens = int(self.lengths[slot])
+        handle = swap.HandoffHandle(
+            rid=req.rid, prompt=req.prompt,
+            max_new_tokens=req.max_new_tokens,
+            temperature=req.temperature, eos_id=req.eos_id,
+            priority=req.priority, deadline_ms=req.deadline_ms,
+            out_tokens=list(req.out_tokens), tokens=tokens,
+            digests=list(req._digests), cached=list(cached), arena=arena,
+            t_submit=req._t_submit, ttft=req.ttft)
+        if self.paged:
+            n_pages = -(-tokens // self.block_size)
+            pages = [int(p) for p in self.alloc.table[slot, :n_pages]]
+            rest = pages[len(handle.cached):]
+            if rest:
+                got = arena.alloc(len(rest))
+                if got is None:
+                    return None         # arena full: stays parked
+                handle.slots = got.slots
+                self._pages_out(arena, handle.slots, rest)
+        if self.has_slot_state:
+            handle.state = self.runner.extract_slot_state(self.state, slot)
+            handle.state_bytes = self._slot_state_bytes
+        req._await_handoff = False
+        self._retire(slot)
+        return handle
 
     # -- async future driver protocol ----------------------------------
     def _future_done(self, rid: int) -> bool:
@@ -1576,13 +1838,17 @@ class ServeEngine:
             # the real experts; the cache counters are
             # serve/expert_cache.py's
             "expert_load": (np.zeros(self.runner.padded_experts())
-                            if self._stats_kw else 0.0),
+                            if self._moe_stats else 0.0),
             "expert_routed_tokens": 0, "expert_dropped_tokens": 0.0,
             "expert_skew": 0.0, "expert_gini": 0.0,
             "expert_hits": 0.0, "expert_misses": 0.0,
             "expert_sram_hit_rate": 0.0,
             "expert_migrations": 0, "expert_migration_bytes": 0,
             "expert_prefetches": 0,
+            # disaggregated serving: handoffs admitted from a HandoffHandle,
+            # and admissions deferred by a pool that could not take one yet
+            # (the deferred arm of core.noc.handoff_admission_cost)
+            "handoffs": 0, "handoff_stalls": 0,
         }
         self.class_stats: Dict[str, Dict[str, float]] = {
             cls: self._zero_class_stats() for cls in self.class_order}

@@ -21,9 +21,13 @@ written again safely.
 
 Layout: arena slot ``i`` holds one physical page ``[A, KvH, BS, hd]`` (A
 attention applications: L layers, or the hybrid's G), the page axis of the
-device pool ``[A, KvH, NB, BS, hd]`` moved outermost.  ``HandoffHandle``
-(prefill -> decode handoff) comes with the disaggregation slice (ROADMAP
-A.5).
+device pool ``[A, KvH, NB, BS, hd]`` moved outermost.
+
+A :class:`HandoffHandle` (the JAX package's, ``serve/swap.py:67-119``) is
+one finished prefill staged for a decode-role engine (``serve/disagg.py``):
+the same page mechanics as a :class:`SwapHandle`, in an arena the
+``DisaggServer`` owns, plus what the decode side needs to admit the request
+without re-running its prefill or re-sampling its first token.
 """
 from __future__ import annotations
 
@@ -53,6 +57,52 @@ class SwapHandle:
     @property
     def n_pages(self) -> int:
         return len(self.slots)
+
+
+@dataclass
+class HandoffHandle:
+    """One finished prefill staged for a decode-role engine.
+
+    ``slots`` park the transferred remainder of the page chain in
+    ``arena``; ``state`` / ``state_bytes`` carry a slot-state family's blob.
+    ``out_tokens``: the token(s) sampled on the prefill side; the decode
+    side admits with them and feeds the last through decode, so no sampled
+    token is replayed or re-sampled across the handoff.  ``tokens``: the KV
+    rows the staged chain covers (the clamped prompt); decode resumes at
+    exactly this position.  ``digests``: the chained full-page digests; the
+    leading ``cached`` pages (decode-pool page ids, acquired at staging so
+    the LRU cannot take them while the handoff waits) were already
+    registered in the decode pool, were never copied into the arena, and
+    are re-attached by reference at admission.  The scheduling and SLO
+    fields (``priority``, ``deadline_ms``, ``t_submit``, ``ttft``) ride
+    along."""
+    rid: int = 0
+    prompt: Optional[object] = None
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    eos_id: Optional[int] = None
+    priority: str = "interactive"
+    deadline_ms: Optional[float] = None
+    out_tokens: List[int] = field(default_factory=list)
+    tokens: int = 0
+    digests: List[bytes] = field(default_factory=list)
+    cached: List[int] = field(default_factory=list)
+    slots: List[int] = field(default_factory=list)
+    arena: Optional["SwapArena"] = None
+    state: Optional[Dict[str, torch.Tensor]] = None
+    state_bytes: int = 0
+    t_submit: float = 0.0
+    ttft: Optional[float] = None
+
+    @property
+    def n_pages(self) -> int:
+        """Pages staged in the arena (the transferred remainder)."""
+        return len(self.slots)
+
+    @property
+    def total_pages(self) -> int:
+        """The whole chain: cached (by reference) and transferred pages."""
+        return len(self.cached) + len(self.slots)
 
 
 def _host_empty(shape, dtype, pin: bool, fill=0) -> torch.Tensor:

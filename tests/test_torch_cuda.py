@@ -1827,7 +1827,9 @@ def test_rmsnorm_bwd_scalar_route(dev, dtype):
 # [E_pad, cap, moe_d_ff] of olmoe-1b-7b: a decode step of 8 slots (cap 4,
 # 262144 elements, within one wave: the element route) and a 512-row
 # prefill chunk (cap 80: the vector route)
-EXPERT_SILU_SHAPES = {(64, 4, 1024): "element", (64, 80, 1024): "vector"}
+EXPERT_SILU_SHAPES = {(64, 4, 1024): "element", (64, 80, 1024): "vector",
+                      # one of olmoe's 4 expert shards (rows 5ep / 5epd)
+                      (16, 4, 1024): "element", (16, 80, 1024): "vector"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1882,6 +1884,93 @@ def test_moe_apply_on_card_matches_cpu(dev, arch):
     assert f0 == f1 > 0 and not l0[cfg.n_experts:].any()
     torch.testing.assert_close(g1, g0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_ep_moe_layer_on_card_matches_cpu(dev, arch):
+    """The expert-parallel dispatch at 4 shards on one MoE layer at the
+    config's full width in f32 (the rows of the test above), on the card
+    against the CPU and against the card's unsharded dispatch: the drops
+    and loads equal, the output within 1e-4; the shards' banks are views
+    (the card's storage, no copy)."""
+    from repro_torch.models import moe as TMOE
+
+    cfg = get_config(arch)
+    p = TMOE.moe_init(cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+                      device="cpu")
+    rng = np.random.default_rng(44)
+    c = rng.normal(size=cfg.d_model).astype(np.float32)
+    x = rng.normal(size=(1, 40, cfg.d_model)).astype(np.float32) + 2.0 * c / np.linalg.norm(c)
+    p["router"][:, 0] += torch.from_numpy(c / np.linalg.norm(c))
+    xs = torch.from_numpy(x)
+    out = {}
+    for d in ("cpu", dev):
+        pd, xd = _to(p, d), xs.to(d)
+        y, aux = TMOE.moe_apply(pd, xd, cfg, return_stats=True, expert_parallel=4)
+        y1, aux1 = TMOE.moe_apply(pd, xd, cfg, return_stats=True)
+        for bank in TMOE.expert_shards(pd, 4):
+            assert bank["w_up"].untyped_storage().data_ptr() == \
+                pd["w_up"].untyped_storage().data_ptr()
+        assert torch.equal(aux["expert_load"], aux1["expert_load"])
+        assert float(aux["frac_dropped"]) == float(aux1["frac_dropped"]) > 0
+        torch.testing.assert_close(y, y1, rtol=1e-4, atol=1e-4)
+        out[str(d)] = (y.cpu(), aux["expert_load"].cpu(), float(aux["frac_dropped"]))
+        del pd
+    (y0, l0, f0), (y1, l1, f1) = out["cpu"], out["cuda"]
+    assert torch.equal(l0, l1) and f0 == f1
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp16", "int8"])
+def test_disagg_handoff_on_card_matches_cpu(dev, kv_dtype):
+    """Reduced stablelm-1.6b at fp32 through a ``DisaggServer`` on the card
+    and on the CPU: tokens and the handoff ledger equal, and equal to the
+    card's monolithic engine; one handoff staged by hand through the pinned
+    arena comes back bit for bit in the decode pool (an int8 pool's scales
+    too)."""
+    from repro_torch.serve import DisaggServer
+
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    kw = dict(max_seq=64, slots=2, block_size=8, prefill_buckets=(16, 64),
+              kv_dtype=kv_dtype)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in (14, 27, 9, 22)]
+    res = {}
+    for d in ("cpu", dev):
+        srv = DisaggServer(cfg, _to(params, d), **kw)
+        for p in prompts:
+            srv.submit(p, max_new_tokens=6)
+        out = {r.rid: r.out_tokens for r in srv.run_until_drained()}
+        res[str(d)] = (out, {k: srv.stats[k] for k in (
+            "handoffs", "handoff_pages", "handoff_cached_pages", "handoff_bytes",
+            "arena_stalls")}, srv._arena._k.is_pinned())
+    mono = ServeEngine(cfg, _to(params, dev), **kw)
+    for p in prompts:
+        mono.submit(p, max_new_tokens=6)
+    want = {r.rid: r.out_tokens for r in mono.run_until_drained()}
+    assert res["cpu"][:2] == res["cuda"][:2] and res["cuda"][0] == want
+    assert res["cuda"][2] and not res["cpu"][2]
+
+    srv = DisaggServer(cfg, _to(params, dev), **kw)
+    srv.submit(prompts[1], max_new_tokens=4)
+    pre = srv.prefill
+    while not pre.poll_handoffs():
+        pre.step()
+    (slot,) = pre.poll_handoffs()
+    n = -(-int(pre.lengths[slot]) // pre.block_size)
+    ids = torch.as_tensor(pre.alloc.table[slot, :n].astype(np.int64), device=dev)
+    before = [t.clone() for t in pre.runner.extract_pages(pre.state, ids)
+              if t is not None]
+    handle = pre.stage_handoff(slot, srv._get_arena())
+    srv.decode.submit_handoff(handle)
+    srv.decode._admit()
+    dec = srv.decode
+    ids = torch.as_tensor(dec.alloc.table[0, :n].astype(np.int64), device=dev)
+    after = [t for t in dec.runner.extract_pages(dec.state, ids) if t is not None]
+    assert len(before) == len(after) == (4 if kv_dtype == "int8" else 2)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
 
 
 # ---------------------------------------------------------------------------

@@ -127,11 +127,24 @@ def test_allocator_share_release_and_lru():
 
 
 def test_engine_refuses_unported_options(granite):
+    """Of the JAX engine's options only ``q_tile`` is refused, as having no
+    counterpart; roles build, and the roles' and expert parallelism's bad
+    values raise JAX's errors."""
     _, _, tparams = granite
     cfg = reduced(get_config("granite-3-2b"))
-    for kw in (dict(expert_parallel=2), dict(role="prefill")):
-        with pytest.raises(NotImplementedError, match="later slices"):
-            TEngine(cfg, tparams, max_seq=32, slots=1, **kw)
+    with pytest.raises(NotImplementedError, match="q_tile has no counterpart"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, q_tile=64)
+    assert TEngine(cfg, tparams, max_seq=32, slots=1, q_tile=None).role is None
+    for role in ("prefill", "decode"):
+        assert TEngine(cfg, tparams, max_seq=32, slots=1, role=role).role == role
+    with pytest.raises(ValueError, match="role must be None"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, role="both")
+    with pytest.raises(ValueError, match="paged=False"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, role="decode", paged=False)
+    with pytest.raises(ValueError, match="requires a MoE family"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, expert_parallel=2)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        TEngine(cfg, tparams, max_seq=32, slots=1, expert_parallel=0)
     # latency classes are ported: a class weight stands up, a bad one is
     # refused as in JAX
     assert TEngine(cfg, tparams, max_seq=32, slots=1,

@@ -251,7 +251,8 @@ def test_telemetry_only_with_the_cache(model, monkeypatch):
 def test_engine_refuses_the_cache_off_the_runner(model):
     """The slab path and a family without routed experts refuse the cache
     (ValueError, as JAX's engine); a placement other than adaptive or
-    static raises; expert parallelism still names ROADMAP A.2b."""
+    static raises; the cache composes with expert parallelism, which the
+    slab path refuses with JAX's error."""
     _, tcfg, _, tp = model
     with pytest.raises(ValueError, match="paged=False"):
         TEngine(tcfg, tp, max_seq=32, slots=1, paged=False, expert_cache_size=4)
@@ -263,9 +264,11 @@ def test_engine_refuses_the_cache_off_the_runner(model):
     with pytest.raises(ValueError, match="expert_placement"):
         TEngine(tcfg, tp, max_seq=32, slots=1, expert_cache_size=4,
                 expert_placement="lru")
-    with pytest.raises(NotImplementedError, match="expert parallelism.*A.2b"):
-        TEngine(tcfg, tp, max_seq=32, slots=1, expert_parallel=2,
-                expert_cache_size=4)
+    eng = TEngine(tcfg, tp, max_seq=32, slots=1, expert_parallel=2,
+                  expert_cache_size=4)
+    assert eng.expert_parallel == 2 and eng.expert_cache.capacity == 4
+    with pytest.raises(ValueError, match="dense-slab baseline"):
+        TEngine(tcfg, tp, max_seq=32, slots=1, paged=False, expert_parallel=2)
 
 
 @pytest.mark.parametrize("flags,label", [
@@ -276,7 +279,8 @@ def test_engine_refuses_the_cache_off_the_runner(model):
 def test_launch_serve_expert_flags(flags, label, capsys):
     """``launch/serve.py --arch olmoe-1b-7b --reduced --device cpu`` with
     the expert-cache flags prints the telemetry and the cache line;
-    ``--expert-parallel`` raises, naming ROADMAP A.2b."""
+    with ``--expert-parallel 2`` beside them the telemetry line names the
+    two shards and the cache line is the same."""
     tlaunch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
                   "--requests", "3", "--max-new-tokens", "3"] + flags)
     out = capsys.readouterr().out
@@ -285,6 +289,10 @@ def test_launch_serve_expert_flags(flags, label, capsys):
     assert f"capacity={flags[1]}/layer, {label})" in line
     if label == "static":
         assert "migrations=0," in line
-    with pytest.raises(NotImplementedError, match="A.2b"):
-        tlaunch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
-                      "--requests", "1", "--expert-parallel", "2"])
+    tlaunch.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                  "--requests", "3", "--max-new-tokens", "3",
+                  "--expert-parallel", "2"] + flags)
+    ep_out = capsys.readouterr().out
+    assert [ln for ln in ep_out.splitlines()
+            if ln.startswith("[serve] experts:")][0].endswith("ep=2")
+    assert line in ep_out.splitlines()

@@ -528,12 +528,17 @@ def test_last_writer_scatter_matches_cpu_index_order(kind):
 
 
 def test_expert_options_raise(model):
-    """Of the JAX engine's expert options only ``expert_parallel`` is still
-    refused, naming ROADMAP A.2b; the expert cache's options build (the
-    cache and its telemetry: tests/test_torch_expert_cache.py)."""
+    """Every JAX engine expert option builds: ``expert_parallel`` at each
+    divisor of the padded expert count (its parity:
+    tests/test_torch_expert_parallel.py), a count that does not divide and
+    0 refused with JAX's errors, and the expert cache's options (the cache
+    and its telemetry: tests/test_torch_expert_cache.py)."""
     _, tcfg, _, tparams = model
-    for ep in (1, 2):
-        with pytest.raises(NotImplementedError, match="expert parallelism.*A.2b"):
+    for ep in (1, 2, 4, 8):
+        eng = TEngine(tcfg, tparams, max_seq=32, slots=1, expert_parallel=ep)
+        assert eng.expert_parallel == ep and eng.expert_cache is None
+    for ep, msg in ((3, "must divide"), (0, "must be >= 1")):
+        with pytest.raises(ValueError, match=msg):
             TEngine(tcfg, tparams, max_seq=32, slots=1, expert_parallel=ep)
     for kw in (dict(expert_cache_size=4),
                dict(expert_cache_size=4, expert_prefetch=False),

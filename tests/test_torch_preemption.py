@@ -422,16 +422,17 @@ def test_deadlock_broken_by_preemption_matches_jax():
 def test_engine_options_and_strict_drain(monkeypatch):
     """preempt_policy and proactive_horizon are validated as in JAX; a pool
     below full capacity stands up; the strict drain error names the
-    preemptions by arm and the restore backlog; the roles and the JAX
-    engine's q_tile still raise."""
+    preemptions by arm and the restore backlog; the roles build, and of the
+    JAX engine's options only a ``q_tile`` is refused (no counterpart)."""
     tcfg, _, _, tp = _model("granite-3-2b")
     with pytest.raises(ValueError, match="preempt_policy"):
         TEngine(tcfg, tp, preempt_policy="restart", **KW)
     with pytest.raises(ValueError, match="proactive_horizon"):
         TEngine(tcfg, tp, proactive_horizon=-1, **KW)
-    for opt in ("role", "q_tile"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TEngine(tcfg, tp, **{opt: None}, **KW)
+    for role in (None, "prefill", "decode"):
+        assert TEngine(tcfg, tp, role=role, q_tile=None, **KW).role == role
+    with pytest.raises(NotImplementedError, match="q_tile has no counterpart"):
+        TEngine(tcfg, tp, q_tile=64, **KW)
     eng = TEngine(tcfg, tp, num_blocks=3, **KW)
     assert eng.alloc.usable_blocks == 2 and eng.preempt_policy == "auto"
     eng.submit([1, 2, 3], max_new_tokens=4)
@@ -600,16 +601,20 @@ def test_launch_serve_oversubscribed_pool(capsys, flags):
 
 def test_trace_serve_ranges_the_preemption_arms(base, monkeypatch):
     """trace_serve ranges the engine's swap-out and swap-in (every kernel
-    under them moved to "swap out" / "swap in") and a recompute restore's
+    under them moved to "swap out" / "swap in"; the handoff's two halves
+    likewise, "handoff out" / "handoff in") and a recompute restore's
     replayed chunks ("recompute"), and only those chunks: on the granite
     mix with the cache off, the replay covers the decoded gap of each
     recompute victim, and the outputs stay the unpressured run's."""
     from repro_torch.launch import trace_serve as ts
 
     assert dict(ts.ARMS) == {"_swap_out": "swap out",
-                             "_restore_swapped": "swap in"}
+                             "_restore_swapped": "swap in",
+                             "stage_handoff": "handoff out",
+                             "_admit_handoff": "handoff in"}
     assert all(callable(getattr(TEngine, a)) for a, _ in ts.ARMS)
-    for group in ("swap out", "swap in", "recompute"):
+    for group in ("swap out", "swap in", "recompute", "handoff out",
+                  "handoff in"):
         assert ts.MOVED_FROM[group] is None
     seen = []
 

@@ -450,8 +450,8 @@ def test_launch_train_rwkv_cpu(tmp_path, capsys):
 def test_rwkv_serving_still_refused():
     """rwkv6-3b serves (its slot state is made), as do the Mamba2 ``ssm``
     variant, the hybrid zamba2-7b and MoE (its pool, runner and engine
-    stand up); MoE's expert options are still refused by the engine,
-    naming the slice that brings them (ROADMAP A.2b)."""
+    stand up, expert parallelism included); rwkv6-3b refuses expert
+    parallelism with JAX's error, having no experts."""
     cfg = t_reduced(t_get_config("rwkv6-3b"))
     state = TM.init_serve_state(cfg, 2, 9, 8, dtype=torch.float32, device="cpu")
     assert sorted(state) == ["cm_shift", "tm_shift", "wkv"]
@@ -460,5 +460,7 @@ def test_rwkv_serving_still_refused():
     assert sorted(TM.init_serve_state(moe, 2, 9, 8, device="cpu")) == ["attn"]
     assert TRunner(moe, 2, 64).padded_experts() == moe.n_experts
     assert TEngine(moe, params, max_seq=32, slots=1).paged
-    with pytest.raises(NotImplementedError, match="expert.*ROADMAP A.2b"):
-        TEngine(moe, params, max_seq=32, slots=1, expert_parallel=2)
+    assert TEngine(moe, params, max_seq=32, slots=1,
+                   expert_parallel=2).expert_parallel == 2
+    with pytest.raises(ValueError, match="requires a MoE family"):
+        TEngine(cfg, params, max_seq=32, slots=1, expert_parallel=2)
