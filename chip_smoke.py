@@ -361,7 +361,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    dispatch does); reduced olmoe skewed at fp32 through the same settings
    on the card token-identical to the CPU's runs without expert shards,
    with as many drops; and inside phase 21's fp32 check, ep 4 at full
-   width token-identical to its other engines.
+   width token-identical to its other engines;
+29. CompAir's own layer, last (after 16 and row 7's second reading):
+   (a) the ISA's Machine (``core/isa.py``) in f32 on the card, the softmax
+   program at rounds 6 and 8, fused and unfused, at [16, 8192] (one
+   128k-token score row over 16 banks) and [64, 2048]: the plans' packets,
+   DRAM round trips and ALU ops equal the CPU's, the outputs within
+   ``ISA_CARD_RTOL`` of the CPU's, fused bitwise unfused, against
+   ``torch.softmax`` within the reference test's Curry error, a plan with a
+   squaring dropped caught, each run's wall ms logged; the rope program on
+   a stablelm-1.6b chunk laid out bank-major ([512 x 32, 64], positions
+   256-767) bitwise the CPU's and held against the rope kernel; (b) the
+   planner's lanes under its H100 default for stablelm-1.6b's weight-static
+   ops at m = 8 and 512, one ``torch.matmul`` of each timed in bf16 beside
+   the plan's compute and memory terms, none under 0.95 of its roofline;
+   (c) row 2w, the paged prefill's window, at row 2's chunk (q [1, 512, 32,
+   64] at offset 256) at windows 64, 256 and 700 in bf16, f32 and int8,
+   each held against its plain version (twice bitwise equal) with the
+   unwindowed kernel's output caught as a control, timed beside row 2 on
+   the same pool; reduced stablelm-1.6b at fp32, three windowed
+   ``serve_prefill_chunk`` calls card against CPU, every attention a
+   windowed kernel launch; (d) internvl2-2b (a ``vlm`` frontend, 24
+   layers, G = 2 at head dim 128, vocab 92553) at full width and depth in
+   bf16 from ``frontends.synthetic_embeddings``: a slab ``prefill`` of 2 x
+   512 rows and 16 greedy ``decode_step``s, every launch at phase 5d's
+   formulas, finite logits, its slab decode and flash-with-lengths kernels
+   held at its shapes; then 2 of its layers at full width in fp32, card
+   against CPU.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -6022,6 +6048,492 @@ def ep_parity_phase(torch, cfg_small):
     return {n: r[1] for n, r in res.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: CompAir's own layer (the ISA on the card, the planner's
+# rooflines), the windowed paged prefill (row 2w) and a frontend config
+# ---------------------------------------------------------------------------
+
+# 29a: the ISA's softmax on the card against the CPU.  Its elementwise steps
+# are IEEE f32 on both devices; the DRAM MAC (a row sum over the width) and
+# the bank reduce add in another order, so the outputs, e / total, differ
+# by the relative error of two f32 sums of up to 8192 terms: the first run
+# read at most 1.44e-7 relative (0 in three of the four cases), held to
+# ISA_CARD_RTOL.  Rope (no sum; cos / sin made once on the CPU and copied)
+# is held bit for bit.  Against torch.softmax the reference's own test
+# allows rtol 1e-4 and atol 1e-5 at its 512 entries
+# (tests/test_core_isa.py:15-20), whose mean output is 1/512: the atol is
+# scaled to the mean output 1/n of the n entries here.
+ISA_CARD_RTOL = 1e-6
+ISA_SOFTMAX_RTOL = 1e-4
+ISA_SOFTMAX_ATOL_512 = 1e-5
+# rope through the ISA program against the rope kernel: the kernel forms
+# its own angles pos / theta^(j/half) on the card, the program takes
+# ref.rope_cos_sin's from the CPU; at positions up to 767 one f32 rounding
+# of the angle is up to 767 x 2^-24 = 4.6e-5 rad, so an output of |x| ~ 4
+# may move by ~2e-4.  The first run read 1.51e-5; held to 1e-4 relative
+# plus 1e-4.
+ISA_ROPE_TOL = dict(rtol=1e-4, atol=1e-4)
+ISA_SHAPES = ((16, 8192), (64, 2048))
+# 29b: no torch.matmul may beat its plan's roofline by more than 5%
+ROOFLINE_SLACK = 0.95
+PLANNER_OPS = ("attn_qkv", "attn_out", "ffn_gate_up", "ffn_down", "lm_head")
+# 29c: row 2's chunk (512 rows at offset 256) at these windows: 64 and 256
+# leave the last row tile (positions 704-767) no key of the first two
+# 64-key tiles, 700 no key of the first
+WINDOWS = (64, 256, 700)
+ROW_2W_WINDOW = 256
+# the reduced model's windowed prefill, card against CPU (fp32)
+WINDOW_MODEL = 5
+# 29d: internvl2-2b from synthetic embeddings: two 512-row sequences, then
+# FRONTEND_STEPS decode steps; its fp32 check at FRONTEND_CHECK_LAYERS
+# layers of the full width, prompts of FRONTEND_CHECK_ROWS
+FRONTEND_ROWS, FRONTEND_STEPS = 512, 16
+FRONTEND_CHECK_LAYERS, FRONTEND_CHECK_ROWS, FRONTEND_CHECK_STEPS = 2, 64, 3
+
+
+def wall_ms(torch, fn):
+    """Wall milliseconds of one synchronized call (a Machine runs packet by
+    packet from the host: its time is the host's as much as the card's)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def plan_counts(plan):
+    return (plan.n_packets(), plan.dram_roundtrips(), plan.alu_ops())
+
+
+def isa_phase(torch, cfg):
+    """29a: the ISA's Machine on the card in f32: the softmax program at
+    rounds 6 and 8, fused and unfused, at [16, 8192] (one 128k-token score
+    row over 16 banks, Fig. 19's context) and [64, 2048]; the rope program on
+    a stablelm-1.6b prefill chunk laid out bank-major ([512 x 32, 64],
+    positions 256-767, interleaved cos / sin from ``ref.rope_cos_sin``)."""
+    from repro_torch.core import isa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rope as krope
+
+    gen = torch.Generator().manual_seed(290)
+    out = {"softmax": [], "rope": {}}
+    for banks, width in ISA_SHAPES:
+        x_cpu = torch.randn((banks, width), generator=gen)
+        x = x_cpu.cuda()
+        n = banks * width
+        want = torch.softmax(x.reshape(-1), dim=0).reshape(banks, width)
+        atol = ISA_SOFTMAX_ATOL_512 * 512 / n
+        for rounds in (6, 8):
+            got, plans, ms = {}, {}, {}
+            isa.softmax_execute(x, rounds)                  # warm the card's ops
+            for fuse in (True, False):
+                (got[fuse], plans[fuse]), ms[fuse] = wall_ms(
+                    torch, lambda: isa.softmax_execute(x, rounds, fuse))
+                cpu, cpu_plan = isa.softmax_execute(x_cpu, rounds, fuse)
+                tag = f"isa softmax [{banks}, {width}] rounds {rounds} fuse {fuse}"
+                if plan_counts(plans[fuse]) != plan_counts(cpu_plan):
+                    fail(f"{tag}: plan {plan_counts(plans[fuse])} on the card, "
+                         f"{plan_counts(cpu_plan)} on the CPU")
+                card_err = float(((got[fuse].cpu() - cpu).abs() / cpu.abs()).max())
+                if not torch.isfinite(got[fuse]).all() or card_err > ISA_CARD_RTOL:
+                    fail(f"{tag}: card against CPU, max relative error {card_err} "
+                         f"(tolerance {ISA_CARD_RTOL})")
+                hold(torch, tag + " against torch.softmax", got[fuse], want,
+                     dict(rtol=ISA_SOFTMAX_RTOL, atol=atol))
+            if not torch.equal(got[True], got[False]):
+                fail(f"isa softmax [{banks}, {width}] rounds {rounds}: fused and "
+                     f"unfused differ on the card")
+            err = float((got[True] - want).abs().max())
+            out["softmax"].append(dict(
+                shape=[banks, width], rounds=rounds, packets=[
+                    plans[True].n_packets(), plans[False].n_packets()],
+                dram_roundtrips=[plans[True].dram_roundtrips(),
+                                 plans[False].dram_roundtrips()],
+                alu_ops=plans[True].alu_ops(), card_vs_cpu_rel=card_err,
+                max_abs_err_vs_softmax=err, fused_ms=ms[True], unfused_ms=ms[False]))
+            log(f"isa softmax [{banks}, {width}] rounds {rounds}: packets "
+                f"{plans[True].n_packets()} fused / {plans[False].n_packets()} "
+                f"unfused, DRAM round trips {plans[True].dram_roundtrips()} / "
+                f"{plans[False].dram_roundtrips()}, ALU ops {plans[True].alu_ops()}; "
+                f"card vs CPU max rel {card_err:.3g}, vs torch.softmax max|err| "
+                f"{err:.3g} (atol {atol:.3g}); wall {ms[True]:.3f} ms fused, "
+                f"{ms[False]:.3f} unfused; fused == unfused bitwise")
+        # the control: a plan that loses one step (the first squaring)
+        plan = isa.lower(isa.softmax_program(6))
+        first = plan.packets[1]
+        sq = next(i for i, s in enumerate(first.steps) if s.arg == "self")
+        first.steps.pop(sq)
+        bad = isa.Machine({"x": x}).run(plan)["y"]
+        if torch.allclose(bad, want, rtol=ISA_SOFTMAX_RTOL, atol=atol):
+            fail(f"isa softmax control: a plan with a squaring dropped passes the "
+                 f"hold against torch.softmax at [{banks}, {width}]")
+        log(f"isa softmax control [{banks}, {width}]: a squaring dropped reads "
+            f"max|err| {float((bad - want).abs().max()):.3g}: caught")
+    # rope on a prefill chunk, bank-major: bank = (position, head)
+    c, qoff, h, hd = SERVE_CHUNK, 256, cfg.n_heads, cfg.hd
+    q_cpu = torch.randn((1, c, h, hd), generator=gen)
+    pos = (qoff + torch.arange(c, dtype=torch.int32))[None]
+    rows_pos = pos[0].repeat_interleave(h).float()
+    cos, sin = ref.rope_cos_sin(rows_pos, hd, cfg.rope_theta)
+    cos2, sin2 = (t.repeat_interleave(2, dim=-1) for t in (cos, sin))
+    x_cpu = q_cpu[0].reshape(c * h, hd)
+    y_cpu, plan_cpu = isa.rope_execute(x_cpu, cos2, sin2)
+    isa.rope_execute(x_cpu.cuda(), cos2.cuda(), sin2.cuda())
+    (y, plan), ms = wall_ms(torch, lambda: isa.rope_execute(
+        x_cpu.cuda(), cos2.cuda(), sin2.cuda()))
+    if plan_counts(plan) != plan_counts(plan_cpu):
+        fail(f"isa rope: plan {plan_counts(plan)} on the card, "
+             f"{plan_counts(plan_cpu)} on the CPU")
+    if not torch.equal(y.cpu(), y_cpu):
+        fail(f"isa rope: card and CPU differ, max|err| "
+             f"{float((y.cpu() - y_cpu).abs().max())}")
+    kern = krope.apply_rope(q_cpu.cuda(), pos.cuda(), cfg.rope_theta)
+    err = hold(torch, "isa rope against the rope kernel", y,
+               kern[0].reshape(c * h, hd), ISA_ROPE_TOL)
+    out["rope"] = dict(shape=[c * h, hd], packets=plan.n_packets(),
+                       max_abs_err_vs_kernel=err, wall_ms=ms)
+    log(f"isa rope [{c * h}, {hd}]: {plan.n_packets()} packets, card == CPU "
+        f"bitwise, against the rope kernel [1, {c}, {h}, {hd}] max|err| {err:.3g}, "
+        f"wall {ms:.3f} ms")
+    return out
+
+
+def planner_phase(torch, timer, cfg):
+    """29b: stablelm-1.6b's weight-static ops at a decode step (m = 8) and a
+    prefill chunk (m = 512) under the planner's H100 default: one instance
+    of each through ``torch.matmul`` in bf16 with the L2 flushed, beside the
+    plan's compute and memory terms and lane; none may beat its roofline."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import planner
+
+    hw = planner.H100
+    gen = torch.Generator(device="cuda").manual_seed(291)
+    out = []
+    for tag, shape in (("decode", ShapeSpec("decode_8", 1024, SERVE_SLOTS, "decode")),
+                       ("prefill", ShapeSpec("chunk_512", SERVE_CHUNK, 1, "prefill"))):
+        for op in planner.model_op_profiles(cfg, shape):
+            if op.name not in PLANNER_OPS:
+                continue
+            one = planner.OpProfile(op.name, op.m, op.k, op.n)
+            p = planner.plan_op(one, hw)
+            x = torch.randn((one.m, one.k), generator=gen, device="cuda").to(torch.bfloat16)
+            w = torch.randn((one.k, one.n), generator=gen, device="cuda").to(torch.bfloat16)
+            ms = timer(lambda: torch.matmul(x, w))
+            roof = max(p.compute_s, p.memory_s) * 1e3
+            row = dict(op=op.name, at=tag, m=one.m, k=one.k, n=one.n,
+                       lane=p.lane.value, compute_ms=p.compute_s * 1e3,
+                       memory_ms=p.memory_s * 1e3, matmul_ms=ms,
+                       share_of_roofline=roof / ms)
+            out.append(row)
+            log(f"planner {op.name} at {tag} [{one.m}, {one.k}] @ [{one.k}, "
+                f"{one.n}]: lane {p.lane.value} (intensity {one.intensity:.1f}, "
+                f"ridge {hw.ridge:.1f}), plan compute {p.compute_s * 1e3:.4f} ms, "
+                f"memory {p.memory_s * 1e3:.4f} ms; torch.matmul {ms:.4f} ms "
+                f"({roof / ms:.3f} of the roofline)")
+            if ms < ROOFLINE_SLACK * roof:
+                fail(f"planner {op.name} at {tag}: torch.matmul took {ms:.4f} ms, "
+                     f"under {ROOFLINE_SLACK} of the plan's roofline {roof:.4f} ms: "
+                     f"a constant of planner.H100 is wrong")
+            del x, w
+    return out
+
+
+def window_phase(torch, timer, cfg):
+    """29c: row 2w, the paged prefill's window (csrc/paged_attention.cu), at
+    row 2's shape: stablelm-1.6b's 512-row chunk q [1, 512, 32, 64] at
+    offset 256 over a [32, 513, 16, 64] pool, windows ``WINDOWS``, in bf16,
+    f32 and over the pool quantized to int8; each held against its plain
+    version (twice bitwise equal), a control (the unwindowed kernel's output
+    against the windowed plain version) caught, timed beside row 2 on the
+    same pool; then reduced stablelm-1.6b at fp32, three chunks of
+    ``serve_prefill_chunk(attn_window=)`` on the card against the CPU."""
+    from repro_torch.configs import reduced
+    from repro_torch.kernels import prefill_attention as kpf
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(292)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    c, qoff, bs, mb = SERVE_CHUNK, 256, 16, 64
+    nb = 1 + SERVE_SLOTS * mb
+    total = qoff + c
+    kp = torch.randn((kvh, nb, bs, hd), generator=gen, device=dev).to(bf)
+    vp = torch.randn((kvh, nb, bs, hd), generator=gen, device=dev).to(bf)
+    table = (torch.randperm(nb - 1, generator=gen, device=dev)[:mb] + 1).to(torch.int32)
+    qp = torch.randn((1, c, h, hd), generator=gen, device=dev).to(bf)
+    k8, ks = quantize_pages(torch, kp)
+    v8, vs = quantize_pages(torch, vp)
+    kv_row = kvh * hd * 2 * 2
+    csrc = "src/repro_torch/kernels/csrc/"
+    routes = {
+        "bf16": (qp, kp, vp, {}, PREFILL_TOL, PREFILL_REL),
+        "f32": (qp.float(), kp.float(), vp.float(), {}, DENSE_F32_TOL, DENSE_F32_REL),
+        "int8": (qp, k8, v8, dict(k_scales=ks, v_scales=vs), Q8_BF16_TOL, Q8_REL)}
+    readings, row = {}, None
+    n0 = kpf.window_launches
+    for w in WINDOWS:
+        for route, (q, k, v, sc, tol, rel) in routes.items():
+            tag = f"paged_prefill_attention window {w} {route}"
+            kw = dict(q_offset=qoff, length=c, **sc)
+            got = repeat_equal(torch, tag, lambda: kpf.paged_prefill_attention(
+                q, k, v, table, window=w, **kw))
+            want = ref.paged_prefill_attention(q, k, v, table, window=w, **kw)
+            err = hold(torch, tag, got, want, tol, rel)
+            blind = kpf.paged_prefill_attention(q, k, v, table, **kw)
+            dropped_step_control(torch, tag, "its window (the unwindowed kernel)",
+                                 want, blind, tol, rel)
+            readings[f"{w}_{route}"] = err
+            log(f"{tag}: max|err| {err:.3g} (tol {tol}, rel {rel})")
+            del got, want, blind
+    if kpf.window_launches - n0 != 2 * len(WINDOWS) * len(routes):
+        fail(f"paged prefill window: {kpf.window_launches - n0} windowed launches, "
+             f"expected {2 * len(WINDOWS) * len(routes)}")
+    # the timed rows on the bf16 pool: 2w at each window, row 2 again
+    times = {}
+    for w in WINDOWS:
+        lo = max(0, qoff - w + 1)
+        keys = total - lo
+        attended = sum(min(w, qoff + i + 1) for i in range(c))
+        pages = -(-total // bs) - lo // bs
+        r = measure(torch, timer, "paged_prefill_attention_window",
+                    csrc + "paged_attention.cu",
+                    "src/repro/kernels/prefill_attention.py:273",
+                    lambda w=w: kpf.paged_prefill_attention(
+                        qp, kp, vp, table, q_offset=qoff, length=c, window=w),
+                    lambda w=w: ref.paged_prefill_attention(
+                        qp, kp, vp, table, q_offset=qoff, length=c, window=w),
+                    PREFILL_TOL, rel=PREFILL_REL,
+                    nbytes=2 * qp.numel() * 2 + keys * kv_row + pages * 4,
+                    flops=4 * h * hd * attended,
+                    note=f"; rel {PREFILL_REL}; window {w}: keys {lo}-{total - 1} "
+                         f"seen by some row")
+        times[w] = r
+        if w == ROW_2W_WINDOW:
+            row = r
+    row2 = measure(torch, timer, "paged_prefill_attention", csrc + "paged_attention.cu",
+                   "src/repro/kernels/prefill_attention.py:273",
+                   lambda: kpf.paged_prefill_attention(qp, kp, vp, table,
+                                                       q_offset=qoff, length=c),
+                   lambda: ref.paged_prefill_attention(qp, kp, vp, table,
+                                                       q_offset=qoff, length=c),
+                   PREFILL_TOL, rel=PREFILL_REL,
+                   nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
+                   flops=4 * h * hd * sum(min(qoff + i + 1, total) for i in range(c)),
+                   note="; row 2 read again beside row 2w on the same pool")
+    row.update(row="2w", design=PREFILL_DESIGN + "; a window walks from the first "
+               "page its tile's earliest query sees", window=ROW_2W_WINDOW,
+               per_window={str(w): dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                        bound_ms=r["bound_ms"]) for w, r in times.items()},
+               row2_again=dict(ms=row2["ms"], plain_ms=row2["plain_ms"],
+                               bound_ms=row2["bound_ms"]),
+               max_abs_err_by_route=readings)
+    log("row 2w: " + ", ".join(f"window {w} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f})"
+                               for w, r in times.items())
+        + f"; row 2 again {row2['ms']:.4f} ms (bound {row2['bound_ms']:.4f})")
+    del kp, vp, k8, v8, qp
+    torch.cuda.empty_cache()
+    # the model path: reduced stablelm fp32, three windowed chunks
+    small = reduced(cfg)
+    params = M.init_params(small, seed=0, device="cpu", dtype=torch.float32)
+    prompt = torch.randint(0, small.vocab_size, (21,),
+                           generator=torch.Generator().manual_seed(293))
+    logits = {}
+    n0 = kpf.window_launches
+    for d in ("cpu", "cuda"):
+        p = to_device(params, d)
+        state = M.init_serve_state(small, 1, 12, 8, dtype=torch.float32, device=d)
+        table_s = torch.tensor([3, 7, 1, 9], dtype=torch.int32, device=d)
+        outs = []
+        for off in range(0, 21, 8):
+            n = min(8, 21 - off)
+            tok = torch.zeros((1, 8), dtype=torch.int64)
+            tok[0, :n] = prompt[off:off + n]
+            lg, state = M.serve_prefill_chunk(small, p, state, tokens=tok.to(d),
+                                              length=n, q_offset=off,
+                                              block_table=table_s,
+                                              attn_window=WINDOW_MODEL)
+            outs.append(lg.cpu())
+        logits[d] = torch.cat(outs)
+    if kpf.window_launches - n0 != 3 * small.n_layers:
+        fail(f"windowed model path: {kpf.window_launches - n0} windowed kernel "
+             f"launches, expected {3 * small.n_layers} (3 chunks x L)")
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not torch.allclose(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4):
+        fail(f"windowed model path: card against CPU max|err| {err}")
+    log(f"window model: reduced stablelm fp32, 3 chunks at attn_window "
+        f"{WINDOW_MODEL}, logits card vs cpu max|err| {err:.3g} (tol 1e-4), "
+        f"{3 * small.n_layers} windowed kernel launches")
+    # no engine path sets attn_window: the row's launches are the windowed
+    # model path's, counted above
+    row.update(launches=kpf.window_launches - n0,
+               per_step=f"L per windowed prefill chunk (29c's model path, reduced "
+                        f"{cfg.name}, L = {small.n_layers}, 3 chunks); no engine "
+                        f"path sets attn_window")
+    return row, dict(readings=readings, model_err=err,
+                     row2_again_ms=row2["ms"])
+
+
+def frontend_expect(L, P, Dd):
+    """The slab path's launch formulas over P prefill calls and Dd decode
+    steps (phase 5d's)."""
+    return {
+        "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
+        "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
+        "apply_rope_vector": L * (P + Dd),
+        "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
+        "flash_attention_lengths": L * P,
+        "decode_attention": L * Dd, "flash_attention": 0,
+        "paged_decode_attention": 0, "paged_prefill_attention": 0,
+        "paged_prefill_attention_tc": 0}
+
+
+def frontend_phase(torch, cfg, counters):
+    """29d: internvl2-2b (a ``vlm`` frontend) at full width and depth in
+    bf16: ``prefill(embeds=synthetic_embeddings(...))`` of two 512-row
+    sequences, then ``FRONTEND_STEPS`` greedy ``decode_step(embeds=)``s,
+    every launch at its formula, finite logits; its slab decode and
+    flash-with-lengths kernels at G = 2, head dim 128 held against their
+    plain versions; then ``FRONTEND_CHECK_LAYERS`` layers of the full width
+    in fp32 on the card against the CPU."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.models import frontends
+    from repro_torch.models import model as M
+
+    dev, bf = "cuda", torch.bfloat16
+    L = cfg.n_layers
+    if frontends.frontend_kind(cfg) == "none":
+        fail(f"frontend phase: {cfg.name} has no frontend")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device=dev, dtype=bf)
+    gen = torch.Generator().manual_seed(294)
+    b, s = 2, FRONTEND_ROWS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(dev)
+    frontends.synthetic_embeddings(cfg, tokens[:, :1])    # draws the table
+    lens = torch.tensor([s, s - 37], dtype=torch.int32, device=dev)
+    state = M.init_decode_state(cfg, b, s + FRONTEND_STEPS, dtype=bf, device=dev)
+    for ctr in counters.values():
+        ctr.reset()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    emb = frontends.synthetic_embeddings(cfg, tokens)
+    logits, state = M.prefill(cfg, params, state, embeds=emb, lengths=lens)
+    steps = []
+    cur = lens.clone()
+    nxt = logits[:, 0].argmax(-1)
+    for _ in range(FRONTEND_STEPS):
+        lg, state = M.decode_step(cfg, params, state, nxt, cur,
+                                  embeds=frontends.synthetic_embeddings(cfg, nxt))
+        steps.append(lg)
+        nxt, cur = lg.argmax(-1), cur + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {k: ctr.read() for k, ctr in counters.items()}
+    check_launches("frontend", launches, frontend_expect(L, 1, FRONTEND_STEPS))
+    all_logits = torch.cat([logits[:, 0]] + steps)
+    if not bool(torch.isfinite(all_logits.float()).all()):
+        fail("frontend: non-finite logits")
+    log(f"frontend: {cfg.name} ({cfg.frontend}; {L} L, d {cfg.d_model}, "
+        f"{cfg.n_heads} H over {cfg.n_kv_heads} kv heads of {cfg.hd}, vocab "
+        f"{cfg.vocab_size}) from synthetic embeddings: prefill 2 x {s} + "
+        f"{FRONTEND_STEPS} decode steps in {wall:.3f} s (params and first "
+        f"table {t1 - t0:.1f} s), logits finite, |logit| max "
+        f"{float(all_logits.float().abs().max()):.3g}")
+    # the slab kernels at G = 2, head dim 128, bf16: the prefill's flash
+    # with lengths and the decode over the run's own slabs
+    k_s = state["attn"]["k"][0]
+    v_s = state["attn"]["v"][0]
+    qd = torch.randn((b, cfg.n_heads, cfg.hd), generator=gen).to(dev).to(bf)
+    got = repeat_equal(torch, "decode_attention internvl2",
+                       lambda: kda.decode_attention(qd, k_s, v_s, cur))
+    e_dec = hold(torch, "decode_attention internvl2", got,
+                 ref.decode_attention(qd, k_s, v_s, lengths=cur), DECODE_TOL, DECODE_REL)
+    qf = torch.randn((b, s, cfg.n_heads, cfg.hd), generator=gen).to(dev).to(bf)
+    kf, vf = k_s[:, :s].contiguous(), v_s[:, :s].contiguous()
+    got = repeat_equal(torch, "flash_attention lengths internvl2",
+                       lambda: kfa.flash_attention_fwd(qf, kf, vf, causal=True,
+                                                       lengths=lens)[0])
+    e_fl = hold(torch, "flash_attention lengths internvl2", got,
+                ref.flash_attention(qf, kf, vf, lengths=lens), FLASH_O_TOL, FLASH_REL)
+    log(f"frontend: G = 2 at head dim 128 in bf16, slab decode max|err| "
+        f"{e_dec:.3g}, flash with lengths max|err| {e_fl:.3g}")
+    summary = dict(wall_s=wall, launches=launches, decode_err=e_dec, flash_err=e_fl)
+    del params, state, k_s, v_s, kf, vf, qf, got
+    torch.cuda.empty_cache()
+    # fp32, the full width at FRONTEND_CHECK_LAYERS layers, card vs CPU
+    small = cfg.replace(n_layers=FRONTEND_CHECK_LAYERS)
+    p_cpu = M.init_params(small, seed=0, device="cpu", dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, FRONTEND_CHECK_ROWS), generator=gen)
+    ln = torch.tensor([FRONTEND_CHECK_ROWS, FRONTEND_CHECK_ROWS - 9], dtype=torch.int32)
+    nexts = torch.randint(0, cfg.vocab_size, (FRONTEND_CHECK_STEPS, 2), generator=gen)
+    out = {}
+    for d in ("cpu", "cuda"):
+        p = to_device(p_cpu, d)
+        st = M.init_decode_state(small, 2, FRONTEND_CHECK_ROWS + FRONTEND_CHECK_STEPS,
+                                 dtype=torch.float32, device=d)
+        e = frontends.synthetic_embeddings(small, toks.to(d), dtype=torch.float32)
+        lg, st = M.prefill(small, p, st, embeds=e, lengths=ln.to(d))
+        res = [lg[:, 0].cpu()]
+        for i in range(FRONTEND_CHECK_STEPS):
+            t = nexts[i].to(d)
+            lg, st = M.decode_step(small, p, st, t, (ln + i).to(d),
+                                   embeds=frontends.synthetic_embeddings(
+                                       small, t, dtype=torch.float32))
+            res.append(lg.cpu())
+        out[d] = torch.cat(res)
+        del p, st
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    if not torch.allclose(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4):
+        fail(f"frontend fp32: {FRONTEND_CHECK_LAYERS} layers at full width, card "
+             f"against CPU max|err| {err}")
+    log(f"frontend fp32: {cfg.name} at {FRONTEND_CHECK_LAYERS} of {L} layers, full "
+        f"width, prefill 2 x {FRONTEND_CHECK_ROWS} + {FRONTEND_CHECK_STEPS} decode "
+        f"steps from synthetic embeddings, logits card vs cpu max|err| {err:.3g} "
+        f"(tol 1e-4)")
+    summary["fp32_err"] = err
+    frontends._table.cache_clear()
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def compair_phase(torch, timer):
+    """Phase 29: 29a-29d in order; returns (row 2w, the phase's results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, prefill_attention
+    from repro_torch.kernels import rmsnorm, rope, swiglu
+
+    t0 = time.perf_counter()
+    cfg = get_config("stablelm-1.6b")
+    res = {"isa": isa_phase(torch, cfg)}
+    t1 = time.perf_counter()
+    res["planner"] = planner_phase(torch, timer, cfg)
+    t2 = time.perf_counter()
+    row, res["window"] = window_phase(torch, timer, cfg)
+    t3 = time.perf_counter()
+    counters = {"rmsnorm": Counter(rmsnorm), "apply_rope": Counter(rope),
+                "apply_rope_qk": Counter(rope, "qk_launches"),
+                "rmsnorm_vector": Counter(rmsnorm, "launches_by_route", "vector"),
+                "apply_rope_vector": Counter(rope, "launches_by_route", "vector"),
+                "silu_mul": Counter(swiglu),
+                "silu_mul_scalar": Counter(swiglu, "launches_by_route", "scalar"),
+                "paged_decode_attention": Counter(decode_attention),
+                "paged_prefill_attention": Counter(prefill_attention),
+                "paged_prefill_attention_tc": Counter(prefill_attention, "tc_launches"),
+                "decode_attention": Counter(decode_attention, "dense_launches"),
+                "flash_attention_lengths": Counter(flash_attention, "lengths_launches"),
+                "flash_attention": Counter(flash_attention)}
+    res["frontend_launches"], res["frontend"] = frontend_phase(
+        torch, get_config("internvl2-2b"), counters)
+    t4 = time.perf_counter()
+    res["seconds"] = dict(isa=t1 - t0, planner=t2 - t1, window=t3 - t2,
+                          frontend=t4 - t3)
+    log(f"compair: phase 29 took {t4 - t0:.1f} s (isa {t1 - t0:.1f}, planner "
+        f"{t2 - t1:.1f}, window {t3 - t2:.1f}, frontend {t4 - t3:.1f})")
+    return row, res
+
+
 def main() -> None:
     import torch
 
@@ -6308,6 +6820,9 @@ def main() -> None:
         f"{row7['ms']:.4f} / {row7['library_ms']:.4f}, "
         f"{row7['ms'] / row7['library_ms']:.3f}x)")
 
+    row2w, compair = compair_phase(torch, timer)
+    rows.append(row2w)
+
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -6332,7 +6847,7 @@ def main() -> None:
              expert_cache=expert_cache, moe_layer_vjp=moe_vjp, moe_train=moe_train,
              disagg=disagg, ep_serve=ep_serve, ep_parity=ep_parity,
              moe_train_launches=moe_train_launches,
-             gemm_routes=gemm_routes, **kernels),
+             gemm_routes=gemm_routes, compair=compair, **kernels),
         indent=1))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -1,14 +1,23 @@
-"""The paper's primary contribution, as far as the port carries it:
+"""The paper's primary contribution, in the port:
 
-  curry — Curry-ALU iterated non-linears (Taylor exp, Newton rsqrt)
-  noc   — the in-transit softmax combine of sequence-sharded attention
-          partials, its hop/energy cost model, and the swap-versus-
-          recompute preemption cost model (the paper's CXL and PIM rates)
+  curry   -- Curry-ALU iterated non-linears (Taylor exp, Newton rsqrt)
+  isa     -- the hierarchical ISA of §5: row-level programs lowered to
+             packet plans by path generation, and a bank-major machine that
+             runs them on torch buffers on any device
+  noc     -- the in-transit collectives (butterfly, reduce / broadcast
+             trees, the sharded softmax and the centralized-NLU baselines)
+             over a list of shards, the softmax combine of sequence-sharded
+             attention partials, and the NoC, preemption, handoff and
+             expert-placement cost models (the paper's CXL and PIM rates)
+  planner -- the substrate-selection lanes on the card's roofline
+  mapping -- the §3.3 output-split vs input-split cost model
 
-Torch copies of the JAX package's ``core.curry`` and of the serving parts of
-``core.noc`` (the port imports nothing of ``repro``).  ``isa``, ``mapping``,
-``planner`` and ``noc``'s disaggregation and expert cost arms come with
-later slices.
+Torch copies of the JAX package's ``core`` modules (the port imports
+nothing of ``repro``).  ``mapping``'s sharding plan comes with the port's
+device mesh; ``shardhints`` has no counterpart on one card.
 """
 from repro_torch.core import curry  # noqa: F401
+from repro_torch.core import isa  # noqa: F401
+from repro_torch.core import mapping  # noqa: F401
 from repro_torch.core import noc  # noqa: F401
+from repro_torch.core import planner  # noqa: F401

@@ -1,23 +1,31 @@
-"""CompAir-NoC's in-transit softmax combine, on one controller.
+"""CompAir-NoC's in-transit collectives, on one controller.
 
-A torch copy of the parts of the JAX package's ``core/noc.py`` that
-sequence-sharded serving runs: the butterfly all-reduce's combine order
-(``butterfly_all_reduce``, :52-71), ``tree_softmax_combine`` (:122-132) and
-the hop/energy cost model the engine charges per combine
-(``softmax_combine_cost``, :147-166, and ``E_HOP_PJ_PER_BIT``), and the
+A torch copy of the JAX package's ``core/noc.py``: the combiners
+(``COMBINERS``), the butterfly all-reduce's combine order
+(``butterfly_all_reduce``, :52-71, with its ``psum`` / ``pmax`` fallback for
+a shard count that is not a power of two), the binary reduce and broadcast
+trees (``tree_reduce``, ``tree_broadcast``, ``tree_all_reduce``, :74-115),
+``tree_softmax_combine`` (:122-132), the softmax and logsumexp of a
+sharded feature axis (``distributed_softmax``, ``distributed_logsumexp``,
+:366-380) and the centralized-NLU baselines they replace
+(``centralized_softmax``, ``centralized_softmax_combine``, :387-410); the
+hop/energy cost model the engine charges per combine
+(``softmax_combine_cost``, :147-166, and ``E_HOP_PJ_PER_BIT``), the
 swap-versus-recompute preemption cost model (``swap_cost``,
 ``recompute_cost``, ``preempt_decision``, ``restore_cost_seconds`` and
 their four rates, :179-259), the prefill -> decode handoff's
 (``handoff_cost``, ``handoff_admission_cost``, :260-298), and the hot/cold
-expert placement cost model
-the expert cache prices its promotions with (``expert_placement_cost``,
-``expert_promotion_worthwhile`` and the ``EXPERT_*`` rates, :301-365).
+expert placement cost model the expert cache prices its promotions with
+(``expert_placement_cost``, ``expert_promotion_worthwhile`` and the
+``EXPERT_*`` rates, :301-365).
 
 The paper embeds a Curry ALU in every NoC router so that the softmax
 combine of attention partials happens while they move (Fig. 10).  The JAX
-package runs it inside ``shard_map`` with one ``ppermute`` per hop.  The
-port holds every shard of the page pool on one card under one controller,
-so the S shard partials are a list and a hop is a call of the combiner.
+package runs its collectives inside ``shard_map`` with one ``ppermute`` per
+hop.  The port holds every shard on one card under one controller, so the
+S shard values are a list and a hop is a call of the combiner: a collective
+takes the list and returns every shard's value (a tree reduction's
+non-root shards keep what the reference leaves there).
 The hop and energy totals stay the model's: what the combine would cost on
 the NoC, not what the card spends.  Likewise the preemption cost model
 prices a swap over the paper's CXL link and a recompute on its SRAM-PIM
@@ -42,38 +50,102 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and n & (n - 1) == 0
 
 
-def butterfly_all_reduce(values: Sequence, combiner: Callable) -> List:
+def _tree_map(fn, *trees):
+    """``fn`` over matching leaves of tensors, or tuples / lists of them."""
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(_tree_map(fn, *leaves) for leaves in zip(*trees))
+    return fn(*trees)
+
+
+def _add(a, b):
+    return _tree_map(torch.add, a, b)
+
+
+def _max(a, b):
+    return _tree_map(torch.maximum, a, b)
+
+
+COMBINERS = {"add": _add, "max": _max}
+
+
+def _combiner(combiner) -> Callable:
+    return COMBINERS.get(combiner, combiner)
+
+
+def butterfly_all_reduce(values: Sequence, combiner="add") -> List:
     """The hypercube (recursive-doubling) all-reduce over a list of S
     per-shard values: at hop ``k`` (1, 2, 4, ...) shard ``i`` combines its
     value with shard ``i ^ k``'s, its own first, as the JAX package's
     ``ppermute`` schedule does.  Returns every shard's result (S log2 S
-    combines); S must be a power of two."""
+    combines).  ``combiner`` is ``"add"``, ``"max"`` or a callable.  For S
+    not a power of two the reference falls back to ``psum`` / ``pmax``; so
+    does this, as a sum or max of the values in shard order, and another
+    combiner raises."""
+    comb = _combiner(combiner)
     n = len(values)
     if not _is_pow2(n):
-        raise ValueError(f"the butterfly needs a power-of-two shard count, "
-                         f"got {n}")
+        if combiner not in ("add", "max"):
+            raise ValueError("non-pow2 axis needs builtin combiner")
+        total = values[0]
+        for v in values[1:]:
+            total = comb(total, v)
+        return [total] * n
     values, k = list(values), 1
     while k < n:
-        values = [combiner(values[i], values[i ^ k]) for i in range(n)]
+        values = [comb(values[i], values[i ^ k]) for i in range(n)]
         k *= 2
     return values
 
 
-def tree_combine(values: Sequence, combiner: Callable):
-    """Shard 0's butterfly result in S - 1 combines: the pairwise tree
-    ``((v0.v1).(v2.v3))...``.  At hop ``k`` shard 0 combines its value with
-    shard ``k``'s, which is the tree of shards ``[k, 2k)``; so for a
-    combiner that is commutative bit for bit this is every shard's result
-    (``ref.combine_partials`` is: a max, and sums of two products)."""
+def tree_reduce(values: Sequence, combiner="add", root: int = 0) -> List:
+    """Binary-tree reduction to ``root`` (paper Fig. 14A), log2(S) hops: at
+    hop ``k`` each shard at an odd multiple of ``k`` forwards its partial to
+    the shard ``k`` below, which combines it (its own first).  Only the
+    root's value is meaningful afterwards; the others keep what the
+    reference leaves them.  S must be a power of two and the root 0."""
+    comb = _combiner(combiner)
     n = len(values)
     if not _is_pow2(n):
-        raise ValueError(f"the butterfly needs a power-of-two shard count, "
-                         f"got {n}")
-    values = list(values)
-    while len(values) > 1:
-        values = [combiner(values[i], values[i + 1])
-                  for i in range(0, len(values), 2)]
-    return values[0]
+        raise ValueError(f"tree_reduce needs a power-of-two shard count, got {n}")
+    if root != 0:
+        raise ValueError("rotate indices for non-zero roots")
+    values, k = list(values), 1
+    while k < n:
+        values = [comb(values[i], values[i + k]) if i % (2 * k) == 0 else values[i]
+                  for i in range(n)]
+        k *= 2
+    return values
+
+
+def tree_broadcast(values: Sequence, root: int = 0) -> List:
+    """Binary-tree broadcast from ``root``: the reduce tree run backwards,
+    hop ``k`` = S/2, S/4, ..., 1 copying shard ``i``'s value to ``i + k``."""
+    n = len(values)
+    if not _is_pow2(n) or root != 0:
+        raise ValueError(f"tree_broadcast needs a power-of-two shard count and "
+                         f"root 0, got {n} and {root}")
+    values, k = list(values), n // 2
+    while k >= 1:
+        values = [values[i - k] if i % (2 * k) == k else values[i]
+                  for i in range(n)]
+        k //= 2
+    return values
+
+
+def tree_all_reduce(values: Sequence, combiner="add") -> List:
+    """Reduce-to-root + broadcast: the literal paper schedule (two trees).
+    :func:`butterfly_all_reduce` has the same depth and no idle nodes."""
+    return tree_broadcast(tree_reduce(values, combiner))
+
+
+def tree_combine(values: Sequence, combiner: Callable):
+    """Shard 0's butterfly result in S - 1 combines: the root of
+    :func:`tree_reduce`, the pairwise tree ``((v0.v1).(v2.v3))...``.  At hop
+    ``k`` shard 0 combines its value with shard ``k``'s, which is the tree
+    of shards ``[k, 2k)``; so for a combiner that is commutative bit for bit
+    this is every shard's result (``ref.combine_partials`` is: a max, and
+    sums of two products)."""
+    return tree_reduce(values, combiner)[0]
 
 
 def tree_softmax_combine(parts: Sequence[Partials]) -> torch.Tensor:
@@ -83,6 +155,45 @@ def tree_softmax_combine(parts: Sequence[Partials]) -> torch.Tensor:
     renormalization at every tree hop.  The S - 1 combines of
     :func:`tree_combine` give the bits of the JAX package's butterfly."""
     acc, _, l = tree_combine(parts, ref.combine_partials)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def distributed_softmax(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Softmax over a feature axis cut into S shards (the last axis of each,
+    e.g. a vocab-sharded LM head): the max and the sum statistics ride the
+    butterfly; returns every shard's slice of the result."""
+    ms = butterfly_all_reduce([x.amax(dim=-1) for x in shards], "max")
+    es = [torch.exp(x - m[..., None]) for x, m in zip(shards, ms)]
+    ss = butterfly_all_reduce([e.sum(dim=-1) for e in es], "add")
+    return [e / s[..., None] for e, s in zip(es, ss)]
+
+
+def distributed_logsumexp(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """logsumexp over a feature axis cut into S shards; every shard's value."""
+    ms = butterfly_all_reduce([x.amax(dim=-1) for x in shards], "max")
+    ss = butterfly_all_reduce([torch.exp(x - m[..., None]).sum(dim=-1)
+                               for x, m in zip(shards, ms)], "add")
+    return [m + torch.log(s) for m, s in zip(ms, ss)]
+
+
+# centralized-NLU baselines (what CompAir-NoC replaces) --------------------
+
+def centralized_softmax(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Baseline: gather the full vector (the NLU round trip), compute the
+    softmax in f32 in one place, hand each shard its slice back in its
+    dtype: the all-gather + broadcast traffic of Fig. 5A."""
+    full = torch.cat(list(shards), dim=-1)
+    y = torch.softmax(full.float(), dim=-1).to(shards[0].dtype)
+    return list(torch.split(y, [x.shape[-1] for x in shards], dim=-1))
+
+
+def centralized_softmax_combine(parts: Sequence[Partials]) -> torch.Tensor:
+    """Baseline for the decode-attention combine: gather every shard's
+    partials and reduce them in shard order in one place."""
+    part = parts[0]
+    for nxt in parts[1:]:
+        part = ref.combine_partials(part, nxt)
+    acc, _, l = part
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 

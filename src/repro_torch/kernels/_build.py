@@ -44,7 +44,7 @@ _SIGNATURES = {
     "repro_rmsnorm": (_I, _P, _P, _P, _I64, _I, _F, _I, _I, _I, _I, _I, _P),
     "repro_rope": (_I, *(_P,) * 5, _I64, _I, _I, _I, _F, *(_I,) * 7, _P),
     "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
-    "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, *(_P,) * 4, _I, _I,
+    "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, _I, *(_P,) * 4, _I, _I,
                               _I, _I, _I64, _I64, _I, _I, _I, _I, _P),
     "repro_paged_decode": (_I, *(_P,) * 7, _I, _I, *(_P,) * 4, _I, _I, _I,
                            _I64, _I64, _I, _I, _I, _I, _I, _I, _P),

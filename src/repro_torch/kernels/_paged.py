@@ -232,10 +232,12 @@ def pool_strides(k_pages, v_pages, k_scales=None, v_scales=None):
 def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
            tables: torch.Tensor, q_offset: int, total: int, *, partials: bool,
            k_scales: Optional[torch.Tensor] = None,
-           v_scales: Optional[torch.Tensor] = None, skip_null: bool = False):
+           v_scales: Optional[torch.Tensor] = None, skip_null: bool = False,
+           window: int = 0):
     """One launch of the paged prefill kernel.  q [B, C, H, D]; tables [B,
     MB] int32; ``q_offset`` and ``total`` (the live KV rows, clamped to MB *
-    BS); an int8 pool passes its scales; the pages (and scales) may be a
+    BS); ``window`` > 0 keeps only the keys ``kpos > qpos - window`` (0:
+    none); an int8 pool passes its scales; the pages (and scales) may be a
     shard's view of a pool, dense past the kv-head dim, with ``skip_null``
     for its shard-local table.  bf16 queries run the tensor-core form, whose
     q and pages must start 16-byte aligned.  Returns the normalized output,
@@ -274,7 +276,8 @@ def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None, tables.data_ptr(),
-        int(q_offset), int(total), int(bool(skip_null)), *ptrs, g.b, g.c,
+        int(q_offset), int(total), int(bool(skip_null)), int(window), *ptrs,
+        g.b, g.c,
         g.h, g.kvh, page_stride, scale_stride, g.bs, g.d, g.mb, g.n_tiles,
         _build.stream_ptr(q))
     _build.check("paged_attention", code)

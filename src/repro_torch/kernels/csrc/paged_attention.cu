@@ -51,6 +51,22 @@
 // into P's column before the hi + lo split, and l sums the unscaled p, so
 // no element-by-element dequantise pass remains.
 //
+// A sliding window (window > 0; 0 = none: the model's attn_window, which the
+// TPU package runs through its plain version) keeps only the keys kpos >
+// qpos - window, on both forms and both pools: a key is seen iff 0 <= qpos
+// - kpos < window, one unsigned compare.  A tile's walk starts at the first
+// key its earliest query can see, win_lo = qoff + row0 / G - window + 1 (the
+// bf16 form lists its pages from win_lo's page on; the f32 form steps from
+// win_lo itself), so a window costs the keys it keeps, not the prefix.  A
+// key that is masked for a row whose running max is still the initial -1e30
+// weighs 0 there (its exponent is taken against 0, not against -1e30): a
+// windowed chunk's late rows meet whole stages of keys below their window
+// before they see any key.  Without a window such weights are wiped by the
+// row's first visible key (corr = exp(-1e30 - m) = 0), as before, and the
+// bf16 form runs its own instantiations (kWin false): the window's extra
+// compares in the stage loop cost the windowless row 2 14% when they were
+// runtime tests in the one kernel (tools/prefill_readings.py, H100 at 700 W).
+//
 // f32 (the fp32 parity runs) keeps the first version on the CUDA cores:
 // grid (row tiles, KvH, B), a block of kRows = 16 query rows walks the keys
 // [0, tile_end) in steps of 32, each step staged in shared memory as f32 (K
@@ -81,6 +97,7 @@
 // scalar loads on the CUDA cores.
 #include "common.cuh"
 
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -108,7 +125,7 @@ __global__ void __launch_bounds__(kWarps * 32, min_blocks<D>())
 paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                        const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales, const int* __restrict__ tables,
-                       int qoff, int tot, int skip_null, T* __restrict__ out,
+                       int qoff, int tot, int skip_null, int window, T* __restrict__ out,
                        float* __restrict__ acc_out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int C, int H, int KvH,
                        int64_t page_stride, int64_t scale_stride, int BS, int MB,
@@ -121,9 +138,13 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int row0 = tile * kRows;
 
   // qoff and tot (the live keys, pre-clamped to MB * BS) are global
-  // positions; the walk runs over the keys [0, tile_end)
+  // positions; the walk runs over the keys [win_lo, tile_end)
   const int last_row = min(row0 + kRows, n_rows) - 1;
   const int tile_end = min(tot, qoff + last_row / G + 1);
+  const int win_lo = window > 0 ? max(0, qoff + row0 / G - window + 1) : 0;
+  // a key at kpos is visible to a query at qpos iff 0 <= qpos - kpos < W
+  // (one unsigned compare; W = INT_MAX is causal masking alone)
+  const unsigned W = window > 0 ? window : INT_MAX;
 
   __shared__ float q_s[kRows][D];
   __shared__ float k_s[kKeys][D + 1];
@@ -157,8 +178,8 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
   const int64_t head_base = static_cast<int64_t>(kvh) * page_stride;
   // table entry of lane's key in the next step, loaded a step ahead so that
   // its latency hides behind the step before
-  int next_tp = lane < tile_end ? table[lane / BS] : 0;
-  for (int base = 0; base < tile_end; base += kKeys) {
+  int next_tp = win_lo + lane < tile_end ? table[(win_lo + lane) / BS] : 0;
+  for (int base = win_lo; base < tile_end; base += kKeys) {
     // lane's key of this step: its page if the key is inside the walk and,
     // under skip_null, on a page this shard owns (one table lookup per key,
     // never per step); warp 0 publishes the step's pages for the staging
@@ -204,10 +225,11 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
     float p[kRowsPerWarp];
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const bool valid = live && key <= qpos[rr] && key < tot;
+      const bool valid = live && key < tot && static_cast<unsigned>(qpos[rr] - key) < W;
       const float sv = valid ? s[rr] * scale : kNegInf;
       const float m_new = fmaxf(m[rr], repro::warp_max(sv));
-      p[rr] = expf(sv - m_new);
+      // a row that has seen no key yet weighs the masked ones 0
+      p[rr] = expf(sv - (m_new == kNegInf ? 0.f : m_new));
       const float corr = expf(m[rr] - m_new);
       l[rr] = l[rr] * corr + repro::warp_sum(p[rr]);
 #pragma unroll
@@ -298,13 +320,14 @@ struct TcLayout {
   }
 };
 
-// P: page type (bf16, or int8_t with scales)
-template <typename P, int D>
+// P: page type (bf16, or int8_t with scales); kWin: a window is given (the
+// instantiations without one are the windowless kernel, compare for compare)
+template <typename P, int D, bool kWin>
 __global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 2)
 paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_pages,
                         const P* __restrict__ v_pages, const float* __restrict__ k_scales,
                         const float* __restrict__ v_scales, const int* __restrict__ tables,
-                        int qoff, int tot, int skip_null, bf16* __restrict__ out,
+                        int qoff, int tot, int skip_null, int window, bf16* __restrict__ out,
                         float* __restrict__ acc_out, float* __restrict__ m_out,
                         float* __restrict__ l_out, int C, int H, int KvH,
                         int64_t page_stride, int64_t scale_stride, int BS, int MB,
@@ -323,6 +346,11 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KvH, n_rows = C * G, row0 = tile * kTcRows;
   const int tile_end = min(tot, qoff + (min(row0 + kTcRows, n_rows) - 1) / G + 1);
+  // the first key the tile's earliest query sees under a window; a key at
+  // kpos is then visible to a query at qpos iff 0 <= qpos - kpos < W (one
+  // unsigned compare)
+  const int win_lo = kWin ? max(0, qoff + row0 / G - window + 1) : 0;
+  const int W = kWin ? window : INT_MAX;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gr = lane >> 2, tq = lane & 3;     // fragment row and column pair
   const int wr0 = row0 + warp * 16;            // the warp's first row
@@ -341,13 +369,13 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
     repro::cp_async_commit();
   }
 
-  // the tile's pages in table order, (page id, table index); under
-  // skip_null only the ones this shard owns
+  // the tile's pages in table order, (page id, table index), from win_lo's
+  // page on; under skip_null only the ones this shard owns
   if (warp == 0) {
     const int* table = tables + static_cast<int64_t>(b) * MB;
     const int n_prefix = tile_end > 0 ? (tile_end + BS - 1) / BS : 0;
     int n = 0;
-    for (int base = 0; base < n_prefix; base += 32) {
+    for (int base = win_lo / BS; base < n_prefix; base += 32) {
       const int p = base + lane;
       const int pg = p < n_prefix ? table[p] : 0;
       const bool live = p < n_prefix && (!skip_null || pg != 0);
@@ -456,10 +484,12 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
       k_t = kw;
       v_t = kw + kStage * LDS;
     }
-    // A stage no row of the warp can see is skipped: in a row that has seen
-    // no key yet its keys would count at p = 1, and the row's first visible
-    // key multiplies that by exp(-1e30 - m) = 0.
-    if (!warp_live || keys[0] > wq_last) continue;
+    // A stage no row of the warp can see is skipped: every key past the
+    // warp's last position, or (under a window) every key of a full stage
+    // at or below its first row's window (a short stage is the walk's last,
+    // whose slots past the walk read kNoKey).
+    if (!warp_live || keys[0] > wq_last || (kWin && wq_first - keys[kStage - 1] >= W))
+      continue;
 
     float s[NK][4];
 #pragma unroll
@@ -487,16 +517,20 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
         s[n][3] *= sc.y;
       }
     }
-    // scale, and mask unless the stage is full and the warp's first row
-    // sees its last key (keys past the walk read kNoKey)
-    const bool whole = keys[kStage - 1] <= wq_first;
+    // scale, and mask unless the stage is full, the warp's first row sees
+    // its last key and (under a window) its last row its first key (keys
+    // past the walk read kNoKey)
+    const bool whole = keys[kStage - 1] <= wq_first && (!kWin || wq_last - keys[0] < W);
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
       const int2 kp = whole ? make_int2(0, 0) : *reinterpret_cast<const int2*>(keys + n * 8 + 2 * tq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = (e & 1) ? kp.y : kp.x;
-        s[n][e] = whole || kpos <= ((e >> 1) ? qpos1 : qpos0) ? s[n][e] * scale : kNegInf;
+        const int qp = (e >> 1) ? qpos1 : qpos0;
+        const bool seen = kWin ? static_cast<unsigned>(qp - kpos) < static_cast<unsigned>(W)
+                               : kpos <= qp;
+        s[n][e] = whole || seen ? s[n][e] * scale : kNegInf;
       }
     }
     // online softmax in f32: rows gr and gr + 8 of the warp's 16, each
@@ -511,12 +545,16 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
       corr[r] = __expf(m[r] - m_new);
       m[r] = m_new;
     }
+    // under a window, a row that has seen no key yet (m still -1e30) weighs
+    // the stage's masked keys 0: their exponents are taken against 0
+    const float mu[2] = {kWin && m[0] == kNegInf ? 0.f : m[0],
+                         kWin && m[1] == kNegInf ? 0.f : m[1]};
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = __expf(s[n][e] - m[e >> 1]);
+        s[n][e] = __expf(s[n][e] - mu[e >> 1]);
         rs[e >> 1] += s[n][e];
       }
 #pragma unroll
@@ -590,13 +628,14 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const P* __restrict__ k_page
   }
 }
 
-template <typename P, int D>
+template <typename P, int D, bool kWin>
 cudaError_t launch_tc(dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
                       const float* ks, const float* vs, const int* bt, int q_offset, int total,
-                      int skip_null, void* out, float* acc, float* m, float* l, int C, int H,
-                      int KvH, int64_t page_stride, int64_t scale_stride, int BS, int MB) {
+                      int skip_null, int window, void* out, float* acc, float* m, float* l,
+                      int C, int H, int KvH, int64_t page_stride, int64_t scale_stride, int BS,
+                      int MB) {
   using L = TcLayout<P, D>;
-  auto kern = paged_prefill_tc_kernel<P, D>;
+  auto kern = paged_prefill_tc_kernel<P, D, kWin>;
   // the page list holds at most the table prefix of the last tile
   const int n_list = total > 0 ? (total + BS - 1) / BS : 0;
   const size_t smem = L::bytes(n_list);
@@ -608,21 +647,26 @@ cudaError_t launch_tc(dim3 grid, cudaStream_t s, const void* q, const void* kp, 
   }
   kern<<<grid, kTcThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks, vs,
-      bt, q_offset, total, skip_null, static_cast<bf16*>(out), acc, m, l, C, H, KvH, page_stride,
-      scale_stride, BS, MB, 1.0f / sqrtf(static_cast<float>(D)));
+      bt, q_offset, total, skip_null, window, static_cast<bf16*>(out), acc, m, l, C, H, KvH,
+      page_stride, scale_stride, BS, MB, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
 template <typename P>
 cudaError_t by_dim_tc(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp,
                       const void* vp, const float* ks, const float* vs, const int* bt,
-                      int q_offset, int total, int skip_null, void* out, float* acc, float* m,
-                      float* l, int C, int H, int KvH, int64_t page_stride,
+                      int q_offset, int total, int skip_null, int window, void* out, float* acc,
+                      float* m, float* l, int C, int H, int KvH, int64_t page_stride,
                       int64_t scale_stride, int BS, int MB) {
 #define REPRO_PREFILL_TC_CASE(DIM)                                                            \
   case DIM:                                                                                   \
-    return launch_tc<P, DIM>(grid, s, q, kp, vp, ks, vs, bt, q_offset, total, skip_null, out, \
-                             acc, m, l, C, H, KvH, page_stride, scale_stride, BS, MB);
+    return window > 0                                                                         \
+        ? launch_tc<P, DIM, true>(grid, s, q, kp, vp, ks, vs, bt, q_offset, total, skip_null, \
+                                  window, out, acc, m, l, C, H, KvH, page_stride,             \
+                                  scale_stride, BS, MB)                                       \
+        : launch_tc<P, DIM, false>(grid, s, q, kp, vp, ks, vs, bt, q_offset, total,           \
+                                   skip_null, 0, out, acc, m, l, C, H, KvH, page_stride,      \
+                                   scale_stride, BS, MB);
   switch (D) {
     REPRO_PREFILL_TC_CASE(16)
     REPRO_PREFILL_TC_CASE(64)
@@ -637,14 +681,14 @@ cudaError_t by_dim_tc(int D, dim3 grid, cudaStream_t s, const void* q, const voi
 template <typename T, typename P>
 int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, const void* vp,
            const float* ks, const float* vs, const int* bt, int q_offset, int total,
-           int skip_null, void* out, float* acc, float* m, float* l,
+           int skip_null, int window, void* out, float* acc, float* m, float* l,
            int C, int H, int KvH, int64_t page_stride, int64_t scale_stride, int BS, int MB) {
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
 #define REPRO_PAGED_CASE(DIM)                                                                 \
   case DIM:                                                                                   \
     paged_attention_kernel<T, P, DIM><<<grid, kWarps * 32, 0, s>>>(                           \
         static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp), ks,   \
-        vs, bt, q_offset, total, skip_null, static_cast<T*>(out), acc, m, l,                  \
+        vs, bt, q_offset, total, skip_null, window, static_cast<T*>(out), acc, m, l,          \
         C, H, KvH, page_stride, scale_stride, BS, MB, scale);                                \
     return cudaSuccess;
   switch (D) {
@@ -664,7 +708,8 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, cons
 // NULL for a float pool), each dense but for its kv-head stride
 // (page_stride, scale_stride elements: a shard's view of the pool); tables
 // [B, MB] int32; q_offset and total = min(q_offset + length, MB * BS).
-// skip_null nonzero masks the keys of zero table entries.  Either out [B,
+// skip_null nonzero masks the keys of zero table entries; window > 0 keeps
+// only the keys kpos > qpos - window (0: no window).  Either out [B,
 // C, H, D] (normalised, element type) or the f32 partials acc [B, C, H, D],
 // m and l [B, C, H] are written; the other is NULL.  n_tiles counts the
 // query-row tiles of a (sequence, kv head): of kTcRows rows for bf16 (whose
@@ -672,7 +717,7 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* kp, cons
 extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pages,
                                      const void* v_pages, const float* k_scales,
                                      const float* v_scales, const int* tables, int q_offset,
-                                     int total, int skip_null,
+                                     int total, int skip_null, int window,
                                      void* out, float* acc, float* m, float* l, int B, int C,
                                      int H, int KvH, int64_t page_stride, int64_t scale_stride,
                                      int BS, int D, int MB, int n_tiles, void* stream) {
@@ -685,19 +730,19 @@ extern "C" int repro_paged_attention(int dtype, const void* q, const void* k_pag
     case repro::kF32:
       rc = k_scales != nullptr
           ? launch<float, int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables,
-                                  q_offset, total, skip_null, out, acc, m, l, C, H, KvH,
-                                  page_stride, scale_stride, BS, MB)
+                                  q_offset, total, skip_null, window, out, acc, m, l, C, H,
+                                  KvH, page_stride, scale_stride, BS, MB)
           : launch<float, float>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables,
-                                 q_offset, total, skip_null, out, acc, m, l, C, H, KvH,
-                                 page_stride, scale_stride, BS, MB);
+                                 q_offset, total, skip_null, window, out, acc, m, l, C, H,
+                                 KvH, page_stride, scale_stride, BS, MB);
       break;
     case repro::kBF16:
       rc = k_scales != nullptr
           ? by_dim_tc<int8_t>(D, grid, s, q, k_pages, v_pages, k_scales, v_scales, tables,
-                              q_offset, total, skip_null, out, acc, m, l, C, H, KvH,
+                              q_offset, total, skip_null, window, out, acc, m, l, C, H, KvH,
                               page_stride, scale_stride, BS, MB)
           : by_dim_tc<bf16>(D, grid, s, q, k_pages, v_pages, nullptr, nullptr, tables, q_offset,
-                            total, skip_null, out, acc, m, l, C, H, KvH, page_stride,
+                            total, skip_null, window, out, acc, m, l, C, H, KvH, page_stride,
                             scale_stride, BS, MB);
       break;
     default:

@@ -166,21 +166,26 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
 
 
 def paged_prefill_attention(q, k_pages, v_pages, block_table, *, q_offset: int,
-                            length: int, k_scales=None, v_scales=None):
-    """Prefill-chunk attention over paged KV (chunk K/V already scattered).
-    On the CPU the pages in ``block_table`` (a prefix-bucketed slice) are
-    gathered, dequantized with ``k_scales`` / ``v_scales`` for an int8 pool,
-    and run through the plain flash attention, as the JAX package's
-    non-kernel path does."""
+                            length: int, window=None, k_scales=None,
+                            v_scales=None):
+    """Prefill-chunk attention over paged KV (chunk K/V already scattered);
+    ``window`` keeps only the keys ``kpos > qpos - window``.  On the CPU the
+    pages in ``block_table`` (a prefix-bucketed slice) are gathered,
+    dequantized with ``k_scales`` / ``v_scales`` for an int8 pool, and run
+    through the plain flash attention, as the JAX package's non-kernel path
+    does (which is also where it sends a windowed call on the TPU).  On the
+    card every call, windowed or not, launches the paged prefill kernel."""
     if _on_cpu(q):
         k_lin = ref.gather_pages(k_pages, block_table, k_scales)[None]
         v_lin = ref.gather_pages(v_pages, block_table, v_scales)[None]
         lens = torch.tensor([q_offset + length], dtype=torch.int64)
         return ref.flash_attention(q, k_lin, v_lin, causal=True,
-                                   q_offset=q_offset, lengths=lens)
+                                   q_offset=q_offset, lengths=lens,
+                                   window=window)
     return _pf.paged_prefill_attention(q, k_pages, v_pages, block_table,
                                        q_offset=q_offset, length=length,
-                                       k_scales=k_scales, v_scales=v_scales)
+                                       window=window, k_scales=k_scales,
+                                       v_scales=v_scales)
 
 
 RWKV_REF_CHUNK = 16     # the JAX package's ``ops.rwkv6_scan(ref_chunk=16)``

@@ -44,21 +44,26 @@ q8_launches = 0   # kernel launches over an int8 pool (its variant)
 shard_launches = 0      # skip_null launches over a shard of a float pool
 shard_q8_launches = 0   # skip_null launches over a shard of an int8 pool
 tc_launches = 0   # launches (of every mode above) with bf16 queries: the tensor-core form
+window_launches = 0     # launches (of every mode above) with a window
 
 
 def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
-             k_scales, v_scales, skip_null=False):
+             k_scales, v_scales, skip_null=False, window=None):
     global launches, q8_launches, shard_launches, shard_q8_launches, tc_launches
+    global window_launches
     if q.dim() != 4 or q.shape[0] != 1 or block_table.dim() != 1:
         raise ValueError(f"paged prefill: q must be [1, C, H, D] and the "
                          f"table [MB]; got {tuple(q.shape)}, "
                          f"{tuple(block_table.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"paged prefill: window must be None or positive, "
+                         f"got {window}")
     mb, bs = block_table.shape[0], k_pages.shape[2]
     total = min(int(q_offset) + int(length), mb * bs)
     res = _paged.launch(q, k_pages, v_pages, block_table[None],
                         int(q_offset), total, partials=partials,
                         k_scales=k_scales, v_scales=v_scales,
-                        skip_null=skip_null)
+                        skip_null=skip_null, window=int(window or 0))
     if skip_null and k_scales is None:
         shard_launches += 1
     elif skip_null:
@@ -69,20 +74,23 @@ def _prefill(q, k_pages, v_pages, block_table, q_offset, length, partials,
         q8_launches += 1
     if q.dtype == torch.bfloat16:
         tc_launches += 1
+    if window:
+        window_launches += 1
     return res
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_table: torch.Tensor,
                             *, q_offset: int, length: int,
+                            window: Optional[int] = None,
                             k_scales: Optional[torch.Tensor] = None,
                             v_scales: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """q [1,C,H,D]; k_pages, v_pages [KvH,NB,BS,D] in q's dtype, or int8
-    with ``k_scales`` / ``v_scales`` [KvH,NB] f32; block_table [MB] int32
-    -> [1,C,H,D]."""
+    with ``k_scales`` / ``v_scales`` [KvH,NB] f32; block_table [MB] int32;
+    ``window`` None or positive -> [1,C,H,D]."""
     return _prefill(q, k_pages, v_pages, block_table, q_offset, length, False,
-                    k_scales, v_scales)
+                    k_scales, v_scales, window=window)
 
 
 def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,

@@ -371,17 +371,19 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
                                     q_offset: int, length: int,
                                     skip_null: bool = False,
                                     k_scales: Optional[torch.Tensor] = None,
-                                    v_scales: Optional[torch.Tensor] = None
+                                    v_scales: Optional[torch.Tensor] = None,
+                                    window: Optional[int] = None
                                     ) -> Partials:
     """Prefill-chunk attention partials over a paged KV cache.
 
     q [1, C, H, D] is the chunk at global positions [q_offset, q_offset+C);
     block_table [MB] (the chunk's own K/V already scattered into the pages).
     Causal mask on global positions, KV validity on ``kpos < q_offset +
-    length``; ``skip_null`` also masks the keys of zero table entries (a
-    shard-local table's foreign pages).  ``k_scales`` / ``v_scales`` [KvH,
-    NB] f32 dequantize an int8 pool.  Returns (acc f32 [1,C,H,D], m
-    [1,C,H], l [1,C,H])."""
+    length``, and with ``window`` only the keys ``kpos > qpos - window``;
+    ``skip_null`` also masks the keys of zero table entries (a shard-local
+    table's foreign pages).  ``k_scales`` / ``v_scales`` [KvH, NB] f32
+    dequantize an int8 pool.  Returns (acc f32 [1,C,H,D], m [1,C,H], l
+    [1,C,H])."""
     _, c, h, d = q.shape
     bs = k_pages.shape[2]
     k_lin = gather_pages(k_pages, block_table, k_scales)   # [MB*BS, KvH, D]
@@ -393,6 +395,8 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
     qpos = q_offset + torch.arange(c, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     valid = (kpos <= qpos) & (kpos < q_offset + length)
+    if window is not None:
+        valid = valid & (kpos > qpos - window)
     if skip_null:
         valid = valid & torch.repeat_interleave(block_table != 0, bs)[None, :]
     s = torch.where(valid[:, None, :], s, NEG_INF)
@@ -406,11 +410,11 @@ def paged_prefill_attention_partial(q, k_pages, v_pages, block_table, *,
 def paged_prefill_attention(q, k_pages, v_pages, block_table, *,
                             q_offset: int, length: int,
                             k_scales: Optional[torch.Tensor] = None,
-                            v_scales: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            v_scales: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
     acc, m, l = paged_prefill_attention_partial(
         q, k_pages, v_pages, block_table, q_offset=q_offset, length=length,
-        k_scales=k_scales, v_scales=v_scales)
+        k_scales=k_scales, v_scales=v_scales, window=window)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 

@@ -364,8 +364,8 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
                            scatter_idx: ScatterIndex,
                            ks: Optional[torch.Tensor] = None,
                            vs: Optional[torch.Tensor] = None,
-                           local_tables: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           local_tables: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None) -> torch.Tensor:
     """One-token decode against one layer's pages.
 
     x [B,1,d]; kp/vp [KvH, NB, BS, hd] (this layer's pool view); lengths [B]
@@ -378,7 +378,10 @@ def attention_decode_paged(p, x: torch.Tensor, cfg: ModelConfig,
     marks a sequence-sharded pool: each shard's skip_null partials over its
     view of the pool (:func:`pool_shards`) and its local table, merged by
     the NoC tree combine, as the JAX package's ``seq_axis`` path does; a
-    row that sees no key in any shard (an idle row) reads 0."""
+    row that sees no key in any shard (an idle row) reads 0.  ``window`` is
+    accepted and unused: the JAX package's paged decode never reads it
+    (``src/repro/models/layers.py:324-378``), so a windowed model decodes
+    over its whole prefix there, and here."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, lengths[:, None])
     if ks is None:
@@ -404,8 +407,8 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
                             scatter_idx: Optional[ScatterIndex],
                             ks: Optional[torch.Tensor] = None,
                             vs: Optional[torch.Tensor] = None,
-                            local_tables: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            local_tables: Optional[torch.Tensor] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
     """Chunked prefill of one sequence against one layer's pages.
 
     x [1,C,d] is the chunk at global positions [q_offset, q_offset+C);
@@ -418,7 +421,12 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
     dequantizes page by page.  ``local_tables`` [S, MB] int32 (the
     shard-local slices of ``block_table``) marks a sequence-sharded pool:
     skip_null partials per shard, causal on global positions, merged by the
-    NoC tree combine."""
+    NoC tree combine.  ``window`` keeps only the keys ``kpos > qpos -
+    window`` (the paged prefill kernel's window on the card); over a
+    sequence-sharded pool it raises, as in the JAX package."""
+    if window is not None and local_tables is not None:
+        raise NotImplementedError(
+            "windowed attention over a sequence-sharded page pool")
     _, c, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     if ks is None:
@@ -430,7 +438,8 @@ def attention_prefill_paged(p, x: torch.Tensor, positions: torch.Tensor,
     if local_tables is None:
         o = ops.paged_prefill_attention(q, kp, vp, block_table,
                                         q_offset=q_offset, length=length,
-                                        k_scales=ks, v_scales=vs)
+                                        window=window, k_scales=ks,
+                                        v_scales=vs)
     else:
         o = _sharded_attention(ops.paged_prefill_attention_partial, q, kp, vp,
                                ks, vs, local_tables, q_offset=q_offset,

@@ -559,6 +559,7 @@ def _paged_layers(cfg, params, x, attend, expert_stats: bool,
 
 def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
                   length: int, q_offset: int, block_table: torch.Tensor,
+                  attn_window: Optional[int] = None,
                   local_tables: Optional[torch.Tensor] = None,
                   expert_stats: bool = False,
                   expert_parallel: Optional[int] = None):
@@ -580,12 +581,14 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
     ``expert_parallel`` (MoE): every MoE layer over that many expert
     shards; with ``local_tables`` too, attention runs per sequence shard
     and the MoE layer per expert shard (every expert shard of JAX's
-    ``(seq, expert)`` mesh holds its sequence shard's whole KV)."""
+    ``(seq, expert)`` mesh holds its sequence shard's whole KV).
+    ``attn_window``: each query sees only the keys ``kpos > qpos -
+    attn_window`` (raises with ``local_tables``, as in the JAX package)."""
     require_servable(cfg)
     _require_stats(cfg, expert_stats, expert_parallel)
     x = layers.embed(params["embed"], tokens)
     attend = _paged_prefill_attend(cfg, state, x.shape[1], length, q_offset,
-                                   block_table, local_tables)
+                                   block_table, local_tables, attn_window)
     x, est = _paged_layers(cfg, params, x, attend, expert_stats,
                            expert_parallel)
     logits = _logits(cfg, params, x[:, length - 1:length])
@@ -595,7 +598,7 @@ def prefill_paged(cfg: ModelConfig, params, state, *, tokens: torch.Tensor,
 
 
 def _paged_prefill_attend(cfg, state, c: int, length: int, q_offset: int,
-                          block_table, local_tables):
+                          block_table, local_tables, window=None):
     """``attend(p, i)``: the chunk's attention through application ``i``'s
     pages (and an int8 pool's scales, or the shards' views), its K/V
     scattered there first."""
@@ -610,7 +613,7 @@ def _paged_prefill_attend(cfg, state, c: int, length: int, q_offset: int,
         ks, vs = _layer_scales(state, i)
         return lambda h: layers.attention_prefill_paged(
             p, h, positions, cfg, kp_all[i], vp_all[i], block_table,
-            q_offset, length, idx, ks, vs, local_tables)
+            q_offset, length, idx, ks, vs, local_tables, window)
     return attend
 
 
@@ -618,7 +621,8 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
                       lengths: torch.Tensor, block_tables: torch.Tensor,
                       local_tables: Optional[torch.Tensor] = None,
                       expert_stats: bool = False,
-                      expert_parallel: Optional[int] = None):
+                      expert_parallel: Optional[int] = None,
+                      attn_window: Optional[int] = None):
     """Batched one-token decode over the paged KV cache.
 
     tokens [B]; lengths [B] int32 = cache fill level; block_tables [B, MB]
@@ -628,12 +632,13 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     in place.  ``local_tables`` [S, B, MB] int32 marks a sequence-sharded
     pool, and ``expert_stats`` asks for the expert telemetry of the step's
     B rows and ``expert_parallel`` for the expert shards, as in
-    :func:`prefill_paged`."""
+    :func:`prefill_paged`.  ``attn_window`` is accepted and unused, as in
+    the JAX package, whose paged decode never reads it."""
     require_servable(cfg)
     _require_stats(cfg, expert_stats, expert_parallel)
     x = layers.embed(params["embed"], tokens[:, None])
     attend = _paged_decode_attend(cfg, state, lengths, block_tables,
-                                  local_tables)
+                                  local_tables, attn_window)
     x, est = _paged_layers(cfg, params, x, attend, expert_stats,
                            expert_parallel)
     if expert_stats:
@@ -641,7 +646,8 @@ def decode_step_paged(cfg: ModelConfig, params, state, tokens: torch.Tensor,
     return _logits(cfg, params, x)[:, 0], state
 
 
-def _paged_decode_attend(cfg, state, lengths, block_tables, local_tables):
+def _paged_decode_attend(cfg, state, lengths, block_tables, local_tables,
+                         window=None):
     """``attend(p, i)``: one decode row per sequence through application
     ``i``'s pages, the new K/V row scattered there first."""
     kp_all, vp_all = state["attn"]["k_pages"], state["attn"]["v_pages"]
@@ -651,7 +657,7 @@ def _paged_decode_attend(cfg, state, lengths, block_tables, local_tables):
         ks, vs = _layer_scales(state, i)
         return lambda h: layers.attention_decode_paged(
             p, h, cfg, kp_all[i], vp_all[i], lengths, block_tables, idx, ks,
-            vs, local_tables)
+            vs, local_tables, window)
     return attend
 
 
@@ -710,7 +716,8 @@ def insert_kv_pages(state, pages: torch.Tensor, k, v, k_scales=None,
 def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
                         q_offset, block_table, slot: int = 0,
                         local_tables=None, expert_stats: bool = False,
-                        expert_parallel: Optional[int] = None):
+                        expert_parallel: Optional[int] = None,
+                        attn_window: Optional[int] = None):
     """One chunk of a single-sequence prefill against the serve state.
 
     tokens [1, C] (right-padded); ``length`` valid rows.  Dense and MoE:
@@ -723,10 +730,13 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
     through its pages at ``q_offset``.  Returns (logits at the chunk's last
     valid row [1, V], state), and with ``expert_stats`` (MoE only) the
     chunk's expert telemetry third; ``expert_parallel`` (MoE only): the
-    expert shards of :func:`prefill_paged`."""
+    expert shards of :func:`prefill_paged`; ``attn_window``: the window of
+    every paged attention (the dense and MoE layers', the hybrid's shared
+    block's)."""
     if _paged_family(cfg):
         return prefill_paged(cfg, params, state, tokens=tokens, length=length,
                              q_offset=q_offset, block_table=block_table,
+                             attn_window=attn_window,
                              local_tables=local_tables,
                              expert_stats=expert_stats,
                              expert_parallel=expert_parallel)
@@ -743,7 +753,8 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
         attend = None
         if cfg.family == "hybrid":
             paged = _paged_prefill_attend(cfg, state, x.shape[1], length,
-                                          q_offset, block_table, local_tables)
+                                          q_offset, block_table, local_tables,
+                                          attn_window)
             attend = lambda gi: paged(params["shared"]["attn"], gi)  # noqa: E731
         x = _mamba_stack(
             cfg, params, state, x, sl,
@@ -757,25 +768,30 @@ def serve_prefill_chunk(cfg: ModelConfig, params, state, *, tokens, length,
 def serve_decode_step(cfg: ModelConfig, params, state, tokens, lengths,
                       block_tables=None, local_tables=None, rows=None,
                       expert_stats: bool = False,
-                      expert_parallel: Optional[int] = None):
+                      expert_parallel: Optional[int] = None,
+                      attn_window: Optional[int] = None):
     """Batched one-token decode against the serve state: the paged pool
     (``local_tables``: a sequence-sharded pool's; ``expert_stats``, MoE
     only: the step's expert telemetry returned third; ``expert_parallel``,
     MoE only: its expert shards), or the slot state
     (RWKV6, Mamba2), of which only the batch rows ``rows`` are written when
     given, or both (the hybrid: its shared block through the pool at
-    application ``gi``, its Mamba2 state gated by ``rows``)."""
+    application ``gi``, its Mamba2 state gated by ``rows``).
+    ``attn_window`` is accepted and unused by every decode, as in the JAX
+    package."""
     if _paged_family(cfg):
         return decode_step_paged(cfg, params, state, tokens, lengths,
                                  block_tables, local_tables,
                                  expert_stats=expert_stats,
-                                 expert_parallel=expert_parallel)
+                                 expert_parallel=expert_parallel,
+                                 attn_window=attn_window)
     _require_stats(cfg, expert_stats, expert_parallel)
     if cfg.family == "ssm":
-        return decode_step(cfg, params, state, tokens, lengths, rows=rows)
+        return decode_step(cfg, params, state, tokens, lengths, rows=rows,
+                           attn_window=attn_window)
     x = layers.embed(params["embed"], tokens[:, None])
     attend = _paged_decode_attend(cfg, state, lengths, block_tables,
-                                  local_tables)
+                                  local_tables, attn_window)
     x = _mamba_stack(
         cfg, params, state, x, slice(None),
         lambda lp, xc, conv, h: _mamba_block_step(cfg, lp, xc, conv, h, rows),

@@ -1,20 +1,24 @@
 """Hardware constants of the paper's analytical CompAir model.
 
-A copy of the parts of the JAX package's ``pimsim/params.py`` that the
-port reads: ``DramPim`` (:16-48), ``SramPim`` (:50-99) and ``Cxl``
-(:100-105), with the same fields and defaults.  ``core.noc``'s
-swap-versus-recompute cost model prices a preemption with them.
+A copy of the JAX package's ``pimsim/params.py``, with the same classes,
+fields and defaults: ``DramPim``, ``SramPim``, ``Noc``, ``Nlu``, ``Cxl``,
+``Gpu``, ``HbmPim``, ``CompairHW`` and ``DEFAULT``.  ``core.noc``'s
+swap-versus-recompute cost model prices a preemption with them, and
+``pimsim.ops`` / ``pimsim.system`` build the paper's latency and energy
+figures from them.
 
 Sources: paper Table 3 and the platforms it cites: AiM GDDR6-PIM [40], the
 28nm 64kb digital SRAM-CIM macro [12], the CXL switch [14], hybrid bonding
 [18,21,48].  Where the paper gives ranges (SRAM t_access 6.8-14.1 ns across
 0.9-0.6 V) the defaults sit at the nominal point of its evaluation; energy
 constants are estimates from the cited literature (marked).  These are the
-paper's model of PIM banks and of a CXL link, not an H100's rates.
+paper's model of PIM banks, its NoC and CXL link, and of its A100 and
+HBM-PIM baseline (AttAcc): none of them is a rate of the H100 the port runs
+on (the card's own constants are ``core.planner.HWParams``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 
 @dataclass(frozen=True)
@@ -77,7 +81,67 @@ class SramPim:
 
 
 @dataclass(frozen=True)
+class Noc:
+    """CompAir-NoC: per-channel 4x16 2D mesh, SWIFT routers."""
+    routers: int = 64
+    alus_per_router: int = 2
+    clock_hz: float = 1e9
+    hop_cycles: float = 1.5          # SWIFT 1-2 cycles
+    flit_bits: int = 72
+    e_hop_pj_per_bit: float = 0.1    # on-chip link+router (est.)
+
+    @property
+    def alu_throughput(self) -> float:
+        return self.routers * self.alus_per_router * self.clock_hz
+
+
+@dataclass(frozen=True)
+class Nlu:
+    """Centralized non-linear unit in the CXL controller (CENT [11]).
+    Wide vector unit: per the paper the round-trip *movement*, not NLU
+    compute, dominates (Fig. 5A/D)."""
+    lanes: int = 512                 # vector lanes
+    clock_hz: float = 1e9
+    bus_bw: float = 128e9            # channel <-> controller move, B/s
+    e_pj_per_op: float = 2.0
+
+
+@dataclass(frozen=True)
 class Cxl:
     collective_bw: float = 29.44e9   # B/s broadcast/reduce across devices
     p2p_bw: float = 53.5e9           # B/s point-to-point
     e_pj_per_bit: float = 5.0
+
+
+@dataclass(frozen=True)
+class Gpu:
+    """The paper's A100 proxy for the AttAcc comparison (not the H100)."""
+    peak_flops: float = 312e12       # bf16 tensor core
+    hbm_bw: float = 2039e9
+    power_w: float = 300.0
+    e_pj_per_flop: float = 0.65      # ~300W / (~0.46 effective Pflops) est.
+    e_hbm_pj_per_bit: float = 3.9
+
+
+@dataclass(frozen=True)
+class HbmPim:
+    """HBM-PIM stack for AttAcc's attention offload."""
+    internal_bw: float = 12.8e12     # ~16x external (est. per AttAcc)
+    e_pj_per_bit: float = 1.5
+
+
+@dataclass(frozen=True)
+class CompairHW:
+    dram: DramPim = DramPim()
+    sram: SramPim = SramPim()
+    noc: Noc = Noc()
+    nlu: Nlu = Nlu()
+    cxl: Cxl = Cxl()
+    devices: int = 32
+    curry_rounds: int = 6            # Taylor iterations for exp (Fig. 13)
+
+    def with_(self, **kw) -> "CompairHW":
+        return replace(self, **kw)
+
+
+DEFAULT = CompairHW()

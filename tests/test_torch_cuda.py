@@ -2177,3 +2177,134 @@ def test_engine_expert_telemetry_on_card_matches_cpu(dev):
     for k in s0:
         np.testing.assert_array_equal(np.asarray(s1[k]), np.asarray(s0[k]), err_msg=k)
     assert s0["expert_routed_tokens"] > 0 and s0["expert_migrations"] > 0
+
+
+# the windowed paged prefill (row 2w): (H, KvH, D, BS, C, q_offset, window)
+WINDOW_CASES = [(8, 8, 64, 16, 150, 100, 40),     # late rows see none of keys 0-127
+                (8, 2, 64, 16, 150, 100, 1),      # each row itself only
+                (8, 2, 112, 16, 70, 33, 20),
+                (8, 2, 128, 8, 150, 0, 64),       # a window inside the chunk
+                (4, 4, 128, 128, 90, 300, 130)]   # a page of 128 keys
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,bs,c,qoff,window", WINDOW_CASES)
+def test_windowed_paged_prefill_kernel(dev, dtype, kind, h, kvh, d, bs, c, qoff, window):
+    """The paged prefill's window on both forms and pools against the plain
+    version on the valid rows (whole chunk, and 3 padding rows), each launch
+    bitwise repeatable and counted in ``window_launches``; a window past
+    every key gives the unwindowed kernel's bits; the unwindowed kernel (a
+    kernel that ignores the window) fails the hold."""
+    rng = np.random.default_rng(29)
+    mb = -(-(qoff + c) // bs) + 1
+    nb = mb + 3
+    q = _rand(rng, (1, c, h, d), dtype, dev)
+    kp, vp, ks, vs = _pool(rng, kvh, nb, bs, d, dtype, dev, kind)
+    bt = torch.from_numpy((rng.permutation(nb - 1)[:mb] + 1).astype(np.int32)).to(dev)
+    tol = TC_OUT_TOL if dtype == torch.bfloat16 else TOLS[torch.float32]
+    n0 = kpf.window_launches
+    for ln in (c, c - 3):
+        kw = dict(q_offset=qoff, length=ln, k_scales=ks, v_scales=vs)
+        got = _repeat_equal(lambda: kpf.paged_prefill_attention(
+            q, kp, vp, bt, window=window, **kw))
+        want = ref.paged_prefill_attention(q, kp, vp, bt, window=window, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0, :ln].float(), want[0, :ln].float(), **tol)
+        blind = kpf.paged_prefill_attention(q, kp, vp, bt, **kw)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(blind[0, :ln].float(), want[0, :ln].float(), **tol)
+        wide = kpf.paged_prefill_attention(q, kp, vp, bt, window=qoff + c + 1, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(wide, blind)
+    assert kpf.window_launches == n0 + 6
+    torch.testing.assert_close(
+        ops.paged_prefill_attention(q, kp, vp, bt, q_offset=qoff, length=c,
+                                    window=window, k_scales=ks, v_scales=vs)[0],
+        ref.paged_prefill_attention(q, kp, vp, bt, q_offset=qoff, length=c,
+                                    window=window, k_scales=ks, v_scales=vs)[0],
+        **tol)
+    assert kpf.window_launches == n0 + 7
+    with pytest.raises(ValueError, match="positive"):
+        kpf.paged_prefill_attention(q, kp, vp, bt, q_offset=qoff, length=c, window=0)
+
+
+def test_windowed_model_prefill_on_card_matches_cpu(dev):
+    """Reduced stablelm-1.6b at fp32: three ``serve_prefill_chunk`` calls at
+    ``attn_window`` 5 on the card against the CPU, every attention a
+    windowed kernel launch."""
+    cfg = reduced(get_config("stablelm-1.6b"))
+    params = M.init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    prompt = torch.arange(3, 24) % cfg.vocab_size
+    out = {}
+    n0 = kpf.window_launches
+    for d in ("cpu", dev):
+        p = _to(params, d)
+        state = M.init_serve_state(cfg, 1, 12, 8, dtype=torch.float32, device=d)
+        table = torch.tensor([3, 7, 1, 9], dtype=torch.int32, device=d)
+        res = []
+        for off in range(0, 21, 8):
+            n = min(8, 21 - off)
+            tok = torch.zeros((1, 8), dtype=torch.int64)
+            tok[0, :n] = prompt[off:off + n]
+            lg, state = M.serve_prefill_chunk(cfg, p, state, tokens=tok.to(d),
+                                              length=n, q_offset=off,
+                                              block_table=table, attn_window=5)
+            res.append(lg.cpu())
+        out[str(d)] = torch.cat(res)
+    assert kpf.window_launches == n0 + 3 * cfg.n_layers
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_isa_machine_on_card_matches_cpu(dev):
+    """The ISA's Machine on CUDA buffers against the CPU: the softmax
+    program (fused and unfused bitwise equal on the card; card vs CPU to the
+    order of two f32 sums), the rope program and every exchange mode bit for
+    bit, the bank reduce under ``max=``."""
+    from repro_torch.core import isa
+
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.normal(size=(16, 512)).astype(np.float32))
+    for rounds in (6, 8):
+        yf, pf = isa.softmax_execute(x.to(dev), rounds, True)
+        yu, pu = isa.softmax_execute(x.to(dev), rounds, False)
+        yc, pc = isa.softmax_execute(x, rounds, True)
+        torch.cuda.synchronize()
+        assert torch.equal(yf, yu)
+        assert (pf.n_packets(), pf.alu_ops()) == (pc.n_packets(), pc.alu_ops())
+        torch.testing.assert_close(yf.cpu(), yc, rtol=1e-5, atol=0)
+    R = isa.RowInstr
+    bufs = {"x": x, "w": torch.from_numpy(rng.normal(size=(16, 512)).astype(np.float32))}
+    for prog in ([R("NoC_Exchange", m, "x", "y", off, g)]
+                 for m, off, g in (("R+", 1, 2), ("R-", 3, 4), ("T+", 1, 4), ("T-", 2, 8))):
+        prog = prog + [R("NoC_Reduce", "max=", "y", "r", None, 2),
+                       R("DRAM_EWMUL", None, "y", "z", None, "w")]
+        plan = isa.lower(prog)
+        card = isa.Machine({k: v.to(dev) for k, v in bufs.items()}).run(plan)
+        cpu = isa.Machine(dict(bufs)).run(plan)
+        for key in ("y", "r", "z"):
+            assert torch.equal(card[key].cpu(), cpu[key]), key
+    cos = torch.from_numpy(rng.normal(size=(16, 512)).astype(np.float32))
+    sin = torch.from_numpy(rng.normal(size=(16, 512)).astype(np.float32))
+    yc, _ = isa.rope_execute(x, cos, sin)
+    yd, _ = isa.rope_execute(x.to(dev), cos.to(dev), sin.to(dev))
+    assert torch.equal(yd.cpu(), yc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_internvl_gqa2_hd128_slab_kernels(dev, dtype):
+    """internvl2-2b's attention (16 heads over 8 kv heads of 128: G = 2) on
+    the slab decode and the flash forward with lengths."""
+    rng = np.random.default_rng(31)
+    h, kvh, d = 16, 8, 128
+    q = _rand(rng, (4, h, d), dtype, dev)
+    k = _rand(rng, (4, 700, kvh, d), dtype, dev)
+    v = _rand(rng, (4, 700, kvh, d), dtype, dev)
+    ln = torch.tensor([700, 1, 64, 513], dtype=torch.int32, device=dev)
+    _close(_repeat_equal(lambda: kda.decode_attention(q, k, v, ln)),
+           ref.decode_attention(q, k, v, lengths=ln), dtype)
+    qf = _rand(rng, (2, 300, h, d), dtype, dev)
+    kf, vf = k[:2, :300].contiguous(), v[:2, :300].contiguous()
+    lf = torch.tensor([300, 263], dtype=torch.int32, device=dev)
+    _close(ops.flash_attention(qf, kf, vf, lengths=lf),
+           ref.flash_attention(qf, kf, vf, lengths=lf), dtype)

@@ -24,7 +24,7 @@ print(",".join(names), bad)
 """
 
 # modules that must be among those walked (the training, dense-slab
-# serving and fidelity-kernel slices included)
+# serving, fidelity-kernel and architecture-layer slices included)
 REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd",
             "repro_torch.kernels.decode_attention", "repro_torch.models.runner",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
@@ -36,7 +36,10 @@ REQUIRED = ("repro_torch.kernels.flash_attention", "repro_torch.kernels.autograd
             "repro_torch.kernels.rwkv_chunk", "repro_torch.models.rwkv",
             "repro_torch.kernels.mamba_chunk", "repro_torch.models.ssm",
             "repro_torch.core", "repro_torch.core.curry",
-            "repro_torch.kernels.matmul")
+            "repro_torch.kernels.matmul", "repro_torch.core.isa",
+            "repro_torch.core.planner", "repro_torch.core.mapping",
+            "repro_torch.pimsim.ops", "repro_torch.pimsim.system",
+            "repro_torch.models.frontends")
 
 
 def test_repro_torch_imports_no_jax_and_no_repro():
