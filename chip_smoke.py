@@ -362,7 +362,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    on the card token-identical to the CPU's runs without expert shards,
    with as many drops; and inside phase 21's fp32 check, ep 4 at full
    width token-identical to its other engines;
-29. CompAir's own layer, last (after 16 and row 7's second reading):
+29. CompAir's own layer (after 16 and row 7's second reading):
    (a) the ISA's Machine (``core/isa.py``) in f32 on the card, the softmax
    program at rounds 6 and 8, fused and unfused, at [16, 8192] (one
    128k-token score row over 16 banks) and [64, 2048]: the plans' packets,
@@ -387,7 +387,31 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    512 rows and 16 greedy ``decode_step``s, every launch at phase 5d's
    formulas, finite logits, its slab decode and flash-with-lengths kernels
    held at its shapes; then 2 of its layers at full width in fp32, card
-   against CPU.
+   against CPU;
+30. the rest of training, last: stablelm-1.6b at full width and depth (24
+   layers, 1.64 B random bf16 parameters from a seed, AdamW) trained 3
+   steps data-parallel: the training kernels first held against their
+   plain versions at the step's shapes (flash [1, 2048, 32, 64], rope,
+   rmsnorm and silu_mul with their backwards); then a global batch of 4 x
+   2048 tokens cut into 4 data shards of one sequence, each shard's
+   gradients through the port's loss and ``value_and_grad`` (the launch
+   counters zeroed before and read after: granite's formulas over 12
+   passes, run label "dp train"), ``train/compress.py:compressed_grad_sync``
+   leaf by leaf over the four (error state carried; each leaf's S outputs
+   equal, within 0.05 of the exact mean's max), the sync timed with CUDA
+   events, its kernels counted by the profiler, peak memory under 75 GB;
+   step 1's sync of the embedding table, a layer's wq and the final norm
+   held card against CPU bit for bit on a host thread, a per-shard-scale
+   control caught; the parameters saved from the card, ``validate_rescale``
+   (4, 2) -> (2, 4), ``rescale_from_checkpoint`` onto the (2, 4) plan
+   bit-equal on the card; ``cross_entropy_noc`` on the model's logits [4,
+   2048, 100352] f32 at dp 2 x tp 4 and 8, masked and unmasked, against
+   ``cross_entropy`` and its autograd, a dropped-offset control caught,
+   both losses timed forward and forward + backward; the reference's
+   error-feedback quadratic (8 shards, 60 steps) converged; every config
+   of ``ARCHS`` planned at TRAIN_4K and DECODE_32K on both production
+   meshes, every spec dividing its leaf, qwen2-72b's bytes per chip;
+   ``launch/train.py --mesh single`` refused.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero without the last line; so does a run
@@ -6534,6 +6558,538 @@ def compair_phase(torch, timer):
     return row, res
 
 
+# ---------------------------------------------------------------------------
+# the rest of training (30): the int8-compressed data-parallel gradient sync
+# with error feedback, the NoC cross-entropy, the sharding plans and the
+# elastic rescale, at stablelm-1.6b's full width and depth
+# ---------------------------------------------------------------------------
+
+# the global batch of 4 x 2048 tokens cut into DP_SHARDS data shards of one
+# sequence each, DP_STEPS steps carrying the error state
+DP_SHARDS, DP_SEQ, DP_STEPS, DP_LR = 4, 2048, 3, 3e-4
+# the step whose sync is held card against CPU, bit for bit (the error
+# state carried from step 0), on these leaves
+DP_CHECK_STEP = 1
+DP_CHECK_LEAVES = ("embed::table", "layers::0::attn::wq::w", "final_norm::scale")
+DP_CONTROL_LEAF = "layers::0::attn::wq::w"
+# the reference's bound on the synced gradient against the exact mean
+# (tests/test_noc_distributed.py): max |err| / max |mean| per leaf
+DP_SYNC_REL = 0.05
+DP_PEAK_CAP = 75 * 10 ** 9
+# rows of the ``{"kernels": ...}`` line the data-parallel run launches, each
+# read from its name's counter (run label "dp train")
+DP_TRAIN_ROWS = ("rmsnorm", "rmsnorm_bwd", "apply_rope_qk", "silu_mul", "silu_mul_bwd",
+                 "flash_attention", "flash_attention_bwd")
+# the reference's error-feedback quadratic (tests/test_noc_distributed.py)
+QUAD_SHARDS, QUAD_STEPS, QUAD_LR, QUAD_TOL = 8, 60, 0.3, 0.05
+# the NoC cross-entropy on the model's logits: (dp, tp) meshes; the loss
+# held relative to cross_entropy's, the gradient's max |err| relative to its
+# max: the first full-width run read losses within 8.4e-8 and gradients
+# within 2.4e-7 (f32 sums over 100352 logits a row in another order); the
+# dropped-offset control reads 0.04
+XENT_MESHES = ((2, 4), (2, 8))
+XENT_LOSS_REL = 1e-6
+XENT_GRAD_REL = 1e-6
+
+
+def dp_kernel_holds(torch, cfg):
+    """The training kernels at the shapes the data-parallel step gives them
+    (one sequence of DP_SEQ tokens), held against their plain versions with
+    the tolerances of their rows: flash forward and backward [1, 2048, 32,
+    64], rope on q and k in one launch, rmsnorm and its backward [2048,
+    2048], silu_mul and its backward [2048, 5632]."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as krn
+    from repro_torch.kernels import rope as krope
+    from repro_torch.kernels import swiglu as ksw
+
+    dev, bf = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    s, d, h, hd, ff = DP_SEQ, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff
+    q, k, v, do = (randn(1, s, h, hd) for _ in range(4))
+    o, lse = kfa.flash_attention_fwd(q, k, v, causal=True)
+    wo, wl = ref.flash_attention_lse(q, k, v, causal=True)
+    grads = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    wgrads = ref.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    rq, rk = krope.apply_rope_qk(q, k, pos, cfg.rope_theta)
+    wq, wk = (ref.apply_rope(t, pos, cfg.rope_theta) for t in (q, k))
+    x, w, dy = randn(s, d), randn(d), randn(s, d)
+    g, u, dh = randn(s, ff, scale=3.0), randn(s, ff), randn(s, ff)
+    checks = [("flash o", o, wo, FLASH_O_TOL, FLASH_REL),
+              ("flash lse", lse, wl, FLASH_LSE_TOL, FLASH_REL),
+              *((f"flash {n}", a, b, FLASH_GRAD_TOL, FLASH_REL)
+                for n, a, b in zip(("dq", "dk", "dv"), grads, wgrads)),
+              ("rope q", rq, wq, NORM_TOL, NORM_REL), ("rope k", rk, wk, NORM_TOL, NORM_REL),
+              ("rmsnorm", krn.rmsnorm(x, w, cfg.norm_eps), ref.rmsnorm(x, w, cfg.norm_eps),
+               NORM_TOL, NORM_REL),
+              *((f"rmsnorm_bwd {n}", a, b, t, BWD_REL) for n, a, b, t in zip(
+                  ("dx", "dw"), krn.rmsnorm_bwd(x, w, dy, cfg.norm_eps),
+                  ref.rmsnorm_bwd(x, w, dy, cfg.norm_eps), (BWD_DX_TOL, BWD_DW_TOL))),
+              ("silu_mul", ksw.silu_mul(g, u), ref.silu_mul(g, u), SILU_TOL, SILU_REL),
+              *((f"silu_mul_bwd {n}", a, b, BF16_TOL, None) for n, a, b in zip(
+                  ("dgate", "dup"), ksw.silu_mul_bwd(g, u, dh), ref.silu_mul_bwd(g, u, dh)))]
+    torch.cuda.synchronize()
+    errs = [f"{n} {hold(torch, f'dp train shapes: {n}', a, b, t, r):.3g}"
+            for n, a, b, t, r in checks]
+    log(f"dp train: the kernels at [1, {s}, {h}, {hd}], [{s}, {d}], [{s}, {ff}] "
+        f"against their plain versions: max|err| {', '.join(errs)}")
+
+
+def own_scale_butterfly(torch, values):
+    """The control: an int8 butterfly whose every shard quantizes by its own
+    scale, not the max over every shard."""
+    from repro_torch.train import compress
+
+    n, xs, k = len(values), [v.float() for v in values], 1
+    while k < n:
+        qs = [compress.quantize_int8(x) for x in xs]
+        xs = [compress.dequantize(*qs[i]) + compress.dequantize(*qs[i ^ k])
+              for i in range(n)]
+        k *= 2
+    return [x / n for x in xs]
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bitwise equality of two f32 tensors."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def sync_launches(torch, cfg, n_leaves):
+    """CUDA kernels one leaf's compressed sync launches over DP_SHARDS
+    shards (the profiler's count on final_norm's [d] gradients, the error
+    carried), times the leaves: every leaf runs the same ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import compress
+
+    gs = [[torch.randn(cfg.d_model, device="cuda").to(torch.bfloat16)]
+          for _ in range(DP_SHARDS)]
+    es = [[torch.zeros(cfg.d_model, device="cuda")] for _ in range(DP_SHARDS)]
+    compress.compressed_grad_sync(gs, es)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        compress.compressed_grad_sync(gs, es)
+        torch.cuda.synchronize()
+    per_leaf = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return per_leaf, per_leaf * n_leaves
+
+
+def dp_sync_run(torch, cfg, counters):
+    """DP_STEPS steps of data-parallel training: each of DP_SHARDS shards'
+    gradients through the port's loss and ``value_and_grad`` on the card,
+    ``compressed_grad_sync`` leaf by leaf over the four (each leaf's
+    gradients freed as it is synced, the error state replaced in place),
+    AdamW on shard 0's synced f32 tree.  Every leaf's S outputs must be
+    equal and within DP_SYNC_REL of the exact mean; step DP_CHECK_STEP's
+    sync of DP_CHECK_LEAVES is held card against CPU bit for bit, and a
+    sync with per-shard scales must fail that hold."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import for_cell
+    from repro_torch.train import compress, optim
+    from repro_torch.train import step as TS
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    names = [p for p, _ in T.leaves_with_paths(state.params)]
+    n_params = sum(p.numel() for p in T.leaves(state.params))
+    ds = for_cell(cfg, ShapeSpec("dp_chip", DP_SEQ, DP_SHARDS, "train"))
+    batches = [_batch_to(ds.batch(i), "cuda") for i in range(DP_STEPS)]
+    grad_fn = TS.value_and_grad(TS.make_loss_fn(cfg))
+    watch = {n: T.leaves(state.params)[names.index(n)].clone()
+             for n in DP_CHECK_LEAVES[:2]}
+    errors = [[None] * len(names) for _ in range(DP_SHARDS)]
+    log(f"dp train: {cfg.name} ({cfg.n_layers} L, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params) state on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {DP_SHARDS} data shards of 1 x {DP_SEQ} "
+        f"tokens, {len(names)} leaves")
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    grad_s, sync_ms, losses, worst, gnorms = [], [], [], [], []
+    host, control = {}, None
+    for step in range(DP_STEPS):
+        t = time.perf_counter()
+        grads = []
+        for sh in range(DP_SHARDS):
+            batch = {k: v[sh:sh + 1] for k, v in batches[step].items()}
+            (loss, _), g = grad_fn(state.params, batch)
+            grads.append(T.leaves(g))
+            losses.append(float(loss))
+            del g
+        torch.cuda.synchronize()
+        grad_s.append(time.perf_counter() - t)
+        synced, events, rel = [], [], 0.0
+        for j, name in enumerate(names):
+            gj = [grads[sh][j] for sh in range(DP_SHARDS)]
+            ej = None if errors[0][j] is None else [[errors[sh][j]] for sh in range(DP_SHARDS)]
+            check = step == DP_CHECK_STEP and name in DP_CHECK_LEAVES
+            if check:
+                host[name] = dict(g=[x.cpu() for x in gj],
+                                  e=[e[0].cpu() for e in ej])
+                if name == DP_CONTROL_LEAF:
+                    control = [x.cpu() for x in own_scale_butterfly(
+                        torch, [x.float() + e[0] for x, e in zip(gj, ej)])]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ys, es = compress.compressed_grad_sync([[x] for x in gj], ej)
+            end.record()
+            events.append((start, end))
+            ys = [y[0] for y in ys]
+            if not all(bits_equal(torch, ys[0], y) for y in ys[1:]):
+                fail(f"dp train: step {step}, {name}: the {DP_SHARDS} shards' synced "
+                     f"gradients differ")
+            mean = sum(x.float() for x in gj) / DP_SHARDS
+            peak = float(mean.abs().max())
+            err = float((ys[0] - mean).abs().max())
+            rel = max(rel, err / peak if peak > 0 else err)
+            if check:
+                host[name].update(y=ys[0].cpu(), e_new=[e[0].cpu() for e in es])
+            for sh in range(DP_SHARDS):
+                errors[sh][j] = es[sh][0]
+                grads[sh][j] = None
+            synced.append(ys[0])
+            del gj, ej, ys, es, mean
+        torch.cuda.synchronize()
+        sync_ms.append(sum(s.elapsed_time(e) for s, e in events))
+        worst.append(rel)
+        params, opt, gnorm = optim.adamw_update(
+            state.params, T.unflatten(state.params, synced), state.opt, lr=DP_LR)
+        state = TS.TrainState(params, opt)
+        gnorms.append(float(gnorm))
+        del synced, grads
+    torch.cuda.synchronize()
+    launches = {name: c.read() for name, c in counters.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+
+    n = DP_STEPS * DP_SHARDS
+    check_launches("dp train", launches, granite_expect(cfg, n))
+    log(f"dp train: {DP_STEPS} steps: gradients of {DP_SHARDS} shards "
+        f"{[round(x, 4) for x in grad_s]} s a step, the sync "
+        f"{[round(x, 2) for x in sync_ms]} ms a step (CUDA events around each "
+        f"leaf's sync), losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}, synced / exact mean max|err| / max|mean| "
+        f"(worst leaf) {worst}, peak memory {peak_mem / 1e9:.2f} GB "
+        f"({peak_mem / 2**30:.2f} GiB; AdamW)")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"dp train: non-finite loss or grad norm: {losses} {gnorms}")
+    if max(worst) >= DP_SYNC_REL:
+        fail(f"dp train: synced gradients off the exact mean by {max(worst)} of its "
+             f"max (bound {DP_SYNC_REL})")
+    if peak_mem >= DP_PEAK_CAP:
+        fail(f"dp train: peak memory {peak_mem / 1e9:.2f} GB over {DP_PEAK_CAP / 1e9} GB")
+    moved = {k: not torch.equal(v, T.leaves(state.params)[names.index(k)])
+             for k, v in watch.items()}
+    if not all(moved.values()):
+        fail(f"dp train: parameters did not move: {moved}")
+
+    cpu_check = start_cpu_check(torch, host, control)
+    per_leaf, step_launches = sync_launches(torch, cfg, len(names))
+    wire = n_params        # one int8 a gradient element, a hop, a shard
+    hops = DP_SHARDS.bit_length() - 1
+    log(f"dp train: the sync launches {per_leaf} CUDA kernels a leaf (profiler), "
+        f"{step_launches} a step over {len(names)} leaves; on the wire each shard "
+        f"would send {wire / 1e9:.3f} GB of int8 a hop ({hops} hops; bf16 "
+        f"{2 * wire / 1e9:.3f} GB, f32 {4 * wire / 1e9:.3f} GB) plus one f32 scale")
+    del host, control, errors, batches, watch
+    summary = dict(steps=DP_STEPS, shards=DP_SHARDS, seq_len=DP_SEQ, n_params=n_params,
+                   grad_s=grad_s, sync_ms=sync_ms, losses=losses, grad_norms=gnorms,
+                   sync_rel_err=worst, peak_mem_bytes=peak_mem,
+                   sync_launches_per_leaf=per_leaf, sync_launches_per_step=step_launches,
+                   wire_int8_bytes_per_hop=wire, launches_expected=granite_expect(cfg, n))
+    return state.params, launches, summary, cpu_check
+
+
+def start_cpu_check(torch, host, control):
+    """Step DP_CHECK_STEP's sync of DP_CHECK_LEAVES again on the CPU from
+    the host copies of the card's inputs, on a thread (torch's CPU ops
+    release the GIL, so the phase goes on on the card meanwhile).  Returns
+    the call that joins it and holds the card's results to it bit for bit,
+    every shard's synced gradient and new error, and the per-shard-scale
+    control to a difference."""
+    import threading
+
+    from repro_torch.train import compress
+
+    out = {}
+
+    def run():
+        try:
+            t = time.perf_counter()
+            out["differ"], out["caught"] = [], None
+            for name in DP_CHECK_LEAVES:
+                hv = host[name]
+                ys, es = compress.compressed_grad_sync([[x] for x in hv["g"]],
+                                                       [[e] for e in hv["e"]])
+                if not (all(bits_equal(torch, y[0], hv["y"]) for y in ys) and all(
+                        bits_equal(torch, e[0], c) for e, c in zip(es, hv["e_new"]))):
+                    out["differ"].append(name)
+                if name == DP_CONTROL_LEAF:
+                    out["caught"] = not bits_equal(torch, control[0], ys[0][0])
+                    out["diff"] = float((control[0] - ys[0][0]).abs().max())
+            out["seconds"] = time.perf_counter() - t
+        except Exception as e:                     # reported by finish()
+            out["error"] = repr(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def finish():
+        thread.join()
+        if "error" in out:
+            fail(f"dp train: the CPU's sync raised {out['error']}")
+        if out["differ"]:
+            fail(f"dp train: step {DP_CHECK_STEP}'s sync of {out['differ']}: card "
+                 f"and CPU differ")
+        if not out["caught"]:
+            fail("dp train: the per-shard-scale control passed the bitwise hold")
+        shapes = ", ".join(f"{n} {tuple(host[n]['y'].shape)}" for n in DP_CHECK_LEAVES)
+        log(f"dp train: step {DP_CHECK_STEP}'s sync (the error carried) card against "
+            f"CPU bit for bit, every shard's synced gradient and new error, on "
+            f"{shapes} ({out['seconds']:.1f} s on a host thread); the control (each "
+            f"shard quantized by its own scale) caught on {DP_CONTROL_LEAF}: "
+            f"max|diff| {out['diff']:.3g}")
+        return dict(cpu_check_s=out["seconds"], control_diff=out["diff"])
+
+    return finish
+
+
+def quadratic_check(torch):
+    """The reference's error-feedback quadratic on the card: QUAD_SHARDS
+    shards of (w - target) * (1 + 0.1 x_s), QUAD_STEPS steps of QUAD_LR."""
+    import numpy as np
+
+    from repro_torch.train import compress
+
+    target = torch.from_numpy(np.random.default_rng(0).normal(size=(64,)).astype(
+        np.float32)).cuda()
+    xs = torch.from_numpy(np.random.default_rng(1).normal(size=(QUAD_SHARDS, 64)).astype(
+        np.float32)).cuda()
+    w, err = torch.zeros(64, device="cuda"), None
+    for _ in range(QUAD_STEPS):
+        synced, err = compress.compressed_grad_sync(
+            [{"w": (w - target) * (1.0 + 0.1 * x)} for x in xs], err)
+        w = w - QUAD_LR * synced[0]["w"]
+    dist = float((w - target).abs().max())
+    log(f"dp train: the error-feedback quadratic ({QUAD_SHARDS} shards, {QUAD_STEPS} "
+        f"steps of lr {QUAD_LR}) on the card: max |w - target| {dist:.4g} (bound {QUAD_TOL})")
+    if not dist < QUAD_TOL:
+        fail(f"dp train: the compressed-SGD quadratic did not converge: {dist}")
+    return dist
+
+
+def xent_check(torch, timer, cfg, params, batch):
+    """cross_entropy_noc on the model's logits [DP_SHARDS, DP_SEQ, V] in f32
+    at each of XENT_MESHES, masked and unmasked, against cross_entropy and
+    its autograd on the card; a version that drops each vocabulary shard's
+    offset must fail the hold; both losses timed, forward and backward."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import step as TS
+
+    with torch.no_grad():
+        logits = M.forward(cfg, params, batch["tokens"])[0].float()
+    labels = batch["labels"]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    mask = (torch.rand(labels.shape, generator=gen, device="cuda") < 0.5).float()
+    lg = logits.requires_grad_()
+    out, readings = {}, []
+    for dp, tp in XENT_MESHES:
+        mesh = Mesh((dp, tp), ("data", "model"), "cuda")
+        for masked in (False, True):
+            kw = {"mask": mask} if masked else {}
+            want = TS.cross_entropy(lg, labels, **kw)
+            (wg,) = torch.autograd.grad(want, lg)
+            got = TS.cross_entropy_noc(lg, labels, mesh, ("pod", "data"), "model", **kw)
+            (gg,) = torch.autograd.grad(got, lg)
+            got, want = got.detach(), want.detach()
+            lrel = abs(float(got) - float(want)) / abs(float(want))
+            grel = float((gg - wg).abs().max() / wg.abs().max())
+            tag = f"dp {dp} x tp {tp}{', masked' if masked else ''}"
+            readings.append(f"{tag}: loss {float(got):.6f} rel {lrel:.3g}, grad rel {grel:.3g}")
+            if not (lrel <= XENT_LOSS_REL and grel <= XENT_GRAD_REL) or not bool(
+                    torch.isfinite(gg).all()):
+                fail(f"dp train: cross_entropy_noc ({tag}) against cross_entropy: loss "
+                     f"rel {lrel} (tol {XENT_LOSS_REL}), grad rel {grel} "
+                     f"(tol {XENT_GRAD_REL})")
+            out[tag] = dict(loss=float(got), loss_rel=lrel, grad_rel=grel)
+            del gg, wg
+    log(f"dp train: cross_entropy_noc on the logits {tuple(logits.shape)} f32: "
+        + "; ".join(readings))
+
+    # the control: each tp shard compares its local index with the label
+    from repro_torch.core import noc
+    dp, tp = XENT_MESHES[0]
+    with torch.no_grad():
+        b_loc, v_loc = logits.shape[0] // dp, logits.shape[-1] // tp
+        iota = torch.arange(v_loc, device="cuda", dtype=torch.int32)
+        nll = []
+        for d in range(dp):
+            rows = slice(d * b_loc, (d + 1) * b_loc)
+            sh = list(torch.split(logits[rows], v_loc, dim=-1))
+            lb = labels[rows].to(torch.int32)[..., None]
+            gold = sum(torch.where(iota == lb, x, 0.0).sum(-1) for x in sh)
+            nll.append(noc.distributed_logsumexp(sh)[0] - gold)
+        bad = float(torch.cat(nll).mean())
+        want = float(TS.cross_entropy(logits, labels))
+    bad_rel = abs(bad - want) / abs(want)
+    if bad_rel <= XENT_LOSS_REL:
+        fail(f"dp train: the dropped-offset control passed the loss hold ({bad_rel})")
+    log(f"dp train: the control (each vocabulary shard's offset dropped) caught: "
+        f"loss {bad:.6f} against {want:.6f} (rel {bad_rel:.3g})")
+
+    mesh = Mesh(XENT_MESHES[0], ("data", "model"), "cuda")
+    fns = {"cross_entropy": lambda: TS.cross_entropy(lg, labels),
+           "cross_entropy_noc": lambda: TS.cross_entropy_noc(
+               lg, labels, mesh, ("data",), "model")}
+    times = {}
+    for name, fn in fns.items():
+        times[name] = dict(
+            fwd_ms=timer(lambda: fn().detach(), iters=5),
+            fwd_bwd_ms=timer(lambda: torch.autograd.grad(fn(), lg), iters=5))
+    log(f"dp train: loss times on [{DP_SHARDS}, {DP_SEQ}, {cfg.vocab_size}] f32 "
+        f"(tp {XENT_MESHES[0][1]} for the NoC loss): "
+        + "; ".join(f"{n} forward {t['fwd_ms']:.3f} ms, forward + backward "
+                    f"{t['fwd_bwd_ms']:.3f} ms" for n, t in times.items()))
+    del logits, lg, mask
+    torch.cuda.empty_cache()
+    return dict(readings=out, control_rel=bad_rel, times=times)
+
+
+def plan_check(torch):
+    """Every config of ARCHS planned at TRAIN_4K (its parameters) and
+    DECODE_32K (with its decode state) on both production meshes, from meta
+    tensors: every spec must divide its leaf.  qwen2-72b's parameter bytes
+    per chip; ``launch/train.py --mesh single`` must raise."""
+    from repro_torch import tree as T
+    from repro_torch.configs import ARCHS, DECODE_32K, TRAIN_4K, get_config
+    from repro_torch.core import mapping
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import chips, make_production_mesh
+    from repro_torch.models import model as M
+
+    t = time.perf_counter()
+    per_chip, n_specs = {}, 0
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        params = M.init_params(cfg, device="meta")
+        state = M.init_decode_state(cfg, DECODE_32K.global_batch, DECODE_32K.seq_len,
+                                    device="meta")
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            for shape, st in ((TRAIN_4K, None), (DECODE_32K, state)):
+                plan = mapping.sharding_plan(cfg, mesh, shape, params_shape=params,
+                                             state_shape=st)
+                for tree, specs in ((params, plan.params), (st, plan.state_specs)):
+                    if specs is None:
+                        continue
+                    shs = T.leaves(mapping.named_shardings(specs, mesh))
+                    for leaf, sh in zip(T.leaves(tree), shs):
+                        shard = sh.shard_shape(leaf.shape)      # raises if it does not divide
+                        n_specs += 1
+                        if arch == "qwen2-72b" and tree is params:
+                            key = f"{shape.name} on {chips(mesh)} chips"
+                            per_chip[key] = per_chip.get(key, 0) + (
+                                math.prod(shard) * leaf.element_size())
+    full = sum(p.numel() * p.element_size() for p in T.leaves(M.init_params(
+        get_config("qwen2-72b"), device="meta")))
+    try:
+        tlaunch.main(["--mesh", "single", "--steps", "1"])
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        fail("dp train: launch/train.py --mesh single did not raise")
+    log(f"dp train: {len(ARCHS)} configs x (TRAIN_4K, DECODE_32K with its state) x "
+        f"(16 x 16, 2 x 16 x 16) planned, {n_specs} specs, every one dividing its "
+        f"leaf, in {time.perf_counter() - t:.1f} s; qwen2-72b's bf16 parameters "
+        f"{full / 1e9:.2f} GB, per chip: " + ", ".join(
+            f"{k} {v / 1e9:.3f} GB" for k, v in per_chip.items())
+        + f"; launch/train.py --mesh single refused: {refused}")
+    return dict(n_specs=n_specs, qwen2_72b_param_bytes=full,
+                qwen2_72b_param_bytes_per_chip=per_chip, refused=refused)
+
+
+def elastic_check(torch, cfg, params):
+    """Save the trained parameters from the card, ``validate_rescale`` from
+    a (4, 2) to a (2, 4) mesh, restore through ``rescale_from_checkpoint``
+    onto the (2, 4) plan: every leaf bit-equal and on the card."""
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import TRAIN_4K
+    from repro_torch.core import mapping
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import elastic
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    save(str(ckpt), DP_STEPS, params)
+    save_s = time.perf_counter() - t
+    nbytes = sum(p.numel() * p.element_size() for p in T.leaves(params))
+    old = Mesh((4, 2), ("data", "model"))
+    new = Mesh((2, 4), ("data", "model"))
+    problems = elastic.validate_rescale(old, new, global_batch=DP_SHARDS)
+    plan = mapping.sharding_plan(cfg, new, TRAIN_4K,
+                                 params_shape=M.init_params(cfg, device="meta"))
+    t = time.perf_counter()
+    step, back = elastic.rescale_from_checkpoint(
+        str(ckpt), M.init_params(cfg, device="meta"),
+        mapping.named_shardings(plan.params, new))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    leaves = list(zip(T.leaves(back), T.leaves(params)))
+    ok = step == DP_STEPS and all(
+        a.is_cuda and a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        for a, b in leaves)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if not ok:
+        fail("dp train: the elastic restore onto the (2, 4) plan is not bit-equal "
+             "on the card")
+    log(f"dp train: elastic rescale: saved {nbytes / 1e9:.3f} GB from the card in "
+        f"{save_s:.1f} s; validate_rescale (4, 2) -> (2, 4) at global batch "
+        f"{DP_SHARDS}: {problems}; rescale_from_checkpoint onto the (2, 4) plan in "
+        f"{restore_s:.1f} s: {len(leaves)} leaves bit-equal, on the card")
+    del back, leaves
+    return dict(bytes=nbytes, save_s=save_s, restore_s=restore_s, problems=problems)
+
+
+def dp_train_phase(torch, timer, cfg, counters):
+    """Phase 30: the kernel holds at the step's shapes, the data-parallel
+    run (counted), the elastic rescale of its parameters, the NoC
+    cross-entropy on its logits, the quadratic and the plans."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import for_cell
+
+    t0 = time.perf_counter()
+    dp_kernel_holds(torch, cfg)
+    params, launches, summary, cpu_check = dp_sync_run(torch, cfg, counters)
+    torch.cuda.empty_cache()
+    summary["elastic"] = elastic_check(torch, cfg, params)
+    ds = for_cell(cfg, ShapeSpec("dp_chip", DP_SEQ, DP_SHARDS, "train"))
+    summary["xent"] = xent_check(torch, timer, cfg, params, _batch_to(ds.batch(0), "cuda"))
+    del params
+    torch.cuda.empty_cache()
+    summary["quadratic_dist"] = quadratic_check(torch)
+    summary["plans"] = plan_check(torch)
+    summary["cpu_check"] = cpu_check()
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"dp train: phase 30 took {summary['seconds']:.1f} s")
+    return launches, summary
+
+
 def main() -> None:
     import torch
 
@@ -6823,6 +7379,11 @@ def main() -> None:
     row2w, compair = compair_phase(torch, timer)
     rows.append(row2w)
 
+    dp_launches, dp_train = dp_train_phase(torch, timer, cfg, train_counters)
+    for row in rows:
+        if row["name"] in DP_TRAIN_ROWS:
+            row["dp_train_launches"] = dp_launches[row["name"]]
+
     kernels = {"kernels": rows}
     (OUT / "results.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -6847,7 +7408,8 @@ def main() -> None:
              expert_cache=expert_cache, moe_layer_vjp=moe_vjp, moe_train=moe_train,
              disagg=disagg, ep_serve=ep_serve, ep_parity=ep_parity,
              moe_train_launches=moe_train_launches,
-             gemm_routes=gemm_routes, compair=compair, **kernels),
+             gemm_routes=gemm_routes, compair=compair, dp_train=dp_train,
+             dp_train_launches=dp_launches, **kernels),
         indent=1))
     log(f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -86,9 +86,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target_tree):
+def restore(ckpt_dir: str, step: int, target_tree, *, shardings=None):
     """Restore into the structure of ``target_tree`` (keys, shapes and
-    dtypes validated); each leaf lands on its target leaf's device."""
+    dtypes validated; a target may be a tree of meta tensors).  Each leaf
+    lands on its target leaf's device, or, where ``shardings`` (a tree of
+    ``core.mapping.NamedSharding`` over the target's keys; leaves may be
+    missing or None) gives it one, on that sharding's device once its shape
+    divides: the elastic / other-mesh path."""
     base = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(base, "manifest.json")) as f:
         manifest = json.load(f)
@@ -101,6 +105,8 @@ def restore(ckpt_dir: str, step: int, target_tree):
     if missing or extra:
         raise ValueError(f"checkpoint/target mismatch: missing={sorted(missing)[:3]} "
                          f"extra={sorted(extra)[:3]}")
+    flat_shard = (dict(T.leaves_with_paths(shardings)) if shardings is not None
+                  else {})
     out = []
     for key, leaf in flat_target:
         arr = data[key]
@@ -109,7 +115,8 @@ def restore(ckpt_dir: str, step: int, target_tree):
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(leaf.shape)}")
         if arr.dtype != leaf.dtype:
             raise ValueError(f"{key}: dtype {arr.dtype} != {leaf.dtype}")
-        out.append(arr.to(leaf.device))
+        sharding = flat_shard.get(key)
+        out.append(arr.to(leaf.device) if sharding is None else sharding.put(arr))
     return T.unflatten(target_tree, out)
 
 

@@ -10,11 +10,11 @@
              attention partials, and the NoC, preemption, handoff and
              expert-placement cost models (the paper's CXL and PIM rates)
   planner -- the substrate-selection lanes on the card's roofline
-  mapping -- the §3.3 output-split vs input-split cost model
+  mapping -- the §3.3 output-split vs input-split cost model and the
+             sharding plan over a mesh of ``launch/mesh.py``
 
 Torch copies of the JAX package's ``core`` modules (the port imports
-nothing of ``repro``).  ``mapping``'s sharding plan comes with the port's
-device mesh; ``shardhints`` has no counterpart on one card.
+nothing of ``repro``).  ``shardhints`` has no counterpart on one card.
 """
 from repro_torch.core import curry  # noqa: F401
 from repro_torch.core import isa  # noqa: F401

@@ -19,9 +19,16 @@ olmoe-1b-7b at full width and the depth one card holds
 The step runs on the card (``--device cuda``, the default) through the
 hand-written CUDA kernels, forward and backward; ``--device cpu`` runs the
 plain PyTorch versions.  Parameters are random, made from ``--seed``; the
-data is the deterministic synthetic pipeline.  Only ``--mesh none`` (one
-device) is ported: ``--mesh single|multi`` and ``--distributed`` come with
-the sharding slice.
+data is the deterministic synthetic pipeline.
+
+``--mesh single|multi`` builds the port's production mesh (16 x 16 chips,
+or 2 pods of them: ``launch/mesh.py``) and stops there with an error: a
+mesh trains with one chip a shard, 256 or 512 devices, and this process
+drives one card (the JAX launcher fails at mesh construction on a
+one-device host too).  The plan such a run would use is
+``core/mapping.py:sharding_plan`` over that mesh.  ``--distributed``
+(one process per host) raises as well: the port has no multi-process
+training.  Only ``--mesh none`` trains.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 from repro_torch.configs import ARCHS, TRAIN_4K, get_config, reduced as reduce_cfg
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import for_cell
+from repro_torch.launch.mesh import chips, make_production_mesh
 from repro_torch.runtime import TrainDriver
 from repro_torch.train import step as train_step_mod
 
@@ -53,10 +61,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", default="none",
                     choices=("none", "single", "multi"),
-                    help="'none' = one device; the meshes come with the "
-                         "sharding slice")
+                    help="'none' = one device; 'single' (16 x 16) and 'multi' "
+                         "(2 x 16 x 16) build the production mesh and raise: "
+                         "it needs one device a shard")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-process training (the sharding slice)")
+                    help="one process per host: raises, the port trains in "
+                         "one process")
     ap.add_argument("--device", default="cuda",
                     help="where the step runs: cuda (the CUDA kernels) or "
                          "cpu (their plain PyTorch versions)")
@@ -64,11 +74,17 @@ def main(argv=None):
                     help="seed of the random parameters")
     args = ap.parse_args(argv)
 
-    if args.distributed or args.mesh != "none":
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=args.device)
+        raise RuntimeError(
+            f"--mesh {args.mesh}: {mesh} trains with one device a shard, "
+            f"chips(mesh) = {chips(mesh)}, and this process drives one "
+            f"{args.device} device; use --mesh none")
+    if args.distributed:
         raise NotImplementedError(
-            "--mesh single|multi and --distributed are sharded training, "
-            "which comes with the sharding slice of repro_torch; this slice "
-            "trains on one device (--mesh none)")
+            "--distributed: the port trains in one process on one device "
+            "(--mesh none); it has no multi-process training")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device visible; pass --device cpu to run "

@@ -92,9 +92,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     linear weights N(0, 1) * d_in^-0.5, zero biases, unit norm scales (the
     RWKV6, Mamba2 and MoE layers as ``models/rwkv.py:rwkv_init``,
     ``models/ssm.py:mamba_init`` and ``models/moe.py:moe_init`` make them;
-    an MoE router is f32 whatever ``dtype``)."""
+    an MoE router is f32 whatever ``dtype``).  On ``device="meta"`` it
+    allocates nothing and draws nothing: the shapes and dtypes a sharding
+    plan reads (``core/mapping.py``)."""
     require_servable(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
 
     def normal(shape, scale, dt=dtype):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)

@@ -5,18 +5,23 @@ Cross-entropy takes a max-subtracted logsumexp in f32 and picks the gold
 logit by comparing a vocabulary index with the label, as the JAX version
 does.  The gradient is ``torch.autograd.grad`` of the loss with respect to
 detached copies of the parameter leaves (the state's tensors themselves
-never require grad); the optimizer then updates them in place.  The NoC
-butterfly cross-entropy (``cross_entropy_noc``, a shard_map in JAX) comes
-with the sharding slice.
+never require grad); the optimizer then updates them in place.
+``cross_entropy_noc`` is the loss over logits split into the shard views of
+a mesh (``launch/mesh.py``), the batch over its data axes and the
+vocabulary over its model axis, with the logsumexp's statistics on the NoC
+butterfly (a ``shard_map`` in JAX).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import noc
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import model as M
 from repro_torch.train import optim
 
@@ -46,6 +51,51 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def cross_entropy_noc(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                      dp_axes, tp_axis: str, *,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over vocab-sharded logits with the NoC butterfly
+    logsumexp (``core/noc.py:distributed_logsumexp``): the paper's
+    distributed softmax applied to the LM loss, equal to ``cross_entropy``.
+
+    logits [B, S, V] split as the reference's ``P(dp, None, tp)``: the batch
+    over the ``dp_axes`` the mesh has, V over ``tp_axis``, each shard a view;
+    labels (and mask) [B, S] over dp.  Each shard picks its gold logit by
+    comparing its vocabulary slice's index plus its offset with the label;
+    the gold logits add up over the tp shards and the numerators (and the
+    mask's sums) over the dp shards, both on the butterfly.  Unmasked, the
+    sum divides by the global B * S.  Autograd runs through the views."""
+    sizes = axis_sizes(mesh)
+    dp = tuple(a for a in dp_axes if a in sizes)
+    n_dp, n_tp = math.prod(sizes[a] for a in dp), sizes[tp_axis]
+    b, s, v = logits.shape
+    if b % n_dp or v % n_tp:
+        raise ValueError(f"logits {tuple(logits.shape)} do not split over dp "
+                         f"{dp} ({n_dp}) and tp {tp_axis!r} ({n_tp})")
+    b_loc, v_loc = b // n_dp, v // n_tp
+    iota = torch.arange(v_loc, device=logits.device, dtype=torch.int32)
+    nums, dens = [], []
+    for d in range(n_dp):
+        rows = slice(d * b_loc, (d + 1) * b_loc)
+        lf = [logits[rows, :, t * v_loc:(t + 1) * v_loc].float() for t in range(n_tp)]
+        lb = labels[rows].to(torch.int32)[..., None]
+        lse = noc.distributed_logsumexp(lf)                    # [B_loc, S] a shard
+        gold = noc.butterfly_all_reduce(
+            [torch.sum(torch.where(iota + t * v_loc == lb, x, 0.0), dim=-1)
+             for t, x in enumerate(lf)], "add")
+        nll = lse[0] - gold[0]          # every tp shard holds the same values
+        if mask is not None:
+            mk = mask[rows]
+            nums.append(torch.sum(nll * mk))
+            dens.append(torch.sum(mk))
+        else:
+            nums.append(torch.sum(nll))
+    num = noc.butterfly_all_reduce(nums, "add")[0]
+    if mask is not None:
+        return num / torch.clamp(noc.butterfly_all_reduce(dens, "add")[0], min=1.0)
+    return num / max(float(b * s), 1.0)
 
 
 def make_loss_fn(cfg: ModelConfig, *, lb_coef: float = 0.01,

@@ -311,9 +311,10 @@ def test_launch_train_cpu(tmp_path, capsys):
                   "--global-batch", "2"])
     assert "[train] done at step 2" in capsys.readouterr().out
     assert latest_step(str(tmp_path)) == 2
-    for flags in (["--mesh", "single"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            tlaunch.main(["--reduced", "--device", "cpu", *flags])
+    with pytest.raises(RuntimeError, match=r"chips\(mesh\) = 256"):
+        tlaunch.main(["--reduced", "--device", "cpu", "--mesh", "single"])
+    with pytest.raises(NotImplementedError, match="one process"):
+        tlaunch.main(["--reduced", "--device", "cpu", "--distributed"])
 
 
 def test_forward_refuses_other_families():
