@@ -530,6 +530,12 @@ DENSE_STEP = 32                                # keys the flash-lengths control 
 # the ``{"kernels": ...}`` line that run it (PERF.md rows 1, 1q, 1s, 7)
 DECODE_DESIGN = ("decode cluster: a split key walk over a thread-block cluster, "
                  "cp.async rings, merged over distributed shared memory")
+# its tensor-core form (bf16 at head dims 112 / 128, and 64 at G > 1), named
+# on rows 1h, 1o, 1g, 7h and 7o
+DECODE_TC_DESIGN = ("decode cluster, tensor-core form: 16-key cp.async stages, "
+                    "S^T = K Q^T and O^T = V^T P^T on mma.sync m16n8k16 (the "
+                    "keys as m16, the rows as n8), P as a bf16 hi + lo pair, "
+                    "~256-key splits merged over distributed shared memory")
 FLASH_LEN = 700                                # the flash-lengths row's bound
 # The paged prefill (row 2), bf16 at full width: a row of ~500-770 keys has
 # |o| ~ 0.05-0.2, where ATTN_TOL's 2e-2 is 10-20 bf16 ulps, the size of the
@@ -961,6 +967,10 @@ def kernel_phase(torch, timer, cfg):
                 f"product")
     rows[-1]["design"] = DECODE_DESIGN
     log_rate(torch, timer, rows[-1], dec_bytes)
+    on_form(torch, "paged_decode_attention",
+            lambda: kda.paged_decode_attention(qd, kp, vp, tables, lens), False)
+    sdpa_decode_yardstick(torch, timer, rows[-1], qd, ref.gather_pages(kp, tables),
+                          ref.gather_pages(vp, tables), lens)
     # prefill attention: a 512-row chunk at q_offset 256, table [64]; held
     # twice bitwise equal, and against a kernel that loses one stage of its
     # last row tile
@@ -1145,15 +1155,17 @@ def check_launches(tag, launches, expect):
             fail(f"{tag}: kernel {name} launched {n} times, expected {expect[name]}")
 
 
-def serve_expect(L, P, Dd):
+def serve_expect(L, P, Dd, tc=False):
     """Phase 5's launch formulas over P prefill chunks and Dd decode steps
-    (a dense model of L layers, one shard, the engine dtype's pool)."""
+    (a dense model of L layers, one shard, the engine dtype's pool); ``tc``:
+    every decode launch takes the decode kernel's tensor-core form (bf16 at
+    head dim 112 / 128 or grouped KV), else none does."""
     return {
         "rmsnorm": (2 * L + 1) * (P + Dd), "apply_rope": L * (P + Dd),
         "apply_rope_qk": L * (P + Dd), "rmsnorm_vector": (2 * L + 1) * (P + Dd),
         "apply_rope_vector": L * (P + Dd),
         "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
-        "paged_decode_attention": L * Dd,
+        "paged_decode_attention": L * Dd, "decode_tc": L * Dd if tc else 0,
         "paged_prefill_attention": L * P, "paged_prefill_attention_tc": L * P}
 
 
@@ -1275,7 +1287,10 @@ def sdpa_slab_yardstick(torch, timer, row, q, k, v, valid) -> None:
 
 
 def masked_decode(torch, q, k, v, valid):
-    """Plain f32 one-row attention (MHA) with a [B, Sk] bool key mask."""
+    """Plain f32 one-row attention with a [B, Sk] bool key mask (k, v [B, Sk,
+    KvH, D]; q head h reads kv head h // G)."""
+    g = q.shape[1] // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) / math.sqrt(q.shape[-1])
     s = s.masked_fill(~valid[:, None, :], float("-inf"))
     return torch.einsum("bhk,bkhd->bhd", torch.softmax(s, dim=-1), v.float())
@@ -1304,6 +1319,55 @@ def second_split_dropped(torch, valid, lens, split):
     bad[longest, split:2 * split] = False
     return bad, (f"the second {split}-key split of the longest sequence "
                  f"(sequence {longest}, {n} keys)")
+
+
+def tc_split(torch, q, kvh, keys, grain):
+    """The split the decode kernel's tensor-core form plans for these
+    shapes: (n_split, split_keys)."""
+    from repro_torch.kernels import _paged
+
+    b, h, d = q.shape
+    plan = _paged.tc_decode_plan(b, kvh, h // kvh, d, keys, grain)
+    return plan.n_split, plan.split_keys
+
+
+def on_form(torch, name, fn, tc) -> None:
+    """Fail unless one call of ``fn`` (a decode wrapper) takes the decode
+    kernel's tensor-core form (``tc``) or the CUDA-core form, as counted by
+    ``decode_attention.tc_launches``."""
+    from repro_torch.kernels import decode_attention as kda
+
+    n = kda.tc_launches
+    fn()
+    if kda.tc_launches - n != int(tc):
+        fail(f"{name}: the launch {'did not take' if tc else 'took'} the decode "
+             f"kernel's tensor-core form")
+
+
+def split_control(torch, name, q, k, v, lens, split):
+    """The decode control a wrong kernel fails: the plain f32 attention over
+    the gathered k, v [B, Sk, KvH, D] with the longest sequence's second
+    ``split``-key range dropped must fail the hold its whole range passes."""
+    valid = torch.arange(k.shape[1], device=k.device)[None, :] < lens[:, None]
+    bad, what = second_split_dropped(torch, valid, lens, split)
+    dropped_step_control(torch, name, what,
+                         masked_decode(torch, q, k, v, valid).to(q.dtype),
+                         masked_decode(torch, q, k, v, bad).to(q.dtype),
+                         DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+
+
+def sdpa_decode_yardstick(torch, timer, row, q, k, v, lens) -> None:
+    """Log, not gated: SDPA over the K/V gathered beforehand into a slab k,
+    v [B, Sk, KvH, D] (the gather outside the timed call; ``enable_gqa`` at
+    G > 1) under the same key mask; kept on the row as ``sdpa_slab_ms``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(k.shape[1], device=k.device)[None, :] < lens[:, None])[:, None, None, :]
+    kw = dict(enable_gqa=True) if q.shape[1] != k.shape[2] else {}
+    row["sdpa_slab_ms"] = timer(lambda: sdpa(qs, ks, vs, attn_mask=mask, **kw))
+    log(f"kernel {row['name']}: SDPA over K/V gathered beforehand (a slab, the "
+        f"same key mask; yardstick, not gated) {row['sdpa_slab_ms']:.4f} ms (the "
+        f"kernel {row['ms']:.4f})")
 
 
 def log_rate(torch, timer, row, nbytes) -> None:
@@ -1435,12 +1499,37 @@ def dense_kernel_phase(torch, timer, cfg, lens):
         masked_decode(torch, q, k, v, bad).to(bf), DECODE_TOL, DECODE_REL,
         DECODE_SEQ_REL)
     del qs, ks, vs, mask, qf, kf, vf, valid, bad
-    # GQA: granite-3-2b's 32 query heads over 8 kv heads
+    on_form(torch, "decode_attention", lambda: kda.decode_attention(q, k, v, lens), False)
+    # GQA: granite-3-2b's 32 query heads over 8 kv heads (the tensor-core
+    # form in bf16): held, timed (logged), and the three controls caught
     kg, vg = randn(slots, max_seq, 8, hd), randn(slots, max_seq, 8, hd)
     dense_holds("bf16 GQA", q, kg, vg, DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+
+    def gqa_fn():
+        return kda.decode_attention(q, kg, vg, lens)
+
+    on_form(torch, "decode_attention bf16 GQA", gqa_fn, True)
+    got, want = gqa_fn(), ref.decode_attention(q, kg, vg, lengths=lens)
+    dims_dropped_control(torch, "decode_attention bf16 GQA", got, want, DECODE_TOL,
+                         DECODE_REL, DECODE_SEQ_REL)
+    wrong = torch.arange(h, device=dev) % 8
+    dropped_step_control(torch, "decode_attention bf16 GQA", "its head grouping (q "
+                         "head h read against kv head h mod 8, not h // 4)", got,
+                         ref.decode_attention(q, kg[:, :, wrong], vg[:, :, wrong],
+                                              lengths=lens),
+                         DECODE_TOL, DECODE_REL, DECODE_SEQ_REL)
+    _, gsplit = tc_split(torch, q, 8, max_seq, 16)
+    split_control(torch, "decode_attention bf16 GQA", q, kg, vg, lens, gsplit)
+    gqa_ms = timer(gqa_fn)
+    gqa_bytes = 2 * q.numel() * 2 + live * 8 * hd * 2 * 2 + slots * 4
+    log(f"decode_attention bf16 GQA (granite-3-2b, G 4, tensor-core form): "
+        f"{gqa_ms:.4f} ms, bound {bound(gqa_bytes, 4 * h * hd * live)[0]:.4f} ms "
+        f"(bytes), {gqa_bytes / (gqa_ms * 1e-3) / 1e9:.1f} GB/s; not a row of the "
+        f"kernels line (no serving path runs granite-3-2b)")
+    rows[0]["gqa_tc_ms"] = gqa_ms
     dense_holds("f32 GQA", q.float(), kg.float(), vg.float(), DENSE_F32_TOL,
                 DENSE_F32_REL, DENSE_F32_REL)
-    del q, k, v, kg, vg
+    del q, k, v, kg, vg, got, want
 
     # the flash forward with a key bound: one 1024-row prefill at length 700
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1564,7 +1653,7 @@ def dense_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "flash_attention_lengths": L * P,
         "decode_attention": L * Dd, "flash_attention": 0,
         "paged_decode_attention": 0, "paged_prefill_attention": 0,
-        "paged_prefill_attention_tc": 0})
+        "paged_prefill_attention_tc": 0, "decode_tc": 0})
     same = sum(out[rid] == paged_out.get(rid) for rid in out)
     first = sorted(next((i for i, (a, b) in enumerate(zip(out[rid], paged_out[rid]))
                          if a != b), len(out[rid])) for rid in out)
@@ -1796,7 +1885,8 @@ def int8_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "silu_mul": L * (P + Dd), "silu_mul_scalar": 0,
         "paged_decode_attention": 0,
         "paged_prefill_attention": 0, "paged_decode_attention_int8": L * Dd,
-        "paged_prefill_attention_int8": L * P, "paged_prefill_attention_tc": L * P})
+        "paged_prefill_attention_int8": L * P, "paged_prefill_attention_tc": L * P,
+        "decode_tc": 0})
     if stats["prefix_hit_tokens"] <= 0:
         fail("int8 serve: the shared-prefix requests never hit the prefix cache")
     out_off, _, _, summary_off = serve_mix(torch, cfg, params, {},
@@ -2183,7 +2273,7 @@ def shard_serve_phase(torch, cfg, params, counters, paged_out, paged_summary):
         "paged_prefill_attention_int8": 0,
         "paged_decode_attention_skip_null": S * L * Dd,
         "paged_prefill_attention_skip_null": S * L * P,
-        "paged_prefill_attention_tc": S * L * P})
+        "paged_prefill_attention_tc": S * L * P, "decode_tc": 0})
     if stats["prefix_hit_tokens"] <= 0:
         fail("seq serve: the shared-prefix requests never hit the prefix cache")
     if stats["noc_combines"] != L * (P + Dd):
@@ -3578,10 +3668,14 @@ def attn_rows(torch, timer, cfg, labels=("1h", "2h", "7h"), seed=26):
     bitwise equal; per sequence too at decode) and in f32, with the
     dims-dropped control; the paged two also over the int8 pool and as
     skip_null partials over 4 shards (each shard held, their NoC combine
-    against the unsharded kernel); bf16 timed as in 3."""
+    against the unsharded kernel); bf16 timed as in 3.  Both decodes take the
+    decode kernel's tensor-core form (counted), each caught dropping the
+    longest sequence's second split of its plan; SDPA over the paged keys
+    gathered into a slab is logged beside the paged decode."""
     import torch.nn.functional as F
 
     from repro_torch.core import noc
+    from repro_torch.kernels import _paged
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import prefill_attention as kpf
     from repro_torch.kernels import ref
@@ -3692,9 +3786,19 @@ def attn_rows(torch, timer, cfg, labels=("1h", "2h", "7h"), seed=26):
         nbytes=2 * qp.numel() * 2 + total * kv_row + mb * 4,
         flops=4 * h * hd * attended,
         note=f"; rel {PREFILL_REL}; {who}'s prefill chunk at offset {qoff}"))
-    rows[0].update(row=labels[0], design=DECODE_DESIGN)
+    tc = _paged.decode_form(bf, hd, h // kvh) == "tc"
+    design = DECODE_TC_DESIGN if tc else DECODE_DESIGN
+    rows[0].update(row=labels[0], design=design)
     rows[1].update(row=labels[1], design=PREFILL_DESIGN)
-    del sp, k8, v8, ks, vs, qp
+    # the paged decode's form, its second-split control at its own plan, and
+    # SDPA over the same keys gathered into a slab
+    on_form(torch, f"paged_decode_attention{sfx}", lambda: dec["kernel"](qd, kp, vp), tc)
+    _, split = (tc_split(torch, qd, kvh, mb * bs, bs) if tc
+                else decode_split(torch, qd, kvh, mb * bs, bs))
+    kl, vl = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    split_control(torch, f"paged_decode_attention{sfx}", qd, kl, vl, lens, split)
+    sdpa_decode_yardstick(torch, timer, rows[0], qd, kl, vl, lens)
+    del sp, k8, v8, ks, vs, qp, kl, vl
     # the slab decode (7h) at the same lengths
     k, v = randn(slots, mb * bs, kvh, hd), randn(slots, mb * bs, kvh, hd)
     got = repeat_equal(torch, f"decode_attention{sfx}",
@@ -3702,6 +3806,10 @@ def attn_rows(torch, timer, cfg, labels=("1h", "2h", "7h"), seed=26):
     want = ref.decode_attention(qd, k, v, lengths=lens)
     dims_dropped_control(torch, f"decode_attention{sfx}", got, want, DECODE_TOL,
                          DECODE_REL, DECODE_SEQ_REL)
+    on_form(torch, f"decode_attention{sfx}", lambda: kda.decode_attention(qd, k, v, lens), tc)
+    _, split = (tc_split(torch, qd, kvh, mb * bs, _paged.TC_STAGE_KEYS) if tc
+                else decode_split(torch, qd, kvh, mb * bs, _paged.STAGE_KEYS))
+    split_control(torch, f"decode_attention{sfx}", qd, k, v, lens, split)
     e32 = hold(torch, f"decode_attention{sfx} f32",
                kda.decode_attention(qd.float(), k.float(), v.float(), lens),
                ref.decode_attention(qd.float(), k.float(), v.float(), lengths=lens),
@@ -3717,7 +3825,7 @@ def attn_rows(torch, timer, cfg, labels=("1h", "2h", "7h"), seed=26):
         nbytes=2 * qd.numel() * 2 + live * kv_row + slots * 4, flops=4 * h * hd * live,
         library=lambda: F.scaled_dot_product_attention(qs, kss, vss, attn_mask=mask),
         note=f"; rel {DECODE_REL}; f32 max|err| {e32:.3g}; {who}'s slab decode"))
-    rows[-1].update(row=labels[2], design=DECODE_DESIGN)
+    rows[-1].update(row=labels[2], design=design)
     del k, v, kp, vp, got, want, qs, kss, vss, mask
     torch.cuda.empty_cache()
     return rows
@@ -3869,14 +3977,16 @@ def zamba_serve_phase(torch, cfg, counters):
             "apply_rope_qk": G * steps, "apply_rope_vector": G * steps,
             "silu_mul": (L + G) * steps})
         if name == "slab":
-            expect.update(flash_attention_lengths=G * P, decode_attention=G * Dd)
+            expect.update(flash_attention_lengths=G * P, decode_attention=G * Dd,
+                          decode_tc=G * Dd)
         else:
             expect["mamba2_h0"] = L * P
             n = SEQ_SHARDS if name == "seq4" else 1
             key = {"runner": "", "int8": "_int8", "seq4": "_skip_null"}[name]
             expect.update({f"paged_decode_attention{key}": n * G * Dd,
                            f"paged_prefill_attention{key}": n * G * P,
-                           "paged_prefill_attention_tc": n * G * P})
+                           "paged_prefill_attention_tc": n * G * P,
+                           "decode_tc": n * G * Dd})
         check_launches(f"zamba serve {name}", launches, expect)
         if stats["prefix_hit_tokens"]:
             fail(f"zamba serve {name}: {stats['prefix_hit_tokens']} prefix-hit tokens "
@@ -4203,13 +4313,15 @@ def moe_serve_phase(torch, cfg, counters):
             "apply_rope_vector": L * steps, "silu_mul": L * steps,
             "silu_mul_element": L * Dd, "silu_mul_vector": L * P})
         if name == "slab":
-            expect.update(flash_attention_lengths=L * P, decode_attention=L * Dd)
+            expect.update(flash_attention_lengths=L * P, decode_attention=L * Dd,
+                          decode_tc=L * Dd)
         else:
             n = SEQ_SHARDS if name == "seq4" else 1
             key = {"runner": "", "int8": "_int8", "seq4": "_skip_null"}[name]
             expect.update({f"paged_decode_attention{key}": n * L * Dd,
                            f"paged_prefill_attention{key}": n * L * P,
-                           "paged_prefill_attention_tc": n * L * P})
+                           "paged_prefill_attention_tc": n * L * P,
+                           "decode_tc": n * L * Dd})
         check_launches(f"moe serve {name}", launches, expect)
         if (name != "slab") != (stats["prefix_hit_tokens"] > 0):
             fail(f"moe serve {name}: {stats['prefix_hit_tokens']} prefix-hit tokens "
@@ -5241,7 +5353,9 @@ def gqa_rows(torch, timer, cfg):
     [1, 512, 24, 128] at q_offset 256 (C x G = 1536 rows a kv head).  Each
     held against its plain version in bf16 (twice bitwise equal; per
     sequence too at decode) and in f32, the wrong-group control caught in
-    both, and timed in bf16 as in 3."""
+    both, and timed in bf16 as in 3; the decode on the tensor-core form,
+    with the dims-dropped and second-split controls and SDPA over the keys
+    gathered into a slab beside it."""
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import prefill_attention as kpf
     from repro_torch.kernels import ref
@@ -5309,9 +5423,20 @@ def gqa_rows(torch, timer, cfg):
         flops=4 * h * hd * attended,
         note=f"; rel {PREFILL_REL}; {cfg.name}'s prefill chunk at offset {qoff}, "
              f"{c * h // kvh} rows a kv head")]
-    rows[0].update(row="1g", design=DECODE_DESIGN)
+    rows[0].update(row="1g", design=DECODE_TC_DESIGN)
     rows[1].update(row="2g", design=PREFILL_DESIGN)
-    del kp, vp, qd, qp
+    # the decode on the tensor-core form: counted there; its last 16 dims and
+    # its second split at its own plan dropped, each caught; SDPA over the
+    # same keys gathered into a slab
+    on_form(torch, "paged_decode_attention_gqa", lambda: cases[0][1](qd, kp, vp), True)
+    got, want = cases[0][1](qd, kp, vp), cases[0][2](qd, kp, vp)
+    dims_dropped_control(torch, "paged_decode_attention_gqa", got, want, DECODE_TOL,
+                         DECODE_REL, DECODE_SEQ_REL)
+    _, split = tc_split(torch, qd, kvh, mb * bs, bs)
+    kl, vl = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    split_control(torch, "paged_decode_attention_gqa", qd, kl, vl, lens, split)
+    sdpa_decode_yardstick(torch, timer, rows[0], qd, kl, vl, lens)
+    del kp, vp, qd, qp, kl, vl, got, want
     torch.cuda.empty_cache()
     return rows
 
@@ -5335,7 +5460,7 @@ def gqa_serve_phase(torch, cfg, counters, serve):
     out, stats, launches, summary = serve_mix(torch, cfg, params, counters,
                                               prefix_caching=True)
     P, Dd = stats["prefill_dispatches"], stats["decode_dispatches"]
-    check_launches("gqa serve", launches, serve_expect(L, P, Dd))
+    check_launches("gqa serve", launches, serve_expect(L, P, Dd, tc=True))
     if stats["prefix_hit_tokens"] <= 0:
         fail("gqa serve: the shared-prefix requests never hit the prefix cache")
     out_off, stats_off, _, summary_off = serve_mix(torch, cfg, params, counters,
@@ -5961,7 +6086,7 @@ def ep_expect(torch, cfg, counters, stats, buckets, ep, seq):
         "expert_gemms": 3 * ep * L * steps,
         f"paged_decode_attention{key}": seq * L * Dd,
         f"paged_prefill_attention{key}": seq * L * P,
-        "paged_prefill_attention_tc": seq * L * P})
+        "paged_prefill_attention_tc": seq * L * P, "decode_tc": seq * L * Dd})
     return expect
 
 
@@ -7139,6 +7264,7 @@ def main() -> None:
                 "silu_mul": Counter(swiglu),
                 "silu_mul_scalar": Counter(swiglu, "launches_by_route", "scalar"),
                 "paged_decode_attention": Counter(decode_attention),
+                "decode_tc": Counter(decode_attention, "tc_launches"),
                 "paged_prefill_attention": Counter(prefill_attention),
                 "paged_prefill_attention_tc": Counter(prefill_attention, "tc_launches")}
     params = serve_params(torch, cfg)

@@ -46,14 +46,14 @@ _SIGNATURES = {
     "repro_silu_mul": (_I, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
     "repro_paged_attention": (_I, *(_P,) * 6, _I, _I, _I, _I, *(_P,) * 4, _I, _I,
                               _I, _I, _I64, _I64, _I, _I, _I, _I, _P),
-    "repro_paged_decode": (_I, *(_P,) * 7, _I, _I, *(_P,) * 4, _I, _I, _I,
+    "repro_paged_decode": (_I, _I, *(_P,) * 7, _I, _I, *(_P,) * 4, _I, _I, _I,
                            _I64, _I64, _I, _I, _I, _I, _I, _I, _P),
     "repro_rmsnorm_bwd": (_I, *(_P,) * 6, _I64, _I, _F, *(_I,) * 5, _P),
     "repro_silu_mul_bwd": (_I, _P, _P, _P, _P, _P, _I64, _I, _P),
     "repro_flash_fwd": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _I, _P),
-    "repro_decode_attention": (_I, _P, _P, _P, _P, _I, *(_P,) * 4, *(_I,) * 8,
-                               _P),
+    "repro_decode_attention": (_I, _I, _P, _P, _P, _P, _I, *(_P,) * 4,
+                               *(_I,) * 8, _P),
     "repro_flash_bwd": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P),
     "repro_rwkv6_fwd": (_I, *(_P,) * 10, _I, _I, _I, _I, _P),

@@ -59,6 +59,12 @@ MAX_SPLIT = 8          # blocks of a cluster: the portable cluster size
 BLOCKS_PER_SM = 4      # the grid a plan aims at: one wave of resident blocks
 MAX_GRID_YZ = 65535    # CUDA's limit on gridDim.y and gridDim.z
 
+# the decode kernel's tensor-core form (flash_decode_tc_kernel): bf16
+# queries at these head dims (decode_form says which shapes take it)
+TC_DECODE_DIMS = (64, 112, 128)
+TC_STAGE_KEYS = 16     # keys of a stage: one k16 step of P V (kTcKeys)
+TC_SPLIT_KEYS = 256    # keys a split aims at
+
 
 @dataclass(frozen=True)
 class Geometry:
@@ -171,6 +177,17 @@ class DecodePlan:
     cluster: Tuple[int, int, int]    # (n_split, 1, 1)
 
 
+def decode_form(dtype, d: int, g: int) -> str:
+    """Which form of the decode kernel a call takes, from the query dtype,
+    head dim and group G = H / KvH: ``"tc"`` (tensor cores) for bf16
+    queries at head dim 112 or 128, and at 64 with grouped KV (G > 1);
+    ``"cuda"`` (the CUDA-core form) for f32 queries and for G = 1 at head
+    dims up to 64, where it stays."""
+    if dtype == torch.bfloat16 and (d in (112, 128) or (d == 64 and g > 1)):
+        return "tc"
+    return "cuda"
+
+
 def decode_plan(b: int, kvh: int, g: int, keys: int, grain: int,
                 n_sm: int) -> DecodePlan:
     """The flash-decoding kernel's split, from shapes alone: B sequences,
@@ -193,6 +210,34 @@ def decode_plan(b: int, kvh: int, g: int, keys: int, grain: int,
                BLOCKS_PER_SM * n_sm // base)
     split = -(-keys // max(want, 1))
     split = -(-split // grain) * grain
+    n_split = -(-keys // split)
+    return DecodePlan(keys, n_split, split, row_tiles,
+                      (n_split, kvh * row_tiles, b), (n_split, 1, 1))
+
+
+def tc_decode_plan(b: int, kvh: int, g: int, d: int, keys: int,
+                   grain: int) -> DecodePlan:
+    """The tensor-core form's split, from shapes alone: as many ranges (a
+    multiple of ``grain`` keys each) as TC_SPLIT_KEYS-key ranges cover the
+    cache, at most MAX_SPLIT; row tiles of 8 rows whatever G.  A sweep of
+    1-8 splits at the rows 1g, 1o, 1h, 7o, 7h and granite-3-2b's G 4 slab
+    (tools/decode_readings.py --sweep, H100 at 700 W) put this rule within
+    3% of the best at each, and within 6% at one sequence of 1 k or 32 k
+    keys and at 8 of up to 32 k (rows 1g, 1o, 1h; where the card's SM count
+    would add splits, at one short sequence, it gained at most those 6%); a
+    rule that took the most splits one wave of blocks allows, as
+    :func:`decode_plan` does, read up to 16% slower (row 1g)."""
+    if min(b, kvh, g, keys, grain) <= 0:
+        raise ValueError(f"decode plan: b {b}, kvh {kvh}, g {g}, keys {keys}, "
+                         f"grain {grain} must be positive")
+    if d not in TC_DECODE_DIMS:
+        raise ValueError(f"decode plan: head dim {d} not in {TC_DECODE_DIMS}")
+    row_tiles = -(-g // DECODE_ROWS)
+    if kvh * row_tiles > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"decode plan: grid ({kvh * row_tiles}, {b}) past "
+                         f"CUDA's {MAX_GRID_YZ}")
+    want = min(MAX_SPLIT, -(-keys // TC_SPLIT_KEYS))
+    split = -(-(-(-keys // want)) // grain) * grain
     n_split = -(-keys // split)
     return DecodePlan(keys, n_split, split, row_tiles,
                       (n_split, kvh * row_tiles, b), (n_split, 1, 1))

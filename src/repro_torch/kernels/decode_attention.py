@@ -19,6 +19,13 @@ and keeps the online softmax in f32; each block pushes its ``(acc, m, l)``
 into the shared memory of the cluster's rank 0, which merges them in a
 fixed order and writes the normalized output or the partials, so a call is
 one launch and two calls give the same bits.
+Two forms, by ``_paged.decode_form`` (query dtype, head dim, G): bf16
+queries at head dims 112 and 128, and at 64 with grouped KV, take the
+tensor-core form (``mma.sync`` on 16-key stages, P as a bf16 hi + lo pair,
+its own plan ``_paged.tc_decode_plan`` and instantiations, chosen by the
+entry points' ``tc`` argument); f32 queries and G = 1 up to head dim 64
+keep the CUDA-core form.  ``tc_launches`` counts the
+tensor-core launches beside each mode's counter.
 Bound on the H100: bytes (each live K/V byte is read once).  The TPU
 kernel's 64-row K-subtiling for ``BS > 64`` has no counterpart to port: the
 stages are 32 keys whatever the page size.
@@ -57,6 +64,7 @@ q8_launches = 0        # launches over an int8 pool
 shard_launches = 0     # skip_null launches over a shard of a float pool
 shard_q8_launches = 0  # skip_null launches over a shard of an int8 pool
 dense_launches = 0     # launches over a dense slab
+tc_launches = 0        # of those, the launches that took the tensor-core form
 
 DENSE_HEAD_DIMS = (16, 64, 112, 128)   # csrc/decode_attention.cu's instantiations
 
@@ -64,6 +72,11 @@ DENSE_HEAD_DIMS = (16, 64, 112, 128)   # csrc/decode_attention.cu's instantiatio
 def _plan(q: torch.Tensor, kvh: int, keys: int, grain: int) -> _paged.DecodePlan:
     b, h, _ = q.shape
     return _paged.decode_plan(b, kvh, h // kvh, keys, grain, _build.n_sms(q.device))
+
+
+def _tc_plan(q: torch.Tensor, kvh: int, keys: int, grain: int) -> _paged.DecodePlan:
+    b, h, d = q.shape
+    return _paged.tc_decode_plan(b, kvh, h // kvh, d, keys, grain)
 
 
 def _outputs(q: torch.Tensor, partials: bool):
@@ -84,9 +97,15 @@ def _aligned(name: str, **tensors) -> None:
                              f"kernel copies 16-byte chunks)")
 
 
+def _q_aligned(name: str, q: torch.Tensor) -> None:
+    if q.data_ptr() % 4:
+        raise ValueError(f"{name}: q must be 4-byte aligned (the tensor-core "
+                         f"form loads its fragments as bf16 pairs)")
+
+
 def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
             k_scales, v_scales, kv_offset: int = 0, skip_null: bool = False):
-    global launches, q8_launches, shard_launches, shard_q8_launches
+    global launches, q8_launches, shard_launches, shard_q8_launches, tc_launches
     if q.dim() != 3:
         raise ValueError(f"paged decode: q must be [B, H, D], got {tuple(q.shape)}")
     g = _paged.geometry(q[:, None].shape, k_pages.shape, block_tables.shape)
@@ -110,16 +129,20 @@ def _decode(q, k_pages, v_pages, block_tables, lengths, partials: bool,
                         views=("k_pages", "v_pages", "k_scales", "v_scales"),
                         **tensors)
     _aligned("paged decode", k_pages=k_pages, v_pages=v_pages)
-    plan = _plan(q, g.kvh, g.mb * g.bs, g.bs)
+    tc = _paged.decode_form(q.dtype, g.d, g.group) == "tc"
     res, ptrs = _outputs(q, partials)
     lib = _build.load()
+    if tc:
+        _q_aligned("paged decode", q)
+    plan = (_tc_plan if tc else _plan)(q, g.kvh, g.mb * g.bs, g.bs)
     code = lib.repro_paged_decode(
-        _build.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
+        _build.dtype_code(q), int(tc), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scales.data_ptr() if int8 else None,
         v_scales.data_ptr() if int8 else None, block_tables.data_ptr(),
         lengths.data_ptr(), int(kv_offset), int(bool(skip_null)), *ptrs, g.b,
         g.h, g.kvh, page_stride, scale_stride, g.bs, g.d, g.mb, plan.n_split,
         plan.split_keys, _build.n_sms(q.device), _build.stream_ptr(q))
+    tc_launches += tc
     if skip_null and not int8:
         shard_launches += 1
     elif skip_null:
@@ -159,7 +182,7 @@ def paged_decode_attention_partial(q, k_pages, v_pages, block_tables, lengths,
 
 def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,
            partials: bool):
-    global dense_launches
+    global dense_launches, tc_launches
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[2]:
         raise ValueError(f"decode attention: q {tuple(q.shape)}, k "
@@ -184,14 +207,20 @@ def _dense(q, k, v, lengths: Optional[torch.Tensor], kv_offset: int,
         tensors["lengths"] = lengths
     _build.require_cuda("decode_attention", **tensors)
     _aligned("decode attention", k=k, v=v)
-    plan = _plan(q, kvh, sk, _paged.STAGE_KEYS)
     res, ptrs = _outputs(q, partials)
     lib = _build.load()
+    tc = _paged.decode_form(q.dtype, d, h // kvh) == "tc"
+    if tc:
+        _q_aligned("decode attention", q)
+        plan = _tc_plan(q, kvh, sk, _paged.TC_STAGE_KEYS)
+    else:
+        plan = _plan(q, kvh, sk, _paged.STAGE_KEYS)
     code = lib.repro_decode_attention(
-        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.dtype_code(q), int(tc), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lengths is None else lengths.data_ptr(), int(kv_offset), *ptrs,
         b, sk, h, kvh, d, plan.n_split, plan.split_keys, _build.n_sms(q.device),
         _build.stream_ptr(q))
+    tc_launches += tc
     dense_launches += 1
     _build.check("decode_attention", code)
     return res

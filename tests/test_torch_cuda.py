@@ -1352,6 +1352,139 @@ def test_kv_offset_paged_decode_kernel(dev, dtype, kind, d, mb):
         assert not bool(live[0].any()) and bool(live[1:].all())
 
 
+# The decode kernel's tensor-core form: every (head dim, G) that
+# _paged.decode_form routes to it among D 64 / 112 / 128 x G 1 / 2 / 3 / 4 / 8
+TC_DECODE_CASES = [(d, g) for d in (64, 112, 128) for g in (1, 2, 3, 4, 8)
+                   if _paged.decode_form(torch.bfloat16, d, g) == "tc"]
+# held as chip_smoke.py holds it: the float pool and the slab to one bf16
+# ulp relative plus 4e-3 (DECODE_TOL: the plain version rounds p to bf16,
+# the kernel carries it as a hi + lo pair), the int8 pool to one ulp plus
+# 1e-5 (Q8_BF16_TOL: the plain int8 version is f32 throughout); m and l of
+# the partials to 1e-4 (the same f32 scores summed in another order)
+TC_TOL = dict(rtol=2 ** -7, atol=4e-3)
+TC_Q8_TOL = dict(rtol=2 ** -7, atol=1e-5)
+TC_ML_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _tc_parts_close(got, want, tol):
+    """Tensor-core partials against the plain ones: m on every row; l and
+    acc / l on the rows that see a key; the others the identity (0, -1e30,
+    0) exactly.  Returns the live rows."""
+    acc, m, l = got
+    wacc, wm, wl = want
+    torch.cuda.synchronize()
+    live = wm > -1e29
+    torch.testing.assert_close(m, wm, **TC_ML_TOL)
+    torch.testing.assert_close(l[live], wl[live], **TC_ML_TOL)
+    torch.testing.assert_close((acc / l[..., None])[live],
+                               (wacc / wl[..., None])[live], **tol)
+    dead = ~live
+    assert bool((acc[dead] == 0).all() and (m[dead] == -1e30).all()
+                and (l[dead] == 0).all())
+    return live
+
+
+def _normalised(parts, dtype):
+    acc, _, l = parts
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def _caught(got, bad, tol):
+    torch.cuda.synchronize()
+    return not torch.allclose(got.float(), bad.float(), **tol)
+
+
+@pytest.mark.parametrize("source", ["pool", "int8", "slab"])
+@pytest.mark.parametrize("d,g", TC_DECODE_CASES)
+def test_decode_tc_form(dev, d, g, source):
+    """The tensor-core form (bf16 queries) over a bf16 pool, an int8 pool or
+    a bf16 slab, at the split edges of its own plan over 1024 keys:
+    normalised output and f32 partials against the plain version, every
+    launch twice bitwise equal and counted in ``tc_launches``; skip_null
+    with a zero entry mid-table and kv_offset 40 on the pool, two slab
+    shards combined and a shard past every length (the identity) on the
+    slab.  Controls a wrong kernel gives, each failing the tolerance the
+    kernel passes: the last 16 output dims dropped, q head h read against
+    kv head h mod KvH (G > 1), the longest sequence's second split
+    dropped."""
+    rng = np.random.default_rng(37)
+    bf = torch.bfloat16
+    kvh, bs, mb, off = 2, 16, 64, 40
+    h, keys = kvh * g, mb * bs
+    pool, int8 = source != "slab", source == "int8"
+    grain = bs if pool else _paged.TC_STAGE_KEYS
+    plan = _paged.tc_decode_plan(9, kvh, g, d, keys, grain)
+    e = plan.split_keys
+    assert plan.n_split > 1
+    lens = [keys, 1, bs - 1, bs + 1, e - 1, e, e + 1, 2 * e + bs, keys - 1]
+    b = len(lens)
+    q = _rand(rng, (b, h, d), bf, dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tol = TC_Q8_TOL if int8 else TC_TOL
+    wrong = torch.arange(h, device=dev) % kvh
+    n0 = kda.tc_launches
+    if pool:
+        kp, vp, ks, vs, bt = _decode_pool(rng, dev, b, mb, b * mb + 4, kvh, bs, d,
+                                          bf, int8)
+        kw = dict(k_scales=ks, v_scales=vs)
+        got = _repeat_equal(lambda: kda.paged_decode_attention(q, kp, vp, bt, ln, **kw))
+        want = ref.paged_decode_attention(q, kp, vp, bt, lengths=ln, **kw)
+        parts = _repeat_equal(
+            lambda: kda.paged_decode_attention_partial(q, kp, vp, bt, ln, **kw))
+        _tc_parts_close(parts, ref.paged_decode_attention_partial(
+            q, kp, vp, bt, lengths=ln, **kw), tol)
+        # skip_null and kv_offset: one zero entry mid-table, key j at 40 + j,
+        # a row below the offset (the identity)
+        bz = bt.clone()
+        bz[0, 3] = 0
+        lo = torch.cat([ln[:-1] + off, torch.tensor([30], dtype=torch.int32, device=dev)])
+        for skip in (False, True):
+            sp = _repeat_equal(lambda: kda.paged_decode_attention_partial(
+                q, kp, vp, bz, lo, kv_offset=off, skip_null=skip, **kw))
+            live = _tc_parts_close(sp, ref.paged_decode_attention_partial(
+                q, kp, vp, bz, lengths=lo, kv_offset=off, skip_null=skip, **kw), tol)
+            assert not bool(live[-1].any()) and bool(live[:-2].all())
+        assert kda.tc_launches == n0 + 8
+        bad_group = ref.paged_decode_attention(q, kp[wrong], vp[wrong], bt, lengths=ln,
+                                               **(dict(k_scales=ks[wrong], v_scales=vs[wrong])
+                                                  if int8 else {}))
+        cut = bt.clone()
+        cut[0, e // bs:2 * e // bs] = 0
+        bad_split = _normalised(ref.paged_decode_attention_partial(
+            q, kp, vp, cut, lengths=ln, skip_null=True, **kw), bf)
+    else:
+        k = _rand(rng, (b, keys, kvh, d), bf, dev)
+        v = _rand(rng, (b, keys, kvh, d), bf, dev)
+        got = _repeat_equal(lambda: kda.decode_attention(q, k, v, ln))
+        want = ref.decode_attention(q, k, v, lengths=ln)
+        _tc_parts_close(_repeat_equal(lambda: kda.decode_attention_partial(q, k, v, ln)),
+                        ref.decode_attention_partial(q, k, v, lengths=ln), tol)
+        half = keys // 2
+        k1, v1, k2, v2 = (t.contiguous() for t in (k[:, :half], v[:, :half],
+                                                   k[:, half:], v[:, half:]))
+        comb = ref.combine_partials(kda.decode_attention_partial(q, k1, v1, ln),
+                                    kda.decode_attention_partial(q, k2, v2, ln, half))
+        _tc_parts_close(comb, ref.decode_attention_partial(q, k, v, lengths=ln), tol)
+        empty = kda.decode_attention_partial(q, k2, v2, ln, keys)
+        torch.cuda.synchronize()
+        assert bool((empty[0] == 0).all() and (empty[1] == -1e30).all()
+                    and (empty[2] == 0).all())
+        assert kda.tc_launches == n0 + 7
+        bad_group = ref.decode_attention(q, k[:, :, wrong], v[:, :, wrong], lengths=ln)
+        valid = torch.arange(keys, device=dev)[None, :] < ln[:, None]
+        valid[0, e:2 * e] = False
+        bad_split = _normalised(ref.decode_attention_partial(
+            q, k, v, lengths=ln, kv_valid=valid), bf)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    dropped = got.clone()
+    dropped[..., -16:] = 0
+    assert _caught(dropped, want, tol)
+    if g > 1:
+        assert _caught(got, bad_group, tol)
+    assert _caught(got[0], bad_split[0], tol)
+
+
 @pytest.mark.parametrize("kind", ["float", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,d,bs,c", [(8, 8, 64, 16, 40), (6, 2, 16, 8, 11),

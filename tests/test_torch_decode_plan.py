@@ -1,11 +1,12 @@
 """The flash-decoding kernel's host-side plan (``kernels/_paged.py``):
-``decode_plan`` picks the cluster split from shapes alone, and
-``split_key_ranges`` mirrors the key range each block of a cluster walks
-(``csrc/decode_attention.cu``).  The kernel itself is held to the plain
+``decode_form`` routes a call to the tensor-core or the CUDA-core form,
+``decode_plan`` / ``tc_decode_plan`` pick each form's cluster split from
+shapes alone, and ``split_key_ranges`` mirrors the key range each block of
+a cluster walks (``csrc/decode_attention.cu``).  The kernel itself is held to the plain
 versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _paged  # noqa: E402
 
@@ -109,3 +110,75 @@ def test_decode_plan_refuses(bad):
     kw.update(bad)
     with pytest.raises(ValueError, match="decode plan"):
         _paged.decode_plan(**kw)
+
+
+# The form decode_form routes each (query dtype, D) to at G = 1, 2, 3, 4, 8
+ROUTE_GROUPS = (1, 2, 3, 4, 8)
+ROUTE_TABLE = {
+    (torch.bfloat16, 16): ("cuda", "cuda", "cuda", "cuda", "cuda"),
+    (torch.bfloat16, 64): ("cuda", "tc", "tc", "tc", "tc"),
+    (torch.bfloat16, 112): ("tc", "tc", "tc", "tc", "tc"),
+    (torch.bfloat16, 128): ("tc", "tc", "tc", "tc", "tc"),
+    (torch.float32, 16): ("cuda", "cuda", "cuda", "cuda", "cuda"),
+    (torch.float32, 64): ("cuda", "cuda", "cuda", "cuda", "cuda"),
+    (torch.float32, 112): ("cuda", "cuda", "cuda", "cuda", "cuda"),
+    (torch.float32, 128): ("cuda", "cuda", "cuda", "cuda", "cuda"),
+}
+ROUTES = [(dt, d, g, form) for (dt, d), forms in ROUTE_TABLE.items()
+          for g, form in zip(ROUTE_GROUPS, forms)]
+
+
+@pytest.mark.parametrize("dtype,d,g,form", ROUTES)
+def test_decode_form_routes(dtype, d, g, form):
+    """bf16 queries at head dims 112 / 128 (any G) and at 64 with G > 1 take
+    the tensor-core form; f32 queries and G = 1 up to 64 keep the CUDA-core
+    form (rows 1, 1q, 1s, 7 and every fp32 check)."""
+    assert _paged.decode_form(dtype, d, g) == form
+
+
+# (b, kvh, g, d, keys, grain): the readings' shapes (rows 1g, 1o, 7o, 1h,
+# 7h, granite-3-2b's G 4 slab) and G 2, 4, 8 at D 128 and 64, a long cache
+TC_ROWS = {"1g": (8, 8, 3, 128, 1024, 16), "1o": (8, 16, 1, 128, 1024, 16),
+           "7o": (8, 16, 1, 128, 1024, 16), "1h": (8, 32, 1, 112, 1024, 16),
+           "7h": (8, 32, 1, 112, 1024, 16), "7g": (8, 8, 4, 64, 1024, 16),
+           "g2": (8, 8, 2, 128, 1024, 16), "g4": (8, 8, 4, 128, 1024, 16),
+           "g8": (8, 8, 8, 128, 1024, 16), "g4_64": (8, 8, 4, 64, 1024, 16),
+           "g12": (2, 2, 12, 128, 300, 16), "long": (1, 8, 8, 128, 32768, 16),
+           "bs128": (8, 8, 3, 128, 1024, 128)}
+
+
+@pytest.mark.parametrize("row", list(TC_ROWS))
+def test_tc_decode_plan_shapes(row):
+    """The tensor-core form's plan: as many ranges as TC_SPLIT_KEYS-key
+    ranges cover the cache, on the grain (at most 8, none wholly past the
+    cache), row tiles of 8 whatever G, and at 1024 keys (the rows' caches) 4 splits of
+    256 keys: every busy block's 4 warps walk 4 stages of 16 keys,
+    minitron-4b's 64 (sequence, kv head) pairs included."""
+    b, kvh, g, d, keys, grain = TC_ROWS[row]
+    plan = _paged.tc_decode_plan(b, kvh, g, d, keys, grain)
+    assert 1 <= plan.n_split <= _paged.MAX_SPLIT and plan.split_keys % grain == 0
+    assert plan.n_split * plan.split_keys >= keys > (plan.n_split - 1) * plan.split_keys
+    assert plan.n_split <= min(_paged.MAX_SPLIT, -(-keys // _paged.TC_SPLIT_KEYS))
+    assert plan.row_tiles == -(-g // _paged.DECODE_ROWS)
+    assert plan.grid == (plan.n_split, kvh * plan.row_tiles, b)
+    assert plan.cluster == (plan.n_split, 1, 1)
+    if keys == 1024 and grain <= _paged.TC_SPLIT_KEYS:
+        assert (plan.n_split, plan.split_keys) == (4, 256)
+        assert plan.split_keys // _paged.TC_STAGE_KEYS // _paged.DECODE_WARPS == 4
+    # the ranges the blocks walk cover the live keys once
+    for n in (1, plan.split_keys, plan.split_keys + 1, keys):
+        walked = [k for a, z in _paged.split_key_ranges(plan, n) for k in range(a, z)]
+        assert walked == list(range(min(n, keys)))
+
+
+def test_tc_decode_plan_edges_and_refusals():
+    """A short cache takes one split, a long one all 8, and the form refuses
+    a head dim it has no instantiation for and empty shapes."""
+    short = _paged.tc_decode_plan(4, 2, 2, 64, 100, 16)
+    assert (short.n_split, short.split_keys) == (1, 112)
+    long = _paged.tc_decode_plan(1, 8, 8, 128, 32768, 16)
+    assert (long.n_split, long.split_keys) == (_paged.MAX_SPLIT, 4096)
+    with pytest.raises(ValueError, match="head dim"):
+        _paged.tc_decode_plan(8, 8, 4, 16, 1024, 16)
+    with pytest.raises(ValueError, match="decode plan"):
+        _paged.tc_decode_plan(0, 8, 4, 128, 1024, 16)
